@@ -2,20 +2,28 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Builds the search kernels from ``jepsen_tpu_torch/csrc`` with nvcc, holds
-each kernel bit for bit against its plain PyTorch version on the card at
-the headline shape and at a wide shape, and times both. Then it checks the
-10k-op CAS-register headline history end to end through
-``linearizable(CASRegister())`` (the GPU backend), counting each kernel's
-launches on that path and holding the run against the plain versions; then
-an invalid history and a wide one. Every phase is a hard assertion.
+each kernel bit for bit against its plain PyTorch version on the card and
+times both: at the single-history headline shape and at a wide shape (one
+key, lex tie-break), at the keyed batch's first rungs (256 keys, both
+tie-breaks), and at the rung its window-deferred keys run on (lex, RP =
+65,536). Then it drives both paths end to end, counting each kernel's
+launches on each: the 10k-op CAS-register headline history through
+``linearizable(CASRegister())``, held against the plain versions, an
+invalid and a wide history; and the keyed batch through
+``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
+staggered and dense, cold and warm, an etcd-shaped batch with one
+corrupted key, and a mixed sub-batch held against the plain versions.
+Every phase is a hard assertion.
 
-It prints the card's ``nvidia-smi`` name and power limit, one JSON line of
-per-kernel numbers and, last, ``{"ok": true, "device": {...}}``. Without a
-CUDA device it exits non-zero and prints no result.
+It prints each phase's seconds, the card's ``nvidia-smi`` name and power
+limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
+"device": {...}}``. Without a CUDA device it exits non-zero and prints no
+result.
 
 Run from the repository root: ``python3 chip_smoke.py``.
 """
 
+import contextlib
 import json
 import os
 import random
@@ -42,6 +50,29 @@ WIDE_WARM_LEVELS = 8
 #: ok writes of the wide history turned into crashes, so that CR > 0
 WIDE_CRASHED_WRITES = 6
 
+#: the keyed headline (bench.py's accelerator shape): 256 keys x 2,000 ops,
+#: key k drawn from seed 7000 + k, staggered and dense
+KEYS, KEY_OPS = 256, 2000
+KEYED = {"staggered": dict(crash_p=0.0, overlap_p=0.05),
+         "dense": dict(crash_p=0.001)}
+#: the keyed rungs on CUDA where the kernels are held against their plain
+#: versions: (state, keys, rung, crash width, levels run first,
+#: tie-breaks, only the keys whose needed window exceeds 32). The first
+#: rungs take every key of the crash width; the dense headline's
+#: window-deferred keys go on to (512, 64, 512), where the lex sort runs
+KEYED_COHORTS = (
+    ("staggered", "staggered", (128, 32, 8), 0, 3, ("lex", "hash"), False),
+    ("dense", "dense", (128, 32, 16), 8, 200, ("lex", "hash"), False),
+    ("dense wide", "dense", (512, 64, 512), 8, 300, ("lex",), True))
+#: the etcd suite's shape: 10 threads and 300 ops a key, staggered
+ETCD = dict(keys=64, n_ops=300, n_procs=10, n_vals=5, overlap_p=0.05)
+#: the sub-batch run with the kernels and with their plain versions, and
+#: its two window-deferred keys: wide_history(40, 2, seed) with two ok
+#: writes crashed (needed window 40, crash width 8)
+MIXED_KEYS, MIXED_OPS = 8, 500
+MIXED_WIDE_SEEDS = (1, 2)
+WIDE_RUNG_KEYED = (512, 64, 512)
+
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
 PEAK_BYTES_S = 3.35e12
@@ -52,12 +83,23 @@ SLEEP_CYCLES = 20_000_000
 REPS = 30
 
 SOURCE = "jepsen_tpu_torch/csrc/search.cu"
+KERNELS = ("expand", "sort_rows", "sort_rows_hash", "group_scan",
+           "dedup_truncate")
 REPLACES = {
     "expand": "jepsen_tpu/checker/tpu.py:377",
     "sort_rows": "jepsen_tpu/checker/tpu.py:581",
+    "sort_rows_hash": "jepsen_tpu/checker/tpu.py:563",
     "group_scan": "jepsen_tpu/checker/tpu.py:605",
     "dedup_truncate": "jepsen_tpu/checker/tpu.py:589",
 }
+
+
+@contextlib.contextmanager
+def phase(name, seconds):
+    t0 = time.perf_counter()
+    yield
+    seconds[name] = time.perf_counter() - t0
+    print(f"phase {name}: {seconds[name]:.2f} s", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -100,26 +142,39 @@ def host_ms(fn, prep):
     return statistics.median(times)
 
 
+def sort_name(shape):
+    return "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
+
+
 def check_and_time(lv, parity):
     """One level from ``lv``'s state, stage by stage: each kernel against
     its plain version from identical inputs (tolerance 0), then both
     timed from those inputs."""
+    from jepsen_tpu_torch.kernels import search as K
     out = {}
     for name, kern, plain, state, err in lv.walk():
+        if name == "sort_rows":
+            name = sort_name(lv.shape)
         assert err == 0, f"{name}: kernel and plain version disagree"
         out[name] = {
             "max_abs_err": err,
+            "cuda_launches_per_call": K.grid_launches(name, lv.shape),
             "ms": device_ms(kern, lambda: parity.copy_state(*state)),
             "plain_ms": host_ms(plain, lambda: parity.copy_state(*state)),
             "library_ms": None,
         }
-        if name == "sort_rows":
-            keys = state[1].rows[:lv.shape.R, 0]
-            # one PyTorch call as a yardstick: a stable sort of the first
-            # key only (no single call sorts on the whole row)
+        if name.startswith("sort_rows"):
+            # one PyTorch call as a yardstick: a stable sort of each key's
+            # first two comparator words packed in one int64 (no single
+            # call sorts on the whole row)
+            rows = state[1].rows
+            second = (K.row_hash_plain(rows, lv.shape.MW)
+                      if lv.shape.tiebreak == "hash"
+                      else rows[..., 1].to(torch.int64) + 2**31)
+            key = rows[..., 0].to(torch.int64) * 2**32 + second
             out[name]["library_ms"] = device_ms(
-                lambda k: torch.sort(k, stable=True),
-                lambda: (keys.clone(),))
+                lambda k: torch.sort(k, dim=1, stable=True),
+                lambda: (key.clone(),))
     add_bounds(out, lv)
     return out
 
@@ -129,28 +184,48 @@ def add_bounds(out, lv):
     state: bytes (each input read once, each output written once) over
     HBM bandwidth, against integer operations over the 32-bit rate."""
     sh = lv.shape
-    C, E, W, R, NK, MW, MCX, CR = (sh.C, sh.E, sh.W, sh.R, sh.NK, sh.MW,
-                                   sh.MCX, sh.CR)
+    B, C, E, W, R, NK, MW, MCX, CR = (sh.B, sh.C, sh.E, sh.W, sh.R, sh.NK,
+                                      sh.MW, sh.MCX, sh.CR)
     pool_b = C * (4 * (2 + MW + MCX) + 1)
     # the column entries the expanded rows' windows touch, five words each
     # (f, v1, v2, ro, inv), the crashed columns, and ret and sm per row
-    k_e = lv.carry.pool.k[:E].to(torch.int64)
-    window = k_e[:, None] + torch.arange(W, device=k_e.device)
-    touched = int(torch.unique(window.clamp(0, sh.n - 1)).numel())
-    cols_b = touched * 4 * 5 + CR * 4 * 5 + E * 4 * 2
+    k_e = lv.carry.pool.k[:, :E].to(torch.int64)
+    window = (k_e[..., None] + torch.arange(W, device=k_e.device)).clamp(
+        0, sh.n - 1)
+    window = window + sh.n * torch.arange(B, device=k_e.device)[:, None,
+                                                                None]
+    touched = int(torch.unique(window).numel())
+    cols_b = touched * 4 * 5 + B * (CR * 4 * 5 + E * 4 * 2)
+    hash_ops = R * (3 * MW + 8) if sh.tiebreak == "hash" else 0
     work = {
-        "expand": (pool_b + cols_b + sh.RP * NK * 4, E * (W + CR) * 24),
-        "sort_rows": (2 * R * NK * 4, R * max(1, int(np.log2(R))) * NK),
-        "group_scan": (R * (3 + MW) * 4 + R * 4, R * (3 + MW)),
-        "dedup_truncate": (R * NK * 4 + R * 4 + pool_b
-                           + C * (4 * (4 + MW + MCX) + 2),
-                           R * (NK + (8 * (3 + MW + MCX) if CR else 0))),
+        "expand": (B * (pool_b + sh.RP * NK * 4) + cols_b,
+                   B * E * (W + CR) * 24),
+        sort_name(sh): (B * 2 * R * NK * 4,
+                        B * (R * max(1, int(np.log2(R))) * NK + hash_ops)),
+        "group_scan": (B * (R * (3 + MW) * 4 + R * 4), B * R * (3 + MW)),
+        "dedup_truncate": (B * (R * NK * 4 + R * 4 + pool_b
+                                + C * (4 * (4 + MW + MCX) + 2)),
+                           B * R * (NK + (8 * (3 + MW + MCX) if CR else 0))),
     }
     for name, (nbytes, nops) in work.items():
         tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
         out[name].update(bound_ms=max(tb, to),
                          bound_by="bytes" if tb >= to else "operations",
                          bytes=nbytes, ops=nops)
+
+
+def print_kernels(tag, lv, live, warm, res):
+    sh = lv.shape
+    print(f"kernels at {tag}: B={sh.B} rung=({sh.C}, {sh.W}, {sh.E}) "
+          f"tiebreak={sh.tiebreak} n={sh.n} CR={sh.CR} MW={sh.MW} "
+          f"R={sh.R} RP={sh.RP} NK={sh.NK} live={live} after {warm} levels")
+    for name, r in res.items():
+        print(f"  {name:15s} err={r['max_abs_err']} "
+              f"cuda_launches/call={r['cuda_launches_per_call']} "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
+              + (f" library_ms={r['library_ms']:.4f}"
+                 if r["library_ms"] is not None else ""), flush=True)
 
 
 def carries_equal(a, b):
@@ -169,7 +244,7 @@ def main() -> int:
 
 def smoke(dev: torch.device) -> None:
     """Every phase on ``dev``; any failure raises."""
-    from jepsen_tpu_torch import interop, resilience
+    from jepsen_tpu_torch import independent, interop, resilience
     from jepsen_tpu_torch.checker import gpu as G
     from jepsen_tpu_torch.checker.wgl import linearizable
     from jepsen_tpu_torch.kernels import build, parity
@@ -177,6 +252,7 @@ def smoke(dev: torch.device) -> None:
     from jepsen_tpu_torch.models import CASRegister
     from jepsen_tpu_torch.ops.encode import pack_with_init
     from jepsen_tpu_torch.testing import (corrupt_one_read, crash_writes,
+                                          keyed_history,
                                           simulate_register_history,
                                           wide_history)
 
@@ -185,142 +261,319 @@ def smoke(dev: torch.device) -> None:
     print(f"device: {kind} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda}")
     print(smi)
+    seconds = {}
 
     # -- build --------------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load()
-    print(f"build: {time.perf_counter() - t0:.2f} s "
-          f"{os.path.relpath(build.library_path())}")
+    with phase("build", seconds):
+        build.load()
+    print(f"build: {os.path.relpath(build.library_path())}")
     with open(build.library_path()[:-3] + ".log") as fh:
         for line in fh:
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
 
-    def packed_cols(history):
+    def packed_cols(history, breq=None, cr=None):
         packed, kernel = pack_with_init(history, CASRegister())
-        cr = G._crash_width(packed.n - packed.n_required)
+        if cr is None:
+            cr = G._crash_width(packed.n - packed.n_required)
         return packed, kernel, G._split_packed(
-            packed, G._bucket(packed.n_required), cr, kernel)
+            packed, breq or G._bucket(packed.n_required), cr, kernel)
 
-    # -- kernels against their plain versions, timed ------------------------
-    head = simulate_register_history(**HEADLINE)
-    head_p, head_kernel, head_cols = packed_cols(head)
-    wide = crash_writes(wide_history(**WIDE), WIDE_CRASHED_WRITES)
-    _, _, wide_cols = packed_cols(wide)
-    shapes, level_shapes = {}, {}
-    for tag, cols_np, rung, warm in (
-            ("headline", head_cols, HEADLINE_RUNG, HEADLINE_WARM_LEVELS),
-            ("wide", wide_cols, WIDE_RUNG, WIDE_WARM_LEVELS)):
-        lv = parity.Level(cols_np, rung, dev)
-        live = lv.advance(warm)
-        sh = lv.shape
-        assert live > 0 and sh.CR > 0, tag
-        res = check_and_time(lv, parity)
-        shapes[tag], level_shapes[tag] = res, sh
-        print(f"kernels at {tag}: rung={rung} n={sh.n} CR={sh.CR} MW={sh.MW} "
-              f"R={sh.R} RP={sh.RP} NK={sh.NK} live={live} after {warm} "
-              f"levels")
-        for name, r in res.items():
-            print(f"  {name:15s} err={r['max_abs_err']} "
-                  f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
-                  f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
-                  + (f" library_ms={r['library_ms']:.4f}"
-                     if r["library_ms"] is not None else ""))
-    # the wide shape crosses the sort's and the scan's block boundaries
-    assert level_shapes["wide"].RP > 1024
+    # -- single-history kernels against their plain versions, timed --------
+    with phase("single kernels", seconds):
+        head = simulate_register_history(**HEADLINE)
+        head_p, head_kernel, head_cols = packed_cols(head)
+        wide = crash_writes(wide_history(**WIDE), WIDE_CRASHED_WRITES)
+        _, _, wide_cols = packed_cols(wide)
+        shapes, level_shapes = {}, {}
+        for tag, cols_np, rung, warm in (
+                ("headline", head_cols, HEADLINE_RUNG, HEADLINE_WARM_LEVELS),
+                ("wide", wide_cols, WIDE_RUNG, WIDE_WARM_LEVELS)):
+            lv = parity.Level(cols_np, rung, dev)
+            live = lv.advance(warm)
+            assert live > 0 and lv.shape.CR > 0, tag
+            res = check_and_time(lv, parity)
+            shapes[tag], level_shapes[tag] = res, lv.shape
+            print_kernels(tag, lv, live, warm, res)
+        # the wide shape crosses the sort's and the scan's block boundaries
+        assert level_shapes["wide"].RP > 1024
 
-    # -- headline end to end: the main path ---------------------------------
+    # -- (a) batched kernels at the keyed first rungs, both tie-breaks ------
+    with phase("keyed histories", seconds):
+        keyed = {label: {k: simulate_register_history(
+            KEY_OPS, n_procs=5, n_vals=8, seed=7000 + k, **kw)
+            for k in range(KEYS)} for label, kw in KEYED.items()}
+        keyed_h = {label: keyed_history(hs) for label, hs in keyed.items()}
+    with phase("keyed kernels", seconds):
+        for name, label, rung, cr, warm, tbs, wide in KEYED_COHORTS:
+            packs = [pack_with_init(h, CASRegister())[0]
+                     for h in keyed[label].values()]
+            breq = G._bucket(max(p.n_required for p in packs))
+            cohort = [packed_cols(h, breq, cr)[2]
+                      for h, p in zip(keyed[label].values(), packs)
+                      if (G._crash_width(p.n - p.n_required) or 0) == cr
+                      and (not wide or G._window_needed(p) > 32)]
+            assert len(cohort) >= (2 if wide else 16), (name, len(cohort))
+            for tb in tbs:
+                lv = parity.Level(cohort, rung, dev, tiebreak=tb)
+                live = lv.advance(warm)
+                assert live > 0, (name, tb)
+                res = check_and_time(lv, parity)
+                shapes[f"keyed {name} {tb}"] = res
+                print_kernels(f"keyed {name}", lv, live, warm, res)
+        # the deferred keys' rung crosses the sort's and the scan's block
+        # boundaries, so the sort's global passes run there
+        assert lv.shape.RP > 1024 and lv.shape.B >= 2
+
+    # -- the single-history path end to end ---------------------------------
     checker = linearizable(CASRegister(), device=dev)
-    K.reset_launches()
-    t0 = time.perf_counter()
-    r = checker.check({}, head)
-    cold = time.perf_counter() - t0
-    launches = dict(K.launches)
-    print(f"headline: valid={r['valid']} levels={r['levels']} "
-          f"rung={r['rung']} segments={r['segments']} cold_s={cold:.3f} "
-          f"launches={launches}")
-    assert r["valid"] is True and r["backend"] == "gpu"
-    assert "fallback-from" not in r
-    assert all(v > 0 for v in launches.values()), launches
-    t0 = time.perf_counter()
-    r2 = checker.check({}, head)
-    warm_s = time.perf_counter() - t0
-    assert r2["valid"] is True and r2["levels"] == r["levels"]
-    print(f"headline: warm_s={warm_s:.3f} "
-          f"per_level_ms={warm_s / r['levels'] * 1e3:.4f} "
-          f"searchstats={r['searchstats']}")
-
-    # the first segment, kernels against plain versions, every lane
-    seg = {}
-    for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
-        lv = parity.Level(head_cols, r["rung"], dev)
+    with phase("headline", seconds):
+        K.reset_launches()
         t0 = time.perf_counter()
-        G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr,
-                      G.DEFAULT_SEGMENT_ITERS, ops)
-        seg[name] = interop.carry_to_numpy(lv.carry)
-        print(f"first segment ({name}): {time.perf_counter() - t0:.3f} s, "
-              f"level={int(seg[name][8])}")
-    assert carries_equal(seg["kernels"], seg["plain"]), "first segment"
+        r = checker.check({}, head)
+        cold_headline = time.perf_counter() - t0
+        launches = dict(K.launches)
+        grid_launches = dict(K.grid_launches_total)
+        print(f"headline: valid={r['valid']} levels={r['levels']} "
+              f"rung={r['rung']} segments={r['segments']} "
+              f"cold_s={cold_headline:.3f} launches={launches} "
+              f"cuda_launches={grid_launches}")
+        assert r["valid"] is True and r["backend"] == "gpu"
+        assert "fallback-from" not in r
+        assert all(launches[k] > 0 for k in ("expand", "sort_rows",
+                                             "group_scan",
+                                             "dedup_truncate")), launches
+        t0 = time.perf_counter()
+        r2 = checker.check({}, head)
+        warm_s = time.perf_counter() - t0
+        assert r2["valid"] is True and r2["levels"] == r["levels"]
+        print(f"headline: warm_s={warm_s:.3f} "
+              f"per_level_ms={warm_s / r['levels'] * 1e3:.4f} "
+              f"searchstats={r['searchstats']}")
 
-    # the whole run, against the plain versions' run
-    t0 = time.perf_counter()
-    rp = resilience.supervised_check_packed(head_p, head_kernel, device=dev,
-                                            ops=G.PLAIN)
-    print(f"headline plain run: valid={rp['valid']} levels={rp['levels']} "
-          f"best_k={rp['best-k']} vs kernels best_k={r['best-k']} "
-          f"({time.perf_counter() - t0:.1f} s)")
-    assert (rp["valid"], rp["levels"], rp["best-k"], rp["rung"]) == (
-        r["valid"], r["levels"], r["best-k"], r["rung"])
+    with phase("headline plain", seconds):
+        # the first segment, kernels against plain versions, every lane
+        seg = {}
+        for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+            lv = parity.Level(head_cols, r["rung"], dev)
+            t0 = time.perf_counter()
+            G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr,
+                          G.DEFAULT_SEGMENT_ITERS, ops)
+            seg[name] = interop.carry_to_numpy(lv.carry)
+            print(f"first segment ({name}): "
+                  f"{time.perf_counter() - t0:.3f} s, "
+                  f"level={int(seg[name][8])}")
+        assert carries_equal(seg["kernels"], seg["plain"]), "first segment"
+        # the whole run, against the plain versions' run
+        t0 = time.perf_counter()
+        rp = resilience.supervised_check_packed(head_p, head_kernel,
+                                                device=dev, ops=G.PLAIN)
+        print(f"headline plain run: valid={rp['valid']} "
+              f"levels={rp['levels']} best_k={rp['best-k']} vs kernels "
+              f"best_k={r['best-k']} ({time.perf_counter() - t0:.1f} s)")
+        assert (rp["valid"], rp["levels"], rp["best-k"], rp["rung"]) == (
+            r["valid"], r["levels"], r["best-k"], r["rung"])
 
-    # -- an invalid history -------------------------------------------------
-    cfg = dict(INVALID)
-    seed = cfg.pop("seed")
-    bad = corrupt_one_read(simulate_register_history(seed=seed, **cfg),
-                           random.Random(seed))
-    t0 = time.perf_counter()
-    ri = checker.check({}, bad)
-    ti = time.perf_counter() - t0
-    bad_p, bad_kernel, _ = packed_cols(bad)
-    rip = resilience.supervised_check_packed(bad_p, bad_kernel, device=dev,
-                                             ops=G.PLAIN)
-    print(f"invalid: valid={ri['valid']} levels={ri['levels']} "
-          f"rung={ri['rung']} prefix={ri.get('max-linearized-prefix')} "
-          f"plain prefix={rip.get('max-linearized-prefix')} "
-          f"work={ri['work']} ({ti:.2f} s)")
-    assert ri["valid"] is False and ri["backend"] == "gpu"
-    assert rip["valid"] is False
-    assert ri["max-linearized-prefix"] == rip["max-linearized-prefix"]
-    assert ri["levels"] == rip["levels"] and ri["work"] == rip["work"]
+    with phase("invalid", seconds):
+        cfg = dict(INVALID)
+        seed = cfg.pop("seed")
+        bad = corrupt_one_read(simulate_register_history(seed=seed, **cfg),
+                               random.Random(seed))
+        t0 = time.perf_counter()
+        ri = checker.check({}, bad)
+        ti = time.perf_counter() - t0
+        bad_p, bad_kernel, _ = packed_cols(bad)
+        rip = resilience.supervised_check_packed(bad_p, bad_kernel,
+                                                 device=dev, ops=G.PLAIN)
+        print(f"invalid: valid={ri['valid']} levels={ri['levels']} "
+              f"rung={ri['rung']} prefix={ri.get('max-linearized-prefix')} "
+              f"plain prefix={rip.get('max-linearized-prefix')} "
+              f"work={ri['work']} ({ti:.2f} s)")
+        assert ri["valid"] is False and ri["backend"] == "gpu"
+        assert rip["valid"] is False
+        assert ri["max-linearized-prefix"] == rip["max-linearized-prefix"]
+        assert ri["levels"] == rip["levels"] and ri["work"] == rip["work"]
 
-    # -- a wide history (four mask words) -----------------------------------
-    wh = wide_history(**WIDE)
-    t0 = time.perf_counter()
-    rw = checker.check({}, wh)
-    tw = time.perf_counter() - t0
-    wp, wk, _ = packed_cols(wh)
-    rwp = resilience.supervised_check_packed(wp, wk, device=dev, ops=G.PLAIN)
-    print(f"wide: valid={rw['valid']} levels={rw['levels']} "
-          f"rung={rw['rung']} ({tw:.2f} s); plain levels={rwp['levels']}")
-    assert rw["valid"] is True and rw["rung"][1] == WIDE_WINDOW
-    assert (rwp["valid"], rwp["levels"]) == (rw["valid"], rw["levels"])
+    with phase("wide", seconds):
+        wh = wide_history(**WIDE)
+        t0 = time.perf_counter()
+        rw = checker.check({}, wh)
+        tw = time.perf_counter() - t0
+        wp, wk, _ = packed_cols(wh)
+        rwp = resilience.supervised_check_packed(wp, wk, device=dev,
+                                                 ops=G.PLAIN)
+        print(f"wide: valid={rw['valid']} levels={rw['levels']} "
+              f"rung={rw['rung']} ({tw:.2f} s); plain "
+              f"levels={rwp['levels']}")
+        assert rw["valid"] is True and rw["rung"][1] == WIDE_WINDOW
+        assert (rwp["valid"], rwp["levels"]) == (rw["valid"], rw["levels"])
+
+    # -- (b) the keyed headline: the keyed path end to end ------------------
+    indep = independent.checker(linearizable(CASRegister(), device=dev))
+
+    def keyed_run(h):
+        """One independent check of a [k v] history; its results, wall
+        seconds, and its device batches (from the check_keyed_gpu call
+        inside, read back through a wrapper)."""
+        calls = []
+        orig = G.check_keyed_gpu
+
+        def spy(*a, **kw):
+            out = orig(*a, **kw)
+            calls.append(out)
+            return out
+        G.check_keyed_gpu = spy
+        try:
+            t0 = time.perf_counter()
+            out = indep.check({}, h)
+            wall = time.perf_counter() - t0
+        finally:
+            G.check_keyed_gpu = orig
+        assert len(calls) == 1
+        return out, wall, calls[0]["batches"]
+
+    def describe(label, out, wall, batches, temp):
+        res = out["results"]
+        per_rung = {}
+        for v in res.values():
+            rung = tuple(v["rung"]) if "rung" in v else None
+            per_rung[str(rung)] = per_rung.get(str(rung), 0) + 1
+        # keys the batch left unknown are checked again one by one (a
+        # result with segments), and on the host if still unknown
+        rechecked = sum(1 for v in res.values() if "segments" in v)
+        fallbacks = sum(1 for v in res.values() if "fallback-from" in v)
+        launched = sum(b["levels-launched"] for b in batches)
+        dev_s = sum(b["seconds"] for b in batches)
+        line = {"label": label, "run": temp, "seconds": wall,
+                "keys": len(res), "valid": out["valid"],
+                "keys_true": sum(1 for v in res.values()
+                                 if v["valid"] is True),
+                "rechecked": rechecked, "fallbacks": fallbacks,
+                "decided_per_rung": per_rung,
+                "max_levels": max(b["levels"] for b in batches),
+                "levels_launched": launched, "batch_seconds": dev_s,
+                "per_level_ms": dev_s / launched * 1e3,
+                "batches": [{k: (list(v) if isinstance(v, tuple) else v)
+                             for k, v in b.items()} for b in batches]}
+        print("keyed:", json.dumps(line), flush=True)
+        return line
+
+    keyed_lines = []
+    with phase("keyed headline", seconds):
+        K.reset_launches()
+        cold = {label: keyed_run(keyed_h[label]) for label in KEYED}
+        keyed_launches = dict(K.launches)
+        keyed_grid_launches = dict(K.grid_launches_total)
+        print(f"keyed launches: {keyed_launches} "
+              f"cuda_launches={keyed_grid_launches}")
+        for label in KEYED:
+            keyed_lines.append(describe(label, *cold[label], "cold"))
+            warm = keyed_run(keyed_h[label])
+            keyed_lines.append(describe(label, *warm, "warm"))
+            for out in (cold[label][0], warm[0]):
+                assert out["valid"] is True, label
+                assert all(v["valid"] is True
+                           for v in out["results"].values()), label
+                assert len(out["results"]) == KEYS
+            assert ({k: v.get("levels") for k, v in warm[0]["results"]
+                     .items()} == {k: v.get("levels") for k, v in
+                                   cold[label][0]["results"].items()})
+        assert all(keyed_launches[k] > 0 for k in KERNELS), keyed_launches
+
+    # -- (c) an etcd-shaped batch with one corrupted key --------------------
+    with phase("etcd batch", seconds):
+        cfg = dict(ETCD)
+        n_keys = cfg.pop("keys")
+        hs = {k: simulate_register_history(seed=9000 + k, **cfg)
+              for k in range(n_keys)}
+        seed = 0
+        while True:
+            bad = corrupt_one_read(hs[0], random.Random(seed))
+            if [o.value for o in bad] != [o.value for o in hs[0]]:
+                break
+            seed += 1
+        hs[0] = bad
+        out, wall, batches = keyed_run(keyed_history(hs))
+        keyed_lines.append(describe("etcd", out, wall, batches, "cold"))
+        assert out["valid"] is False and out["failures"] == [0], \
+            out["failures"]
+        assert out["results"][0]["backend"] == "gpu"
+        assert all(out["results"][k]["valid"] is True
+                   for k in range(1, n_keys))
+
+    # -- (d) a mixed sub-batch, kernels against plain versions --------------
+    with phase("keyed plain", seconds):
+        mixed = {}
+        for k in range(MIXED_KEYS):
+            kw = dict(KEYED["staggered" if k % 2 else "dense"])
+            if k == MIXED_KEYS - 1:
+                kw["crash_p"] = 0.05
+            mixed[k] = simulate_register_history(MIXED_OPS, n_procs=5,
+                                                 n_vals=8, seed=7000 + k,
+                                                 **kw)
+        for seed in MIXED_WIDE_SEEDS:
+            mixed[f"wide{seed}"] = crash_writes(wide_history(40, 2,
+                                                             seed=seed), 2)
+        runs = {}
+        for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+            t0 = time.perf_counter()
+            runs[name] = G.check_keyed_gpu(mixed, CASRegister(), device=dev,
+                                           ops=ops)
+            batches = [(b["rung"], b["crash-width"], b["tiebreak"],
+                        b["keys"], b["levels"])
+                       for b in runs[name]["batches"]]
+            print(f"mixed sub-batch ({name}): "
+                  f"{time.perf_counter() - t0:.2f} s, valid="
+                  f"{runs[name]['valid']}, batches={batches}")
+        fields = ("valid", "levels", "max-linearized-prefix", "rung",
+                  "tiebreak", "work", "crash-width")
+        for k in mixed:
+            a = {f: runs["kernels"]["results"][k].get(f) for f in fields}
+            b = {f: runs["plain"]["results"][k].get(f) for f in fields}
+            assert a == b, (k, a, b)
+        assert {r["crash-width"] for r in runs["kernels"]["results"]
+                .values()} != {0}
+        # the window-deferred keys met on the wide rung, in one batch
+        assert any(b["rung"] == WIDE_RUNG_KEYED and b["keys"] >= 2
+                   for b in runs["kernels"]["batches"])
 
     # -- summary ------------------------------------------------------------
     kernels = []
-    for name in ("expand", "sort_rows", "group_scan", "dedup_truncate"):
-        h, w = shapes["headline"][name], shapes["wide"][name]
-        kernels.append({
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cuda_launches_per_call")
+    for name in KERNELS:
+        single = name != "sort_rows_hash"
+        tb = "lex" if name == "sort_rows" else "hash"
+        top = (shapes["headline"] if single
+               else shapes["keyed staggered hash"])[name]
+        entry = {
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": max(h["max_abs_err"], w["max_abs_err"]),
-            "ms": h["ms"], "plain_ms": h["plain_ms"],
-            "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
-            "library_ms": h["library_ms"],
-            "wide": {k: w[k] for k in ("ms", "plain_ms", "bound_ms",
-                                       "bound_by", "library_ms")},
-        })
+            "replaces": REPLACES[name],
+            "launches": launches[name] if single else keyed_launches[name],
+            "max_abs_err": max(r[name]["max_abs_err"]
+                               for r in shapes.values() if name in r),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"],
+            "launches_by_path": {"headline": launches[name],
+                                 "keyed": keyed_launches[name]},
+            "cuda_launches_by_path": {"headline": grid_launches[name],
+                                      "keyed": keyed_grid_launches[name]},
+        }
+        if single:
+            entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
+        entry["keyed_staggered"] = {
+            k: shapes["keyed staggered " + tb][name][k] for k in keep}
+        entry["keyed_dense"] = {
+            k: shapes["keyed dense " + tb][name][k] for k in keep}
+        if single:
+            entry["keyed_dense_wide"] = {
+                k: shapes["keyed dense wide lex"][name][k] for k in keep}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels, "headline": {
-        "cold_s": cold, "warm_s": warm_s, "levels": r["levels"],
-        "invalid_s": ti, "wide_s": tw}, "nvidia_smi": smi}))
+        "cold_s": cold_headline, "warm_s": warm_s, "levels": r["levels"],
+        "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
+        "phase_seconds": seconds, "nvidia_smi": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

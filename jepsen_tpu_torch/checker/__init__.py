@@ -7,9 +7,22 @@ device search is :mod:`jepsen_tpu_torch.checker.gpu`.
 
 from __future__ import annotations
 
+import traceback
 from typing import Any, Dict, Optional
 
 UNKNOWN = "unknown"
+
+#: Severity order for merging validity: False, then unknown, then True.
+_PRIORITY = {False: 0, UNKNOWN: 1, True: 2}
+
+
+def merge_valid(valids) -> Any:
+    """Merge a collection of validity values; the most severe wins."""
+    out = True
+    for v in valids:
+        if _PRIORITY.get(v, 1) < _PRIORITY.get(out, 1):
+            out = v
+    return out
 
 
 class Checker:
@@ -21,3 +34,13 @@ class Checker:
 
     def __call__(self, test, history, opts=None):
         return self.check(test, history, opts)
+
+
+def check_safe(checker: Checker, test: dict, history,
+               opts: Optional[dict] = None) -> Dict[str, Any]:
+    """Like ``checker.check``, but an exception yields ``{"valid":
+    "unknown", "error": <traceback>}``."""
+    try:
+        return checker.check(test, history, opts or {})
+    except Exception:  # noqa: BLE001
+        return {"valid": UNKNOWN, "error": traceback.format_exc()}

@@ -2,11 +2,11 @@
 
 Counterpart of the executable cache in ``jepsen_tpu/checker/engine.py``.
 Where the JAX engine caches one compiled program per rung, this one holds
-the loaded kernel library and, per search shape (C, W, E, n, CR) and
-device, the carry and scratch buffers; per (n, CR) and device, the column
-buffers. A warm check at a cached shape allocates no device memory. The
-buffers serve one check at a time: callers hold :attr:`Engine.lock` while
-they use them.
+the loaded kernel library and, per search shape (C, W, E, n, CR, keys B,
+tie-break) and device, the carry and scratch buffers; per (B, n, CR) and
+device, the column buffers. A warm check at a cached shape allocates no
+device memory. The buffers serve one check at a time: callers hold
+:attr:`Engine.lock` while they use them.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from jepsen_tpu_torch.kernels import search as K
 
 class Engine:
     #: shapes (and column shapes) kept before the oldest is dropped
-    MAX_ENTRIES = 8
+    MAX_ENTRIES = 16
 
     def __init__(self):
         self.lock = threading.Lock()
@@ -46,20 +46,36 @@ class Engine:
               device: torch.device) -> Tuple[G.Carry, G.Scratch]:
         """Carry and scratch buffers for one search shape. On a CUDA
         device the kernel library is built and loaded first; a failure
-        raises."""
+        raises, and so does an allocation the device cannot hold."""
         if device.type == "cuda" and self.lib is None:
             from jepsen_tpu_torch.kernels import build
             self.lib = build.load()
-        return self._cached(self._states, (shape, str(device)), lambda: (
-            G.empty_carry(shape, device), G.empty_scratch(shape, device)))
+        return self._cached(self._states, (shape, str(device)),
+                            lambda: self._alloc(shape, device))
+
+    def _alloc(self, shape: K.LevelShape, device: torch.device):
+        try:
+            return (G.empty_carry(shape, device),
+                    G.empty_scratch(shape, device))
+        except torch.OutOfMemoryError as e:
+            raise MemoryError(
+                f"the search state of {shape.B} keys at rung (C={shape.C}, "
+                f"W={shape.W}, E={shape.E}), n={shape.n}, CR={shape.CR} "
+                f"needs {G.state_bytes(shape)} bytes on {device}") from e
+
+    def batch_cols(self, cols_np: dict, device: torch.device) -> dict:
+        """A batch's stacked columns copied into this engine's buffers for
+        their shape."""
+        from jepsen_tpu_torch import interop
+        key = (cols_np["f"].shape, cols_np["cf"].shape, str(device))
+        bufs = self._cached(self._cols, key, lambda: interop.
+                            batch_cols_from_numpy(cols_np, device))
+        return interop.batch_cols_from_numpy(cols_np, device, out=bufs)
 
     def cols(self, cols_np: dict, device: torch.device) -> dict:
-        """The columns copied into this engine's buffers for their shape."""
+        """One history's columns, as a batch of one."""
         from jepsen_tpu_torch import interop
-        key = (cols_np["f"].shape[0], cols_np["cf"].shape[0], str(device))
-        bufs = self._cached(self._cols, key,
-                            lambda: interop.cols_from_numpy(cols_np, device))
-        return interop.cols_from_numpy(cols_np, device, out=bufs)
+        return self.batch_cols(interop.stack_cols([cols_np]), device)
 
 
 _DEFAULT: Optional[Engine] = None

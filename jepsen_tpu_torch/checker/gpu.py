@@ -1,6 +1,7 @@
-"""Linearizability search on an NVIDIA GPU: the single-history path.
+"""Linearizability search on an NVIDIA GPU: one history, or a keyed batch.
 
-Counterpart of the single-history half of ``jepsen_tpu/checker/tpu.py``.
+Counterpart of ``jepsen_tpu/checker/tpu.py``'s single-history search and
+its keyed batch (``check_keyed_tpu``).
 A WGL configuration is ``(k, mask, cmask, state)``: ops ``[0, k)`` in
 return order are linearized, ``mask`` bit *o* marks op ``k+o`` as
 linearized too, ``cmask`` marks taken crashed ops, and ``state`` is the
@@ -10,7 +11,10 @@ successors, merges them with the unexpanded remainder, sorts, kills
 duplicates and dominated rows, and keeps the first C. A level is four
 hand-written kernels (:mod:`jepsen_tpu_torch.kernels.search`) launched
 back to back with no host synchronisation; the host looks at the carry
-only at segment ends (:mod:`jepsen_tpu_torch.resilience`).
+only at segment ends (:func:`run_batch`, for one history through
+:mod:`jepsen_tpu_torch.resilience`). Every device tensor has a
+leading key axis: a keyed batch advances all its keys one level per
+launch, and one history is a batch of one.
 
 Soundness of the outcomes is the reference's: ``done`` proves
 linearizability; pool death with neither ``lossy`` nor ``wovf`` refutes
@@ -20,15 +24,17 @@ it; anything else is UNKNOWN, and the capacity ladder escalates.
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-from jepsen_tpu_torch.checker import UNKNOWN
+from jepsen_tpu_torch.checker import UNKNOWN, merge_valid
 from jepsen_tpu_torch.kernels import search as K
-from jepsen_tpu_torch.models.core import NIL_ID, KernelSpec, Model
+from jepsen_tpu_torch.models.core import (NIL_ID, KernelSpec, Model,
+                                          kernel_spec_for)
 from jepsen_tpu_torch.ops.encode import (RET_INF, PackedHistory,
                                          pack_with_init)
 
@@ -36,8 +42,12 @@ from jepsen_tpu_torch.ops.encode import (RET_INF, PackedHistory,
 WINDOW = 32
 MAX_WINDOW = 128
 
-#: Levels per checkpointed segment (env JTPU_SEGMENT_ITERS).
+#: The longest segment of levels between two host reads (env
+#: JTPU_SEGMENT_ITERS).
 DEFAULT_SEGMENT_ITERS = 1024
+
+#: Levels in a search's first segment; later segments double.
+FIRST_BATCH_SEGMENT = 64
 
 #: Max crashed ops per history (four crashed-mask words).
 CRASH_MAX = 128
@@ -234,13 +244,6 @@ def _carry0_host(capacity: int, window: int, n_cr: int, init_state,
     return carry
 
 
-def _carry_active(carry, lmax: int) -> bool:
-    """More levels are worth running: not done, some row alive, and the
-    level budget not exhausted."""
-    done, alive, level = carry[5], carry[4], carry[8]
-    return (not bool(done)) and bool(np.any(alive)) and int(level) <= lmax
-
-
 def _summarize_carry(carry) -> tuple:
     """(done, lossy, wovf, best_k, levels, pool) of a final carry; a
     search stopped by its budget with work left is lossy."""
@@ -317,6 +320,16 @@ def _segment_config(segment_iters: Optional[int]) -> Optional[int]:
     return DEFAULT_SEGMENT_ITERS
 
 
+def _segment_schedule(segment_iters: Optional[int], lmax: int) -> tuple:
+    """(cap, first) of :func:`run_batch`'s segments: they grow from
+    :data:`FIRST_BATCH_SEGMENT` levels up to the configured length, and
+    a length of 0 means one segment for the whole level budget."""
+    seg = _segment_config(segment_iters)
+    if seg is None:
+        return lmax + 1, lmax + 1
+    return seg, FIRST_BATCH_SEGMENT
+
+
 # ---------------------------------------------------------------------------
 # Device state and the level driver
 # ---------------------------------------------------------------------------
@@ -324,17 +337,17 @@ def _segment_config(segment_iters: Optional[int]) -> Optional[int]:
 
 @dataclass
 class Carry:
-    """The search carry on the device: the pool, the snapshot of the pool
-    the last level expanded (pk, ps, pa), the scalars and the per-level
-    counter log. ``interop`` converts it to and from the reference's
-    numpy tuple."""
+    """The search carry of B keys on the device: the pool, the snapshot of
+    the pool the last level expanded (pk, ps, pa), the scalars and the
+    per-level counter log. ``interop`` converts it to and from the
+    reference's numpy tuple."""
 
     pool: K.Pool
-    pk: torch.Tensor      # int32 [C]
-    ps: torch.Tensor      # int32 [C]
-    pa: torch.Tensor      # bool [C]
-    scal: torch.Tensor    # int32 [8], lanes named in kernels.search
-    stats: torch.Tensor   # int32 [LMAX+1, NSTAT]
+    pk: torch.Tensor      # int32 [B, C]
+    ps: torch.Tensor      # int32 [B, C]
+    pa: torch.Tensor      # bool [B, C]
+    scal: torch.Tensor    # int32 [B, 8], lanes named in kernels.search
+    stats: torch.Tensor   # int32 [B, LMAX+1, NSTAT]
 
 
 @dataclass
@@ -343,41 +356,52 @@ class Scratch:
     buffer, the per-level accumulators, the rows and the group starts."""
 
     pool_next: K.Pool
-    acc: torch.Tensor     # int32 [9], zero between levels
-    rows: torch.Tensor    # int32 [RP, NK]
-    g: torch.Tensor       # int32 [RP]
-    gagg: torch.Tensor    # int32 [scan blocks]
+    acc: torch.Tensor     # int32 [B, 9], zero between levels
+    rows: torch.Tensor    # int32 [B, RP, NK]
+    g: torch.Tensor       # int32 [B, RP]
+    gagg: torch.Tensor    # int32 [B, scan blocks]
 
 
 def empty_pool(shape: K.LevelShape, device) -> K.Pool:
-    C, i32 = shape.C, torch.int32
-    return K.Pool(k=torch.zeros(C, dtype=i32, device=device),
-                  mask=torch.zeros(C, shape.MW, dtype=i32, device=device),
-                  cmask=torch.zeros(C, shape.MCX, dtype=i32, device=device),
-                  state=torch.zeros(C, dtype=i32, device=device),
-                  alive=torch.zeros(C, dtype=torch.bool, device=device))
+    B, C, i32 = shape.B, shape.C, torch.int32
+    return K.Pool(k=torch.zeros(B, C, dtype=i32, device=device),
+                  mask=torch.zeros(B, C, shape.MW, dtype=i32, device=device),
+                  cmask=torch.zeros(B, C, shape.MCX, dtype=i32,
+                                    device=device),
+                  state=torch.zeros(B, C, dtype=i32, device=device),
+                  alive=torch.zeros(B, C, dtype=torch.bool, device=device))
 
 
 def empty_carry(shape: K.LevelShape, device) -> Carry:
-    C, i32 = shape.C, torch.int32
+    B, C, i32 = shape.B, shape.C, torch.int32
     return Carry(pool=empty_pool(shape, device),
-                 pk=torch.zeros(C, dtype=i32, device=device),
-                 ps=torch.zeros(C, dtype=i32, device=device),
-                 pa=torch.zeros(C, dtype=torch.bool, device=device),
-                 scal=torch.zeros(K.NSCAL, dtype=i32, device=device),
-                 stats=torch.zeros(shape.lmax + 1, NSTAT, dtype=i32,
+                 pk=torch.zeros(B, C, dtype=i32, device=device),
+                 ps=torch.zeros(B, C, dtype=i32, device=device),
+                 pa=torch.zeros(B, C, dtype=torch.bool, device=device),
+                 scal=torch.zeros(B, K.NSCAL, dtype=i32, device=device),
+                 stats=torch.zeros(B, shape.lmax + 1, NSTAT, dtype=i32,
                                    device=device))
 
 
 def empty_scratch(shape: K.LevelShape, device) -> Scratch:
-    i32 = torch.int32
+    B, i32 = shape.B, torch.int32
     return Scratch(pool_next=empty_pool(shape, device),
-                   acc=torch.zeros(K.NACC, dtype=i32, device=device),
-                   rows=torch.zeros(shape.RP, shape.NK, dtype=i32,
+                   acc=torch.zeros(B, K.NACC, dtype=i32, device=device),
+                   rows=torch.zeros(B, shape.RP, shape.NK, dtype=i32,
                                     device=device),
-                   g=torch.zeros(shape.RP, dtype=i32, device=device),
-                   gagg=torch.zeros(K.scan_blocks(shape.RP), dtype=i32,
+                   g=torch.zeros(B, shape.RP, dtype=i32, device=device),
+                   gagg=torch.zeros(B, K.scan_blocks(shape.RP), dtype=i32,
                                     device=device))
+
+
+def state_bytes(shape: K.LevelShape) -> int:
+    """Device bytes of one shape's carry and scratch."""
+    C, MW, MCX = shape.C, shape.MW, shape.MCX
+    pool = C * (4 * (2 + MW + MCX) + 1)
+    carry = 2 * pool + C * 9 + 4 * K.NSCAL + 4 * (shape.lmax + 1) * NSTAT
+    scratch = (4 * K.NACC + 4 * shape.RP * (shape.NK + 1)
+               + 4 * K.scan_blocks(shape.RP))
+    return shape.B * (carry + scratch)
 
 
 class Ops(NamedTuple):
@@ -398,10 +422,12 @@ PLAIN = Ops(K.expand_plain, K.sort_rows_plain,
 
 
 def search_level(cols: dict, carry: Carry, scratch: Scratch,
-                 shape: K.LevelShape, nr: int, ops: Ops = KERNELS) -> None:
-    """One search level: the four kernels in turn, then the pool buffers
-    swap. No host synchronisation on the kernel path; once the search is
-    inactive a level changes nothing."""
+                 shape: K.LevelShape, nr: torch.Tensor,
+                 ops: Ops = KERNELS) -> None:
+    """One search level of every key: the four kernels in turn, then the
+    pool buffers swap. ``nr`` is each key's required-op count (int32 [B]
+    on the device). No host synchronisation on the kernel path; once a
+    key is inactive a level changes nothing of it."""
     ops.expand(cols, carry.pool, carry.scal, scratch.acc, scratch.rows,
                shape, nr)
     ops.sort_rows(scratch.rows, carry.scal, shape)
@@ -413,11 +439,171 @@ def search_level(cols: dict, carry: Carry, scratch: Scratch,
 
 
 def run_segment(cols: dict, carry: Carry, scratch: Scratch,
-                shape: K.LevelShape, nr: int, seg_iters: int,
+                shape: K.LevelShape, nr: torch.Tensor, seg_iters: int,
                 ops: Ops = KERNELS) -> None:
     """``seg_iters`` levels back to back; the caller synchronises."""
     for _ in range(seg_iters):
         search_level(cols, carry, scratch, shape, nr, ops)
+
+
+def run_batch(cols: dict, carry: Carry, scratch: Scratch,
+              shape: K.LevelShape, seg_iters: int,
+              ops: Ops = KERNELS, first: int = FIRST_BATCH_SEGMENT) -> list:
+    """Segments of levels until no key is active: one read of the keys'
+    ``active`` flags per segment, the only host synchronisation. The
+    segments grow from ``first`` levels, doubling up to ``seg_iters``, so
+    a search that is decided in a few dozen levels does not launch a
+    thousand. Returns the segments' lengths (their sum is the levels
+    launched). Keys that finish early no-op while the others go on, so
+    each key ends where its own search would (the vmapped ``while_loop``
+    of the reference). The single-history search is the batch of one."""
+    segs = []
+    seg = min(first, seg_iters)
+    while True:
+        run_segment(cols, carry, scratch, shape, cols["nr"], seg, ops)
+        segs.append(seg)
+        if not bool(K.active(carry.scal, shape.lmax).any()):
+            return segs
+        seg = min(2 * seg, seg_iters)
+
+
+def _batch_carry0_host(capacity: int, window: int, n_cr: int,
+                       inits: Sequence, n_required: Sequence,
+                       stats_rows: int) -> tuple:
+    """The keyed batch's initial carry: each key's :func:`_carry0_host`
+    stacked along a leading key axis (the vmapped reference's layout)."""
+    per_key = [_carry0_host(capacity, window, n_cr, ini, nr, stats_rows)
+               for ini, nr in zip(inits, n_required)]
+    return tuple(np.stack(lane) for lane in zip(*per_key))
+
+
+class _KeyRow(NamedTuple):
+    """A key waiting for a rung: its columns, needed window, the largest
+    capacity and window it has tried, forced fraction, crash width and
+    the rungs it ran."""
+
+    key: Any
+    cols: dict
+    wneed: int
+    mcap: int
+    mwin: int
+    ffrac: float
+    crw: int
+    work: list
+
+
+def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
+                ops: Ops) -> tuple:
+    """One rung of one crash-width cohort: every key of ``grp`` searched
+    together. Returns (done, lossy, wovf, best, levels, pools, launched):
+    numpy arrays [B], ``pools`` the last living pools (pk, ps, pa) when
+    some key was refuted, else None, and the levels launched."""
+    from jepsen_tpu_torch import interop
+    from jepsen_tpu_torch.checker.engine import default_engine
+    eng = default_engine()
+    with eng.lock:
+        carry, scratch = eng.state(shape, device)
+        cols = eng.batch_cols(interop.stack_cols([r.cols for r in grp]),
+                              device)
+        host = _batch_carry0_host(
+            shape.C, shape.W, shape.CR, [r.cols["ini"] for r in grp],
+            [int(r.cols["nr"]) for r in grp], stats_rows=shape.lmax + 1)
+        interop.batch_carry_from_numpy(host, device, out=carry)
+        scratch.acc.zero_()
+        seg, first = _segment_schedule(None, shape.lmax)
+        launched = sum(run_batch(cols, carry, scratch, shape, seg, ops,
+                                 first))
+        scal = carry.scal.cpu().numpy()
+        done = scal[:, K.DONE] != 0
+        wovf = scal[:, K.WOVF] != 0
+        # stopped by the level budget with work left: not a refutation
+        lossy = (scal[:, K.LOSSY] != 0) | (~done & (scal[:, K.NALIVE] > 0))
+        pools = None
+        if (~done & ~lossy & ~wovf).any():
+            pools = tuple(t.cpu().numpy()
+                          for t in (carry.pk, carry.ps, carry.pa))
+    return (done, lossy, wovf, scal[:, K.BEST], scal[:, K.LEVEL], pools,
+            launched)
+
+
+def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
+                  tiebreak0: Optional[str], packed: dict, breq: int,
+                  results: dict, device, ops: Ops) -> list:
+    """The keyed batch's escalation loop (``_keyed_ladder`` in the
+    reference): per rung, the runnable keys in one batch per crashed-op
+    width; keys that overflowed retry on a later rung that grows their
+    capacity or window. Fills ``results`` and returns one entry per
+    batch run: its rung, crash width, tie-break, keys, largest level
+    count, levels launched and seconds."""
+    batches = []
+    for step, (cap, win, exp) in enumerate(ladder):
+        if not rows:
+            break
+        last_rung = step == len(ladder) - 1
+        if len(ladder) > 1 and not last_rung:
+            # keys whose needed window exceeds this rung's go on to the
+            # next; a dense key (low forced fraction) starts on the dense
+            # rung; a retried key skips rungs that grow neither its
+            # capacity nor its window
+            runnable, deferred = [], []
+            for r in rows:
+                if adaptive and step == 0 and r.ffrac < 0.5:
+                    deferred.append(r)
+                elif r.wneed <= win and (cap > r.mcap or win > r.mwin):
+                    runnable.append(r)
+                else:
+                    deferred.append(r)
+        else:
+            runnable, deferred = rows, []
+        if not runnable:
+            rows = deferred
+            continue
+        # the hash tie-break diversifies the first rungs' beam; later
+        # rungs, and a single rung unless asked, sort in lex order
+        first = step <= (1 if adaptive else 0)
+        hash_ok = first and (not last_rung or tiebreak0 is not None)
+        tb = (tiebreak0 or "hash") if hash_ok else "lex"
+        retry = deferred
+        by_cr: Dict[int, list] = {}
+        for r in runnable:
+            by_cr.setdefault(r.crw, []).append(r)
+        # a launch's grid takes at most MAX_KEYS keys: a larger cohort runs
+        # in chunks, which changes no key's result
+        chunks = [(crw, keys[i:i + K.MAX_KEYS])
+                  for crw, keys in sorted(by_cr.items())
+                  for i in range(0, len(keys), K.MAX_KEYS)]
+        for crw, grp in chunks:
+            shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
+                                 n=breq, CR=crw, B=len(grp), tiebreak=tb)
+            t0 = time.perf_counter()
+            done, lossy, wovf, best, levels, pools, launched = _run_cohort(
+                grp, shape, device, ops)
+            batches.append({"rung": (cap, win, exp), "crash-width": crw,
+                            "tiebreak": tb, "keys": len(grp),
+                            "levels": int(levels.max()),
+                            "levels-launched": launched,
+                            "seconds": time.perf_counter() - t0})
+            for i, r in enumerate(grp):
+                res = _result(bool(done[i]), bool(lossy[i]), bool(wovf[i]),
+                              int(best[i]), int(levels[i]), packed[r.key],
+                              pool=(None if pools is None
+                                    else tuple(x[i] for x in pools)))
+                res["rung"] = (cap, win, exp)
+                res["crash-width"] = crw
+                res["tiebreak"] = tb
+                work = r.work + [((cap, win, exp), crw, tb, int(levels[i]))]
+                res["work"] = work
+                escalatable = bool(lossy[i]) or (bool(wovf[i])
+                                                 and win < MAX_WINDOW)
+                if (res["valid"] is UNKNOWN and escalatable
+                        and not last_rung):
+                    retry.append(r._replace(mcap=max(r.mcap, cap),
+                                            mwin=max(r.mwin, win),
+                                            work=work))
+                else:
+                    results[r.key] = res
+        rows = retry
+    return batches
 
 
 # ---------------------------------------------------------------------------
@@ -464,3 +650,98 @@ def check_history_gpu(history, model: Model,
     packed, kernel = pk
     return check_packed_gpu(packed, kernel, capacity, window, expand,
                             segment_iters=segment_iters, device=dev)
+
+
+def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
+                    capacity: Optional[int] = None,
+                    window: Optional[int] = WINDOW,
+                    expand: Optional[int] = None,
+                    ladder: Optional[tuple] = None,
+                    tiebreak0: Optional[str] = None,
+                    device=None, ops: Ops = KERNELS) -> Dict[str, Any]:
+    """Check a {key: history} map as batched device searches: every key of
+    a rung and crashed-op width advances one level per launch.
+
+    ``capacity=None`` and ``ladder=None`` escalate through the adaptive
+    ladder: the slim first rung (dense keys, whose forced fraction is
+    below one half, start on the double-expansion rung after it), the
+    narrow capacity ladder, then the wide rungs; only keys that
+    overflowed re-run. ``ladder=`` pins the rungs; ``capacity=`` one rung.
+    ``tiebreak0`` ("lex" or "hash") sets the first rungs' tie-break, and
+    on a single rung asks for it. A key whose history is malformed or
+    does not encode is UNKNOWN alone, with the ``error``. ``device=None``
+    means CUDA; ``ops=PLAIN`` runs the kernels' plain versions instead.
+    Besides the per-key ``results``, ``batches`` lists every batch run
+    (see :func:`_keyed_ladder`)."""
+    from jepsen_tpu_torch.analysis import summarize
+    from jepsen_tpu_torch.analysis.history_lint import (MalformedHistoryError,
+                                                        gate_history)
+    if window is not None:
+        _check_window(window)
+    if tiebreak0 not in (None,) + K.TIEBREAKS:
+        raise ValueError(f"tiebreak0 must be one of {K.TIEBREAKS}, got "
+                         f"{tiebreak0!r}")
+    kernel = kernel_spec_for(model)
+    if kernel is None:
+        raise ValueError(f"model {model!r} has no integer kernel")
+    dev = resolve_device(device)
+    results: Dict[Any, Dict[str, Any]] = {}
+    if not keyed:
+        return {"valid": True, "results": results, "backend": "gpu",
+                "batches": []}
+    packed: Dict[Any, PackedHistory] = {}
+    for k, history in keyed.items():
+        try:
+            gate_history(history, where=f"the keyed device search "
+                                        f"(key {k!r})")
+            packed[k] = pack_with_init(history, model, kernel)[0]
+        except MalformedHistoryError as e:
+            results[k] = {"valid": UNKNOWN, "backend": "gpu",
+                          "error": str(e), "lint": summarize(e.findings)}
+        except ValueError as e:
+            results[k] = {"valid": UNKNOWN, "backend": "gpu",
+                          "error": str(e)}
+
+    # one padded required width for the batch; the crashed width is per
+    # cohort, so one crashy key does not widen the others' levels
+    breq = _bucket(max((p.n_required for p in packed.values()),
+                       default=1) or 1)
+    rows = []
+    for key, p in packed.items():
+        if p.n_required == 0:
+            results[key] = {"valid": True, "levels": 0, "backend": "gpu"}
+            continue
+        crw = _crash_width(p.n - p.n_required)
+        cols = None if crw is None else _split_packed(p, breq, crw, kernel)
+        if cols is None:
+            results[key] = {
+                "valid": UNKNOWN, "backend": "gpu",
+                "error": f"{p.n - p.n_required} crashed ops exceed the "
+                         f"crashed-set width {CRASH_MAX}"}
+            continue
+        ffrac = float(cols["fr"][:p.n_required].sum()) / p.n_required
+        rows.append(_KeyRow(key, cols, _window_needed(p), 0, 0, ffrac, crw,
+                            []))
+
+    adaptive = False
+    if ladder is not None:
+        if capacity is not None or expand is not None:
+            raise ValueError(
+                "pass either ladder= or capacity=/expand=, not both: an "
+                "explicit ladder replaces the whole escalation schedule")
+        for _, win, _ in ladder:
+            _check_window(win)
+    elif capacity is not None:
+        _check_window(window or WINDOW)
+        ladder = ((capacity, window or WINDOW, expand),)
+    else:
+        lad0 = _capacity_ladder(dev)
+        cap0, exp0 = lad0[0]
+        adaptive = True
+        ladder = (((cap0, 32, exp0), (cap0, 32, max(8, exp0 * 2)))
+                  + tuple((c, 32, e) for c, e in lad0[1:])
+                  + ((512, 64, 512), (4096, 128, 1024), (16384, 128, 4096)))
+    batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed, breq,
+                            results, dev, ops)
+    return {"valid": merge_valid(r["valid"] for r in results.values()),
+            "results": results, "backend": "gpu", "batches": batches}

@@ -5,18 +5,24 @@
 // table in PERF.md). The plain PyTorch version of every kernel sits beside its
 // wrapper in jepsen_tpu_torch/kernels/search.py; the two agree bit for bit.
 //
-// Layouts (all int32; mask words hold uint32 bit patterns):
+// Every buffer has a leading key axis of B independent searches (the keyed
+// batch; the single-history search is B = 1), and every kernel takes the key
+// from blockIdx.y. Per key (all int32; mask words hold uint32 bit patterns):
+//   cols   f, v1, v2, ro, fr, inv, ret [n], sm [n+1], cf, cv1, cv2, cinv,
+//          cps [CR], nr (the required-op count, one int per key)
 //   pool   k[C], mask[C][MW], cmask[C][MCX], state[C], alive[C] (uint8)
 //   row    key1, k, mask[MW], state, popcount(cmask), cmask[MCX]  (NK words)
 //   scal   done, lossy, wovf, level, best_k, live rows, active, spare
 //   acc    per-level sums: done, best, lossy, expanded, dup, dominated,
 //          trunc, frontier, block ticket; zero between levels
+// Each key keeps its own `active` flag, so a finished key's levels are
+// no-ops while the others go on (the vmapped masked update, tpu.py:652).
 //
-// The level is launch-bound at the headline rung (R = 512 rows: a few
-// microseconds of work per kernel) and bound by the sort's bytes on the wide
-// rungs (R up to ~1M rows). So every kernel is one launch where one block
-// suffices, nothing synchronises with the host, and the `active` flag that
-// makes a finished search's levels no-ops is read on the device.
+// The level is launch-bound at the single-history headline rung (R = 512
+// rows: a few microseconds of work per kernel) and bound by the sort's bytes
+// on the wide rungs (R up to ~1M rows); the key axis gives each kernel B
+// times the blocks, which fills the 132 SMs on a keyed batch. Nothing
+// synchronises with the host, and the `active` flags are read on the device.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (jepsen_tpu_torch/kernels/build.py). Plain C
@@ -35,14 +41,24 @@ constexpr int NSTAT = 5;
 constexpr int MAXW = 4;  // mask words: windows and crashed sets up to 128
 constexpr unsigned FULL = 0xffffffffu;
 
-enum { DONE, LOSSY, WOVF, LEVEL, BEST, NALIVE, ACT };
+enum { DONE, LOSSY, WOVF, LEVEL, BEST, NALIVE, ACT, SPARE, NSCAL };
 enum { A_DONE, A_BEST, A_LOSSY, A_EXPANDED, A_DUP, A_DOM, A_TRUNC,
        A_FRONTIER, A_TICKET, NACC };
+enum { TB_LEX, TB_HASH };
 
 struct Cols {
   const int *f, *v1, *v2, *ro, *fr, *inv, *ret, *sm, *cf, *cv1, *cv2, *cinv,
       *cps;
 };
+
+// Key b's columns: [B, n] required, [B, n + 1] sm, [B, CR] crashed.
+__device__ __forceinline__ Cols cols_at(const Cols& c, int b, int n, int CR) {
+  const size_t q = (size_t)b * n, cq = (size_t)b * CR;
+  return Cols{c.f + q,     c.v1 + q,   c.v2 + q,   c.ro + q,
+              c.fr + q,    c.inv + q,  c.ret + q,  c.sm + (size_t)b * (n + 1),
+              c.cf + cq,   c.cv1 + cq, c.cv2 + cq, c.cinv + cq,
+              c.cps + cq};
+}
 
 struct PoolIn {
   const int* k;
@@ -59,6 +75,21 @@ struct PoolOut {
   int* state;
   uint8_t* alive;
 };
+
+// Key b's pool: [B, C], [B, C, MW] and [B, C, MCX].
+__device__ __forceinline__ PoolIn pool_at(const PoolIn& p, int b, int C,
+                                          int MW, int MCX) {
+  const size_t q = (size_t)b * C;
+  return PoolIn{p.k + q, p.mask + q * MW, p.cmask + q * MCX, p.state + q,
+                p.alive + q};
+}
+
+__device__ __forceinline__ PoolOut pool_at(const PoolOut& p, int b, int C,
+                                           int MW, int MCX) {
+  const size_t q = (size_t)b * C;
+  return PoolOut{p.k + q, p.mask + q * MW, p.cmask + q * MCX, p.state + q,
+                 p.alive + q};
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -150,30 +181,38 @@ __device__ void fast_forward(int& kk, int& ss, bool go, int bound,
 }
 
 // ---------------------------------------------------------------------------
-// K1 expand (B1-B4; tpu.py:380-506). One 128-thread block per expanded row:
-// thread o < W computes required candidate o, thread c < CR crashed
-// candidate c; warp w's ballot is word w of the closure's pure bits; thread 0
-// runs the two fast-forwards. Blocks past E copy the pool remainder and write
-// the sort's pad rows. Work per level is E*(W+CR) model steps: at the
-// headline rung a few thousand, so the kernel costs its launch.
+// K1 expand (B1-B4; tpu.py:380-506). Grid (E + tail blocks, B). One
+// 128-thread block per expanded row: thread o < W computes required
+// candidate o, thread c < CR crashed candidate c; warp w's ballot is word w
+// of the closure's pure bits; thread 0 runs the two fast-forwards. Blocks
+// past E copy the pool remainder and write the sort's pad rows. Work per
+// level is E*(W+CR) model steps per key: at the keyed first rungs a few
+// thousand, so the kernel costs its launch.
 // ---------------------------------------------------------------------------
 
 struct ExpandArgs {
   Cols c;
   PoolIn pool;
+  const int* nr;
   int* scal;
   int* acc;
   int* rows;
-  int C, W, E, n, CR, MW, MCX, NK, R, RP, nr, lmax;
+  int C, W, E, n, CR, MW, MCX, NK, R, RP, lmax;
 };
 
 __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
-  const int t = threadIdx.x;
-  const bool act =
-      a.scal[DONE] == 0 && a.scal[NALIVE] > 0 && a.scal[LEVEL] <= a.lmax;
-  if (blockIdx.x == 0 && t == 0) a.scal[ACT] = act;
-  if (!act) return;
+  const int t = threadIdx.x, b = blockIdx.y;
   const int MW = a.MW, MCX = a.MCX, NK = a.NK, n = a.n;
+  int* scal = a.scal + (size_t)b * NSCAL;
+  const bool act =
+      scal[DONE] == 0 && scal[NALIVE] > 0 && scal[LEVEL] <= a.lmax;
+  if (blockIdx.x == 0 && t == 0) scal[ACT] = act;
+  if (!act) return;
+  const Cols c = cols_at(a.c, b, n, a.CR);
+  const PoolIn pool = pool_at(a.pool, b, a.C, MW, MCX);
+  int* acc = a.acc + (size_t)b * NACC;
+  int* rows = a.rows + (size_t)b * a.RP * NK;
+  const int nr = a.nr[b];
 
   if ((int)blockIdx.x >= a.E) {  // pool remainder, then pad rows
     const int i = (blockIdx.x - a.E) * blockDim.x + t;
@@ -181,13 +220,13 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     if (i < nrem) {
       const int p = a.E + i;
       unsigned m[MAXW], cm[MAXW];
-      for (int w = 0; w < MW; ++w) m[w] = a.pool.mask[p * MW + w];
-      for (int w = 0; w < MCX; ++w) cm[w] = a.pool.cmask[p * MCX + w];
-      write_row(a.rows + (size_t)(a.E * (a.W + 1 + a.CR) + i) * NK,
-                a.pool.k[p], m, MW, cm, MCX, a.pool.state[p],
-                a.pool.alive[p] != 0);
+      for (int w = 0; w < MW; ++w) m[w] = pool.mask[p * MW + w];
+      for (int w = 0; w < MCX; ++w) cm[w] = pool.cmask[p * MCX + w];
+      write_row(rows + (size_t)(a.E * (a.W + 1 + a.CR) + i) * NK,
+                pool.k[p], m, MW, cm, MCX, pool.state[p],
+                pool.alive[p] != 0);
     } else if (i < nrem + (a.RP - a.R)) {
-      int* row = a.rows + (size_t)(a.R + i - nrem) * NK;
+      int* row = rows + (size_t)(a.R + i - nrem) * NK;
       row[0] = PAD_KEY;
       for (int w = 1; w < NK; ++w) row[w] = 0;
     }
@@ -196,18 +235,18 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
 
   __shared__ unsigned s_pure[4];
   const int r = blockIdx.x;
-  const int ke = a.pool.k[r];
-  const bool ae = a.pool.alive[r] != 0;
-  const int se = a.pool.state[r];
+  const int ke = pool.k[r];
+  const bool ae = pool.alive[r] != 0;
+  const int se = pool.state[r];
   unsigned me[MAXW], cme[MAXW];
   for (int w = 0; w < MAXW; ++w) {
-    me[w] = w < MW ? a.pool.mask[r * MW + w] : 0u;
-    cme[w] = w < MCX ? a.pool.cmask[r * MCX + w] : 0u;
+    me[w] = w < MW ? pool.mask[r * MW + w] : 0u;
+    cme[w] = w < MCX ? pool.cmask[r * MCX + w] : 0u;
   }
-  const int retk = a.c.ret[clampi(ke, 0, n - 1)];
+  const int retk = c.ret[clampi(ke, 0, n - 1)];
   if (t == 0 && ae) {
-    atomicAdd(&a.acc[A_EXPANDED], 1);
-    if (a.c.sm[clampi(ke + a.W, 0, n)] < retk) atomicOr(&a.scal[WOVF], 1);
+    atomicAdd(&acc[A_EXPANDED], 1);
+    if (c.sm[clampi(ke + a.W, 0, n)] < retk) atomicOr(&scal[WOVF], 1);
   }
 
   // the [E, W] required grid: candidate t
@@ -215,10 +254,10 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
   int s2 = se;
   if (t < a.W) {
     const int j = ke + t, jc = clampi(j, 0, n - 1);
-    const bool cand = ae && j < n && a.c.inv[jc] < retk && !bit(me, t);
+    const bool cand = ae && j < n && c.inv[jc] < retk && !bit(me, t);
     bool ok;
-    s2 = cas_step(se, a.c.f[jc], a.c.v1[jc], a.c.v2[jc], ok);
-    pure = cand && ok && a.c.ro[jc] > 0;
+    s2 = cas_step(se, c.f[jc], c.v1[jc], c.v2[jc], ok);
+    pure = cand && ok && c.ro[jc] > 0;
     valid = cand && ok && !pure;
   }
   const unsigned bal = __ballot_sync(FULL, pure);
@@ -235,15 +274,15 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
 
   const int grid_rows = a.E * a.W;
   if (t == 0) {
-    const int bound = crash_bound(cme, a.c, n, a.CR);
+    const int bound = crash_bound(cme, c, n, a.CR);
     // offset 0: advance the frontier past linearized ops, then fast-forward
     unsigned m1[MAXW], madv[MAXW];
     shr1(me, m1, MW);
     const int t1 = trailing_ones(m1, MW);
     shr_by(m1, t1, madv, MW);
     int kadv = ke + 1 + t1, s0 = s2;
-    fast_forward(kadv, s0, valid, bound, a.c, n, a.nr);
-    write_row(a.rows + (size_t)(r * a.W) * NK, kadv, madv, MW, cme, MCX, s0,
+    fast_forward(kadv, s0, valid, bound, c, n, nr);
+    write_row(rows + (size_t)(r * a.W) * NK, kadv, madv, MW, cme, MCX, s0,
               valid);
     // the closure successor: every pure candidate at once
     unsigned mc[MAXW], mcl[MAXW];
@@ -251,105 +290,164 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     const int tc = trailing_ones(mc, MW);
     shr_by(mc, tc, mcl, MW);
     int kcl = ke + tc, scl = se;
-    fast_forward(kcl, scl, closure_ok, bound, a.c, n, a.nr);
-    write_row(a.rows + (size_t)(grid_rows + r) * NK, kcl, mcl, MW, cme, MCX,
+    fast_forward(kcl, scl, closure_ok, bound, c, n, nr);
+    write_row(rows + (size_t)(grid_rows + r) * NK, kcl, mcl, MW, cme, MCX,
               scl, closure_ok);
   } else if (t < a.W) {
     unsigned m2[MAXW];
     for (int w = 0; w < MAXW; ++w) m2[w] = me[w];
     m2[t >> 5] |= 1u << (t & 31);
-    write_row(a.rows + (size_t)(r * a.W + t) * NK, ke, m2, MW, cme, MCX, s2,
+    write_row(rows + (size_t)(r * a.W + t) * NK, ke, m2, MW, cme, MCX, s2,
               valid);
   }
 
   // the [E, CR] crashed grid with the canonical-order prune: crash t
   if (t < a.CR) {
-    const int c = t, cp = a.c.cps[c];
+    const int ci = t, cp = c.cps[ci];
     const int prevc = clampi(cp, 0, a.CR - 1);
     const bool redundant =
-        cp >= 0 && a.c.cinv[prevc] < retk && !bit(cme, prevc);
-    const bool ccand = ae && !closure_ok && a.c.cinv[c] < retk &&
-                       !bit(cme, c) && !redundant;
+        cp >= 0 && c.cinv[prevc] < retk && !bit(cme, prevc);
+    const bool ccand = ae && !closure_ok && c.cinv[ci] < retk &&
+                       !bit(cme, ci) && !redundant;
     bool cok;
-    const int cs2 = cas_step(se, a.c.cf[c], a.c.cv1[c], a.c.cv2[c], cok);
+    const int cs2 = cas_step(se, c.cf[ci], c.cv1[ci], c.cv2[ci], cok);
     unsigned ccm[MAXW];
     for (int w = 0; w < MAXW; ++w) ccm[w] = cme[w];
-    ccm[c >> 5] |= 1u << (c & 31);
-    write_row(a.rows + (size_t)(grid_rows + a.E + r * a.CR + c) * NK, ke, me,
+    ccm[ci >> 5] |= 1u << (ci & 31);
+    write_row(rows + (size_t)(grid_rows + a.E + r * a.CR + ci) * NK, ke, me,
               MW, ccm, MCX, cs2, ccand && cok && cs2 != se);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2 sort_rows (B5, lex; tpu.py:574-588). Bitonic sort of the RP rows on the
-// whole row, mask words compared unsigned. Rows whose keys are all equal are
-// identical, so the unstable network gives the reference's order. Stages
-// with partner distance below S = min(RP, 1024) rows run in shared memory
-// (S * NK * 4 <= 48 KB); longer distances take one global pass each. At
-// R = 512 the whole sort is one block; at RP = 2^17 it is 36 launches and
+// K2 sort_rows (B5 lex, tpu.py:574-588; B5' hash, tpu.py:528-570). Bitonic
+// sort of each key's RP rows; the tie-break is a template parameter of the
+// comparator, and the network is the same for both.
+//   lex:  the whole row in row order, mask words compared unsigned.
+//   hash: key1, then h = a 32-bit mix of (k, mask, state) (unsigned), then
+//         popcount(cmask), cmask, and last k, mask, state. The reference
+//         sorts (key1, h[, pc, cmask]) with an index payload and gathers
+//         the rows; the trailing row words make the order total, so the
+//         unstable network and the plain version agree bit for bit. They
+//         change the reference's order only where two distinct (k, mask,
+//         state) share key1 and h, where its own order is unspecified.
+// Rows whose keys are all equal are identical. Stages with partner distance
+// below S = min(RP, 1024) rows run in shared memory (the rows, and under
+// hash each row's h, computed once per row as it is loaded); longer
+// distances take one global pass each, which computes h for the two rows it
+// compares. Grid (RP / S, B): one block per 1,024 rows of each key. At
+// RP = 512 a key's sort is one block; at RP = 2^17 it is 36 launches and
 // the global passes' bytes bound it.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool row_less(const int* x, const int* y, int NK,
-                                         int MW) {
-  for (int w = 0; w < NK; ++w) {
-    const int a = x[w], b = y[w];
-    if (a != b) {
-      const bool uns = (w >= 2 && w < 2 + MW) || w >= 4 + MW;
-      return uns ? (unsigned)a < (unsigned)b : a < b;
-    }
+// B5': the reference's mix h of (k, mask, state), uint32 throughout.
+__device__ __forceinline__ unsigned row_hash(const int* row, int MW) {
+  unsigned h = (unsigned)row[1] * 0x9E3779B9u;
+  for (int w = 0; w < MW; ++w) {
+    h = (h ^ (unsigned)row[2 + w]) * 0x85EBCA6Bu;
+    h ^= h >> 13;
   }
+  h = (h ^ (unsigned)row[2 + MW]) * 0xC2B2AE35u;
+  return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ bool word_less(int a, int b, int w, int MW) {
+  const bool uns = (w >= 2 && w < 2 + MW) || w >= 4 + MW;
+  return uns ? (unsigned)a < (unsigned)b : a < b;
+}
+
+template <int TB>
+__device__ __forceinline__ bool row_less(const int* x, const int* y,
+                                         unsigned hx, unsigned hy, int NK,
+                                         int MW) {
+  if (TB == TB_HASH) {
+    if (x[0] != y[0]) return x[0] < y[0];
+    if (hx != hy) return hx < hy;
+    // pc, cmask[MCX], then k, mask[MW], state
+    const int MCX1 = NK - 3 - MW;
+    for (int i = 1; i < NK; ++i) {
+      const int w = i <= MCX1 ? 2 + MW + i : i - MCX1;
+      if (x[w] != y[w]) return word_less(x[w], y[w], w, MW);
+    }
+    return false;
+  }
+  for (int w = 0; w < NK; ++w)
+    if (x[w] != y[w]) return word_less(x[w], y[w], w, MW);
   return false;
 }
 
-__device__ __forceinline__ void cmp_swap(int* x, int* y, int NK, int MW,
+template <int TB>
+__device__ __forceinline__ void cmp_swap(int* x, int* y, unsigned* hx,
+                                         unsigned* hy, int NK, int MW,
                                          bool asc) {
-  if (asc ? row_less(y, x, NK, MW) : row_less(x, y, NK, MW)) {
+  const unsigned a = TB == TB_HASH ? *hx : 0u, b = TB == TB_HASH ? *hy : 0u;
+  if (asc ? row_less<TB>(y, x, b, a, NK, MW)
+          : row_less<TB>(x, y, a, b, NK, MW)) {
     for (int w = 0; w < NK; ++w) {
       const int tmp = x[w];
       x[w] = y[w];
       y[w] = tmp;
     }
+    if (TB == TB_HASH) {
+      *hx = b;
+      *hy = a;
+    }
   }
 }
 
-__global__ void sort_local_kernel(int* rows, const int* scal, int NK, int MW,
-                                  int S, int k_first, int k_last) {
-  if (scal[ACT] == 0) return;
+template <int TB>
+__global__ void sort_local_kernel(int* rows, const int* scal, int RP, int NK,
+                                  int MW, int S, int k_first, int k_last) {
+  const int b = blockIdx.y;
+  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
   extern __shared__ int sh[];
+  unsigned* shh = (unsigned*)(sh + S * NK);
+  int* krows = rows + (size_t)b * RP * NK;
   const size_t base = (size_t)blockIdx.x * S;
   for (int i = threadIdx.x; i < S * NK; i += blockDim.x)
-    sh[i] = rows[base * NK + i];
+    sh[i] = krows[base * NK + i];
   __syncthreads();
+  if (TB == TB_HASH) {
+    for (int i = threadIdx.x; i < S; i += blockDim.x)
+      shh[i] = row_hash(sh + i * NK, MW);
+    __syncthreads();
+  }
   for (int kk = k_first; kk <= k_last; kk <<= 1) {
     for (int j = min(kk >> 1, S >> 1); j > 0; j >>= 1) {
       for (int p = threadIdx.x; p < S / 2; p += blockDim.x) {
         const int i = (p / j) * 2 * j + (p % j);
-        cmp_swap(sh + i * NK, sh + (i + j) * NK, NK, MW,
-                 ((base + i) & (size_t)kk) == 0);
+        cmp_swap<TB>(sh + i * NK, sh + (i + j) * NK, shh + i, shh + i + j,
+                     NK, MW, ((base + i) & (size_t)kk) == 0);
       }
       __syncthreads();
     }
   }
   for (int i = threadIdx.x; i < S * NK; i += blockDim.x)
-    rows[base * NK + i] = sh[i];
+    krows[base * NK + i] = sh[i];
 }
 
+template <int TB>
 __global__ void sort_global_kernel(int* rows, const int* scal, int RP, int NK,
                                    int MW, int kk, int j) {
-  if (scal[ACT] == 0) return;
+  const int b = blockIdx.y;
+  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
   const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= (size_t)(RP / 2)) return;
+  int* krows = rows + (size_t)b * RP * NK;
   const size_t i = (p / j) * 2 * j + (p % j);
-  cmp_swap(rows + i * NK, rows + (i + j) * NK, NK, MW,
-           (i & (size_t)kk) == 0);
+  int* x = krows + i * NK;
+  int* y = krows + (i + j) * NK;
+  unsigned hx = TB == TB_HASH ? row_hash(x, MW) : 0u;
+  unsigned hy = TB == TB_HASH ? row_hash(y, MW) : 0u;
+  cmp_swap<TB>(x, y, &hx, &hy, NK, MW, (i & (size_t)kk) == 0);
 }
 
 // ---------------------------------------------------------------------------
 // K3 group_scan (B6; tpu.py:605): g[i] = cummax(same_grp[i] ? 0 : i), the
-// index of row i's group start. A warp-shuffle max-scan per 1024-row block,
-// then, beyond one block, a second launch adds the carry of the blocks
-// before. Reads (3 + MW) words a row; bytes-bound on the wide rungs.
+// index of row i's group start, per key. A warp-shuffle max-scan per
+// 1024-row block, then, beyond one block, a second launch adds the carry of
+// the key's blocks before. Grid (blocks, B). Reads (3 + MW) words a row;
+// bytes-bound on the wide rungs.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ bool same_grp(const int* rows, int i, int NK,
@@ -366,7 +464,11 @@ __device__ __forceinline__ bool same_grp(const int* rows, int i, int NK,
 __global__ void __launch_bounds__(1024)
     scan_local_kernel(const int* rows, const int* scal, int* g, int* gagg,
                       int RP, int NK, int MW) {
-  if (scal[ACT] == 0) return;
+  const int b = blockIdx.y;
+  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
+  rows += (size_t)b * RP * NK;
+  g += (size_t)b * RP;
+  gagg += (size_t)b * gridDim.x;
   __shared__ int wmax[32];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int i = blockIdx.x * blockDim.x + t;
@@ -392,27 +494,31 @@ __global__ void __launch_bounds__(1024)
 }
 
 __global__ void scan_carry_kernel(const int* scal, int* g, const int* gagg,
-                                  int RP) {
-  if (scal[ACT] == 0) return;
+                                  int RP, int blocks) {
+  const int b = blockIdx.y;
+  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
+  g += (size_t)b * RP;
+  gagg += (size_t)b * blocks;
   __shared__ int carry;
-  const int b = blockIdx.x + 1;
+  const int q0 = blockIdx.x + 1;
   if (threadIdx.x == 0) {
     int c = 0;
-    for (int q = 0; q < b; ++q) c = max(c, gagg[q]);
+    for (int q = 0; q < q0; ++q) c = max(c, gagg[q]);
     carry = c;
   }
   __syncthreads();
-  const int i = b * blockDim.x + threadIdx.x;
+  const int i = q0 * blockDim.x + threadIdx.x;
   if (i < RP) g[i] = max(g[i], carry);
 }
 
 // ---------------------------------------------------------------------------
-// K4 dedup_truncate (B6-B7; tpu.py:589-664). One thread per row: the
-// adjacent-duplicate test, the 8-leader subset-dominance test from the
-// group start, and the first-C truncation into the other pool buffer. Warp
-// reductions feed the level's accumulators; the last block to finish (a
-// ticket) writes the stats row and the scalars and zeroes the accumulators.
-// While the search is inactive it copies the pool through unchanged.
+// K4 dedup_truncate (B6-B7; tpu.py:589-664). Grid (row blocks, B), one
+// thread per row: the adjacent-duplicate test, the 8-leader subset-dominance
+// test from the group start, and the first-C truncation into the other pool
+// buffer. Warp reductions feed the key's accumulators; the last block of
+// the key to finish (a ticket per key) writes its stats row and scalars and
+// zeroes its accumulators. While a key is inactive its blocks copy its pool
+// through unchanged: the per-lane masked update of tpu.py:652-654.
 // ---------------------------------------------------------------------------
 
 struct DedupArgs {
@@ -423,44 +529,52 @@ struct DedupArgs {
   int* pk;
   int* ps;
   uint8_t* pa;
+  const int* nr;
   int* scal;
   int* acc;
   int* stats;
-  int C, MW, MCX, NK, CR, R, nr, lmax;
+  int C, MW, MCX, NK, CR, R, RP, lmax;
 };
 
 __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
-  const int t = threadIdx.x;
+  const int t = threadIdx.x, b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + t;
-  const int MW = a.MW, MCX = a.MCX, NK = a.NK;
-  if (a.scal[ACT] == 0) {
-    if (i < a.C) {
-      a.pout.k[i] = a.pin.k[i];
-      for (int w = 0; w < MW; ++w) a.pout.mask[i * MW + w] = a.pin.mask[i * MW + w];
+  const int MW = a.MW, MCX = a.MCX, NK = a.NK, C = a.C;
+  const PoolIn pin = pool_at(a.pin, b, C, MW, MCX);
+  const PoolOut pout = pool_at(a.pout, b, C, MW, MCX);
+  int* scal = a.scal + (size_t)b * NSCAL;
+  if (scal[ACT] == 0) {
+    if (i < C) {
+      pout.k[i] = pin.k[i];
+      for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = pin.mask[i * MW + w];
       for (int w = 0; w < MCX; ++w)
-        a.pout.cmask[i * MCX + w] = a.pin.cmask[i * MCX + w];
-      a.pout.state[i] = a.pin.state[i];
-      a.pout.alive[i] = a.pin.alive[i];
+        pout.cmask[i * MCX + w] = pin.cmask[i * MCX + w];
+      pout.state[i] = pin.state[i];
+      pout.alive[i] = pin.alive[i];
     }
     return;
   }
+  const int* rows = a.rows + (size_t)b * a.RP * NK;
+  const int* g = a.g + (size_t)b * a.RP;
+  int* acc = a.acc + (size_t)b * NACC;
+  const int nr = a.nr[b];
 
   bool fv = false, dup = false, dom = false, uniq = false;
   int fk = 0;
   if (i < a.R) {
-    const int* ri = a.rows + (size_t)i * NK;
+    const int* ri = rows + (size_t)i * NK;
     fv = ri[0] <= MAXK;
     fk = ri[1];
     bool cm_eq = i > 0;
     for (int w = 0; w < MCX && cm_eq; ++w)
       cm_eq = ri[4 + MW + w] == ri[4 + MW + w - NK];
-    dup = cm_eq && same_grp(a.rows, i, NK, MW);
+    dup = cm_eq && same_grp(rows, i, NK, MW);
     if (a.CR > 0 && fv) {
-      const int gi = a.g[i];
+      const int gi = g[i];
       for (int p = 0; p < LEADERS && !dom; ++p) {
         const int li = min(gi + p, a.R - 1);
         if (li >= i) break;
-        const int* rl = a.rows + (size_t)li * NK;
+        const int* rl = rows + (size_t)li * NK;
         bool lead = true;
         for (int w = 0; w < 3 + MW && lead; ++w) lead = rl[w] == ri[w];
         bool subset = true;
@@ -473,56 +587,57 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
     }
     uniq = fv && !dup && !dom;
   }
-  if (i < a.C) {
-    const int* ri = a.rows + (size_t)i * NK;
-    a.pout.k[i] = ri[1];
-    for (int w = 0; w < MW; ++w) a.pout.mask[i * MW + w] = (unsigned)ri[2 + w];
+  if (i < C) {
+    const int* ri = rows + (size_t)i * NK;
+    pout.k[i] = ri[1];
+    for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = (unsigned)ri[2 + w];
     for (int w = 0; w < MCX; ++w)
-      a.pout.cmask[i * MCX + w] = (unsigned)ri[4 + MW + w];
-    a.pout.state[i] = ri[2 + MW];
-    a.pout.alive[i] = uniq;
-    a.pk[i] = a.pin.k[i];
-    a.ps[i] = a.pin.state[i];
-    a.pa[i] = a.pin.alive[i];
+      pout.cmask[i * MCX + w] = (unsigned)ri[4 + MW + w];
+    pout.state[i] = ri[2 + MW];
+    pout.alive[i] = uniq;
+    a.pk[(size_t)b * C + i] = pin.k[i];
+    a.ps[(size_t)b * C + i] = pin.state[i];
+    a.pa[(size_t)b * C + i] = pin.alive[i];
   }
 
-  const bool kept = i < a.C && uniq, lost = i >= a.C && uniq;
-  const unsigned done_any = __reduce_or_sync(FULL, fv && fk >= a.nr);
+  const bool kept = i < C && uniq, lost = i >= C && uniq;
+  const unsigned done_any = __reduce_or_sync(FULL, fv && fk >= nr);
   const int best = __reduce_max_sync(FULL, fv ? fk : 0);
   const unsigned ndup = __reduce_add_sync(FULL, dup);
   const unsigned ndom = __reduce_add_sync(FULL, dom);
   const unsigned nlost = __reduce_add_sync(FULL, lost);
   const unsigned nkept = __reduce_add_sync(FULL, kept);
   if ((t & 31) == 0) {
-    if (done_any) atomicOr(&a.acc[A_DONE], 1);
-    if (nlost) atomicOr(&a.acc[A_LOSSY], 1);
-    atomicMax(&a.acc[A_BEST], best);
-    if (ndup) atomicAdd(&a.acc[A_DUP], (int)ndup);
-    if (ndom) atomicAdd(&a.acc[A_DOM], (int)ndom);
-    if (nlost) atomicAdd(&a.acc[A_TRUNC], (int)nlost);
-    if (nkept) atomicAdd(&a.acc[A_FRONTIER], (int)nkept);
+    if (done_any) atomicOr(&acc[A_DONE], 1);
+    if (nlost) atomicOr(&acc[A_LOSSY], 1);
+    atomicMax(&acc[A_BEST], best);
+    if (ndup) atomicAdd(&acc[A_DUP], (int)ndup);
+    if (ndom) atomicAdd(&acc[A_DOM], (int)ndom);
+    if (nlost) atomicAdd(&acc[A_TRUNC], (int)nlost);
+    if (nkept) atomicAdd(&acc[A_FRONTIER], (int)nkept);
   }
   __threadfence();
   __syncthreads();
   __shared__ bool last;
-  if (t == 0) last = atomicAdd(&a.acc[A_TICKET], 1) == (int)gridDim.x - 1;
+  if (t == 0) last = atomicAdd(&acc[A_TICKET], 1) == (int)gridDim.x - 1;
   __syncthreads();
   if (last && t == 0) {
     __threadfence();
-    volatile int* acc = a.acc;
-    const int level = a.scal[LEVEL];
-    int* srow = a.stats + (size_t)clampi(level, 0, a.lmax) * NSTAT;
-    srow[0] = acc[A_EXPANDED];
-    srow[1] = acc[A_DUP];
-    srow[2] = acc[A_DOM];
-    srow[3] = acc[A_TRUNC];
-    srow[4] = acc[A_FRONTIER];
-    a.scal[DONE] |= acc[A_DONE];
-    a.scal[LOSSY] |= acc[A_LOSSY];
-    a.scal[LEVEL] = level + 1;
-    a.scal[BEST] = max(a.scal[BEST], (int)acc[A_BEST]);
-    a.scal[NALIVE] = acc[A_FRONTIER];
-    for (int q = 0; q < NACC; ++q) acc[q] = 0;
+    volatile int* vacc = acc;
+    const int level = scal[LEVEL];
+    int* srow = a.stats + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
+                              * NSTAT;
+    srow[0] = vacc[A_EXPANDED];
+    srow[1] = vacc[A_DUP];
+    srow[2] = vacc[A_DOM];
+    srow[3] = vacc[A_TRUNC];
+    srow[4] = vacc[A_FRONTIER];
+    scal[DONE] |= vacc[A_DONE];
+    scal[LOSSY] |= vacc[A_LOSSY];
+    scal[LEVEL] = level + 1;
+    scal[BEST] = max(scal[BEST], (int)vacc[A_BEST]);
+    scal[NALIVE] = vacc[A_FRONTIER];
+    for (int q = 0; q < NACC; ++q) vacc[q] = 0;
   }
 }
 
@@ -530,6 +645,33 @@ int padded_rows(int R) {
   int RP = 2;
   while (RP < R) RP <<= 1;
   return RP;
+}
+
+int mask_words(int W) { return (W + 31) / 32; }
+int cmask_words(int CR) { return CR > 32 ? (CR + 31) / 32 : 1; }
+
+template <int TB>
+int sort_rows(int* rows, const int* scal, int B, int RP, int NK, int MW,
+              cudaStream_t st) {
+  const int S = RP < 1024 ? RP : 1024;
+  const size_t smem = (size_t)S * (NK + (TB == TB_HASH ? 1 : 0)) * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sort_local_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 local(RP / S, B), global((RP / 2 + 255) / 256, B);
+  sort_local_kernel<TB><<<local, S / 2, smem, st>>>(rows, scal, RP, NK, MW, S,
+                                                    2, S);
+  for (int kk = 2 * S; kk <= RP; kk <<= 1) {
+    for (int j = kk >> 1; j >= S; j >>= 1)
+      sort_global_kernel<TB><<<global, 256, 0, st>>>(rows, scal, RP, NK, MW,
+                                                     kk, j);
+    sort_local_kernel<TB><<<local, S / 2, smem, st>>>(rows, scal, RP, NK, MW,
+                                                      S, kk, kk);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -543,13 +685,14 @@ const char* jt_error_string(int code) {
 int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
               const int* fr, const int* inv, const int* ret, const int* sm,
               const int* cf, const int* cv1, const int* cv2, const int* cinv,
-              const int* cps, const int* k, const unsigned* mask,
-              const unsigned* cmask, const int* state, const uint8_t* alive,
-              int* scal, int* acc, int* rows, int C, int W, int E, int n,
-              int CR, int nr, int lmax, void* stream) {
+              const int* cps, const int* nr, const int* k,
+              const unsigned* mask, const unsigned* cmask, const int* state,
+              const uint8_t* alive, int* scal, int* acc, int* rows, int B,
+              int C, int W, int E, int n, int CR, int lmax, void* stream) {
   ExpandArgs a;
   a.c = Cols{f, v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps};
   a.pool = PoolIn{k, mask, cmask, state, alive};
+  a.nr = nr;
   a.scal = scal;
   a.acc = acc;
   a.rows = rows;
@@ -558,44 +701,36 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
   a.E = E;
   a.n = n;
   a.CR = CR;
-  a.MW = (W + 31) / 32;
-  a.MCX = CR > 32 ? (CR + 31) / 32 : 1;
+  a.MW = mask_words(W);
+  a.MCX = cmask_words(CR);
   a.NK = 4 + a.MW + a.MCX;
   a.R = E * (W + 1 + CR) + (C - E);
   a.RP = padded_rows(a.R);
-  a.nr = nr;
   a.lmax = lmax;
   const int tail = (C - E) + (a.RP - a.R);
-  const int blocks = E + (tail + 127) / 128;
-  expand_kernel<<<blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  const dim3 grid(E + (tail + 127) / 128, B);
+  expand_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int jt_sort_rows(int* rows, const int* scal, int RP, int NK, int MW,
-                 void* stream) {
+int jt_sort_rows(int* rows, const int* scal, int B, int RP, int NK, int MW,
+                 int tiebreak, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
-  const int S = RP < 1024 ? RP : 1024;
-  const size_t smem = (size_t)S * NK * sizeof(int);
-  sort_local_kernel<<<RP / S, S / 2, smem, st>>>(rows, scal, NK, MW, S, 2, S);
-  for (int kk = 2 * S; kk <= RP; kk <<= 1) {
-    for (int j = kk >> 1; j >= S; j >>= 1)
-      sort_global_kernel<<<(RP / 2 + 255) / 256, 256, 0, st>>>(rows, scal, RP,
-                                                               NK, MW, kk, j);
-    sort_local_kernel<<<RP / S, S / 2, smem, st>>>(rows, scal, NK, MW, S, kk,
-                                                   kk);
-  }
-  return (int)cudaGetLastError();
+  return tiebreak == TB_HASH
+             ? sort_rows<TB_HASH>(rows, scal, B, RP, NK, MW, st)
+             : sort_rows<TB_LEX>(rows, scal, B, RP, NK, MW, st);
 }
 
-int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int RP,
-                  int NK, int MW, void* stream) {
+int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int B,
+                  int RP, int NK, int MW, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int threads = RP < 1024 ? (RP < 32 ? 32 : RP) : 1024;
   const int blocks = RP < 1024 ? 1 : RP / 1024;
-  scan_local_kernel<<<blocks, threads, 0, st>>>(rows, scal, g, gagg, RP, NK,
-                                                MW);
+  scan_local_kernel<<<dim3(blocks, B), threads, 0, st>>>(rows, scal, g, gagg,
+                                                         RP, NK, MW);
   if (blocks > 1)
-    scan_carry_kernel<<<blocks - 1, threads, 0, st>>>(scal, g, gagg, RP);
+    scan_carry_kernel<<<dim3(blocks - 1, B), threads, 0, st>>>(scal, g, gagg,
+                                                               RP, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -604,8 +739,9 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
                       const int* in_state, const uint8_t* in_alive,
                       int* out_k, unsigned* out_mask, unsigned* out_cmask,
                       int* out_state, uint8_t* out_alive, int* pk, int* ps,
-                      uint8_t* pa, int* scal, int* acc, int* stats, int C,
-                      int W, int CR, int R, int nr, int lmax, void* stream) {
+                      uint8_t* pa, const int* nr, int* scal, int* acc,
+                      int* stats, int B, int C, int W, int CR, int R,
+                      int lmax, void* stream) {
   DedupArgs a;
   a.rows = rows;
   a.g = g;
@@ -614,18 +750,19 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
   a.pk = pk;
   a.ps = ps;
   a.pa = pa;
+  a.nr = nr;
   a.scal = scal;
   a.acc = acc;
   a.stats = stats;
   a.C = C;
-  a.MW = (W + 31) / 32;
-  a.MCX = CR > 32 ? (CR + 31) / 32 : 1;
+  a.MW = mask_words(W);
+  a.MCX = cmask_words(CR);
   a.NK = 4 + a.MW + a.MCX;
   a.CR = CR;
   a.R = R;
-  a.nr = nr;
+  a.RP = padded_rows(R);
   a.lmax = lmax;
-  dedup_kernel<<<(R + 255) / 256, 256, 0, (cudaStream_t)stream>>>(a);
+  dedup_kernel<<<dim3((R + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

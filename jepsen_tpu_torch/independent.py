@@ -1,0 +1,180 @@
+"""Independent keys: one history over many registers, checked per key.
+
+Counterpart of the checker half of ``jepsen_tpu.independent`` (itself a
+rebuild of jepsen.independent). Linearizability checking is exponential
+in history length, so a test runs a *map* of keys to registers: op values
+are ``[k v]`` tuples (:class:`KV`), and the checker splits the history
+per key and checks each subhistory on its own. When the inner checker is
+the port's :class:`~jepsen_tpu_torch.checker.wgl.LinearizableChecker`
+with ``backend="gpu"`` and its model has an integer kernel, every key is
+searched in one batch on the device
+(:func:`~jepsen_tpu_torch.checker.gpu.check_keyed_gpu`); keys the batch
+cannot settle are checked again one by one through the inner checker.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Sequence
+
+from jepsen_tpu_torch.checker import UNKNOWN, Checker, check_safe, merge_valid
+from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.util import real_pmap
+
+#: Subdirectory of the store dir for per-key results.
+DIR = "independent"
+
+
+class KV:
+    """A key/value tuple in an op's value. A type of its own, not a Python
+    tuple, so that op values that are tuples (cas pairs) are never taken
+    for keyed values."""
+
+    __slots__ = ("key", "value")
+
+    def __init__(self, key, value):
+        self.key = key
+        self.value = value
+
+    def __iter__(self):
+        return iter((self.key, self.value))
+
+    def __eq__(self, other):
+        return (isinstance(other, KV) and self.key == other.key
+                and self.value == other.value)
+
+    def __hash__(self):
+        return hash((KV, self.key, self.value))
+
+    def __repr__(self):
+        return f"[{self.key!r} {self.value!r}]"
+
+
+def tuple_(k, v) -> KV:
+    return KV(k, v)
+
+
+def is_tuple(v) -> bool:
+    return isinstance(v, KV)
+
+
+def _with_value(o: Op, value) -> Op:
+    """``o`` with another value (``Op.replace`` without its per-call
+    field introspection, for histories of a million ops)."""
+    return Op(o.type, o.f, value, o.process, o.time, o.index, o.error,
+              o.extra)
+
+
+def history_keys(history: Sequence[Op]) -> set:
+    """The keys of the ``[k v]`` op values in a history."""
+    return {o.value.key for o in history if is_tuple(o.value)}
+
+
+def subhistory(k, history: Sequence[Op]) -> History:
+    """The ops of key ``k`` with their values unwrapped, and every op
+    without a key (nemesis, logging), which lands in every subhistory."""
+    out = History()
+    for o in history:
+        v = o.value
+        if not is_tuple(v):
+            out.append(o)
+        elif v.key == k:
+            out.append(_with_value(o, v.value))
+    return out
+
+
+def subhistories(history: Sequence[Op]) -> Dict[Any, History]:
+    """Every key's :func:`subhistory`, in one pass over the history, by
+    key in ``repr`` order."""
+    ks = sorted(history_keys(history), key=repr)
+    out = {k: History() for k in ks}
+    for o in history:
+        v = o.value
+        if not is_tuple(v):
+            for h in out.values():
+                h.append(o)
+        else:
+            out[v.key].append(_with_value(o, v.value))
+    return out
+
+
+class IndependentChecker(Checker):
+    """Lift a checker over plain values to one over ``[k v]`` histories:
+    valid iff the inner checker holds for every key's subhistory; per-key
+    results under ``results``, the invalid keys under ``failures``."""
+
+    def __init__(self, inner: Checker):
+        self.inner = inner
+
+    def _try_gpu_batch(self, test, keyed: Dict[Any, History]):
+        """The keyed batch on the device, or None when the inner checker
+        is not the port's device linearizability checker over a model
+        with an integer kernel. A device fault raises."""
+        from jepsen_tpu_torch.checker.gpu import check_keyed_gpu
+        from jepsen_tpu_torch.checker.wgl import LinearizableChecker
+        from jepsen_tpu_torch.models.core import kernel_spec_for
+        inner = self.inner
+        if not isinstance(inner, LinearizableChecker):
+            return None
+        if inner.backend != "gpu":
+            return None
+        model = inner.model or test.get("model")
+        if model is None or kernel_spec_for(model) is None:
+            return None
+        return check_keyed_gpu(keyed, model, device=inner.device)
+
+    def check(self, test, history, opts=None):
+        opts = opts or {}
+        keyed = subhistories(history)
+        ks = list(keyed)
+
+        results: Dict[Any, dict] = {}
+        batch = self._try_gpu_batch(test, keyed)
+        if batch is not None:
+            for k, r in batch["results"].items():
+                if r.get("valid") is UNKNOWN:
+                    # the inner checker settles what the batch could not
+                    r = check_safe(self.inner, test, keyed[k],
+                                   {**opts, "history-key": k})
+                results[k] = r
+        else:
+            def check_one(k):
+                return check_safe(self.inner, test, keyed[k],
+                                  {**opts, "history-key": k})
+            for k, r in zip(ks, real_pmap(check_one, ks)):
+                results[k] = r
+
+        self._write_artifacts(test, keyed, results, opts)
+        # an unknown key is not a failure: only refuted keys are
+        failures = [k for k, r in results.items()
+                    if r.get("valid") is False]
+        return {
+            "valid": merge_valid(r.get("valid", UNKNOWN)
+                                 for r in results.values()),
+            "results": results,
+            "failures": failures,
+        }
+
+    def _write_artifacts(self, test, keyed, results, opts: Optional[dict]):
+        """Per key, ``results.json`` and ``history.jsonl`` under
+        ``<store-dir>/[<subdirectory>/]independent/<k>/``."""
+        store_dir = test.get("store-dir")
+        if not store_dir or not isinstance(store_dir, str):
+            return
+        sub = opts.get("subdirectory", []) if opts else []
+        for k, r in results.items():
+            d = os.path.join(store_dir, *map(str, sub), DIR, str(k))
+            try:
+                os.makedirs(d, exist_ok=True)
+                with open(os.path.join(d, "results.json"), "w") as f:
+                    json.dump(r, f, indent=2, default=repr)
+                with open(os.path.join(d, "history.jsonl"), "w") as f:
+                    for o in keyed[k]:
+                        f.write(json.dumps(o.to_dict(), default=repr) + "\n")
+            except OSError:
+                pass
+
+
+def checker(inner: Checker) -> IndependentChecker:
+    return IndependentChecker(inner)

@@ -3,15 +3,18 @@
 The reference keeps its columns and its carry as numpy arrays at every
 host boundary: the ``_COLS`` dict from ``_split_packed`` and the carry
 tuple ``(k, mask, cmask, state, alive, done, lossy, wovf, level, best_k,
-pk, ps, pa[, stats])`` with uint32 mask words. These functions convert
-both to the port's device tensors and back, so a checkpoint taken by one
-package resumes in the other and the tests can run both searches from
-the same inputs.
+pk, ps, pa[, stats])`` with uint32 mask words. Its keyed batch stacks
+both along a leading key axis (``np.stack`` of the columns; the vmapped
+carry has that axis on every lane, scalars included). These functions
+convert both layouts to the port's device tensors, which always carry
+the key axis (a single history is a batch of one), and back, so a
+checkpoint taken by one package resumes in the other and the tests can
+run both searches from the same inputs.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,20 +22,37 @@ import torch
 from jepsen_tpu_torch.checker.gpu import Carry
 from jepsen_tpu_torch.kernels import search as K
 
+#: the columns that go to the device: the 13 kernel columns and ``nr``
+DEVICE_COLS = K.COLS + ("nr",)
 
-def cols_from_numpy(cols: dict, device, out: Optional[dict] = None) -> dict:
-    """Device copies of the 13 column arrays (int32), plus ``nr`` and
-    ``ini`` as Python ints. With ``out``, copies into its tensors."""
+
+def stack_cols(cols: Sequence[dict]) -> dict:
+    """The keyed batch's columns: each key's ``_split_packed`` dict stacked
+    along a leading key axis, in the reference's lane order."""
+    return {c: np.stack([np.asarray(r[c]) for r in cols])
+            for c in cols[0]}
+
+
+def batch_cols_from_numpy(cols: dict, device,
+                          out: Optional[dict] = None) -> dict:
+    """Device copies (int32) of a batch's stacked columns: the 13 kernel
+    columns [B, width] and ``nr`` [B]. With ``out``, copies into its
+    tensors."""
     res = {} if out is None else out
-    for c in K.COLS:
-        a = torch.from_numpy(np.array(cols[c], np.int32))
+    for c in DEVICE_COLS:
+        a = torch.from_numpy(np.ascontiguousarray(cols[c], np.int32))
         if out is None:
             res[c] = a.to(device)
         else:
             res[c].copy_(a)
-    res["nr"] = int(cols["nr"])
-    res["ini"] = int(cols["ini"])
     return res
+
+
+def cols_from_numpy(cols: dict, device, out: Optional[dict] = None) -> dict:
+    """One history's columns as a batch of one (see
+    :func:`batch_cols_from_numpy`)."""
+    return batch_cols_from_numpy(
+        {c: np.asarray(cols[c])[None] for c in DEVICE_COLS}, device, out)
 
 
 def _i32(a) -> torch.Tensor:
@@ -43,20 +63,24 @@ def _i32(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, np.int32))
 
 
-def carry_from_numpy(carry: tuple, device,
-                     out: Optional[Carry] = None) -> Carry:
-    """The reference's 14-lane carry as a device :class:`Carry`. With
-    ``out``, copies into its tensors."""
+def _bool(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, bool))
+
+
+def batch_carry_from_numpy(carry: tuple, device,
+                           out: Optional[Carry] = None) -> Carry:
+    """The reference's vmapped 14-lane carry (a leading key axis on every
+    lane) as a device :class:`Carry`. With ``out``, copies into its
+    tensors."""
     if len(carry) != 14:
         raise ValueError(f"expected the 14-lane carry with its stats lane, "
                          f"got {len(carry)} lanes")
     (k, mask, cmask, state, alive, done, lossy, wovf, level, best, pk, ps,
-     pa, stats) = carry
-    scal = np.zeros(K.NSCAL, np.int32)
-    scal[K.DONE], scal[K.LOSSY], scal[K.WOVF] = (bool(done), bool(lossy),
-                                                 bool(wovf))
-    scal[K.LEVEL], scal[K.BEST] = int(level), int(best)
-    scal[K.NALIVE] = int(np.count_nonzero(alive))
+     pa, stats) = (np.asarray(x) for x in carry)
+    scal = np.zeros((k.shape[0], K.NSCAL), np.int32)
+    scal[:, K.DONE], scal[:, K.LOSSY], scal[:, K.WOVF] = done, lossy, wovf
+    scal[:, K.LEVEL], scal[:, K.BEST] = level, best
+    scal[:, K.NALIVE] = np.count_nonzero(alive, axis=1)
     src = Carry(pool=K.Pool(k=_i32(k), mask=_i32(mask), cmask=_i32(cmask),
                             state=_i32(state), alive=_bool(alive)),
                 pk=_i32(pk), ps=_i32(ps), pa=_bool(pa),
@@ -73,12 +97,17 @@ def carry_from_numpy(carry: tuple, device,
     return out
 
 
-def _bool(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, bool))
+def carry_from_numpy(carry: tuple, device,
+                     out: Optional[Carry] = None) -> Carry:
+    """One history's 14-lane carry as a device :class:`Carry` of one
+    key."""
+    return batch_carry_from_numpy(tuple(np.asarray(x)[None] for x in carry),
+                                  device, out)
 
 
-def carry_to_numpy(carry: Carry) -> tuple:
-    """A device :class:`Carry` as the reference's 14-lane numpy tuple."""
+def batch_carry_to_numpy(carry: Carry) -> tuple:
+    """A device :class:`Carry` as the reference's vmapped 14-lane numpy
+    tuple (a leading key axis on every lane)."""
     def host(t):
         return t.cpu().numpy()
 
@@ -86,7 +115,16 @@ def carry_to_numpy(carry: Carry) -> tuple:
     p = carry.pool
     return (host(p.k), host(p.mask).view(np.uint32),
             host(p.cmask).view(np.uint32), host(p.state), host(p.alive),
-            np.bool_(scal[K.DONE]), np.bool_(scal[K.LOSSY]),
-            np.bool_(scal[K.WOVF]), np.int32(scal[K.LEVEL]),
-            np.int32(scal[K.BEST]), host(carry.pk), host(carry.ps),
+            scal[:, K.DONE] != 0, scal[:, K.LOSSY] != 0,
+            scal[:, K.WOVF] != 0, scal[:, K.LEVEL].copy(),
+            scal[:, K.BEST].copy(), host(carry.pk), host(carry.ps),
             host(carry.pa), host(carry.stats))
+
+
+def carry_to_numpy(carry: Carry) -> tuple:
+    """A device :class:`Carry` of one key as the reference's 14-lane numpy
+    tuple."""
+    if carry.scal.shape[0] != 1:
+        raise ValueError(f"carry_to_numpy takes one key, got "
+                         f"{carry.scal.shape[0]}; use batch_carry_to_numpy")
+    return tuple(x[0] for x in batch_carry_to_numpy(carry))

@@ -1,7 +1,8 @@
 """Holding the kernels against their plain versions on one search state.
 
-:class:`Level` sets up the search of one history at one rung on a device,
-advances it with the kernels, and then walks one level stage by stage:
+:class:`Level` sets up the search of one history, or of a keyed batch,
+at one rung and tie-break on a device, advances it with the kernels, and
+then walks one level stage by stage:
 each kernel and its plain version run from identical copies of that
 stage's inputs and their outputs are compared exactly (integer state:
 tolerance 0). ``chip_smoke.py`` and the card-only tests use it.
@@ -44,27 +45,32 @@ def copy_state(carry: G.Carry, scratch: G.Scratch
 
 
 class Level:
-    """The search of one history's ``_split_packed`` columns at one rung
-    (capacity, window, expand) on ``device``."""
+    """The search of one history's ``_split_packed`` columns, or of a
+    list of them padded to one width (a keyed batch), at one rung
+    (capacity, window, expand) and tie-break on ``device``."""
 
-    def __init__(self, cols_np: dict, rung: tuple, device):
+    def __init__(self, cols_np, rung: tuple, device, tiebreak: str = "lex"):
+        batch = cols_np if isinstance(cols_np, list) else [cols_np]
         C, W, E = rung
-        n, cr = cols_np["f"].shape[0], cols_np["cf"].shape[0]
-        self.shape = K.LevelShape(C, W, min(E or C, C), n, cr)
-        self.cols = interop.cols_from_numpy(cols_np, device)
+        n, cr = batch[0]["f"].shape[0], batch[0]["cf"].shape[0]
+        self.shape = K.LevelShape(C, W, min(E or C, C), n, cr, B=len(batch),
+                                  tiebreak=tiebreak)
+        self.cols = interop.batch_cols_from_numpy(interop.stack_cols(batch),
+                                                  device)
         self.nr = self.cols["nr"]
-        self.carry = interop.carry_from_numpy(
-            G._carry0_host(C, W, cr, cols_np["ini"], self.nr,
-                           stats_rows=self.shape.lmax + 1), device)
+        self.carry = interop.batch_carry_from_numpy(
+            G._batch_carry0_host(C, W, cr, [c["ini"] for c in batch],
+                                 [int(c["nr"]) for c in batch],
+                                 stats_rows=self.shape.lmax + 1), device)
         self.scratch = G.empty_scratch(self.shape, device)
 
     def advance(self, levels: int) -> int:
         """Run ``levels`` levels with the kernels; return the live pool
-        rows (0 once the search is over)."""
+        rows of the keys not yet done (0 once every search is over)."""
         G.run_segment(self.cols, self.carry, self.scratch, self.shape,
                       self.nr, levels)
         scal = self.carry.scal.cpu()
-        return 0 if int(scal[K.DONE]) else int(scal[K.NALIVE])
+        return int(scal[:, K.NALIVE][scal[:, K.DONE] == 0].sum())
 
     def stages(self):
         """(name, kernel call, plain call, outputs) for each kernel; each

@@ -9,39 +9,52 @@ body, one ``lax.while_loop`` iteration) is four kernels in
                     the frontier advance with its forced fast-forward, the
                     [E, CR] crashed grid, the pool remainder; writes R
                     sortable rows
-``sort_rows``       B5 (lex): bitonic sort of the rows, padded to RP
+``sort_rows``       B5 (lex) or B5' (hash): bitonic sort of the rows,
+                    padded to RP
 ``group_scan``      B6: the cummax group-start scan over the sorted rows
 ``dedup_truncate``  B6/B7: dup and 8-leader dominance kills, done/best,
                     first-C truncation into the other pool buffer, lossy,
                     the five per-level counters, level+1, pk/ps/pa
 ==================  =====================================================
 
+Every tensor has a leading key axis of ``B`` independent searches: the
+keyed batch (``jax.vmap`` of the search body in the reference) runs B
+keys per launch, and the single-history search is ``B = 1``. Each key has
+its own required-op count ``nr`` (an int32 tensor [B] on the device) and
+its own ``active`` flag, so a finished key's levels change nothing while
+the others go on.
+
 Each wrapper checks its tensors and dispatches on their device: CPU
 tensors run the plain PyTorch version beside it, CUDA tensors launch the
 kernel on the current stream (or raise; there is no fallback). Each
-launch adds one to ``launches[name]``. The plain versions take CUDA
-tensors too when called directly, which is how the kernels are held
-against them on the card.
+launch adds one to ``launches[name]``, and the CUDA launches it issues
+(:func:`grid_launches`: the sort's global passes and the scan's carry
+step are launches of their own) to ``grid_launches_total[name]``. The
+plain versions take CUDA tensors too when called directly, which is how
+the kernels are held against them on the card.
 
 Row layout (int32 words, ``NK = 4 + MW + MCX``)::
 
     key1, k, mask[MW], state, popcount(cmask), cmask[MCX]
 
 Mask words are uint32 bit patterns stored in int32 tensors; the plain
-versions widen them to int64 in [0, 2**32) wherever order or shifts must
-be unsigned (torch has no uint32 ``<`` or ``>>`` on the CPU).
+versions widen them to int64 in [0, 2**32) wherever order, shifts or
+products must be unsigned (torch has no uint32 ``<``, ``>>`` or ``*`` on
+the CPU).
 
-Device-side level state, shared by all four kernels:
+Device-side level state per key, shared by all four kernels:
 
-* ``scal`` int32[8]: done, lossy, wovf, level, best_k, live pool rows,
+* ``scal`` int32[B, 8]: done, lossy, wovf, level, best_k, live pool rows,
   this level's ``active`` flag, spare;
-* ``acc`` int32[9]: per-level accumulators (done, best, lossy, expanded,
-  dup, dominated, trunc, frontier, block ticket), zero between levels.
+* ``acc`` int32[B, 9]: per-level accumulators (done, best, lossy,
+  expanded, dup, dominated, trunc, frontier, block ticket), zero between
+  levels.
 
-``expand`` computes ``active = ~done & any(alive) & level <= LMAX`` and
-stores it; every later kernel of the level no-ops when it is false, and
-``dedup_truncate`` then copies the pool through unchanged: the masked
-update, tested on the device with no host synchronisation.
+``expand`` computes ``active = ~done & any(alive) & level <= LMAX`` per
+key and stores it; every later kernel of the level no-ops for a key whose
+flag is false, and ``dedup_truncate`` then copies that key's pool through
+unchanged: the masked update, tested on the device with no host
+synchronisation.
 """
 
 from __future__ import annotations
@@ -63,6 +76,11 @@ U32 = 0xFFFFFFFF
 LEADERS = 8
 #: per-level counters: expanded, dup, dominated, trunc, frontier
 NSTAT = 5
+#: sort tie-breaks: the whole row (lex), or key1 then a 32-bit mix of
+#: (k, mask, state) (hash, the keyed batch's first rungs)
+TIEBREAKS = ("lex", "hash")
+#: the most keys one launch takes (the grid's y extent)
+MAX_KEYS = 65535
 
 # scal lanes
 DONE, LOSSY, WOVF, LEVEL, BEST, NALIVE, ACT = range(7)
@@ -75,26 +93,42 @@ NACC = 9
 COLS = ("f", "v1", "v2", "ro", "fr", "inv", "ret", "sm", "cf", "cv1",
         "cv2", "cinv", "cps")
 
-#: launches of each kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"expand": 0, "sort_rows": 0, "group_scan": 0,
+#: launches of each kernel since the last :func:`reset_launches`; the sort
+#: counts its lex and its hash tie-break apart
+launches: Dict[str, int] = {"expand": 0, "sort_rows": 0,
+                            "sort_rows_hash": 0, "group_scan": 0,
                             "dedup_truncate": 0}
+#: the CUDA kernel launches those wrapper calls issued
+grid_launches_total: Dict[str, int] = dict.fromkeys(launches, 0)
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+        grid_launches_total[name] = 0
 
 
 @dataclass(frozen=True)
 class LevelShape:
-    """Static shape of one search: pool capacity C, window W, expansion E,
-    padded required ops n and padded crashed ops CR."""
+    """Static shape of a batch of searches: pool capacity C, window W,
+    expansion E, padded required ops n, padded crashed ops CR, keys B and
+    the sort's tie-break."""
 
     C: int
     W: int
     E: int
     n: int
     CR: int
+    B: int = 1
+    tiebreak: str = "lex"
+
+    def __post_init__(self):
+        if self.tiebreak not in TIEBREAKS:
+            raise ValueError(f"tiebreak must be one of {TIEBREAKS}, got "
+                             f"{self.tiebreak!r}")
+        if not 1 <= self.B <= MAX_KEYS:
+            raise ValueError(f"B = {self.B} keys: a launch takes 1 to "
+                             f"{MAX_KEYS}")
 
     @property
     def MW(self) -> int:          # window mask words
@@ -127,13 +161,14 @@ class LevelShape:
 
 @dataclass
 class Pool:
-    """C search configurations (k, mask, cmask, state) and their liveness."""
+    """C search configurations (k, mask, cmask, state) and their liveness
+    for each of B keys."""
 
-    k: torch.Tensor       # int32 [C]
-    mask: torch.Tensor    # int32 [C, MW]
-    cmask: torch.Tensor   # int32 [C, MCX]
-    state: torch.Tensor   # int32 [C]
-    alive: torch.Tensor   # bool [C]
+    k: torch.Tensor       # int32 [B, C]
+    mask: torch.Tensor    # int32 [B, C, MW]
+    cmask: torch.Tensor   # int32 [B, C, MCX]
+    state: torch.Tensor   # int32 [B, C]
+    alive: torch.Tensor   # bool [B, C]
 
     def tensors(self):
         return (self.k, self.mask, self.cmask, self.state, self.alive)
@@ -158,6 +193,14 @@ def _s(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x * c mod 2**32 for int64 x in [0, 2**32), in two 16-bit halves of
+    c so that no int64 product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & U32
+
+
 def _popc(x: torch.Tensor) -> torch.Tensor:
     """Population count of int64 words in [0, 2**32) (SWAR)."""
     x = x - ((x >> 1) & 0x55555555)
@@ -167,7 +210,7 @@ def _popc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _trailing_ones(m: torch.Tensor) -> torch.Tensor:
-    """Trailing one-bits across a whole [*, MW] mask."""
+    """Trailing one-bits across a whole [..., MW] mask."""
     tw = _popc(m & ~(m + 1) & U32)
     t = tw[..., 0]
     for w in range(1, m.shape[-1]):
@@ -197,8 +240,16 @@ def _shr_by(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 
 
 def _bit(m: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """Bit o of each row's mask: m [E, MW] int64, o [X] -> bool [E, X]."""
-    return ((m[:, o >> 5] >> (o & 31)) & 1) == 1
+    """Bit o of each row's mask: m [..., MW] int64, o [X] -> bool [..., X]."""
+    return ((m[..., o >> 5] >> (o & 31)) & 1) == 1
+
+
+def _bit_at(m: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Bit o[b, x] of key b's rows: m [B, E, MW] int64, o [B, X] -> bool
+    [B, E, X]."""
+    B, E = m.shape[:2]
+    words = m.gather(2, (o >> 5)[:, None, :].expand(B, E, -1))
+    return ((words >> (o & 31)[:, None, :]) & 1) == 1
 
 
 def _bitmat(width: int, words: int, device) -> torch.Tensor:
@@ -209,9 +260,17 @@ def _bitmat(width: int, words: int, device) -> torch.Tensor:
     return out
 
 
-def _active(scal: torch.Tensor, lmax: int) -> torch.Tensor:
-    return ((scal[DONE] == 0) & (scal[NALIVE] > 0)
-            & (scal[LEVEL] <= lmax)).to(torch.int32)
+def _take(col: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Key b's column entries: col [B, m], idx [B, ...] -> [B, ...]."""
+    B = col.shape[0]
+    return col.gather(1, idx.reshape(B, -1).long()).reshape(idx.shape)
+
+
+def active(scal: torch.Tensor, lmax: int) -> torch.Tensor:
+    """Per key: not done, some pool row alive, the level budget not spent
+    (int32 [B])."""
+    return ((scal[:, DONE] == 0) & (scal[:, NALIVE] > 0)
+            & (scal[:, LEVEL] <= lmax)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -221,46 +280,48 @@ def _active(scal: torch.Tensor, lmax: int) -> torch.Tensor:
 
 def expand_plain(cols: dict, pool: Pool, scal: torch.Tensor,
                  acc: torch.Tensor, rows: torch.Tensor, shape: LevelShape,
-                 nr: int) -> None:
+                 nr: torch.Tensor) -> None:
     """Plain version of the ``expand`` kernel (tpu.py:380-506)."""
-    C, W, E, n, CR = shape.C, shape.W, shape.E, shape.n, shape.CR
+    B, C, W, E, n, CR = shape.B, shape.C, shape.W, shape.E, shape.n, shape.CR
     MW, MCX, R = shape.MW, shape.MCX, shape.R
     dev = rows.device
     step = cas_register_step_torch
-    act = _active(scal, shape.lmax)
-    scal[ACT] = act
-    if not bool(act):
+    act = active(scal, shape.lmax)
+    scal[:, ACT] = act
+    act = act.bool()
+    if not bool(act.any()):
         return
     f, v1, v2, ro, fr = (cols[c] for c in ("f", "v1", "v2", "ro", "fr"))
     inv, ret, sm = cols["inv"], cols["ret"], cols["sm"]
-    k_e, s_e, a_e = pool.k[:E], pool.state[:E], pool.alive[:E]
-    m_e, cm_e = _u(pool.mask[:E]), _u(pool.cmask[:E])
-    acc[A_EXPANDED] += a_e.sum(dtype=torch.int32)
+    k_e, s_e, a_e = pool.k[:, :E], pool.state[:, :E], pool.alive[:, :E]
+    m_e, cm_e = _u(pool.mask[:, :E]), _u(pool.cmask[:, :E])
+    acc[:, A_EXPANDED] += torch.where(act, a_e.sum(1, dtype=torch.int32), 0)
 
     # window-overflow probe
-    ret_k = ret[k_e.clamp(0, n - 1).long()]
-    beyond = sm[(k_e + W).clamp(0, n).long()]
-    scal[WOVF] |= (a_e & (beyond < ret_k)).any().to(torch.int32)
+    ret_k = _take(ret, k_e.clamp(0, n - 1))
+    beyond = _take(sm, (k_e + W).clamp(0, n))
+    scal[:, WOVF] |= (act & (a_e & (beyond < ret_k)).any(1)).to(torch.int32)
 
-    # [E, W] required grid
+    # [B, E, W] required grid
     offs = torch.arange(W, device=dev)
-    j = k_e[:, None] + offs[None, :]
-    jc = j.clamp(0, n - 1).long()
-    cand = (a_e[:, None] & (j < n) & (inv[jc] < ret_k[:, None])
+    j = k_e[..., None] + offs
+    jc = j.clamp(0, n - 1)
+    cand = (a_e[..., None] & (j < n) & (_take(inv, jc) < ret_k[..., None])
             & ~_bit(m_e, offs))
-    s2, ok = step(s_e[:, None], f[jc], v1[jc], v2[jc])
-    pure = cand & ok & (ro[jc] > 0)
+    s2, ok = step(s_e[..., None], _take(f, jc), _take(v1, jc),
+                  _take(v2, jc))
+    pure = cand & ok & (_take(ro, jc) > 0)
     valid = cand & ok & ~pure
 
     # closure successor: all pure candidates at once
     bitmat = _bitmat(W, MW, dev)
-    pure_bits = (pure[:, :, None].to(torch.int64) * bitmat[None]).sum(1)
+    pure_bits = (pure[..., None].to(torch.int64) * bitmat).sum(-2)
     mc_ = m_e | pure_bits
     tc_ = _trailing_ones(mc_)
     kcl = k_e + tc_
     mcl = _shr_by(mc_, tc_)
-    closure_ok = a_e & pure.any(1)
-    valid = valid & ~closure_ok[:, None]
+    closure_ok = a_e & pure.any(-1)
+    valid = valid & ~closure_ok[..., None]
 
     # frontier advance for offset 0, with the forced fast-forward
     m1 = _shr1(m_e)
@@ -268,76 +329,85 @@ def expand_plain(cols: dict, pool: Pool, scal: torch.Tensor,
     k_adv = k_e + 1 + t
     m_adv = _shr_by(m1, t)
     bound = _crash_bound(cm_e, cols, shape)
-    k_adv, s0 = _fast_forward(k_adv, s2[:, 0], valid[:, 0], bound, cols,
-                              n, nr)
+    live = act[:, None]
+    k_adv, s0 = _fast_forward(k_adv, s2[..., 0], valid[..., 0] & live,
+                              bound, cols, n, nr)
     s2 = s2.clone()
-    s2[:, 0] = s0
-    is0 = (offs == 0)[None, :]
-    k2 = torch.where(is0, k_adv[:, None], k_e[:, None])
-    m2 = torch.where(is0[:, :, None], m_adv[:, None, :],
-                     m_e[:, None, :] | bitmat[None])
-    cm2 = cm_e[:, None, :].expand(E, W, MCX)
-    kcl, scl = _fast_forward(kcl, s_e, closure_ok, bound, cols, n, nr)
-    segs = [(k2.reshape(-1), m2.reshape(-1, MW), cm2.reshape(-1, MCX),
-             s2.reshape(-1), valid.reshape(-1)),
+    s2[..., 0] = s0
+    is0 = offs == 0
+    k2 = torch.where(is0, k_adv[..., None], k_e[..., None])
+    m2 = torch.where(is0[:, None], m_adv[:, :, None, :],
+                     m_e[:, :, None, :] | bitmat)
+    cm2 = cm_e[:, :, None, :].expand(B, E, W, MCX)
+    kcl, scl = _fast_forward(kcl, s_e, closure_ok & live, bound, cols, n,
+                             nr)
+    segs = [(k2.reshape(B, -1), m2.reshape(B, -1, MW),
+             cm2.reshape(B, -1, MCX), s2.reshape(B, -1),
+             valid.reshape(B, -1)),
             (kcl, mcl, cm_e, scl, closure_ok)]
 
-    # [E, CR] crashed grid with the canonical-order prune
+    # [B, E, CR] crashed grid with the canonical-order prune
     if CR:
         cinv, cps = cols["cinv"], cols["cps"]
         cidx = torch.arange(CR, device=dev)
-        ccand = (a_e[:, None] & ~closure_ok[:, None]
-                 & (cinv[None, :] < ret_k[:, None]) & ~_bit(cm_e, cidx))
+        ccand = (a_e[..., None] & ~closure_ok[..., None]
+                 & (cinv[:, None, :] < ret_k[..., None])
+                 & ~_bit(cm_e, cidx))
         prevc = cps.clamp(0, CR - 1).long()
-        redundant = ((cps >= 0)[None, :]
-                     & (cinv[prevc][None, :] < ret_k[:, None])
-                     & ~_bit(cm_e, prevc))
+        redundant = ((cps >= 0)[:, None, :]
+                     & (cinv.gather(1, prevc)[:, None, :] < ret_k[..., None])
+                     & ~_bit_at(cm_e, prevc))
         ccand = ccand & ~redundant
-        cs2, cok = step(s_e[:, None], cols["cf"][None, :],
-                        cols["cv1"][None, :], cols["cv2"][None, :])
-        cvalid = ccand & cok & (cs2 != s_e[:, None])
-        ccm2 = cm_e[:, None, :] | _bitmat(CR, MCX, dev)[None]
-        segs.append((k_e[:, None].expand(E, CR).reshape(-1),
-                     m_e[:, None, :].expand(E, CR, MW).reshape(-1, MW),
-                     ccm2.reshape(-1, MCX), cs2.reshape(-1),
-                     cvalid.reshape(-1)))
+        cs2, cok = step(s_e[..., None], cols["cf"][:, None, :],
+                        cols["cv1"][:, None, :], cols["cv2"][:, None, :])
+        cvalid = ccand & cok & (cs2 != s_e[..., None])
+        ccm2 = cm_e[:, :, None, :] | _bitmat(CR, MCX, dev)
+        segs.append((k_e[..., None].expand(B, E, CR).reshape(B, -1),
+                     m_e[:, :, None, :].expand(B, E, CR, MW)
+                     .reshape(B, -1, MW),
+                     ccm2.reshape(B, -1, MCX), cs2.reshape(B, -1),
+                     cvalid.reshape(B, -1)))
 
     # the unexpanded pool remainder
-    segs.append((pool.k[E:], _u(pool.mask[E:]), _u(pool.cmask[E:]),
-                 pool.state[E:], pool.alive[E:]))
-    fk, fm, fcm, fs, fv = (torch.cat([s[i] for s in segs]) for i in range(5))
-    depth = fk + _popc(fm).sum(1)
+    segs.append((pool.k[:, E:], _u(pool.mask[:, E:]),
+                 _u(pool.cmask[:, E:]), pool.state[:, E:],
+                 pool.alive[:, E:]))
+    fk, fm, fcm, fs, fv = (torch.cat([sg[i] for sg in segs], dim=1)
+                           for i in range(5))
+    depth = fk + _popc(fm).sum(-1)
     key1 = torch.where(fv, MAXK - depth, MAXK + 1 + fk)
-    pc = _popc(fcm).sum(1)
-    body = torch.cat([key1[:, None], fk[:, None], _s(fm), fs[:, None],
-                      pc[:, None], _s(fcm)], dim=1).to(torch.int32)
-    rows[:R] = body
-    rows[R:] = 0
-    rows[R:, 0] = INT32_MAX
+    pc = _popc(fcm).sum(-1)
+    body = torch.cat([key1[..., None], fk[..., None], _s(fm), fs[..., None],
+                      pc[..., None], _s(fcm)], dim=-1).to(torch.int32)
+    new = torch.zeros_like(rows)
+    new[:, :R] = body
+    new[:, R:, 0] = INT32_MAX
+    rows.copy_(torch.where(act[:, None, None], new, rows))
 
 
 def _crash_bound(cm_e: torch.Tensor, cols: dict,
                  shape: LevelShape) -> torch.Tensor:
     """Per row, the first frontier whose return exceeds the smallest
     untaken crashed invocation (tpu.py:294-306)."""
-    E = cm_e.shape[0]
     if not shape.CR:
-        return torch.full((E,), shape.n, dtype=torch.int64,
+        return torch.full(cm_e.shape[:2], shape.n, dtype=torch.int64,
                           device=cm_e.device)
     cinv = cols["cinv"]
     ctk = _bit(cm_e, torch.arange(shape.CR, device=cm_e.device))
-    umin = torch.where(ctk, RET_INF, cinv[None, :]).min(1).values
+    umin = torch.where(ctk, RET_INF, cinv[:, None, :]).min(-1).values
     return torch.searchsorted(cols["ret"], umin.contiguous(), right=True)
 
 
-def _fast_forward(kk, ss, go, bound, cols, n: int, nr: int):
-    """Advance rows through runs of forced ops (tpu.py:308-346)."""
+def _fast_forward(kk, ss, go, bound, cols, n: int, nr: torch.Tensor):
+    """Advance rows [B, E] through runs of forced ops (tpu.py:308-346)."""
     f, v1, v2, fr = cols["f"], cols["v1"], cols["v2"], cols["fr"]
     kk, ss, go = kk.clone(), ss.clone(), go.clone()
+    nr = nr[:, None]
     while bool(go.any()):
-        kc = kk.clamp(0, n - 1).long()
-        s2, ok = cas_register_step_torch(ss, f[kc], v1[kc], v2[kc])
-        go = go & (fr[kc] > 0) & (kk < bound) & (kk < nr) & ok
+        kc = kk.clamp(0, n - 1)
+        s2, ok = cas_register_step_torch(ss, _take(f, kc), _take(v1, kc),
+                                         _take(v2, kc))
+        go = go & (_take(fr, kc) > 0) & (kk < bound) & (kk < nr) & ok
         kk = kk + go.to(kk.dtype)
         ss = torch.where(go, s2, ss)
     return kk, ss
@@ -347,55 +417,83 @@ def _unsigned_word(w: int, MW: int) -> bool:
     return 2 <= w < 2 + MW or w >= 4 + MW   # mask and cmask words
 
 
-def _sort_keys(rows: torch.Tensor, MW: int):
-    """The row's lex order as int64 keys, two 32-bit words per key: the
-    high word as a signed value, the low word offset into [0, 2**32)."""
+def row_hash_plain(rows: torch.Tensor, MW: int) -> torch.Tensor:
+    """The hash tie-break's mix of (k, mask, state) per row (tpu.py:552),
+    as int64 in [0, 2**32)."""
+    h = _mul32(_u(rows[..., 1]), 0x9E3779B9)
+    for w in range(MW):
+        h = _mul32(h ^ _u(rows[..., 2 + w]), 0x85EBCA6B)
+        h = h ^ (h >> 13)
+    h = _mul32(h ^ _u(rows[..., 2 + MW]), 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _order_words(rows: torch.Tensor, shape: LevelShape):
+    """The comparator's words in order, each as int64 in [0, 2**32) that
+    orders as the word does (signed words offset by 2**31). lex: the row
+    in row order. hash: key1, h, popcount, cmask, k, mask, state."""
+    MW, NK = shape.MW, shape.NK
+
+    def word(w):
+        x = rows[..., w].to(torch.int64)
+        return x & U32 if _unsigned_word(w, MW) else x + 2**31
+
+    if shape.tiebreak == "lex":
+        return [word(w) for w in range(NK)]
+    return ([word(0), row_hash_plain(rows, MW)]
+            + [word(w) for w in range(3 + MW, NK)]
+            + [word(w) for w in range(1, 3 + MW)])
+
+
+def _sort_keys(rows: torch.Tensor, shape: LevelShape):
+    """The comparator's order as int64 keys, two 32-bit words per key."""
+    words = _order_words(rows, shape)
     keys = []
-    for w in range(0, rows.shape[1], 2):
-        hi = rows[:, w].to(torch.int64)
-        if _unsigned_word(w, MW):
-            hi = (hi & U32) - 2**31
-        if w + 1 == rows.shape[1]:
-            keys.append(hi)
-            break
-        lo = rows[:, w + 1].to(torch.int64)
-        lo = lo & U32 if _unsigned_word(w + 1, MW) else lo + 2**31
-        keys.append(hi * 2**32 + lo)
+    for i in range(0, len(words), 2):
+        hi = words[i] - 2**31
+        keys.append(hi if i + 1 == len(words)
+                    else hi * 2**32 + words[i + 1])
     return keys
 
 
 def sort_rows_plain(rows: torch.Tensor, scal: torch.Tensor,
                     shape: LevelShape) -> None:
-    """Plain version of ``sort_rows``: the lex order of tpu.py:574-588, by
+    """Plain version of ``sort_rows``: each active key's rows in the
+    comparator's order (lex, tpu.py:574-588; hash, tpu.py:528-570), by
     stable sorts from the last key to the first."""
-    if not bool(scal[ACT]):
+    act = scal[:, ACT] != 0
+    if not bool(act.any()):
         return
-    keys = _sort_keys(rows, shape.MW)
-    perm = torch.arange(rows.shape[0], device=rows.device)
+    keys = _sort_keys(rows, shape)
+    perm = torch.arange(rows.shape[1], device=rows.device).expand(
+        rows.shape[0], -1)
     for key in reversed(keys):
-        perm = perm[torch.sort(key[perm], stable=True).indices]
-    rows.copy_(rows[perm])
+        perm = perm.gather(1, torch.sort(key.gather(1, perm), dim=1,
+                                         stable=True).indices)
+    out = rows.gather(1, perm[..., None].expand(-1, -1, rows.shape[2]))
+    rows.copy_(torch.where(act[:, None, None], out, rows))
 
 
 def _same_grp(rows: torch.Tensor, MW: int) -> torch.Tensor:
     """Row i has the (key1, k, mask, state) of row i-1, both valid."""
-    fv = rows[:, 0] <= MAXK
-    eq = (rows[1:, :3 + MW] == rows[:-1, :3 + MW]).all(1)
+    fv = rows[..., 0] <= MAXK
+    eq = (rows[:, 1:, :3 + MW] == rows[:, :-1, :3 + MW]).all(-1)
     out = torch.zeros_like(fv)
-    out[1:] = eq & fv[1:] & fv[:-1]
+    out[:, 1:] = eq & fv[:, 1:] & fv[:, :-1]
     return out
 
 
 def group_scan_plain(rows: torch.Tensor, scal: torch.Tensor,
                      g: torch.Tensor, shape: LevelShape) -> None:
-    """Plain version of ``group_scan``: g[i] = index of row i's group
+    """Plain version of ``group_scan``: g[b, i] = index of row i's group
     start, ``cummax(where(same_grp, 0, i))`` (tpu.py:605)."""
-    if not bool(scal[ACT]):
+    act = scal[:, ACT] != 0
+    if not bool(act.any()):
         return
-    iota = torch.arange(rows.shape[0], device=rows.device,
+    iota = torch.arange(rows.shape[1], device=rows.device,
                         dtype=torch.int32)
     v = torch.where(_same_grp(rows, shape.MW), 0, iota)
-    g.copy_(torch.cummax(v, 0).values)
+    g.copy_(torch.where(act[:, None], torch.cummax(v, 1).values, g))
 
 
 def dedup_truncate_plain(rows: torch.Tensor, g: torch.Tensor,
@@ -403,54 +501,65 @@ def dedup_truncate_plain(rows: torch.Tensor, g: torch.Tensor,
                          ps: torch.Tensor, pa: torch.Tensor,
                          scal: torch.Tensor, acc: torch.Tensor,
                          stats: torch.Tensor, shape: LevelShape,
-                         nr: int) -> None:
+                         nr: torch.Tensor) -> None:
     """Plain version of ``dedup_truncate`` (tpu.py:589-664)."""
-    if not bool(scal[ACT]):
+    act = scal[:, ACT] != 0
+    if not bool(act.any()):
         pool_out.copy_(pool_in)
         return
     C, R, MW, MCX = shape.C, shape.R, shape.MW, shape.MCX
-    rw = rows[:R]
-    key1, fk, fs = rw[:, 0], rw[:, 1], rw[:, 2 + MW]
-    fcm = _u(rw[:, 4 + MW:])
+    rw = rows[:, :R]
+    key1, fk, fs = rw[..., 0], rw[..., 1], rw[..., 2 + MW]
+    fcm = _u(rw[..., 4 + MW:])
     fv = key1 <= MAXK
     same = _same_grp(rw, MW)
     cm_eq = torch.zeros_like(same)
-    cm_eq[1:] = (rw[1:, 4 + MW:] == rw[:-1, 4 + MW:]).all(1)
+    cm_eq[:, 1:] = (rw[:, 1:, 4 + MW:] == rw[:, :-1, 4 + MW:]).all(-1)
     dup = same & cm_eq
     dominated = torch.zeros_like(fv)
     if shape.CR:
         iota = torch.arange(R, device=rows.device)
-        gr = g[:R].long()
+        gr = g[:, :R].long()
         for p in range(LEADERS):
             li = (gr + p).clamp(max=R - 1)
-            lead = ((rw[li, :3 + MW] == rw[:, :3 + MW]).all(1)
+            rl = rw.gather(1, li[..., None].expand(-1, -1, rw.shape[2]))
+            lead = ((rl[..., :3 + MW] == rw[..., :3 + MW]).all(-1)
                     & (li < iota) & fv)
-            subset = ((fcm & fcm[li]) == fcm[li]).all(1)
+            cl = _u(rl[..., 4 + MW:])
+            subset = ((fcm & cl) == cl).all(-1)
             dominated |= lead & subset
     uniq = fv & ~dup & ~dominated
 
-    pk.copy_(pool_in.k)
-    ps.copy_(pool_in.state)
-    pa.copy_(pool_in.alive)
-    pool_out.k.copy_(fk[:C])
-    pool_out.mask.copy_(rw[:C, 2:2 + MW])
-    pool_out.cmask.copy_(rw[:C, 4 + MW:4 + MW + MCX])
-    pool_out.state.copy_(fs[:C])
-    pool_out.alive.copy_(uniq[:C])
+    a1 = act[:, None]
+    a2 = act[:, None, None]
+    pk.copy_(torch.where(a1, pool_in.k, pk))
+    ps.copy_(torch.where(a1, pool_in.state, ps))
+    pa.copy_(torch.where(a1, pool_in.alive, pa))
+    pool_out.k.copy_(torch.where(a1, fk[:, :C], pool_in.k))
+    pool_out.mask.copy_(torch.where(a2, rw[:, :C, 2:2 + MW], pool_in.mask))
+    pool_out.cmask.copy_(torch.where(a2, rw[:, :C, 4 + MW:4 + MW + MCX],
+                                     pool_in.cmask))
+    pool_out.state.copy_(torch.where(a1, fs[:, :C], pool_in.state))
+    pool_out.alive.copy_(torch.where(a1, uniq[:, :C], pool_in.alive))
 
     i32 = torch.int32
-    frontier = uniq[:C].sum(dtype=i32)
-    row = scal[LEVEL].clamp(0, shape.lmax).long()
-    stats[row] = torch.stack([acc[A_EXPANDED], dup.sum(dtype=i32),
-                              dominated.sum(dtype=i32),
-                              uniq[C:].sum(dtype=i32), frontier])
-    scal[DONE] |= (fv & (fk >= nr)).any().to(i32)
-    scal[LOSSY] |= uniq[C:].any().to(i32)
-    scal[LEVEL] += 1
-    scal[BEST] = torch.maximum(scal[BEST],
-                               torch.where(fv, fk, 0).max().to(i32))
-    scal[NALIVE] = frontier
-    acc.zero_()
+    frontier = uniq[:, :C].sum(1, dtype=i32)
+    counts = torch.stack([acc[:, A_EXPANDED], dup.sum(1, dtype=i32),
+                          dominated.sum(1, dtype=i32),
+                          uniq[:, C:].sum(1, dtype=i32), frontier], dim=1)
+    keys = act.nonzero()[:, 0]
+    row = scal[:, LEVEL].clamp(0, shape.lmax).long()
+    stats[keys, row[keys]] = counts[keys]
+    new = scal.clone()
+    new[:, DONE] |= (fv & (fk >= nr[:, None])).any(1).to(i32)
+    new[:, LOSSY] |= uniq[:, C:].any(1).to(i32)
+    new[:, LEVEL] += 1
+    new[:, BEST] = torch.maximum(scal[:, BEST],
+                                 torch.where(fv, fk, 0).max(1).values
+                                 .to(i32))
+    new[:, NALIVE] = frontier
+    scal.copy_(torch.where(a1, new, scal))
+    acc[keys] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -481,18 +590,21 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
 
 
 def _check_pool(pool: Pool, name: str, shape: LevelShape) -> None:
-    C = shape.C
-    _check(pool.k, f"{name}.k", torch.int32, (C,))
-    _check(pool.mask, f"{name}.mask", torch.int32, (C, shape.MW))
-    _check(pool.cmask, f"{name}.cmask", torch.int32, (C, shape.MCX))
-    _check(pool.state, f"{name}.state", torch.int32, (C,))
-    _check(pool.alive, f"{name}.alive", torch.bool, (C,))
+    B, C = shape.B, shape.C
+    _check(pool.k, f"{name}.k", torch.int32, (B, C))
+    _check(pool.mask, f"{name}.mask", torch.int32, (B, C, shape.MW))
+    _check(pool.cmask, f"{name}.cmask", torch.int32, (B, C, shape.MCX))
+    _check(pool.state, f"{name}.state", torch.int32, (B, C))
+    _check(pool.alive, f"{name}.alive", torch.bool, (B, C))
 
 
-def _check_level(rows, scal, acc, shape: LevelShape) -> None:
-    _check(rows, "rows", torch.int32, (shape.RP, shape.NK))
-    _check(scal, "scal", torch.int32, (NSCAL,))
-    _check(acc, "acc", torch.int32, (NACC,))
+def _check_rows(rows, scal, shape: LevelShape) -> None:
+    _check(rows, "rows", torch.int32, (shape.B, shape.RP, shape.NK))
+    _check(scal, "scal", torch.int32, (shape.B, NSCAL))
+
+
+def _check_nr(nr, shape: LevelShape) -> None:
+    _check(nr, "nr", torch.int32, (shape.B,))
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -503,13 +615,14 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch(name: str, fn, *args) -> None:
+def _launch(name: str, shape: LevelShape, fn, *args) -> None:
     from jepsen_tpu_torch.kernels import build
     rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{build.error_string(rc)}")
     launches[name] += 1
+    grid_launches_total[name] += grid_launches(name, shape)
 
 
 def _lib():
@@ -518,51 +631,52 @@ def _lib():
 
 
 def expand(cols: dict, pool: Pool, scal: torch.Tensor, acc: torch.Tensor,
-           rows: torch.Tensor, shape: LevelShape, nr: int) -> None:
-    """Expand the top E pool rows into the R merged rows."""
-    n, CR = shape.n, shape.CR
+           rows: torch.Tensor, shape: LevelShape, nr: torch.Tensor) -> None:
+    """Expand each key's top E pool rows into its R merged rows; ``nr``
+    is each key's required-op count."""
+    B, n, CR = shape.B, shape.n, shape.CR
     for c in COLS:
         width = n + 1 if c == "sm" else (n if c in COLS[:8] else CR)
-        _check(cols[c], c, torch.int32, (width,))
+        _check(cols[c], c, torch.int32, (B, width))
+    _check_nr(nr, shape)
     _check_pool(pool, "pool", shape)
-    _check_level(rows, scal, acc, shape)
-    tensors = [cols[c] for c in COLS] + list(pool.tensors()) + [scal, acc,
-                                                                rows]
+    _check_rows(rows, scal, shape)
+    _check(acc, "acc", torch.int32, (B, NACC))
+    tensors = ([cols[c] for c in COLS] + [nr] + list(pool.tensors())
+               + [scal, acc, rows])
     if _on_cpu(tensors):
         expand_plain(cols, pool, scal, acc, rows, shape, nr)
         return
-    lib = _lib()
-    _launch("expand", lib.jt_expand,
-            *[_ptr(t) for t in tensors],
-            shape.C, shape.W, shape.E, n, CR, nr, shape.lmax,
-            _stream(rows))
+    _launch("expand", shape, _lib().jt_expand, *[_ptr(t) for t in tensors],
+            B, shape.C, shape.W, shape.E, n, CR, shape.lmax, _stream(rows))
 
 
 def sort_rows(rows: torch.Tensor, scal: torch.Tensor,
               shape: LevelShape) -> None:
-    """Sort the padded rows in place in lex order."""
-    _check(rows, "rows", torch.int32, (shape.RP, shape.NK))
-    _check(scal, "scal", torch.int32, (NSCAL,))
+    """Sort each active key's padded rows in place in the order of
+    ``shape.tiebreak``."""
+    _check_rows(rows, scal, shape)
     if _on_cpu([rows, scal]):
         sort_rows_plain(rows, scal, shape)
         return
-    _launch("sort_rows", _lib().jt_sort_rows, _ptr(rows), _ptr(scal),
-            shape.RP, shape.NK, shape.MW, _stream(rows))
+    name = "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
+    _launch(name, shape, _lib().jt_sort_rows, _ptr(rows), _ptr(scal),
+            shape.B, shape.RP, shape.NK, shape.MW,
+            TIEBREAKS.index(shape.tiebreak), _stream(rows))
 
 
 def group_scan(rows: torch.Tensor, scal: torch.Tensor, g: torch.Tensor,
                gagg: torch.Tensor, shape: LevelShape) -> None:
     """Write each sorted row's group start into g; ``gagg`` is the
     kernel's scratch for per-block maxima."""
-    _check(rows, "rows", torch.int32, (shape.RP, shape.NK))
-    _check(scal, "scal", torch.int32, (NSCAL,))
-    _check(g, "g", torch.int32, (shape.RP,))
-    _check(gagg, "gagg", torch.int32, (scan_blocks(shape.RP),))
+    _check_rows(rows, scal, shape)
+    _check(g, "g", torch.int32, (shape.B, shape.RP))
+    _check(gagg, "gagg", torch.int32, (shape.B, scan_blocks(shape.RP)))
     if _on_cpu([rows, scal, g, gagg]):
         group_scan_plain(rows, scal, g, shape)
         return
-    _launch("group_scan", _lib().jt_group_scan, _ptr(rows), _ptr(scal),
-            _ptr(g), _ptr(gagg), shape.RP, shape.NK, shape.MW,
+    _launch("group_scan", shape, _lib().jt_group_scan, _ptr(rows), _ptr(scal),
+            _ptr(g), _ptr(gagg), shape.B, shape.RP, shape.NK, shape.MW,
             _stream(rows))
 
 
@@ -571,27 +685,45 @@ def scan_blocks(RP: int) -> int:
     return max(1, RP // 1024)
 
 
+def grid_launches(name: str, shape: LevelShape) -> int:
+    """CUDA kernel launches one call of wrapper ``name`` issues at
+    ``shape``. The sort sorts blocks of S = min(RP, 1024) rows in shared
+    memory, then merges each doubling kk up to RP with log2(kk / S)
+    global passes and one local pass; the scan adds a carry launch once
+    it spans several blocks."""
+    if name.startswith("sort_rows"):
+        stages = (shape.RP // min(shape.RP, 1024)).bit_length() - 1
+        return 1 + sum(i + 1 for i in range(1, stages + 1))
+    if name == "group_scan":
+        return 1 if scan_blocks(shape.RP) == 1 else 2
+    return 1
+
+
 def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
                    pool_out: Pool, pk: torch.Tensor, ps: torch.Tensor,
                    pa: torch.Tensor, scal: torch.Tensor, acc: torch.Tensor,
-                   stats: torch.Tensor, shape: LevelShape, nr: int) -> None:
+                   stats: torch.Tensor, shape: LevelShape,
+                   nr: torch.Tensor) -> None:
     """Kill dups and dominated rows, truncate to C rows into ``pool_out``,
-    and finish the level's scalars and counters."""
-    C = shape.C
-    _check_level(rows, scal, acc, shape)
-    _check(g, "g", torch.int32, (shape.RP,))
+    and finish each active key's level scalars and counters."""
+    B, C = shape.B, shape.C
+    _check_rows(rows, scal, shape)
+    _check(g, "g", torch.int32, (B, shape.RP))
     _check_pool(pool_in, "pool_in", shape)
     _check_pool(pool_out, "pool_out", shape)
-    _check(pk, "pk", torch.int32, (C,))
-    _check(ps, "ps", torch.int32, (C,))
-    _check(pa, "pa", torch.bool, (C,))
-    _check(stats, "stats", torch.int32, (shape.lmax + 1, NSTAT))
+    _check(pk, "pk", torch.int32, (B, C))
+    _check(ps, "ps", torch.int32, (B, C))
+    _check(pa, "pa", torch.bool, (B, C))
+    _check_nr(nr, shape)
+    _check(acc, "acc", torch.int32, (B, NACC))
+    _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
     tensors = ([rows, g] + list(pool_in.tensors())
-               + list(pool_out.tensors()) + [pk, ps, pa, scal, acc, stats])
+               + list(pool_out.tensors())
+               + [pk, ps, pa, nr, scal, acc, stats])
     if _on_cpu(tensors):
         dedup_truncate_plain(rows, g, pool_in, pool_out, pk, ps, pa, scal,
                              acc, stats, shape, nr)
         return
-    _launch("dedup_truncate", _lib().jt_dedup_truncate,
+    _launch("dedup_truncate", shape, _lib().jt_dedup_truncate,
             *[_ptr(t) for t in tensors],
-            C, shape.W, shape.CR, shape.R, nr, shape.lmax, _stream(rows))
+            B, C, shape.W, shape.CR, shape.R, shape.lmax, _stream(rows))

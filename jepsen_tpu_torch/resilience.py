@@ -1,16 +1,16 @@
-"""The checkpointed segment loop of the single-history search.
+"""The segment loop of the single-history search.
 
 Counterpart of the segment loop of ``supervised_check_packed`` in
-``jepsen_tpu/resilience.py``. Each rung runs in bounded segments of
-levels; inside a segment the carry stays on the device and the kernels
-test ``active`` there, so the host launches a segment's levels without
-waiting. At each segment end the carry is copied to the host in the
-reference's numpy layout (the checkpoint), and the host decides whether
-another segment is worth running. Verdicts and level counts equal an
-unsegmented run's, because an inactive level changes nothing.
+``jepsen_tpu/resilience.py``. Each rung runs as the keyed batch does, a
+batch of one through :func:`jepsen_tpu_torch.checker.gpu.run_batch`:
+segments of levels that grow from 64 up to ``segment_iters``, with the
+carry on the device and the kernels testing ``active`` there, so the host
+launches a segment's levels without waiting and reads the ``active`` flag
+once at its end. Verdicts and level counts equal an unsegmented run's,
+because an inactive level changes nothing.
 
-The reference's watchdog, CPU fallback, OOM shrink and fault injection
-are not part of this slice.
+The reference's checkpoint files, watchdog, CPU fallback, OOM shrink and
+fault injection are not part of this slice.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             segment_iters: Optional[int] = None,
                             device: Optional[torch.device] = None,
                             ops: G.Ops = G.KERNELS) -> Dict[str, Any]:
-    """Check one packed history rung by rung, in checkpointed segments
+    """Check one packed history rung by rung, in growing segments
     (see :func:`jepsen_tpu_torch.checker.gpu.check_packed_gpu`).
     ``ops=gpu.PLAIN`` runs the kernels' plain versions instead, on any
     device: the reference a run on the card is held against."""
@@ -55,7 +55,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     n, cr_pad = cols_np["f"].shape[0], cols_np["cf"].shape[0]
     nr = int(cols_np["nr"])
     lmax = G._level_budget(n, cr_pad)
-    seg = G._segment_config(segment_iters) or lmax + 1
+    seg, first = G._segment_schedule(segment_iters, lmax)
     eng = default_engine()
     work: list = []
     out: Dict[str, Any] = {}
@@ -69,11 +69,8 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                                   stats_rows=lmax + 1)
             interop.carry_from_numpy(host, dev, out=carry)
             scratch.acc.zero_()
-            segments = 0
-            while G._carry_active(host, lmax):
-                G.run_segment(cols, carry, scratch, shape, nr, seg, ops)
-                host = interop.carry_to_numpy(carry)   # waits for the device
-                segments += 1
+            segs = G.run_batch(cols, carry, scratch, shape, seg, ops, first)
+            host = interop.carry_to_numpy(carry)
             done, lossy, wovf, best, levels, pool = G._summarize_carry(host)
             out = G._result(done, lossy, wovf, best, levels, p, pool=pool)
             out["rung"] = (cap, win, exp)
@@ -82,7 +79,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             out["tiebreak"] = "lex"
             work.append(((cap, win, exp), crw, "lex", levels))
             out["work"] = list(work)
-            out["segments"] = segments
+            out["segments"] = len(segs)
             out["segment-iters"] = seg
             out["searchstats"] = dict(zip(
                 G.SEARCHSTAT_COLS,

@@ -143,3 +143,22 @@ def wide_history(n_procs=100, rounds=2, write_frac=0.12, seed=0,
                 break
         h = History.of(rows)
     return h
+
+
+def keyed_history(histories: dict) -> History:
+    """One ``[k v]`` history from per-key histories, as an independent-key
+    test records it: every op's value wrapped as ``KV(k, value)``, each
+    key's processes offset into a range of their own, and the keys' ops
+    interleaved by time."""
+    from jepsen_tpu_torch.independent import KV
+    events = []
+    for n, (k, h) in enumerate(histories.items()):
+        events += [(o.time, n, j, k, o) for j, o in enumerate(h)]
+    events.sort(key=lambda e: e[:3])
+    out = History()
+    for i, (_, n, _, k, o) in enumerate(events):
+        p = o.process + 1000 * (n + 1) if isinstance(o.process, int) \
+            else o.process
+        out.append(Op(o.type, o.f, KV(k, o.value), p, o.time, i, o.error,
+                      o.extra))
+    return out

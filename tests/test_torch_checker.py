@@ -14,6 +14,7 @@ from jepsen_tpu import testing as jt
 
 from jepsen_tpu_torch.analysis.history_lint import MalformedHistoryError
 from jepsen_tpu_torch.checker import UNKNOWN
+from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.checker.gpu import check_history_gpu
 from jepsen_tpu_torch.checker.wgl import (LinearizableChecker, check_packed,
                                           linearizable)
@@ -130,3 +131,20 @@ def test_headline_matches_jax():
     h = jt.simulate_register_history(10000, n_procs=5, n_vals=16, seed=42,
                                      crash_p=0.002)
     assert assert_same(h)["valid"] is True
+
+
+@pytest.mark.parametrize("segment_iters", [None, 100])
+def test_the_single_path_runs_the_batch_schedule(segment_iters):
+    """One history runs the keyed batch's loop: segments grow from 64
+    levels, doubling up to the segment length, and stop at the first
+    segment end with the search over."""
+    h = jt.simulate_register_history(300, n_procs=5, seed=6, crash_p=0.02)
+    r = check_history_gpu(_port(h), CASRegister(), device="cpu",
+                          segment_iters=segment_iters)
+    cap = segment_iters or G.DEFAULT_SEGMENT_ITERS
+    segs, seg = [], G.FIRST_BATCH_SEGMENT
+    while sum(segs) < r["levels"]:
+        segs.append(seg)
+        seg = min(2 * seg, cap)
+    assert r["valid"] is True and r["levels"] > G.FIRST_BATCH_SEGMENT
+    assert r["segments"] == len(segs) and r["segment-iters"] == cap

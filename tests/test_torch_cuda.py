@@ -34,6 +34,8 @@ FIXTURES = {
                                              seed=3, crash_p=0.3),
     "wide48": lambda: wide_history(48, 2, seed=3),
     "wide100": lambda: crash_writes(wide_history(100, 2, seed=5), 6),
+    "wide40a": lambda: crash_writes(wide_history(40, 2, seed=1), 2),
+    "wide40b": lambda: crash_writes(wide_history(40, 2, seed=2), 2),
 }
 #: (fixture, rung): narrow rungs, BFS, and rungs whose rows span several
 #: sort and scan blocks
@@ -111,4 +113,98 @@ def test_each_wrapper_counts_its_launches(cuda):
     lv = parity.Level(cols, (128, 32, 8), cuda)
     K.reset_launches()
     lv.advance(5)
-    assert K.launches == {name: 5 for name in K.launches}
+    assert K.launches == {**{name: 5 for name in K.launches},
+                          "sort_rows_hash": 0}
+    assert K.grid_launches_total == K.launches
+
+
+def test_grid_launches_count_the_sorts_passes(cuda):
+    cols = _batch_cols([FIXTURES[n]() for n in ("wide40a", "wide40b")], 8)
+    lv = parity.Level(cols, (512, 64, 512), cuda)
+    K.reset_launches()
+    lv.advance(2)
+    assert lv.shape.RP == 65536
+    assert K.launches["sort_rows"] == 2
+    assert K.grid_launches_total["sort_rows"] == 2 * 28
+    assert K.grid_launches_total["group_scan"] == 2 * 2
+
+
+def _batch_cols(histories, cr):
+    """The histories' columns padded to one required width and to
+    crashed width ``cr``: one keyed cohort."""
+    packed = [pack_with_init(h, CASRegister()) for h in histories]
+    breq = G._bucket(max(p.n_required for p, _ in packed))
+    return [G._split_packed(p, breq, cr, kernel) for p, kernel in packed]
+
+
+#: (fixtures, crashed width, rung): the keyed first rungs, a rung whose
+#: rows span several sort and scan blocks, the keyed window-deferred rung
+#: (RP = 65,536: 28 sort launches a call), and four mask and four crashed
+#: words (the hash sort's shared memory above 48 KB)
+BATCH_CASES = [
+    (("entry", "crashed", "mc2"), 64, (32, 32, 4)),
+    (("entry", "crashed", "mc2"), 64, (128, 32, 16)),
+    (("crashed", "mc2"), 64, (1024, 32, 64)),
+    (("wide40a", "wide40b"), 8, (512, 64, 512)),
+    (("wide100", "wide48"), 128, (512, 128, 512)),
+]
+
+
+@pytest.mark.parametrize("tiebreak", K.TIEBREAKS)
+@pytest.mark.parametrize("names,cr,rung", BATCH_CASES)
+def test_each_batched_kernel_matches_its_plain_version(cuda, tiebreak,
+                                                       names, cr, rung):
+    cols = _batch_cols([FIXTURES[n]() for n in names], cr)
+    lv = parity.Level(cols, rung, cuda, tiebreak=tiebreak)
+    walked = 0
+    for _ in range(4):
+        if lv.advance(3) == 0:
+            break
+        for stage, _, _, _, err in lv.walk():
+            assert err == 0, (names, rung, tiebreak, stage)
+        walked += 1
+    assert walked > 0
+
+
+@pytest.mark.parametrize("tiebreak", K.TIEBREAKS)
+def test_batched_segments_match_the_plain_versions(cuda, tiebreak):
+    cols = _batch_cols([FIXTURES[n]() for n in ("entry", "crashed", "mc2")],
+                       64)
+    carries = []
+    for ops in (G.KERNELS, G.PLAIN):
+        lv = parity.Level(cols, (128, 32, 8), cuda, tiebreak=tiebreak)
+        G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr, 60,
+                      ops)
+        carries.append(interop.batch_carry_to_numpy(lv.carry))
+    for x, y in zip(*carries, strict=True):
+        assert np.array_equal(x, y)
+
+
+def test_keyed_check_matches_the_plain_versions(cuda):
+    from jepsen_tpu_torch.checker.gpu import check_keyed_gpu
+    keyed = {"stag": simulate_register_history(300, n_procs=5, n_vals=8,
+                                               seed=7000, overlap_p=0.05),
+             "dense": simulate_register_history(300, n_procs=5, n_vals=8,
+                                                seed=7001, crash_p=0.001),
+             "crashy": simulate_register_history(300, n_procs=5, n_vals=8,
+                                                 seed=7002, crash_p=0.05),
+             "bad": _corrupted(),
+             # deferred by their window to the (512, 64, 512) lex rung
+             "wide_a": FIXTURES["wide40a"](), "wide_b": FIXTURES["wide40b"]()}
+    K.reset_launches()
+    ours = check_keyed_gpu(keyed, CASRegister(), device=cuda)
+    # the first rungs sort under the hash tie-break; the lex sort runs
+    # only for keys that escalate
+    assert all(K.launches[k] > 0 for k in (
+        "expand", "sort_rows_hash", "group_scan", "dedup_truncate")), \
+        K.launches
+    ref = check_keyed_gpu(keyed, CASRegister(), device=cuda, ops=G.PLAIN)
+    keys = ("valid", "levels", "max-linearized-prefix", "rung", "tiebreak",
+            "work", "crash-width")
+    for k in keyed:
+        assert ({x: ours["results"][k].get(x) for x in keys}
+                == {x: ref["results"][k].get(x) for x in keys}), k
+    assert ours["results"]["bad"]["valid"] is False
+    assert ours["results"]["stag"]["tiebreak"] == "hash"
+    assert ours["results"]["wide_a"]["rung"] == (512, 64, 512)
+    assert K.launches["sort_rows"] > 0

@@ -24,6 +24,8 @@ FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_headline.py"),
+             os.path.join(ROOT, "tools", "profile_torch_keyed.py"),
+             os.path.join(ROOT, "tools", "time_torch_headline.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -52,7 +54,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 
 def test_importing_the_checker_loads_no_jax():
     code = ("import sys, jepsen_tpu_torch.checker.wgl, "
-            "jepsen_tpu_torch.resilience, jepsen_tpu_torch.interop; "
+            "jepsen_tpu_torch.resilience, jepsen_tpu_torch.interop, "
+            "jepsen_tpu_torch.independent; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -70,6 +73,23 @@ def test_default_device_is_cuda():
     from jepsen_tpu_torch.checker.wgl import linearizable
     with pytest.raises(RuntimeError, match="CUDA"):
         linearizable(CASRegister()).check({}, h)
+
+
+def test_keyed_entry_points_default_to_cuda():
+    """The keyed batch and the independent checker over it run on the
+    GPU unless asked otherwise; without one they raise rather than fall
+    back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from jepsen_tpu_torch import independent
+    from jepsen_tpu_torch.checker.gpu import check_keyed_gpu
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    h = simulate_register_history(20, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        check_keyed_gpu({"a": h}, CASRegister())
+    keyed = [o.replace(value=independent.KV("a", o.value)) for o in h]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        independent.checker(linearizable(CASRegister())).check({}, keyed)
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):
@@ -91,7 +111,7 @@ def test_a_cuda_request_without_a_library_raises(monkeypatch):
     before = dict(K.launches)
     with FakeTensorMode():
         scratch = empty_scratch(shape, "cuda")
-        scal = torch.zeros(K.NSCAL, dtype=torch.int32, device="cuda")
+        scal = torch.zeros(1, K.NSCAL, dtype=torch.int32, device="cuda")
         assert scratch.rows.is_cuda
         with pytest.raises(build.BuildError):
             K.sort_rows(scratch.rows, scal, shape)
@@ -100,8 +120,8 @@ def test_a_cuda_request_without_a_library_raises(monkeypatch):
 
 def test_mixed_devices_are_refused():
     shape = K.LevelShape(C=32, W=32, E=4, n=64, CR=8)
-    rows = torch.zeros(shape.RP, shape.NK, dtype=torch.int32)
-    scal = torch.zeros(K.NSCAL, dtype=torch.int32, device="meta")
+    rows = torch.zeros(1, shape.RP, shape.NK, dtype=torch.int32)
+    scal = torch.zeros(1, K.NSCAL, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         K.sort_rows(rows, scal, shape)
     with pytest.raises(TypeError):
