@@ -9,11 +9,15 @@ tie-breaks), and at the rung its window-deferred keys run on (lex, RP =
 65,536). Then it drives both paths end to end, counting each kernel's
 launches on each: the 10k-op CAS-register headline history through
 ``linearizable(CASRegister())``, held against the plain versions, an
-invalid and a wide history; and the keyed batch through
+invalid and a wide history; the keyed batch through
 ``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
 staggered and dense, cold and warm, an etcd-shaped batch with one
-corrupted key, and a mixed sub-batch held against the plain versions.
-Every phase is a hard assertion.
+corrupted key, and a mixed sub-batch held against the plain versions; and
+the other model families (mutex, unordered queue, FIFO queue, set, no-op):
+each kernel held against its plain version at a live state of each
+model's 10,000-op history, each history through ``linearizable(<Model>())``
+cold and warm, a corrupted copy refuted, and 1,000-op histories on the
+kernels and on their plain versions. Every phase is a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -72,6 +76,40 @@ ETCD = dict(keys=64, n_ops=300, n_procs=10, n_vals=5, overlap_p=0.05)
 MIXED_KEYS, MIXED_OPS = 8, 500
 MIXED_WIDE_SEEDS = (1, 2)
 WIDE_RUNG_KEYED = (512, 64, 512)
+
+#: the other model families' full-size histories: state tag -> (model
+#: class, simulator, its arguments). The mutex is the hazelcast lock or
+#: rabbitmq semaphore (one client per node on 5 nodes, each looping
+#: acquire/release); the unordered queue disque's or rabbitmq's with
+#: unique values and consumers that keep up; the FIFO queue a strict queue
+#: within the 7-slot ring; the set the sets workload (unique adds, one
+#: final read), its crashed adds all taking effect (with a crashed add
+#: whose effect was lost, the pool search goes UNKNOWN on every wide rung:
+#: tools/probe_torch_models.py); the no-op model takes the headline
+#: register history
+MODEL_HISTORIES = {
+    "mutex": ("Mutex", "simulate_mutex_history",
+              dict(n_ops=10000, n_procs=5, seed=42, crash_p=0.002)),
+    "uqueue": ("UnorderedQueue", "simulate_queue_history",
+               dict(n_ops=10000, n_procs=5, seed=42, backlog=8,
+                    fifo=False)),
+    "fifo": ("FIFOQueue", "simulate_queue_history",
+             dict(n_ops=10000, n_procs=3, seed=42, backlog=2, fifo=True)),
+    "set": ("SetModel", "simulate_set_history",
+            dict(n_adds=10000, n_procs=5, seed=42, crash_p=0.002,
+                 lost_p=0.0)),
+    "noop": ("NoOp", "simulate_register_history", HEADLINE),
+}
+#: models whose corrupted copy the pool search does not refute: the set's
+#: final read that misses an element fails at every state, and the beam
+#: spends the level budget walking the earlier interleavings (UNKNOWN, on
+#: the reference as here). Its copy runs on its first rung only, and must
+#: not be decided True
+MODEL_UNREFUTED = ("set",)
+#: levels run before the kernels are held against their plain versions
+MODEL_WARM_LEVELS = 300
+#: the size of the histories run on the kernels and on the plain versions
+MODEL_PLAIN_OPS = 1000
 
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
@@ -231,6 +269,139 @@ def print_kernels(tag, lv, live, warm, res):
 def carries_equal(a, b):
     return len(a) == len(b) and all(
         np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def model_phases(dev, seconds, shapes):
+    """The other model families: each kernel against its plain version at
+    a live state of each model's full-size history (into ``shapes``),
+    each history through ``linearizable`` cold and warm with a corrupted
+    copy refuted, and the 1,000-op histories on the kernels and on their
+    plain versions. Returns the per-model lines and the kernels' launch
+    counts on the models path."""
+    from jepsen_tpu_torch import models, resilience, testing
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import parity
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+
+    # kernels at each model's live state
+    model_runs = {}
+    with phase("model kernels", seconds):
+        for tag, (cls, sim, kw) in MODEL_HISTORIES.items():
+            model = getattr(models, cls)()
+            h = getattr(testing, sim)(**kw)
+            packed, kernel = pack_with_init(h, model)
+            rung = G._ladder_for(G._window_needed(packed), dev)[0]
+            cols = G._split_packed(
+                packed, G._bucket(packed.n_required),
+                G._crash_width(packed.n - packed.n_required), kernel)
+            lv = parity.Level(cols, rung, dev, model=kernel.name)
+            live = lv.advance(MODEL_WARM_LEVELS)
+            assert live > 0, tag
+            res = check_and_time(lv, parity)
+            shapes[f"model_{tag}"] = res
+            print_kernels(f"model {tag} ({kernel.name})", lv, live,
+                          MODEL_WARM_LEVELS, res)
+            model_runs[tag] = (model, kernel, h)
+
+    # each model end to end
+    model_lines = {}
+    with phase("models", seconds):
+        K.reset_launches()
+        for tag, (model, kernel, h) in model_runs.items():
+            mchecker = linearizable(model, device=dev)
+            before = dict(K.launches)
+            t0 = time.perf_counter()
+            rm = mchecker.check({}, h)
+            cold_s = time.perf_counter() - t0
+            run_launches = {k: K.launches[k] - before[k] for k in K.launches}
+            t0 = time.perf_counter()
+            rm2 = mchecker.check({}, h)
+            warm_m = time.perf_counter() - t0
+            line = {"model": kernel.name, "ops": len(h) // 2,
+                    "valid": rm["valid"], "levels": rm.get("levels"),
+                    "rung": list(rm.get("rung") or ()),
+                    "segments": rm.get("segments"), "cold_s": cold_s,
+                    "warm_s": warm_m, "launches": run_launches,
+                    "fallback": rm.get("fallback-from")}
+            assert rm["valid"] is True and rm["backend"] == "gpu", (tag, rm)
+            assert "fallback-from" not in rm, tag
+            assert (rm2["valid"], rm2["levels"]) == (True, rm["levels"]), tag
+            if tag != "noop":   # the no-op model refutes nothing
+                bad = testing.corrupt_model_history(h, kernel.name)
+                t0 = time.perf_counter()
+                if tag in MODEL_UNREFUTED:
+                    pb = pack_with_init(bad, model)[0]
+                    cap, win, exp = G._ladder_for(G._window_needed(pb),
+                                                  dev)[0]
+                    rb = resilience.supervised_check_packed(
+                        pb, kernel, capacity=cap, window=win, expand=exp,
+                        device=dev)
+                else:
+                    rb = mchecker.check({}, bad)
+                line.update(
+                    corrupt_valid=rb["valid"], corrupt_levels=rb["levels"],
+                    corrupt_rung=list(rb["rung"]),
+                    corrupt_prefix=rb.get("max-linearized-prefix"),
+                    corrupt_error=rb.get("error"),
+                    corrupt_s=time.perf_counter() - t0)
+                assert rb["backend"] == "gpu", (tag, rb)
+                assert "fallback-from" not in rb, tag
+                if tag in MODEL_UNREFUTED:
+                    assert rb["valid"] is not True, (tag, rb)
+                else:
+                    assert rb["valid"] is False, (tag, rb)
+            model_lines[tag] = line
+            print("model:", json.dumps(line), flush=True)
+        model_launches = dict(K.launches)
+        model_grid_launches = dict(K.grid_launches_total)
+        print(f"model launches: {model_launches} "
+              f"cuda_launches={model_grid_launches}")
+        assert all(model_launches[k] > 0 for k in (
+            "expand", "sort_rows", "group_scan", "dedup_truncate")), \
+            model_launches
+
+    with phase("models plain", seconds):
+        # 1,000-op histories of each model, valid and corrupted, on the
+        # kernels and on their plain versions; a corrupted copy on its
+        # first rung
+        for tag, (cls, sim, kw) in MODEL_HISTORIES.items():
+            model, kernel, _ = model_runs[tag]
+            size = "n_adds" if "n_adds" in kw else "n_ops"
+            h = getattr(testing, sim)(**{**kw, size: MODEL_PLAIN_OPS})
+            cases = [("valid", h)]
+            if tag != "noop":
+                cases.append(("corrupt", testing.corrupt_model_history(
+                    h, kernel.name)))
+            for label, hh in cases:
+                pk = pack_with_init(hh, model)[0]
+                pin = {}
+                if label == "corrupt":
+                    pin = dict(zip(("capacity", "window", "expand"),
+                                   G._ladder_for(G._window_needed(pk),
+                                                 dev)[0]))
+                out = {}
+                for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+                    t0 = time.perf_counter()
+                    rr = resilience.supervised_check_packed(
+                        pk, kernel, device=dev, ops=ops, **pin)
+                    out[name] = {f: rr.get(f) for f in (
+                        "valid", "levels", "max-linearized-prefix", "rung",
+                        "work")}
+                    out[name]["s"] = time.perf_counter() - t0
+                print(f"model {tag} {label} {MODEL_PLAIN_OPS} ops: "
+                      f"{out}", flush=True)
+                a, b = ({k: v for k, v in out[n].items() if k != "s"}
+                        for n in ("kernels", "plain"))
+                assert a == b, (tag, label, a, b)
+                if label == "valid":
+                    assert a["valid"] is True, (tag, a)
+                elif tag in MODEL_UNREFUTED:
+                    assert a["valid"] is not True, (tag, a)
+                else:
+                    assert a["valid"] is False, (tag, a)
+    return model_lines, model_launches, model_grid_launches
 
 
 def main() -> int:
@@ -537,6 +708,10 @@ def smoke(dev: torch.device) -> None:
         assert any(b["rung"] == WIDE_RUNG_KEYED and b["keys"] >= 2
                    for b in runs["kernels"]["batches"])
 
+    # -- the other model families ------------------------------------------
+    model_lines, model_launches, model_grid_launches = model_phases(
+        dev, seconds, shapes)
+
     # -- summary ------------------------------------------------------------
     kernels = []
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -556,9 +731,11 @@ def smoke(dev: torch.device) -> None:
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "launches_by_path": {"headline": launches[name],
-                                 "keyed": keyed_launches[name]},
+                                 "keyed": keyed_launches[name],
+                                 "models": model_launches[name]},
             "cuda_launches_by_path": {"headline": grid_launches[name],
-                                      "keyed": keyed_grid_launches[name]},
+                                      "keyed": keyed_grid_launches[name],
+                                      "models": model_grid_launches[name]},
         }
         if single:
             entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
@@ -569,10 +746,17 @@ def smoke(dev: torch.device) -> None:
         if single:
             entry["keyed_dense_wide"] = {
                 k: shapes["keyed dense wide lex"][name][k] for k in keep}
+            for tag in MODEL_HISTORIES:
+                entry[f"model_{tag}"] = {
+                    k: shapes[f"model_{tag}"][name][k] for k in keep}
+            entry["launches_by_model"] = {
+                line["model"]: line["launches"][name]
+                for line in model_lines.values()}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels, "headline": {
         "cold_s": cold_headline, "warm_s": warm_s, "levels": r["levels"],
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
+        "models": model_lines,
         "phase_seconds": seconds, "nvidia_smi": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

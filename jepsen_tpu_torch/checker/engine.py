@@ -3,7 +3,7 @@
 Counterpart of the executable cache in ``jepsen_tpu/checker/engine.py``.
 Where the JAX engine caches one compiled program per rung, this one holds
 the loaded kernel library and, per search shape (C, W, E, n, CR, keys B,
-tie-break) and device, the carry and scratch buffers; per (B, n, CR) and
+tie-break, model) and device, the carry and scratch buffers; per (B, n, CR) and
 device, the column buffers. A warm check at a cached shape allocates no
 device memory. The buffers serve one check at a time: callers hold
 :attr:`Engine.lock` while they use them.

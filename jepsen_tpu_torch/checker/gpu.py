@@ -528,9 +528,10 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
 
 def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   tiebreak0: Optional[str], packed: dict, breq: int,
-                  results: dict, device, ops: Ops) -> list:
+                  results: dict, device, ops: Ops, model: str) -> list:
     """The keyed batch's escalation loop (``_keyed_ladder`` in the
-    reference): per rung, the runnable keys in one batch per crashed-op
+    reference) for the model named ``model`` (a KernelSpec name): per
+    rung, the runnable keys in one batch per crashed-op
     width; keys that overflowed retry on a later rung that grows their
     capacity or window. Fills ``results`` and returns one entry per
     batch run: its rung, crash width, tie-break, keys, largest level
@@ -574,7 +575,8 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   for i in range(0, len(keys), K.MAX_KEYS)]
         for crw, grp in chunks:
             shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
-                                 n=breq, CR=crw, B=len(grp), tiebreak=tb)
+                                 n=breq, CR=crw, B=len(grp), tiebreak=tb,
+                                 model=model)
             t0 = time.perf_counter()
             done, lossy, wovf, best, levels, pools, launched = _run_cohort(
                 grp, shape, device, ops)
@@ -634,8 +636,9 @@ def check_history_gpu(history, model: Model,
                       expand: Optional[int] = None,
                       segment_iters: Optional[int] = None,
                       device=None) -> Optional[Dict[str, Any]]:
-    """Gate, pack and check one history. None when the model has no
-    integer kernel or an op does not fit its encoding."""
+    """Gate, pack and check one history with the model's kernel. None when
+    the model has no integer kernel, or the history does not fit its word
+    (an op ``f`` it lacks, or a value layout its remap cannot place)."""
     from jepsen_tpu_torch.analysis.history_lint import gate_history
     if window is not None:
         _check_window(window)
@@ -742,6 +745,6 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
                   + tuple((c, 32, e) for c, e in lad0[1:])
                   + ((512, 64, 512), (4096, 128, 1024), (16384, 128, 4096)))
     batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed, breq,
-                            results, dev, ops)
+                            results, dev, ops, kernel.name)
     return {"valid": merge_valid(r["valid"] for r in results.values()),
             "results": results, "backend": "gpu", "batches": batches}

@@ -1,24 +1,32 @@
-"""The linearizability checker facade and the exact host search.
+"""The linearizability checker facade and the exact host searches.
 
-Counterpart of ``jepsen_tpu/checker/wgl.py`` (``check_packed`` and
-``LinearizableChecker``). The host search is Wing-Gong-Lowe over the
-packed history: a configuration is ``(k, mask, state)`` with ops
+Counterpart of ``jepsen_tpu/checker/wgl.py`` (``check_packed``,
+``check_model`` and ``LinearizableChecker``). The host searches are
+Wing-Gong-Lowe: a configuration is ``(k, mask, state)`` with ops
 ``[0, k)`` (in return order) linearized and ``mask`` marking further
 linearized ops at offsets >= k; a DFS with a visited set explores them.
-With ``backend="gpu"`` the device search decides, and the host search
-runs only when the device answers UNKNOWN; the result then says so
-(``fallback-from: "gpu"``). A build or launch failure raises: it is never
+``check_packed`` steps the packed history's word kernel; ``check_model``
+steps model objects, for a model with no word kernel or a history its
+word cannot hold.
+
+With ``backend="gpu"`` the device search decides. The host searches run
+only when the device cannot: it answered UNKNOWN, or the model has no
+word kernel or the history does not fit the word (the reference's
+routing). The result then says so (``fallback-from: "gpu"`` and a
+``fallback-reason``). A build or launch failure raises: it is never
 turned into a host fallback.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from jepsen_tpu_torch.checker import UNKNOWN, Checker
 from jepsen_tpu_torch.checker.gpu import check_history_gpu
-from jepsen_tpu_torch.models.core import KernelSpec, Model
-from jepsen_tpu_torch.ops.encode import PackedHistory, pack_with_init
+from jepsen_tpu_torch.history import Op
+from jepsen_tpu_torch.models.core import KernelSpec, Model, is_inconsistent
+from jepsen_tpu_torch.ops.encode import (RET_INF, PackedHistory,
+                                         pack_with_init)
 
 
 def check_packed(p: PackedHistory, kernel: KernelSpec) -> Dict[str, Any]:
@@ -114,12 +122,121 @@ def _describe_op(p: PackedHistory, j: int) -> Optional[dict]:
     return inv_op.to_dict() if inv_op is not None else None
 
 
+def _pair_sorted(history) -> List[Tuple[int, int, Op]]:
+    """Pair invocations with completions, drop failed pairs, back-fill an
+    ok completion's value into the op that is stepped, and sort by (ret,
+    inv): [(inv_ev, ret_ev, op)], crashed ops with ret RET_INF."""
+    pending: Dict[Any, Tuple[int, Op]] = {}
+    rows: List[Tuple[int, int, Op]] = []
+    for ev, o in enumerate(history):
+        if o.is_invoke:
+            pending[o.process] = (ev, o)
+        elif o.process in pending:
+            inv_ev, inv_op = pending.pop(o.process)
+            if o.is_fail:
+                continue
+            if o.is_ok:
+                val = o.value if o.value is not None else inv_op.value
+                rows.append((inv_ev, ev, inv_op.replace(value=val)))
+            else:  # info: pending forever
+                rows.append((inv_ev, int(RET_INF), inv_op))
+    for inv_ev, inv_op in pending.values():
+        rows.append((inv_ev, int(RET_INF), inv_op))
+    rows.sort(key=lambda r: (r[1], r[0]))
+    return rows
+
+
+def check_model(history, model: Model) -> Dict[str, Any]:
+    """Exact WGL over model objects: the same search as
+    :func:`check_packed`, stepping ``model`` with each op, with the
+    model's ``readonly_op`` driving the pure-op closure."""
+    rows = _pair_sorted(history)
+    n = len(rows)
+    n_req = sum(1 for r in rows if r[1] != int(RET_INF))
+    if n_req == 0:
+        return {"valid": True, "configs-explored": 0}
+    inv = [r[0] for r in rows]
+    ret = [r[1] for r in rows]
+    ops = [r[2] for r in rows]
+    cand_cache: Dict[int, List[int]] = {}
+
+    def candidates(k: int) -> List[int]:
+        c = cand_cache.get(k)
+        if c is None:
+            rk = ret[k]
+            c = cand_cache[k] = [j for j in range(k, n) if inv[j] < rk]
+        return c
+
+    init = (0, 0, model)
+    stack = [init]
+    seen = {init}
+    explored = 0
+    best_k = 0
+    best_models: List[Model] = [model]
+    while stack:
+        k, mask, m = stack.pop()
+        explored += 1
+        pure_mask = 0
+        impure = []
+        for j in candidates(k):
+            if (mask >> (j - k)) & 1:
+                continue
+            m2 = m.step(ops[j])
+            if is_inconsistent(m2):
+                continue
+            if j >= n_req and m2 == m:
+                continue  # a no-effect crashed op is never taken now
+            if j < n_req and m.readonly_op(ops[j]):
+                pure_mask |= 1 << (j - k)
+                continue
+            impure.append((j, m2))
+        if pure_mask:
+            mm = mask | pure_mask
+            k2 = k
+            while mm & 1:
+                mm >>= 1
+                k2 += 1
+            succs = [(k2, mm, m)]
+        else:
+            succs = []
+            for j, m2 in impure:
+                if j == k:
+                    mm = mask >> 1
+                    k2 = k + 1
+                    while mm & 1:
+                        mm >>= 1
+                        k2 += 1
+                    succs.append((k2, mm, m2))
+                else:
+                    succs.append((k, mask | (1 << (j - k)), m2))
+        for cfg in succs:
+            if cfg[0] > best_k:
+                best_k = cfg[0]
+                best_models = [cfg[2]]
+            elif cfg[0] == best_k and len(best_models) < 16 \
+                    and cfg[2] not in best_models:
+                best_models.append(cfg[2])
+            if cfg[0] >= n_req:
+                return {"valid": True, "configs-explored": explored}
+            if cfg not in seen:
+                seen.add(cfg)
+                stack.append(cfg)
+    return {
+        "valid": False,
+        "configs-explored": explored,
+        "max-linearized-prefix": best_k,
+        "frontier-op": ops[best_k].to_dict() if best_k < n else None,
+        "final-models": [repr(m) for m in best_models],
+    }
+
+
 class LinearizableChecker(Checker):
     """Checker facade.
 
     backend:
       'gpu' -- (default) the device search on ``device`` (None = CUDA);
-               the exact host search only when it answers UNKNOWN.
+               the exact host search only when it answers UNKNOWN or the
+               history does not fit the model's word.
       'cpu' -- the exact host search.
     """
 
@@ -140,24 +257,24 @@ class LinearizableChecker(Checker):
             out.setdefault("backend", "cpu")
             return out
         res = check_history_gpu(history, model, device=self.device)
-        if res is None:
-            raise ValueError(
-                f"model {model!r} has no integer kernel in this port, or an "
-                f"op does not fit its encoding")
-        if res.get("valid") is not UNKNOWN:
+        if res is not None and res.get("valid") is not UNKNOWN:
             return res
         out = self._check_host(history, model)
         out.setdefault("backend", "cpu")
         out["fallback-from"] = "gpu"
-        out["fallback-reason"] = res.get("error",
-                                         "device search returned unknown")
+        out["fallback-reason"] = (
+            "model has no integer kernel or history exceeds the word "
+            "encoding" if res is None
+            else res.get("error", "device search returned unknown"))
         return out
 
     def _check_host(self, history, model: Model) -> Dict[str, Any]:
-        pk = pack_with_init(history, model)
+        try:
+            pk = pack_with_init(history, model)
+        except ValueError:  # an op or value the word kernel cannot hold
+            pk = None
         if pk is None:
-            raise ValueError(f"model {model!r} has no integer kernel in "
-                             f"this port")
+            return check_model(history, model)
         packed, kernel = pk
         return check_packed(packed, kernel)
 

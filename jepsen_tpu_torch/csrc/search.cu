@@ -17,6 +17,8 @@
 //          trunc, frontier, block ticket; zero between levels
 // Each key keeps its own `active` flag, so a finished key's levels are
 // no-ops while the others go on (the vmapped masked update, tpu.py:652).
+// K1 is a template on the model: its step is a device function below, and
+// the host entry picks the instantiation once per launch.
 //
 // The level is launch-bound at the single-history headline rung (R = 512
 // rows: a few microseconds of work per kernel) and bound by the sort's bytes
@@ -95,14 +97,92 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
-// B1: the CAS-register step (jepsen_tpu/models/core.py:375).
+// B1, B1': the model steps (jepsen_tpu/models/core.py:375-834), one per
+// model, each returning state' and setting ok. They equal the reference's
+// branchless int32 arithmetic on every input, state' where ok is false
+// included (the rows sort on it): sums and left shifts go through unsigned,
+// right shifts of the signed word are arithmetic, and a shift of 32 or more
+// gives what XLA gives (0 left; the sign right).
+enum { M_CAS, M_MUTEX, M_NOOP, M_SET, M_UQUEUE, M_FIFO, NMODELS };
+enum { F_READ, F_WRITE, F_CAS, F_ACQUIRE, F_RELEASE, F_ADD, F_ENQUEUE,
+       F_DEQUEUE };
+constexpr int NIL_ID = -1;
+
+// B1: the CAS register (models/core.py:375).
 __device__ __forceinline__ int cas_step(int s, int f, int v1, int v2,
                                         bool& ok) {
   const bool cas_ok = s == v1;
-  const bool is_write = f == 1;
-  const bool take_cas = f == 2 && cas_ok;
-  ok = (f == 0 && (v1 == -1 || cas_ok)) || is_write || take_cas;
+  const bool is_write = f == F_WRITE;
+  const bool take_cas = f == F_CAS && cas_ok;
+  ok = (f == F_READ && (v1 == NIL_ID || cas_ok)) || is_write || take_cas;
   return take_cas ? v2 : (is_write ? v1 : s);
+}
+
+// The mutex (models/core.py:389): 1 is locked.
+__device__ __forceinline__ int mutex_step(int s, int f, int, int,
+                                          bool& ok) {
+  const bool acq = f == F_ACQUIRE, rel = f == F_RELEASE;
+  ok = (acq && s == 0) || (rel && s == 1);
+  return acq ? 1 : (rel ? 0 : s);
+}
+
+// The no-op model (models/core.py:398): every op succeeds, padding included.
+__device__ __forceinline__ int noop_step(int s, int, int, int, bool& ok) {
+  ok = true;
+  return s;
+}
+
+// The grow-only set (models/core.py:424): an add's v1 is a unit word, v2 == 1
+// selects count mode (+), anything else OR mode; a read succeeds on an
+// exact target word, or on NIL_ID.
+__device__ __forceinline__ int set_step(int s, int f, int v1, int v2,
+                                        bool& ok) {
+  const bool add = f == F_ADD;
+  ok = add || (f == F_READ && (v1 == NIL_ID || s == v1));
+  const int unit = add && v1 >= 0 ? v1 : 0;
+  return add && v2 == 1 ? (int)((unsigned)s + (unsigned)unit) : s | unit;
+}
+
+// The unordered queue (models/core.py:591): v1 is a field's bit offset, v2
+// its count mask; v2 == 0 is a sink enqueue, which changes nothing. A
+// dequeue needs a count above 0.
+__device__ __forceinline__ int uqueue_step(int s, int f, int v1, int v2,
+                                           bool& ok) {
+  const bool enq = f == F_ENQUEUE, deq = f == F_DEQUEUE;
+  const int sh = v1 >= 0 ? v1 : 0;
+  const unsigned unit = sh < 32 ? 1u << sh : 0u;
+  const int cnt = (s >> (sh < 32 ? sh : 31)) & v2;
+  const bool deq_ok = deq && v1 >= 0 && cnt > 0;
+  ok = enq || deq_ok;
+  unsigned r = (unsigned)s;
+  if (enq && v2 > 0) r += unit;
+  if (deq_ok) r -= unit;
+  return (int)r;
+}
+
+// The FIFO queue (models/core.py:814): a ring of seven 4-bit ids, nibble 0
+// the head, id 0 empty. Its length is the count of nonzero nibbles: one
+// popcount of the per-nibble occupancy bits.
+__device__ __forceinline__ int fifo_step(int s, int f, int v1, int,
+                                         bool& ok) {
+  const int occ = s | (s >> 1) | (s >> 2) | (s >> 3);
+  const int len = __popc((unsigned)occ & 0x1111111u);
+  const bool enq_ok = f == F_ENQUEUE && len < 7;
+  const bool deq_ok = f == F_DEQUEUE && v1 > 0 && (s & 15) == v1;
+  ok = enq_ok || deq_ok;
+  if (enq_ok) return s | (int)((unsigned)v1 << (4 * len));
+  return deq_ok ? s >> 4 : s;
+}
+
+template <int M>
+__device__ __forceinline__ int model_step(int s, int f, int v1, int v2,
+                                          bool& ok) {
+  if constexpr (M == M_MUTEX) return mutex_step(s, f, v1, v2, ok);
+  else if constexpr (M == M_NOOP) return noop_step(s, f, v1, v2, ok);
+  else if constexpr (M == M_SET) return set_step(s, f, v1, v2, ok);
+  else if constexpr (M == M_UQUEUE) return uqueue_step(s, f, v1, v2, ok);
+  else if constexpr (M == M_FIFO) return fifo_step(s, f, v1, v2, ok);
+  else return cas_step(s, f, v1, v2, ok);
 }
 
 // B2: whole-mask bit helpers (tpu.py:122-161).
@@ -166,12 +246,13 @@ __device__ int crash_bound(const unsigned* cm, const Cols& c, int n, int CR) {
 }
 
 // B4: advance through a run of forced ops (tpu.py:308-346).
+template <int M>
 __device__ void fast_forward(int& kk, int& ss, bool go, int bound,
                              const Cols& c, int n, int nr) {
   while (go) {
     const int kc = clampi(kk, 0, n - 1);
     bool ok;
-    const int s2 = cas_step(ss, c.f[kc], c.v1[kc], c.v2[kc], ok);
+    const int s2 = model_step<M>(ss, c.f[kc], c.v1[kc], c.v2[kc], ok);
     go = c.fr[kc] > 0 && kk < bound && kk < nr && ok;
     if (go) {
       kk += 1;
@@ -187,7 +268,8 @@ __device__ void fast_forward(int& kk, int& ss, bool go, int bound,
 // of the closure's pure bits; thread 0 runs the two fast-forwards. Blocks
 // past E copy the pool remainder and write the sort's pad rows. Work per
 // level is E*(W+CR) model steps per key: at the keyed first rungs a few
-// thousand, so the kernel costs its launch.
+// thousand, so the kernel costs its launch. Template parameter M is the
+// model; jt_expand instantiates one per model and picks it per launch.
 // ---------------------------------------------------------------------------
 
 struct ExpandArgs {
@@ -200,6 +282,7 @@ struct ExpandArgs {
   int C, W, E, n, CR, MW, MCX, NK, R, RP, lmax;
 };
 
+template <int M>
 __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
   const int t = threadIdx.x, b = blockIdx.y;
   const int MW = a.MW, MCX = a.MCX, NK = a.NK, n = a.n;
@@ -256,7 +339,7 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     const int j = ke + t, jc = clampi(j, 0, n - 1);
     const bool cand = ae && j < n && c.inv[jc] < retk && !bit(me, t);
     bool ok;
-    s2 = cas_step(se, c.f[jc], c.v1[jc], c.v2[jc], ok);
+    s2 = model_step<M>(se, c.f[jc], c.v1[jc], c.v2[jc], ok);
     pure = cand && ok && c.ro[jc] > 0;
     valid = cand && ok && !pure;
   }
@@ -281,7 +364,7 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     const int t1 = trailing_ones(m1, MW);
     shr_by(m1, t1, madv, MW);
     int kadv = ke + 1 + t1, s0 = s2;
-    fast_forward(kadv, s0, valid, bound, c, n, nr);
+    fast_forward<M>(kadv, s0, valid, bound, c, n, nr);
     write_row(rows + (size_t)(r * a.W) * NK, kadv, madv, MW, cme, MCX, s0,
               valid);
     // the closure successor: every pure candidate at once
@@ -290,7 +373,7 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     const int tc = trailing_ones(mc, MW);
     shr_by(mc, tc, mcl, MW);
     int kcl = ke + tc, scl = se;
-    fast_forward(kcl, scl, closure_ok, bound, c, n, nr);
+    fast_forward<M>(kcl, scl, closure_ok, bound, c, n, nr);
     write_row(rows + (size_t)(grid_rows + r) * NK, kcl, mcl, MW, cme, MCX,
               scl, closure_ok);
   } else if (t < a.W) {
@@ -310,7 +393,7 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
     const bool ccand = ae && !closure_ok && c.cinv[ci] < retk &&
                        !bit(cme, ci) && !redundant;
     bool cok;
-    const int cs2 = cas_step(se, c.cf[ci], c.cv1[ci], c.cv2[ci], cok);
+    const int cs2 = model_step<M>(se, c.cf[ci], c.cv1[ci], c.cv2[ci], cok);
     unsigned ccm[MAXW];
     for (int w = 0; w < MAXW; ++w) ccm[w] = cme[w];
     ccm[ci >> 5] |= 1u << (ci & 31);
@@ -688,7 +771,9 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
               const int* cps, const int* nr, const int* k,
               const unsigned* mask, const unsigned* cmask, const int* state,
               const uint8_t* alive, int* scal, int* acc, int* rows, int B,
-              int C, int W, int E, int n, int CR, int lmax, void* stream) {
+              int C, int W, int E, int n, int CR, int lmax, int model,
+              void* stream) {
+  if (model < 0 || model >= NMODELS) return (int)cudaErrorInvalidValue;
   ExpandArgs a;
   a.c = Cols{f, v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps};
   a.pool = PoolIn{k, mask, cmask, state, alive};
@@ -709,7 +794,15 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
   a.lmax = lmax;
   const int tail = (C - E) + (a.RP - a.R);
   const dim3 grid(E + (tail + 127) / 128, B);
-  expand_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(a);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (model) {
+    case M_MUTEX: expand_kernel<M_MUTEX><<<grid, 128, 0, st>>>(a); break;
+    case M_NOOP: expand_kernel<M_NOOP><<<grid, 128, 0, st>>>(a); break;
+    case M_SET: expand_kernel<M_SET><<<grid, 128, 0, st>>>(a); break;
+    case M_UQUEUE: expand_kernel<M_UQUEUE><<<grid, 128, 0, st>>>(a); break;
+    case M_FIFO: expand_kernel<M_FIFO><<<grid, 128, 0, st>>>(a); break;
+    default: expand_kernel<M_CAS><<<grid, 128, 0, st>>>(a); break;
+  }
   return (int)cudaGetLastError();
 }
 

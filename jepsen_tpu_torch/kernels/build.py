@@ -30,7 +30,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: argument types of each entry point: pointers, ints, then the stream
 SIGNATURES = {
-    "jt_expand": [_P] * 22 + [_I] * 7 + [_P],
+    "jt_expand": [_P] * 22 + [_I] * 8 + [_P],
     "jt_sort_rows": [_P] * 2 + [_I] * 5 + [_P],
     "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P],
     "jt_dedup_truncate": [_P] * 19 + [_I] * 6 + [_P],

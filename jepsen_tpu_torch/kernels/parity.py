@@ -47,14 +47,16 @@ def copy_state(carry: G.Carry, scratch: G.Scratch
 class Level:
     """The search of one history's ``_split_packed`` columns, or of a
     list of them padded to one width (a keyed batch), at one rung
-    (capacity, window, expand) and tie-break on ``device``."""
+    (capacity, window, expand), tie-break and model (a KernelSpec name) on
+    ``device``."""
 
-    def __init__(self, cols_np, rung: tuple, device, tiebreak: str = "lex"):
+    def __init__(self, cols_np, rung: tuple, device, tiebreak: str = "lex",
+                 model: str = "cas-register"):
         batch = cols_np if isinstance(cols_np, list) else [cols_np]
         C, W, E = rung
         n, cr = batch[0]["f"].shape[0], batch[0]["cf"].shape[0]
         self.shape = K.LevelShape(C, W, min(E or C, C), n, cr, B=len(batch),
-                                  tiebreak=tiebreak)
+                                  tiebreak=tiebreak, model=model)
         self.cols = interop.batch_cols_from_numpy(interop.stack_cols(batch),
                                                   device)
         self.nr = self.cols["nr"]

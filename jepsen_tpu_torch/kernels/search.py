@@ -17,6 +17,11 @@ body, one ``lax.while_loop`` iteration) is four kernels in
                     the five per-level counters, level+1, pk/ps/pa
 ==================  =====================================================
 
+The model is part of the shape: ``expand`` steps each candidate through
+the model's step (B1/B1'), a template parameter of the CUDA kernel picked
+once per launch, and through the spec's ``step_torch`` in the plain
+version. The other three kernels never look at the state's meaning.
+
 Every tensor has a leading key axis of ``B`` independent searches: the
 keyed batch (``jax.vmap`` of the search body in the reference) runs B
 keys per launch, and the single-history search is ``B = 1``. Each key has
@@ -65,7 +70,7 @@ from typing import Dict
 
 import torch
 
-from jepsen_tpu_torch.models.core import cas_register_step_torch
+from jepsen_tpu_torch.models.core import KERNELS as _SPECS
 from jepsen_tpu_torch.ops.encode import RET_INF as _RET_INF
 
 MAXK = 1 << 30
@@ -81,6 +86,11 @@ NSTAT = 5
 TIEBREAKS = ("lex", "hash")
 #: the most keys one launch takes (the grid's y extent)
 MAX_KEYS = 65535
+#: the models K1 steps, by KernelSpec name; a model's code is its index
+#: (the template argument of ``expand_kernel`` in csrc/search.cu)
+MODELS = tuple(spec.name for spec in _SPECS)
+#: each model's torch step, the plain version's
+STEPS = {spec.name: spec.step_torch for spec in _SPECS}
 
 # scal lanes
 DONE, LOSSY, WOVF, LEVEL, BEST, NALIVE, ACT = range(7)
@@ -111,8 +121,9 @@ def reset_launches() -> None:
 @dataclass(frozen=True)
 class LevelShape:
     """Static shape of a batch of searches: pool capacity C, window W,
-    expansion E, padded required ops n, padded crashed ops CR, keys B and
-    the sort's tie-break."""
+    expansion E, padded required ops n, padded crashed ops CR, keys B, the
+    sort's tie-break and the model (a KernelSpec name) whose step the
+    expansion runs."""
 
     C: int
     W: int
@@ -121,8 +132,12 @@ class LevelShape:
     CR: int
     B: int = 1
     tiebreak: str = "lex"
+    model: str = "cas-register"
 
     def __post_init__(self):
+        if self.model not in MODELS:
+            raise ValueError(f"model must be one of {MODELS}, got "
+                             f"{self.model!r}")
         if self.tiebreak not in TIEBREAKS:
             raise ValueError(f"tiebreak must be one of {TIEBREAKS}, got "
                              f"{self.tiebreak!r}")
@@ -285,7 +300,7 @@ def expand_plain(cols: dict, pool: Pool, scal: torch.Tensor,
     B, C, W, E, n, CR = shape.B, shape.C, shape.W, shape.E, shape.n, shape.CR
     MW, MCX, R = shape.MW, shape.MCX, shape.R
     dev = rows.device
-    step = cas_register_step_torch
+    step = STEPS[shape.model]
     act = active(scal, shape.lmax)
     scal[:, ACT] = act
     act = act.bool()
@@ -331,7 +346,7 @@ def expand_plain(cols: dict, pool: Pool, scal: torch.Tensor,
     bound = _crash_bound(cm_e, cols, shape)
     live = act[:, None]
     k_adv, s0 = _fast_forward(k_adv, s2[..., 0], valid[..., 0] & live,
-                              bound, cols, n, nr)
+                              bound, cols, n, nr, step)
     s2 = s2.clone()
     s2[..., 0] = s0
     is0 = offs == 0
@@ -340,7 +355,7 @@ def expand_plain(cols: dict, pool: Pool, scal: torch.Tensor,
                      m_e[:, :, None, :] | bitmat)
     cm2 = cm_e[:, :, None, :].expand(B, E, W, MCX)
     kcl, scl = _fast_forward(kcl, s_e, closure_ok & live, bound, cols, n,
-                             nr)
+                             nr, step)
     segs = [(k2.reshape(B, -1), m2.reshape(B, -1, MW),
              cm2.reshape(B, -1, MCX), s2.reshape(B, -1),
              valid.reshape(B, -1)),
@@ -398,15 +413,15 @@ def _crash_bound(cm_e: torch.Tensor, cols: dict,
     return torch.searchsorted(cols["ret"], umin.contiguous(), right=True)
 
 
-def _fast_forward(kk, ss, go, bound, cols, n: int, nr: torch.Tensor):
-    """Advance rows [B, E] through runs of forced ops (tpu.py:308-346)."""
+def _fast_forward(kk, ss, go, bound, cols, n: int, nr: torch.Tensor, step):
+    """Advance rows [B, E] through runs of forced ops with the model's
+    ``step`` (tpu.py:308-346)."""
     f, v1, v2, fr = cols["f"], cols["v1"], cols["v2"], cols["fr"]
     kk, ss, go = kk.clone(), ss.clone(), go.clone()
     nr = nr[:, None]
     while bool(go.any()):
         kc = kk.clamp(0, n - 1)
-        s2, ok = cas_register_step_torch(ss, _take(f, kc), _take(v1, kc),
-                                         _take(v2, kc))
+        s2, ok = step(ss, _take(f, kc), _take(v1, kc), _take(v2, kc))
         go = go & (_take(fr, kc) > 0) & (kk < bound) & (kk < nr) & ok
         kk = kk + go.to(kk.dtype)
         ss = torch.where(go, s2, ss)
@@ -648,7 +663,8 @@ def expand(cols: dict, pool: Pool, scal: torch.Tensor, acc: torch.Tensor,
         expand_plain(cols, pool, scal, acc, rows, shape, nr)
         return
     _launch("expand", shape, _lib().jt_expand, *[_ptr(t) for t in tensors],
-            B, shape.C, shape.W, shape.E, n, CR, shape.lmax, _stream(rows))
+            B, shape.C, shape.W, shape.E, n, CR, shape.lmax,
+            MODELS.index(shape.model), _stream(rows))
 
 
 def sort_rows(rows: torch.Tensor, scal: torch.Tensor,

@@ -4,7 +4,11 @@ A history is compiled once, on the host, into int32 columns sorted by
 return index: f-code, value ids v1/v2, invocation and return event
 indices (RET_INF for crashed ops) and process. Pairing follows knossos:
 an ok completion's value back-fills a read, 'fail' pairs are dropped, and
-'info' pairs stay pending forever. Counterpart of
+'info' pairs stay pending forever. A kernel's hooks then fit the values
+into its word: ``encode_op`` splits each op's value, ``drop_crashed``
+drops crashed ops that can never be linearized, and ``remap`` then
+``validate`` rewrite and check the packed columns (either may raise
+ValueError: the history does not fit the word). Counterpart of
 ``jepsen_tpu.ops.encode`` (single-history packing only).
 """
 
@@ -85,9 +89,23 @@ def pack_history(history: Sequence[Op], kernel: KernelSpec,
                  init_state: Optional[int] = None) -> PackedHistory:
     """Compile a raw single-key history into a PackedHistory: number the
     events, pair invocations with completions per process, drop failed
-    pairs and crashed reads, intern values, and sort by (ret, inv).
-    Raises ValueError for an op ``f`` the kernel does not support."""
+    pairs, crashed reads and the crashed ops the kernel drops, encode the
+    values, sort by (ret, inv), then run the kernel's remap and validate.
+    Raises ValueError for an op ``f`` the kernel does not support, or a
+    history its word cannot hold."""
     intern = intern or _Interner()
+    if kernel.encode_op is not None:
+        def encode(fc, f, inv_value, ok_value):
+            return kernel.encode_op(fc, f, inv_value, ok_value, intern.id)
+    else:
+        def encode(fc, f, inv_value, ok_value):
+            return _op_values(fc, f, inv_value, ok_value, intern)
+
+    def dropped(fc, inv_value) -> bool:
+        # a crashed read, or a crashed op the model can never linearize,
+        # constrains nothing
+        return fc == F_READ or (kernel.drop_crashed is not None
+                                and kernel.drop_crashed(fc, inv_value))
     pending: Dict[Any, Tuple[int, Op]] = {}
     rows = []  # (inv_idx, ret_idx, f, v1, v2, process, inv_op, comp_op)
     for ev, o in enumerate(history):
@@ -103,23 +121,21 @@ def pack_history(history: Sequence[Op], kernel: KernelSpec,
                     f"op f={inv_op.f!r} not supported by model "
                     f"{kernel.name!r} (codes: {sorted(kernel.f_codes)})")
             if o.is_info:
-                if fc == F_READ:
-                    continue  # a crashed read constrains nothing
-                v1, v2 = _op_values(fc, inv_op.f, inv_op.value, None,
-                                    intern)
+                if dropped(fc, inv_op.value):
+                    continue
+                v1, v2 = encode(fc, inv_op.f, inv_op.value, None)
                 rows.append((inv_ev, int(RET_INF), fc, v1, v2,
                              inv_op.process, inv_op, o))
             else:
-                v1, v2 = _op_values(fc, inv_op.f, inv_op.value, o.value,
-                                    intern)
+                v1, v2 = encode(fc, inv_op.f, inv_op.value, o.value)
                 rows.append((inv_ev, ev, fc, v1, v2, inv_op.process,
                              inv_op, o))
     # invocations with no completion at all are crashed, like 'info'
     for inv_ev, inv_op in pending.values():
         fc = kernel.f_codes.get(inv_op.f)
-        if fc is None or fc == F_READ:
+        if fc is None or dropped(fc, inv_op.value):
             continue
-        v1, v2 = _op_values(fc, inv_op.f, inv_op.value, None, intern)
+        v1, v2 = encode(fc, inv_op.f, inv_op.value, None)
         rows.append((inv_ev, int(RET_INF), fc, v1, v2, inv_op.process,
                      inv_op, None))
     rows.sort(key=lambda r: (r[1], r[0]))
@@ -129,7 +145,7 @@ def pack_history(history: Sequence[Op], kernel: KernelSpec,
     def col(i):
         return np.asarray([r[i] for r in rows], dtype=np.int32)
 
-    return PackedHistory(
+    packed = PackedHistory(
         f=col(2), v1=col(3), v2=col(4), inv=col(0), ret=col(1),
         process=np.asarray(proc_col, dtype=np.int32),
         n_required=sum(1 for r in rows if r[1] != int(RET_INF)),
@@ -138,6 +154,11 @@ def pack_history(history: Sequence[Op], kernel: KernelSpec,
         value_table=intern.values,
         ops=[(r[6], r[7]) for r in rows],
     )
+    if kernel.remap is not None:
+        kernel.remap(packed)
+    if kernel.validate is not None:
+        kernel.validate(packed)
+    return packed
 
 
 def pack_with_init(history: Sequence[Op], model,
@@ -145,7 +166,7 @@ def pack_with_init(history: Sequence[Op], model,
                    ) -> Optional[Tuple[PackedHistory, KernelSpec]]:
     """Pack a history with the initial state taken from a model instance.
     None when the model has no integer kernel; ValueError on unsupported
-    op f's."""
+    op f's and on histories the kernel's word cannot hold."""
     kernel = kernel or kernel_spec_for(model)
     if kernel is None:
         return None

@@ -63,7 +63,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
         cols = eng.cols(cols_np, dev)
         for cap, win, exp in ladder:
             shape = LevelShape(C=cap, W=win, E=min(exp or cap, cap), n=n,
-                               CR=cr_pad)
+                               CR=cr_pad, model=kernel.name)
             carry, scratch = eng.state(shape, dev)
             host = G._carry0_host(cap, win, cr_pad, cols_np["ini"], nr,
                                   stats_rows=lmax + 1)

@@ -1,14 +1,19 @@
 """History simulators for tests and the chip smoke run.
 
 Counterparts of ``simulate_register_history``, ``corrupt_one_read`` and
-``wide_history`` in ``jepsen_tpu.testing``: each draws from a
-``random.Random`` built from the ``seed`` it is given, so the same seed
-yields the same history as the JAX package's copy. ``crash_writes`` is
-the port's own.
+``wide_history`` in ``jepsen_tpu.testing``, and of the JAX package's test
+fixtures ``random_set_history``, ``random_queue_history``,
+``unique_queue_history`` and ``random_fifo_history``: each draws from a
+``random.Random`` built from the ``seed`` it is given (or takes one), so
+the same seed yields the same history as the JAX package's copy.
+``crash_writes`` and the three full-size simulators of the other models
+(``simulate_mutex_history``, ``simulate_queue_history``,
+``simulate_set_history``) are the port's own.
 """
 
 from __future__ import annotations
 
+import collections
 import random
 
 from jepsen_tpu_torch.history import History, Op
@@ -162,3 +167,389 @@ def keyed_history(histories: dict) -> History:
         out.append(Op(o.type, o.f, KV(k, o.value), p, o.time, i, o.error,
                       o.extra))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The other model families
+# ---------------------------------------------------------------------------
+
+
+def random_set_history(rng, n_procs=3, n_ops=8, n_vals=4, crash_p=0.1,
+                       corrupt_p=0.3) -> History:
+    """Random concurrent grow-only-set history. Reads return a snapshot of
+    the elements applied so far, randomly corrupted with corrupt_p."""
+    h = History()
+    free = list(range(n_procs))
+    open_ops = {}
+    applied = set()
+    ops_left = n_ops
+    t = 0
+    while (ops_left > 0 and free) or open_ops:
+        if free and ops_left > 0 and (not open_ops or rng.random() < 0.5):
+            p = rng.choice(free)
+            free.remove(p)
+            ops_left -= 1
+            if rng.random() < 0.6:
+                op = Op(type="invoke", f="add", value=rng.randrange(n_vals),
+                        process=p, time=t)
+            else:
+                op = Op(type="invoke", f="read", value=None, process=p,
+                        time=t)
+            h.append(op)
+            open_ops[p] = op
+        else:
+            p = rng.choice(list(open_ops))
+            inv = open_ops.pop(p)
+            r = rng.random()
+            if r < crash_p and inv.f == "add":
+                h.append(Op(type="info", f=inv.f, value=inv.value,
+                            process=p, time=t))
+            else:
+                if inv.f == "add":
+                    applied.add(inv.value)
+                    h.append(Op(type="ok", f="add", value=inv.value,
+                                process=p, time=t))
+                else:
+                    snap = set(applied)
+                    if rng.random() < corrupt_p:
+                        flip = rng.randrange(n_vals)
+                        snap ^= {flip}
+                    h.append(Op(type="ok", f="read", value=sorted(snap),
+                                process=p, time=t))
+                free.append(p)
+        t += 1
+    return h
+
+
+def random_queue_history(rng, n_procs=3, n_ops=8, n_vals=4, crash_p=0.1,
+                         corrupt_p=0.2) -> History:
+    """Random concurrent unordered-queue history: enqueues of small values,
+    dequeues of a pending (or, with corrupt_p, arbitrary) value."""
+    h = History()
+    free = list(range(n_procs))
+    open_ops = {}
+    pending = collections.Counter()
+    ops_left = n_ops
+    t = 0
+    while (ops_left > 0 and free) or open_ops:
+        if free and ops_left > 0 and (not open_ops or rng.random() < 0.5):
+            p = rng.choice(free)
+            free.remove(p)
+            ops_left -= 1
+            if rng.random() < 0.6 or not +pending:
+                op = Op(type="invoke", f="enqueue",
+                        value=rng.randrange(n_vals), process=p, time=t)
+            else:
+                op = Op(type="invoke", f="dequeue", value=None, process=p,
+                        time=t)
+            h.append(op)
+            open_ops[p] = op
+        else:
+            p = rng.choice(list(open_ops))
+            inv = open_ops.pop(p)
+            r = rng.random()
+            if r < crash_p and inv.f == "enqueue":
+                h.append(Op(type="info", f=inv.f, value=inv.value,
+                            process=p, time=t))
+            else:
+                if inv.f == "enqueue":
+                    pending[inv.value] += 1
+                    h.append(Op(type="ok", f="enqueue", value=inv.value,
+                                process=p, time=t))
+                else:
+                    live = sorted(v for v, c in pending.items() if c > 0)
+                    if live and rng.random() >= corrupt_p:
+                        v = rng.choice(live)
+                        pending[v] -= 1
+                    else:
+                        v = rng.randrange(n_vals)
+                    h.append(Op(type="ok", f="dequeue", value=v,
+                                process=p, time=t))
+                free.append(p)
+        t += 1
+    return h
+
+
+def unique_queue_history(n_ops=200, n_procs=5, seed=1,
+                         corrupt=False) -> History:
+    """Unique sequential enqueue values, dequeues of a random pending
+    value. Linearizable by construction (a dequeue returns a value whose
+    enqueue completed; empty-queue dequeues fail) unless ``corrupt``,
+    which sets the last ok dequeue to a never-enqueued value."""
+    rng = random.Random(seed)
+    h = History()
+    free = list(range(n_procs))
+    open_ops = {}
+    pending = []
+    nextv = done = t = 0
+    while done < n_ops or open_ops:
+        if free and done < n_ops and (not open_ops or rng.random() < 0.55):
+            p = free.pop(rng.randrange(len(free)))
+            if rng.random() < 0.55 or not pending:
+                op = Op(type="invoke", f="enqueue", value=nextv, process=p,
+                        time=t)
+                nextv += 1
+            else:
+                op = Op(type="invoke", f="dequeue", value=None, process=p,
+                        time=t)
+            h.append(op)
+            open_ops[p] = op
+            done += 1
+        else:
+            p = rng.choice(list(open_ops))
+            inv = open_ops.pop(p)
+            if inv.f == "enqueue":
+                pending.append(inv.value)
+                h.append(Op(type="ok", f="enqueue", value=inv.value,
+                            process=p, time=t))
+            else:
+                if pending:
+                    v = pending.pop(rng.randrange(len(pending)))
+                    h.append(Op(type="ok", f="dequeue", value=v,
+                                process=p, time=t))
+                else:
+                    h.append(Op(type="fail", f="dequeue", value=None,
+                                process=p, time=t))
+            free.append(p)
+        t += 1
+    if corrupt:
+        rows = list(h)
+        for i in range(len(rows) - 1, -1, -1):
+            if rows[i].type == "ok" and rows[i].f == "dequeue":
+                rows[i] = rows[i].replace(value=10**7)
+                break
+        h = History.of(rows)
+    return h
+
+
+def random_fifo_history(rng, n_procs=3, n_ops=10, corrupt_p=0.25,
+                        crash_p=0.12) -> History:
+    """Random concurrent FIFO history: unique enqueue values; dequeues
+    usually pop the true head, sometimes an out-of-order or bogus value,
+    and some enqueues crash."""
+    h = History()
+    free = list(range(n_procs))
+    open_ops = {}
+    q = []
+    nextv = done = t = 0
+    while done < n_ops or open_ops:
+        if free and done < n_ops and (not open_ops or rng.random() < 0.5):
+            p = free.pop(rng.randrange(len(free)))
+            if rng.random() < 0.55 or not q:
+                op = Op(type="invoke", f="enqueue", value=nextv, process=p,
+                        time=t)
+                nextv += 1
+            else:
+                op = Op(type="invoke", f="dequeue", value=None, process=p,
+                        time=t)
+            h.append(op)
+            open_ops[p] = op
+            done += 1
+        else:
+            p = rng.choice(list(open_ops))
+            inv = open_ops.pop(p)
+            if inv.f == "enqueue":
+                if rng.random() < crash_p:
+                    h.append(Op(type="info", f="enqueue", value=inv.value,
+                                process=p, time=t))
+                    free.append(p)
+                    t += 1
+                    continue
+                q.append(inv.value)
+                h.append(Op(type="ok", f="enqueue", value=inv.value,
+                            process=p, time=t))
+            else:
+                if q and rng.random() >= corrupt_p:
+                    v = q.pop(0)
+                elif q and rng.random() < 0.5:
+                    v = q.pop(rng.randrange(len(q)))
+                else:
+                    v = 999
+                h.append(Op(type="ok", f="dequeue", value=v, process=p,
+                            time=t))
+            free.append(p)
+        t += 1
+    return h
+
+
+def _run_clients(n_ops, n_procs, rng, overlap_p, next_op, commit,
+                 crash_p=0.0, on_crash=None) -> History:
+    """The event loop the simulators share: ``n_procs`` clients, each with
+    one op in flight at a time. ``next_op(p)`` gives a free client's next
+    (f, value); each op takes effect at a random instant between its
+    invocation and its completion, where ``commit(p, f, value)`` applies
+    it and returns the completion's (type, value). With ``crash_p`` a
+    completion is reported as 'info' instead, and the client goes on as a
+    new process (``on_crash(old, new, op)``)."""
+    h = History()
+    free = list(range(n_procs))
+    in_flight = []  # [process, op, completion or None]
+    invoked = t = 0
+    fresh = n_procs
+    while invoked < n_ops or in_flight:
+        can_invoke = free and invoked < n_ops
+        if can_invoke and (not in_flight or rng.random() < overlap_p):
+            p = free.pop(rng.randrange(len(free)))
+            f, v = next_op(p)
+            h.append(Op(type="invoke", f=f, value=v, process=p, time=t))
+            in_flight.append([p, h[-1], None])
+            invoked += 1
+        else:
+            entry = rng.choice(in_flight)
+            p, inv_op, done = entry
+            if done is None:
+                entry[2] = commit(p, inv_op.f, inv_op.value)
+                if rng.random() >= 0.5:   # complete later
+                    t += 1
+                    continue
+            typ, val = entry[2]
+            in_flight.remove(entry)
+            if crash_p and rng.random() < crash_p:
+                h.append(Op(type="info", f=inv_op.f, value=inv_op.value,
+                            process=p, time=t))
+                fresh += 1
+                if on_crash is not None:
+                    on_crash(p, fresh, inv_op)
+                free.append(fresh)
+            else:
+                h.append(Op(type=typ, f=inv_op.f, value=val, process=p,
+                            time=t))
+                free.append(p)
+        t += 1
+    return h
+
+
+def simulate_mutex_history(n_ops: int, n_procs: int = 5, seed: int = 0,
+                           crash_p: float = 0.0,
+                           overlap_p: float = 0.6) -> History:
+    """A lock shared by ``n_procs`` clients, one per node, each looping
+    acquire / release (a try-lock: an acquire of a held lock fails).
+    Linearizable by construction. A crashed client's successor process
+    holds the lock if it did, and releases it next."""
+    rng = random.Random(seed)
+    state = {"holder": None}
+    holds = collections.defaultdict(bool)
+
+    def next_op(p):
+        return ("release" if holds[p] else "acquire"), None
+
+    def commit(p, f, v):
+        if f == "release":
+            state["holder"] = None
+            holds[p] = False
+            return "ok", None
+        if state["holder"] is None:
+            state["holder"] = p
+            holds[p] = True
+            return "ok", None
+        return "fail", None
+
+    def on_crash(old, new, op):
+        holds[new] = holds.pop(old, False)
+        if state["holder"] == old:
+            state["holder"] = new
+
+    return _run_clients(n_ops, n_procs, rng, overlap_p, next_op, commit,
+                        crash_p, on_crash)
+
+
+def simulate_queue_history(n_ops: int, n_procs: int = 5, seed: int = 0,
+                           backlog: int = 8, fifo: bool = True,
+                           overlap_p: float = 0.6) -> History:
+    """A queue of unique values (0, 1, 2, ...) under ``n_procs`` clients
+    that enqueue and dequeue; consumers keep up, so at most ``backlog``
+    enqueued values are not yet dequeued. A dequeue takes the oldest
+    pending value (``fifo``) or any pending value (an unordered queue's
+    delivery); on an empty queue it fails. Linearizable by construction,
+    for FIFOQueue when ``fifo`` and for UnorderedQueue always."""
+    rng = random.Random(seed)
+    queue: list = []
+    state = {"next": 0, "open": 0}   # next value; enqueued, not dequeued
+
+    def next_op(p):
+        if state["open"] >= backlog or (state["open"] and
+                                        rng.random() < 0.5):
+            return "dequeue", None
+        state["open"] += 1
+        state["next"] += 1
+        return "enqueue", state["next"] - 1
+
+    def commit(p, f, v):
+        if f == "enqueue":
+            queue.append(v)
+            return "ok", v
+        if not queue:
+            return "fail", None
+        state["open"] -= 1
+        return "ok", queue.pop(0 if fifo else rng.randrange(len(queue)))
+
+    return _run_clients(n_ops, n_procs, rng, overlap_p, next_op, commit)
+
+
+def simulate_set_history(n_adds: int, n_procs: int = 5, seed: int = 0,
+                         crash_p: float = 0.0, overlap_p: float = 0.6,
+                         lost_p: float = 0.5) -> History:
+    """``n_adds`` adds of unique elements (0, 1, 2, ...) from ``n_procs``
+    clients, then one final read of the whole set, as a sets workload
+    ends. A crashed add's effect is lost with probability ``lost_p`` and
+    took effect otherwise; the read sees the adds that took effect.
+    Linearizable by construction."""
+    rng = random.Random(seed)
+    applied = set()
+    counter = iter(range(n_adds))
+
+    def next_op(p):
+        return "add", next(counter)
+
+    def commit(p, f, v):
+        applied.add(v)
+        return "ok", v
+
+    def on_crash(old, new, op):
+        # no read runs before the final one, so an add that crashed may as
+        # well never have taken effect
+        if rng.random() < lost_p:
+            applied.discard(op.value)
+
+    h = _run_clients(n_adds, n_procs, rng, overlap_p, next_op, commit,
+                     crash_p, on_crash)
+    t = h[-1].time + 1 if h else 0
+    h.append(Op(type="invoke", f="read", value=None, process=0, time=t))
+    h.append(Op(type="ok", f="read", value=sorted(applied), process=0,
+                time=t + 1))
+    return h
+
+
+def corrupt_model_history(history, family: str) -> History:
+    """A copy of a simulated history that its model refutes: for a queue,
+    the first ok dequeue returns a value never enqueued; for the set, the
+    final read misses an element whose add completed; for the mutex, the
+    ok release at the middle is dropped (its invocation and completion),
+    so a later acquire finds the lock held. (A bogus dequeue deep in a
+    queue history stalls the pool search at that op while its beam walks
+    the earlier interleavings: the level budget runs out first, on the
+    reference as here.)"""
+    rows = list(history)
+    mid = len(rows) // 2
+    if family in ("unordered-queue", "fifo-queue"):
+        i = next(i for i in range(len(rows))
+                 if rows[i].type == "ok" and rows[i].f == "dequeue")
+        rows[i] = rows[i].replace(value=10**7)
+        return History(rows)
+    if family == "set":
+        i = max(i for i, o in enumerate(rows)
+                if o.type == "ok" and o.f == "read")
+        done = {o.value for o in rows if o.type == "ok" and o.f == "add"}
+        gone = min(v for v in rows[i].value if v in done)
+        rows[i] = rows[i].replace(value=[v for v in rows[i].value
+                                         if v != gone])
+        return History(rows)
+    if family == "mutex":
+        done = next(i for i in range(mid, len(rows))
+                    if rows[i].type == "ok" and rows[i].f == "release")
+        p = rows[done].process
+        inv = max(i for i in range(done) if rows[i].process == p
+                  and rows[i].type == "invoke")
+        return History([o for i, o in enumerate(rows)
+                        if i not in (inv, done)])
+    raise ValueError(f"no corruption for {family!r}")

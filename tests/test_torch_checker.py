@@ -134,10 +134,14 @@ def test_headline_matches_jax():
 
 
 @pytest.mark.parametrize("segment_iters", [None, 100])
-def test_the_single_path_runs_the_batch_schedule(segment_iters):
+def test_the_single_path_runs_the_batch_schedule(segment_iters,
+                                                 monkeypatch):
     """One history runs the keyed batch's loop: segments grow from 64
     levels, doubling up to the segment length, and stop at the first
-    segment end with the search over."""
+    segment end with the search over. ``None`` is the default length: the
+    test unsets JTPU_SEGMENT_ITERS, which other code in the process may
+    have set."""
+    monkeypatch.delenv("JTPU_SEGMENT_ITERS", raising=False)
     h = jt.simulate_register_history(300, n_procs=5, seed=6, crash_p=0.02)
     r = check_history_gpu(_port(h), CASRegister(), device="cpu",
                           segment_iters=segment_iters)

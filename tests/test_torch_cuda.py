@@ -208,3 +208,112 @@ def test_keyed_check_matches_the_plain_versions(cuda):
     assert ours["results"]["stag"]["tiebreak"] == "hash"
     assert ours["results"]["wide_a"]["rung"] == (512, 64, 512)
     assert K.launches["sort_rows"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The other model families: K1's template instantiation per model
+# ---------------------------------------------------------------------------
+
+def _model_fixtures():
+    from jepsen_tpu_torch import models as M
+    from jepsen_tpu_torch import testing as pt
+    return {
+        "mutex": (M.Mutex(), [
+            lambda: pt.simulate_mutex_history(300, 5, seed=11,
+                                              crash_p=0.03),
+            lambda: pt.simulate_mutex_history(200, 4, seed=12),
+            lambda: pt.simulate_mutex_history(250, 5, seed=13,
+                                              crash_p=0.05)]),
+        "noop": (M.NoOp(), [
+            lambda: simulate_register_history(300, 5, seed=14),
+            lambda: simulate_register_history(200, 5, seed=15,
+                                              crash_p=0.05),
+            lambda: wide_history(48, 2, seed=3)]),
+        "set": (M.SetModel(), [
+            lambda: pt.simulate_set_history(200, 5, seed=16, crash_p=0.05),
+            lambda: pt.simulate_set_history(150, 4, seed=17),
+            lambda: pt.random_set_history(random.Random(3), 4, 40,
+                                          corrupt_p=0.0)]),
+        "unordered-queue": (M.UnorderedQueue(), [
+            lambda: pt.simulate_queue_history(300, 5, seed=18, backlog=8,
+                                              fifo=False),
+            lambda: pt.unique_queue_history(200, seed=1),
+            lambda: pt.random_queue_history(random.Random(5), 4, 40,
+                                            corrupt_p=0.0)]),
+        "fifo-queue": (M.FIFOQueue(), [
+            lambda: pt.simulate_queue_history(300, 3, seed=19, backlog=2,
+                                              fifo=True),
+            lambda: pt.simulate_queue_history(200, 5, seed=20, backlog=2,
+                                              fifo=True),
+            lambda: pt.random_fifo_history(random.Random(12), 3, 16,
+                                           corrupt_p=0.0)]),
+    }
+
+
+def _model_cols(model, histories):
+    """The histories' columns under ``model`` at one required width and
+    crash width; the window the widest needs."""
+    packed = [pack_with_init(h(), model) for h in histories]
+    breq = G._bucket(max(p.n_required for p, _ in packed))
+    cr = max(G._crash_width(p.n - p.n_required) for p, _ in packed)
+    W = max(32, max(G._window_bucket(G._window_needed(p))
+                    for p, _ in packed))
+    return [G._split_packed(p, breq, cr, k) for p, k in packed], W
+
+
+MODEL_NAMES = ("mutex", "noop", "set", "unordered-queue", "fifo-queue")
+
+
+@pytest.mark.parametrize("tiebreak", K.TIEBREAKS)
+@pytest.mark.parametrize("batch", [False, True])
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_each_model_kernel_matches_its_plain_version(cuda, name, batch,
+                                                     tiebreak):
+    """K1 stepping each model, and K2-K4 after it, against their plain
+    versions bit for bit: one key (B = 1) and a batch of three."""
+    model, makers = _model_fixtures()[name]
+    cols, W = _model_cols(model, makers)
+    if not batch:
+        cols = cols[:1]
+    lv = parity.Level(cols, (64, W, 8), cuda, tiebreak=tiebreak,
+                      model=name)
+    walked = 0
+    for _ in range(5):
+        if lv.advance(4) == 0:
+            break
+        for stage, _, _, _, err in lv.walk():
+            assert err == 0, (name, batch, tiebreak, stage)
+        walked += 1
+    assert walked > 0
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_each_model_check_matches_the_plain_versions(cuda, name):
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    model, makers = _model_fixtures()[name]
+    h = makers[0]()
+    ours = linearizable(model, device=cuda).check({}, h)
+    packed, kernel = pack_with_init(h, model)
+    ref = resilience.supervised_check_packed(packed, kernel, device=cuda,
+                                             ops=G.PLAIN)
+    keys = ("valid", "levels", "max-linearized-prefix", "rung", "work",
+            "best-k")
+    assert {k: ours.get(k) for k in keys} == {k: ref.get(k) for k in keys}
+    assert ours["valid"] is True and ours["backend"] == "gpu"
+    assert "fallback-from" not in ours
+
+
+def test_the_register_kernel_is_the_default_instantiation(cuda):
+    """The register's K1 is model code 0, the shape's default: a level
+    of the crashed fixture launched with the default shape and with the
+    model named equals its plain version either way."""
+    _, _, cols = _cols(FIXTURES["crashed"]())
+    outs = []
+    for kw in ({}, {"model": "cas-register"}):
+        lv = parity.Level(cols, (128, 32, 8), cuda, **kw)
+        lv.advance(6)
+        for stage, _, _, _, err in lv.walk():
+            assert err == 0, (kw, stage)
+        outs.append(interop.carry_to_numpy(lv.carry))
+    for x, y in zip(*outs, strict=True):
+        assert np.array_equal(x, y)

@@ -25,6 +25,7 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_headline.py"),
              os.path.join(ROOT, "tools", "profile_torch_keyed.py"),
+             os.path.join(ROOT, "tools", "probe_torch_models.py"),
              os.path.join(ROOT, "tools", "time_torch_headline.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
@@ -55,7 +56,8 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
 def test_importing_the_checker_loads_no_jax():
     code = ("import sys, jepsen_tpu_torch.checker.wgl, "
             "jepsen_tpu_torch.resilience, jepsen_tpu_torch.interop, "
-            "jepsen_tpu_torch.independent; "
+            "jepsen_tpu_torch.independent, jepsen_tpu_torch.models, "
+            "jepsen_tpu_torch.testing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)

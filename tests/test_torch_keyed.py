@@ -97,7 +97,8 @@ def run_batch_both(kernel, cols, rung, tiebreak, seg=16, nseg=3):
     jc = G._batch_carry0_host(C, W, cr, [c["ini"] for c in cols],
                               [int(c["nr"]) for c in cols],
                               stats_rows=lmax + 1)
-    shape = K.LevelShape(C, W, E, n, cr, B=len(cols), tiebreak=tiebreak)
+    shape = K.LevelShape(C, W, E, n, cr, B=len(cols), tiebreak=tiebreak,
+                         model=kernel.name)
     tcols = interop.batch_cols_from_numpy(stacked, "cpu")
     carry = interop.batch_carry_from_numpy(jc, "cpu")
     scratch = G.empty_scratch(shape, "cpu")

@@ -75,7 +75,7 @@ def run_both(cols, kernel, C, W, E, seg=SEG, nseg=NSEG):
     carry0 = T._carry0_host(C, W, cr, cols["ini"], int(cols["nr"]),
                             stats_rows=lmax + 1)
     fn = T._jit_segment(T._kernel_key(kernel), C, W, E, 1, stats=True)
-    shape = K.LevelShape(C, W, min(E or C, C), n, cr)
+    shape = K.LevelShape(C, W, min(E or C, C), n, cr, model=kernel.name)
     tcols = interop.cols_from_numpy(cols, "cpu")
     carry = interop.carry_from_numpy(carry0, "cpu")
     scratch = G.empty_scratch(shape, "cpu")
