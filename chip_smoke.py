@@ -17,7 +17,13 @@ the other model families (mutex, unordered queue, FIFO queue, set, no-op):
 each kernel held against its plain version at a live state of each
 model's 10,000-op history, each history through ``linearizable(<Model>())``
 cold and warm, a corrupted copy refuted, and 1,000-op histories on the
-kernels and on their plain versions. Every phase is a hard assertion.
+kernels and on their plain versions; and the serve daemon's gangs: each
+kernel held against its plain version at a gang's state (8 same-bucket
+2,000-op register histories), the gang against the same 8 histories
+checked one by one, and the daemon (``serve.run_daemon`` on port 0)
+answering register requests from 4 tenants in gangs, beside the
+headline, its corrupted copy, a mutex history, a request past its
+deadline and a poisoned gang member. Every phase is a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -110,6 +116,22 @@ MODEL_UNREFUTED = ("set",)
 MODEL_WARM_LEVELS = 300
 #: the size of the histories run on the kernels and on the plain versions
 MODEL_PLAIN_OPS = 1000
+
+#: the serve phase: register requests of 2,000 ops (seeds 9000 + i) from
+#: 4 tenants, in gangs of up to 8
+SERVE = dict(n_ops=2000, n_procs=5, n_vals=16, crash_p=0.002)
+SERVE_SEED, SERVE_REQUESTS, SERVE_TENANTS, SERVE_BATCH_MAX = 9000, 16, 4, 8
+#: how long a gang's leader waits for its bucket's members: long enough
+#: that the requests POSTed meanwhile fill its gang
+SERVE_WAIT_MS = 1000.0
+#: the deadline member's deadline, seconds
+SERVE_DEADLINE_S = 0.001
+#: the gang whose kernels are held against their plain versions, and which
+#: is timed against its members checked one by one
+GANG_SIZE, GANG_RUNG, GANG_WARM_LEVELS, GANG_REPS = 8, (128, 32, 8), 300, 3
+#: the result fields a served verdict shares with the serial check's
+VERDICT = ("valid", "levels", "max-linearized-prefix", "final-states",
+           "frontier-op")
 
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
@@ -213,6 +235,15 @@ def check_and_time(lv, parity):
             out[name]["library_ms"] = device_ms(
                 lambda k: torch.sort(k, dim=1, stable=True),
                 lambda: (key.clone(),))
+        if name == "group_scan":
+            # the same scan as one PyTorch call: cummax over each key's
+            # [RP] int32 vector of group starts (tpu.py:605)
+            rows = state[1].rows
+            iota = torch.arange(rows.shape[1], device=rows.device,
+                                dtype=torch.int32)
+            v = torch.where(K._same_grp(rows, lv.shape.MW), 0, iota)
+            out[name]["library_ms"] = device_ms(
+                lambda x: torch.cummax(x, 1), lambda: (v,))
     add_bounds(out, lv)
     return out
 
@@ -402,6 +433,250 @@ def model_phases(dev, seconds, shapes):
                 else:
                     assert a["valid"] is False, (tag, a)
     return model_lines, model_launches, model_grid_launches
+
+
+def http_json(port, method, path, doc=None):
+    """(status, body) of one request to the daemon on localhost."""
+    import urllib.error
+    import urllib.request
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=data, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_phases(dev, seconds, shapes, head):
+    """The serve daemon's path: the kernels at a gang's state (into
+    ``shapes``), a gang against its members one by one, and the daemon
+    answering POSTed requests. Returns the gang line, the serve line and
+    the kernels' launch counts on the serve path."""
+    import shutil
+    import threading
+    from jepsen_tpu_torch import journal, serve, testing
+    from jepsen_tpu_torch.checker import check_safe
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.engine import Engine
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.kernels import parity
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister, Mutex
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+
+    with phase("serve histories", seconds):
+        def member(seed):
+            h = testing.simulate_register_history(seed=seed, **SERVE)
+            p, kernel = pack_with_init(h, CASRegister())
+            return h, p, kernel, Engine.bucket_key(p, kernel)
+
+        regs = [member(SERVE_SEED + i) for i in range(SERVE_REQUESTS)]
+        counts = {}
+        for r in regs:
+            counts[r[3]] = counts.get(r[3], 0) + 1
+        main = max(counts, key=counts.get)
+        print(f"serve buckets: {counts}", flush=True)
+        # the deadline member, the poison member and the gang of
+        # GANG_SIZE: further seeds of the requests' main bucket
+        extra, seed = [], SERVE_SEED + SERVE_REQUESTS
+        while len(extra) < 2 + max(0, GANG_SIZE - counts[main]):
+            m = member(seed)
+            if m[3] == main:
+                extra.append(m)
+            seed += 1
+        late, poison = extra[0], extra[1]
+        gang8 = ([r for r in regs if r[3] == main] + extra[2:])[:GANG_SIZE]
+        kernel = regs[0][2]
+
+        def sig(p):
+            return (p.n, p.n_required, int(p.inv.sum()), int(p.v1.sum()))
+
+        assert sum(sig(r[1]) == sig(poison[1]) for r in regs + extra) == 1
+        bad_head = testing.corrupt_model_history(head, "cas-register")
+        mutex_h = testing.simulate_mutex_history(
+            **MODEL_HISTORIES["mutex"][2])
+
+    with phase("gang kernels", seconds):
+        cols = [G._split_packed(r[1], main[1], main[2], kernel)
+                for r in gang8]
+        lv = parity.Level(cols, GANG_RUNG, dev)
+        live = lv.advance(GANG_WARM_LEVELS)
+        assert live > 0
+        shapes["gang"] = check_and_time(lv, parity)
+        print_kernels("gang", lv, live, GANG_WARM_LEVELS, shapes["gang"])
+
+    with phase("gang vs serial", seconds):
+        pks = [r[1] for r in gang8]
+        fields = VERDICT + ("rung", "work", "crash-width")
+        gang = G.check_packed_gang_gpu(pks, kernel, device=dev)
+        serial = [G.check_packed_gpu(p, kernel, device=dev) for p in pks]
+        for g, s in zip(gang, serial):
+            assert {k: g.get(k) for k in fields} == {
+                k: s.get(k) for k in fields}, (g, s)
+            assert g["valid"] is True, g
+        times = {"gang": [], "serial": []}
+        each = []
+        for rep in range(GANG_REPS):
+            for mode in (("gang", "serial") if rep % 2 == 0
+                         else ("serial", "gang")):
+                t0 = time.perf_counter()
+                if mode == "gang":
+                    G.check_packed_gang_gpu(pks, kernel, device=dev)
+                else:
+                    one = []
+                    for p in pks:
+                        t1 = time.perf_counter()
+                        G.check_packed_gpu(p, kernel, device=dev)
+                        one.append(time.perf_counter() - t1)
+                    each.append(one)
+                times[mode].append(time.perf_counter() - t0)
+        gang_s = statistics.median(times["gang"])
+        serial_s = statistics.median(times["serial"])
+        deepest = max(range(GANG_SIZE), key=lambda i: gang[i]["levels"])
+        gang_line = {
+            "members": GANG_SIZE, "bucket": list(main),
+            "rungs": [list(g["rung"]) for g in gang],
+            "levels": [g["levels"] for g in gang],
+            "gang_s": times["gang"], "serial_s": times["serial"],
+            "gang_rps": GANG_SIZE / gang_s,
+            "serial_rps": GANG_SIZE / serial_s,
+            "speedup": serial_s / gang_s,
+            "deepest_serial_s": statistics.median(
+                one[deepest] for one in each),
+            "serial_each_s": [statistics.median(one[i] for one in each)
+                              for i in range(GANG_SIZE)]}
+        print("gang vs serial:", json.dumps(gang_line), flush=True)
+
+    with phase("serve", seconds):
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "store", "serve-smoke")
+        shutil.rmtree(root, ignore_errors=True)
+        # per tenant: its register requests first, then the other
+        # buckets' (a gang takes members from the heads of the queues)
+        mine = [[] for _ in range(SERVE_TENANTS)]
+        for i, r in enumerate(regs):
+            mine[i % SERVE_TENANTS].append(("reg", r[0], "cas-register",
+                                            None))
+        mine[0].insert(1, ("late", late[0], "cas-register",
+                           SERVE_DEADLINE_S))
+        mine[1].insert(1, ("poison", poison[0], "cas-register", None))
+        mine[0].append(("mutex", mutex_h, "mutex", None))
+        mine[1].append(("corrupt", bad_head, "cas-register", None))
+        mine[2].append(("headline", head, "cas-register", None))
+
+        def fault(pks):
+            if any(sig(p) == sig(poison[1]) for p in pks):
+                raise MemoryError("injected gang fault")
+
+        cfg = serve.ServeConfig(root=root, batch_max=SERVE_BATCH_MAX,
+                                batch_wait_ms=SERVE_WAIT_MS,
+                                queue_max=64, tenant_max=16)
+        K.reset_launches()
+        daemon, server = serve.run_daemon(cfg, port=0)
+        port = server.server_port
+        posted = {}
+        G._GANG_FAULT = fault
+        try:
+            def post(t):
+                for tag, h, model, dl in mine[t]:
+                    doc = {"tenant": f"tenant{t}", "model": model,
+                           "history": [o.to_dict() for o in h]}
+                    if dl is not None:
+                        doc["deadline-s"] = dl
+                    code, body = http_json(port, "POST", "/check", doc)
+                    assert code == 202, (code, body)
+                    posted[body["id"]] = (tag, h, model)
+
+            t0 = time.perf_counter()
+            threads = [threading.Thread(target=post, args=(t,))
+                       for t in range(SERVE_TENANTS)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=600)
+                assert not th.is_alive()
+            docs = {}
+            while len(docs) < len(posted):
+                for rid in posted:
+                    if rid not in docs:
+                        code, doc = http_json(port, "GET", f"/check/{rid}")
+                        if doc["state"] == "done":
+                            docs[rid] = (code, doc["result"])
+                assert time.perf_counter() - t0 < 600, "serve timed out"
+                time.sleep(0.05)
+            wall = time.perf_counter() - t0
+            serve_launches = dict(K.launches)
+            serve_grid_launches = dict(K.grid_launches_total)
+            code, health = http_json(port, "GET", "/healthz")
+            assert code == 200
+        finally:
+            G._GANG_FAULT = None
+            http_json(port, "POST", "/drain")
+            server.shutdown()
+            server.server_close()
+            daemon.stop()
+        stats = health["stats"]
+        print(f"serve launches: {serve_launches} "
+              f"cuda_launches={serve_grid_launches}")
+        assert all(serve_launches[k] > 0 for k in (
+            "expand", "sort_rows", "group_scan", "dedup_truncate")), \
+            serve_launches
+        records, _ = journal.read_json_records(
+            os.path.join(root, serve.WAL_NAME))
+        gangs = {}
+        for rec in records:
+            if rec.get("event") == "done":
+                key = tuple(rec.get("gang") or (rec["id"],))
+                gangs[key] = rec["seconds"]
+        tags = {rid: posted[rid][0] for rid in posted}
+        gang_list = [{"size": len(k), "seconds": v,
+                      "members": sorted({tags[r] for r in k})}
+                     for k, v in gangs.items()]
+        for g in gang_list:
+            print(f"serve gang: size={g['size']} seconds={g['seconds']:.4f}"
+                  f" members={g['members']}", flush=True)
+
+        # every verdict against the port's serial check of the history
+        t1 = time.perf_counter()
+        checked = 0
+        for rid, (tag, h, model) in posted.items():
+            code, res = docs[rid]
+            gang = res["serve"].get("gang") or {}
+            assert code == (500 if tag == "poison" else 200), (tag, code)
+            if tag == "poison":
+                assert gang["poison"] is True and gang["size"] > 1, res
+                assert res["error-class"] == "oom", res
+                continue
+            assert gang.get("poison") is not True, (tag, res)
+            if tag == "late":
+                assert res["error"] == ":info/timeout", res
+                assert res["serve"]["timed-out"] is True
+                assert gang.get("size", 1) > 1, res
+                mates = next(k for k in gangs if rid in k)
+                assert all(docs[m][1]["valid"] in (True, False)
+                           for m in mates if tags[m] not in (
+                               "late", "poison")), "late's mates"
+                continue
+            want = check_safe(linearizable(
+                Mutex() if model == "mutex" else CASRegister(),
+                device=dev), {}, History.of(o.to_dict() for o in h))
+            assert {k: res.get(k) for k in VERDICT} == {
+                k: want.get(k) for k in VERDICT}, (tag, res, want)
+            assert res["valid"] is (tag != "corrupt"), (tag, res)
+            checked += 1
+        assert stats["poisoned"] == 1 and stats["max-batch"] > 1, stats
+        serve_line = {
+            "requests": len(posted), "tenants": SERVE_TENANTS,
+            "wall_s": wall, "requests_per_s": len(posted) / wall,
+            "gangs": gang_list, "stats": stats,
+            "checked_against_serial": checked,
+            "serial_check_s": time.perf_counter() - t1,
+            "warm_buckets": health["engine"]["warm-buckets"]}
+        print("serve:", json.dumps(serve_line), flush=True)
+    return gang_line, serve_line, serve_launches, serve_grid_launches
 
 
 def main() -> int:
@@ -712,6 +987,10 @@ def smoke(dev: torch.device) -> None:
     model_lines, model_launches, model_grid_launches = model_phases(
         dev, seconds, shapes)
 
+    # -- the serve daemon's gangs ------------------------------------------
+    gang_line, serve_line, serve_launches, serve_grid_launches = \
+        serve_phases(dev, seconds, shapes, head)
+
     # -- summary ------------------------------------------------------------
     kernels = []
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -732,13 +1011,16 @@ def smoke(dev: torch.device) -> None:
             "library_ms": top["library_ms"],
             "launches_by_path": {"headline": launches[name],
                                  "keyed": keyed_launches[name],
-                                 "models": model_launches[name]},
+                                 "models": model_launches[name],
+                                 "serve": serve_launches[name]},
             "cuda_launches_by_path": {"headline": grid_launches[name],
                                       "keyed": keyed_grid_launches[name],
-                                      "models": model_grid_launches[name]},
+                                      "models": model_grid_launches[name],
+                                      "serve": serve_grid_launches[name]},
         }
         if single:
             entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
+            entry["gang"] = {k: shapes["gang"][name][k] for k in keep}
         entry["keyed_staggered"] = {
             k: shapes["keyed staggered " + tb][name][k] for k in keep}
         entry["keyed_dense"] = {
@@ -756,8 +1038,8 @@ def smoke(dev: torch.device) -> None:
     print(json.dumps({"kernels": kernels, "headline": {
         "cold_s": cold_headline, "warm_s": warm_s, "levels": r["levels"],
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
-        "models": model_lines,
-        "phase_seconds": seconds, "nvidia_smi": smi}))
+        "models": model_lines, "gang_vs_serial": gang_line,
+        "serve": serve_line, "phase_seconds": seconds, "nvidia_smi": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -39,8 +39,18 @@ class Checker:
 def check_safe(checker: Checker, test: dict, history,
                opts: Optional[dict] = None) -> Dict[str, Any]:
     """Like ``checker.check``, but an exception yields ``{"valid":
-    "unknown", "error": <traceback>}``."""
+    "unknown", "error": <traceback>}`` with its failure class
+    (``error-class``, :func:`jepsen_tpu_torch.resilience.classify_failure`)
+    and, when the exception carries a ``resilience_trail``, the
+    ``attempts`` it records."""
     try:
         return checker.check(test, history, opts or {})
-    except Exception:  # noqa: BLE001
-        return {"valid": UNKNOWN, "error": traceback.format_exc()}
+    except Exception as e:  # noqa: BLE001
+        from jepsen_tpu_torch.resilience import classify_failure
+        out: Dict[str, Any] = {"valid": UNKNOWN,
+                               "error": traceback.format_exc(),
+                               "error-class": classify_failure(e)}
+        trail = getattr(e, "resilience_trail", None)
+        if trail:
+            out["attempts"] = list(trail)
+        return out

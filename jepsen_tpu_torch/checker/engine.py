@@ -7,13 +7,22 @@ tie-break, model) and device, the carry and scratch buffers; per (B, n, CR) and
 device, the column buffers. A warm check at a cached shape allocates no
 device memory. The buffers serve one check at a time: callers hold
 :attr:`Engine.lock` while they use them.
+
+For the serve daemon it also names the shape bucket a history lands in
+(:meth:`Engine.bucket_key`) and warms a bucket ahead of its requests
+(:meth:`Engine.warm`): there is nothing to compile, so warming builds the
+kernel library and allocates each rung's buffers. Warm buckets are kept
+in LRU order up to ``JTPU_ENGINE_MAX_BUCKETS`` (0: no bound); evicting a
+bucket frees its buffers.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 from collections import OrderedDict
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -25,12 +34,20 @@ class Engine:
     #: shapes (and column shapes) kept before the oldest is dropped
     MAX_ENTRIES = 16
 
-    def __init__(self):
+    def __init__(self, max_warm_buckets: Optional[int] = None):
         self.lock = threading.Lock()
         self.lib = None
         self._states: "OrderedDict[tuple, Tuple[G.Carry, G.Scratch]]" = \
             OrderedDict()
         self._cols: "OrderedDict[tuple, dict]" = OrderedDict()
+        #: bucket -> warm record, stalest first; guarded by _meta, so that
+        #: a status read does not wait for a search holding ``lock``
+        self._meta = threading.Lock()
+        self._warm: "OrderedDict[tuple, Dict[str, Any]]" = OrderedDict()
+        self.max_warm_buckets = (_env_max_warm_buckets()
+                                 if max_warm_buckets is None
+                                 else max(0, int(max_warm_buckets)))
+        self.evictions = 0
 
     def _cached(self, cache: OrderedDict, key: tuple, build):
         hit = cache.get(key)
@@ -76,6 +93,114 @@ class Engine:
         """One history's columns, as a batch of one."""
         from jepsen_tpu_torch import interop
         return self.batch_cols(interop.stack_cols([cols_np]), device)
+
+
+    # -- shape buckets and warm state ---------------------------------------
+
+    @staticmethod
+    def bucket_key(p, kernel=None) -> tuple:
+        """The padded-shape bucket a packed history lands in: (kernel
+        name, required-op bucket, crash width, window bucket). Histories
+        of one bucket run on the same buffers at every rung. A history
+        with more crashed ops than the crashed-set width has crash width
+        -1 (it never reaches the device)."""
+        nr = max(int(p.n_required), 1)
+        crw = G._crash_width(p.n - p.n_required)
+        wb = (G._window_bucket(max(G._window_needed(p), 1))
+              if p.n_required else 32)
+        kname = getattr(kernel, "name", None) or "kernel"
+        return (str(kname), G._bucket(nr), -1 if crw is None else crw, wb)
+
+    def warm(self, p, kernel, rungs: Optional[int] = None,
+             device=None) -> Dict[str, Any]:
+        """Make this history's bucket warm: load the kernel library (on a
+        CUDA device) and allocate the column buffers and, for each of the
+        first ``rungs`` rungs of its ladder (all when None), the carry and
+        scratch buffers of a single search. Idempotent per bucket; a warm
+        bucket moves to the newest end of the LRU order. Returns
+        ``{"bucket", "shapes", "bytes", "seconds", "already-warm"}``.
+        ``device=None`` means CUDA."""
+        dev = G.resolve_device(device)
+        bucket = self.bucket_key(p, kernel)
+        with self.lock:
+            with self._meta:
+                rec = self._warm.get(bucket)
+                if rec is not None:
+                    self._warm.move_to_end(bucket)
+                    return dict(rec, bucket=bucket,
+                                **{"already-warm": True})
+            t0 = time.perf_counter()
+            shapes, nbytes = 0, 0
+            crw = bucket[2]
+            if crw >= 0 and p.n_required:
+                cols = G._split_packed(p, bucket[1], crw, kernel)
+                self.cols(cols, dev)
+                ladder = G._ladder_for(G._window_needed(p), dev)
+                for cap, win, exp in ladder[:rungs] if rungs else ladder:
+                    shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
+                                         n=bucket[1], CR=crw,
+                                         model=kernel.name)
+                    self.state(shape, dev)
+                    shapes += 1
+                    nbytes += G.state_bytes(shape)
+            rec = {"shapes": shapes, "bytes": nbytes,
+                   "seconds": time.perf_counter() - t0, "ts": time.time(),
+                   "device": str(dev)}
+            with self._meta:
+                self._warm[bucket] = rec
+                victims = self._trim_warm_locked()
+            self._free(victims)
+        return dict(rec, bucket=bucket, **{"already-warm": False})
+
+    def warm_buckets(self) -> list:
+        """The warm buckets, stalest (the next to be evicted) first."""
+        with self._meta:
+            return list(self._warm)
+
+    def set_max_warm_buckets(self, n: int) -> None:
+        """Bound the warm buckets (0: no bound); shrinking below the
+        current count evicts the stalest at once."""
+        with self.lock:
+            with self._meta:
+                self.max_warm_buckets = max(0, int(n))
+                victims = self._trim_warm_locked()
+            self._free(victims)
+
+    def _trim_warm_locked(self) -> list:
+        """Drop the stalest warm records past the bound (caller holds
+        ``_meta``); returns the dropped (bucket, record) pairs."""
+        victims = []
+        while 0 < self.max_warm_buckets < len(self._warm):
+            victims.append(self._warm.popitem(last=False))
+            self.evictions += 1
+        return victims
+
+    def _free(self, victims: list) -> None:
+        """Release every buffer of the evicted buckets: the search states
+        of their shapes at any batch size, and the column buffers of their
+        widths (caller holds ``lock``)."""
+        for (kname, breq, crw, wb), rec in victims:
+            dev = rec["device"]
+            for key in [k for k in self._states
+                        if k[1] == dev and (k[0].model, k[0].n, k[0].CR,
+                                            k[0].W) == (kname, breq, crw,
+                                                        wb)]:
+                del self._states[key]
+            for key in [k for k in self._cols
+                        if k[2] == dev and (k[0][1], k[1][1]) == (breq,
+                                                                  crw)]:
+                del self._cols[key]
+        if victims and torch.cuda.is_available():
+            torch.cuda.empty_cache()
+
+
+def _env_max_warm_buckets() -> int:
+    """JTPU_ENGINE_MAX_BUCKETS: the most warm buckets an engine keeps (LRU
+    past it); 0, absent or malformed: no bound."""
+    try:
+        return max(0, int(os.environ.get("JTPU_ENGINE_MAX_BUCKETS") or "0"))
+    except ValueError:
+        return 0
 
 
 _DEFAULT: Optional[Engine] = None

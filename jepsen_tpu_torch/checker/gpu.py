@@ -1,7 +1,9 @@
-"""Linearizability search on an NVIDIA GPU: one history, or a keyed batch.
+"""Linearizability search on an NVIDIA GPU: one history, a keyed batch, or
+a gang of histories.
 
-Counterpart of ``jepsen_tpu/checker/tpu.py``'s single-history search and
-its keyed batch (``check_keyed_tpu``).
+Counterpart of ``jepsen_tpu/checker/tpu.py``'s single-history search, its
+keyed batch (``check_keyed_tpu``) and its gang (``check_packed_gang``,
+the serve daemon's batched call).
 A WGL configuration is ``(k, mask, cmask, state)``: ops ``[0, k)`` in
 return order are linearized, ``mask`` bit *o* marks op ``k+o`` as
 linearized too, ``cmask`` marks taken crashed ops, and ``state`` is the
@@ -289,20 +291,26 @@ def _result(done: bool, lossy: bool, wovf: bool, best_k: int, levels: int,
             "backend": "gpu"}
 
 
-def _prep_single(p: PackedHistory, kernel: KernelSpec) -> tuple:
-    """(cols, None), or (None, result) for the trivially complete and the
-    crashed-set-overflow cases."""
+def _early_result(p: PackedHistory) -> Optional[Dict[str, Any]]:
+    """The result of a history the search need not run: trivially complete
+    (no required op), or more crashed ops than the crashed-set width."""
     if p.n_required == 0:
-        return None, {"valid": True, "levels": 0, "backend": "gpu"}
-    cr = _crash_width(p.n - p.n_required)
-    cols = (None if cr is None
-            else _split_packed(p, _bucket(p.n_required), cr, kernel))
-    if cols is None:
-        return None, {
-            "valid": UNKNOWN, "backend": "gpu",
-            "error": f"{p.n - p.n_required} crashed ops exceed the "
-                     f"crashed-set width {CRASH_MAX}"}
-    return cols, None
+        return {"valid": True, "levels": 0, "backend": "gpu"}
+    if _crash_width(p.n - p.n_required) is None:
+        return {"valid": UNKNOWN, "backend": "gpu",
+                "error": f"{p.n - p.n_required} crashed ops exceed the "
+                         f"crashed-set width {CRASH_MAX}"}
+    return None
+
+
+def _prep_single(p: PackedHistory, kernel: KernelSpec) -> tuple:
+    """(cols, None), or (None, result) for the :func:`_early_result`
+    cases."""
+    early = _early_result(p)
+    if early is not None:
+        return None, early
+    return _split_packed(p, _bucket(p.n_required),
+                         _crash_width(p.n - p.n_required), kernel), None
 
 
 def _segment_config(segment_iters: Optional[int]) -> Optional[int]:
@@ -448,7 +456,9 @@ def run_segment(cols: dict, carry: Carry, scratch: Scratch,
 
 def run_batch(cols: dict, carry: Carry, scratch: Scratch,
               shape: K.LevelShape, seg_iters: int,
-              ops: Ops = KERNELS, first: int = FIRST_BATCH_SEGMENT) -> list:
+              ops: Ops = KERNELS, first: int = FIRST_BATCH_SEGMENT,
+              barrier: Optional[Callable[[torch.Tensor], bool]] = None
+              ) -> list:
     """Segments of levels until no key is active: one read of the keys'
     ``active`` flags per segment, the only host synchronisation. The
     segments grow from ``first`` levels, doubling up to ``seg_iters``, so
@@ -456,15 +466,33 @@ def run_batch(cols: dict, carry: Carry, scratch: Scratch,
     thousand. Returns the segments' lengths (their sum is the levels
     launched). Keys that finish early no-op while the others go on, so
     each key ends where its own search would (the vmapped ``while_loop``
-    of the reference). The single-history search is the batch of one."""
+    of the reference). The single-history search is the batch of one.
+
+    ``barrier``, when given, is called at each segment end with the keys'
+    ``active`` flags (int32 [B] on the device) in place of that read, and
+    says whether to go on; it may cancel keys (:func:`cancel_lanes`)."""
     segs = []
     seg = min(first, seg_iters)
     while True:
         run_segment(cols, carry, scratch, shape, cols["nr"], seg, ops)
         segs.append(seg)
-        if not bool(K.active(carry.scal, shape.lmax).any()):
+        act = K.active(carry.scal, shape.lmax)
+        if not (bool(act.any()) if barrier is None else barrier(act)):
             return segs
         seg = min(2 * seg, seg_iters)
+
+
+def cancel_lanes(carry: Carry, lanes: Sequence[int]) -> None:
+    """Stop the searches of keys ``lanes`` at a segment barrier: their
+    pool rows die and their live-row count goes to 0. ``active`` (and so
+    every kernel) reads the count, so clearing the rows alone would not
+    stop a key; with both cleared its later levels change nothing while
+    the other keys go on (the reference clears ``alive`` in its host
+    carry, whose while-condition reads the rows)."""
+    idx = torch.as_tensor(list(lanes), dtype=torch.long,
+                          device=carry.scal.device)
+    carry.pool.alive[idx] = False
+    carry.scal[idx, K.NALIVE] = 0
 
 
 def _batch_carry0_host(capacity: int, window: int, n_cr: int,
@@ -492,24 +520,33 @@ class _KeyRow(NamedTuple):
     work: list
 
 
+def _start_batch(eng, rows: List[dict], shape: K.LevelShape,
+                 device) -> tuple:
+    """(cols, carry, scratch): the engine's buffers for ``shape`` holding
+    the columns of ``rows`` (``_split_packed`` dicts, one per key) and
+    their initial carries. The caller holds ``eng.lock``."""
+    from jepsen_tpu_torch import interop
+    carry, scratch = eng.state(shape, device)
+    cols = eng.batch_cols(interop.stack_cols(rows), device)
+    host = _batch_carry0_host(
+        shape.C, shape.W, shape.CR, [r["ini"] for r in rows],
+        [int(r["nr"]) for r in rows], stats_rows=shape.lmax + 1)
+    interop.batch_carry_from_numpy(host, device, out=carry)
+    scratch.acc.zero_()
+    return cols, carry, scratch
+
+
 def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
                 ops: Ops) -> tuple:
     """One rung of one crash-width cohort: every key of ``grp`` searched
     together. Returns (done, lossy, wovf, best, levels, pools, launched):
     numpy arrays [B], ``pools`` the last living pools (pk, ps, pa) when
     some key was refuted, else None, and the levels launched."""
-    from jepsen_tpu_torch import interop
     from jepsen_tpu_torch.checker.engine import default_engine
     eng = default_engine()
     with eng.lock:
-        carry, scratch = eng.state(shape, device)
-        cols = eng.batch_cols(interop.stack_cols([r.cols for r in grp]),
-                              device)
-        host = _batch_carry0_host(
-            shape.C, shape.W, shape.CR, [r.cols["ini"] for r in grp],
-            [int(r.cols["nr"]) for r in grp], stats_rows=shape.lmax + 1)
-        interop.batch_carry_from_numpy(host, device, out=carry)
-        scratch.acc.zero_()
+        cols, carry, scratch = _start_batch(eng, [r.cols for r in grp],
+                                            shape, device)
         seg, first = _segment_schedule(None, shape.lmax)
         launched = sum(run_batch(cols, carry, scratch, shape, seg, ops,
                                  first))
@@ -618,16 +655,19 @@ def check_packed_gpu(p: PackedHistory, kernel: KernelSpec,
                      window: Optional[int] = WINDOW,
                      expand: Optional[int] = None,
                      segment_iters: Optional[int] = None,
-                     device=None) -> Dict[str, Any]:
+                     device=None,
+                     deadline: Optional[float] = None) -> Dict[str, Any]:
     """Check one packed history. ``capacity=None`` escalates through the
     ladder for the history's needed window; with an explicit capacity,
     ``expand`` < capacity selects best-first search (None = BFS). Runs in
     checkpointed segments of ``segment_iters`` levels. ``device=None``
-    means CUDA."""
+    means CUDA. Past ``deadline`` (a ``time.monotonic()`` instant) the
+    search stops at its next segment barrier with the timeout result."""
     from jepsen_tpu_torch import resilience
     return resilience.supervised_check_packed(
         p, kernel, capacity=capacity, window=window, expand=expand,
-        segment_iters=segment_iters, device=resolve_device(device))
+        segment_iters=segment_iters, device=resolve_device(device),
+        deadline=deadline)
 
 
 def check_history_gpu(history, model: Model,
@@ -635,10 +675,12 @@ def check_history_gpu(history, model: Model,
                       window: Optional[int] = WINDOW,
                       expand: Optional[int] = None,
                       segment_iters: Optional[int] = None,
-                      device=None) -> Optional[Dict[str, Any]]:
-    """Gate, pack and check one history with the model's kernel. None when
-    the model has no integer kernel, or the history does not fit its word
-    (an op ``f`` it lacks, or a value layout its remap cannot place)."""
+                      device=None, deadline: Optional[float] = None
+                      ) -> Optional[Dict[str, Any]]:
+    """Gate, pack and check one history with the model's kernel (see
+    :func:`check_packed_gpu`). None when the model has no integer kernel,
+    or the history does not fit its word (an op ``f`` it lacks, or a value
+    layout its remap cannot place)."""
     from jepsen_tpu_torch.analysis.history_lint import gate_history
     if window is not None:
         _check_window(window)
@@ -652,7 +694,8 @@ def check_history_gpu(history, model: Model,
         return None
     packed, kernel = pk
     return check_packed_gpu(packed, kernel, capacity, window, expand,
-                            segment_iters=segment_iters, device=dev)
+                            segment_iters=segment_iters, device=dev,
+                            deadline=deadline)
 
 
 def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
@@ -748,3 +791,155 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
                             results, dev, ops, kernel.name)
     return {"valid": merge_valid(r["valid"] for r in results.values()),
             "results": results, "backend": "gpu", "batches": batches}
+
+
+# ---------------------------------------------------------------------------
+# The gang: independent histories searched as one batch (the serve daemon)
+# ---------------------------------------------------------------------------
+
+#: Fault-injection seam of the gang path: when set, called with the gang's
+#: packed members before any device work. Raising from it stands for a
+#: failure of the whole batched call, which the serve daemon's
+#: :func:`jepsen_tpu_torch.resilience.bisect_poison` isolates by splitting
+#: the gang and running the halves again. Tests and ``chip_smoke.py`` set
+#: and clear it.
+_GANG_FAULT: Optional[Callable[[list], None]] = None
+
+
+def check_packed_gang_gpu(pks: Sequence[PackedHistory], kernel: KernelSpec,
+                          deadlines: Optional[Sequence[Optional[float]]]
+                          = None,
+                          segment_iters: Optional[int] = None,
+                          device=None, ops: Ops = KERNELS
+                          ) -> List[Dict[str, Any]]:
+    """Check a gang of packed single-key histories as one batch: every
+    member of a rung advances one level per launch of K1-K4 (the key axis
+    is the gang axis), under the lex tie-break.
+
+    Each member's result is the serial segmented search's
+    (:func:`check_packed_gpu`): the same ladder (:func:`_ladder_for` at
+    its needed window, on ``device``), the same per-key search, the same
+    summary, since a key of the batch neither reads nor writes another.
+    Members needing different ladders run as separate groups; within a
+    group the columns are padded to the largest member's widths, which
+    is the member's own when the gang is one shape bucket (the serve
+    daemon's gangs are).
+
+    ``deadlines[i]`` is a ``time.monotonic()`` instant for member ``i``
+    (None: no deadline). At the first segment barrier past it the
+    member's search is cancelled on the device (:func:`cancel_lanes`)
+    while the others go on, and it reports the serve timeout shape
+    (``":info/timeout"``, ``error-class`` ``"wedge"``,
+    ``gang-cancelled``). Gangs always run in segments, since the barrier
+    is the cancellation point: ``segment_iters=0`` means the default.
+
+    The carry stays on the device between segments: a barrier reads the
+    members' ``active`` flags and levels, and the carry comes to the host
+    once, when the rung ends. No OOM shrink happens here: a failed call
+    raises, for the caller to bisect. Returns one result per member,
+    aligned with ``pks``. ``device=None`` means CUDA."""
+    dev = resolve_device(device)
+    pks = list(pks)
+    if not pks:
+        return []
+    if _GANG_FAULT is not None:
+        _GANG_FAULT(pks)
+    results: List[Optional[Dict[str, Any]]] = [None] * len(pks)
+    seg = _segment_config(segment_iters) or DEFAULT_SEGMENT_ITERS
+    for ladder, idx in _gang_groups(pks, results, dev).items():
+        _gang_ladder(pks, kernel, idx, ladder, seg, deadlines, results, dev,
+                     ops)
+    return results
+
+
+def _gang_groups(pks, results, device) -> Dict[tuple, list]:
+    """Write the trivial and crashed-set-overflow members' results (the
+    early outs of :func:`_prep_single`) into ``results``, and group the
+    others by their ladder: a member escalates exactly as it would
+    alone."""
+    groups: Dict[tuple, list] = {}
+    for i, p in enumerate(pks):
+        early = _early_result(p)
+        if early is not None:
+            results[i] = early
+        else:
+            groups.setdefault(_ladder_for(_window_needed(p), device),
+                              []).append(i)
+    return groups
+
+
+def _gang_ladder(pks, kernel, idx, ladder, seg, deadlines, results, device,
+                 ops) -> None:
+    """Run one group of the gang up its ladder; members still UNKNOWN and
+    escalatable after a rung go on to the next, the others' results are
+    written into ``results``."""
+    from jepsen_tpu_torch.resilience import timeout_result
+    breq = max(_bucket(pks[i].n_required) for i in idx)
+    crw = max(_crash_width(pks[i].n - pks[i].n_required) for i in idx)
+    cols = {i: _split_packed(pks[i], breq, crw, kernel) for i in idx}
+    work: Dict[int, list] = {i: [] for i in idx}
+    pending = list(idx)
+    for cap, win, exp in ladder:
+        if not pending:
+            return
+        shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap), n=breq,
+                             CR=crw, B=len(pending), model=kernel.name)
+        dls = [deadlines[i] if deadlines else None for i in pending]
+        host, cancelled = _run_gang_rung([cols[i] for i in pending], dls,
+                                         shape, seg, device, ops)
+        still = []
+        for j, i in enumerate(pending):
+            if j in cancelled:
+                # a cancelled lane's carry is not summarised: no live rows
+                # would read as a refutation
+                results[i] = dict(timeout_result(cancelled[j],
+                                                 (cap, win, exp)),
+                                  **{"gang-cancelled": True})
+                continue
+            lane = tuple(a[j] for a in host)
+            done, lossy, wovf, best, levels, pool = _summarize_carry(lane)
+            out = _result(done, lossy, wovf, best, levels, pks[i],
+                          pool=pool)
+            out["rung"] = (cap, win, exp)
+            out["crash-width"] = _crash_width(
+                pks[i].n - pks[i].n_required) or 0
+            out["tiebreak"] = "lex"
+            work[i].append(((cap, win, exp), out["crash-width"], "lex",
+                            levels))
+            out["work"] = list(work[i])
+            out["gang-size"] = len(pending)
+            results[i] = out
+            if out["valid"] is UNKNOWN and not (
+                    wovf and win >= MAX_WINDOW and not lossy):
+                still.append(i)
+        pending = still
+
+
+def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
+                   seg: int, device, ops: Ops) -> tuple:
+    """One rung of a gang group under the engine's lock: the members'
+    carries start on the device, segments run until no member is active,
+    and at each barrier the members past their deadline are cancelled.
+    Returns the final carry as the reference's vmapped numpy tuple and
+    {lane: level} of the cancelled members."""
+    from jepsen_tpu_torch import interop
+    from jepsen_tpu_torch.checker.engine import default_engine
+    eng = default_engine()
+    cancelled: Dict[int, int] = {}
+    with eng.lock:
+        cols, carry, scratch = _start_batch(eng, rows, shape, device)
+
+        def barrier(act: torch.Tensor) -> bool:
+            # one read a segment: each member's active flag and level
+            live, level = torch.stack((act, carry.scal[:, K.LEVEL])).tolist()
+            now = time.monotonic()
+            late = [j for j, dl in enumerate(deadlines)
+                    if live[j] and dl is not None and now >= dl]
+            if late:
+                cancel_lanes(carry, late)
+                cancelled.update((j, level[j]) for j in late)
+            return sum(live) > len(late)
+
+        run_batch(cols, carry, scratch, shape, seg, ops,
+                  min(FIRST_BATCH_SEGMENT, seg), barrier)
+        return interop.batch_carry_to_numpy(carry), cancelled

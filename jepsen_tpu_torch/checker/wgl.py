@@ -238,6 +238,10 @@ class LinearizableChecker(Checker):
                the exact host search only when it answers UNKNOWN or the
                history does not fit the model's word.
       'cpu' -- the exact host search.
+
+    ``opts["deadline"]``, a ``time.monotonic()`` instant, stops the device
+    search at its next segment barrier past it; the timeout result is
+    returned as it is, with no host search after it.
     """
 
     def __init__(self, model: Optional[Model] = None, backend: str = "gpu",
@@ -256,8 +260,10 @@ class LinearizableChecker(Checker):
             out = self._check_host(history, model)
             out.setdefault("backend", "cpu")
             return out
-        res = check_history_gpu(history, model, device=self.device)
-        if res is not None and res.get("valid") is not UNKNOWN:
+        res = check_history_gpu(history, model, device=self.device,
+                                deadline=(opts or {}).get("deadline"))
+        if res is not None and (res.get("valid") is not UNKNOWN
+                                or res.get("error") == ":info/timeout"):
             return res
         out = self._check_host(history, model)
         out.setdefault("backend", "cpu")

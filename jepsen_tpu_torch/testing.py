@@ -521,8 +521,10 @@ def simulate_set_history(n_adds: int, n_procs: int = 5, seed: int = 0,
 
 
 def corrupt_model_history(history, family: str) -> History:
-    """A copy of a simulated history that its model refutes: for a queue,
-    the first ok dequeue returns a value never enqueued; for the set, the
+    """A copy of a simulated history that its model refutes: for the
+    register, the first ok read returns a value never written; for a
+    queue, the first ok dequeue returns a value never enqueued; for the
+    set, the
     final read misses an element whose add completed; for the mutex, the
     ok release at the middle is dropped (its invocation and completion),
     so a later acquire finds the lock held. (A bogus dequeue deep in a
@@ -531,6 +533,12 @@ def corrupt_model_history(history, family: str) -> History:
     reference as here.)"""
     rows = list(history)
     mid = len(rows) // 2
+    if family == "cas-register":
+        i = next(i for i in range(len(rows))
+                 if rows[i].type == "ok" and rows[i].f == "read"
+                 and rows[i].value is not None)
+        rows[i] = rows[i].replace(value=10**7)
+        return History(rows)
     if family in ("unordered-queue", "fifo-queue"):
         i = next(i for i in range(len(rows))
                  if rows[i].type == "ok" and rows[i].f == "dequeue")

@@ -317,3 +317,78 @@ def test_the_register_kernel_is_the_default_instantiation(cuda):
         outs.append(interop.carry_to_numpy(lv.carry))
     for x, y in zip(*outs, strict=True):
         assert np.array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The serve daemon's gangs
+# ---------------------------------------------------------------------------
+
+GANG_FIELDS = ("valid", "levels", "max-linearized-prefix", "final-states",
+               "frontier-op", "rung", "work", "crash-width")
+
+
+def _gang():
+    """Six same-bucket register histories, one of them refuted."""
+    hs = [simulate_register_history(300, n_procs=5, n_vals=16, seed=s)
+          for s in range(9100, 9105)]
+    hs.append(corrupt_one_read(hs[0], random.Random(15)))
+    pks = [pack_with_init(h, CASRegister()) for h in hs]
+    return [p for p, _ in pks], pks[0][1]
+
+
+def test_the_gang_matches_the_plain_versions_and_serial(cuda):
+    pks, kernel = _gang()
+    ours = G.check_packed_gang_gpu(pks, kernel, device=cuda)
+    plain = G.check_packed_gang_gpu(pks, kernel, device=cuda, ops=G.PLAIN)
+    for p, a, b in zip(pks, ours, plain):
+        pick = {k: a.get(k) for k in GANG_FIELDS}
+        assert pick == {k: b.get(k) for k in GANG_FIELDS}
+        serial = G.check_packed_gpu(p, kernel, device=cuda)
+        assert pick == {k: serial.get(k) for k in GANG_FIELDS}
+    assert [r["valid"] for r in ours].count(True) >= 5
+
+
+def test_a_deadline_cancels_a_lane_on_the_card(cuda):
+    import time
+    pks, kernel = _gang()
+    out = G.check_packed_gang_gpu(pks[:2], kernel, device=cuda,
+                                  segment_iters=1,
+                                  deadlines=[time.monotonic() - 1, None])
+    assert out[0]["error"] == ":info/timeout" and out[0]["levels"] == 1
+    assert out[0]["gang-cancelled"] is True
+    serial = G.check_packed_gpu(pks[1], kernel, device=cuda)
+    assert {k: out[1].get(k) for k in GANG_FIELDS} == {
+        k: serial.get(k) for k in GANG_FIELDS}
+
+
+def test_the_daemon_serves_gangs_on_the_card(cuda, tmp_path):
+    import time
+    from jepsen_tpu_torch import serve
+    from jepsen_tpu_torch.checker import check_safe
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    hs = [simulate_register_history(300, n_procs=5, n_vals=16, seed=s)
+          for s in range(9100, 9104)]
+    d1 = serve.CheckDaemon(serve.ServeConfig(root=str(tmp_path)))
+    ids = {}
+    for i, h in enumerate(hs):
+        code, body, _ = d1.submit({"tenant": f"t{i % 2}",
+                                   "history": [o.to_dict() for o in h]})
+        assert code == 202
+        ids[body["id"]] = h
+    d1.journal.close()
+    d = serve.CheckDaemon(serve.ServeConfig(root=str(tmp_path),
+                                            batch_wait_ms=200.0)).start()
+    try:
+        for rid, h in ids.items():
+            t0 = time.monotonic()
+            while d.status(rid)["state"] != "done":
+                assert time.monotonic() - t0 < 120
+                time.sleep(0.02)
+            r = d.status(rid)["result"]
+            want = check_safe(linearizable(CASRegister(), device=cuda),
+                              {}, h)
+            assert (r["valid"], r["levels"]) == (want["valid"],
+                                                 want["levels"])
+            assert r["serve"]["gang"]["size"] == len(hs)
+    finally:
+        d.stop()

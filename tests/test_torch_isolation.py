@@ -25,6 +25,7 @@ def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_headline.py"),
              os.path.join(ROOT, "tools", "profile_torch_keyed.py"),
+             os.path.join(ROOT, "tools", "profile_torch_gang.py"),
              os.path.join(ROOT, "tools", "probe_torch_models.py"),
              os.path.join(ROOT, "tools", "time_torch_headline.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
@@ -57,7 +58,9 @@ def test_importing_the_checker_loads_no_jax():
     code = ("import sys, jepsen_tpu_torch.checker.wgl, "
             "jepsen_tpu_torch.resilience, jepsen_tpu_torch.interop, "
             "jepsen_tpu_torch.independent, jepsen_tpu_torch.models, "
-            "jepsen_tpu_torch.testing; "
+            "jepsen_tpu_torch.testing, jepsen_tpu_torch.serve, "
+            "jepsen_tpu_torch.journal, jepsen_tpu_torch.checker.plan, "
+            "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -92,6 +95,39 @@ def test_keyed_entry_points_default_to_cuda():
     keyed = [o.replace(value=independent.KV("a", o.value)) for o in h]
     with pytest.raises(RuntimeError, match="CUDA"):
         independent.checker(linearizable(CASRegister())).check({}, keyed)
+
+
+def test_the_serve_slice_defaults_to_cuda(tmp_path):
+    """The gang search, the engine's warm-up, the daemon and its CLI run
+    on the GPU unless asked otherwise; without one they raise rather than
+    fall back to the CPU. The admission footprint prices the CUDA
+    ladder's first rung."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from jepsen_tpu_torch import serve
+    from jepsen_tpu_torch.__main__ import main
+    from jepsen_tpu_torch.checker import plan
+    from jepsen_tpu_torch.checker.engine import Engine
+    from jepsen_tpu_torch.checker.gpu import check_packed_gang_gpu
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    p, kernel = pack_with_init(simulate_register_history(20, seed=1),
+                               CASRegister())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        check_packed_gang_gpu([p], kernel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine().warm(p, kernel)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.CheckDaemon(serve.ServeConfig(root=str(tmp_path / "a")))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run_daemon(serve.ServeConfig(root=str(tmp_path / "b")),
+                         port=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["serve", "--check-daemon", "--port", "0",
+              "--serve-dir", str(tmp_path / "c")])
+    dims = plan.PlanDims.from_packed(p)
+    assert plan.request_footprint(dims) == plan.request_footprint(
+        dims, "cuda") != plan.request_footprint(dims, "cpu")
+    assert plan.plan_bytes_limit() is None
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):
