@@ -4,10 +4,14 @@
 Builds the search kernels from ``jepsen_tpu_torch/csrc`` with nvcc, holds
 each kernel bit for bit against its plain PyTorch version on the card and
 times both: at the single-history headline shape and at a wide shape (one
-key, lex tie-break), at the keyed batch's first rungs (256 keys, both
-tie-breaks), and at the rung its window-deferred keys run on (lex, RP =
-65,536). Then it drives both paths end to end, counting each kernel's
-launches on each: the 10k-op CAS-register headline history through
+key, lex tie-break; the sort's tile pass and five merge passes), at the
+keyed batch's first rungs (256 keys, both tie-breaks), at the rung its
+window-deferred keys run on (lex, R = 37,376 rows: four merge passes), at
+each model's first rung, and at the mutex history's second rung (one
+merge pass); there it also counts the CUDA launches one call of each
+kernel makes, as the C entry points count them, against the count the
+shape predicts. Then it drives both paths end to end, counting each
+kernel's launches on each: the 10k-op CAS-register headline history through
 ``linearizable(CASRegister())``, held against the plain versions, an
 invalid and a wide history; the keyed batch through
 ``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
@@ -216,9 +220,14 @@ def check_and_time(lv, parity):
         if name == "sort_rows":
             name = sort_name(lv.shape)
         assert err == 0, f"{name}: kernel and plain version disagree"
+        # the CUDA launches one call makes, as the C side counts them
+        before = K.grid_launches_total[name]
+        kern(*parity.copy_state(*state))
+        per_call = K.grid_launches_total[name] - before
+        assert per_call == K.grid_launches(name, lv.shape), (name, per_call)
         out[name] = {
             "max_abs_err": err,
-            "cuda_launches_per_call": K.grid_launches(name, lv.shape),
+            "cuda_launches_per_call": per_call,
             "ms": device_ms(kern, lambda: parity.copy_state(*state)),
             "plain_ms": host_ms(plain, lambda: parity.copy_state(*state)),
             "library_ms": None,
@@ -284,10 +293,13 @@ def add_bounds(out, lv):
 
 
 def print_kernels(tag, lv, live, warm, res):
+    from jepsen_tpu_torch.kernels import search as K
     sh = lv.shape
     print(f"kernels at {tag}: B={sh.B} rung=({sh.C}, {sh.W}, {sh.E}) "
           f"tiebreak={sh.tiebreak} n={sh.n} CR={sh.CR} MW={sh.MW} "
-          f"R={sh.R} RP={sh.RP} NK={sh.NK} live={live} after {warm} levels")
+          f"R={sh.R} RP={sh.RP} NK={sh.NK} sort_tile={K.tile_rows(sh)} "
+          f"sort_merge_passes={K.sort_passes(sh)} live={live} after {warm} "
+          f"levels")
     for name, r in res.items():
         print(f"  {name:15s} err={r['max_abs_err']} "
               f"cuda_launches/call={r['cuda_launches_per_call']} "
@@ -335,6 +347,19 @@ def model_phases(dev, seconds, shapes):
             print_kernels(f"model {tag} ({kernel.name})", lv, live,
                           MODEL_WARM_LEVELS, res)
             model_runs[tag] = (model, kernel, h)
+            if tag == "mutex":
+                # an odd count of the sort's merge passes: the mutex
+                # history on its second rung, (1024, 32, 64) at CR = 32,
+                # has R = 5,120 rows, two tiles and one merge pass
+                rung2 = G._ladder_for(G._window_needed(packed), dev)[1]
+                lv = parity.Level(cols, rung2, dev, model=kernel.name)
+                live = lv.advance(MODEL_WARM_LEVELS)
+                assert live > 0 and K.sort_passes(lv.shape) % 2 == 1
+                res = check_and_time(lv, parity)
+                shapes["odd"] = res
+                print_kernels(f"odd merge passes ({kernel.name}, its "
+                              f"second rung)", lv, live, MODEL_WARM_LEVELS,
+                              res)
 
     # each model end to end
     model_lines = {}
@@ -741,8 +766,10 @@ def smoke(dev: torch.device) -> None:
             res = check_and_time(lv, parity)
             shapes[tag], level_shapes[tag] = res, lv.shape
             print_kernels(tag, lv, live, warm, res)
-        # the wide shape crosses the sort's and the scan's block boundaries
+        # the wide shape crosses the sort's tiles (an odd count of merge
+        # passes, 5) and the scan's blocks
         assert level_shapes["wide"].RP > 1024
+        assert K.sort_passes(level_shapes["wide"]) % 2 == 1
 
     # -- (a) batched kernels at the keyed first rungs, both tie-breaks ------
     with phase("keyed histories", seconds):
@@ -767,8 +794,8 @@ def smoke(dev: torch.device) -> None:
                 res = check_and_time(lv, parity)
                 shapes[f"keyed {name} {tb}"] = res
                 print_kernels(f"keyed {name}", lv, live, warm, res)
-        # the deferred keys' rung crosses the sort's and the scan's block
-        # boundaries, so the sort's global passes run there
+        # the deferred keys' rung crosses the sort's tiles and the scan's
+        # blocks, so the sort's merge passes run there
         assert lv.shape.RP > 1024 and lv.shape.B >= 2
 
     # -- the single-history path end to end ---------------------------------
@@ -1021,6 +1048,7 @@ def smoke(dev: torch.device) -> None:
         if single:
             entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
             entry["gang"] = {k: shapes["gang"][name][k] for k in keep}
+            entry["odd"] = {k: shapes["odd"][name][k] for k in keep}
         entry["keyed_staggered"] = {
             k: shapes["keyed staggered " + tb][name][k] for k in keep}
         entry["keyed_dense"] = {

@@ -361,13 +361,16 @@ class Carry:
 @dataclass
 class Scratch:
     """Per-shape buffers a level writes and reads back: the other pool
-    buffer, the per-level accumulators, the rows and the group starts."""
+    buffer, the per-level accumulators, the rows and the group starts;
+    and, only where R exceeds one sort tile, the sort's second rows
+    buffer for its merge passes."""
 
     pool_next: K.Pool
     acc: torch.Tensor     # int32 [B, 9], zero between levels
     rows: torch.Tensor    # int32 [B, RP, NK]
     g: torch.Tensor       # int32 [B, RP]
     gagg: torch.Tensor    # int32 [B, scan blocks]
+    rows_alt: Optional[torch.Tensor] = None   # int32 [B, RP, NK]
 
 
 def empty_pool(shape: K.LevelShape, device) -> K.Pool:
@@ -399,16 +402,21 @@ def empty_scratch(shape: K.LevelShape, device) -> Scratch:
                                     device=device),
                    g=torch.zeros(B, shape.RP, dtype=i32, device=device),
                    gagg=torch.zeros(B, K.scan_blocks(shape.RP), dtype=i32,
-                                    device=device))
+                                    device=device),
+                   rows_alt=(torch.zeros(B, shape.RP, shape.NK, dtype=i32,
+                                         device=device)
+                             if K.sort_passes(shape) else None))
 
 
 def state_bytes(shape: K.LevelShape) -> int:
-    """Device bytes of one shape's carry and scratch."""
+    """Device bytes of one shape's carry and scratch (the sort's second
+    rows buffer included where the shape has one)."""
     C, MW, MCX = shape.C, shape.MW, shape.MCX
     pool = C * (4 * (2 + MW + MCX) + 1)
     carry = 2 * pool + C * 9 + 4 * K.NSCAL + 4 * (shape.lmax + 1) * NSTAT
     scratch = (4 * K.NACC + 4 * shape.RP * (shape.NK + 1)
-               + 4 * K.scan_blocks(shape.RP))
+               + 4 * K.scan_blocks(shape.RP)
+               + (4 * shape.RP * shape.NK if K.sort_passes(shape) else 0))
     return shape.B * (carry + scratch)
 
 
@@ -423,7 +431,9 @@ class Ops(NamedTuple):
 
 
 KERNELS = Ops(K.expand, K.sort_rows, K.group_scan, K.dedup_truncate)
-PLAIN = Ops(K.expand_plain, K.sort_rows_plain,
+PLAIN = Ops(K.expand_plain,
+             lambda rows, scal, shape, rows_alt: K.sort_rows_plain(
+                 rows, scal, shape),
              lambda rows, scal, g, gagg, shape: K.group_scan_plain(
                  rows, scal, g, shape),
              K.dedup_truncate_plain)
@@ -438,7 +448,7 @@ def search_level(cols: dict, carry: Carry, scratch: Scratch,
     key is inactive a level changes nothing of it."""
     ops.expand(cols, carry.pool, carry.scal, scratch.acc, scratch.rows,
                shape, nr)
-    ops.sort_rows(scratch.rows, carry.scal, shape)
+    ops.sort_rows(scratch.rows, carry.scal, shape, scratch.rows_alt)
     ops.group_scan(scratch.rows, carry.scal, scratch.g, scratch.gagg, shape)
     ops.dedup_truncate(scratch.rows, scratch.g, carry.pool,
                        scratch.pool_next, carry.pk, carry.ps, carry.pa,

@@ -21,14 +21,15 @@
 // the host entry picks the instantiation once per launch.
 //
 // The level is launch-bound at the single-history headline rung (R = 512
-// rows: a few microseconds of work per kernel) and bound by the sort's bytes
-// on the wide rungs (R up to ~1M rows); the key axis gives each kernel B
+// rows: a few microseconds of work per kernel) and bound by the sort on the
+// wide rungs (R up to ~1M rows); the key axis gives each kernel B
 // times the blocks, which fills the 132 SMs on a keyed batch. Nothing
 // synchronises with the host, and the `active` flags are read on the device.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (jepsen_tpu_torch/kernels/build.py). Plain C
-// interface; every entry point returns cudaGetLastError() after its launches.
+// interface; every entry point adds each kernel launch it makes to
+// *launched and returns cudaGetLastError() after its launches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -403,35 +404,87 @@ __global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// K2 sort_rows (B5 lex, tpu.py:574-588; B5' hash, tpu.py:528-570). Bitonic
-// sort of each key's RP rows; the tie-break is a template parameter of the
-// comparator, and the network is the same for both.
+// K2 sort_rows (B5 lex, tpu.py:574-588; B5' hash, tpu.py:528-570): each
+// active key's rows in the comparator's order. The tie-break is a template
+// parameter of the comparator, row_less<TB>; the algorithm is the same.
 //   lex:  the whole row in row order, mask words compared unsigned.
 //   hash: key1, then h = a 32-bit mix of (k, mask, state) (unsigned), then
 //         popcount(cmask), cmask, and last k, mask, state. The reference
 //         sorts (key1, h[, pc, cmask]) with an index payload and gathers
-//         the rows; the trailing row words make the order total, so the
-//         unstable network and the plain version agree bit for bit. They
+//         the rows; the trailing row words make the order total, so any
+//         correct sort and the plain version agree bit for bit. They
 //         change the reference's order only where two distinct (k, mask,
 //         state) share key1 and h, where its own order is unspecified.
-// Rows whose keys are all equal are identical. Stages with partner distance
-// below S = min(RP, 1024) rows run in shared memory (the rows, and under
-// hash each row's h, computed once per row as it is loaded); longer
-// distances take one global pass each, which computes h for the two rows it
-// compares. Grid (RP / S, B): one block per 1,024 rows of each key. At
-// RP = 512 a key's sort is one block; at RP = 2^17 it is 36 launches and
-// the global passes' bytes bound it.
+// Rows whose words are all equal are identical, so the sort needs no
+// stability: any correct sort gives the plain version's bytes.
+//
+// Only the R live rows are sorted. The RP - R rows after them are the pad
+// rows K1's tail blocks write (expand_kernel: key1 = PAD_KEY, the rest 0),
+// and a live row's key1 is at most MAXK + 1 + k < PAD_KEY (write_row), so
+// under either tie-break every pad row orders after every live row: the
+// pad tail already stands where a sort of all RP rows would put it.
+//
+// What bounds it. Neither bytes nor operations: the bound is microseconds
+// below the time at every rung. On the narrow rungs (R <= T = 4,096: the
+// single, keyed and gang states and every model's first rung) one block's
+// latency: a key's sort is a few thousand row comparisons on one SM, and
+// the time goes to the launch, the rows' way in and out (about 6 us of the
+// headline's 16), and the chains of dependent shared-memory reads in the
+// binary searches. On the wide rungs the one block that sorts each 4,096-
+// row tile (its rounds' searches and merges, bound by instruction and
+// shared-memory throughput at 512 threads), then the merge passes. The
+// bitonic network this replaces swapped whole rows in 45 barrier stages
+// at R = 512 and took 28 launches at R = 37,376.
+//
+// Design: a merge sort of 16-bit row slots in shared memory. A rank sort
+// of the whole tile (O(R^2) comparisons) would cost a B = 256 batch ~10x
+// the work, a bitonic network on slots still needs log2(R)^2 / 2 stages,
+// and one merge routine (merge_slots) serves the tile and the wide passes.
+//   Keys: a tile holds each row as its comparator's words in order,
+//   unsigned (key_word, word_flip; under hash h is computed once per row
+//   and kept as word 1), at an odd word stride (M | 1) so that a
+//   warp reading neighbouring rows hits different banks. A comparison
+//   (key_less) is then unsigned and lexicographic; its first two words
+//   decide most of them, and the rest are read at once, unrolled to the
+//   key's exact length: the host instantiates the kernels per key length.
+//   Tile pass (sort_tile_kernel): one block per T rows of a key. The host
+//   picks T (kernels/search.py tile_rows: the rows that 227 KB of shared
+//   memory holds at the widest row, with two slot arrays) and the merge
+//   passes; sort_rows_m checks that they cover R and that the device grants
+//   the tile's shared memory. The rows come in once with 16-byte loads
+//   and go out once, gathered through the final slots, with 16-byte
+//   stores. Each thread sorts V slots (tile_v), then log2(n / V) rounds
+//   merge runs pairwise between two slot arrays: a thread finds where its
+//   V outputs start by a binary search on the merge path's diagonal and
+//   merges them serially. Only slots move. A round whose pairs lie within
+//   one warp waits for that warp only; wider rounds take a barrier.
+//   Merge passes (sort_merge_kernel), when R > T: pass p merges pairs of
+//   sorted runs of T * 2^p rows. A block takes MERGE_ROWS output rows: two
+//   warps find its two ends on the pair's merge path by 32-way searches in
+//   device memory (32-bit row offsets), the block loads the two input
+//   ranges they bound (each contiguous), merges them as a tile round does,
+//   and stores its rows: each pass reads and writes each live row once.
+//   The passes ping-pong between rows and a second buffer, alt; the tile
+//   pass writes to the one that makes the last pass land in rows, so no
+//   copy follows. R <= T takes one launch, R > T 1 + ceil(log2(ceil(R /
+//   T))); each launch is counted where it is made (jt_sort_rows' launched).
+// Grid (blocks, B); a key whose active flag is clear is left untouched.
 // ---------------------------------------------------------------------------
 
 // B5': the reference's mix h of (k, mask, state), uint32 throughout.
-__device__ __forceinline__ unsigned row_hash(const int* row, int MW) {
-  unsigned h = (unsigned)row[1] * 0x9E3779B9u;
+__device__ __forceinline__ unsigned mix_hash(unsigned k, const int* mask,
+                                             int MW, unsigned state) {
+  unsigned h = k * 0x9E3779B9u;
   for (int w = 0; w < MW; ++w) {
-    h = (h ^ (unsigned)row[2 + w]) * 0x85EBCA6Bu;
+    h = (h ^ (unsigned)mask[w]) * 0x85EBCA6Bu;
     h ^= h >> 13;
   }
-  h = (h ^ (unsigned)row[2 + MW]) * 0xC2B2AE35u;
+  h = (h ^ state) * 0xC2B2AE35u;
   return h ^ (h >> 16);
+}
+
+__device__ __forceinline__ unsigned row_hash(const int* row, int MW) {
+  return mix_hash((unsigned)row[1], row + 2, MW, (unsigned)row[2 + MW]);
 }
 
 __device__ __forceinline__ bool word_less(int a, int b, int w, int MW) {
@@ -459,70 +512,285 @@ __device__ __forceinline__ bool row_less(const int* x, const int* y,
   return false;
 }
 
+constexpr int MERGE_ROWS = 512;   // output rows of one merge-pass block
+constexpr int MERGE_V = 2;        // outputs a merge-pass thread merges
+constexpr unsigned SIGN = 0x80000000u;
+
+// A row's key in a shared tile: its comparator's words in order (key1, then
+// the row in row order under lex; key1, h, popcount(cmask), cmask, k, mask,
+// state under hash), as unsigned words that order as the comparator does
+// (signed words with bit 31 flipped): M = NK (lex) or NK + 1 (hash) words,
+// at an odd stride (S = M | 1).
+
+// Where row word c stands in the key, and its bit-31 flip.
 template <int TB>
-__device__ __forceinline__ void cmp_swap(int* x, int* y, unsigned* hx,
-                                         unsigned* hy, int NK, int MW,
-                                         bool asc) {
-  const unsigned a = TB == TB_HASH ? *hx : 0u, b = TB == TB_HASH ? *hy : 0u;
-  if (asc ? row_less<TB>(y, x, b, a, NK, MW)
-          : row_less<TB>(x, y, a, b, NK, MW)) {
-    for (int w = 0; w < NK; ++w) {
-      const int tmp = x[w];
-      x[w] = y[w];
-      y[w] = tmp;
-    }
-    if (TB == TB_HASH) {
-      *hx = b;
-      *hy = a;
+__device__ __forceinline__ int key_word(int c, int NK, int MW) {
+  if (TB == TB_LEX) return c;
+  const int MCX = NK - 4 - MW;
+  return c == 0 ? 0 : c <= 2 + MW ? c + 2 + MCX : c == 3 + MW ? 2
+                                                             : c - MW - 1;
+}
+
+__device__ __forceinline__ unsigned word_flip(int c, int MW) {
+  return c <= 1 || c == 2 + MW || c == 3 + MW ? SIGN : 0u;
+}
+
+// h from a hash key (k, mask and state stand at 3 + MCX onwards).
+__device__ __forceinline__ unsigned key_hash(const unsigned* key, int NK,
+                                             int MW) {
+  const unsigned* kms = key + NK - 1 - MW;
+  return mix_hash(kms[0] ^ SIGN, reinterpret_cast<const int*>(kms + 1), MW,
+                  kms[1 + MW] ^ SIGN);
+}
+
+// The order of two M-word keys. The first two words decide almost every
+// comparison; the other M - 2 are read at once, not word after word, so
+// that the lanes of a warp that tie on the first two cost it one more read.
+template <int M>
+__device__ __forceinline__ bool key_less(const unsigned* x,
+                                         const unsigned* y) {
+  const unsigned x0 = x[0], y0 = y[0], x1 = x[1], y1 = y[1];
+  if (x0 != y0) return x0 < y0;
+  if (x1 != y1) return x1 < y1;
+  bool lt = false, eq = true;
+#pragma unroll
+  for (int w = 2; w < M; ++w) {
+    const unsigned a = x[w], b = y[w];
+    lt = lt || (eq && a < b);
+    eq = eq && a == b;
+  }
+  return lt;
+}
+
+// n contiguous rows of NK words between device memory and a tile's keys,
+// by the whole block: word by word up to the first 16-byte boundary, 16
+// bytes a thread from there, word by word after the last. Word w is word
+// c = w - r NK of row r = w / NK, the division by a multiply (exact for
+// every w below 2^16 at NK up to 13; a tile's words fit the 227 KB of
+// shared memory, so there are fewer than 58,112).
+__device__ __forceinline__ int head_words(const int* g, int total) {
+  return min(total, (int)((16 - ((size_t)g & 15)) & 15) >> 2);
+}
+
+template <int TB>
+__device__ void load_tile(const int* g, int n, int NK, int MW, unsigned* sh,
+                          int S) {
+  const int total = n * NK, head = head_words(g, total);
+  const int n4 = (total - head) >> 2, t = threadIdx.x, nt = blockDim.x;
+  const unsigned inv = 0xffffffffu / NK + 1;
+  auto put = [&](int w, int v) {
+    const int r = (int)__umulhi((unsigned)w, inv), c = w - r * NK;
+    sh[r * S + key_word<TB>(c, NK, MW)] = (unsigned)v ^ word_flip(c, MW);
+  };
+  for (int w = t; w < head; w += nt) put(w, g[w]);
+  const int4* g4 = reinterpret_cast<const int4*>(g + head);
+  for (int q = t; q < n4; q += nt) {
+    const int4 v = g4[q];
+    const int w = head + 4 * q;
+    put(w, v.x);
+    put(w + 1, v.y);
+    put(w + 2, v.z);
+    put(w + 3, v.w);
+  }
+  for (int w = head + 4 * n4 + t; w < total; w += nt) put(w, g[w]);
+}
+
+// The inverse: output row r from the key at key_of(r).
+template <int TB, class F>
+__device__ void store_tile(int* g, int n, int NK, int MW, F key_of) {
+  const int total = n * NK, head = head_words(g, total);
+  const int n4 = (total - head) >> 2, t = threadIdx.x, nt = blockDim.x;
+  const unsigned inv = 0xffffffffu / NK + 1;
+  auto get = [&](int w) {
+    const int r = (int)__umulhi((unsigned)w, inv), c = w - r * NK;
+    return (int)(key_of(r)[key_word<TB>(c, NK, MW)] ^ word_flip(c, MW));
+  };
+  for (int w = t; w < head; w += nt) g[w] = get(w);
+  int4* g4 = reinterpret_cast<int4*>(g + head);
+  for (int q = t; q < n4; q += nt) {
+    const int w = head + 4 * q;
+    g4[q] = make_int4(get(w), get(w + 1), get(w + 2), get(w + 3));
+  }
+  for (int w = head + 4 * n4 + t; w < total; w += nt) g[w] = get(w);
+}
+
+// Outputs [d, d + cnt) of the merge of sorted runs A and B (slot i of A is
+// a(i), of B b(j); na and nb long; slot p's key at key_of(p)) into out[0,
+// cnt): a binary search for where the merge path crosses diagonal d, then
+// a serial merge. A's row goes first on a tie (tied rows are identical).
+template <int M, class FA, class FB, class FK>
+__device__ __forceinline__ void merge_slots(FA a, int na, FB b, int nb, int d,
+                                            int cnt, uint16_t* out,
+                                            FK key_of) {
+  auto less = [&](int p, int q) { return key_less<M>(key_of(p), key_of(q)); };
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (less(b(d - 1 - mid), a(mid))) hi = mid;
+    else lo = mid + 1;
+  }
+  int i = lo, j = d - lo;
+  int sa = i < na ? a(i) : -1, sb = j < nb ? b(j) : -1;
+  for (int k = 0; k < cnt; ++k) {
+    if (sa < 0 || (sb >= 0 && less(sb, sa))) {
+      out[k] = (uint16_t)sb;
+      sb = ++j < nb ? b(j) : -1;
+    } else {
+      out[k] = (uint16_t)sa;
+      sa = ++i < na ? a(i) : -1;
     }
   }
 }
 
+// The same crossing for runs A and B of rows in device memory, found by one
+// warp: each step its 32 lanes test 32 points of the remaining range and a
+// ballot keeps the span between the last point before the crossing and the
+// first after it (4 steps for a run of 2^19 rows, not 20 dependent reads).
 template <int TB>
-__global__ void sort_local_kernel(int* rows, const int* scal, int RP, int NK,
-                                  int MW, int S, int k_first, int k_last) {
+__device__ int merge_path_rows(const int* A, int na, const int* B, int nb,
+                               int d, int NK, int MW) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - nb), hi = min(d, na);
+  while (lo < hi) {
+    const int mid = lo + (int)(((long long)(hi - lo) * lane) >> 5);
+    const int* x = B + (size_t)(d - 1 - mid) * NK;
+    const int* y = A + (size_t)mid * NK;
+    const bool before = !row_less<TB>(
+        x, y, TB == TB_HASH ? row_hash(x, MW) : 0u,
+        TB == TB_HASH ? row_hash(y, MW) : 0u, NK, MW);
+    const int nt = __popc(__ballot_sync(FULL, before));
+    const int mlast = __shfl_sync(FULL, mid, nt > 0 ? nt - 1 : 0);
+    const int mnext = __shfl_sync(FULL, mid, nt < 32 ? nt : 31);
+    lo = nt > 0 ? mlast + 1 : lo;
+    hi = nt < 32 ? mnext : hi;
+  }
+  return lo;
+}
+
+// Outputs a tile-pass thread merges in each round, for `blocks` blocks of
+// cap rows on a device of `sms` SMs (chip_smoke.py's states on the H100,
+// PERF.md): one while a tile fits 1,024 threads and the launch fits the
+// SMs at 512 threads each, where one block's latency sets the time; 2
+// beyond that (a batch of keys) and 8 for a tile of more than 1,024 rows,
+// where the work sets it and fewer threads spend fewer binary searches on
+// the same merges. (A tile spread over a cluster of 4 blocks, merging
+// through distributed shared memory, measured no faster than one block at
+// V = 8.)
+int tile_v(int cap, long long blocks, int sms) {
+  if (cap > 1024) return 8;
+  return blocks * cap > (long long)sms * 512 ? 2 : 1;
+}
+
+// A block's n rows, loaded as keys into sh (stride S = M | 1), sorted: each
+// thread sorts V slots, then round L merges runs of L slots pairwise, each
+// thread V outputs, between the slot arrays in and out. A round whose pairs
+// lie within one warp's outputs (2L <= 32 V) waits for that warp only.
+// Returns the array that holds the sorted slots.
+template <int TB, int M>
+__device__ uint16_t* sort_block(unsigned* sh, uint16_t* in, uint16_t* out,
+                                int n, int V, int NK, int MW) {
+  const int S = M | 1;
+  auto key_of = [&](int p) { return sh + p * S; };
+  // each thread's V rows: their h, then an insertion sort of their slots
+  const int o = threadIdx.x * V, cnt = min(V, n - o);
+  for (int k = 0; k < cnt; ++k) {
+    const int s = o + k;
+    if (TB == TB_HASH) sh[s * S + 1] = key_hash(key_of(s), NK, MW);
+    int q = k;
+    for (; q > 0 && key_less<M>(key_of(s), key_of(in[o + q - 1])); --q)
+      in[o + q] = in[o + q - 1];
+    in[o + q] = (uint16_t)s;
+  }
+  __syncwarp();
+  for (int L = V; L < n; L <<= 1) {
+    if (cnt > 0) {
+      const int p0 = o & ~(2 * L - 1);
+      const int a1 = min(p0 + L, n), b1 = min(p0 + 2 * L, n);
+      const uint16_t* A = in + p0;
+      const uint16_t* Bs = in + a1;
+      merge_slots<M>([&](int i) { return (int)A[i]; }, a1 - p0,
+                     [&](int j) { return (int)Bs[j]; }, b1 - a1, o - p0, cnt,
+                     out + o, key_of);
+    }
+    if (4 * L <= 32 * V) __syncwarp();  // the next round's pairs: 4L rows
+    else __syncthreads();
+    uint16_t* t = in;
+    in = out;
+    out = t;
+  }
+  return in;
+}
+
+// Tile pass: grid (tiles, B), ceil(min(R, T) / V) threads rounded up to a
+// warp; the tile of blockIdx.x sorted from src into dst (in place when they
+// are one buffer: every row is read before the first barrier).
+template <int TB, int M>
+__global__ void __launch_bounds__(1024)
+    sort_tile_kernel(const int* src, int* dst, const int* scal, int R, int RP,
+                     int NK, int MW, int T, int cap, int V) {
   const int b = blockIdx.y;
   if (scal[(size_t)b * NSCAL + ACT] == 0) return;
-  extern __shared__ int sh[];
-  unsigned* shh = (unsigned*)(sh + S * NK);
-  int* krows = rows + (size_t)b * RP * NK;
-  const size_t base = (size_t)blockIdx.x * S;
-  for (int i = threadIdx.x; i < S * NK; i += blockDim.x)
-    sh[i] = krows[base * NK + i];
+  extern __shared__ int sh_words[];
+  unsigned* sh = reinterpret_cast<unsigned*>(sh_words);
+  const int S = M | 1;
+  uint16_t* in = reinterpret_cast<uint16_t*>(sh + cap * S);
+  const size_t base = ((size_t)b * RP + (size_t)blockIdx.x * T) * NK;
+  const int n = min(T, R - (int)blockIdx.x * T);
+  load_tile<TB>(src + base, n, NK, MW, sh, S);
+  __syncthreads();
+  const uint16_t* perm = sort_block<TB, M>(sh, in, in + cap, n, V, NK, MW);
+  __syncthreads();
+  store_tile<TB>(dst + base, n, NK, MW,
+                 [&](int r) { return sh + perm[r] * S; });
+}
+
+// Merge pass: grid (ceil(R / MERGE_ROWS), B), MERGE_ROWS / MERGE_V threads;
+// merges src's sorted runs of L rows pairwise into dst. Warps 0 and 1 find
+// the block's two ends on its pair's merge path side by side; the two
+// ranges they bound are merged in shared memory as a tile round merges.
+template <int TB, int M>
+__global__ void __launch_bounds__(MERGE_ROWS / MERGE_V)
+    sort_merge_kernel(const int* src, int* dst, const int* scal, int R,
+                      int RP, int NK, int MW, int L) {
+  const int b = blockIdx.y;
+  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
+  extern __shared__ int sh_words[];
+  unsigned* sh = reinterpret_cast<unsigned*>(sh_words);
+  __shared__ int split[2];
+  const int S = M | 1;
+  uint16_t* perm = reinterpret_cast<uint16_t*>(sh + MERGE_ROWS * S);
+  const int* ksrc = src + (size_t)b * RP * NK;
+  const int o0 = blockIdx.x * MERGE_ROWS, o1 = min(R, o0 + MERGE_ROWS);
+  const int p0 = o0 & ~(2 * L - 1);
+  const int a1 = min(p0 + L, R), b1 = min(p0 + 2 * L, R);
+  const int* A = ksrc + (size_t)p0 * NK;
+  const int* Bv = ksrc + (size_t)a1 * NK;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {
+    const int i = merge_path_rows<TB>(A, a1 - p0, Bv, b1 - a1,
+                                      (warp ? o1 : o0) - p0, NK, MW);
+    if ((threadIdx.x & 31) == 0) split[warp] = i;
+  }
+  __syncthreads();
+  const int i0 = split[0], j0 = o0 - p0 - i0;
+  const int ma = split[1] - i0, n = o1 - o0, mb = n - ma;
+  load_tile<TB>(A + (size_t)i0 * NK, ma, NK, MW, sh, S);
+  load_tile<TB>(Bv + (size_t)j0 * NK, mb, NK, MW, sh + ma * S, S);
   __syncthreads();
   if (TB == TB_HASH) {
-    for (int i = threadIdx.x; i < S; i += blockDim.x)
-      shh[i] = row_hash(sh + i * NK, MW);
+    for (int s = threadIdx.x; s < n; s += blockDim.x)
+      sh[s * S + 1] = key_hash(sh + s * S, NK, MW);
     __syncthreads();
   }
-  for (int kk = k_first; kk <= k_last; kk <<= 1) {
-    for (int j = min(kk >> 1, S >> 1); j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < S / 2; p += blockDim.x) {
-        const int i = (p / j) * 2 * j + (p % j);
-        cmp_swap<TB>(sh + i * NK, sh + (i + j) * NK, shh + i, shh + i + j,
-                     NK, MW, ((base + i) & (size_t)kk) == 0);
-      }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < S * NK; i += blockDim.x)
-    krows[base * NK + i] = sh[i];
-}
-
-template <int TB>
-__global__ void sort_global_kernel(int* rows, const int* scal, int RP, int NK,
-                                   int MW, int kk, int j) {
-  const int b = blockIdx.y;
-  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= (size_t)(RP / 2)) return;
-  int* krows = rows + (size_t)b * RP * NK;
-  const size_t i = (p / j) * 2 * j + (p % j);
-  int* x = krows + i * NK;
-  int* y = krows + (i + j) * NK;
-  unsigned hx = TB == TB_HASH ? row_hash(x, MW) : 0u;
-  unsigned hy = TB == TB_HASH ? row_hash(y, MW) : 0u;
-  cmp_swap<TB>(x, y, &hx, &hy, NK, MW, (i & (size_t)kk) == 0);
+  const int o = threadIdx.x * MERGE_V;
+  if (o < n)
+    merge_slots<M>([](int i) { return i; }, ma,
+                   [ma](int j) { return ma + j; }, mb, o,
+                   min(MERGE_V, n - o), perm + o,
+                   [&](int p) { return sh + p * S; });
+  __syncthreads();
+  store_tile<TB>(dst + (size_t)b * RP * NK + (size_t)o0 * NK, n, NK, MW,
+                 [&](int i) { return sh + perm[i] * S; });
 }
 
 // ---------------------------------------------------------------------------
@@ -733,28 +1001,85 @@ int padded_rows(int R) {
 int mask_words(int W) { return (W + 31) / 32; }
 int cmask_words(int CR) { return CR > 32 ? (CR + 31) / 32 : 1; }
 
-template <int TB>
-int sort_rows(int* rows, const int* scal, int B, int RP, int NK, int MW,
-              cudaStream_t st) {
-  const int S = RP < 1024 ? RP : 1024;
-  const size_t smem = (size_t)S * (NK + (TB == TB_HASH ? 1 : 0)) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        sort_local_kernel<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+// An attribute of the current device.
+int device_attr(cudaDeviceAttr attr) {
+  int dev = 0, v = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&v, attr, dev);
+  return v;
+}
+
+template <class Kern>
+cudaError_t allow_smem(Kern kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes > (size_t)device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin))
+    return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// K2's launches for keys of M words: the tile pass over tiles of T rows,
+// then `passes` merge passes ping-ponging between rows and alt, the last
+// one into rows (T and passes from kernels/search.py tile_rows and
+// sort_passes). Refuses a T beyond the 16-bit slots, runs that do not
+// cover R (or whose width overflows an int), and a tile whose shared
+// memory the device does not grant; alt may be null when passes is 0.
+// Adds each launch to *launched.
+template <int TB, int M>
+int sort_rows_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
+                int NK, int MW, int T, int passes, cudaStream_t st,
+                int* launched) {
+  const int S = M | 1;
+  const long long span =
+      passes >= 0 && passes <= 30 ? (long long)T << passes : 0;
+  if (T < 1 || T > 65536 || span < R || span > 0x7fffffffLL ||
+      (passes > 0 && alt == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (R + T - 1) / T, cap = R < T ? R : T;
+  const int V = tile_v(cap, (long long)B * tiles,
+                       device_attr(cudaDevAttrMultiProcessorCount));
+  const size_t tile_smem = (size_t)cap * (4 * S + 2 * sizeof(uint16_t));
+  cudaError_t e = allow_smem(sort_tile_kernel<TB, M>, tile_smem);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = ((cap + V - 1) / V + 31) / 32 * 32;
+  int* cur = passes % 2 ? alt : rows;
+  sort_tile_kernel<TB, M><<<dim3(tiles, B), threads, tile_smem, st>>>(
+      rows, cur, scal, R, RP, NK, MW, T, cap, V);
+  ++*launched;
+  if (passes > 0) {
+    const size_t merge_smem =
+        (size_t)MERGE_ROWS * (4 * S + sizeof(uint16_t));
+    e = allow_smem(sort_merge_kernel<TB, M>, merge_smem);
     if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 local(RP / S, B), global((RP / 2 + 255) / 256, B);
-  sort_local_kernel<TB><<<local, S / 2, smem, st>>>(rows, scal, RP, NK, MW, S,
-                                                    2, S);
-  for (int kk = 2 * S; kk <= RP; kk <<= 1) {
-    for (int j = kk >> 1; j >= S; j >>= 1)
-      sort_global_kernel<TB><<<global, 256, 0, st>>>(rows, scal, RP, NK, MW,
-                                                     kk, j);
-    sort_local_kernel<TB><<<local, S / 2, smem, st>>>(rows, scal, RP, NK, MW,
-                                                      S, kk, kk);
+    const dim3 grid((R + MERGE_ROWS - 1) / MERGE_ROWS, B);
+    for (int p = 0, L = T; p < passes; ++p, L <<= 1) {
+      int* next = cur == rows ? alt : rows;
+      sort_merge_kernel<TB, M>
+          <<<grid, MERGE_ROWS / MERGE_V, merge_smem, st>>>(
+              cur, next, scal, R, RP, NK, MW, L);
+      ++*launched;
+      cur = next;
+    }
   }
   return (int)cudaGetLastError();
+}
+
+// One instantiation per key length: the comparator's loop is unrolled to
+// exactly the key's words.
+template <int TB>
+int sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
+              int NK, int MW, int T, int passes, cudaStream_t st,
+              int* launched) {
+  switch (NK + (TB == TB_HASH ? 1 : 0)) {
+#define JT_SORT_M(M)                                                      \
+  case M:                                                                 \
+    return sort_rows_m<TB, M>(rows, alt, scal, B, R, RP, NK, MW, T, passes, \
+                              st, launched);
+    JT_SORT_M(6) JT_SORT_M(7) JT_SORT_M(8) JT_SORT_M(9) JT_SORT_M(10)
+    JT_SORT_M(11) JT_SORT_M(12) JT_SORT_M(13)
+#undef JT_SORT_M
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -772,7 +1097,7 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
               const unsigned* mask, const unsigned* cmask, const int* state,
               const uint8_t* alive, int* scal, int* acc, int* rows, int B,
               int C, int W, int E, int n, int CR, int lmax, int model,
-              void* stream) {
+              void* stream, int* launched) {
   if (model < 0 || model >= NMODELS) return (int)cudaErrorInvalidValue;
   ExpandArgs a;
   a.c = Cols{f, v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps};
@@ -803,27 +1128,34 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
     case M_FIFO: expand_kernel<M_FIFO><<<grid, 128, 0, st>>>(a); break;
     default: expand_kernel<M_CAS><<<grid, 128, 0, st>>>(a); break;
   }
+  ++*launched;
   return (int)cudaGetLastError();
 }
 
-int jt_sort_rows(int* rows, const int* scal, int B, int RP, int NK, int MW,
-                 int tiebreak, void* stream) {
+int jt_sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
+                 int NK, int MW, int tiebreak, int T, int passes, void* stream,
+                 int* launched) {
   const cudaStream_t st = (cudaStream_t)stream;
   return tiebreak == TB_HASH
-             ? sort_rows<TB_HASH>(rows, scal, B, RP, NK, MW, st)
-             : sort_rows<TB_LEX>(rows, scal, B, RP, NK, MW, st);
+             ? sort_rows<TB_HASH>(rows, alt, scal, B, R, RP, NK, MW, T,
+                                  passes, st, launched)
+             : sort_rows<TB_LEX>(rows, alt, scal, B, R, RP, NK, MW, T, passes,
+                                 st, launched);
 }
 
 int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int B,
-                  int RP, int NK, int MW, void* stream) {
+                  int RP, int NK, int MW, void* stream, int* launched) {
   const cudaStream_t st = (cudaStream_t)stream;
   const int threads = RP < 1024 ? (RP < 32 ? 32 : RP) : 1024;
   const int blocks = RP < 1024 ? 1 : RP / 1024;
   scan_local_kernel<<<dim3(blocks, B), threads, 0, st>>>(rows, scal, g, gagg,
                                                          RP, NK, MW);
-  if (blocks > 1)
+  ++*launched;
+  if (blocks > 1) {
     scan_carry_kernel<<<dim3(blocks - 1, B), threads, 0, st>>>(scal, g, gagg,
                                                                RP, blocks);
+    ++*launched;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -834,7 +1166,7 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
                       int* out_state, uint8_t* out_alive, int* pk, int* ps,
                       uint8_t* pa, const int* nr, int* scal, int* acc,
                       int* stats, int B, int C, int W, int CR, int R,
-                      int lmax, void* stream) {
+                      int lmax, void* stream, int* launched) {
   DedupArgs a;
   a.rows = rows;
   a.g = g;
@@ -856,6 +1188,7 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
   a.RP = padded_rows(R);
   a.lmax = lmax;
   dedup_kernel<<<dim3((R + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(a);
+  ++*launched;
   return (int)cudaGetLastError();
 }
 

@@ -28,12 +28,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: argument types of each entry point: pointers, ints, then the stream
+_N = ctypes.POINTER(ctypes.c_int)
+#: argument types of each entry point: pointers, ints, the stream, then
+#: the count its kernel launches are added to
 SIGNATURES = {
-    "jt_expand": [_P] * 22 + [_I] * 8 + [_P],
-    "jt_sort_rows": [_P] * 2 + [_I] * 5 + [_P],
-    "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P],
-    "jt_dedup_truncate": [_P] * 19 + [_I] * 6 + [_P],
+    "jt_expand": [_P] * 22 + [_I] * 8 + [_P, _N],
+    "jt_sort_rows": [_P] * 3 + [_I] * 8 + [_P, _N],
+    "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P, _N],
+    "jt_dedup_truncate": [_P] * 19 + [_I] * 6 + [_P, _N],
 }
 
 _lock = threading.Lock()

@@ -41,7 +41,9 @@ def copy_state(carry: G.Carry, scratch: G.Scratch
             G.Scratch(pool_next=K.Pool(*(t.clone() for t in
                                          scratch.pool_next.tensors())),
                       acc=scratch.acc.clone(), rows=scratch.rows.clone(),
-                      g=scratch.g.clone(), gagg=scratch.gagg.clone()))
+                      g=scratch.g.clone(), gagg=scratch.gagg.clone(),
+                      rows_alt=(None if scratch.rows_alt is None
+                                else scratch.rows_alt.clone())))
 
 
 class Level:
@@ -90,7 +92,8 @@ class Level:
         return [
             ("expand", k1(K.expand), k1(K.expand_plain),
              lambda c, s: [c.scal, s.acc, s.rows]),
-            ("sort_rows", lambda c, s: K.sort_rows(s.rows, c.scal, shape),
+            ("sort_rows",
+             lambda c, s: K.sort_rows(s.rows, c.scal, shape, s.rows_alt),
              lambda c, s: K.sort_rows_plain(s.rows, c.scal, shape),
              lambda c, s: [s.rows]),
             ("group_scan",

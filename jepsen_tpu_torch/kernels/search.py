@@ -9,8 +9,8 @@ body, one ``lax.while_loop`` iteration) is four kernels in
                     the frontier advance with its forced fast-forward, the
                     [E, CR] crashed grid, the pool remainder; writes R
                     sortable rows
-``sort_rows``       B5 (lex) or B5' (hash): bitonic sort of the rows,
-                    padded to RP
+``sort_rows``       B5 (lex) or B5' (hash): merge sort of the R live
+                    rows (the pad tail after them is already in place)
 ``group_scan``      B6: the cummax group-start scan over the sorted rows
 ``dedup_truncate``  B6/B7: dup and 8-leader dominance kills, done/best,
                     first-C truncation into the other pool buffer, lossy,
@@ -32,9 +32,10 @@ the others go on.
 Each wrapper checks its tensors and dispatches on their device: CPU
 tensors run the plain PyTorch version beside it, CUDA tensors launch the
 kernel on the current stream (or raise; there is no fallback). Each
-launch adds one to ``launches[name]``, and the CUDA launches it issues
-(:func:`grid_launches`: the sort's global passes and the scan's carry
-step are launches of their own) to ``grid_launches_total[name]``. The
+launch adds one to ``launches[name]``, and the CUDA launches it issued,
+as the C entry point counts them where it makes them (the sort's merge
+passes and the scan's carry step are launches of their own; the count
+:func:`grid_launches` predicts), to ``grid_launches_total[name]``. The
 plain versions take CUDA tensors too when called directly, which is how
 the kernels are held against them on the card.
 
@@ -66,7 +67,7 @@ from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -86,6 +87,10 @@ NSTAT = 5
 TIEBREAKS = ("lex", "hash")
 #: the most keys one launch takes (the grid's y extent)
 MAX_KEYS = 65535
+#: the dynamic shared memory one block may use on the H100 (227 KB), and
+#: the most rows one sort tile holds (its row slots are 16-bit)
+SMEM_MAX = 232448
+TILE_MAX = 4096
 #: the models K1 steps, by KernelSpec name; a model's code is its index
 #: (the template argument of ``expand_kernel`` in csrc/search.cu)
 MODELS = tuple(spec.name for spec in _SPECS)
@@ -108,7 +113,8 @@ COLS = ("f", "v1", "v2", "ro", "fr", "inv", "ret", "sm", "cf", "cv1",
 launches: Dict[str, int] = {"expand": 0, "sort_rows": 0,
                             "sort_rows_hash": 0, "group_scan": 0,
                             "dedup_truncate": 0}
-#: the CUDA kernel launches those wrapper calls issued
+#: the CUDA kernel launches those wrapper calls issued, as the C entry
+#: points count them
 grid_launches_total: Dict[str, int] = dict.fromkeys(launches, 0)
 
 
@@ -630,14 +636,15 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _launch(name: str, shape: LevelShape, fn, *args) -> None:
+def _launch(name: str, fn, *args) -> None:
     from jepsen_tpu_torch.kernels import build
-    rc = fn(*args)
+    launched = ctypes.c_int(0)
+    rc = fn(*args, ctypes.byref(launched))
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc}: "
                            f"{build.error_string(rc)}")
     launches[name] += 1
-    grid_launches_total[name] += grid_launches(name, shape)
+    grid_launches_total[name] += launched.value
 
 
 def _lib():
@@ -662,23 +669,60 @@ def expand(cols: dict, pool: Pool, scal: torch.Tensor, acc: torch.Tensor,
     if _on_cpu(tensors):
         expand_plain(cols, pool, scal, acc, rows, shape, nr)
         return
-    _launch("expand", shape, _lib().jt_expand, *[_ptr(t) for t in tensors],
+    _launch("expand", _lib().jt_expand, *[_ptr(t) for t in tensors],
             B, shape.C, shape.W, shape.E, n, CR, shape.lmax,
             MODELS.index(shape.model), _stream(rows))
 
 
-def sort_rows(rows: torch.Tensor, scal: torch.Tensor,
-              shape: LevelShape) -> None:
-    """Sort each active key's padded rows in place in the order of
-    ``shape.tiebreak``."""
+def sort_rows(rows: torch.Tensor, scal: torch.Tensor, shape: LevelShape,
+              rows_alt: Optional[torch.Tensor] = None) -> None:
+    """Sort each active key's rows in place in the order of
+    ``shape.tiebreak``. ``rows_alt``, a second [B, RP, NK] buffer, is the
+    merge passes' scratch: the kernel needs it when R exceeds one tile
+    (:func:`sort_passes`), and a CUDA call without it then raises."""
     _check_rows(rows, scal, shape)
-    if _on_cpu([rows, scal]):
+    tensors = [rows, scal]
+    if rows_alt is not None:
+        _check(rows_alt, "rows_alt", torch.int32, rows.shape)
+        tensors.append(rows_alt)
+    if _on_cpu(tensors):
         sort_rows_plain(rows, scal, shape)
         return
+    if rows_alt is None and sort_passes(shape):
+        raise ValueError(f"sort_rows: R = {shape.R} rows exceed a tile of "
+                         f"{tile_rows(shape)}; the merge passes need "
+                         f"rows_alt")
     name = "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
-    _launch(name, shape, _lib().jt_sort_rows, _ptr(rows), _ptr(scal),
-            shape.B, shape.RP, shape.NK, shape.MW,
-            TIEBREAKS.index(shape.tiebreak), _stream(rows))
+    _launch(name, _lib().jt_sort_rows, _ptr(rows),
+            ctypes.c_void_p(None) if rows_alt is None else _ptr(rows_alt),
+            _ptr(scal), shape.B, shape.R, shape.RP, shape.NK, shape.MW,
+            TIEBREAKS.index(shape.tiebreak), tile_rows(shape),
+            sort_passes(shape), _stream(rows))
+
+
+def tile_stride(shape: LevelShape) -> int:
+    """int32 words a row takes in a sort tile: NK, then its hash under
+    the hash tie-break, rounded up to an odd count (the stride ``M | 1``
+    of csrc/search.cu's sort kernels)."""
+    return (shape.NK + (shape.tiebreak == "hash")) | 1
+
+
+def tile_rows(shape: LevelShape) -> int:
+    """T, the rows one sort tile holds: the largest power of two up to
+    TILE_MAX whose rows and two 2-byte slot arrays fit in SMEM_MAX. 4,096
+    at every NK up to 12. The kernel takes T and :func:`sort_passes` from
+    here and refuses a tile the device cannot hold."""
+    T = TILE_MAX
+    while T * (4 * tile_stride(shape) + 4) > SMEM_MAX:
+        T //= 2
+    return T
+
+
+def sort_passes(shape: LevelShape) -> int:
+    """The sort's merge passes after its tile pass: ceil(log2(ceil(R /
+    T))), 0 when the R live rows fit in one tile."""
+    tiles = -(-shape.R // tile_rows(shape))
+    return (tiles - 1).bit_length()
 
 
 def group_scan(rows: torch.Tensor, scal: torch.Tensor, g: torch.Tensor,
@@ -691,7 +735,7 @@ def group_scan(rows: torch.Tensor, scal: torch.Tensor, g: torch.Tensor,
     if _on_cpu([rows, scal, g, gagg]):
         group_scan_plain(rows, scal, g, shape)
         return
-    _launch("group_scan", shape, _lib().jt_group_scan, _ptr(rows), _ptr(scal),
+    _launch("group_scan", _lib().jt_group_scan, _ptr(rows), _ptr(scal),
             _ptr(g), _ptr(gagg), shape.B, shape.RP, shape.NK, shape.MW,
             _stream(rows))
 
@@ -702,14 +746,12 @@ def scan_blocks(RP: int) -> int:
 
 
 def grid_launches(name: str, shape: LevelShape) -> int:
-    """CUDA kernel launches one call of wrapper ``name`` issues at
-    ``shape``. The sort sorts blocks of S = min(RP, 1024) rows in shared
-    memory, then merges each doubling kk up to RP with log2(kk / S)
-    global passes and one local pass; the scan adds a carry launch once
-    it spans several blocks."""
+    """CUDA kernel launches one call of wrapper ``name`` should issue at
+    ``shape`` (what ``grid_launches_total`` is held against). The sort
+    takes its tile pass and :func:`sort_passes` merge passes; the scan
+    adds a carry launch once it spans several blocks."""
     if name.startswith("sort_rows"):
-        stages = (shape.RP // min(shape.RP, 1024)).bit_length() - 1
-        return 1 + sum(i + 1 for i in range(1, stages + 1))
+        return 1 + sort_passes(shape)
     if name == "group_scan":
         return 1 if scan_blocks(shape.RP) == 1 else 2
     return 1
@@ -740,6 +782,6 @@ def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
         dedup_truncate_plain(rows, g, pool_in, pool_out, pk, ps, pa, scal,
                              acc, stats, shape, nr)
         return
-    _launch("dedup_truncate", shape, _lib().jt_dedup_truncate,
+    _launch("dedup_truncate", _lib().jt_dedup_truncate,
             *[_ptr(t) for t in tensors],
             B, C, shape.W, shape.CR, shape.R, shape.lmax, _stream(rows))

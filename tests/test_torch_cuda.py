@@ -6,6 +6,8 @@ The file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed. All comparisons are exact (integer state).
 """
 
+import ctypes
+import math
 import random
 
 import numpy as np
@@ -123,9 +125,11 @@ def test_grid_launches_count_the_sorts_passes(cuda):
     lv = parity.Level(cols, (512, 64, 512), cuda)
     K.reset_launches()
     lv.advance(2)
-    assert lv.shape.RP == 65536
+    tiles = math.ceil(lv.shape.R / K.tile_rows(lv.shape))
+    assert (lv.shape.R, tiles) == (37376, 10)
     assert K.launches["sort_rows"] == 2
-    assert K.grid_launches_total["sort_rows"] == 2 * 28
+    assert K.grid_launches_total["sort_rows"] == 2 * (
+        1 + math.ceil(math.log2(tiles)))
     assert K.grid_launches_total["group_scan"] == 2 * 2
 
 
@@ -139,8 +143,8 @@ def _batch_cols(histories, cr):
 
 #: (fixtures, crashed width, rung): the keyed first rungs, a rung whose
 #: rows span several sort and scan blocks, the keyed window-deferred rung
-#: (RP = 65,536: 28 sort launches a call), and four mask and four crashed
-#: words (the hash sort's shared memory above 48 KB)
+#: (R = 37,376 in 10 sort tiles: 5 sort launches a call), and four mask and
+#: four crashed words (NK = 12: the sort's widest tile row)
 BATCH_CASES = [
     (("entry", "crashed", "mc2"), 64, (32, 32, 4)),
     (("entry", "crashed", "mc2"), 64, (128, 32, 16)),
@@ -392,3 +396,158 @@ def test_the_daemon_serves_gangs_on_the_card(cuda, tmp_path):
             assert r["serve"]["gang"]["size"] == len(hs)
     finally:
         d.stop()
+
+
+# ---------------------------------------------------------------------------
+# K2 on adversarial rows: tile edges, odd merge passes, ties, hash equality
+# ---------------------------------------------------------------------------
+
+MAXK = 1 << 30
+PAD_KEY = 2**31 - 1
+
+
+def _sort_shape(R, B, tiebreak, wide=False):
+    """A level shape with exactly R rows: one expanded row, so R = C + W +
+    CR. ``wide``: four mask and four crashed words (NK = 12)."""
+    W, CR = (128, 128) if wide else (32, 8)
+    return K.LevelShape(R - W - CR, W, 1, 2048, CR, B=B, tiebreak=tiebreak)
+
+
+def _colliding_rows(MW, rng):
+    """Pairs of rows with distinct (k, mask, state) and equal hash h: a
+    birthday search over 2^18 random rows (about 8 pairs expected)."""
+    n = 1 << 18
+    rows = torch.zeros(n, 3 + MW, dtype=torch.int32)
+    rows[:, 1] = torch.from_numpy(rng.integers(0, 1 << 20, n))
+    rows[:, 2:] = torch.from_numpy(
+        rng.integers(-2**31, 2**31, (n, 1 + MW)).astype(np.int32))
+    h = K.row_hash_plain(rows, MW).numpy()
+    order = np.argsort(h, kind="stable")
+    same = np.nonzero(h[order][1:] == h[order][:-1])[0]
+    pairs = [(order[i], order[i + 1]) for i in same
+             if not torch.equal(rows[order[i]], rows[order[i + 1]])]
+    assert pairs, "no hash collision found"
+    return rows[[i for p in pairs for i in p], 1:].numpy().astype(np.int64)
+
+
+def _mixed_rows(R, NK, MW, rng, colliding):
+    """R live rows, shuffled: a third share few (key1, k) values and differ
+    only in later words (a fifth of them invalid), a third are copies of
+    eight rows, and the rest share one key1 and their hash: one (k, mask,
+    state) under other crashed masks, and the colliding pairs."""
+    out = np.zeros((R, NK), np.int64)
+    q = R // 3
+    k = rng.integers(0, 3, q)
+    out[:q, 0] = np.where(rng.random(q) < 0.8,
+                          MAXK - k - rng.integers(0, 2, q), MAXK + 1 + k)
+    out[:q, 1] = k
+    out[:q, 2:] = rng.choice(np.array([0, 1, 2**31, 2**32 - 1]),
+                             (q, NK - 2))
+    base = rng.integers(0, 2**32, (8, NK))
+    base[:, 0] = MAXK - rng.integers(0, 100, 8)
+    base[:, 1] = rng.integers(0, 100, 8)
+    out[q:2 * q] = base[rng.integers(0, 8, q)]
+    rest = out[2 * q:]
+    rest[:, 0] = MAXK - 7
+    kms = np.concatenate([np.tile(rng.integers(0, 2**31, (1, 2 + MW)),
+                                  (4, 1)), colliding])
+    rest[:, 1:3 + MW] = kms[rng.integers(0, len(kms), len(rest))]
+    rest[:, 3 + MW:] = rng.integers(0, 2, (len(rest), NK - 3 - MW))
+    return out[rng.permutation(R)]
+
+
+def _adversarial_rows(shape, seed, all_pad=(), inactive=()):
+    """Rows [B, RP, NK] and scal [B, NSCAL] for K2 from numpy with
+    ``seed``: each key's R live rows from :func:`_mixed_rows`, then the pad
+    tail as K1 writes it. The keys in ``all_pad`` hold pad rows only; the
+    keys in ``inactive`` have their active flag clear."""
+    rng = np.random.default_rng(seed)
+    colliding = _colliding_rows(shape.MW, rng)
+    rows = np.zeros((shape.B, shape.RP, shape.NK), np.int64)
+    rows[:, :, 0] = PAD_KEY
+    for b in range(shape.B):
+        if b not in all_pad:
+            rows[b, :shape.R] = _mixed_rows(shape.R, shape.NK, shape.MW, rng,
+                                            colliding)
+    rows = np.where(rows >= 2**31, rows - 2**32, rows).astype(np.int32)
+    scal = np.zeros((shape.B, K.NSCAL), np.int32)
+    scal[:, K.ACT] = 1
+    scal[list(inactive), K.ACT] = 0
+    return rows, scal
+
+
+#: (R, B, NK = 12): R = 512 at B = 1, 3 and 256; one tile's T - 1, T and
+#: T + 1 rows (T = 4,096); 3 and 5 tiles (2 and 3 merge passes, each with
+#: a run that has no partner); the dwide rung's 37,376; NK = 12 above 2T
+SORT_CASES = [(512, 1, False), (512, 3, False), (512, 256, False),
+              (4095, 3, False), (4096, 3, False), (4097, 3, False),
+              (3 * 4096 - 5, 3, False), (5 * 4096 - 5, 3, False),
+              (37376, 3, False), (2 * 4096 + 500, 3, True)]
+
+
+def _check_sort(shape, rows_np, scal_np, inactive, cuda):
+    rows = torch.from_numpy(rows_np).to(cuda)
+    scal = torch.from_numpy(scal_np).to(cuda)
+    want = rows.clone()
+    K.sort_rows_plain(want, scal, shape)
+    got = rows.clone()
+    alt = torch.full_like(rows, -1) if K.sort_passes(shape) else None
+    name = "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
+    K.reset_launches()
+    K.sort_rows(got, scal, shape, alt)
+    torch.cuda.synchronize()
+    assert parity.max_abs_err([got], [want]) == 0
+    for b in inactive:
+        assert torch.equal(got[b], rows[b])
+    # the launches the C side counted as it made them
+    tiles = math.ceil(shape.R / K.tile_rows(shape))
+    assert K.grid_launches_total[name] == 1 + (
+        math.ceil(math.log2(tiles)) if tiles > 1 else 0)
+
+
+@pytest.mark.parametrize("tiebreak", K.TIEBREAKS)
+@pytest.mark.parametrize("R,B,wide", SORT_CASES)
+def test_the_sort_matches_its_plain_version_on_adversarial_rows(
+        cuda, tiebreak, R, B, wide):
+    shape = _sort_shape(R, B, tiebreak, wide)
+    assert shape.R == R and K.tile_rows(shape) == 4096
+    all_pad, inactive = {1: ((), ()), 3: ((1,), (2,)),
+                         256: ((7,), (9, 200))}[B]
+    rows, scal = _adversarial_rows(shape, R + B, all_pad, inactive)
+    _check_sort(shape, rows, scal, inactive, cuda)
+
+
+@pytest.mark.parametrize("tiebreak", K.TIEBREAKS)
+def test_the_sort_matches_its_plain_version_at_the_top_wide_rung(
+        cuda, tiebreak):
+    """(16384, 128, 4096) at CR = 8: R = 573,440 rows, 140 tiles, 8 merge
+    passes."""
+    shape = K.LevelShape(16384, 128, 4096, 2048, 8, tiebreak=tiebreak)
+    assert shape.R == 573440 and K.sort_passes(shape) == 8
+    rows, scal = _adversarial_rows(shape, 573440)
+    _check_sort(shape, rows, scal, (), cuda)
+
+
+def test_the_sort_refuses_a_tile_plan_that_cannot_sort(cuda):
+    """The host picks T and the merge passes; the kernel refuses runs that
+    do not cover R, a tile whose shared memory the device does not grant
+    and a T beyond its 16-bit slots, and launches nothing then."""
+    from jepsen_tpu_torch.kernels import build
+    shape = _sort_shape(37376, 1, "lex")
+    rows, scal = (torch.from_numpy(a).to(cuda)
+                  for a in _adversarial_rows(shape, 1))
+    alt = torch.empty_like(rows)
+    T, passes = K.tile_rows(shape), K.sort_passes(shape)
+    assert (T, passes) == (4096, 4)
+    for t, p in ((T, passes - 1), (4 * T, passes - 2), (2 * 65536, 0)):
+        launched = ctypes.c_int(0)
+        rc = build.load().jt_sort_rows(
+            K._ptr(rows), K._ptr(alt), K._ptr(scal), 1, shape.R, shape.RP,
+            shape.NK, shape.MW, 0, t, p, K._stream(rows),
+            ctypes.byref(launched))
+        assert rc != 0 and launched.value == 0, (t, p)
+    got = rows.clone()
+    K.sort_rows(got, scal, shape, alt)
+    want = rows.clone()
+    K.sort_rows_plain(want, scal, shape)
+    assert parity.max_abs_err([got], [want]) == 0

@@ -11,6 +11,7 @@
 Tolerance: none (integer state).
 """
 
+import math
 import random
 
 import jax
@@ -436,21 +437,11 @@ def test_a_cohort_larger_than_a_launch_runs_in_chunks(monkeypatch):
             == sum(b["keys"] for b in whole["batches"]))
 
 
-def _sort_launches(RP):
-    """The CUDA launches of ``sort_rows`` in csrc/search.cu, loop by loop:
-    one local sort of S-row blocks, then for each doubling kk its global
-    passes down to S and one local merge."""
-    S = min(RP, 1024)
-    n = 1
-    kk = 2 * S
-    while kk <= RP:
-        j = kk >> 1
-        while j >= S:
-            n += 1
-            j >>= 1
-        n += 1
-        kk <<= 1
-    return n
+def _sort_launches(R, T):
+    """The CUDA launches of ``sort_rows`` in csrc/search.cu: one tile pass
+    over tiles of T rows, then ceil(log2(tiles)) merge passes."""
+    tiles = math.ceil(R / T)
+    return 1 + (math.ceil(math.log2(tiles)) if tiles > 1 else 0)
 
 
 @pytest.mark.parametrize("rung,cr", [((128, 32, 8), 16), ((128, 32, 16), 8),
@@ -460,12 +451,19 @@ def _sort_launches(RP):
 def test_grid_launches_counts_every_cuda_launch(rung, cr):
     C, W, E = rung
     shape = K.LevelShape(C, W, E, 2048, cr, B=3)
-    assert K.grid_launches("sort_rows", shape) == _sort_launches(shape.RP)
-    assert K.grid_launches("sort_rows_hash", shape) == _sort_launches(
-        shape.RP)
+    tile = K.tile_rows(shape)
+    assert tile == 4096
+    assert K.grid_launches("sort_rows", shape) == _sort_launches(shape.R,
+                                                                 tile)
+    hashed = K.LevelShape(C, W, E, 2048, cr, B=3, tiebreak="hash")
+    assert K.grid_launches("sort_rows_hash", hashed) == _sort_launches(
+        hashed.R, K.tile_rows(hashed))
+    if shape.R <= tile:    # the narrow rungs: one launch
+        assert K.grid_launches("sort_rows", shape) == 1
+        assert K.grid_launches("sort_rows_hash", hashed) == 1
     assert K.grid_launches("group_scan", shape) == (
         1 if shape.RP <= 1024 else 2)
     assert K.grid_launches("expand", shape) == 1
     assert K.grid_launches("dedup_truncate", shape) == 1
     if rung == (512, 64, 512):
-        assert shape.RP == 65536 and K.grid_launches("sort_rows", shape) == 28
+        assert shape.R == 37376 and K.grid_launches("sort_rows", shape) == 5
