@@ -146,15 +146,26 @@ PEAK_OPS_S = 67e12
 SLEEP_CYCLES = 20_000_000
 REPS = 30
 
+#: the segment loop phase: the levels each state's segment may run on the
+#: graph loop and on the plain route (the host loop runs the levels the
+#: graph ran), from the state the kernels are held at; the state whose
+#: lane 0 is cancelled first
+LOOP_LEVELS = 128
+LOOP_CANCELLED = ("gang",)
+#: the path each state's per-level times stand for in the summary
+LOOP_PATHS = {"headline": "headline", "keyed": "keyed dense hash",
+              "models": "model_mutex", "serve": "gang"}
+
 SOURCE = "jepsen_tpu_torch/csrc/search.cu"
 KERNELS = ("expand", "sort_rows", "sort_rows_hash", "group_scan",
-           "dedup_truncate")
+           "dedup_truncate", "seg_active")
 REPLACES = {
     "expand": "jepsen_tpu/checker/tpu.py:377",
     "sort_rows": "jepsen_tpu/checker/tpu.py:581",
     "sort_rows_hash": "jepsen_tpu/checker/tpu.py:563",
     "group_scan": "jepsen_tpu/checker/tpu.py:605",
     "dedup_truncate": "jepsen_tpu/checker/tpu.py:589",
+    "seg_active": "jepsen_tpu/checker/tpu.py:681",
 }
 
 
@@ -314,6 +325,222 @@ def carries_equal(a, b):
         np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
 
 
+def cohort_cols(histories, cr, wide):
+    """A keyed cohort's columns: the register histories of crash width
+    ``cr`` (with ``wide``, only those whose needed window exceeds 32),
+    padded to the batch's required width."""
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    packs = [pack_with_init(h, CASRegister()) for h in histories]
+    breq = G._bucket(max(p.n_required for p, _ in packs))
+    return [G._split_packed(p, breq, cr, k) for p, k in packs
+            if (G._crash_width(p.n - p.n_required) or 0) == cr
+            and (not wide or G._window_needed(p) > 32)]
+
+
+def model_state(tag, dev):
+    """(model, kernel, history, packed, columns, ladder) of the model
+    family ``tag`` at full size."""
+    from jepsen_tpu_torch import models, testing
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    cls, sim, kw = MODEL_HISTORIES[tag]
+    model = getattr(models, cls)()
+    h = getattr(testing, sim)(**kw)
+    packed, kernel = pack_with_init(h, model)
+    cols = G._split_packed(packed, G._bucket(packed.n_required),
+                           G._crash_width(packed.n - packed.n_required),
+                           kernel)
+    return (model, kernel, h, packed, cols,
+            G._ladder_for(G._window_needed(packed), dev))
+
+
+def serve_members():
+    """The serve phase's register requests, each (history, packed,
+    kernel, bucket): (the requests; their count per bucket; the main
+    bucket; further members of it, the deadline member and the poison
+    member first; the gang of GANG_SIZE of the main bucket)."""
+    from jepsen_tpu_torch import testing
+    from jepsen_tpu_torch.checker.engine import Engine
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+
+    def member(seed):
+        h = testing.simulate_register_history(seed=seed, **SERVE)
+        p, kernel = pack_with_init(h, CASRegister())
+        return h, p, kernel, Engine.bucket_key(p, kernel)
+
+    regs = [member(SERVE_SEED + i) for i in range(SERVE_REQUESTS)]
+    counts = {}
+    for r in regs:
+        counts[r[3]] = counts.get(r[3], 0) + 1
+    main = max(counts, key=counts.get)
+    # the deadline member, the poison member and the gang of GANG_SIZE:
+    # further seeds of the requests' main bucket
+    extra, seed = [], SERVE_SEED + SERVE_REQUESTS
+    while len(extra) < 2 + max(0, GANG_SIZE - counts[main]):
+        m = member(seed)
+        if m[3] == main:
+            extra.append(m)
+        seed += 1
+    gang8 = ([r for r in regs if r[3] == main] + extra[2:])[:GANG_SIZE]
+    return regs, counts, main, extra, gang8
+
+
+def load_state(dst, src):
+    """Copy the (carry, scratch) ``src`` into the buffers of ``dst``."""
+    for a, b in zip(dst, src):
+        for name in vars(a):
+            x = getattr(a, name)
+            if x is not None:
+                x.copy_(getattr(b, name))
+
+
+def check_seg_active(lv):
+    """K5 against its plain version at ``lv``'s scalars over segment words
+    below, at and past their bound (tolerance 0), then timed beside its
+    plain version and ``torch.any`` over the same keys' active flags."""
+    from jepsen_tpu_torch.kernels import parity
+    from jepsen_tpu_torch.kernels import search as K
+    scal, lmax, B = lv.carry.scal.clone(), lv.shape.lmax, lv.shape.B
+    dev = scal.device
+    err = 0
+    for run, bound in ((0, 2), (0, 1024), (1022, 1024), (5, 4)):
+        seg = torch.tensor([run, bound, 9, 0], dtype=torch.int32,
+                           device=dev)
+        a, b = seg.clone(), seg.clone()
+        K.seg_active(scal, lmax, a)
+        K.seg_active_plain(scal, lmax, b)
+        err = max(err, parity.max_abs_err([a], [b]))
+    assert err == 0, "seg_active: kernel and plain version disagree"
+    seg = torch.tensor([0, 1024, 0, 0], dtype=torch.int32, device=dev)
+    act = K.active(scal, lmax)
+    nbytes = B * K.NSCAL * 4 + 16
+    nops = B * 5
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+    return {"max_abs_err": err, "cuda_launches_per_call": 1,
+            "ms": device_ms(lambda x: K.seg_active(scal, lmax, x),
+                            lambda: (seg.clone(),)),
+            "plain_ms": host_ms(lambda x: K.seg_active_plain(scal, lmax, x),
+                                lambda: (seg.clone(),)),
+            "library_ms": device_ms(torch.any, lambda: (act,)),
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": nops}
+
+
+def segment_loop(tag, lv, cancel):
+    """The segment graph against the host loop over the kernels and the
+    plain route, from ``lv``'s state: one segment of at most LOOP_LEVELS
+    levels on each, timed (the graph's second launch, its capture done;
+    the host loop over the levels the graph ran), their carries equal bit
+    for bit and their levels run equal."""
+    from jepsen_tpu_torch import interop
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.kernels import parity
+    if cancel:
+        G.cancel_lanes(lv.carry, [0])
+    state = parity.copy_state(lv.carry, lv.scratch)
+    graph_state = parity.copy_state(*state)
+
+    def graph_segment():
+        words, graph = G.run_segment(lv.cols, graph_state[0],
+                                     graph_state[1], lv.shape, lv.nr,
+                                     LOOP_LEVELS)
+        assert graph is not None, tag
+        return G.end_segment(graph_state[0], lv.shape, words, graph)[0]
+
+    graph_segment()
+    load_state(graph_state, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = graph_segment()
+    graph_s = time.perf_counter() - t0
+    levels = run + run % 2
+    host_state = parity.copy_state(*state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    G.run_segment_host(lv.cols, host_state[0], host_state[1], lv.shape,
+                       lv.nr, levels)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    plain_state = parity.copy_state(*state)
+    words, _ = G.run_segment(lv.cols, plain_state[0], plain_state[1],
+                             lv.shape, lv.nr, LOOP_LEVELS, G.PLAIN)
+    carries = [interop.batch_carry_to_numpy(c) for c, _ in (
+        graph_state, host_state, plain_state)]
+    assert int(words[0]) == run, (tag, int(words[0]), run)
+    assert carries_equal(carries[0], carries[1]), (tag, "host loop")
+    assert carries_equal(carries[0], carries[2]), (tag, "plain route")
+    return {"B": lv.shape.B, "levels_run": run, "graph_s": graph_s,
+            "host_s": host_s, "per_level_ms_graph": graph_s / run * 1e3,
+            "per_level_ms_host": host_s / levels * 1e3,
+            "cancelled": bool(cancel)}
+
+
+def segment_loop_phases(dev, seconds, recipes, head_p, head_kernel, r):
+    """The segment loop at every state the kernels are held at (the
+    ``recipes`` so far, then the gang's, each model's and the odd-pass
+    state): K5 against its plain version, and the graph loop against the
+    host loop and the plain route (:func:`segment_loop`); then the
+    headline checkpointed after its third segment and resumed, against
+    its uninterrupted result ``r``. Returns the per-state loop lines and
+    K5's numbers."""
+    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.kernels import parity
+    with phase("segment loop", seconds):
+        _, _, bucket, _, gang8 = serve_members()
+        recipes = recipes + [("gang", [G._split_packed(
+            m[1], bucket[1], bucket[2], m[2]) for m in gang8], GANG_RUNG,
+            {}, GANG_WARM_LEVELS)]
+        for tag in MODEL_HISTORIES:
+            _, kernel, _, _, mcols, ladder = model_state(tag, dev)
+            kw = {"model": kernel.name}
+            recipes.append((f"model_{tag}", mcols, ladder[0], kw,
+                            MODEL_WARM_LEVELS))
+            if tag == "mutex":
+                recipes.append(("odd", mcols, ladder[1], kw,
+                                MODEL_WARM_LEVELS))
+        loops, k5 = {}, {}
+        for tag, cols_np, rung, kw, warm in recipes:
+            lv = parity.Level(cols_np, rung, dev, **kw)
+            assert lv.advance(warm) > 0, tag
+            k5[tag] = check_seg_active(lv)
+            loops[tag] = segment_loop(tag, lv, tag in LOOP_CANCELLED)
+            loops[tag]["rung"] = list(rung)
+            print(f"segment loop {tag}: {json.dumps(loops[tag])} "
+                  f"seg_active ms={k5[tag]['ms']:.4f} "
+                  f"plain_ms={k5[tag]['plain_ms']:.3f} "
+                  f"torch.any ms={k5[tag]['library_ms']:.4f} "
+                  f"bound_ms={k5[tag]['bound_ms']:.7f}", flush=True)
+
+    with phase("resume", seconds):
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "store", "smoke-resume", "headline.npz")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+
+        def third(cp):
+            if cp.segment == 3:
+                cp.save(path)
+
+        rc = resilience.supervised_check_packed(head_p, head_kernel,
+                                                device=dev,
+                                                on_checkpoint=third)
+        cp = resilience.Checkpoint.load(path)
+        rr = resilience.supervised_check_packed(head_p, head_kernel,
+                                                device=dev, resume=cp)
+        fields = ("valid", "levels", "best-k", "rung", "segments")
+        print(f"resume: checkpoint at segment {cp.segment} level "
+              f"{cp.level}; resumed {[rr[f] for f in fields]}, "
+              f"uninterrupted {[r[f] for f in fields]}")
+        assert cp.segment == 3 and 0 < cp.level < r["levels"]
+        assert [rr[f] for f in fields] == [rc[f] for f in fields] == [
+            r[f] for f in fields]
+    return loops, k5
+
+
 def model_phases(dev, seconds, shapes):
     """The other model families: each kernel against its plain version at
     a live state of each model's full-size history (into ``shapes``),
@@ -331,15 +558,9 @@ def model_phases(dev, seconds, shapes):
     # kernels at each model's live state
     model_runs = {}
     with phase("model kernels", seconds):
-        for tag, (cls, sim, kw) in MODEL_HISTORIES.items():
-            model = getattr(models, cls)()
-            h = getattr(testing, sim)(**kw)
-            packed, kernel = pack_with_init(h, model)
-            rung = G._ladder_for(G._window_needed(packed), dev)[0]
-            cols = G._split_packed(
-                packed, G._bucket(packed.n_required),
-                G._crash_width(packed.n - packed.n_required), kernel)
-            lv = parity.Level(cols, rung, dev, model=kernel.name)
+        for tag in MODEL_HISTORIES:
+            model, kernel, h, packed, cols, ladder = model_state(tag, dev)
+            lv = parity.Level(cols, ladder[0], dev, model=kernel.name)
             live = lv.advance(MODEL_WARM_LEVELS)
             assert live > 0, tag
             res = check_and_time(lv, parity)
@@ -351,8 +572,7 @@ def model_phases(dev, seconds, shapes):
                 # an odd count of the sort's merge passes: the mutex
                 # history on its second rung, (1024, 32, 64) at CR = 32,
                 # has R = 5,120 rows, two tiles and one merge pass
-                rung2 = G._ladder_for(G._window_needed(packed), dev)[1]
-                lv = parity.Level(cols, rung2, dev, model=kernel.name)
+                lv = parity.Level(cols, ladder[1], dev, model=kernel.name)
                 live = lv.advance(MODEL_WARM_LEVELS)
                 assert live > 0 and K.sort_passes(lv.shape) % 2 == 1
                 res = check_and_time(lv, parity)
@@ -412,11 +632,12 @@ def model_phases(dev, seconds, shapes):
             print("model:", json.dumps(line), flush=True)
         model_launches = dict(K.launches)
         model_grid_launches = dict(K.grid_launches_total)
+        model_segments = dict(K.segments)
         print(f"model launches: {model_launches} "
-              f"cuda_launches={model_grid_launches}")
+              f"cuda_launches={model_grid_launches} graphs={model_segments}")
         assert all(model_launches[k] > 0 for k in (
-            "expand", "sort_rows", "group_scan", "dedup_truncate")), \
-            model_launches
+            "expand", "sort_rows", "group_scan", "dedup_truncate",
+            "seg_active")), model_launches
 
     with phase("models plain", seconds):
         # 1,000-op histories of each model, valid and corrupted, on the
@@ -457,7 +678,7 @@ def model_phases(dev, seconds, shapes):
                     assert a["valid"] is not True, (tag, a)
                 else:
                     assert a["valid"] is False, (tag, a)
-    return model_lines, model_launches, model_grid_launches
+    return model_lines, model_launches, model_grid_launches, model_segments
 
 
 def http_json(port, method, path, doc=None):
@@ -493,27 +714,9 @@ def serve_phases(dev, seconds, shapes, head):
     from jepsen_tpu_torch.ops.encode import pack_with_init
 
     with phase("serve histories", seconds):
-        def member(seed):
-            h = testing.simulate_register_history(seed=seed, **SERVE)
-            p, kernel = pack_with_init(h, CASRegister())
-            return h, p, kernel, Engine.bucket_key(p, kernel)
-
-        regs = [member(SERVE_SEED + i) for i in range(SERVE_REQUESTS)]
-        counts = {}
-        for r in regs:
-            counts[r[3]] = counts.get(r[3], 0) + 1
-        main = max(counts, key=counts.get)
+        regs, counts, main, extra, gang8 = serve_members()
         print(f"serve buckets: {counts}", flush=True)
-        # the deadline member, the poison member and the gang of
-        # GANG_SIZE: further seeds of the requests' main bucket
-        extra, seed = [], SERVE_SEED + SERVE_REQUESTS
-        while len(extra) < 2 + max(0, GANG_SIZE - counts[main]):
-            m = member(seed)
-            if m[3] == main:
-                extra.append(m)
-            seed += 1
         late, poison = extra[0], extra[1]
-        gang8 = ([r for r in regs if r[3] == main] + extra[2:])[:GANG_SIZE]
         kernel = regs[0][2]
 
         def sig(p):
@@ -635,6 +838,7 @@ def serve_phases(dev, seconds, shapes, head):
             wall = time.perf_counter() - t0
             serve_launches = dict(K.launches)
             serve_grid_launches = dict(K.grid_launches_total)
+            serve_segments = dict(K.segments)
             code, health = http_json(port, "GET", "/healthz")
             assert code == 200
         finally:
@@ -645,10 +849,10 @@ def serve_phases(dev, seconds, shapes, head):
             daemon.stop()
         stats = health["stats"]
         print(f"serve launches: {serve_launches} "
-              f"cuda_launches={serve_grid_launches}")
+              f"cuda_launches={serve_grid_launches} graphs={serve_segments}")
         assert all(serve_launches[k] > 0 for k in (
-            "expand", "sort_rows", "group_scan", "dedup_truncate")), \
-            serve_launches
+            "expand", "sort_rows", "group_scan", "dedup_truncate",
+            "seg_active")), serve_launches
         records, _ = journal.read_json_records(
             os.path.join(root, serve.WAL_NAME))
         gangs = {}
@@ -701,7 +905,8 @@ def serve_phases(dev, seconds, shapes, head):
             "serial_check_s": time.perf_counter() - t1,
             "warm_buckets": health["engine"]["warm-buckets"]}
         print("serve:", json.dumps(serve_line), flush=True)
-    return gang_line, serve_line, serve_launches, serve_grid_launches
+    return (gang_line, serve_line, serve_launches, serve_grid_launches,
+            serve_segments)
 
 
 def main() -> int:
@@ -777,17 +982,18 @@ def smoke(dev: torch.device) -> None:
             KEY_OPS, n_procs=5, n_vals=8, seed=7000 + k, **kw)
             for k in range(KEYS)} for label, kw in KEYED.items()}
         keyed_h = {label: keyed_history(hs) for label, hs in keyed.items()}
+    #: (state, columns, rung, Level keywords, warm levels) of every state
+    #: the kernels are held at, for the segment loop phase
+    loop_recipes = [("headline", head_cols, HEADLINE_RUNG, {},
+                     HEADLINE_WARM_LEVELS),
+                    ("wide", wide_cols, WIDE_RUNG, {}, WIDE_WARM_LEVELS)]
     with phase("keyed kernels", seconds):
         for name, label, rung, cr, warm, tbs, wide in KEYED_COHORTS:
-            packs = [pack_with_init(h, CASRegister())[0]
-                     for h in keyed[label].values()]
-            breq = G._bucket(max(p.n_required for p in packs))
-            cohort = [packed_cols(h, breq, cr)[2]
-                      for h, p in zip(keyed[label].values(), packs)
-                      if (G._crash_width(p.n - p.n_required) or 0) == cr
-                      and (not wide or G._window_needed(p) > 32)]
+            cohort = cohort_cols(keyed[label].values(), cr, wide)
             assert len(cohort) >= (2 if wide else 16), (name, len(cohort))
             for tb in tbs:
+                loop_recipes.append((f"keyed {name} {tb}", cohort, rung,
+                                     {"tiebreak": tb}, warm))
                 lv = parity.Level(cohort, rung, dev, tiebreak=tb)
                 live = lv.advance(warm)
                 assert live > 0, (name, tb)
@@ -807,15 +1013,23 @@ def smoke(dev: torch.device) -> None:
         cold_headline = time.perf_counter() - t0
         launches = dict(K.launches)
         grid_launches = dict(K.grid_launches_total)
+        path_segments = {"headline": dict(K.segments)}
         print(f"headline: valid={r['valid']} levels={r['levels']} "
               f"rung={r['rung']} segments={r['segments']} "
               f"cold_s={cold_headline:.3f} launches={launches} "
-              f"cuda_launches={grid_launches}")
+              f"cuda_launches={grid_launches} "
+              f"python_calls={K.host_calls} graphs={K.segments}")
         assert r["valid"] is True and r["backend"] == "gpu"
         assert "fallback-from" not in r
         assert all(launches[k] > 0 for k in ("expand", "sort_rows",
-                                             "group_scan",
-                                             "dedup_truncate")), launches
+                                             "group_scan", "dedup_truncate",
+                                             "seg_active")), launches
+        # no Python per level: one capture from Python, one graph launch
+        # a segment, the levels counted on the device
+        assert K.segments["launches"] == r["segments"], K.segments
+        assert K.segments["levels"] == r["levels"], K.segments
+        assert all(K.host_calls[k] == K.segments["captures"] for k in (
+            "expand", "sort_rows", "group_scan", "dedup_truncate"))
         t0 = time.perf_counter()
         r2 = checker.check({}, head)
         warm_s = time.perf_counter() - t0
@@ -846,6 +1060,10 @@ def smoke(dev: torch.device) -> None:
               f"best_k={r['best-k']} ({time.perf_counter() - t0:.1f} s)")
         assert (rp["valid"], rp["levels"], rp["best-k"], rp["rung"]) == (
             r["valid"], r["levels"], r["best-k"], r["rung"])
+
+    # -- the segment loop: graph, host loop and plain route at each state -
+    loops, k5 = segment_loop_phases(dev, seconds, loop_recipes, head_p,
+                                    head_kernel, r)
 
     with phase("invalid", seconds):
         cfg = dict(INVALID)
@@ -937,6 +1155,7 @@ def smoke(dev: torch.device) -> None:
         cold = {label: keyed_run(keyed_h[label]) for label in KEYED}
         keyed_launches = dict(K.launches)
         keyed_grid_launches = dict(K.grid_launches_total)
+        path_segments["keyed"] = dict(K.segments)
         print(f"keyed launches: {keyed_launches} "
               f"cuda_launches={keyed_grid_launches}")
         for label in KEYED:
@@ -1011,14 +1230,16 @@ def smoke(dev: torch.device) -> None:
                    for b in runs["kernels"]["batches"])
 
     # -- the other model families ------------------------------------------
-    model_lines, model_launches, model_grid_launches = model_phases(
-        dev, seconds, shapes)
+    model_lines, model_launches, model_grid_launches, path_segments[
+        "models"] = model_phases(dev, seconds, shapes)
 
     # -- the serve daemon's gangs ------------------------------------------
-    gang_line, serve_line, serve_launches, serve_grid_launches = \
-        serve_phases(dev, seconds, shapes, head)
+    (gang_line, serve_line, serve_launches, serve_grid_launches,
+     path_segments["serve"]) = serve_phases(dev, seconds, shapes, head)
 
     # -- summary ------------------------------------------------------------
+    for tag, res in k5.items():
+        shapes[tag]["seg_active"] = res
     kernels = []
     keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "cuda_launches_per_call")
@@ -1063,7 +1284,16 @@ def smoke(dev: torch.device) -> None:
                 line["model"]: line["launches"][name]
                 for line in model_lines.values()}
         kernels.append(entry)
-    print(json.dumps({"kernels": kernels, "headline": {
+    loop_summary = {
+        "states": loops,
+        "paths": {path: dict(path_segments[path],
+                             per_level_ms_graph=loops[tag][
+                                 "per_level_ms_graph"],
+                             per_level_ms_host=loops[tag][
+                                 "per_level_ms_host"], state=tag)
+                  for path, tag in LOOP_PATHS.items()}}
+    print(json.dumps({"kernels": kernels, "segment_loop": loop_summary,
+                      "headline": {
         "cold_s": cold_headline, "warm_s": warm_s, "levels": r["levels"],
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
         "models": model_lines, "gang_vs_serial": gang_line,

@@ -14,6 +14,13 @@ For the serve daemon it also names the shape bucket a history lands in
 kernel library and allocates each rung's buffers. Warm buckets are kept
 in LRU order up to ``JTPU_ENGINE_MAX_BUCKETS`` (0: no bound); evicting a
 bucket frees its buffers.
+
+It also caches the segment graphs (:class:`~jepsen_tpu_torch.kernels.
+search.SegmentGraph`), keyed by the shape and the device pointers each
+holds: the carry and scratch, the columns, and the graph's own segment
+words. A graph is destroyed before any buffer it points to is dropped:
+when the state or the columns it uses leave their cache, and when its
+bucket is evicted.
 """
 
 from __future__ import annotations
@@ -48,6 +55,9 @@ class Engine:
                                  if max_warm_buckets is None
                                  else max(0, int(max_warm_buckets)))
         self.evictions = 0
+        #: segment graphs by (shape, device pointers), stalest first
+        self._graphs: "OrderedDict[tuple, K.SegmentGraph]" = OrderedDict()
+        self._glock = threading.RLock()
 
     def _cached(self, cache: OrderedDict, key: tuple, build):
         hit = cache.get(key)
@@ -56,8 +66,40 @@ class Engine:
             return hit
         cache[key] = hit = build()
         while len(cache) > self.MAX_ENTRIES:
-            cache.popitem(last=False)
+            self._drop_graphs(cache.popitem(last=False)[1])
         return hit
+
+    def segment_graph(self, cols: dict, nr: torch.Tensor, carry: G.Carry,
+                      scratch: G.Scratch,
+                      shape: K.LevelShape) -> K.SegmentGraph:
+        """The segment graph over these buffers, captured at first use.
+        The key holds every pointer the graph would hold, the pool's
+        buffer among them, so a hit is a graph over exactly these
+        buffers."""
+        key = (shape, str(carry.scal.device), tuple(
+            t.data_ptr() for t in _tensors(cols, nr, carry, scratch)))
+        with self._glock:
+            hit = self._graphs.get(key)
+            if hit is not None:
+                self._graphs.move_to_end(key)
+                return hit
+            self._graphs[key] = hit = G.capture_segment(cols, nr, carry,
+                                                        scratch, shape)
+            while len(self._graphs) > self.MAX_ENTRIES:
+                self._graphs.popitem(last=False)[1].destroy()
+            return hit
+
+    def _drop_graphs(self, entry) -> None:
+        """Destroy every segment graph that points into ``entry``, a
+        (carry, scratch) pair or a column dict about to be dropped."""
+        if isinstance(entry, dict):
+            doomed = {t.data_ptr() for t in entry.values()}
+        else:
+            doomed = {t.data_ptr() for t in _tensors({}, None, *entry)}
+        with self._glock:
+            for key in [k for k, g in self._graphs.items()
+                        if g.ptrs() & doomed]:
+                self._graphs.pop(key).destroy()
 
     def state(self, shape: K.LevelShape,
               device: torch.device) -> Tuple[G.Carry, G.Scratch]:
@@ -185,13 +227,27 @@ class Engine:
                         if k[1] == dev and (k[0].model, k[0].n, k[0].CR,
                                             k[0].W) == (kname, breq, crw,
                                                         wb)]:
-                del self._states[key]
+                self._drop_graphs(self._states.pop(key))
             for key in [k for k in self._cols
                         if k[2] == dev and (k[0][1], k[1][1]) == (breq,
                                                                   crw)]:
-                del self._cols[key]
+                self._drop_graphs(self._cols.pop(key))
         if victims and torch.cuda.is_available():
             torch.cuda.empty_cache()
+
+
+def _tensors(cols: dict, nr: Optional[torch.Tensor], carry: G.Carry,
+             scratch: G.Scratch) -> list:
+    """The buffers a segment graph over these would point to."""
+    out = [cols[c] for c in K.COLS if c in cols]
+    if nr is not None:
+        out.append(nr)
+    out += list(carry.pool.tensors()) + list(scratch.pool_next.tensors())
+    out += [carry.pk, carry.ps, carry.pa, carry.scal, carry.stats,
+            scratch.acc, scratch.rows, scratch.g, scratch.gagg]
+    if scratch.rows_alt is not None:
+        out.append(scratch.rows_alt)
+    return out
 
 
 def _env_max_warm_buckets() -> int:

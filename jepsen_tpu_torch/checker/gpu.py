@@ -11,9 +11,11 @@ model state. The search is a best-first pool search: a pool of C
 configurations, deepest first; each level expands the top E rows into
 successors, merges them with the unexpanded remainder, sorts, kills
 duplicates and dominated rows, and keeps the first C. A level is four
-hand-written kernels (:mod:`jepsen_tpu_torch.kernels.search`) launched
-back to back with no host synchronisation; the host looks at the carry
-only at segment ends (:func:`run_batch`, for one history through
+hand-written kernels (:mod:`jepsen_tpu_torch.kernels.search`), and a
+segment of levels is one CUDA graph: level pairs and the fifth kernel's
+``active`` test in a WHILE node, with no host code between levels
+(:func:`run_segment`). The host looks at the carry only at segment ends
+(:func:`run_batch`, for one history through
 :mod:`jepsen_tpu_torch.resilience`). Every device tensor has a
 leading key axis: a keyed batch advances all its keys one level per
 launch, and one history is a batch of one.
@@ -421,22 +423,25 @@ def state_bytes(shape: K.LevelShape) -> int:
 
 
 class Ops(NamedTuple):
-    """The four level steps: the kernel wrappers, or their plain
-    versions called directly (which accept CUDA tensors too)."""
+    """The four level steps and the segment loop's test: the kernel
+    wrappers, or their plain versions called directly (which accept CUDA
+    tensors too)."""
 
     expand: Callable
     sort_rows: Callable
     group_scan: Callable
     dedup_truncate: Callable
+    seg_active: Callable
 
 
-KERNELS = Ops(K.expand, K.sort_rows, K.group_scan, K.dedup_truncate)
+KERNELS = Ops(K.expand, K.sort_rows, K.group_scan, K.dedup_truncate,
+              K.seg_active)
 PLAIN = Ops(K.expand_plain,
              lambda rows, scal, shape, rows_alt: K.sort_rows_plain(
                  rows, scal, shape),
              lambda rows, scal, g, gagg, shape: K.group_scan_plain(
                  rows, scal, g, shape),
-             K.dedup_truncate_plain)
+             K.dedup_truncate_plain, K.seg_active_plain)
 
 
 def search_level(cols: dict, carry: Carry, scratch: Scratch,
@@ -458,36 +463,98 @@ def search_level(cols: dict, carry: Carry, scratch: Scratch,
 
 def run_segment(cols: dict, carry: Carry, scratch: Scratch,
                 shape: K.LevelShape, nr: torch.Tensor, seg_iters: int,
-                ops: Ops = KERNELS) -> None:
-    """``seg_iters`` levels back to back; the caller synchronises."""
+                ops: Ops = KERNELS) -> tuple:
+    """One segment: up to ``seg_iters`` levels in level pairs (an odd
+    count is rounded up; a level after every key's search has ended
+    changes nothing), stopping after the first pair that leaves no key
+    active. With the kernels on CUDA tensors the segment is one launch of
+    the shape's :class:`~jepsen_tpu_torch.kernels.search.SegmentGraph`
+    and nothing waits for it; otherwise a host loop of the same control
+    flow (pairs, then ``ops.seg_active``) runs ``ops``. Returns ``(seg,
+    graph)``: the segment's int32 words, whose ``SEG_RUN`` holds the
+    levels run once the segment is done, and the graph (None on the host
+    loop), for :func:`end_segment`. The count takes the first level as
+    run: callers start a segment only on an active search, as the
+    previous segment end (or the host carry) showed it."""
+    bound = seg_iters + (seg_iters & 1)
+    if ops is KERNELS and carry.scal.device.type == "cuda":
+        from jepsen_tpu_torch.checker.engine import default_engine
+        graph = default_engine().segment_graph(cols, nr, carry, scratch,
+                                               shape)
+        graph.launch(bound)
+        return graph.seg, graph
+    seg = torch.tensor([0, bound, 0, 0], dtype=torch.int32,
+                       device=carry.scal.device)
+    while True:
+        search_level(cols, carry, scratch, shape, nr, ops)
+        search_level(cols, carry, scratch, shape, nr, ops)
+        ops.seg_active(carry.scal, shape.lmax, seg)
+        if not int(seg[K.SEG_GO]):
+            return seg, None
+
+
+def run_segment_host(cols: dict, carry: Carry, scratch: Scratch,
+                     shape: K.LevelShape, nr: torch.Tensor, seg_iters: int,
+                     ops: Ops = KERNELS) -> None:
+    """``seg_iters`` levels back to back, each launched from Python (the
+    level loop the segment graph replaced; it stays as the route the
+    graph is held against, and to step a search level by level); the
+    caller synchronises."""
     for _ in range(seg_iters):
         search_level(cols, carry, scratch, shape, nr, ops)
+
+
+def capture_segment(cols: dict, nr: torch.Tensor, carry: Carry,
+                    scratch: Scratch, shape: K.LevelShape
+                    ) -> K.SegmentGraph:
+    """A segment graph over these buffers, with the pool where the carry
+    holds it now."""
+    return K.SegmentGraph(cols, nr, carry.pool, scratch.pool_next, carry.pk,
+                          carry.ps, carry.pa, carry.scal, scratch.acc,
+                          carry.stats, scratch.rows, scratch.rows_alt,
+                          scratch.g, scratch.gagg, shape)
+
+
+def end_segment(carry: Carry, shape: K.LevelShape, seg: torch.Tensor,
+                graph: Optional[K.SegmentGraph]) -> tuple:
+    """The segment end's one host read: ``(run, live, level)``, the levels
+    the segment ran and each key's ``active`` flag and level. A graph's
+    launches are counted here, from ``run``."""
+    act = K.active(carry.scal, shape.lmax)
+    vals = torch.cat((seg[K.SEG_RUN:K.SEG_RUN + 1], act,
+                      carry.scal[:, K.LEVEL])).tolist()
+    run, live, level = vals[0], vals[1:1 + shape.B], vals[1 + shape.B:]
+    if graph is not None:
+        graph.account(run)
+    return run, live, level
 
 
 def run_batch(cols: dict, carry: Carry, scratch: Scratch,
               shape: K.LevelShape, seg_iters: int,
               ops: Ops = KERNELS, first: int = FIRST_BATCH_SEGMENT,
-              barrier: Optional[Callable[[torch.Tensor], bool]] = None
+              barrier: Optional[Callable[[list, list], bool]] = None
               ) -> list:
-    """Segments of levels until no key is active: one read of the keys'
-    ``active`` flags per segment, the only host synchronisation. The
+    """Segments of levels until no key is active, with one host read at
+    each segment end (:func:`end_segment`), the only synchronisation. The
     segments grow from ``first`` levels, doubling up to ``seg_iters``, so
-    a search that is decided in a few dozen levels does not launch a
-    thousand. Returns the segments' lengths (their sum is the levels
-    launched). Keys that finish early no-op while the others go on, so
+    a search that is decided in a few dozen levels does not run a
+    thousand. Returns the levels each segment ran, as counted on the
+    device (their sum is the levels the batch ran: the most any key
+    advanced). Keys that finish early no-op while the others go on, so
     each key ends where its own search would (the vmapped ``while_loop``
     of the reference). The single-history search is the batch of one.
 
     ``barrier``, when given, is called at each segment end with the keys'
-    ``active`` flags (int32 [B] on the device) in place of that read, and
-    says whether to go on; it may cancel keys (:func:`cancel_lanes`)."""
+    ``active`` flags and levels (lists of ints) and says whether to go
+    on; it may cancel keys (:func:`cancel_lanes`)."""
     segs = []
     seg = min(first, seg_iters)
     while True:
-        run_segment(cols, carry, scratch, shape, cols["nr"], seg, ops)
-        segs.append(seg)
-        act = K.active(carry.scal, shape.lmax)
-        if not (bool(act.any()) if barrier is None else barrier(act)):
+        words, graph = run_segment(cols, carry, scratch, shape, cols["nr"],
+                                   seg, ops)
+        run, live, level = end_segment(carry, shape, words, graph)
+        segs.append(run)
+        if not (any(live) if barrier is None else barrier(live, level)):
             return segs
         seg = min(2 * seg, seg_iters)
 
@@ -551,7 +618,7 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
     """One rung of one crash-width cohort: every key of ``grp`` searched
     together. Returns (done, lossy, wovf, best, levels, pools, launched):
     numpy arrays [B], ``pools`` the last living pools (pk, ps, pa) when
-    some key was refuted, else None, and the levels launched."""
+    some key was refuted, else None, and the levels the batch ran."""
     from jepsen_tpu_torch.checker.engine import default_engine
     eng = default_engine()
     with eng.lock:
@@ -582,7 +649,7 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
     width; keys that overflowed retry on a later rung that grows their
     capacity or window. Fills ``results`` and returns one entry per
     batch run: its rung, crash width, tie-break, keys, largest level
-    count, levels launched and seconds."""
+    count, levels run (``levels-launched``) and seconds."""
     batches = []
     for step, (cap, win, exp) in enumerate(ladder):
         if not rows:
@@ -939,9 +1006,7 @@ def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
     with eng.lock:
         cols, carry, scratch = _start_batch(eng, rows, shape, device)
 
-        def barrier(act: torch.Tensor) -> bool:
-            # one read a segment: each member's active flag and level
-            live, level = torch.stack((act, carry.scal[:, K.LEVEL])).tolist()
+        def barrier(live: list, level: list) -> bool:
             now = time.monotonic()
             late = [j for j, dl in enumerate(deadlines)
                     if live[j] and dl is not None and now >= dl]

@@ -34,6 +34,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The segment loop (B9) is a CUDA graph with a WHILE conditional node
+// whose condition K5 sets on the device: CUDA 12.3 or later.
+#if CUDART_VERSION < 12030
+#error "the segment graph's WHILE node needs CUDA 12.3 or later"
+#endif
+
 namespace {
 
 constexpr int MAXK = 1 << 30;
@@ -992,6 +998,41 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// K5 seg_active (B9: active at tpu.py:368-369, seg_active at :681-682, the
+// condition of the reference's lax.while_loop(seg_active, body_n, carry)).
+// One block, after each level pair of a segment: it adds the levels the
+// pair ran to the segment's counter (the first always ran, the host
+// launches only an active search; the second ran if some key's K1 found
+// it active), then decides whether any key is still active (not done,
+// rows alive, the level budget not spent) and the segment is under its
+// bound. In a graph it sets the WHILE node's condition; standing alone it
+// only writes the flag. Reads B x 32 bytes of scalars: its time is a
+// launch.
+// ---------------------------------------------------------------------------
+
+enum { SEG_RUN, SEG_BOUND, SEG_GO, NSEG = 4 };
+
+__global__ void __launch_bounds__(256)
+    seg_active_kernel(const int* scal, int B, int lmax, int* seg,
+                      cudaGraphConditionalHandle cond, int in_graph) {
+  int act = 0, ran = 0;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const int* s = scal + (size_t)b * NSCAL;
+    act |= s[DONE] == 0 && s[NALIVE] > 0 && s[LEVEL] <= lmax;
+    ran |= s[ACT] != 0;
+  }
+  act = __syncthreads_or(act);
+  ran = __syncthreads_or(ran);
+  if (threadIdx.x == 0) {
+    const int run = seg[SEG_RUN] + 1 + (ran != 0);
+    const int go = act != 0 && run < seg[SEG_BOUND];
+    seg[SEG_RUN] = run;
+    seg[SEG_GO] = go;
+    if (in_graph) cudaGraphSetConditional(cond, go);
+  }
+}
+
 int padded_rows(int R) {
   int RP = 2;
   while (RP < R) RP <<= 1;
@@ -1018,6 +1059,11 @@ cudaError_t allow_smem(Kern kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// What a call of sort_rows_m does: grant the kernels' shared memory and
+// launch them; only grant it (before a graph capture begins); or only
+// launch (inside the capture, where the grant was made before).
+enum { SORT_ALL, SORT_PREPARE, SORT_CAPTURE };
+
 // K2's launches for keys of M words: the tile pass over tiles of T rows,
 // then `passes` merge passes ping-ponging between rows and alt, the last
 // one into rows (T and passes from kernels/search.py tile_rows and
@@ -1027,7 +1073,7 @@ cudaError_t allow_smem(Kern kernel, size_t bytes) {
 // Adds each launch to *launched.
 template <int TB, int M>
 int sort_rows_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
-                int NK, int MW, int T, int passes, cudaStream_t st,
+                int NK, int MW, int T, int passes, int mode, cudaStream_t st,
                 int* launched) {
   const int S = M | 1;
   const long long span =
@@ -1039,18 +1085,19 @@ int sort_rows_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
   const int V = tile_v(cap, (long long)B * tiles,
                        device_attr(cudaDevAttrMultiProcessorCount));
   const size_t tile_smem = (size_t)cap * (4 * S + 2 * sizeof(uint16_t));
-  cudaError_t e = allow_smem(sort_tile_kernel<TB, M>, tile_smem);
-  if (e != cudaSuccess) return (int)e;
+  const size_t merge_smem = (size_t)MERGE_ROWS * (4 * S + sizeof(uint16_t));
+  if (mode != SORT_CAPTURE) {
+    cudaError_t e = allow_smem(sort_tile_kernel<TB, M>, tile_smem);
+    if (e == cudaSuccess && passes > 0)
+      e = allow_smem(sort_merge_kernel<TB, M>, merge_smem);
+    if (e != cudaSuccess || mode == SORT_PREPARE) return (int)e;
+  }
   const int threads = ((cap + V - 1) / V + 31) / 32 * 32;
   int* cur = passes % 2 ? alt : rows;
   sort_tile_kernel<TB, M><<<dim3(tiles, B), threads, tile_smem, st>>>(
       rows, cur, scal, R, RP, NK, MW, T, cap, V);
   ++*launched;
   if (passes > 0) {
-    const size_t merge_smem =
-        (size_t)MERGE_ROWS * (4 * S + sizeof(uint16_t));
-    e = allow_smem(sort_merge_kernel<TB, M>, merge_smem);
-    if (e != cudaSuccess) return (int)e;
     const dim3 grid((R + MERGE_ROWS - 1) / MERGE_ROWS, B);
     for (int p = 0, L = T; p < passes; ++p, L <<= 1) {
       int* next = cur == rows ? alt : rows;
@@ -1068,18 +1115,106 @@ int sort_rows_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
 // exactly the key's words.
 template <int TB>
 int sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
-              int NK, int MW, int T, int passes, cudaStream_t st,
+              int NK, int MW, int T, int passes, int mode, cudaStream_t st,
               int* launched) {
   switch (NK + (TB == TB_HASH ? 1 : 0)) {
 #define JT_SORT_M(M)                                                      \
   case M:                                                                 \
     return sort_rows_m<TB, M>(rows, alt, scal, B, R, RP, NK, MW, T, passes, \
-                              st, launched);
+                              mode, st, launched);
     JT_SORT_M(6) JT_SORT_M(7) JT_SORT_M(8) JT_SORT_M(9) JT_SORT_M(10)
     JT_SORT_M(11) JT_SORT_M(12) JT_SORT_M(13)
 #undef JT_SORT_M
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int sort_any(int* rows, int* alt, const int* scal, int B, int R, int RP,
+             int NK, int MW, int tiebreak, int T, int passes, int mode,
+             cudaStream_t st, int* launched) {
+  return tiebreak == TB_HASH
+             ? sort_rows<TB_HASH>(rows, alt, scal, B, R, RP, NK, MW, T,
+                                  passes, mode, st, launched)
+             : sort_rows<TB_LEX>(rows, alt, scal, B, R, RP, NK, MW, T, passes,
+                                 mode, st, launched);
+}
+
+// B9: one segment of levels as a CUDA graph. A memset node zeroes the
+// segment's level counter, then a WHILE conditional node (its condition 1
+// at each launch) runs its body until K5 clears the condition: the body
+// is a level pair, pool A into pool B, then B back into A, then K5, so
+// the pool pointers are where they started after every iteration and
+// the host's buffers need no swap. The body is captured from the same
+// launch functions as the single-level entry points; K2's shared-memory
+// grant is made before the capture begins.
+struct SegmentGraph {
+  cudaGraph_t graph;
+  cudaGraphExec_t exec;
+};
+
+// The level pair and K5 captured into `body` on stream st.
+struct PairArgs {
+  const int *f, *v1, *v2, *ro, *fr, *inv, *ret, *sm, *cf, *cv1, *cv2, *cinv,
+      *cps, *nr;
+  PoolOut a, b;
+  int *pk, *ps, *scal, *acc, *rows, *alt, *g, *gagg, *stats, *seg;
+  uint8_t* pa;
+  int B, C, W, E, n, CR, lmax, model, tiebreak, T, passes;
+};
+
+}  // namespace
+
+extern "C" int jt_expand(const int*, const int*, const int*, const int*,
+                         const int*, const int*, const int*, const int*,
+                         const int*, const int*, const int*, const int*,
+                         const int*, const int*, const int*, const unsigned*,
+                         const unsigned*, const int*, const uint8_t*, int*,
+                         int*, int*, int, int, int, int, int, int, int, int,
+                         void*, int*);
+extern "C" int jt_group_scan(const int*, const int*, int*, int*, int, int,
+                             int, int, void*, int*);
+extern "C" int jt_dedup_truncate(const int*, const int*, const int*,
+                                 const unsigned*, const unsigned*, const int*,
+                                 const uint8_t*, int*, unsigned*, unsigned*,
+                                 int*, uint8_t*, int*, int*, uint8_t*,
+                                 const int*, int*, int*, int*, int, int, int,
+                                 int, int, int, void*, int*);
+
+namespace {
+
+// Captures one level pair and K5 on st; counts[0..4] take the CUDA
+// launches of K1, K2, K3, K4 and K5.
+int capture_pair(const PairArgs& p, cudaGraphConditionalHandle cond,
+                 cudaStream_t st, int* counts) {
+  const int MW = mask_words(p.W), MCX = cmask_words(p.CR);
+  const int NK = 4 + MW + MCX;
+  const int R = p.E * (p.W + 1 + p.CR) + (p.C - p.E);
+  const int RP = padded_rows(R);
+  for (int level = 0; level < 2; ++level) {
+    const PoolOut& in = level ? p.b : p.a;
+    const PoolOut& out = level ? p.a : p.b;
+    int e = jt_expand(p.f, p.v1, p.v2, p.ro, p.fr, p.inv, p.ret, p.sm, p.cf,
+                      p.cv1, p.cv2, p.cinv, p.cps, p.nr, in.k, in.mask,
+                      in.cmask, in.state, in.alive, p.scal, p.acc, p.rows,
+                      p.B, p.C, p.W, p.E, p.n, p.CR, p.lmax, p.model, st,
+                      &counts[0]);
+    if (!e)
+      e = sort_any(p.rows, p.alt, p.scal, p.B, R, RP, NK, MW, p.tiebreak,
+                   p.T, p.passes, SORT_CAPTURE, st, &counts[1]);
+    if (!e)
+      e = jt_group_scan(p.rows, p.scal, p.g, p.gagg, p.B, RP, NK, MW, st,
+                        &counts[2]);
+    if (!e)
+      e = jt_dedup_truncate(p.rows, p.g, in.k, in.mask, in.cmask, in.state,
+                            in.alive, out.k, out.mask, out.cmask, out.state,
+                            out.alive, p.pk, p.ps, p.pa, p.nr, p.scal, p.acc,
+                            p.stats, p.B, p.C, p.W, p.CR, R, p.lmax, st,
+                            &counts[3]);
+    if (e) return e;
+  }
+  seg_active_kernel<<<1, 256, 0, st>>>(p.scal, p.B, p.lmax, p.seg, cond, 1);
+  ++counts[4];
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1135,12 +1270,8 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
 int jt_sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
                  int NK, int MW, int tiebreak, int T, int passes, void* stream,
                  int* launched) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  return tiebreak == TB_HASH
-             ? sort_rows<TB_HASH>(rows, alt, scal, B, R, RP, NK, MW, T,
-                                  passes, st, launched)
-             : sort_rows<TB_LEX>(rows, alt, scal, B, R, RP, NK, MW, T, passes,
-                                 st, launched);
+  return sort_any(rows, alt, scal, B, R, RP, NK, MW, tiebreak, T, passes,
+                  SORT_ALL, (cudaStream_t)stream, launched);
 }
 
 int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int B,
@@ -1190,6 +1321,114 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
   dedup_kernel<<<dim3((R + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(a);
   ++*launched;
   return (int)cudaGetLastError();
+}
+
+int jt_seg_active(const int* scal, int* seg, int B, int lmax, void* stream,
+                  int* launched) {
+  seg_active_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(
+      scal, B, lmax, seg, cudaGraphConditionalHandle(), 0);
+  ++*launched;
+  return (int)cudaGetLastError();
+}
+
+// The CUDA versions of this build and of the driver, as 1000 * major +
+// 10 * minor.
+int jt_cuda_versions(int* runtime, int* driver) {
+  *runtime = CUDART_VERSION;
+  return (int)cudaDriverGetVersion(driver);
+}
+
+// Builds the segment graph over the buffers of one search shape: the
+// pointers and ints of jt_expand, jt_sort_rows, jt_group_scan and
+// jt_dedup_truncate for it, with the pool the host holds (a) and the
+// other pool buffer (b), and seg, the segment's int32 words (levels run,
+// bound, go). Writes the graph's handle to *out and the CUDA launches
+// one iteration of its body makes, per kernel K1..K5, to counts[0..4].
+int jt_segment_graph_create(
+    const int* f, const int* v1, const int* v2, const int* ro, const int* fr,
+    const int* inv, const int* ret, const int* sm, const int* cf,
+    const int* cv1, const int* cv2, const int* cinv, const int* cps,
+    const int* nr, int* a_k, unsigned* a_mask, unsigned* a_cmask,
+    int* a_state, uint8_t* a_alive, int* b_k, unsigned* b_mask,
+    unsigned* b_cmask, int* b_state, uint8_t* b_alive, int* pk, int* ps,
+    uint8_t* pa, int* scal, int* acc, int* stats, int* rows, int* alt,
+    int* g, int* gagg, int* seg, int B, int C, int W, int E, int n, int CR,
+    int lmax, int model, int tiebreak, int T, int passes, void** out,
+    int* counts) {
+  PairArgs p{f,  v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps, nr,
+             PoolOut{a_k, a_mask, a_cmask, a_state, a_alive},
+             PoolOut{b_k, b_mask, b_cmask, b_state, b_alive},
+             pk, ps, scal, acc, rows, alt, g, gagg, stats, seg, pa,
+             B, C, W, E, n, CR, lmax, model, tiebreak, T, passes};
+  const int MW = mask_words(W), MCX = cmask_words(CR);
+  const int R = E * (W + 1 + CR) + (C - E);
+  for (int i = 0; i < 5; ++i) counts[i] = 0;
+  int prep = 0;
+  int e = sort_any(rows, alt, scal, B, R, padded_rows(R), 4 + MW + MCX, MW,
+                   tiebreak, T, passes, SORT_PREPARE, nullptr, &prep);
+  if (e) return e;
+  cudaGraph_t graph = nullptr;
+  cudaGraphExec_t exec = nullptr;
+  cudaStream_t st = nullptr;
+  cudaGraphConditionalHandle cond;
+  cudaGraphNode_t zero, loop;
+  cudaMemsetParams mp = {};
+  mp.dst = seg + SEG_RUN;
+  mp.value = 0;
+  mp.elementSize = sizeof(int);
+  mp.width = 1;
+  mp.height = 1;
+  cudaGraphNodeParams cp = {};
+  cp.type = cudaGraphNodeTypeConditional;
+  cp.conditional.type = cudaGraphCondTypeWhile;
+  cp.conditional.size = 1;
+  e = (int)cudaGraphCreate(&graph, 0);
+  if (!e)
+    e = (int)cudaGraphConditionalHandleCreate(&cond, graph, 1,
+                                              cudaGraphCondAssignDefault);
+  if (!e) e = (int)cudaGraphAddMemsetNode(&zero, graph, nullptr, 0, &mp);
+  if (!e) {
+    cp.conditional.handle = cond;
+#if CUDART_VERSION >= 13000
+    e = (int)cudaGraphAddNode(&loop, graph, &zero, nullptr, 1, &cp);
+#else
+    e = (int)cudaGraphAddNode(&loop, graph, &zero, 1, &cp);
+#endif
+  }
+  if (!e) e = (int)cudaStreamCreateWithFlags(&st, cudaStreamNonBlocking);
+  if (!e) {
+    cudaGraph_t body = cp.conditional.phGraph_out[0];
+    e = (int)cudaStreamBeginCaptureToGraph(st, body, nullptr, nullptr, 0,
+                                           cudaStreamCaptureModeThreadLocal);
+    if (!e) {
+      const int ce = capture_pair(p, cond, st, counts);
+      cudaGraph_t captured = nullptr;
+      e = (int)cudaStreamEndCapture(st, &captured);
+      if (ce) e = ce;
+    }
+  }
+  if (!e) e = (int)cudaGraphInstantiate(&exec, graph, 0);
+  if (st) cudaStreamDestroy(st);
+  if (e) {
+    if (graph) cudaGraphDestroy(graph);
+    cudaGetLastError();
+    return e;
+  }
+  *out = new SegmentGraph{graph, exec};
+  return 0;
+}
+
+int jt_segment_graph_launch(void* handle, void* stream) {
+  const SegmentGraph* sg = (const SegmentGraph*)handle;
+  return (int)cudaGraphLaunch(sg->exec, (cudaStream_t)stream);
+}
+
+int jt_segment_graph_destroy(void* handle) {
+  SegmentGraph* sg = (SegmentGraph*)handle;
+  cudaError_t e = cudaGraphExecDestroy(sg->exec);
+  const cudaError_t e2 = cudaGraphDestroy(sg->graph);
+  delete sg;
+  return (int)(e != cudaSuccess ? e : e2);
 }
 
 }  // extern "C"

@@ -107,9 +107,10 @@ def carry_from_numpy(carry: tuple, device,
 
 def batch_carry_to_numpy(carry: Carry) -> tuple:
     """A device :class:`Carry` as the reference's vmapped 14-lane numpy
-    tuple (a leading key axis on every lane)."""
+    tuple (a leading key axis on every lane). The arrays are copies, on
+    the CPU too: a checkpoint does not change with the search after it."""
     def host(t):
-        return t.cpu().numpy()
+        return t.to("cpu", copy=True).numpy()
 
     scal = host(carry.scal)
     p = carry.pool

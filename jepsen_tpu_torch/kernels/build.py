@@ -5,9 +5,11 @@ C interface, at first use, into ``jepsen_tpu_torch/_build/`` under a name
 keyed by a hash of the sources and flags; it is loaded with ctypes. nvcc is
 taken from ``$NVCC``, then ``$PATH``, then ``$CUDA_HOME/bin`` (default
 ``/usr/local/cuda``). A failure to build or load raises :class:`BuildError`:
-there is no fallback. The compiler's ``-Xptxas -v`` report (registers,
-shared memory and spills per kernel) is kept beside the library as
-``<name>.log``.
+there is no fallback. A toolkit or driver older than CUDA 12.3 has no
+conditional graph nodes for the segment loop: the build fails, or
+:func:`require_conditional_nodes` raises. The compiler's ``-Xptxas -v``
+report (registers, shared memory and spills per kernel) is kept beside
+the library as ``<name>.log``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ SIGNATURES = {
     "jt_sort_rows": [_P] * 3 + [_I] * 8 + [_P, _N],
     "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P, _N],
     "jt_dedup_truncate": [_P] * 19 + [_I] * 6 + [_P, _N],
+    "jt_seg_active": [_P, _P, _I, _I, _P, _N],
+    # the segment graph: the four entry points' pointers and ints for one
+    # shape, then where its handle and its body's launch counts go
+    "jt_segment_graph_create": ([_P] * 35 + [_I] * 11
+                                + [ctypes.POINTER(_P), _N]),
+    "jt_segment_graph_launch": [_P, _P],
+    "jt_segment_graph_destroy": [_P],
+    "jt_cuda_versions": [_N, _N],
 }
 
 _lock = threading.Lock()
@@ -101,6 +111,28 @@ def load() -> ctypes.CDLL:
             lib.jt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+#: the first CUDA version whose graphs have conditional nodes, as CUDA
+#: numbers it (1000 * major + 10 * minor)
+CONDITIONAL_NODES = 12030
+
+
+def require_conditional_nodes() -> None:
+    """Raise :class:`BuildError` unless both the toolkit the library was
+    built with and the driver support conditional graph nodes (the
+    segment graph's WHILE node)."""
+    runtime, driver = ctypes.c_int(0), ctypes.c_int(0)
+    load().jt_cuda_versions(ctypes.byref(runtime), ctypes.byref(driver))
+    if min(runtime.value, driver.value) < CONDITIONAL_NODES:
+        raise BuildError(
+            f"the segment graph needs CUDA 12.3 or later (conditional "
+            f"nodes): the library was built with CUDA {_version(runtime)}"
+            f" and the driver supports CUDA {_version(driver)}")
+
+
+def _version(v: ctypes.c_int) -> str:
+    return f"{v.value // 1000}.{v.value % 1000 // 10}"
 
 
 def error_string(code: int) -> str:

@@ -69,10 +69,12 @@ class Level:
         self.scratch = G.empty_scratch(self.shape, device)
 
     def advance(self, levels: int) -> int:
-        """Run ``levels`` levels with the kernels; return the live pool
-        rows of the keys not yet done (0 once every search is over)."""
-        G.run_segment(self.cols, self.carry, self.scratch, self.shape,
-                      self.nr, levels)
+        """Run ``levels`` levels with the kernels, one launch of each a
+        level (:func:`~jepsen_tpu_torch.checker.gpu.run_segment_host`);
+        return the live pool rows of the keys not yet done (0 once every
+        search is over)."""
+        G.run_segment_host(self.cols, self.carry, self.scratch, self.shape,
+                           self.nr, levels)
         scal = self.carry.scal.cpu()
         return int(scal[:, K.NALIVE][scal[:, K.DONE] == 0].sum())
 

@@ -61,6 +61,15 @@ key and stores it; every later kernel of the level no-ops for a key whose
 flag is false, and ``dedup_truncate`` then copies that key's pool through
 unchanged: the masked update, tested on the device with no host
 synchronisation.
+
+A segment of levels (B9, the reference's ``lax.while_loop(seg_active,
+body_n, carry)``) is a fifth kernel and a CUDA graph. ``seg_active`` (K5)
+runs after each pair of levels: it adds the levels the pair ran to the
+segment's counter and decides whether any key is active and the segment
+under its bound, in the int32 words ``seg`` (levels run, bound, go).
+:class:`SegmentGraph` captures a level pair and K5 once, as the body of
+a WHILE graph node whose condition K5 sets, so a whole segment is one
+graph launch with no host code between levels.
 """
 
 from __future__ import annotations
@@ -108,20 +117,36 @@ NACC = 9
 COLS = ("f", "v1", "v2", "ro", "fr", "inv", "ret", "sm", "cf", "cv1",
         "cv2", "cinv", "cps")
 
-#: launches of each kernel since the last :func:`reset_launches`; the sort
-#: counts its lex and its hash tie-break apart
+#: the words of a segment's ``seg`` tensor (int32 [NSEG]): levels run so
+#: far, the segment's bound in levels, and whether to run another pair
+SEG_RUN, SEG_BOUND, SEG_GO = range(3)
+NSEG = 4
+
+#: launches of each kernel since the last :func:`reset_launches`: a
+#: wrapper call, or a level (K5: a level pair) a segment graph ran, as
+#: read from the device; the sort counts its lex and its hash tie-break
+#: apart
 launches: Dict[str, int] = {"expand": 0, "sort_rows": 0,
                             "sort_rows_hash": 0, "group_scan": 0,
-                            "dedup_truncate": 0}
-#: the CUDA kernel launches those wrapper calls issued, as the C entry
-#: points count them
+                            "dedup_truncate": 0, "seg_active": 0}
+#: the CUDA kernel launches those made, as the C entry points count them
+#: where they launch (in a graph: the body's count at capture, times the
+#: iterations the device ran)
 grid_launches_total: Dict[str, int] = dict.fromkeys(launches, 0)
+#: calls from Python into the kernel library: one per wrapper call, and
+#: one per kernel a segment graph captures (not one per level it runs)
+host_calls: Dict[str, int] = dict.fromkeys(launches, 0)
+#: segment graphs captured and launched, and the levels they ran
+segments: Dict[str, int] = {"captures": 0, "launches": 0, "levels": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
         grid_launches_total[name] = 0
+        host_calls[name] = 0
+    for name in segments:
+        segments[name] = 0
 
 
 @dataclass(frozen=True)
@@ -292,6 +317,19 @@ def active(scal: torch.Tensor, lmax: int) -> torch.Tensor:
     (int32 [B])."""
     return ((scal[:, DONE] == 0) & (scal[:, NALIVE] > 0)
             & (scal[:, LEVEL] <= lmax)).to(torch.int32)
+
+
+def seg_active_plain(scal: torch.Tensor, lmax: int,
+                     seg: torch.Tensor) -> None:
+    """Plain version of ``seg_active`` (K5), after a level pair: adds the
+    levels the pair ran to ``seg[SEG_RUN]`` (the first always ran; the
+    second if some key's ``expand`` found it active), then sets
+    ``seg[SEG_GO] = any(active(scal, lmax)) & (run < bound)``."""
+    ran = (scal[:, ACT] != 0).any().to(torch.int32)
+    run = seg[SEG_RUN] + 1 + ran
+    go = active(scal, lmax).any() & (run < seg[SEG_BOUND])
+    seg[SEG_RUN] = run
+    seg[SEG_GO] = go.to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -645,6 +683,7 @@ def _launch(name: str, fn, *args) -> None:
                            f"{build.error_string(rc)}")
     launches[name] += 1
     grid_launches_total[name] += launched.value
+    host_calls[name] += 1
 
 
 def _lib():
@@ -785,3 +824,136 @@ def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
     _launch("dedup_truncate", _lib().jt_dedup_truncate,
             *[_ptr(t) for t in tensors],
             B, C, shape.W, shape.CR, shape.R, shape.lmax, _stream(rows))
+
+
+def seg_active(scal: torch.Tensor, lmax: int, seg: torch.Tensor) -> None:
+    """K5 on its own, outside a graph: count the pair's levels into
+    ``seg`` and set its go word (see :func:`seg_active_plain`)."""
+    B = scal.shape[0]
+    _check(scal, "scal", torch.int32, (B, NSCAL))
+    _check(seg, "seg", torch.int32, (NSEG,))
+    if _on_cpu([scal, seg]):
+        seg_active_plain(scal, lmax, seg)
+        return
+    _launch("seg_active", _lib().jt_seg_active, _ptr(scal), _ptr(seg), B,
+            lmax, _stream(scal))
+
+
+#: the kernels a segment graph's body launches, in the order of the
+#: counts its C entry point returns
+GRAPH_KERNELS = ("expand", "sort_rows", "group_scan", "dedup_truncate",
+                 "seg_active")
+
+
+class SegmentGraph:
+    """A segment of levels over one shape's buffers as a CUDA graph: a
+    memset node zeroes ``seg[SEG_RUN]``, then a WHILE node runs a level
+    pair (``pool`` into ``pool_next``, then back) and K5 until K5 finds no
+    key active or ``seg[SEG_RUN]`` at the bound. After any number of
+    iterations the pool is back in ``pool``, so the caller's buffers need
+    no swap. The graph holds the buffers' device pointers; it keeps
+    references to them, and its owner destroys it (:meth:`destroy`)
+    before it lets them go. ``body`` is the CUDA launches one iteration
+    makes, per kernel, as the C entry points counted them at capture."""
+
+    def __init__(self, cols: dict, nr: torch.Tensor, pool: Pool,
+                 pool_next: Pool, pk: torch.Tensor, ps: torch.Tensor,
+                 pa: torch.Tensor, scal: torch.Tensor, acc: torch.Tensor,
+                 stats: torch.Tensor, rows: torch.Tensor,
+                 rows_alt: Optional[torch.Tensor], g: torch.Tensor,
+                 gagg: torch.Tensor, shape: LevelShape):
+        from jepsen_tpu_torch.kernels import build
+        B, C, n, CR = shape.B, shape.C, shape.n, shape.CR
+        for c in COLS:
+            width = n + 1 if c == "sm" else (n if c in COLS[:8] else CR)
+            _check(cols[c], c, torch.int32, (B, width))
+        _check_nr(nr, shape)
+        _check_pool(pool, "pool", shape)
+        _check_pool(pool_next, "pool_next", shape)
+        _check(pk, "pk", torch.int32, (B, C))
+        _check(ps, "ps", torch.int32, (B, C))
+        _check(pa, "pa", torch.bool, (B, C))
+        _check_rows(rows, scal, shape)
+        _check(acc, "acc", torch.int32, (B, NACC))
+        _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
+        _check(g, "g", torch.int32, (B, shape.RP))
+        _check(gagg, "gagg", torch.int32, (B, scan_blocks(shape.RP)))
+        if sort_passes(shape):
+            if rows_alt is None:
+                raise ValueError(f"segment graph: R = {shape.R} rows exceed "
+                                 f"a sort tile; the merge passes need "
+                                 f"rows_alt")
+            _check(rows_alt, "rows_alt", torch.int32, rows.shape)
+        self.shape = shape
+        self.seg = torch.zeros(NSEG, dtype=torch.int32, device=scal.device)
+        self.tensors = ([cols[c] for c in COLS] + [nr]
+                        + list(pool.tensors()) + list(pool_next.tensors())
+                        + [pk, ps, pa, scal, acc, stats, rows, rows_alt, g,
+                           gagg, self.seg])
+        if any(t is not None and t.device.type != "cuda"
+               for t in self.tensors):
+            raise ValueError("a segment graph's buffers must lie on one "
+                             "CUDA device")
+        build.require_conditional_nodes()
+        handle = ctypes.c_void_p()
+        counts = (ctypes.c_int * len(GRAPH_KERNELS))()
+        with torch.cuda.device(scal.device):
+            rc = _lib().jt_segment_graph_create(
+                *[ctypes.c_void_p(None) if t is None else _ptr(t)
+                  for t in self.tensors],
+                B, C, shape.W, shape.E, n, CR, shape.lmax,
+                MODELS.index(shape.model), TIEBREAKS.index(shape.tiebreak),
+                tile_rows(shape), sort_passes(shape), ctypes.byref(handle),
+                counts)
+        if rc != 0:
+            raise RuntimeError(f"segment graph: CUDA error {rc}: "
+                               f"{build.error_string(rc)}")
+        self.handle = handle
+        sort = "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
+        self.body = {(sort if k == "sort_rows" else k): int(n)
+                     for k, n in zip(GRAPH_KERNELS, counts)}
+        for name in self.body:
+            if name != "seg_active":
+                host_calls[name] += 1
+        segments["captures"] += 1
+
+    def ptrs(self) -> frozenset:
+        """The device pointers the graph holds."""
+        return frozenset(t.data_ptr() for t in self.tensors
+                         if t is not None)
+
+    def launch(self, bound: int) -> None:
+        """Run one segment of at most ``bound`` levels (even) on the
+        current stream; nothing waits for it. ``seg[SEG_RUN]`` then holds
+        the levels it ran."""
+        from jepsen_tpu_torch.kernels import build
+        if self.handle is None:
+            raise RuntimeError("segment graph: launched after destroy()")
+        self.seg[SEG_BOUND].fill_(bound)
+        rc = _lib().jt_segment_graph_launch(self.handle,
+                                            _stream(self.seg))
+        if rc != 0:
+            raise RuntimeError(f"segment graph: CUDA error {rc}: "
+                               f"{build.error_string(rc)}")
+        segments["launches"] += 1
+
+    def account(self, run: int) -> None:
+        """Add a segment that ran ``run`` levels, as read from
+        ``seg[SEG_RUN]``, to the launch counts: ceil(run / 2) iterations
+        of the body, two levels each."""
+        pairs = (run + 1) // 2
+        segments["levels"] += run
+        for name, per_body in self.body.items():
+            launches[name] += pairs * (1 if name == "seg_active" else 2)
+            grid_launches_total[name] += pairs * per_body
+
+    def destroy(self) -> None:
+        """Free the graph and let its buffers go."""
+        if self.handle is not None:
+            rc = _lib().jt_segment_graph_destroy(self.handle)
+            self.handle = None
+            self.tensors = []
+            if rc != 0:
+                from jepsen_tpu_torch.kernels import build
+                raise RuntimeError(f"segment graph: CUDA error {rc}: "
+                                   f"{build.error_string(rc)}")

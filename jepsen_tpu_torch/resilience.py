@@ -1,16 +1,27 @@
-"""The failure taxonomy, poison bisection, and the segment loop of the
-single-history search.
+"""The failure taxonomy, poison bisection, retry policy, checkpoints, and
+the segment supervisor of the single-history search.
 
 Counterpart of ``jepsen_tpu/resilience.py``'s failure classes
 (``classify_failure``, ``result_failure_class``), its gang bisection
-``bisect_poison``, and the segment loop of ``supervised_check_packed``.
-Each rung runs as the keyed batch does, a batch of one through
-:func:`jepsen_tpu_torch.checker.gpu.run_batch`: segments of levels that
-grow from 64 up to ``segment_iters``, with the carry on the device and the
-kernels testing ``active`` there, so the host launches a segment's levels
-without waiting and reads the ``active`` flag once at its end. Verdicts
-and level counts equal an unsegmented run's, because an inactive level
-changes nothing.
+``bisect_poison``, its ``RetryPolicy``, ``retry_until_deadline`` and
+``deadline_stop``, its ``Checkpoint`` (the same ``.npz`` layout: a
+checkpoint written by either package loads in the other), the OOM shrink
+``_shrink_carry`` and the stats-lane fits, and ``supervised_check_packed``
+with ``supervised_check_history``.
+
+Each rung runs in segments of levels that grow from 64 up to
+``segment_iters``. On the card a segment is one launch of a CUDA graph
+(:func:`jepsen_tpu_torch.checker.gpu.run_segment`): the carry stays on
+the device and the fifth kernel tests ``active`` there after each level
+pair, so the host reads the search once per segment, at its end. That
+segment end is where the supervisor works: a fault-injection seam before
+each segment, a checkpoint copied to the host where one is asked for (a
+path, a callback, or an explicit ``policy``: the plain call copies
+nothing more), transient failures retried after the policy's backoff, an
+OOM answered by halving the pool and resuming the rung's last checkpoint
+in the smaller shape, and fatal failures rethrown with the trail.
+Verdicts and level counts equal an unsegmented run's, because an
+inactive level changes nothing.
 
 A ``deadline`` is cooperative: it is tested at each segment barrier, and
 once it has passed the search stops there, releases the engine's lock and
@@ -19,13 +30,18 @@ abandons a late check's thread, which holds no lock across its device
 calls; this search holds :attr:`Engine.lock` for its whole ladder, so an
 abandoned search must stop by itself.)
 
-The reference's checkpoint files, watchdog, retry policy, CPU fallback,
-OOM shrink and fault injection are not part of this port yet.
+Not ported yet: the per-segment watchdog thread and its CPU
+continuation, the headroom pre-shrink, and the observatory and profiler
+publication.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import random
 import time
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -37,8 +53,10 @@ from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.checker.engine import default_engine
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.kernels.search import LevelShape
-from jepsen_tpu_torch.models.core import KernelSpec
-from jepsen_tpu_torch.ops.encode import PackedHistory
+from jepsen_tpu_torch.models.core import KernelSpec, Model
+from jepsen_tpu_torch.ops.encode import PackedHistory, pack_with_init
+
+log = logging.getLogger("jepsen.resilience")
 
 # ---------------------------------------------------------------------------
 # Failure taxonomy
@@ -178,8 +196,236 @@ def timeout_result(levels: int, rung: tuple) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# The segment loop
+# Retry policy
 # ---------------------------------------------------------------------------
+
+
+def _env_float(name: str, default: float) -> float:
+    v = os.environ.get(name)
+    if not v:
+        return default
+    try:
+        return float(v)
+    except ValueError:
+        return default
+
+
+@dataclass
+class RetryPolicy:
+    """Per-class retry behavior. Backoff is capped exponential:
+    ``min(cap, base * 2**(attempt-1))``, jittered to [50%, 100%] so
+    synchronized workers don't stampede a recovering endpoint.
+    Base/cap default from JEPSEN_RETRY_BASE / JEPSEN_RETRY_CAP."""
+
+    max_retries: int = 3
+    backoff_base_s: float = field(
+        default_factory=lambda: _env_float("JEPSEN_RETRY_BASE", 0.05))
+    backoff_cap_s: float = field(
+        default_factory=lambda: _env_float("JEPSEN_RETRY_CAP", 10.0))
+    jitter: bool = True
+    #: OOM shrink floor: a pool this small that still OOMs is hopeless.
+    min_capacity: int = 8
+    rng: random.Random = field(default_factory=random.Random, repr=False)
+
+    def delay(self, attempt: int) -> float:
+        d = min(self.backoff_cap_s,
+                self.backoff_base_s * (2 ** max(attempt - 1, 0)))
+        if self.jitter:
+            d *= 0.5 + self.rng.random() / 2
+        return d
+
+
+def retry_until_deadline(fn: Callable[[], Any], deadline_s: float,
+                         policy: Optional[RetryPolicy] = None
+                         ) -> tuple:
+    """Run ``fn`` until it returns truthy or ``deadline_s`` elapses,
+    sleeping ``policy.delay(attempt)`` between attempts; exceptions count
+    as failed attempts. Returns ``(ok, attempts, last_error)``, with
+    ``last_error`` a short string, or None on success."""
+    policy = policy or RetryPolicy()
+    t_end = time.monotonic() + deadline_s
+    attempts = 0
+    last_err: Optional[str] = None
+    while True:
+        attempts += 1
+        try:
+            if fn():
+                return True, attempts, None
+            last_err = "probe returned falsy"
+        except Exception as e:  # noqa: BLE001 -- a probe failure is data
+            last_err = _errstr(e)
+        remaining = t_end - time.monotonic()
+        if remaining <= 0:
+            return False, attempts, last_err
+        time.sleep(min(policy.delay(attempts), remaining))
+
+
+def deadline_stop(deadline_s: float,
+                  inner: Optional[Callable[[], bool]] = None
+                  ) -> Callable[[], bool]:
+    """A ``should_stop`` predicate that fires ``deadline_s`` seconds from
+    now (and whenever ``inner`` fires)."""
+    t_end = time.monotonic() + deadline_s
+
+    def stop() -> bool:
+        if inner is not None and inner():
+            return True
+        return time.monotonic() > t_end
+
+    return stop
+
+
+def _errstr(e: BaseException) -> str:
+    return f"{type(e).__name__}: {e}"
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+# ---------------------------------------------------------------------------
+
+#: Field names of the search carry in the reference's carry order: the
+#: checkpoint format.
+CARRY_FIELDS = ("k", "mask", "cmask", "state", "alive", "done", "lossy",
+                "wovf", "level", "best", "pool_k", "pool_state",
+                "pool_alive")
+
+#: The optional 14th carry slot: the per-level counter log ([LMAX+1,
+#: NSTAT] int32, level-indexed). The port always carries it; a
+#: checkpoint without it loads, and the lane is added as zeros.
+CARRY_STATS_FIELD = "slog"
+
+
+@dataclass
+class Checkpoint:
+    """A host snapshot of the device search, sufficient to resume it on
+    either package's search. ``rung`` is the REQUESTED ladder rung;
+    ``expand_eff`` and the carry's own row count give the effective
+    (possibly OOM-shrunk) shape. Serializes to one ``.npz`` file, in the
+    reference's layout. ``watermark`` and ``n_required`` are the
+    streaming fields, -1 offline; they round-trip and are not used."""
+
+    carry: tuple
+    rung: tuple                      # (capacity, window, expand) requested
+    window: int
+    expand_eff: Optional[int]
+    crash_width: int
+    segment: int                     # segments completed so far
+    watermark: int = -1
+    n_required: int = -1
+
+    @property
+    def capacity_eff(self) -> int:
+        return int(self.carry[0].shape[0])
+
+    @property
+    def level(self) -> int:
+        return int(self.carry[8])
+
+    def save(self, path: str) -> None:
+        """Write the ``.npz`` through a temporary file and ``os.replace``,
+        so that a crash mid-save leaves the previous checkpoint readable."""
+        meta = dict(
+            rung=np.asarray([-1 if x is None else x for x in self.rung],
+                            np.int64),
+            window=np.int64(self.window),
+            expand_eff=np.int64(-1 if self.expand_eff is None
+                                else self.expand_eff),
+            crash_width=np.int64(self.crash_width),
+            segment=np.int64(self.segment),
+            watermark=np.int64(self.watermark),
+            n_required=np.int64(self.n_required))
+        names = CARRY_FIELDS + (CARRY_STATS_FIELD,)
+        arrays = {f"carry_{n}": np.asarray(v)
+                  for n, v in zip(names, self.carry)}
+        tmp = f"{path}.tmp.{os.getpid()}.npz"
+        np.savez(tmp, **meta, **arrays)
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> "Checkpoint":
+        with np.load(path) as z:
+            rung = tuple(None if int(x) < 0 else int(x)
+                         for x in z["rung"])
+            exp = int(z["expand_eff"])
+            carry = tuple(z[f"carry_{n}"] for n in CARRY_FIELDS)
+            if f"carry_{CARRY_STATS_FIELD}" in z.files:
+                carry = carry + (z[f"carry_{CARRY_STATS_FIELD}"],)
+            # the flag and count slots come back as 0-d arrays
+            carry = (carry[:5]
+                     + (np.bool_(carry[5]), np.bool_(carry[6]),
+                        np.bool_(carry[7]), np.int32(carry[8]),
+                        np.int32(carry[9]))
+                     + carry[10:])
+            return cls(carry=carry, rung=rung, window=int(z["window"]),
+                       expand_eff=None if exp < 0 else exp,
+                       crash_width=int(z["crash_width"]),
+                       segment=int(z["segment"]),
+                       watermark=(int(z["watermark"])
+                                  if "watermark" in z.files else -1),
+                       n_required=(int(z["n_required"])
+                                   if "n_required" in z.files else -1))
+
+
+def _shrink_carry(carry: tuple, new_cap: int) -> tuple:
+    """Re-embed a checkpoint into a smaller pool: keep the first
+    ``new_cap`` rows (the pool is sorted deepest-first, so the prefix is
+    the best frontier). Returns (carry, dropped): if any LIVE row fell
+    off, the search is lossy from here on: a completion is still a
+    witness, but pool death no longer refutes."""
+    (k, mask, cmask, state, alive, done, lossy, wovf, level, best,
+     pk, ps, pa) = carry[:13]
+    dropped = bool(np.any(np.asarray(alive)[new_cap:]))
+    lossy = np.bool_(bool(lossy) or dropped)
+    # the stats lane is level-indexed: it rides through unchanged
+    return ((np.asarray(k)[:new_cap], np.asarray(mask)[:new_cap],
+             np.asarray(cmask)[:new_cap], np.asarray(state)[:new_cap],
+             np.asarray(alive)[:new_cap], done, lossy, wovf, level, best,
+             np.asarray(pk)[:new_cap], np.asarray(ps)[:new_cap],
+             np.asarray(pa)[:new_cap]) + tuple(carry[13:]), dropped)
+
+
+def _fit_carry_stats(carry: tuple, stats: bool, lmax: int) -> tuple:
+    """Match a carry's optional stats lane to the search about to run
+    it: a zero lane is appended to a 13-lane carry (the pre-resume levels
+    then count nothing; the verdict lanes are untouched), and dropped
+    when ``stats`` is off."""
+    if stats and len(carry) == 13:
+        return carry + (np.zeros((lmax + 1, G.NSTAT), np.int32),)
+    if not stats and len(carry) > 13:
+        return carry[:13]
+    return carry
+
+
+def _grow_carry_stats(carry: tuple, lmax: int) -> tuple:
+    """Re-pad an existing stats lane to a larger level budget; the rows
+    already counted ride through unchanged."""
+    if len(carry) <= 13:
+        return carry
+    slog = np.asarray(carry[13])
+    rows = lmax + 1
+    if slog.shape[0] >= rows:
+        return carry
+    grown = np.zeros((rows, slog.shape[1]), np.int32)
+    grown[:slog.shape[0]] = slog
+    return carry[:13] + (grown,)
+
+
+def _carry_active(carry: tuple, lmax: int) -> bool:
+    """Host mirror of the device's ``active``: not done, some pool row
+    alive, the level budget not spent."""
+    done, alive, level = carry[5], carry[4], carry[8]
+    return (not bool(done)) and bool(np.any(alive)) and int(level) <= lmax
+
+
+# ---------------------------------------------------------------------------
+# The segment supervisor
+# ---------------------------------------------------------------------------
+
+#: Fault-injection seam for the tests: a callable invoked with a context
+#: dict ({rung, effective, segment, level, backend}) right before each
+#: device segment; raising from it stands for that failure at that point.
+#: None in production.
+_inject_fault: Optional[Callable[[Dict[str, Any]], None]] = None
 
 
 def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
@@ -189,7 +435,12 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             segment_iters: Optional[int] = None,
                             device: Optional[torch.device] = None,
                             ops: G.Ops = G.KERNELS,
-                            deadline: Optional[float] = None
+                            deadline: Optional[float] = None,
+                            policy: Optional[RetryPolicy] = None,
+                            resume: Optional[Checkpoint] = None,
+                            checkpoint_path: Optional[str] = None,
+                            on_checkpoint: Optional[
+                                Callable[[Checkpoint], None]] = None
                             ) -> Dict[str, Any]:
     """Check one packed history rung by rung, in growing segments
     (see :func:`jepsen_tpu_torch.checker.gpu.check_packed_gpu`).
@@ -197,66 +448,211 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     device: the reference a run on the card is held against.
     ``deadline`` is a ``time.monotonic()`` instant: at the first segment
     barrier past it the search stops and returns
-    :func:`timeout_result`."""
+    :func:`timeout_result`.
+
+    As the reference's: ``resume`` continues a saved :class:`Checkpoint`
+    of the same packed history (from either package); ``checkpoint_path``
+    and ``on_checkpoint`` save and observe a checkpoint at each segment
+    end; ``policy`` (default :class:`RetryPolicy`) sets the retries, the
+    backoff and the OOM floor. A checkpoint comes to the host at a
+    segment end only where a path, a callback or an explicit ``policy``
+    asks for it; otherwise an OOM resumes from the rung's start (or its
+    resumed checkpoint). The result carries ``attempts``, the
+    supervision trail; a fatal failure is raised with the trail as
+    ``exc.resilience_trail``."""
     dev = G.resolve_device(device)
     if window is not None:
         G._check_window(window)
     cols_np, early = G._prep_single(p, kernel)
     if early is not None:
         return early
+    keep = bool(checkpoint_path or on_checkpoint is not None
+                or policy is not None)
+    policy = policy or RetryPolicy()
     if capacity is not None:
         G._check_window(window or G.WINDOW)
         ladder = ((capacity, window or G.WINDOW, expand),)
     else:
         ladder = G._ladder_for(G._window_needed(p), dev)
+    if resume is not None:
+        idx = next((i for i, r in enumerate(ladder)
+                    if tuple(r) == tuple(resume.rung)), None)
+        ladder = ((tuple(resume.rung),) + tuple(ladder) if idx is None
+                  else ladder[idx:])
     crw = G._crash_width(p.n - p.n_required) or 0
     n, cr_pad = cols_np["f"].shape[0], cols_np["cf"].shape[0]
     nr = int(cols_np["nr"])
     lmax = G._level_budget(n, cr_pad)
     seg, first = G._segment_schedule(segment_iters, lmax)
     eng = default_engine()
+    trail: list = []
     work: list = []
     out: Dict[str, Any] = {}
     with eng.lock:
         cols = eng.cols(cols_np, dev)
         for cap, win, exp in ladder:
-            shape = LevelShape(C=cap, W=win, E=min(exp or cap, cap), n=n,
-                               CR=cr_pad, model=kernel.name)
-            carry, scratch = eng.state(shape, dev)
-            host = G._carry0_host(cap, win, cr_pad, cols_np["ini"], nr,
-                                  stats_rows=lmax + 1)
-            interop.carry_from_numpy(host, dev, out=carry)
-            scratch.acc.zero_()
-            late = []
-
-            def barrier(act: torch.Tensor) -> bool:
-                go = bool(act.any())
-                if go and time.monotonic() >= deadline:
-                    late.append(True)
-                    return False
-                return go
-
-            segs = G.run_batch(cols, carry, scratch, shape, seg, ops, first,
-                               barrier=None if deadline is None else barrier)
-            if late:
-                return timeout_result(int(carry.scal[0, K.LEVEL]),
-                                      (cap, win, exp))
-            host = interop.carry_to_numpy(carry)
+            if resume is not None and tuple(resume.rung) == (cap, win, exp):
+                host = tuple(resume.carry)
+                cap_eff, exp_eff = resume.capacity_eff, resume.expand_eff
+                seg_idx = resume.segment
+                resume = None
+            else:
+                host = G._carry0_host(cap, win, cr_pad, cols_np["ini"], nr,
+                                      stats_rows=lmax + 1)
+                cap_eff, exp_eff, seg_idx = cap, exp, 0
+            # the rung's last checkpoint: where a failed segment resumes
+            host = _grow_carry_stats(_fit_carry_stats(host, True, lmax),
+                                     lmax)
+            saved_idx = seg_idx
+            level, live = int(host[8]), _carry_active(host, lmax)
+            carry = shape = None
+            transients = ooms = 0
+            abort: Optional[str] = None
+            while live:
+                # the schedule of an unbroken run: a resumed search ends
+                # its segments on the same levels
+                seg_len = min(seg, first << min(seg_idx, 16))
+                ctx = {"rung": (cap, win, exp),
+                       "effective": (cap_eff, win, exp_eff),
+                       "segment": seg_idx, "level": level,
+                       "backend": "default"}
+                try:
+                    if _inject_fault is not None:
+                        _inject_fault(dict(ctx))
+                    if carry is None:
+                        shape = LevelShape(C=cap_eff, W=win,
+                                           E=min(exp_eff or cap_eff,
+                                                 cap_eff),
+                                           n=n, CR=cr_pad, model=kernel.name)
+                        carry, scratch = eng.state(shape, dev)
+                        interop.carry_from_numpy(host, dev, out=carry)
+                        scratch.acc.zero_()
+                    words, graph = G.run_segment(cols, carry, scratch, shape,
+                                                 cols["nr"], seg_len, ops)
+                    _, act, lv = G.end_segment(carry, shape, words, graph)
+                except Exception as e:  # noqa: BLE001 -- classified below
+                    cls = classify_failure(e)
+                    # resume from the last checkpoint, in a new upload
+                    carry, seg_idx = None, saved_idx
+                    level = int(host[8])
+                    if cls == OOM:
+                        ooms += 1
+                        new_cap = cap_eff // 2
+                        if new_cap < policy.min_capacity:
+                            trail.append({**ctx, "event": OOM,
+                                          "outcome": "gave-up",
+                                          "error": _errstr(e)})
+                            abort = (f"OOM at the {policy.min_capacity}-"
+                                     f"row pool floor: {e}")
+                            break
+                        host, dropped = _shrink_carry(host, new_cap)
+                        cap_eff = new_cap
+                        if isinstance(exp_eff, int):
+                            exp_eff = max(1, min(exp_eff // 2, cap_eff))
+                        delay = policy.delay(ooms)
+                        trail.append({**ctx, "event": OOM,
+                                      "outcome": f"pool-halved-to-{cap_eff}",
+                                      "lossy": dropped,
+                                      "backoff-s": round(delay, 3),
+                                      "error": _errstr(e)})
+                        log.warning(
+                            "device OOM at level %s; halving the pool to %s "
+                            "rows and resuming the checkpoint (backoff "
+                            "%.2fs)", ctx["level"], cap_eff, delay)
+                        time.sleep(delay)
+                    elif cls in (TRANSIENT, DCN):
+                        transients += 1
+                        if transients > policy.max_retries:
+                            trail.append({**ctx, "event": cls,
+                                          "outcome": "retries-exhausted",
+                                          "error": _errstr(e)})
+                            _attach_trail(e, trail)
+                            raise
+                        delay = policy.delay(transients)
+                        trail.append({**ctx, "event": cls,
+                                      "outcome": f"retry-{transients}",
+                                      "backoff-s": round(delay, 3),
+                                      "error": _errstr(e)})
+                        log.warning(
+                            "%s device failure (%s); retrying the segment "
+                            "from its checkpoint in %.2fs", cls,
+                            _errstr(e), delay)
+                        time.sleep(delay)
+                    else:
+                        trail.append({**ctx, "event": FATAL,
+                                      "outcome": "raised",
+                                      "error": _errstr(e)})
+                        _attach_trail(e, trail)
+                        raise
+                    continue
+                seg_idx += 1
+                transients = 0
+                level, live = lv[0], bool(act[0])
+                if keep:
+                    host = interop.carry_to_numpy(carry)
+                    saved_idx = seg_idx
+                    cp = Checkpoint(carry=host, rung=(cap, win, exp),
+                                    window=win, expand_eff=exp_eff,
+                                    crash_width=crw, segment=seg_idx)
+                    if checkpoint_path:
+                        cp.save(checkpoint_path)
+                    if on_checkpoint is not None:
+                        on_checkpoint(cp)
+                if live and deadline is not None and (
+                        time.monotonic() >= deadline):
+                    return timeout_result(level, (cap, win, exp))
+            if carry is not None:
+                host = interop.carry_to_numpy(carry)
             done, lossy, wovf, best, levels, pool = G._summarize_carry(host)
-            out = G._result(done, lossy, wovf, best, levels, p, pool=pool)
-            out["rung"] = (cap, win, exp)
+            rung_eff = (cap_eff, win, exp_eff)
+            trail.append({"rung": (cap, win, exp), "effective": rung_eff,
+                          "event": ("rung-aborted" if abort is not None
+                                    else "rung-complete"),
+                          "segments": seg_idx, "levels": levels,
+                          "backend": "default"})
+            if abort is not None:
+                out = {"valid": UNKNOWN, "backend": "gpu", "levels": levels,
+                       "error": abort}
+            else:
+                out = G._result(done, lossy, wovf, best, levels, p,
+                                pool=pool)
+            out["rung"] = rung_eff
+            if rung_eff != (cap, win, exp):
+                out["rung-requested"] = (cap, win, exp)
             out["best-k"] = best
             out["crash-width"] = crw
             out["tiebreak"] = "lex"
-            work.append(((cap, win, exp), crw, "lex", levels))
+            work.append((rung_eff, crw, "lex", levels))
             out["work"] = list(work)
-            out["segments"] = len(segs)
+            out["segments"] = seg_idx
             out["segment-iters"] = seg
+            out["attempts"] = list(trail)
             out["searchstats"] = dict(zip(
                 G.SEARCHSTAT_COLS,
                 (int(x) for x in np.asarray(host[13])[:levels].sum(0))))
-            if out["valid"] is not UNKNOWN:
+            if out["valid"] is not UNKNOWN or abort is not None:
                 return out
             if wovf and win >= G.MAX_WINDOW and not lossy:
                 return out  # a bigger pool won't fix a window overflow
     return out
+
+
+def _attach_trail(e: BaseException, trail: list) -> None:
+    try:
+        e.resilience_trail = trail
+    except Exception:  # noqa: BLE001 -- some exceptions take no attributes
+        pass
+
+
+def supervised_check_history(history, model: Model,
+                             **kwargs) -> Optional[Dict[str, Any]]:
+    """Pack and run :func:`supervised_check_packed`. None when the model
+    has no integer kernel, or the history does not fit its word."""
+    try:
+        pk = pack_with_init(history, model)
+    except ValueError:
+        return None
+    if pk is None:
+        return None
+    packed, kernel = pk
+    return supervised_check_packed(packed, kernel, **kwargs)

@@ -116,7 +116,7 @@ def test_each_wrapper_counts_its_launches(cuda):
     K.reset_launches()
     lv.advance(5)
     assert K.launches == {**{name: 5 for name in K.launches},
-                          "sort_rows_hash": 0}
+                          "sort_rows_hash": 0, "seg_active": 0}
     assert K.grid_launches_total == K.launches
 
 
@@ -358,7 +358,8 @@ def test_a_deadline_cancels_a_lane_on_the_card(cuda):
     out = G.check_packed_gang_gpu(pks[:2], kernel, device=cuda,
                                   segment_iters=1,
                                   deadlines=[time.monotonic() - 1, None])
-    assert out[0]["error"] == ":info/timeout" and out[0]["levels"] == 1
+    # the one-level segment runs as a level pair
+    assert out[0]["error"] == ":info/timeout" and out[0]["levels"] == 2
     assert out[0]["gang-cancelled"] is True
     serial = G.check_packed_gpu(pks[1], kernel, device=cuda)
     assert {k: out[1].get(k) for k in GANG_FIELDS} == {
@@ -551,3 +552,189 @@ def test_the_sort_refuses_a_tile_plan_that_cannot_sort(cuda):
     want = rows.clone()
     K.sort_rows_plain(want, scal, shape)
     assert parity.max_abs_err([got], [want]) == 0
+
+
+# ---------------------------------------------------------------------------
+# The segment loop (B9): K5 and the segment graph
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B", [1, 3, 256, 1000])
+def test_seg_active_matches_its_plain_version(cuda, B):
+    """K5 against its plain version on random scalars and segment words:
+    done, live rows and levels around the budget, the pair's second
+    level run by some key or by none, counts below, at and past the
+    bound. ``scal`` is left as it was."""
+    rng = np.random.default_rng(B)
+    lmax = 100
+    for trial in range(24):
+        scal = np.zeros((B, K.NSCAL), np.int32)
+        scal[:, K.DONE] = rng.random(B) < (0.5 if trial % 3 else 1.0)
+        scal[:, K.NALIVE] = rng.integers(0, 3, B)
+        scal[:, K.LEVEL] = rng.integers(lmax - 3, lmax + 3, B)
+        scal[:, K.ACT] = rng.random(B) < (0.3 if trial % 4 else 0.0)
+        seg = np.array([rng.integers(0, 10), rng.integers(0, 12), 7, 0],
+                       np.int32)
+        got_scal = torch.from_numpy(scal).to(cuda)
+        got = torch.from_numpy(seg).to(cuda)
+        want = torch.from_numpy(seg.copy())
+        K.seg_active(got_scal, lmax, got)
+        K.seg_active_plain(torch.from_numpy(scal), lmax, want)
+        assert torch.equal(got.cpu(), want), (trial, seg)
+        assert np.array_equal(got_scal.cpu().numpy(), scal)
+
+
+def _gang_cols():
+    pks, kernel = _gang()
+    breq = max(G._bucket(p.n_required) for p in pks)
+    cr = max(G._crash_width(p.n - p.n_required) or 0 for p in pks)
+    return [G._split_packed(p, breq, cr, kernel) for p in pks]
+
+
+#: the smoke's states, at a small size: single, keyed staggered (hash)
+#: and dense (both tie-breaks), the deferred keys' wide rung, a gang with
+#: a lane cancelled after the first segment, the sort's odd merge pass,
+#: four mask words, and each model's first rung
+ROUTE_STATES = ("single", "stag", "dense lex", "dense hash", "dwide",
+                "gang", "odd", "wide") + MODEL_NAMES
+
+
+def _route_state(name):
+    """(columns, rung, tie-break, model, lane cancelled after the first
+    segment) of state ``name``."""
+    if name in MODEL_NAMES:
+        model, makers = _model_fixtures()[name]
+        cols, W = _model_cols(model, makers[:1])
+        return cols, (64, W, 8), "lex", name, None
+    batch = _batch_cols([FIXTURES[n]() for n in ("entry", "crashed",
+                                                 "mc2")], 64)
+    reg = "cas-register"
+    return {
+        "single": lambda: ([_cols(FIXTURES["crashed"]())[2]], (128, 32, 8),
+                           "lex", reg, None),
+        "stag": lambda: (batch, (32, 32, 4), "hash", reg, None),
+        "dense lex": lambda: (batch, (128, 32, 16), "lex", reg, None),
+        "dense hash": lambda: (batch, (128, 32, 16), "hash", reg, None),
+        "dwide": lambda: (_batch_cols([FIXTURES["wide40a"](),
+                                       FIXTURES["wide40b"]()], 8),
+                          (512, 64, 512), "lex", reg, None),
+        "gang": lambda: (_gang_cols(), (128, 32, 8), "lex", reg, 1),
+        "odd": lambda: (batch[1:], (1024, 32, 64), "lex", reg, None),
+        "wide": lambda: ([_cols(FIXTURES["wide100"]())[2]], (512, 128, 512),
+                         "lex", reg, None),
+    }[name]()
+
+
+#: segment lengths asked for: odd ones run as the next even length
+ROUTE_SEGMENTS = (7, 2, 64, 1, 2000)
+
+
+@pytest.mark.parametrize("name", ROUTE_STATES)
+def test_the_graph_loop_matches_the_host_loop(cuda, name):
+    """At every segment end the graph loop's carry equals, bit for bit,
+    the host loop's over the kernels (the same levels, each launched from
+    Python) and the plain route's (the host pair loop over the plain
+    versions), and its levels run equal the plain route's."""
+    cols, rung, tb, model, cancel = _route_state(name)
+    lvs = {r: parity.Level(cols, rung, cuda, tiebreak=tb, model=model)
+           for r in ("graph", "host", "plain")}
+    for i, n in enumerate(ROUTE_SEGMENTS):
+        if cancel is not None and i == 1:
+            for lv in lvs.values():
+                G.cancel_lanes(lv.carry, [cancel])
+        lv = lvs["graph"]
+        words, graph = G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape,
+                                     lv.nr, n)
+        assert graph is not None
+        run = G.end_segment(lv.carry, lv.shape, words, graph)[0]
+        lv = lvs["host"]
+        G.run_segment_host(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr,
+                           n + n % 2)
+        lv = lvs["plain"]
+        words, none = G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape,
+                                    lv.nr, n, G.PLAIN)
+        assert none is None and int(words[K.SEG_RUN]) == run, (name, i)
+        carries = [interop.batch_carry_to_numpy(v.carry)
+                   for v in lvs.values()]
+        for other in carries[1:]:
+            for x, y in zip(carries[0], other, strict=True):
+                assert np.array_equal(x, y), (name, i)
+        assert run <= n + n % 2
+    assert int(lvs["graph"].carry.scal[:, K.LEVEL].max()) > 0
+
+
+def test_a_segment_is_one_graph_launch(cuda):
+    """The batch loop on the card: one capture of K1-K4 from Python, one
+    graph launch a segment, and the launches counted from the levels the
+    device ran times the body's captured launches."""
+    from jepsen_tpu_torch.checker.engine import default_engine
+    _, _, cols = _cols(FIXTURES["mc2"]())
+    lv = parity.Level([cols], (128, 32, 8), cuda)
+    K.reset_launches()
+    segs = G.run_batch(lv.cols, lv.carry, lv.scratch, lv.shape, 64,
+                       first=8)
+    levels = int(lv.carry.scal[0, K.LEVEL])
+    assert len(segs) > 2 and sum(segs) == levels
+    pairs = sum((r + 1) // 2 for r in segs)
+    graph = default_engine().segment_graph(lv.cols, lv.nr, lv.carry,
+                                           lv.scratch, lv.shape)
+    assert graph.body == {"expand": 2, "sort_rows": 2, "group_scan": 2,
+                          "dedup_truncate": 2, "seg_active": 1}
+    assert K.host_calls == {"expand": 1, "sort_rows": 1,
+                            "sort_rows_hash": 0, "group_scan": 1,
+                            "dedup_truncate": 1, "seg_active": 0}
+    assert K.launches == {"expand": 2 * pairs, "sort_rows": 2 * pairs,
+                          "sort_rows_hash": 0, "group_scan": 2 * pairs,
+                          "dedup_truncate": 2 * pairs, "seg_active": pairs}
+    assert K.grid_launches_total == {
+        name: pairs * graph.body.get(name, 0) for name in K.launches}
+    # the host loop over the same levels ends in the same carry
+    ref = parity.Level([cols], (128, 32, 8), cuda)
+    G.run_segment_host(ref.cols, ref.carry, ref.scratch, ref.shape, ref.nr,
+                       2 * pairs)
+    for x, y in zip(interop.batch_carry_to_numpy(lv.carry),
+                    interop.batch_carry_to_numpy(ref.carry), strict=True):
+        assert np.array_equal(x, y)
+
+
+def test_engine_eviction_destroys_the_segment_graph(cuda, monkeypatch):
+    """A graph is destroyed with the engine state it points into: fill
+    the state cache past MAX_ENTRIES, and the evicted shape's graph is
+    gone; the shape allocated again runs a new graph to the same carry.
+    A fresh engine stands in for the process's, so the counts are this
+    test's alone."""
+    from jepsen_tpu_torch.checker import engine as engine_mod
+    eng = engine_mod.Engine()
+    monkeypatch.setattr(engine_mod, "_DEFAULT", eng)
+    _, _, cols_np = _cols(FIXTURES["crashed"]())
+    n, cr = cols_np["f"].shape[0], cols_np["cf"].shape[0]
+
+    def shape(C):
+        return K.LevelShape(C, 32, 8, n, cr)
+
+    def run(sh):
+        carry, scratch = eng.state(sh, cuda)
+        cols = eng.cols(cols_np, cuda)
+        interop.carry_from_numpy(G._carry0_host(
+            sh.C, sh.W, cr, cols_np["ini"], int(cols_np["nr"]),
+            stats_rows=sh.lmax + 1), cuda, out=carry)
+        scratch.acc.zero_()
+        G.run_batch(cols, carry, scratch, sh, 64)
+        return interop.carry_to_numpy(carry)
+
+    with eng.lock:
+        first = run(shape(96))
+        second = run(shape(64))
+        assert len(eng._graphs) == 2
+        for i in range(engine_mod.Engine.MAX_ENTRIES - 1):
+            eng.state(shape(100 + 4 * i), cuda)
+        # shape(96) left the state cache, and its graph with it
+        assert [k[0] for k in eng._graphs] == [shape(64)]
+        assert len(eng._graphs) == 1
+        # allocating it again evicts shape(64), the stalest, and its graph
+        again = run(shape(96))
+        assert [k[0] for k in eng._graphs] == [shape(96)]
+        assert len(eng._graphs) == 1
+    for x, y in zip(first, again, strict=True):
+        assert np.array_equal(x, y)
+    assert int(second[8]) > 0

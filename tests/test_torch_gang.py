@@ -179,19 +179,21 @@ def test_an_empty_gang_and_a_trivial_member():
 
 def test_a_deadline_cancels_one_lane_not_the_gang():
     """The victim's deadline has passed: it is cancelled at the first
-    segment barrier (one level in), as in the reference, and its gang mate
-    ends with its serial result."""
+    segment barrier, as in the reference, and its gang mate ends with its
+    serial result. The port runs segments in level pairs, so a one-level
+    segment is rounded up to two: its barrier is the reference's at
+    ``segment_iters=2``."""
     hs = [conc_ops(24, 5), conc_ops(24, 6, value_base=100)]
     ours_p, kernel, ref_p, ref_kernel = packs(hs)
     dls = [time.monotonic() - 1.0, None]
     ours = G.check_packed_gang_gpu(ours_p, kernel, deadlines=dls,
                                    segment_iters=1, device="cpu")
     ref = T.check_packed_gang(ref_p, ref_kernel, deadlines=dls,
-                              segment_iters=1)
+                              segment_iters=2)
     assert ours[0] == dict(ref[0], backend="gpu")
     assert ours[0] == {"valid": UNKNOWN, "error": ":info/timeout",
                        "error-class": "wedge", "backend": "gpu",
-                       "levels": 1, "rung": (32, 32, 4),
+                       "levels": 2, "rung": (32, 32, 4),
                        "gang-cancelled": True}
     serial = G.check_packed_gpu(ours_p[1], kernel, device="cpu")
     assert ours[1]["valid"] is True and pick(ours[1]) == pick(serial)
@@ -319,11 +321,12 @@ def test_the_result_failure_class_drives_the_split():
 def test_the_serial_deadline_stops_at_a_barrier_and_frees_the_engine():
     p, kernel, _, _ = packs([conc_ops(200, 40)])
     eng = default_engine()
+    # a one-level segment is rounded up to a level pair
     out = resilience.supervised_check_packed(
         p[0], kernel, segment_iters=1, device="cpu",
         deadline=time.monotonic() - 1.0)
     assert out == {"valid": UNKNOWN, "error": ":info/timeout",
-                   "error-class": "wedge", "backend": "gpu", "levels": 1,
+                   "error-class": "wedge", "backend": "gpu", "levels": 2,
                    "rung": (32, 32, 4)}
     assert not eng.lock.locked()
     # a search that ends within its deadline is not cut

@@ -16,9 +16,11 @@ line with
   under both tie-breaks, dwide, gang, the odd-pass state and each model's
   first rung;
 * warm, end to end: the 10k-op register headline through
-  ``linearizable``, the set model's 10,000-add history, the 256-key dense
-  batch through ``check_keyed_gpu`` (wall and device-batch seconds), and a
-  gang of 8 same-bucket 2,000-op requests against the same 8 one by one.
+  ``linearizable``, the set model's 10,000-add history, the mutex's
+  10,000-op history, the 256-key dense batch through ``check_keyed_gpu``
+  (wall and device-batch seconds), and a gang of 8 same-bucket 2,000-op
+  requests against the same 8 one by one; the summary divides the
+  single-history seconds by their levels (per-level ms).
 
 The states, histories and rungs are ``chip_smoke.py``'s (this checkout's
 copy, read as data; its helpers import the package from ROOT).
@@ -182,6 +184,10 @@ def one_checkout(root: str) -> dict:
     mset = linearizable(model, device=dev)
     r, times = warm(lambda: mset.check({}, h), reps=2)
     out["set"] = {"levels": r["levels"], "warm_s": times}
+    model, h = model_h["mutex"]
+    mutex = linearizable(model, device=dev)
+    r, times = warm(lambda: mutex.check({}, h))
+    out["mutex"] = {"levels": r["levels"], "warm_s": times}
 
     dense = dict(enumerate(keyed["dense"]))
     batch_s = []
@@ -247,6 +253,9 @@ def turns(a: str, b: str, dest=None) -> int:
             "headline_levels": mine[0]["headline"]["levels"],
             "set_warm_s": med(t for r in mine for t in r["set"]["warm_s"]),
             "set_levels": mine[0]["set"]["levels"],
+            "mutex_warm_s": med(t for r in mine
+                                for t in r["mutex"]["warm_s"]),
+            "mutex_levels": mine[0]["mutex"]["levels"],
             "keyed_dense_wall_s": med(t for r in mine
                                       for t in r["keyed_dense"]["wall_s"]),
             "keyed_dense_batch_s": med(t for r in mine for t in
@@ -256,6 +265,10 @@ def turns(a: str, b: str, dest=None) -> int:
             "serial_s": med(t for r in mine
                             for t in r["gang_vs_serial"]["serial_s"]),
         }
+        one = summary[root]
+        one["per_level_ms"] = {
+            name: one[f"{name}_warm_s"] / one[f"{name}_levels"] * 1e3
+            for name in ("headline", "set", "mutex")}
     print(json.dumps(summary), flush=True)
     if dest:
         with open(dest, "w") as fh:
