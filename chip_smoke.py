@@ -38,6 +38,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 import contextlib
+import gc
 import json
 import os
 import random
@@ -56,6 +57,10 @@ HEADLINE_RUNG = (128, 32, 8)
 HEADLINE_WARM_LEVELS = 300
 #: a 2,000-op history with one corrupted read (refuted on the third rung)
 INVALID = dict(n_ops=2000, n_procs=5, n_vals=16, seed=16)
+#: a one-client history of the headline's length: every op is forced, so
+#: the first level's one forced run (K1's warp walk) crosses the whole
+#: history
+SEQUENTIAL = dict(n_ops=10000, n_procs=1, n_vals=16, seed=42)
 #: the wide history (needed window > 64: four mask words)
 WIDE = dict(n_procs=100, rounds=2, seed=5)
 WIDE_RUNG = (512, 128, 512)
@@ -145,6 +150,12 @@ PEAK_OPS_S = 67e12
 #: only (about 10 ms at H100 clocks)
 SLEEP_CYCLES = 20_000_000
 REPS = 30
+#: back-to-back launches of one kernel in the CUDA graph that times it as
+#: a graph node (the segment graph's level runs its kernels so)
+GRAPH_LAUNCHES = 64
+GRAPH_REPS = 7
+#: a plain version slower than this (ms) is timed SLOW_REPS times
+SLOW_MS, SLOW_REPS = 200.0, 3
 
 #: the segment loop phase: the levels each state's segment may run on the
 #: graph loop and on the plain route (the host loop runs the levels the
@@ -203,11 +214,41 @@ def device_ms(fn, prep):
     return statistics.median(times)
 
 
+def graph_ms(fn, args):
+    """Median device ms of one launch of ``fn(*args)`` inside a CUDA graph
+    of GRAPH_LAUNCHES back-to-back launches of it alone, the graph
+    replayed behind a device-side sleep. ``fn`` runs once first, outside
+    the capture, where its shared-memory grant is made."""
+    fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(GRAPH_LAUNCHES):
+            fn(*args)
+    graph.replay()
+    times = []
+    for _ in range(GRAPH_REPS):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_LAUNCHES)
+    del graph
+    return statistics.median(times)
+
+
 def host_ms(fn, prep):
     """Median wall time of ``fn(*prep())`` from a synchronised start to a
-    synchronised end (the plain versions synchronise inside)."""
+    synchronised end (the plain versions synchronise inside); of
+    SLOW_REPS runs where the first takes over SLOW_MS."""
     times = []
     for _ in range(REPS):
+        if len(times) == SLOW_REPS and times[0] > SLOW_MS:
+            break
         args = prep()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -221,10 +262,13 @@ def sort_name(shape):
     return "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
 
 
-def check_and_time(lv, parity):
+def check_and_time(lv, parity, plain_times=True):
     """One level from ``lv``'s state, stage by stage: each kernel against
     its plain version from identical inputs (tolerance 0), then both
-    timed from those inputs."""
+    timed from those inputs, the kernel also as a graph node
+    (:func:`graph_ms`; each launch of it on the same buffers does the
+    same work, but K2's re-sorts its sorted output). Without
+    ``plain_times`` the plain versions are compared but not timed."""
     from jepsen_tpu_torch.kernels import search as K
     out = {}
     for name, kern, plain, state, err in lv.walk():
@@ -240,7 +284,9 @@ def check_and_time(lv, parity):
             "max_abs_err": err,
             "cuda_launches_per_call": per_call,
             "ms": device_ms(kern, lambda: parity.copy_state(*state)),
-            "plain_ms": host_ms(plain, lambda: parity.copy_state(*state)),
+            "graph_ms": graph_ms(kern, parity.copy_state(*state)),
+            "plain_ms": (host_ms(plain, lambda: parity.copy_state(*state))
+                         if plain_times else None),
             "library_ms": None,
         }
         if name.startswith("sort_rows"):
@@ -314,7 +360,8 @@ def print_kernels(tag, lv, live, warm, res):
     for name, r in res.items():
         print(f"  {name:15s} err={r['max_abs_err']} "
               f"cuda_launches/call={r['cuda_launches_per_call']} "
-              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} "
+              f"ms={r['ms']:.4f} graph_ms={r['graph_ms']:.4f} "
+              f"plain_ms={r['plain_ms']} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']})"
               + (f" library_ms={r['library_ms']:.4f}"
                  if r["library_ms"] is not None else ""), flush=True)
@@ -422,6 +469,8 @@ def check_seg_active(lv):
     return {"max_abs_err": err, "cuda_launches_per_call": 1,
             "ms": device_ms(lambda x: K.seg_active(scal, lmax, x),
                             lambda: (seg.clone(),)),
+            "graph_ms": graph_ms(lambda x: K.seg_active(scal, lmax, x),
+                                 (seg.clone(),)),
             "plain_ms": host_ms(lambda x: K.seg_active_plain(scal, lmax, x),
                                 lambda: (seg.clone(),)),
             "library_ms": device_ms(torch.any, lambda: (act,)),
@@ -592,6 +641,7 @@ def model_phases(dev, seconds, shapes):
             rm = mchecker.check({}, h)
             cold_s = time.perf_counter() - t0
             run_launches = {k: K.launches[k] - before[k] for k in K.launches}
+            gc.collect()   # else a collection lands in the timed check
             t0 = time.perf_counter()
             rm2 = mchecker.check({}, h)
             warm_m = time.perf_counter() - t0
@@ -975,6 +1025,15 @@ def smoke(dev: torch.device) -> None:
         # passes, 5) and the scan's blocks
         assert level_shapes["wide"].RP > 1024
         assert K.sort_passes(level_shapes["wide"]) % 2 == 1
+        # a one-client history's first level: K1's one forced run walks
+        # to its last op, and the search ends there
+        _, _, seq_cols = packed_cols(simulate_register_history(
+            **SEQUENTIAL))
+        lv = parity.Level(seq_cols, HEADLINE_RUNG, dev)
+        res = check_and_time(lv, parity)
+        shapes["sequential"] = res
+        print_kernels("sequential", lv, 1, 0, res)
+        assert lv.advance(1) == 0 and int(lv.carry.scal[0, K.DONE]) == 1
 
     # -- (a) batched kernels at the keyed first rungs, both tie-breaks ------
     with phase("keyed histories", seconds):
@@ -986,7 +1045,8 @@ def smoke(dev: torch.device) -> None:
     #: the kernels are held at, for the segment loop phase
     loop_recipes = [("headline", head_cols, HEADLINE_RUNG, {},
                      HEADLINE_WARM_LEVELS),
-                    ("wide", wide_cols, WIDE_RUNG, {}, WIDE_WARM_LEVELS)]
+                    ("wide", wide_cols, WIDE_RUNG, {}, WIDE_WARM_LEVELS),
+                    ("sequential", seq_cols, HEADLINE_RUNG, {}, 0)]
     with phase("keyed kernels", seconds):
         for name, label, rung, cr, warm, tbs, wide in KEYED_COHORTS:
             cohort = cohort_cols(keyed[label].values(), cr, wide)
@@ -1030,6 +1090,7 @@ def smoke(dev: torch.device) -> None:
         assert K.segments["levels"] == r["levels"], K.segments
         assert all(K.host_calls[k] == K.segments["captures"] for k in (
             "expand", "sort_rows", "group_scan", "dedup_truncate"))
+        gc.collect()   # a collection over two million live ops takes ~1 s
         t0 = time.perf_counter()
         r2 = checker.check({}, head)
         warm_s = time.perf_counter() - t0
@@ -1241,8 +1302,8 @@ def smoke(dev: torch.device) -> None:
     for tag, res in k5.items():
         shapes[tag]["seg_active"] = res
     kernels = []
-    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "cuda_launches_per_call")
+    keep = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cuda_launches_per_call")
     for name in KERNELS:
         single = name != "sort_rows_hash"
         tb = "lex" if name == "sort_rows" else "hash"
@@ -1254,7 +1315,8 @@ def smoke(dev: torch.device) -> None:
             "launches": launches[name] if single else keyed_launches[name],
             "max_abs_err": max(r[name]["max_abs_err"]
                                for r in shapes.values() if name in r),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "ms": top["ms"], "graph_ms": top["graph_ms"],
+            "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
             "launches_by_path": {"headline": launches[name],
@@ -1270,6 +1332,8 @@ def smoke(dev: torch.device) -> None:
             entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
             entry["gang"] = {k: shapes["gang"][name][k] for k in keep}
             entry["odd"] = {k: shapes["odd"][name][k] for k in keep}
+            entry["sequential"] = {k: shapes["sequential"][name][k]
+                                   for k in keep}
         entry["keyed_staggered"] = {
             k: shapes["keyed staggered " + tb][name][k] for k in keep}
         entry["keyed_dense"] = {

@@ -110,11 +110,25 @@ def _suffix_min_inv(inv: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
+def crash_bounds(ret: np.ndarray, cinv: np.ndarray) -> np.ndarray:
+    """cb[..., i] = searchsorted(ret, cinv[..., i], side="right") per
+    history (a leading key axis allowed), int32. ``ret`` is sorted, so the
+    reference's crash bound of a row, searchsorted(ret, the least untaken
+    cinv, right) (tpu.py:294-306), is min(n, the least untaken cb): the
+    ``expand`` kernel reads this column instead of searching ret. A padded
+    crashed slot (cinv = RET_INF) gets n."""
+    ret, cinv = np.asarray(ret), np.asarray(cinv)
+    if ret.ndim == 1:
+        return np.searchsorted(ret, cinv, side="right").astype(np.int32)
+    return np.stack([crash_bounds(r, c) for r, c in zip(ret, cinv)])
+
+
 def _split_packed(p: PackedHistory, breq: int, cr: int,
                   kernel: Optional[KernelSpec] = None) -> Optional[dict]:
     """Split a PackedHistory into the padded required section [breq] and
-    crashed section [cr] columns (the ``_COLS`` dict). None when the
-    history has more crashed ops than ``cr``."""
+    crashed section [cr] columns (the ``_COLS`` dict: the reference's,
+    and ``cb``, :func:`crash_bounds`). None when the history has more
+    crashed ops than ``cr``."""
     nr = p.n_required
     n_cr = p.n - nr
     if n_cr > cr:
@@ -127,6 +141,8 @@ def _split_packed(p: PackedHistory, breq: int, cr: int,
 
     inf = int(RET_INF)
     inv_req = pad(p.inv[:nr], breq, inf)
+    ret_req = pad(p.ret[:nr], breq, inf)
+    cinv = pad(p.inv[nr:], cr, inf)
     ro = np.zeros(breq, dtype=np.int32)
     if kernel is not None and kernel.readonly is not None:
         for j in range(nr):
@@ -154,13 +170,14 @@ def _split_packed(p: PackedHistory, breq: int, cr: int,
         "ro": ro,
         "fr": fr,
         "inv": inv_req,
-        "ret": pad(p.ret[:nr], breq, inf),
+        "ret": ret_req,
         "sm": sm,
         "cf": pad(p.f[nr:], cr, 0),
         "cv1": pad(p.v1[nr:], cr, NIL_ID),
         "cv2": pad(p.v2[nr:], cr, NIL_ID),
-        "cinv": pad(p.inv[nr:], cr, inf),
+        "cinv": cinv,
         "cps": cps,
+        "cb": crash_bounds(ret_req, cinv),
         "nr": np.int32(nr),
         "ini": np.asarray(int(p.init_state) & 0xFFFFFFFF,
                           np.uint32).view(np.int32)[()],

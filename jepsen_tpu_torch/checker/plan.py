@@ -47,9 +47,9 @@ class PlanDims:
 
 def cols_nbytes(breq: int, crw: int) -> int:
     """Device bytes of one history's columns: seven int32 [breq] columns,
-    the suffix minimum [breq + 1], five int32 [crw] crashed columns and
-    ``nr``."""
-    return 4 * (7 * breq + (breq + 1) + 5 * crw + 1)
+    the suffix minimum [breq + 1], six int32 [crw] crashed columns (the
+    crash bounds ``cb`` among them) and ``nr``."""
+    return 4 * (7 * breq + (breq + 1) + 6 * crw + 1)
 
 
 def request_footprint(dims: PlanDims, device=None) -> Optional[int]:

@@ -9,7 +9,7 @@
 // batch; the single-history search is B = 1), and every kernel takes the key
 // from blockIdx.y. Per key (all int32; mask words hold uint32 bit patterns):
 //   cols   f, v1, v2, ro, fr, inv, ret [n], sm [n+1], cf, cv1, cv2, cinv,
-//          cps [CR], nr (the required-op count, one int per key)
+//          cps, cb [CR], nr (the required-op count, one int per key)
 //   pool   k[C], mask[C][MW], cmask[C][MCX], state[C], alive[C] (uint8)
 //   row    key1, k, mask[MW], state, popcount(cmask), cmask[MCX]  (NK words)
 //   scal   done, lossy, wovf, level, best_k, live rows, active, spare
@@ -57,7 +57,7 @@ enum { TB_LEX, TB_HASH };
 
 struct Cols {
   const int *f, *v1, *v2, *ro, *fr, *inv, *ret, *sm, *cf, *cv1, *cv2, *cinv,
-      *cps;
+      *cps, *cb;
 };
 
 // Key b's columns: [B, n] required, [B, n + 1] sm, [B, CR] crashed.
@@ -66,7 +66,7 @@ __device__ __forceinline__ Cols cols_at(const Cols& c, int b, int n, int CR) {
   return Cols{c.f + q,     c.v1 + q,   c.v2 + q,   c.ro + q,
               c.fr + q,    c.inv + q,  c.ret + q,  c.sm + (size_t)b * (n + 1),
               c.cf + cq,   c.cv1 + cq, c.cv2 + cq, c.cinv + cq,
-              c.cps + cq};
+              c.cps + cq,  c.cb + cq};
 }
 
 struct PoolIn {
@@ -192,92 +192,126 @@ __device__ __forceinline__ int model_step(int s, int f, int v1, int v2,
   else return cas_step(s, f, v1, v2, ok);
 }
 
-// B2: whole-mask bit helpers (tpu.py:122-161).
-__device__ __forceinline__ int trailing_ones(const unsigned* m, int MW) {
+// B2: whole-mask bit helpers (tpu.py:122-161) over MAXW words held in
+// registers: every loop is unrolled to MAXW with static indices, and the
+// words past a mask's MW are zero, which gives what MW words give.
+__device__ __forceinline__ unsigned word_at(const unsigned* m, int i) {
+  unsigned v = 0u;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) v = w == i ? m[w] : v;
+  return v;
+}
+
+__device__ __forceinline__ bool bit(const unsigned* m, int o) {
+  return (word_at(m, o >> 5) >> (o & 31)) & 1u;
+}
+
+__device__ __forceinline__ int trailing_ones(const unsigned* m) {
   int t = 0;
-  for (int w = 0; w < MW; ++w) {
+  bool more = true;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
     const unsigned z = ~m[w];
     const int tw = z ? __ffs(z) - 1 : 32;
-    t += tw;
-    if (tw < 32) break;
+    t += more ? tw : 0;
+    more = more && tw == 32;
   }
   return t;
 }
 
-__device__ __forceinline__ void shr1(const unsigned* m, unsigned* out,
-                                     int MW) {
-  for (int w = 0; w < MW; ++w)
-    out[w] = (m[w] >> 1) | (w + 1 < MW ? m[w + 1] << 31 : 0u);
+__device__ __forceinline__ void shr1(const unsigned* m, unsigned* out) {
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    out[w] = (m[w] >> 1) | (w + 1 < MAXW ? m[w + 1] << 31 : 0u);
 }
 
 __device__ __forceinline__ void shr_by(const unsigned* m, int t,
-                                       unsigned* out, int MW) {
+                                       unsigned* out) {
   const int ws = t >> 5, bs = t & 31;
-  for (int w = 0; w < MW; ++w) {
-    const unsigned a = w + ws < MW ? m[w + ws] : 0u;
-    const unsigned b = w + ws + 1 < MW ? m[w + ws + 1] : 0u;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
+    const unsigned a = word_at(m, w + ws), b = word_at(m, w + ws + 1);
     out[w] = (a >> bs) | (bs ? b << (32 - bs) : 0u);
   }
 }
 
-__device__ __forceinline__ bool bit(const unsigned* m, int o) {
-  return (m[o >> 5] >> (o & 31)) & 1u;
-}
-
+// A sortable row (NK words) from its configuration; row may be in shared
+// memory.
 __device__ __forceinline__ void write_row(int* row, int k, const unsigned* m,
                                           int MW, const unsigned* cm,
                                           int MCX, int s, bool valid) {
   int pm = 0, pc = 0;
-  for (int w = 0; w < MW; ++w) pm += __popc(m[w]);
-  for (int w = 0; w < MCX; ++w) pc += __popc(cm[w]);
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
+    pm += __popc(m[w]);
+    pc += __popc(cm[w]);
+  }
   row[0] = valid ? MAXK - (k + pm) : MAXK + 1 + k;
   row[1] = k;
-  for (int w = 0; w < MW; ++w) row[2 + w] = (int)m[w];
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    if (w < MW) row[2 + w] = (int)m[w];
   row[2 + MW] = s;
   row[3 + MW] = pc;
-  for (int w = 0; w < MCX; ++w) row[4 + MW + w] = (int)cm[w];
-}
-
-// B4: the first frontier whose return exceeds the smallest untaken crashed
-// invocation: searchsorted(ret, umin, side="right") (tpu.py:294-306).
-__device__ int crash_bound(const unsigned* cm, const Cols& c, int n, int CR) {
-  if (CR == 0) return n;
-  int umin = RET_INF;
-  for (int i = 0; i < CR; ++i) umin = min(umin, bit(cm, i) ? RET_INF : c.cinv[i]);
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (c.ret[mid] <= umin) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// B4: advance through a run of forced ops (tpu.py:308-346).
-template <int M>
-__device__ void fast_forward(int& kk, int& ss, bool go, int bound,
-                             const Cols& c, int n, int nr) {
-  while (go) {
-    const int kc = clampi(kk, 0, n - 1);
-    bool ok;
-    const int s2 = model_step<M>(ss, c.f[kc], c.v1[kc], c.v2[kc], ok);
-    go = c.fr[kc] > 0 && kk < bound && kk < nr && ok;
-    if (go) {
-      kk += 1;
-      ss = s2;
-    }
-  }
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    if (w < MCX) row[4 + MW + w] = (int)cm[w];
 }
 
 // ---------------------------------------------------------------------------
-// K1 expand (B1-B4; tpu.py:380-506). Grid (E + tail blocks, B). One
-// 128-thread block per expanded row: thread o < W computes required
-// candidate o, thread c < CR crashed candidate c; warp w's ballot is word w
-// of the closure's pure bits; thread 0 runs the two fast-forwards. Blocks
-// past E copy the pool remainder and write the sort's pad rows. Work per
-// level is E*(W+CR) model steps per key: at the keyed first rungs a few
-// thousand, so the kernel costs its launch. Template parameter M is the
-// model; jt_expand instantiates one per model and picks it per launch.
+// K1 expand (B1-B4; tpu.py:377-506, the forced fast-forward :294-346).
+// Replaces the expansion of _search_fn's level body: the [E, W] required
+// grid through the model step, the pure-op closure, the frontier advance
+// with its forced fast-forward, the [E, CR] crashed grid with the
+// canonical-order prune, and the pool remainder, as R sortable rows.
+//
+// What bounds it. Not bytes (the headline's level moves ~25 KB) and not
+// operations (E (W + CR) model steps): latency. At the narrow rungs a few
+// blocks run, and the time is the launch plus the longest chain of
+// dependent loads: the row's pool entry, its window's columns, then a
+// forced run's columns step after step; a crash bound found by binary
+// search over ret would add 13 dependent loads at n = 8,192.
+//
+// Design: a warp per expanded row, EXPAND_WARPS rows a block.
+//   One dependent hop. Hop 0 reads the key's flags, the pool row and the
+//   crashed ops' columns (lane l holds crashed op 32 w + l); hop 1 reads
+//   ret[k], sm[k + W] and, one coalesced pass per column, f, v1, v2, fr
+//   over [k, k + W + 32) (chunk q: lane l holds position k + 32 q + l)
+//   and ro, inv over the window. Candidate o = 32 q + l is lane l's; one ballot per 32
+//   candidates is the closure's pure word, so no shared memory or block
+//   barrier stands between the candidates and the closure.
+//   The crash bound without a search: searchsorted(ret, ., right) is
+//   monotone, so searchsorted(ret, min over untaken cinv) = min(n, min over
+//   untaken cb), cb[i] = searchsorted(ret, cinv[i], right) a column of the
+//   history (checker/gpu.py crash_bounds; n on padded slots): one warp
+//   min over the lanes' crashed ops.
+//   One forced run per row. valid at offset 0 is false where the closure
+//   holds, so at most one of the two successors fast-forwards. The warp
+//   walks it together: the steps' operands come from the preloaded chunks
+//   by __shfl_sync, RUN_STEP positions' at a time ahead of their steps
+//   (they do not depend on the state), one ballot a chunk gives the
+//   state-free part of the test (fr > 0, k < bound, k < nr), and past the
+//   preloaded chunks the warp reads 32 positions at a time, the next
+//   chunk's loads issued when the walk enters a chunk; so a run as long
+//   as the history costs about one step's dependent arithmetic a
+//   position.
+//   Coalesced stores. A row's W required rows (r W + o) and its CR crashed
+//   rows are contiguous: each lane builds its rows in the warp's part of
+//   shared memory and the warp stores them as consecutive words. The
+//   expanded and window-overflow flags are summed per block before one
+//   atomic each. Blocks past the expanding ones write the pool remainder
+//   and the sort's pad rows the same way, two rows a thread.
+// Grid (ceil(E / EXPAND_WARPS) + tail blocks, B); a key whose search is
+// inactive writes nothing. Template parameter M is the model; jt_expand
+// instantiates one per model and picks it per launch.
 // ---------------------------------------------------------------------------
+
+constexpr int EXPAND_WARPS = 4;             // expanded rows a block
+constexpr int NK_MAX = 4 + 2 * MAXW;        // the widest row
+constexpr int CHUNKS = MAXW + 1;            // window chunks and one beyond
+constexpr int STAGE_WORDS = (32 * MAXW + 1) * NK_MAX;  // a warp's rows
+constexpr int TAIL_ROWS = 64 * EXPAND_WARPS;  // rows a tail block writes
+constexpr int RUN_STEP = 8;                 // forced steps a shuffle batch
 
 struct ExpandArgs {
   Cols c;
@@ -289,123 +323,317 @@ struct ExpandArgs {
   int C, W, E, n, CR, MW, MCX, NK, R, RP, lmax;
 };
 
-template <int M>
-__global__ void __launch_bounds__(128) expand_kernel(ExpandArgs a) {
-  const int t = threadIdx.x, b = blockIdx.y;
-  const int MW = a.MW, MCX = a.MCX, NK = a.NK, n = a.n;
-  int* scal = a.scal + (size_t)b * NSCAL;
-  const bool act =
-      scal[DONE] == 0 && scal[NALIVE] > 0 && scal[LEVEL] <= a.lmax;
-  if (blockIdx.x == 0 && t == 0) scal[ACT] = act;
-  if (!act) return;
-  const Cols c = cols_at(a.c, b, n, a.CR);
-  const PoolIn pool = pool_at(a.pool, b, a.C, MW, MCX);
-  int* acc = a.acc + (size_t)b * NACC;
-  int* rows = a.rows + (size_t)b * a.RP * NK;
-  const int nr = a.nr[b];
+// Warp-cooperative copy of `words` consecutive words from shared memory.
+__device__ __forceinline__ void store_words(int* dst, const int* src,
+                                            int words, int lane) {
+  for (int w = lane; w < words; w += 32) dst[w] = src[w];
+}
 
-  if ((int)blockIdx.x >= a.E) {  // pool remainder, then pad rows
-    const int i = (blockIdx.x - a.E) * blockDim.x + t;
-    const int nrem = a.C - a.E;
-    if (i < nrem) {
-      const int p = a.E + i;
+// Rows from R0 = E (W + 1 + CR) on: the unexpanded pool remainder, then
+// the sort's pad rows (key1 = PAD_KEY, the rest 0). A tail block writes
+// TAIL_ROWS of them, two rows a thread, through shared memory.
+__device__ void expand_tail(const ExpandArgs& a, const PoolIn& pool,
+                            bool act, int* rows, int* stage, int tail) {
+  const int MW = a.MW, MCX = a.MCX, NK = a.NK, t = threadIdx.x;
+  const int R0 = a.E * (a.W + 1 + a.CR), first = R0 + tail * TAIL_ROWS;
+  const int cnt = min(TAIL_ROWS, a.RP - first);
+  for (int j = t; j < cnt; j += blockDim.x) {
+    const int i = first + j;
+    int* row = stage + j * NK;
+    if (i < a.R) {
+      const int p = a.E + (i - R0);
       unsigned m[MAXW], cm[MAXW];
-      for (int w = 0; w < MW; ++w) m[w] = pool.mask[p * MW + w];
-      for (int w = 0; w < MCX; ++w) cm[w] = pool.cmask[p * MCX + w];
-      write_row(rows + (size_t)(a.E * (a.W + 1 + a.CR) + i) * NK,
-                pool.k[p], m, MW, cm, MCX, pool.state[p],
+#pragma unroll
+      for (int w = 0; w < MAXW; ++w) {
+        m[w] = w < MW ? pool.mask[p * MW + w] : 0u;
+        cm[w] = w < MCX ? pool.cmask[p * MCX + w] : 0u;
+      }
+      write_row(row, pool.k[p], m, MW, cm, MCX, pool.state[p],
                 pool.alive[p] != 0);
-    } else if (i < nrem + (a.RP - a.R)) {
-      int* row = rows + (size_t)(a.R + i - nrem) * NK;
+    } else {
       row[0] = PAD_KEY;
       for (int w = 1; w < NK; ++w) row[w] = 0;
     }
-    return;
   }
+  if (!act) return;
+  __syncthreads();
+  int* dst = rows + (size_t)first * NK;
+  for (int w = t; w < cnt * NK; w += blockDim.x) dst[w] = stage[w];
+}
 
-  __shared__ unsigned s_pure[4];
-  const int r = blockIdx.x;
+// The forced run from position kk in state ss, by the whole warp (kk, ss
+// warp-uniform): advance while fr > 0, kk < bound, kk < nr and the step
+// succeeds (tpu.py:308-346). Chunk q of the preloaded columns holds
+// positions ke + 32 q + lane; kk - ke lies in [0, W] at the start.
+template <int M>
+__device__ __forceinline__ void forced_run(
+    int& kk, int& ss, int ke, int bound, int nr, int MW, const Cols& c,
+    int n, const int (&pf)[CHUNKS], const int (&pv1)[CHUNKS],
+    const int (&pv2)[CHUNKS], const int (&pfr)[CHUNKS], int lane) {
+  int q = (kk - ke) >> 5, base = ke + 32 * q;
+  int cf = 0, cv1 = 0, cv2 = 0, cfr = 0;    // the current chunk
+  int nf = 0, nv1 = 0, nv2 = 0, nfr = 0;    // the next, once past them
+  auto enter = [&]() {
+    if (q <= MW) {
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i)
+        if (i == q) {
+          cf = pf[i];
+          cv1 = pv1[i];
+          cv2 = pv2[i];
+          cfr = pfr[i];
+        }
+    } else {
+      cf = nf;
+      cv1 = nv1;
+      cv2 = nv2;
+      cfr = nfr;
+    }
+    if (q >= MW) {  // the chunk after this one comes from device memory
+      const int jc = clampi(base + 32 + lane, 0, n - 1);
+      nf = c.f[jc];
+      nv1 = c.v1[jc];
+      nv2 = c.v2[jc];
+      nfr = c.fr[jc];
+    }
+    const int p = base + lane;
+    return __ballot_sync(FULL, cfr > 0 && p < bound && p < nr);
+  };
+  unsigned sgo = enter();
+  for (;;) {
+    const int li = kk - base;
+    if (li == 32) {
+      q += 1;
+      base += 32;
+      sgo = enter();
+      continue;
+    }
+    // positions li .. li + RUN_STEP - 1 of the chunk: their operands by
+    // shuffles, which do not wait on the state, then the dependent steps
+    int f[RUN_STEP], v1[RUN_STEP], v2[RUN_STEP];
+#pragma unroll
+    for (int j = 0; j < RUN_STEP; ++j) {
+      const int src = min(li + j, 31);
+      f[j] = __shfl_sync(FULL, cf, src);
+      v1[j] = __shfl_sync(FULL, cv1, src);
+      v2[j] = __shfl_sync(FULL, cv2, src);
+    }
+    bool go = true;
+#pragma unroll
+    for (int j = 0; j < RUN_STEP; ++j) {
+      const int i = li + j;
+      bool ok;
+      const int s2 = model_step<M>(ss, f[j], v1[j], v2[j], ok);
+      go = go && i < 32 && ((sgo >> (i & 31)) & 1u) && ok;
+      if (go) {
+        kk += 1;
+        ss = s2;
+      }
+    }
+    if (!go && kk - base < 32) break;   // stopped inside the chunk
+  }
+}
+
+// Expanded row r of key b, by one warp into its stage; returns (to every
+// lane) whether the row was alive, and sets wovf where its window
+// overflows. An inactive key (act false, known after the row's first
+// loads are issued) returns at once and writes nothing.
+template <int M>
+__device__ bool expand_row(const ExpandArgs& a, int b, int r, int lane,
+                           bool act, int* st, int* rows, bool& wovf) {
+  const int MW = a.MW, MCX = a.MCX, NK = a.NK, n = a.n, W = a.W, CR = a.CR;
+  const Cols c = cols_at(a.c, b, n, CR);
+  const PoolIn pool = pool_at(a.pool, b, a.C, MW, MCX);
+  const int nr = a.nr[b];
+
+  // hop 0: the row (every lane), the crashed ops (lane l: 32 w + l)
   const int ke = pool.k[r];
   const bool ae = pool.alive[r] != 0;
   const int se = pool.state[r];
   unsigned me[MAXW], cme[MAXW];
+  int xf[MAXW], xv1[MAXW], xv2[MAXW], xinv[MAXW], xps[MAXW], xb[MAXW];
+#pragma unroll
   for (int w = 0; w < MAXW; ++w) {
     me[w] = w < MW ? pool.mask[r * MW + w] : 0u;
     cme[w] = w < MCX ? pool.cmask[r * MCX + w] : 0u;
+    const int ci = 32 * w + lane;
+    const bool in = ci < CR;
+    xf[w] = in ? c.cf[ci] : 0;
+    xv1[w] = in ? c.cv1[ci] : 0;
+    xv2[w] = in ? c.cv2[ci] : 0;
+    xinv[w] = in ? c.cinv[ci] : RET_INF;
+    xps[w] = in ? c.cps[ci] : -1;
+    xb[w] = in ? c.cb[ci] : n;
   }
-  const int retk = c.ret[clampi(ke, 0, n - 1)];
-  if (t == 0 && ae) {
-    atomicAdd(&acc[A_EXPANDED], 1);
-    if (c.sm[clampi(ke + a.W, 0, n)] < retk) atomicOr(&scal[WOVF], 1);
-  }
+  if (!act) return false;
 
-  // the [E, W] required grid: candidate t
-  bool pure = false, valid = false;
-  int s2 = se;
-  if (t < a.W) {
-    const int j = ke + t, jc = clampi(j, 0, n - 1);
-    const bool cand = ae && j < n && c.inv[jc] < retk && !bit(me, t);
-    bool ok;
-    s2 = model_step<M>(se, c.f[jc], c.v1[jc], c.v2[jc], ok);
-    pure = cand && ok && c.ro[jc] > 0;
-    valid = cand && ok && !pure;
+  // hop 1: ret, sm and the columns over [ke, ke + W + 32)
+  const int retk = c.ret[clampi(ke, 0, n - 1)];
+  const int smw = c.sm[clampi(ke + W, 0, n)];
+  int pf[CHUNKS], pv1[CHUNKS], pv2[CHUNKS], pfr[CHUNKS];
+  int pro[MAXW], pinv[MAXW];
+#pragma unroll
+  for (int q = 0; q < CHUNKS; ++q) {
+    const int jc = clampi(ke + 32 * q + lane, 0, n - 1);
+    const bool in = q <= MW;
+    pf[q] = in ? c.f[jc] : 0;
+    pv1[q] = in ? c.v1[jc] : 0;
+    pv2[q] = in ? c.v2[jc] : 0;
+    pfr[q] = in ? c.fr[jc] : 0;
+    if (q < MAXW) {
+      pro[q] = q < MW ? c.ro[jc] : 0;
+      pinv[q] = q < MW ? c.inv[jc] : 0;
+    }
   }
-  const unsigned bal = __ballot_sync(FULL, pure);
-  if ((t & 31) == 0) s_pure[t >> 5] = bal;
-  __syncthreads();
+  wovf = ae && smw < retk;
+
+  // the [E, W] required grid: candidate 32 q + lane
+  bool valid[MAXW];
+  int s2[MAXW];
   unsigned pb[MAXW];
   bool any_pure = false;
-  for (int w = 0; w < MAXW; ++w) {
-    pb[w] = w < MW ? s_pure[w] : 0u;
-    any_pure = any_pure || pb[w] != 0u;
+#pragma unroll
+  for (int q = 0; q < MAXW; ++q) {
+    valid[q] = false;
+    s2[q] = se;
+    pb[q] = 0u;
+    if (q < MW) {
+      const int o = 32 * q + lane, j = ke + o;
+      const bool cand = ae && o < W && j < n && pinv[q] < retk &&
+                        !((me[q] >> lane) & 1u);
+      bool ok;
+      s2[q] = model_step<M>(se, pf[q], pv1[q], pv2[q], ok);
+      const bool pure = cand && ok && pro[q] > 0;
+      valid[q] = cand && ok && !pure;
+      pb[q] = __ballot_sync(FULL, pure);
+    }
+    any_pure = any_pure || pb[q] != 0u;
   }
   const bool closure_ok = ae && any_pure;
-  valid = valid && !closure_ok;
+#pragma unroll
+  for (int q = 0; q < MAXW; ++q) valid[q] = valid[q] && !closure_ok;
 
-  const int grid_rows = a.E * a.W;
-  if (t == 0) {
-    const int bound = crash_bound(cme, c, n, a.CR);
-    // offset 0: advance the frontier past linearized ops, then fast-forward
-    unsigned m1[MAXW], madv[MAXW];
-    shr1(me, m1, MW);
-    const int t1 = trailing_ones(m1, MW);
-    shr_by(m1, t1, madv, MW);
-    int kadv = ke + 1 + t1, s0 = s2;
-    fast_forward<M>(kadv, s0, valid, bound, c, n, nr);
-    write_row(rows + (size_t)(r * a.W) * NK, kadv, madv, MW, cme, MCX, s0,
-              valid);
-    // the closure successor: every pure candidate at once
-    unsigned mc[MAXW], mcl[MAXW];
-    for (int w = 0; w < MW; ++w) mc[w] = me[w] | pb[w];
-    const int tc = trailing_ones(mc, MW);
-    shr_by(mc, tc, mcl, MW);
-    int kcl = ke + tc, scl = se;
-    fast_forward<M>(kcl, scl, closure_ok, bound, c, n, nr);
-    write_row(rows + (size_t)(grid_rows + r) * NK, kcl, mcl, MW, cme, MCX,
-              scl, closure_ok);
-  } else if (t < a.W) {
-    unsigned m2[MAXW];
-    for (int w = 0; w < MAXW; ++w) m2[w] = me[w];
-    m2[t >> 5] |= 1u << (t & 31);
-    write_row(rows + (size_t)(r * a.W + t) * NK, ke, m2, MW, cme, MCX, s2,
-              valid);
+  // the crash bound: min(n, min over untaken crashed ops of cb)
+  int bound = n;
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w)
+    if (32 * w + lane < CR && !((cme[w] >> lane) & 1u))
+      bound = min(bound, xb[w]);
+  bound = __reduce_min_sync(FULL, bound);
+
+  // offset 0: the frontier past linearized ops; the closure: every pure
+  // candidate at once; then the one forced run of the two
+  unsigned m1[MAXW], madv[MAXW], mc[MAXW], mcl[MAXW];
+  shr1(me, m1);
+  const int t1 = trailing_ones(m1);
+  shr_by(m1, t1, madv);
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) mc[w] = me[w] | pb[w];
+  const int tc = trailing_ones(mc);
+  shr_by(mc, tc, mcl);
+  const bool valid0 = __shfl_sync(FULL, (int)valid[0], 0) != 0;
+  const int s0 = __shfl_sync(FULL, s2[0], 0);
+  int kk = closure_ok ? ke + tc : ke + 1 + t1;
+  int ss = closure_ok ? se : s0;
+  if (closure_ok || valid0)
+    forced_run<M>(kk, ss, ke, bound, nr, MW, c, n, pf, pv1, pv2, pfr, lane);
+
+  // the W required rows and the closure row, staged, then stored; a lane
+  // past W (W not a multiple of 32) has no candidate and stages no row
+#pragma unroll
+  for (int q = 0; q < MAXW; ++q) {
+    const int o = 32 * q + lane;
+    if (q < MW && o < W) {
+      if (o == 0) {   // the run is the closure's where that holds
+        write_row(st, closure_ok ? ke + 1 + t1 : kk, madv, MW, cme, MCX,
+                  closure_ok ? s2[0] : ss, valid[0]);
+      } else {
+        unsigned m2[MAXW];
+#pragma unroll
+        for (int w = 0; w < MAXW; ++w)
+          m2[w] = me[w] | (w == q ? 1u << lane : 0u);
+        write_row(st + o * NK, ke, m2, MW, cme, MCX, s2[q], valid[q]);
+      }
+    }
   }
+  if (lane == 0)
+    write_row(st + W * NK, closure_ok ? kk : ke + tc, mcl, MW, cme, MCX,
+              closure_ok ? ss : se, closure_ok);
+  __syncwarp();
+  store_words(rows + (size_t)r * W * NK, st, W * NK, lane);
+  if (lane < NK) rows[((size_t)a.E * W + r) * NK + lane] = st[W * NK + lane];
+  if (CR == 0) return ae;
+  __syncwarp();
 
-  // the [E, CR] crashed grid with the canonical-order prune: crash t
-  if (t < a.CR) {
-    const int ci = t, cp = c.cps[ci];
-    const int prevc = clampi(cp, 0, a.CR - 1);
-    const bool redundant =
-        cp >= 0 && c.cinv[prevc] < retk && !bit(cme, prevc);
-    const bool ccand = ae && !closure_ok && c.cinv[ci] < retk &&
-                       !bit(cme, ci) && !redundant;
-    bool cok;
-    const int cs2 = model_step<M>(se, c.cf[ci], c.cv1[ci], c.cv2[ci], cok);
-    unsigned ccm[MAXW];
-    for (int w = 0; w < MAXW; ++w) ccm[w] = cme[w];
-    ccm[ci >> 5] |= 1u << (ci & 31);
-    write_row(rows + (size_t)(grid_rows + a.E + r * a.CR + ci) * NK, ke, me,
-              MW, ccm, MCX, cs2, ccand && cok && cs2 != se);
+  // the [E, CR] crashed grid with the canonical-order prune: crashed op
+  // ci = 32 w + lane; cinv[cps[ci]] comes from the lane that holds it
+#pragma unroll
+  for (int w = 0; w < MAXW; ++w) {
+    if (32 * w < CR) {
+      const int ci = 32 * w + lane, cp = xps[w];
+      const int prevc = clampi(cp, 0, CR - 1);
+      int pinvc = 0;
+#pragma unroll
+      for (int v = 0; v < MAXW; ++v) {
+        const int x = __shfl_sync(FULL, xinv[v], prevc & 31);
+        pinvc = v == prevc >> 5 ? x : pinvc;
+      }
+      if (ci < CR) {
+        const bool redundant = cp >= 0 && pinvc < retk && !bit(cme, prevc);
+        const bool ccand = ae && !closure_ok && xinv[w] < retk &&
+                           !((cme[w] >> lane) & 1u) && !redundant;
+        bool cok;
+        const int cs2 = model_step<M>(se, xf[w], xv1[w], xv2[w], cok);
+        unsigned ccm[MAXW];
+#pragma unroll
+        for (int v = 0; v < MAXW; ++v)
+          ccm[v] = cme[v] | (v == w ? 1u << lane : 0u);
+        write_row(st + ci * NK, ke, me, MW, ccm, MCX, cs2,
+                  ccand && cok && cs2 != se);
+      }
+    }
+  }
+  __syncwarp();
+  store_words(rows + ((size_t)a.E * (W + 1) + (size_t)r * CR) * NK, st,
+              CR * NK, lane);
+  return ae;
+}
+
+template <int M>
+__global__ void __launch_bounds__(32 * EXPAND_WARPS)
+    expand_kernel(ExpandArgs a) {
+  const int b = blockIdx.y;
+  int* scal = a.scal + (size_t)b * NSCAL;
+  const bool act =
+      scal[DONE] == 0 && scal[NALIVE] > 0 && scal[LEVEL] <= a.lmax;
+  if (blockIdx.x == 0 && threadIdx.x == 0) scal[ACT] = act;
+  __shared__ int stage[EXPAND_WARPS * STAGE_WORDS];
+  __shared__ int flags[EXPAND_WARPS];   // a warp's row: alive 1, wovf 2
+  int* rows = a.rows + (size_t)b * a.RP * a.NK;
+  const int blocks = (a.E + EXPAND_WARPS - 1) / EXPAND_WARPS;
+  if ((int)blockIdx.x >= blocks) {
+    expand_tail(a, pool_at(a.pool, b, a.C, a.MW, a.MCX), act, rows, stage,
+                blockIdx.x - blocks);
+    return;
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * EXPAND_WARPS + warp;
+  bool alive = false, wovf = false;
+  if (r < a.E)
+    alive = expand_row<M>(a, b, r, lane, act, stage + warp * STAGE_WORDS,
+                          rows, wovf);
+  if (!act) return;
+  if (lane == 0) flags[warp] = (alive ? 1 : 0) | (wovf ? 2 : 0);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int expanded = 0, overflow = 0;
+    for (int w = 0; w < EXPAND_WARPS; ++w) {
+      expanded += flags[w] & 1;
+      overflow |= flags[w] & 2;
+    }
+    int* acc = a.acc + (size_t)b * NACC;
+    if (expanded) atomicAdd(&acc[A_EXPANDED], expanded);
+    if (overflow) atomicOr(&scal[WOVF], 1);
   }
 }
 
@@ -869,13 +1097,38 @@ __global__ void scan_carry_kernel(const int* scal, int* g, const int* gagg,
 }
 
 // ---------------------------------------------------------------------------
-// K4 dedup_truncate (B6-B7; tpu.py:589-664). Grid (row blocks, B), one
-// thread per row: the adjacent-duplicate test, the 8-leader subset-dominance
-// test from the group start, and the first-C truncation into the other pool
-// buffer. Warp reductions feed the key's accumulators; the last block of
-// the key to finish (a ticket per key) writes its stats row and scalars and
-// zeroes its accumulators. While a key is inactive its blocks copy its pool
-// through unchanged: the per-lane masked update of tpu.py:652-654.
+// K4 dedup_truncate (B6-B7; tpu.py:589-664): the adjacent-duplicate test,
+// the 8-leader subset-dominance test from the group start, the first-C
+// truncation into the other pool buffer, pk/ps/pa, and the level's
+// counters, stats row and scalars. While a key is inactive its pool is
+// copied through unchanged: the per-lane masked update of tpu.py:652-654.
+//
+// What bounds it. Not bytes (R rows read once, C pool rows written) and
+// not operations: latency. A row's tests read its neighbour and up to 8
+// leader rows found through g; and a key's counters are summed across its
+// blocks, so with a block per 256 rows a level ends in a serial tail
+// through L2 (atomics on the key's accumulators, a fence, a ticket, a
+// barrier, then a fence and volatile reads in the key's last block).
+//
+// Design: two paths, both one CUDA launch; the host picks one per shape
+// (kernels/search.py dedup_one_block).
+//   R <= T (tile_rows: 4,096 rows at every NK up to 12; the single, keyed
+//   and gang states and every model's first rung but the set's):
+//   dedup_block_kernel, one block of up to 1,024 threads per key. It
+//   loads the key's R rows into shared memory with 16-byte loads, at an
+//   odd word stride so that a warp's neighbouring rows fall in different
+//   banks; dup, dominance and truncation then read shared memory only.
+//   The key's flag, thread 0's scalars and K1's expanded count, each
+//   thread's first group start and pool entries are read in the same hop
+//   as the rows. The counters are block reductions (warp reductions into
+//   shared memory, then one warp over those); thread 0 writes the stats
+//   row and the scalars and zeroes the accumulators: no atomic, ticket or
+//   fence. Its shared memory above 48 KB is granted
+//   before a graph capture begins (GRANT_ONLY).
+//   R > T (the wide rungs): dedup_kernel, a thread per row in blocks of
+//   256, warp reductions into the key's accumulators, and the key's last
+//   block (a ticket per key) writing its stats row and scalars and zeroing
+//   its accumulators.
 // ---------------------------------------------------------------------------
 
 struct DedupArgs {
@@ -893,6 +1146,68 @@ struct DedupArgs {
   int C, MW, MCX, NK, CR, R, RP, lmax;
 };
 
+// Both paths' row work. Rows lie at a stride of S words: device memory at
+// NK, a block's shared tile at NK | 1.
+
+// An inactive key's pool entry i, copied through.
+__device__ __forceinline__ void copy_pool(const PoolIn& pin,
+                                          const PoolOut& pout, int i, int MW,
+                                          int MCX) {
+  pout.k[i] = pin.k[i];
+  for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = pin.mask[i * MW + w];
+  for (int w = 0; w < MCX; ++w)
+    pout.cmask[i * MCX + w] = pin.cmask[i * MCX + w];
+  pout.state[i] = pin.state[i];
+  pout.alive[i] = pin.alive[i];
+}
+
+// Row i's tests: fv, the row is valid; dup, the row before has the same
+// (key1, k, mask, state, cmask); dom, one of its group's first LEADERS
+// rows (from gi, used only where crashed) has its (key1, k, mask, state)
+// and a cmask that row i's covers.
+__device__ __forceinline__ void row_tests(const int* rows, int S, int i,
+                                          int gi, int R, int MW, int NK,
+                                          bool crashed, bool& fv, bool& dup,
+                                          bool& dom) {
+  const int* ri = rows + (size_t)i * S;
+  fv = ri[0] <= MAXK;
+  dup = false;
+  dom = false;
+  if (i > 0) {
+    const int* rp = ri - S;
+    dup = fv && rp[0] <= MAXK;
+    for (int w = 0; w < 3 + MW && dup; ++w) dup = ri[w] == rp[w];
+    for (int w = 4 + MW; w < NK && dup; ++w) dup = ri[w] == rp[w];
+  }
+  if (crashed && fv) {
+    for (int p = 0; p < LEADERS && !dom; ++p) {
+      const int li = min(gi + p, R - 1);
+      if (li >= i) break;
+      const int* rl = rows + (size_t)li * S;
+      bool lead = true;
+      for (int w = 0; w < 3 + MW && lead; ++w) lead = rl[w] == ri[w];
+      bool subset = true;
+      for (int w = 4 + MW; w < NK && subset; ++w) {
+        const unsigned cl = rl[w], ci = ri[w];
+        subset = (ci & cl) == cl;
+      }
+      dom = lead && subset;
+    }
+  }
+}
+
+// Pool entry i < C from row ri, alive where the row is unique.
+__device__ __forceinline__ void pool_write(const PoolOut& pout, int i,
+                                           const int* ri, int MW, int MCX,
+                                           bool uniq) {
+  pout.k[i] = ri[1];
+  for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = (unsigned)ri[2 + w];
+  for (int w = 0; w < MCX; ++w)
+    pout.cmask[i * MCX + w] = (unsigned)ri[4 + MW + w];
+  pout.state[i] = ri[2 + MW];
+  pout.alive[i] = uniq;
+}
+
 __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   const int t = threadIdx.x, b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + t;
@@ -901,14 +1216,7 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   const PoolOut pout = pool_at(a.pout, b, C, MW, MCX);
   int* scal = a.scal + (size_t)b * NSCAL;
   if (scal[ACT] == 0) {
-    if (i < C) {
-      pout.k[i] = pin.k[i];
-      for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = pin.mask[i * MW + w];
-      for (int w = 0; w < MCX; ++w)
-        pout.cmask[i * MCX + w] = pin.cmask[i * MCX + w];
-      pout.state[i] = pin.state[i];
-      pout.alive[i] = pin.alive[i];
-    }
+    if (i < C) copy_pool(pin, pout, i, MW, MCX);
     return;
   }
   const int* rows = a.rows + (size_t)b * a.RP * NK;
@@ -919,39 +1227,13 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   bool fv = false, dup = false, dom = false, uniq = false;
   int fk = 0;
   if (i < a.R) {
-    const int* ri = rows + (size_t)i * NK;
-    fv = ri[0] <= MAXK;
-    fk = ri[1];
-    bool cm_eq = i > 0;
-    for (int w = 0; w < MCX && cm_eq; ++w)
-      cm_eq = ri[4 + MW + w] == ri[4 + MW + w - NK];
-    dup = cm_eq && same_grp(rows, i, NK, MW);
-    if (a.CR > 0 && fv) {
-      const int gi = g[i];
-      for (int p = 0; p < LEADERS && !dom; ++p) {
-        const int li = min(gi + p, a.R - 1);
-        if (li >= i) break;
-        const int* rl = rows + (size_t)li * NK;
-        bool lead = true;
-        for (int w = 0; w < 3 + MW && lead; ++w) lead = rl[w] == ri[w];
-        bool subset = true;
-        for (int w = 0; w < MCX && subset; ++w) {
-          const unsigned cl = rl[4 + MW + w], ci = ri[4 + MW + w];
-          subset = (ci & cl) == cl;
-        }
-        dom = lead && subset;
-      }
-    }
+    const int gi = a.CR > 0 ? g[i] : 0;
+    row_tests(rows, NK, i, gi, a.R, MW, NK, a.CR > 0, fv, dup, dom);
+    fk = rows[(size_t)i * NK + 1];
     uniq = fv && !dup && !dom;
   }
   if (i < C) {
-    const int* ri = rows + (size_t)i * NK;
-    pout.k[i] = ri[1];
-    for (int w = 0; w < MW; ++w) pout.mask[i * MW + w] = (unsigned)ri[2 + w];
-    for (int w = 0; w < MCX; ++w)
-      pout.cmask[i * MCX + w] = (unsigned)ri[4 + MW + w];
-    pout.state[i] = ri[2 + MW];
-    pout.alive[i] = uniq;
+    pool_write(pout, i, rows + (size_t)i * NK, MW, MCX, uniq);
     a.pk[(size_t)b * C + i] = pin.k[i];
     a.ps[(size_t)b * C + i] = pin.state[i];
     a.pa[(size_t)b * C + i] = pin.alive[i];
@@ -995,6 +1277,130 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
     scal[BEST] = max(scal[BEST], (int)vacc[A_BEST]);
     scal[NALIVE] = vacc[A_FRONTIER];
     for (int q = 0; q < NACC; ++q) vacc[q] = 0;
+  }
+}
+
+// n rows of NK words from device memory (16-byte aligned) into shared
+// memory at stride S, by the whole block: 16 bytes a thread, then the
+// last words one by one. Word w is word c = w - r NK of row r = w / NK,
+// the division by a multiply as in load_tile.
+__device__ void load_rows(const int* g, int n, int NK, int* sh, int S) {
+  const int total = n * NK, n4 = total >> 2;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const unsigned inv = 0xffffffffu / NK + 1;
+  auto put = [&](int w, int v) {
+    const int r = (int)__umulhi((unsigned)w, inv);
+    sh[r * S + (w - r * NK)] = v;
+  };
+  const int4* g4 = reinterpret_cast<const int4*>(g);
+  for (int q = t; q < n4; q += nt) {
+    const int4 v = g4[q];
+    put(4 * q, v.x);
+    put(4 * q + 1, v.y);
+    put(4 * q + 2, v.z);
+    put(4 * q + 3, v.w);
+  }
+  for (int w = 4 * n4 + t; w < total; w += nt) put(w, g[w]);
+}
+
+// At most 32 registers a thread, so that two blocks of up to 1,024
+// threads share an SM: a 184-key batch at R = 768 in one wave.
+__global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
+  const int t = threadIdx.x, nt = blockDim.x, b = blockIdx.y;
+  const int MW = a.MW, MCX = a.MCX, NK = a.NK, C = a.C, R = a.R;
+  const PoolIn pin = pool_at(a.pin, b, C, MW, MCX);
+  const PoolOut pout = pool_at(a.pout, b, C, MW, MCX);
+  int* scal = a.scal + (size_t)b * NSCAL;
+  int* acc = a.acc + (size_t)b * NACC;
+  extern __shared__ int sh_words[];
+  __shared__ int part[32][6];  // per warp: done, best, dup, dom, lost, kept
+  const int S = NK | 1;
+  const int* g = a.g + (size_t)b * a.RP;
+  // one hop: the key's flag, thread 0's scalars, the thread's first row's
+  // group start and pool entries, and the rows into shared memory
+  const int act = scal[ACT], nr = a.nr[b];
+  int sc[4] = {0, 0, 0, 0};   // thread 0: done, lossy, level, best
+  int expanded = 0;
+  if (t == 0) {
+    sc[0] = scal[DONE];
+    sc[1] = scal[LOSSY];
+    sc[2] = scal[LEVEL];
+    sc[3] = scal[BEST];
+    expanded = acc[A_EXPANDED];
+  }
+  const int g0 = a.CR > 0 && t < R ? g[t] : 0;
+  const int k0 = t < C ? pin.k[t] : 0, s0 = t < C ? pin.state[t] : 0;
+  const uint8_t a0 = t < C ? pin.alive[t] : 0;
+  load_rows(a.rows + (size_t)b * a.RP * NK, R, NK, sh_words, S);
+  if (act == 0) {
+    for (int i = t; i < C; i += nt) copy_pool(pin, pout, i, MW, MCX);
+    return;
+  }
+  __syncthreads();
+
+  int ndup = 0, ndom = 0, nlost = 0, nkept = 0, best = 0;
+  bool done = false;
+  for (int i = t; i < R; i += nt) {
+    const bool first = i == t;
+    const int* ri = sh_words + i * S;
+    const int gi = a.CR > 0 ? (first ? g0 : g[i]) : 0;
+    bool fv, dup, dom;
+    row_tests(sh_words, S, i, gi, R, MW, NK, a.CR > 0, fv, dup, dom);
+    const bool uniq = fv && !dup && !dom;
+    if (i < C) {
+      pool_write(pout, i, ri, MW, MCX, uniq);
+      a.pk[(size_t)b * C + i] = first ? k0 : pin.k[i];
+      a.ps[(size_t)b * C + i] = first ? s0 : pin.state[i];
+      a.pa[(size_t)b * C + i] = first ? a0 : pin.alive[i];
+    }
+    ndup += dup;
+    ndom += dom;
+    nlost += i >= C && uniq;
+    nkept += i < C && uniq;
+    done = done || (fv && ri[1] >= nr);
+    best = max(best, fv ? ri[1] : 0);
+  }
+
+  // the key's sums: each warp's into part, then warp 0's over those
+  const int lane = t & 31, warp = t >> 5;
+  const unsigned d = __reduce_or_sync(FULL, done);
+  const int mx = __reduce_max_sync(FULL, best);
+  const int sdup = __reduce_add_sync(FULL, ndup);
+  const int sdom = __reduce_add_sync(FULL, ndom);
+  const int slost = __reduce_add_sync(FULL, nlost);
+  const int skept = __reduce_add_sync(FULL, nkept);
+  if (lane == 0) {
+    part[warp][0] = d;
+    part[warp][1] = mx;
+    part[warp][2] = sdup;
+    part[warp][3] = sdom;
+    part[warp][4] = slost;
+    part[warp][5] = skept;
+  }
+  __syncthreads();
+  if (warp > 0) return;
+  const bool in = lane < (nt >> 5);
+  const unsigned kd = __reduce_or_sync(FULL, in ? part[lane][0] : 0);
+  const int kbest = __reduce_max_sync(FULL, in ? part[lane][1] : 0);
+  const int kdup = __reduce_add_sync(FULL, in ? part[lane][2] : 0);
+  const int kdom = __reduce_add_sync(FULL, in ? part[lane][3] : 0);
+  const int klost = __reduce_add_sync(FULL, in ? part[lane][4] : 0);
+  const int kkept = __reduce_add_sync(FULL, in ? part[lane][5] : 0);
+  if (lane == 0) {
+    const int level = sc[2];
+    int* srow = a.stats + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
+                              * NSTAT;
+    srow[0] = expanded;
+    srow[1] = kdup;
+    srow[2] = kdom;
+    srow[3] = klost;
+    srow[4] = kkept;
+    scal[DONE] = sc[0] | (kd != 0u);
+    scal[LOSSY] = sc[1] | (klost != 0);
+    scal[LEVEL] = level + 1;
+    scal[BEST] = max(sc[3], kbest);
+    scal[NALIVE] = kkept;
+    for (int q = 0; q < NACC; ++q) acc[q] = 0;
   }
 }
 
@@ -1059,10 +1465,10 @@ cudaError_t allow_smem(Kern kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// What a call of sort_rows_m does: grant the kernels' shared memory and
-// launch them; only grant it (before a graph capture begins); or only
-// launch (inside the capture, where the grant was made before).
-enum { SORT_ALL, SORT_PREPARE, SORT_CAPTURE };
+// What a call of sort_rows_m or dedup_any does: grant the kernels' shared
+// memory and launch them; only grant it (before a graph capture begins);
+// or only launch (inside the capture, where the grant was made before).
+enum { LAUNCH_ALL, GRANT_ONLY, LAUNCH_ONLY };
 
 // K2's launches for keys of M words: the tile pass over tiles of T rows,
 // then `passes` merge passes ping-ponging between rows and alt, the last
@@ -1086,11 +1492,11 @@ int sort_rows_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
                        device_attr(cudaDevAttrMultiProcessorCount));
   const size_t tile_smem = (size_t)cap * (4 * S + 2 * sizeof(uint16_t));
   const size_t merge_smem = (size_t)MERGE_ROWS * (4 * S + sizeof(uint16_t));
-  if (mode != SORT_CAPTURE) {
+  if (mode != LAUNCH_ONLY) {
     cudaError_t e = allow_smem(sort_tile_kernel<TB, M>, tile_smem);
     if (e == cudaSuccess && passes > 0)
       e = allow_smem(sort_merge_kernel<TB, M>, merge_smem);
-    if (e != cudaSuccess || mode == SORT_PREPARE) return (int)e;
+    if (e != cudaSuccess || mode == GRANT_ONLY) return (int)e;
   }
   const int threads = ((cap + V - 1) / V + 31) / 32 * 32;
   int* cur = passes % 2 ? alt : rows;
@@ -1139,14 +1545,64 @@ int sort_any(int* rows, int* alt, const int* scal, int B, int R, int RP,
                                  mode, st, launched);
 }
 
+// K4's launch for B keys: dedup_block_kernel, a block per key, when
+// one_block (R <= T, kernels/search.py dedup_one_block), its shared memory
+// the key's R rows at stride NK | 1; else dedup_kernel, a block per 256
+// rows of each key. Adds the launch to *launched.
+int dedup_any(const DedupArgs& a, int B, int one_block, int mode,
+              cudaStream_t st, int* launched) {
+  if (!one_block) {
+    if (mode == GRANT_ONLY) return 0;
+    dedup_kernel<<<dim3((a.R + 255) / 256, B), 256, 0, st>>>(a);
+    ++*launched;
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)a.R * (a.NK | 1) * sizeof(int);
+  if (mode != LAUNCH_ONLY) {
+    const cudaError_t e = allow_smem(dedup_block_kernel, smem);
+    if (e != cudaSuccess || mode == GRANT_ONLY) return (int)e;
+  }
+  const int threads = a.R < 1024 ? (a.R + 31) / 32 * 32 : 1024;
+  dedup_block_kernel<<<dim3(1, B), threads, smem, st>>>(a);
+  ++*launched;
+  return (int)cudaGetLastError();
+}
+
+DedupArgs dedup_args(const int* rows, const int* g, const PoolIn& pin,
+                     const PoolOut& pout, int* pk, int* ps, uint8_t* pa,
+                     const int* nr, int* scal, int* acc, int* stats, int C,
+                     int W, int CR, int R, int lmax) {
+  DedupArgs a;
+  a.rows = rows;
+  a.g = g;
+  a.pin = pin;
+  a.pout = pout;
+  a.pk = pk;
+  a.ps = ps;
+  a.pa = pa;
+  a.nr = nr;
+  a.scal = scal;
+  a.acc = acc;
+  a.stats = stats;
+  a.C = C;
+  a.MW = mask_words(W);
+  a.MCX = cmask_words(CR);
+  a.NK = 4 + a.MW + a.MCX;
+  a.CR = CR;
+  a.R = R;
+  a.RP = padded_rows(R);
+  a.lmax = lmax;
+  return a;
+}
+
 // B9: one segment of levels as a CUDA graph. A memset node zeroes the
 // segment's level counter, then a WHILE conditional node (its condition 1
 // at each launch) runs its body until K5 clears the condition: the body
 // is a level pair, pool A into pool B, then B back into A, then K5, so
 // the pool pointers are where they started after every iteration and
 // the host's buffers need no swap. The body is captured from the same
-// launch functions as the single-level entry points; K2's shared-memory
-// grant is made before the capture begins.
+// launch functions as the single-level entry points; K2's and K4's
+// shared-memory grants are made before the capture begins.
 struct SegmentGraph {
   cudaGraph_t graph;
   cudaGraphExec_t exec;
@@ -1155,11 +1611,11 @@ struct SegmentGraph {
 // The level pair and K5 captured into `body` on stream st.
 struct PairArgs {
   const int *f, *v1, *v2, *ro, *fr, *inv, *ret, *sm, *cf, *cv1, *cv2, *cinv,
-      *cps, *nr;
+      *cps, *cb, *nr;
   PoolOut a, b;
   int *pk, *ps, *scal, *acc, *rows, *alt, *g, *gagg, *stats, *seg;
   uint8_t* pa;
-  int B, C, W, E, n, CR, lmax, model, tiebreak, T, passes;
+  int B, C, W, E, n, CR, lmax, model, tiebreak, T, passes, dedup_block;
 };
 
 }  // namespace
@@ -1167,18 +1623,12 @@ struct PairArgs {
 extern "C" int jt_expand(const int*, const int*, const int*, const int*,
                          const int*, const int*, const int*, const int*,
                          const int*, const int*, const int*, const int*,
-                         const int*, const int*, const int*, const unsigned*,
-                         const unsigned*, const int*, const uint8_t*, int*,
-                         int*, int*, int, int, int, int, int, int, int, int,
-                         void*, int*);
+                         const int*, const int*, const int*, const int*,
+                         const unsigned*, const unsigned*, const int*,
+                         const uint8_t*, int*, int*, int*, int, int, int, int,
+                         int, int, int, int, void*, int*);
 extern "C" int jt_group_scan(const int*, const int*, int*, int*, int, int,
                              int, int, void*, int*);
-extern "C" int jt_dedup_truncate(const int*, const int*, const int*,
-                                 const unsigned*, const unsigned*, const int*,
-                                 const uint8_t*, int*, unsigned*, unsigned*,
-                                 int*, uint8_t*, int*, int*, uint8_t*,
-                                 const int*, int*, int*, int*, int, int, int,
-                                 int, int, int, void*, int*);
 
 namespace {
 
@@ -1194,22 +1644,23 @@ int capture_pair(const PairArgs& p, cudaGraphConditionalHandle cond,
     const PoolOut& in = level ? p.b : p.a;
     const PoolOut& out = level ? p.a : p.b;
     int e = jt_expand(p.f, p.v1, p.v2, p.ro, p.fr, p.inv, p.ret, p.sm, p.cf,
-                      p.cv1, p.cv2, p.cinv, p.cps, p.nr, in.k, in.mask,
+                      p.cv1, p.cv2, p.cinv, p.cps, p.cb, p.nr, in.k, in.mask,
                       in.cmask, in.state, in.alive, p.scal, p.acc, p.rows,
                       p.B, p.C, p.W, p.E, p.n, p.CR, p.lmax, p.model, st,
                       &counts[0]);
     if (!e)
       e = sort_any(p.rows, p.alt, p.scal, p.B, R, RP, NK, MW, p.tiebreak,
-                   p.T, p.passes, SORT_CAPTURE, st, &counts[1]);
+                   p.T, p.passes, LAUNCH_ONLY, st, &counts[1]);
     if (!e)
       e = jt_group_scan(p.rows, p.scal, p.g, p.gagg, p.B, RP, NK, MW, st,
                         &counts[2]);
     if (!e)
-      e = jt_dedup_truncate(p.rows, p.g, in.k, in.mask, in.cmask, in.state,
-                            in.alive, out.k, out.mask, out.cmask, out.state,
-                            out.alive, p.pk, p.ps, p.pa, p.nr, p.scal, p.acc,
-                            p.stats, p.B, p.C, p.W, p.CR, R, p.lmax, st,
-                            &counts[3]);
+      e = dedup_any(dedup_args(p.rows, p.g,
+                               PoolIn{in.k, in.mask, in.cmask, in.state,
+                                      in.alive},
+                               out, p.pk, p.ps, p.pa, p.nr, p.scal, p.acc,
+                               p.stats, p.C, p.W, p.CR, R, p.lmax),
+                    p.B, p.dedup_block, LAUNCH_ONLY, st, &counts[3]);
     if (e) return e;
   }
   seg_active_kernel<<<1, 256, 0, st>>>(p.scal, p.B, p.lmax, p.seg, cond, 1);
@@ -1228,14 +1679,16 @@ const char* jt_error_string(int code) {
 int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
               const int* fr, const int* inv, const int* ret, const int* sm,
               const int* cf, const int* cv1, const int* cv2, const int* cinv,
-              const int* cps, const int* nr, const int* k,
+              const int* cps, const int* cb, const int* nr, const int* k,
               const unsigned* mask, const unsigned* cmask, const int* state,
               const uint8_t* alive, int* scal, int* acc, int* rows, int B,
               int C, int W, int E, int n, int CR, int lmax, int model,
               void* stream, int* launched) {
-  if (model < 0 || model >= NMODELS) return (int)cudaErrorInvalidValue;
+  if (model < 0 || model >= NMODELS || W < 1 || W > 32 * MAXW ||
+      CR > 32 * MAXW)
+    return (int)cudaErrorInvalidValue;
   ExpandArgs a;
-  a.c = Cols{f, v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps};
+  a.c = Cols{f, v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps, cb};
   a.pool = PoolIn{k, mask, cmask, state, alive};
   a.nr = nr;
   a.scal = scal;
@@ -1252,16 +1705,22 @@ int jt_expand(const int* f, const int* v1, const int* v2, const int* ro,
   a.R = E * (W + 1 + CR) + (C - E);
   a.RP = padded_rows(a.R);
   a.lmax = lmax;
-  const int tail = (C - E) + (a.RP - a.R);
-  const dim3 grid(E + (tail + 127) / 128, B);
+  // the expanding blocks, then the tail blocks over rows [R0, RP)
+  const int tail = a.RP - E * (W + 1 + CR);
+  const dim3 grid((E + EXPAND_WARPS - 1) / EXPAND_WARPS
+                      + (tail + TAIL_ROWS - 1) / TAIL_ROWS,
+                  B);
+  const int threads = 32 * EXPAND_WARPS;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (model) {
-    case M_MUTEX: expand_kernel<M_MUTEX><<<grid, 128, 0, st>>>(a); break;
-    case M_NOOP: expand_kernel<M_NOOP><<<grid, 128, 0, st>>>(a); break;
-    case M_SET: expand_kernel<M_SET><<<grid, 128, 0, st>>>(a); break;
-    case M_UQUEUE: expand_kernel<M_UQUEUE><<<grid, 128, 0, st>>>(a); break;
-    case M_FIFO: expand_kernel<M_FIFO><<<grid, 128, 0, st>>>(a); break;
-    default: expand_kernel<M_CAS><<<grid, 128, 0, st>>>(a); break;
+    case M_MUTEX: expand_kernel<M_MUTEX><<<grid, threads, 0, st>>>(a); break;
+    case M_NOOP: expand_kernel<M_NOOP><<<grid, threads, 0, st>>>(a); break;
+    case M_SET: expand_kernel<M_SET><<<grid, threads, 0, st>>>(a); break;
+    case M_UQUEUE:
+      expand_kernel<M_UQUEUE><<<grid, threads, 0, st>>>(a);
+      break;
+    case M_FIFO: expand_kernel<M_FIFO><<<grid, threads, 0, st>>>(a); break;
+    default: expand_kernel<M_CAS><<<grid, threads, 0, st>>>(a); break;
   }
   ++*launched;
   return (int)cudaGetLastError();
@@ -1271,7 +1730,7 @@ int jt_sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
                  int NK, int MW, int tiebreak, int T, int passes, void* stream,
                  int* launched) {
   return sort_any(rows, alt, scal, B, R, RP, NK, MW, tiebreak, T, passes,
-                  SORT_ALL, (cudaStream_t)stream, launched);
+                  LAUNCH_ALL, (cudaStream_t)stream, launched);
 }
 
 int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int B,
@@ -1297,30 +1756,12 @@ int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
                       int* out_state, uint8_t* out_alive, int* pk, int* ps,
                       uint8_t* pa, const int* nr, int* scal, int* acc,
                       int* stats, int B, int C, int W, int CR, int R,
-                      int lmax, void* stream, int* launched) {
-  DedupArgs a;
-  a.rows = rows;
-  a.g = g;
-  a.pin = PoolIn{in_k, in_mask, in_cmask, in_state, in_alive};
-  a.pout = PoolOut{out_k, out_mask, out_cmask, out_state, out_alive};
-  a.pk = pk;
-  a.ps = ps;
-  a.pa = pa;
-  a.nr = nr;
-  a.scal = scal;
-  a.acc = acc;
-  a.stats = stats;
-  a.C = C;
-  a.MW = mask_words(W);
-  a.MCX = cmask_words(CR);
-  a.NK = 4 + a.MW + a.MCX;
-  a.CR = CR;
-  a.R = R;
-  a.RP = padded_rows(R);
-  a.lmax = lmax;
-  dedup_kernel<<<dim3((R + 255) / 256, B), 256, 0, (cudaStream_t)stream>>>(a);
-  ++*launched;
-  return (int)cudaGetLastError();
+                      int lmax, int one_block, void* stream, int* launched) {
+  return dedup_any(
+      dedup_args(rows, g, PoolIn{in_k, in_mask, in_cmask, in_state, in_alive},
+                 PoolOut{out_k, out_mask, out_cmask, out_state, out_alive},
+                 pk, ps, pa, nr, scal, acc, stats, C, W, CR, R, lmax),
+      B, one_block, LAUNCH_ALL, (cudaStream_t)stream, launched);
 }
 
 int jt_seg_active(const int* scal, int* seg, int B, int lmax, void* stream,
@@ -1348,24 +1789,30 @@ int jt_segment_graph_create(
     const int* f, const int* v1, const int* v2, const int* ro, const int* fr,
     const int* inv, const int* ret, const int* sm, const int* cf,
     const int* cv1, const int* cv2, const int* cinv, const int* cps,
-    const int* nr, int* a_k, unsigned* a_mask, unsigned* a_cmask,
+    const int* cb, const int* nr, int* a_k, unsigned* a_mask,
+    unsigned* a_cmask,
     int* a_state, uint8_t* a_alive, int* b_k, unsigned* b_mask,
     unsigned* b_cmask, int* b_state, uint8_t* b_alive, int* pk, int* ps,
     uint8_t* pa, int* scal, int* acc, int* stats, int* rows, int* alt,
     int* g, int* gagg, int* seg, int B, int C, int W, int E, int n, int CR,
-    int lmax, int model, int tiebreak, int T, int passes, void** out,
-    int* counts) {
-  PairArgs p{f,  v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps, nr,
-             PoolOut{a_k, a_mask, a_cmask, a_state, a_alive},
+    int lmax, int model, int tiebreak, int T, int passes, int dedup_block,
+    void** out, int* counts) {
+  PairArgs p{f,  v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps, cb,
+             nr, PoolOut{a_k, a_mask, a_cmask, a_state, a_alive},
              PoolOut{b_k, b_mask, b_cmask, b_state, b_alive},
              pk, ps, scal, acc, rows, alt, g, gagg, stats, seg, pa,
-             B, C, W, E, n, CR, lmax, model, tiebreak, T, passes};
+             B, C, W, E, n, CR, lmax, model, tiebreak, T, passes,
+             dedup_block};
   const int MW = mask_words(W), MCX = cmask_words(CR);
   const int R = E * (W + 1 + CR) + (C - E);
   for (int i = 0; i < 5; ++i) counts[i] = 0;
   int prep = 0;
   int e = sort_any(rows, alt, scal, B, R, padded_rows(R), 4 + MW + MCX, MW,
-                   tiebreak, T, passes, SORT_PREPARE, nullptr, &prep);
+                   tiebreak, T, passes, GRANT_ONLY, nullptr, &prep);
+  if (!e)
+    e = dedup_any(dedup_args(rows, g, PoolIn{}, PoolOut{}, pk, ps, pa, nr,
+                             scal, acc, stats, C, W, CR, R, lmax),
+                  B, dedup_block, GRANT_ONLY, nullptr, &prep);
   if (e) return e;
   cudaGraph_t graph = nullptr;
   cudaGraphExec_t exec = nullptr;

@@ -19,10 +19,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from jepsen_tpu_torch.checker.gpu import Carry
+from jepsen_tpu_torch.checker.gpu import Carry, crash_bounds
 from jepsen_tpu_torch.kernels import search as K
 
-#: the columns that go to the device: the 13 kernel columns and ``nr``
+#: the columns that go to the device: the kernel columns and ``nr``
 DEVICE_COLS = K.COLS + ("nr",)
 
 
@@ -35,9 +35,13 @@ def stack_cols(cols: Sequence[dict]) -> dict:
 
 def batch_cols_from_numpy(cols: dict, device,
                           out: Optional[dict] = None) -> dict:
-    """Device copies (int32) of a batch's stacked columns: the 13 kernel
-    columns [B, width] and ``nr`` [B]. With ``out``, copies into its
+    """Device copies (int32) of a batch's stacked columns: the kernel
+    columns [B, width] and ``nr`` [B]. Columns from the reference's
+    ``_split_packed`` lack ``cb``; it is computed from their ``ret`` and
+    ``cinv`` (``checker.gpu.crash_bounds``). With ``out``, copies into its
     tensors."""
+    if "cb" not in cols:
+        cols = dict(cols, cb=crash_bounds(cols["ret"], cols["cinv"]))
     res = {} if out is None else out
     for c in DEVICE_COLS:
         a = torch.from_numpy(np.ascontiguousarray(cols[c], np.int32))
@@ -52,7 +56,8 @@ def cols_from_numpy(cols: dict, device, out: Optional[dict] = None) -> dict:
     """One history's columns as a batch of one (see
     :func:`batch_cols_from_numpy`)."""
     return batch_cols_from_numpy(
-        {c: np.asarray(cols[c])[None] for c in DEVICE_COLS}, device, out)
+        {c: np.asarray(cols[c])[None] for c in DEVICE_COLS if c in cols},
+        device, out)
 
 
 def _i32(a) -> torch.Tensor:

@@ -34,14 +34,14 @@ _N = ctypes.POINTER(ctypes.c_int)
 #: argument types of each entry point: pointers, ints, the stream, then
 #: the count its kernel launches are added to
 SIGNATURES = {
-    "jt_expand": [_P] * 22 + [_I] * 8 + [_P, _N],
+    "jt_expand": [_P] * 23 + [_I] * 8 + [_P, _N],
     "jt_sort_rows": [_P] * 3 + [_I] * 8 + [_P, _N],
     "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P, _N],
-    "jt_dedup_truncate": [_P] * 19 + [_I] * 6 + [_P, _N],
+    "jt_dedup_truncate": [_P] * 19 + [_I] * 7 + [_P, _N],
     "jt_seg_active": [_P, _P, _I, _I, _P, _N],
     # the segment graph: the four entry points' pointers and ints for one
     # shape, then where its handle and its body's launch counts go
-    "jt_segment_graph_create": ([_P] * 35 + [_I] * 11
+    "jt_segment_graph_create": ([_P] * 36 + [_I] * 12
                                 + [ctypes.POINTER(_P), _N]),
     "jt_segment_graph_launch": [_P, _P],
     "jt_segment_graph_destroy": [_P],

@@ -10,8 +10,9 @@ tolerance 0). ``chip_smoke.py`` and the card-only tests use it.
 
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from jepsen_tpu_torch import interop
@@ -67,6 +68,92 @@ class Level:
                                  [int(c["nr"]) for c in batch],
                                  stats_rows=self.shape.lmax + 1), device)
         self.scratch = G.empty_scratch(self.shape, device)
+
+    @classmethod
+    def random(cls, shape: K.LevelShape, seed: int, device,
+               inactive: Sequence[int] = (), forced: float = 0.8,
+               lag: int = 24) -> "Level":
+        """A search state of ``shape`` drawn from ``seed`` with numpy, not
+        reached by a search: each key's columns are a random history's
+        (f, v1 and v2 drawn over every model's codes, ret sorted, a share
+        ``forced`` of the ops forced, some crashed slots padded) with
+        ``cb`` computed from them, and its pool C rows drawn with repeats
+        from C / 4 random configurations (any mask and crashed-mask bits,
+        bit 0 included), so that a level meets duplicates, dominated rows,
+        long forced runs and overflowing windows. Each op is invoked 1 to
+        ``lag`` - 1 time units before it returns, returns lying about 8
+        apart: past 8 W every op of a row's window is concurrent with its
+        frontier, and so are the ops after it. The keys in ``inactive``
+        are done."""
+        rng = np.random.default_rng(seed)
+        B, C, W, n, CR = shape.B, shape.C, shape.W, shape.n, shape.CR
+        inf = K.RET_INF
+        cols = {c: [] for c in K.COLS + ("nr",)}
+        for _ in range(B):
+            nr = int(rng.integers(n // 2, n + 1))
+            ret = np.full(n, inf, np.int64)
+            ret[:nr] = np.sort(rng.integers(4, 8 * n, nr))
+            inv = np.full(n, inf, np.int64)
+            inv[:nr] = np.maximum(0, ret[:nr] - rng.integers(1, lag, nr))
+            ncr = int(rng.integers(0, CR + 1))
+            cinv = np.full(CR, inf, np.int64)
+            cinv[:ncr] = rng.integers(0, 8 * n, ncr)
+            cps = np.full(CR, -1, np.int64)
+            for i in range(1, ncr):
+                if rng.random() < 0.3:
+                    cps[i] = rng.integers(0, i)
+            one = {"f": rng.integers(0, 8, n), "v1": rng.integers(-1, 9, n),
+                   "v2": rng.integers(-1, 9, n),
+                   "ro": rng.random(n) < 0.3, "fr": rng.random(n) < forced,
+                   "inv": inv, "ret": ret,
+                   "sm": G._suffix_min_inv(inv.astype(np.int32), n),
+                   "cf": rng.integers(0, 8, CR),
+                   "cv1": rng.integers(-1, 9, CR),
+                   "cv2": rng.integers(-1, 9, CR), "cinv": cinv, "cps": cps,
+                   "cb": G.crash_bounds(ret, cinv), "nr": nr}
+            for c in cols:
+                cols[c].append(np.asarray(one[c]).astype(np.int32))
+        lv = cls.__new__(cls)
+        lv.shape = shape
+        lv.cols = interop.batch_cols_from_numpy(
+            {c: np.stack(v) for c, v in cols.items()}, device)
+        lv.nr = lv.cols["nr"]
+
+        distinct = max(1, C // 4)
+        pick = rng.integers(0, distinct, (B, C))
+        k = rng.integers(0, n + 1, (B, distinct))
+        mbits = rng.random((B, distinct, 32 * shape.MW)) < 0.15
+        mbits[..., W:] = False
+        cbits = rng.random((B, distinct, 32 * shape.MCX)) < 0.3
+        cbits[..., CR:] = False
+        state = rng.integers(-1, 9, (B, distinct))
+        alive = rng.random((B, C)) < 0.8
+
+        def pack(bits):
+            w = bits.reshape(*bits.shape[:-1], -1, 32).astype(np.uint64)
+            return (w << np.arange(32, dtype=np.uint64)).sum(-1).astype(
+                np.uint32).view(np.int32)
+
+        def take(x):
+            return np.take_along_axis(
+                x, pick.reshape(B, C, *([1] * (x.ndim - 2))), axis=1)
+        pool = K.Pool(
+            k=torch.from_numpy(take(k).astype(np.int32)),
+            mask=torch.from_numpy(take(pack(mbits))),
+            cmask=torch.from_numpy(take(pack(cbits))),
+            state=torch.from_numpy(take(state).astype(np.int32)),
+            alive=torch.from_numpy(alive))
+        scal = np.zeros((B, K.NSCAL), np.int32)
+        scal[:, K.LEVEL] = rng.integers(0, 8, B)
+        scal[:, K.NALIVE] = alive.sum(1)
+        scal[list(inactive), K.DONE] = 1
+        carry = G.empty_carry(shape, device)
+        for dst, src in zip(carry.pool.tensors(), pool.tensors()):
+            dst.copy_(src)
+        carry.scal.copy_(torch.from_numpy(scal))
+        lv.carry = carry
+        lv.scratch = G.empty_scratch(shape, device)
+        return lv
 
     def advance(self, levels: int) -> int:
         """Run ``levels`` levels with the kernels, one launch of each a

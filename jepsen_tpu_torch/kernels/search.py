@@ -8,13 +8,15 @@ body, one ``lax.while_loop`` iteration) is four kernels in
 ``expand``          B1-B4: the [E, W] required grid, the pure-op closure,
                     the frontier advance with its forced fast-forward, the
                     [E, CR] crashed grid, the pool remainder; writes R
-                    sortable rows
+                    sortable rows (a warp per expanded row)
 ``sort_rows``       B5 (lex) or B5' (hash): merge sort of the R live
                     rows (the pad tail after them is already in place)
 ``group_scan``      B6: the cummax group-start scan over the sorted rows
 ``dedup_truncate``  B6/B7: dup and 8-leader dominance kills, done/best,
                     first-C truncation into the other pool buffer, lossy,
-                    the five per-level counters, level+1, pk/ps/pa
+                    the five per-level counters, level+1, pk/ps/pa (a
+                    block per key while the rows fit one sort tile,
+                    :func:`dedup_one_block`)
 ==================  =====================================================
 
 The model is part of the shape: ``expand`` steps each candidate through
@@ -114,8 +116,11 @@ NSCAL = 8
  A_TICKET) = range(9)
 NACC = 9
 
+#: the history's columns the kernels take: the reference's 13, then
+#: ``cb``, each crashed op's crash bound (``checker/gpu.py``
+#: ``crash_bounds``), which ``expand`` reads in place of a search over ret
 COLS = ("f", "v1", "v2", "ro", "fr", "inv", "ret", "sm", "cf", "cv1",
-        "cv2", "cinv", "cps")
+        "cv2", "cinv", "cps", "cb")
 
 #: the words of a segment's ``seg`` tensor (int32 [NSEG]): levels run so
 #: far, the segment's bound in levels, and whether to run another pair
@@ -757,6 +762,14 @@ def tile_rows(shape: LevelShape) -> int:
     return T
 
 
+def dedup_one_block(shape: LevelShape) -> bool:
+    """Whether ``dedup_truncate`` takes its one-block-per-key path, the
+    key's rows in shared memory: while the R live rows fit one sort tile
+    (:func:`tile_rows`), whose shared memory holds them at any row width.
+    Past it (the wide rungs) a block takes 256 rows of a key."""
+    return shape.R <= tile_rows(shape)
+
+
 def sort_passes(shape: LevelShape) -> int:
     """The sort's merge passes after its tile pass: ceil(log2(ceil(R /
     T))), 0 when the R live rows fit in one tile."""
@@ -823,7 +836,8 @@ def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
         return
     _launch("dedup_truncate", _lib().jt_dedup_truncate,
             *[_ptr(t) for t in tensors],
-            B, C, shape.W, shape.CR, shape.R, shape.lmax, _stream(rows))
+            B, C, shape.W, shape.CR, shape.R, shape.lmax,
+            int(dedup_one_block(shape)), _stream(rows))
 
 
 def seg_active(scal: torch.Tensor, lmax: int, seg: torch.Tensor) -> None:
@@ -903,8 +917,8 @@ class SegmentGraph:
                   for t in self.tensors],
                 B, C, shape.W, shape.E, n, CR, shape.lmax,
                 MODELS.index(shape.model), TIEBREAKS.index(shape.tiebreak),
-                tile_rows(shape), sort_passes(shape), ctypes.byref(handle),
-                counts)
+                tile_rows(shape), sort_passes(shape),
+                int(dedup_one_block(shape)), ctypes.byref(handle), counts)
         if rc != 0:
             raise RuntimeError(f"segment graph: CUDA error {rc}: "
                                f"{build.error_string(rc)}")

@@ -594,9 +594,10 @@ def _gang_cols():
 #: the smoke's states, at a small size: single, keyed staggered (hash)
 #: and dense (both tie-breaks), the deferred keys' wide rung, a gang with
 #: a lane cancelled after the first segment, the sort's odd merge pass,
-#: four mask words, and each model's first rung
+#: four mask words, a sequential history (one forced run through it), and
+#: each model's first rung
 ROUTE_STATES = ("single", "stag", "dense lex", "dense hash", "dwide",
-                "gang", "odd", "wide") + MODEL_NAMES
+                "gang", "odd", "wide", "seq") + MODEL_NAMES
 
 
 def _route_state(name):
@@ -622,6 +623,8 @@ def _route_state(name):
         "odd": lambda: (batch[1:], (1024, 32, 64), "lex", reg, None),
         "wide": lambda: ([_cols(FIXTURES["wide100"]())[2]], (512, 128, 512),
                          "lex", reg, None),
+        "seq": lambda: ([_cols(_sequential())[2]], (32, 32, 4), "lex", reg,
+                        None),
     }[name]()
 
 
@@ -738,3 +741,93 @@ def test_engine_eviction_destroys_the_segment_graph(cuda, monkeypatch):
     for x, y in zip(first, again, strict=True):
         assert np.array_equal(x, y)
     assert int(second[8]) > 0
+
+
+# -- K1 (a warp per expanded row) and K4 (a block per key) ------------------
+
+
+def _sequential():
+    """One client's history: every op is forced, so the first level's
+    offset-0 successor runs through the whole history."""
+    return simulate_register_history(3000, n_procs=1, n_vals=8, seed=11)
+
+
+@pytest.mark.parametrize("CR", [0, 8, 40])
+@pytest.mark.parametrize("W", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("model", K.MODELS)
+def test_each_kernel_matches_its_plain_version_on_random_states(
+        cuda, model, W, CR):
+    """K1 at one, two and four mask words, windows that are not a
+    multiple of 32 among them (lanes past W have no candidate), and zero,
+    one and two crashed mask words (CR = 40), every model, three keys one
+    of them done; the other kernels from the plain versions' outputs."""
+    shape = K.LevelShape(64, W, 8, 256, CR, B=3, model=model)
+    lv = parity.Level.random(shape, W + CR, cuda, inactive=(1,))
+    for stage, _, _, _, err in lv.walk():
+        assert err == 0, (model, W, CR, stage)
+
+
+@pytest.mark.parametrize("CR", [0, 40])
+@pytest.mark.parametrize("W", [16, 48])
+@pytest.mark.parametrize("model", K.MODELS)
+def test_expand_gives_the_lanes_past_the_window_no_candidate(cuda, model, W,
+                                                             CR):
+    """A window that is not a multiple of 32, every row expanded, and
+    every op concurrent with every other (lag = the returns' whole span):
+    the last mask word's lanes past W then meet ops that would be
+    candidates, and they must stay out of the closure and the rows, as in
+    the plain version."""
+    shape = K.LevelShape(64, W, 64, 256, CR, B=3, model=model)
+    lv = parity.Level.random(shape, W + CR, cuda, inactive=(1,),
+                             lag=8 * shape.n)
+    for stage, _, _, _, err in lv.walk():
+        assert err == 0, (model, W, CR, stage)
+
+
+def test_expand_runs_a_sequential_history_to_its_end(cuda):
+    """The first level of a one-client history: its one forced run (the
+    closure's, the first op being a read) crosses every 32-op chunk of
+    the history, bit for bit with the plain version, and ends at the last
+    required op."""
+    _, _, cols = _cols(_sequential())
+    lv = parity.Level(cols, (32, 32, 4), cuda)
+    stage, kern, _, state, err = next(lv.walk())
+    assert stage == "expand" and err == 0
+    carry, scratch = parity.copy_state(*state)
+    kern(carry, scratch)
+    closure = lv.shape.E * lv.shape.W
+    assert int(scratch.rows[0, closure, 1]) == int(cols["nr"]) > 2000
+
+
+@pytest.mark.parametrize("model", ["noop", "cas-register"])
+def test_expand_matches_on_long_forced_runs(cuda, model):
+    """Every op forced and no crashed op: runs as long as the random
+    states allow (a no-op run to the history's end), at W = 32, 48 and
+    128."""
+    for W in (32, 48, 128):
+        shape = K.LevelShape(64, W, 16, 2048, 0, B=2, model=model)
+        lv = parity.Level.random(shape, 5, cuda, forced=1.0)
+        for stage, _, _, _, err in lv.walk():
+            assert err == 0, (model, W, stage)
+
+
+@pytest.mark.parametrize("CR,C", [(0, 2048), (0, 2049), (8, 1536),
+                                  (8, 1537)])
+def test_dedup_matches_on_both_sides_of_one_block(cuda, CR, C):
+    """R = T = 4,096 takes the block-per-key path, R = T + 1 the
+    multi-block one; a done key among live ones is copied through; each
+    is one CUDA launch and leaves every active key's accumulators zero."""
+    shape = K.LevelShape(C, 32, 64, 256, CR, B=3)
+    assert shape.R == K.tile_rows(shape) + (C % 2)
+    assert K.dedup_one_block(shape) == (C % 2 == 0)
+    lv = parity.Level.random(shape, C, cuda, inactive=(1,))
+    for stage, kern, _, state, err in lv.walk():
+        assert err == 0, (CR, C, stage)
+        if stage == "dedup_truncate":
+            carry, scratch = parity.copy_state(*state)
+            before = K.grid_launches_total["dedup_truncate"]
+            kern(carry, scratch)
+            assert K.grid_launches_total["dedup_truncate"] == before + 1
+            assert int(scratch.acc[[0, 2]].abs().sum()) == 0
+            assert int(carry.scal[1, K.LEVEL]) == int(state[0].scal[1,
+                                                                   K.LEVEL])

@@ -135,10 +135,14 @@ def test_split_packed_matches_jax(name):
     cr = G._crash_width(pp.n - pp.n_required)
     assert cr == T._crash_width(p.n - p.n_required)
     ours = G._split_packed(pp, G._bucket(pp.n_required), cr, pkernel)
-    assert sorted(ours) == sorted(cols) and list(G._COLS) == list(T._COLS)
+    # the reference's columns, and the port's crash-bound column
+    assert sorted(ours) == sorted(list(cols) + ["cb"])
+    assert [c for c in G._COLS if c != "cb"] == list(T._COLS)
     for c in T._COLS:
         a, b = np.asarray(cols[c]), np.asarray(ours[c])
         assert a.dtype == b.dtype and np.array_equal(a, b), c
+    cb = np.searchsorted(cols["ret"], cols["cinv"], side="right")
+    assert ours["cb"].dtype == np.int32 and np.array_equal(ours["cb"], cb)
     assert G._window_needed(pp) == T._window_needed(p)
     assert G._level_budget(300, 16) == T._level_budget(300, 16)
 

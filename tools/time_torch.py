@@ -8,19 +8,22 @@ line with
 
 * the 10k-op register headline's first check through ``linearizable``
   (cold: the level buffers are allocated in it);
-* each kernel's device ms (median of 30 launches, each behind a
-  device-side sleep) one level past the headline's state at its rung;
-* K2's device ms and ``torch.sort``'s on the same inputs (an int64 key
-  of the comparator's first two words, as ``chip_smoke.py`` times it) at
-  the states ``chip_smoke.py`` holds K2 at: single, wide, stag and dense
-  under both tie-breaks, dwide, gang, the odd-pass state and each model's
-  first rung;
+* at every state ``chip_smoke.py`` holds the kernels at (single, wide,
+  sequential, stag and dense under both tie-breaks, dwide, gang, the
+  odd-pass state and each model's first rung), one level past it, each
+  kernel held against its plain version and timed as ``chip_smoke.py``
+  times it (``check_and_time`` without the plain versions' times): its
+  device ms (median of 30 launches, each behind a device-side sleep), its
+  ms as a node of a CUDA graph of 64 launches of it alone, its bound, and
+  ``torch.sort``'s and ``torch.cummax``'s ms on K2's and K3's inputs;
 * warm, end to end: the 10k-op register headline through
   ``linearizable``, the set model's 10,000-add history, the mutex's
   10,000-op history, the 256-key dense batch through ``check_keyed_gpu``
   (wall and device-batch seconds), and a gang of 8 same-bucket 2,000-op
   requests against the same 8 one by one; the summary divides the
-  single-history seconds by their levels (per-level ms).
+  seconds by their levels (per-level ms: the keyed batch's device
+  seconds by its levels launched, the gang's by its deepest member's
+  levels).
 
 The states, histories and rungs are ``chip_smoke.py``'s (this checkout's
 copy, read as data; its helpers import the package from ROOT).
@@ -56,35 +59,6 @@ def smoke_module():
     return mod
 
 
-def level_ms(lv, S, every=False):
-    """K2's device ms and torch.sort's from the inputs K2 takes one level
-    past ``lv``'s state; with ``every``, also each other kernel's device
-    ms from its inputs (``kernel_ms``)."""
-    from jepsen_tpu_torch.kernels import parity
-    from jepsen_tpu_torch.kernels import search as K
-    out = {"R": lv.shape.R, "B": lv.shape.B, "kernel_ms": {}}
-    for name, kern, _, state, err in lv.walk():
-        assert err == 0, f"{name}: kernel and plain version disagree"
-        if name != "sort_rows" and not every:
-            continue
-        ms = S.device_ms(kern, lambda: parity.copy_state(*state))
-        out["kernel_ms"][name] = ms
-        if name != "sort_rows":
-            continue
-        rows = state[1].rows
-        second = (K.row_hash_plain(rows, lv.shape.MW)
-                  if lv.shape.tiebreak == "hash"
-                  else rows[..., 1].to(torch.int64) + 2**31)
-        key = rows[..., 0].to(torch.int64) * 2**32 + second
-        out["ms"] = ms
-        out["library_ms"] = S.device_ms(
-            lambda k: torch.sort(k, dim=1, stable=True),
-            lambda: (key.clone(),))
-    if not every:
-        del out["kernel_ms"]
-    return out
-
-
 def one_checkout(root: str) -> dict:
     sys.path.insert(0, root)
     S = smoke_module()
@@ -101,7 +75,8 @@ def one_checkout(root: str) -> dict:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     build.load()
-    out = {"root": root, "build_s": time.perf_counter() - t0, "k2": {}}
+    out = {"root": root, "build_s": time.perf_counter() - t0,
+           "states": {}}
     head = testing.simulate_register_history(**S.HEADLINE)
     reg = linearizable(CASRegister(), device=dev)
     t0 = time.perf_counter()
@@ -116,18 +91,22 @@ def one_checkout(root: str) -> dict:
         return p, kernel, G._split_packed(
             p, breq or G._bucket(p.n_required), cr, kernel)
 
-    def state(tag, cols, rung, warm, every=False, **kw):
+    def state(tag, cols, rung, warm, **kw):
         lv = parity.Level(cols, rung, dev, **kw)
         assert lv.advance(warm) > 0, tag
-        out["k2"][tag] = level_ms(lv, S, every)
+        res = S.check_and_time(lv, parity, plain_times=False)
+        out["states"][tag] = {"R": lv.shape.R, "B": lv.shape.B, **{
+            name: {k: r[k] for k in ("ms", "graph_ms", "bound_ms",
+                                     "library_ms")}
+            for name, r in res.items()}}
 
     _, _, head_cols = cols_of(head)
-    state("single", head_cols, S.HEADLINE_RUNG, S.HEADLINE_WARM_LEVELS,
-          every=True)
-    out["kernel_ms"] = out["k2"]["single"].pop("kernel_ms")
+    state("single", head_cols, S.HEADLINE_RUNG, S.HEADLINE_WARM_LEVELS)
     wide = testing.crash_writes(testing.wide_history(**S.WIDE),
                                 S.WIDE_CRASHED_WRITES)
     state("wide", cols_of(wide)[2], S.WIDE_RUNG, S.WIDE_WARM_LEVELS)
+    seq = testing.simulate_register_history(**S.SEQUENTIAL)
+    state("sequential", cols_of(seq)[2], S.HEADLINE_RUNG, 0)
 
     keyed = {label: [testing.simulate_register_history(
         S.KEY_OPS, n_procs=5, n_vals=8, seed=7000 + k, **kw)
@@ -203,7 +182,7 @@ def one_checkout(root: str) -> dict:
 
     kernel = packs[0][1]
     g_times, s_times = [], []
-    G.check_packed_gang_gpu(gang, kernel, device=dev)
+    members = G.check_packed_gang_gpu(gang, kernel, device=dev)
     for rep in range(E2E_REPS):
         for mode in (("gang", "serial") if rep % 2 == 0
                      else ("serial", "gang")):
@@ -215,7 +194,8 @@ def one_checkout(root: str) -> dict:
                 for p in gang:
                     G.check_packed_gpu(p, kernel, device=dev)
                 s_times.append(time.perf_counter() - t1)
-    out["gang_vs_serial"] = {"gang_s": g_times, "serial_s": s_times}
+    out["gang_vs_serial"] = {"gang_s": g_times, "serial_s": s_times,
+                             "levels": max(m["levels"] for m in members)}
     return out
 
 
@@ -240,13 +220,19 @@ def turns(a: str, b: str, dest=None) -> int:
     for root in (a, b):
         mine = [r for r in runs if r["root"] == os.path.abspath(root)]
         med = statistics.median
+        states = mine[0]["states"]
         summary[root] = {
-            "k2_ms": {tag: [r["k2"][tag]["ms"] for r in mine]
-                      for tag in mine[0]["k2"]},
-            "library_ms": {tag: [r["k2"][tag]["library_ms"] for r in mine]
-                           for tag in mine[0]["k2"]},
-            "kernel_ms": {name: [r["kernel_ms"][name] for r in mine]
-                          for name in mine[0]["kernel_ms"]},
+            # per state and kernel: [isolated ms, in-graph ms] of each run
+            "kernels": {tag: {name: [[r["states"][tag][name][k]
+                                      for k in ("ms", "graph_ms")]
+                                     for r in mine]
+                              for name in states[tag]
+                              if name not in ("R", "B")}
+                        for tag in states},
+            "bound_ms": {tag: {name: v["bound_ms"]
+                               for name, v in states[tag].items()
+                               if name not in ("R", "B")}
+                         for tag in states},
             "headline_cold_s": [r["headline_cold_s"] for r in mine],
             "headline_warm_s": med(t for r in mine
                                    for t in r["headline"]["warm_s"]),
@@ -262,6 +248,8 @@ def turns(a: str, b: str, dest=None) -> int:
                                        r["keyed_dense"]["batch_s"]),
             "gang_s": med(t for r in mine
                           for t in r["gang_vs_serial"]["gang_s"]),
+            "gang_levels": mine[0]["gang_vs_serial"]["levels"],
+            "keyed_dense_levels": mine[0]["keyed_dense"]["levels_launched"],
             "serial_s": med(t for r in mine
                             for t in r["gang_vs_serial"]["serial_s"]),
         }
@@ -269,6 +257,10 @@ def turns(a: str, b: str, dest=None) -> int:
         one["per_level_ms"] = {
             name: one[f"{name}_warm_s"] / one[f"{name}_levels"] * 1e3
             for name in ("headline", "set", "mutex")}
+        one["per_level_ms"]["gang"] = (one["gang_s"] / one["gang_levels"]
+                                       * 1e3)
+        one["per_level_ms"]["keyed_dense"] = (
+            one["keyed_dense_batch_s"] / one["keyed_dense_levels"] * 1e3)
     print(json.dumps(summary), flush=True)
     if dest:
         with open(dest, "w") as fh:
