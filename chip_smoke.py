@@ -10,8 +10,13 @@ window-deferred keys run on (lex, R = 37,376 rows: four merge passes), at
 each model's first rung, and at the mutex history's second rung (one
 merge pass); there it also counts the CUDA launches one call of each
 kernel makes, as the C entry points count them, against the count the
-shape predicts. Then it drives both paths end to end, counting each
-kernel's launches on each: the 10k-op CAS-register headline history through
+shape predicts. Each state holds the kernels its level launches: K3
+``group_scan`` only on the wide rungs of a search with crashed ops (on
+the narrow ones K4 scans the group starts in its shared memory, and is
+held against both plain versions); at each state K5 ``seg_active``
+standing alone, and K4 ending a level pair with K5's step, as the
+segment graph runs it. Then it drives both paths end to end, counting
+each kernel's launches on each: the 10k-op CAS-register headline history through
 ``linearizable(CASRegister())``, held against the plain versions, an
 invalid and a wide history; the keyed batch through
 ``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
@@ -168,6 +173,12 @@ LOOP_PATHS = {"headline": "headline", "keyed": "keyed dense hash",
               "models": "model_mutex", "serve": "gang"}
 
 SOURCE = "jepsen_tpu_torch/csrc/search.cu"
+#: the state and path each kernel's line in the kernels JSON is read at,
+#: where not the headline's: the hash sort runs on the keyed first rungs
+#: only, K3 as a launch of its own on the wide rungs of a search with
+#: crashed ops (the keyed path's window-deferred keys)
+MAIN_STATE = {"sort_rows_hash": ("keyed staggered hash", "keyed"),
+              "group_scan": ("keyed dense wide lex", "keyed")}
 KERNELS = ("expand", "sort_rows", "sort_rows_hash", "group_scan",
            "dedup_truncate", "seg_active")
 REPLACES = {
@@ -303,8 +314,8 @@ def check_and_time(lv, parity, plain_times=True):
                 lambda: (key.clone(),))
         if name == "group_scan":
             # the same scan as one PyTorch call: cummax over each key's
-            # [RP] int32 vector of group starts (tpu.py:605)
-            rows = state[1].rows
+            # [R] int32 vector of group starts (tpu.py:605)
+            rows = state[1].rows[:, :lv.shape.R]
             iota = torch.arange(rows.shape[1], device=rows.device,
                                 dtype=torch.int32)
             v = torch.where(K._same_grp(rows, lv.shape.MW), 0, iota)
@@ -316,11 +327,20 @@ def check_and_time(lv, parity, plain_times=True):
 
 def add_bounds(out, lv):
     """The least time the card could take for each kernel's work on this
-    state: bytes (each input read once, each output written once) over
-    HBM bandwidth, against integer operations over the 32-bit rate."""
+    state (those the level launched, in ``out``): bytes (each input read
+    once, each output written once) over HBM bandwidth, against integer
+    operations over the 32-bit rate. Where K4 scans the group starts
+    itself, the scan's compares are K4's too, its reads are the rows K4
+    reads anyway, and no g is read."""
     sh = lv.shape
     B, C, E, W, R, NK, MW, MCX, CR = (sh.B, sh.C, sh.E, sh.W, sh.R, sh.NK,
                                       sh.MW, sh.MCX, sh.CR)
+    scan_ops = R * (3 + MW)
+    gagg_b = 4 * -(-R // 1024)     # K3's block maxima
+    # K4's group starts: from K3 (g and gagg read), scanned in K4, or
+    # none (CR = 0)
+    starts_b = R * 4 + gagg_b if "group_scan" in out else 0
+    fused_ops = scan_ops if CR and "group_scan" not in out else 0
     pool_b = C * (4 * (2 + MW + MCX) + 1)
     # the column entries the expanded rows' windows touch, five words each
     # (f, v1, v2, ro, inv), the crashed columns, and ret and sm per row
@@ -337,12 +357,16 @@ def add_bounds(out, lv):
                    B * E * (W + CR) * 24),
         sort_name(sh): (B * 2 * R * NK * 4,
                         B * (R * max(1, int(np.log2(R))) * NK + hash_ops)),
-        "group_scan": (B * (R * (3 + MW) * 4 + R * 4), B * R * (3 + MW)),
-        "dedup_truncate": (B * (R * NK * 4 + R * 4 + pool_b
+        "group_scan": (B * (R * (3 + MW) * 4 + R * 4 + gagg_b),
+                       B * scan_ops),
+        "dedup_truncate": (B * (R * NK * 4 + starts_b + pool_b
                                 + C * (4 * (4 + MW + MCX) + 2)),
-                           B * R * (NK + (8 * (3 + MW + MCX) if CR else 0))),
+                           B * (R * (NK + (8 * (3 + MW + MCX) if CR else 0))
+                                + fused_ops)),
     }
     for name, (nbytes, nops) in work.items():
+        if name not in out:
+            continue
         tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
         out[name].update(bound_ms=max(tb, to),
                          bound_by="bytes" if tb >= to else "operations",
@@ -445,9 +469,11 @@ def load_state(dst, src):
 
 
 def check_seg_active(lv):
-    """K5 against its plain version at ``lv``'s scalars over segment words
-    below, at and past their bound (tolerance 0), then timed beside its
-    plain version and ``torch.any`` over the same keys' active flags."""
+    """K5 standing alone, the step of the host loop's route
+    (``run_segment`` on other ops than the kernels): against its plain
+    version at ``lv``'s scalars over segment words below, at and past
+    their bound (tolerance 0), then timed beside its plain version and
+    ``torch.any`` over the same keys' active flags."""
     from jepsen_tpu_torch.kernels import parity
     from jepsen_tpu_torch.kernels import search as K
     scal, lmax, B = lv.carry.scal.clone(), lv.shape.lmax, lv.shape.B
@@ -479,6 +505,54 @@ def check_seg_active(lv):
             "bytes": nbytes, "ops": nops}
 
 
+#: segment words (levels run, bound) the pair's end is held at: below,
+#: at and past the bound
+SEG_CASES = ((0, 2), (0, 1024), (1022, 1024), (5, 4))
+
+
+def check_pair_end(lv, plain_times=True):
+    """K5's step where the main path runs it: K4 ending a level pair (the
+    segment graph's second K4, K5's step in its tail) against
+    ``dedup_truncate_plain`` and then ``seg_active_plain``, from the inputs
+    of ``lv``'s next K4 and over segment words below, at and past their
+    bound (tolerance 0); then timed alone and as a graph node (the segment
+    graph runs it so), beside K4's graph node without the step, with the
+    bound of K4's work and the step's (:func:`add_bounds`, the segment
+    words read and written, and at B > 1 each key's ticket). No one
+    PyTorch call computes K4 and the step."""
+    from jepsen_tpu_torch.kernels import parity
+    from jepsen_tpu_torch.kernels import search as K
+    err, state = lv.pair_end(SEG_CASES)
+    assert err == 0, "dedup_truncate ending a pair: kernel and plain differ"
+    seg = torch.tensor([0, 1 << 30, 0, 0], dtype=torch.int32,
+                       device=lv.carry.scal.device)
+    kern = lv.dedup_call(K.dedup_truncate, seg)
+    before = K.grid_launches_total["dedup_truncate"]
+    kern(*parity.copy_state(*state))
+    per_call = K.grid_launches_total["dedup_truncate"] - before
+    assert per_call == K.grid_launches("dedup_truncate", lv.shape), per_call
+    out = {"dedup_truncate": {}}
+    if K.group_scan_runs(lv.shape):
+        out["group_scan"] = {}
+    add_bounds(out, lv)
+    B = lv.shape.B
+    nbytes = out["dedup_truncate"]["bytes"] + 2 * 4 * K.NSEG + (
+        8 * B if B > 1 else 0)
+    nops = out["dedup_truncate"]["ops"] + 5 * B
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+    plain = lv.dedup_call(K.dedup_truncate_plain, seg)
+    return {"max_abs_err": err, "cuda_launches_per_call": per_call,
+            "ms": device_ms(kern, lambda: parity.copy_state(*state)),
+            "graph_ms": graph_ms(kern, parity.copy_state(*state)),
+            "dedup_graph_ms": graph_ms(lv.dedup_call(K.dedup_truncate),
+                                       parity.copy_state(*state)),
+            "plain_ms": (host_ms(plain, lambda: parity.copy_state(*state))
+                         if plain_times else None),
+            "library_ms": None, "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bytes": nbytes, "ops": nops}
+
+
 def segment_loop(tag, lv, cancel):
     """The segment graph against the host loop over the kernels and the
     plain route, from ``lv``'s state: one segment of at most LOOP_LEVELS
@@ -498,13 +572,14 @@ def segment_loop(tag, lv, cancel):
                                      graph_state[1], lv.shape, lv.nr,
                                      LOOP_LEVELS)
         assert graph is not None, tag
-        return G.end_segment(graph_state[0], lv.shape, words, graph)[0]
+        return (G.end_segment(graph_state[0], lv.shape, words, graph)[0],
+                words)
 
     graph_segment()
     load_state(graph_state, state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run = graph_segment()
+    run, graph_words = graph_segment()
     graph_s = time.perf_counter() - t0
     levels = run + run % 2
     host_state = parity.copy_state(*state)
@@ -519,7 +594,10 @@ def segment_loop(tag, lv, cancel):
                              lv.shape, lv.nr, LOOP_LEVELS, G.PLAIN)
     carries = [interop.batch_carry_to_numpy(c) for c, _ in (
         graph_state, host_state, plain_state)]
-    assert int(words[0]) == run, (tag, int(words[0]), run)
+    # levels run, bound, go and the batch's ticket (back at 0): the pair's
+    # end in the graph's last K4 against the plain route's K5
+    assert graph_words.tolist() == words.tolist(), (
+        tag, graph_words.tolist(), words.tolist())
     assert carries_equal(carries[0], carries[1]), (tag, "host loop")
     assert carries_equal(carries[0], carries[2]), (tag, "plain route")
     return {"B": lv.shape.B, "levels_run": run, "graph_s": graph_s,
@@ -531,11 +609,12 @@ def segment_loop(tag, lv, cancel):
 def segment_loop_phases(dev, seconds, recipes, head_p, head_kernel, r):
     """The segment loop at every state the kernels are held at (the
     ``recipes`` so far, then the gang's, each model's and the odd-pass
-    state): K5 against its plain version, and the graph loop against the
-    host loop and the plain route (:func:`segment_loop`); then the
-    headline checkpointed after its third segment and resumed, against
-    its uninterrupted result ``r``. Returns the per-state loop lines and
-    K5's numbers."""
+    state): K4 ending a level pair and K5 standing alone against their
+    plain versions, and the graph loop against the host loop and the
+    plain route (:func:`segment_loop`); then the headline checkpointed
+    after its third segment and resumed, against its uninterrupted result
+    ``r``. Returns the per-state loop lines and K5's numbers: the pair's
+    end in K4, with K5 alone under ``host_loop``."""
     from jepsen_tpu_torch import resilience
     from jepsen_tpu_torch.checker import gpu as G
     from jepsen_tpu_torch.kernels import parity
@@ -556,14 +635,22 @@ def segment_loop_phases(dev, seconds, recipes, head_p, head_kernel, r):
         for tag, cols_np, rung, kw, warm in recipes:
             lv = parity.Level(cols_np, rung, dev, **kw)
             assert lv.advance(warm) > 0, tag
-            k5[tag] = check_seg_active(lv)
+            k5[tag] = check_pair_end(lv)
+            alone = k5[tag]["host_loop"] = check_seg_active(lv)
             loops[tag] = segment_loop(tag, lv, tag in LOOP_CANCELLED)
             loops[tag]["rung"] = list(rung)
+            end = k5[tag]
             print(f"segment loop {tag}: {json.dumps(loops[tag])} "
-                  f"seg_active ms={k5[tag]['ms']:.4f} "
-                  f"plain_ms={k5[tag]['plain_ms']:.3f} "
-                  f"torch.any ms={k5[tag]['library_ms']:.4f} "
-                  f"bound_ms={k5[tag]['bound_ms']:.7f}", flush=True)
+                  f"dedup_truncate ending the pair ms={end['ms']:.4f} "
+                  f"graph_ms={end['graph_ms']:.4f} (without the step "
+                  f"{end['dedup_graph_ms']:.4f}) plain_ms="
+                  f"{end['plain_ms']:.3f} bound_ms={end['bound_ms']:.6f} "
+                  f"err={end['max_abs_err']}; seg_active alone (host "
+                  f"loop) ms={alone['ms']:.4f} "
+                  f"graph_ms={alone['graph_ms']:.4f} "
+                  f"plain_ms={alone['plain_ms']:.3f} "
+                  f"torch.any ms={alone['library_ms']:.4f} "
+                  f"bound_ms={alone['bound_ms']:.7f}", flush=True)
 
     with phase("resume", seconds):
         path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -637,10 +724,12 @@ def model_phases(dev, seconds, shapes):
         for tag, (model, kernel, h) in model_runs.items():
             mchecker = linearizable(model, device=dev)
             before = dict(K.launches)
+            ends = K.segments["pair_ends"]
             t0 = time.perf_counter()
             rm = mchecker.check({}, h)
             cold_s = time.perf_counter() - t0
             run_launches = {k: K.launches[k] - before[k] for k in K.launches}
+            ends = K.segments["pair_ends"] - ends
             gc.collect()   # else a collection lands in the timed check
             t0 = time.perf_counter()
             rm2 = mchecker.check({}, h)
@@ -650,6 +739,7 @@ def model_phases(dev, seconds, shapes):
                     "rung": list(rm.get("rung") or ()),
                     "segments": rm.get("segments"), "cold_s": cold_s,
                     "warm_s": warm_m, "launches": run_launches,
+                    "pair_ends": ends,
                     "fallback": rm.get("fallback-from")}
             assert rm["valid"] is True and rm["backend"] == "gpu", (tag, rm)
             assert "fallback-from" not in rm, tag
@@ -686,8 +776,11 @@ def model_phases(dev, seconds, shapes):
         print(f"model launches: {model_launches} "
               f"cuda_launches={model_grid_launches} graphs={model_segments}")
         assert all(model_launches[k] > 0 for k in (
-            "expand", "sort_rows", "group_scan", "dedup_truncate",
-            "seg_active")), model_launches
+            "expand", "sort_rows", "group_scan", "dedup_truncate")), \
+            model_launches
+        # K5's step, in the pair's second K4; no K5 launch
+        assert model_segments["pair_ends"] > 0, model_segments
+        assert model_grid_launches["seg_active"] == 0, model_grid_launches
 
     with phase("models plain", seconds):
         # 1,000-op histories of each model, valid and corrupted, on the
@@ -900,9 +993,12 @@ def serve_phases(dev, seconds, shapes, head):
         stats = health["stats"]
         print(f"serve launches: {serve_launches} "
               f"cuda_launches={serve_grid_launches} graphs={serve_segments}")
+        # the gangs' narrow rungs scan their group starts in K4, whose
+        # second of a pair ends it with K5's step
         assert all(serve_launches[k] > 0 for k in (
-            "expand", "sort_rows", "group_scan", "dedup_truncate",
-            "seg_active")), serve_launches
+            "expand", "sort_rows", "dedup_truncate")), serve_launches
+        assert serve_segments["pair_ends"] > 0, serve_segments
+        assert serve_grid_launches["seg_active"] == 0, serve_grid_launches
         records, _ = journal.read_json_records(
             os.path.join(root, serve.WAL_NAME))
         gangs = {}
@@ -1082,14 +1178,20 @@ def smoke(dev: torch.device) -> None:
         assert r["valid"] is True and r["backend"] == "gpu"
         assert "fallback-from" not in r
         assert all(launches[k] > 0 for k in ("expand", "sort_rows",
-                                             "group_scan", "dedup_truncate",
-                                             "seg_active")), launches
+                                             "dedup_truncate")), launches
+        # the headline's rung scans its group starts in K4 and ends each
+        # level pair in the pair's second K4: no K3 or K5 launch
+        assert K.segments["pair_ends"] > 0, K.segments
+        assert launches["group_scan"] == launches["seg_active"] == 0, \
+            launches
+        assert grid_launches["group_scan"] == grid_launches[
+            "seg_active"] == 0, grid_launches
         # no Python per level: one capture from Python, one graph launch
         # a segment, the levels counted on the device
         assert K.segments["launches"] == r["segments"], K.segments
         assert K.segments["levels"] == r["levels"], K.segments
         assert all(K.host_calls[k] == K.segments["captures"] for k in (
-            "expand", "sort_rows", "group_scan", "dedup_truncate"))
+            "expand", "sort_rows", "dedup_truncate"))
         gc.collect()   # a collection over two million live ops takes ~1 s
         t0 = time.perf_counter()
         r2 = checker.check({}, head)
@@ -1231,7 +1333,10 @@ def smoke(dev: torch.device) -> None:
             assert ({k: v.get("levels") for k, v in warm[0]["results"]
                      .items()} == {k: v.get("levels") for k, v in
                                    cold[label][0]["results"].items()})
-        assert all(keyed_launches[k] > 0 for k in KERNELS), keyed_launches
+        assert all(keyed_launches[k] > 0 for k in KERNELS
+                   if k != "seg_active"), keyed_launches
+        assert path_segments["keyed"]["pair_ends"] > 0, path_segments
+        assert keyed_grid_launches["seg_active"] == 0, keyed_grid_launches
 
     # -- (c) an etcd-shaped batch with one corrupted key --------------------
     with phase("etcd batch", seconds):
@@ -1304,48 +1409,73 @@ def smoke(dev: torch.device) -> None:
     kernels = []
     keep = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cuda_launches_per_call")
+    path_launches = {"headline": launches, "keyed": keyed_launches,
+                     "models": model_launches, "serve": serve_launches}
+    path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
+                 "models": model_grid_launches, "serve": serve_grid_launches}
+    # K5's step runs in the pair's second K4 on every path: its entry
+    # counts those K4 launches (the pair ends) and is timed and bounded as
+    # that K4; seg_active_kernel standing alone is the host loop's, under
+    # "host_loop", and launches nowhere on these paths
+    pair_ends = {p: path_segments[p]["pair_ends"] for p in path_launches}
     for name in KERNELS:
         single = name != "sort_rows_hash"
         tb = "lex" if name == "sort_rows" else "hash"
-        top = (shapes["headline"] if single
-               else shapes["keyed staggered hash"])[name]
+        state, path = MAIN_STATE.get(name, ("headline", "headline"))
+        top = shapes[state][name]
+        fused = name == "seg_active"
+        counted = (pair_ends if fused else
+                   {p: path_launches[p][name] for p in path_launches})
+        extra = ("dedup_graph_ms", "host_loop") if fused else ()
+
+        def at(tag):
+            """The kernel's numbers at state ``tag``; None where a level
+            there does not launch it."""
+            res = shapes[tag].get(name)
+            return None if res is None else {k: res[k]
+                                             for k in keep + extra}
+        errs = [r[name]["max_abs_err"] for r in shapes.values() if name in r]
+        if fused:
+            errs += [r[name]["host_loop"]["max_abs_err"]
+                     for r in shapes.values() if name in r]
         entry = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
-            "launches": launches[name] if single else keyed_launches[name],
-            "max_abs_err": max(r[name]["max_abs_err"]
-                               for r in shapes.values() if name in r),
+            "launches": counted[path], "path": path,
+            "state": state,
+            "max_abs_err": max(errs),
             "ms": top["ms"], "graph_ms": top["graph_ms"],
             "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
             "library_ms": top["library_ms"],
-            "launches_by_path": {"headline": launches[name],
-                                 "keyed": keyed_launches[name],
-                                 "models": model_launches[name],
-                                 "serve": serve_launches[name]},
-            "cuda_launches_by_path": {"headline": grid_launches[name],
-                                      "keyed": keyed_grid_launches[name],
-                                      "models": model_grid_launches[name],
-                                      "serve": serve_grid_launches[name]},
+            "launches_by_path": counted,
+            "cuda_launches_by_path": {p: path_grid[p][name]
+                                      for p in path_grid},
         }
+        if fused:
+            entry["launched_as"] = ("the tail of the pair's second "
+                                    "dedup_truncate (ms, graph_ms, bound: "
+                                    "that launch; dedup_graph_ms: it "
+                                    "without the step)")
+            entry["dedup_graph_ms"] = top["dedup_graph_ms"]
+            entry["host_loop"] = dict(top["host_loop"], launches_by_path={
+                p: path_launches[p][name] for p in path_launches})
         if single:
-            entry["wide"] = {k: shapes["wide"][name][k] for k in keep}
-            entry["gang"] = {k: shapes["gang"][name][k] for k in keep}
-            entry["odd"] = {k: shapes["odd"][name][k] for k in keep}
-            entry["sequential"] = {k: shapes["sequential"][name][k]
-                                   for k in keep}
-        entry["keyed_staggered"] = {
-            k: shapes["keyed staggered " + tb][name][k] for k in keep}
-        entry["keyed_dense"] = {
-            k: shapes["keyed dense " + tb][name][k] for k in keep}
+            entry["headline"] = at("headline")
+            entry["wide"] = at("wide")
+            entry["gang"] = at("gang")
+            entry["odd"] = at("odd")
+            entry["sequential"] = at("sequential")
+        entry["keyed_staggered"] = at("keyed staggered " + tb)
+        entry["keyed_dense"] = at("keyed dense " + tb)
         if single:
-            entry["keyed_dense_wide"] = {
-                k: shapes["keyed dense wide lex"][name][k] for k in keep}
+            entry["keyed_dense_wide"] = at("keyed dense wide lex")
             for tag in MODEL_HISTORIES:
-                entry[f"model_{tag}"] = {
-                    k: shapes[f"model_{tag}"][name][k] for k in keep}
+                entry[f"model_{tag}"] = at(f"model_{tag}")
+        if single:
             entry["launches_by_model"] = {
-                line["model"]: line["launches"][name]
+                line["model"]: (line["pair_ends"] if fused
+                                else line["launches"][name])
                 for line in model_lines.values()}
         kernels.append(entry)
     loop_summary = {

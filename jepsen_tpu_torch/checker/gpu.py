@@ -387,7 +387,7 @@ class Scratch:
     pool_next: K.Pool
     acc: torch.Tensor     # int32 [B, 9], zero between levels
     rows: torch.Tensor    # int32 [B, RP, NK]
-    g: torch.Tensor       # int32 [B, RP]
+    g: torch.Tensor       # int32 [B, RP]; K3's, where it runs
     gagg: torch.Tensor    # int32 [B, scan blocks]
     rows_alt: Optional[torch.Tensor] = None   # int32 [B, RP, NK]
 
@@ -420,7 +420,7 @@ def empty_scratch(shape: K.LevelShape, device) -> Scratch:
                    rows=torch.zeros(B, shape.RP, shape.NK, dtype=i32,
                                     device=device),
                    g=torch.zeros(B, shape.RP, dtype=i32, device=device),
-                   gagg=torch.zeros(B, K.scan_blocks(shape.RP), dtype=i32,
+                   gagg=torch.zeros(B, K.scan_blocks(shape), dtype=i32,
                                     device=device),
                    rows_alt=(torch.zeros(B, shape.RP, shape.NK, dtype=i32,
                                          device=device)
@@ -434,7 +434,7 @@ def state_bytes(shape: K.LevelShape) -> int:
     pool = C * (4 * (2 + MW + MCX) + 1)
     carry = 2 * pool + C * 9 + 4 * K.NSCAL + 4 * (shape.lmax + 1) * NSTAT
     scratch = (4 * K.NACC + 4 * shape.RP * (shape.NK + 1)
-               + 4 * K.scan_blocks(shape.RP)
+               + 4 * K.scan_blocks(shape)
                + (4 * shape.RP * shape.NK if K.sort_passes(shape) else 0))
     return shape.B * (carry + scratch)
 
@@ -442,7 +442,9 @@ def state_bytes(shape: K.LevelShape) -> int:
 class Ops(NamedTuple):
     """The four level steps and the segment loop's test: the kernel
     wrappers, or their plain versions called directly (which accept CUDA
-    tensors too)."""
+    tensors too). Both take the same route: ``group_scan`` runs where
+    :func:`~jepsen_tpu_torch.kernels.search.group_scan_runs`, else
+    ``dedup_truncate`` finds the group starts itself."""
 
     expand: Callable
     sort_rows: Callable
@@ -456,23 +458,24 @@ KERNELS = Ops(K.expand, K.sort_rows, K.group_scan, K.dedup_truncate,
 PLAIN = Ops(K.expand_plain,
              lambda rows, scal, shape, rows_alt: K.sort_rows_plain(
                  rows, scal, shape),
-             lambda rows, scal, g, gagg, shape: K.group_scan_plain(
-                 rows, scal, g, shape),
-             K.dedup_truncate_plain, K.seg_active_plain)
+             K.group_scan_plain, K.dedup_truncate_plain, K.seg_active_plain)
 
 
 def search_level(cols: dict, carry: Carry, scratch: Scratch,
                  shape: K.LevelShape, nr: torch.Tensor,
                  ops: Ops = KERNELS) -> None:
-    """One search level of every key: the four kernels in turn, then the
-    pool buffers swap. ``nr`` is each key's required-op count (int32 [B]
-    on the device). No host synchronisation on the kernel path; once a
-    key is inactive a level changes nothing of it."""
+    """One search level of every key: the kernels in turn (``group_scan``
+    only where :func:`~jepsen_tpu_torch.kernels.search.group_scan_runs`),
+    then the pool buffers swap. ``nr`` is each key's required-op count
+    (int32 [B] on the device). No host synchronisation on the kernel
+    path; once a key is inactive a level changes nothing of it."""
     ops.expand(cols, carry.pool, carry.scal, scratch.acc, scratch.rows,
                shape, nr)
     ops.sort_rows(scratch.rows, carry.scal, shape, scratch.rows_alt)
-    ops.group_scan(scratch.rows, carry.scal, scratch.g, scratch.gagg, shape)
-    ops.dedup_truncate(scratch.rows, scratch.g, carry.pool,
+    if K.group_scan_runs(shape):
+        ops.group_scan(scratch.rows, carry.scal, scratch.g, scratch.gagg,
+                       shape)
+    ops.dedup_truncate(scratch.rows, scratch.g, scratch.gagg, carry.pool,
                        scratch.pool_next, carry.pk, carry.ps, carry.pa,
                        carry.scal, scratch.acc, carry.stats, shape, nr)
     carry.pool, scratch.pool_next = scratch.pool_next, carry.pool

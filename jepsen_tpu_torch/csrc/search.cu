@@ -1,4 +1,8 @@
-// One level of the pool linearizability search, as four kernels for Hopper.
+// One level of the pool linearizability search, as kernels for Hopper: K1
+// expand, K2 sort_rows, K3 group_scan (a launch of its own only on the
+// wide rungs of a search with crashed ops; in K4 on the narrow ones) and
+// K4 dedup_truncate; K5 seg_active ends a segment's level pair (in the
+// pair's second K4 inside the segment graph).
 //
 // Replaces the XLA program that jax.jit compiles from the search body
 // _search_fn in jepsen_tpu/checker/tpu.py (rows B1-B7 of the device-program
@@ -35,7 +39,7 @@
 #include <stdint.h>
 
 // The segment loop (B9) is a CUDA graph with a WHILE conditional node
-// whose condition K5 sets on the device: CUDA 12.3 or later.
+// whose condition K5's step sets on the device: CUDA 12.3 or later.
 #if CUDART_VERSION < 12030
 #error "the segment graph's WHILE node needs CUDA 12.3 or later"
 #endif
@@ -1029,35 +1033,46 @@ __global__ void __launch_bounds__(MERGE_ROWS / MERGE_V)
 
 // ---------------------------------------------------------------------------
 // K3 group_scan (B6; tpu.py:605): g[i] = cummax(same_grp[i] ? 0 : i), the
-// index of row i's group start, per key. A warp-shuffle max-scan per
-// 1024-row block, then, beyond one block, a second launch adds the carry of
-// the key's blocks before. Grid (blocks, B). Reads (3 + MW) words a row;
-// bytes-bound on the wide rungs.
+// index of row i's group start, per key. Its one reader is K4's dominance
+// test, which only a search with crashed ops (CR > 0) runs: the reference
+// computes it under `if CR:` (tpu.py:602-605), and the port launches
+// nothing for it at CR = 0.
+//
+// What bounds it. (3 + MW) words of each of the R live rows read and one
+// written: bytes, a few microseconds' worth on the widest rungs, far less
+// than a launch elsewhere. So where K4 holds the key's rows in shared
+// memory (R <= T, dedup_block_kernel) the scan is done there, from those
+// rows (block_group_starts): no launch, no read of the rows and no g in
+// device memory. On the wide rungs (R > T) it is one launch,
+// scan_local_kernel: a warp-shuffle max-scan of each SCAN_ROWS-row block
+// of the R live rows, the block's scan into g and its maximum into gagg;
+// dedup_kernel adds the blocks' carry where it reads g (a warp's max over
+// gagg[0 .. q)), in place of a second pass over g. Grid (blocks, B).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ bool same_grp(const int* rows, int i, int NK,
+constexpr int SCAN_ROWS = 1024;
+
+// Rows i - 1 and i, at a stride of S words, are both valid and hold the
+// same (key1, k, mask, state).
+__device__ __forceinline__ bool same_grp(const int* rows, int S, int i,
                                          int MW) {
   if (i == 0) return false;
-  const int* x = rows + (size_t)i * NK;
-  const int* y = x - NK;
+  const int* x = rows + (size_t)i * S;
+  const int* y = x - S;
   if (x[0] > MAXK || y[0] > MAXK) return false;
   for (int w = 0; w < 3 + MW; ++w)
     if (x[w] != y[w]) return false;
   return true;
 }
 
-__global__ void __launch_bounds__(1024)
-    scan_local_kernel(const int* rows, const int* scal, int* g, int* gagg,
-                      int RP, int NK, int MW) {
-  const int b = blockIdx.y;
-  if (scal[(size_t)b * NSCAL + ACT] == 0) return;
-  rows += (size_t)b * RP * NK;
-  g += (size_t)b * RP;
-  gagg += (size_t)b * gridDim.x;
-  __shared__ int wmax[32];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int i = blockIdx.x * blockDim.x + t;
-  int v = (i < RP && !same_grp(rows, i, NK, MW)) ? i : 0;
+// The block's inclusive max-scan of v >= 0, by every thread of a block of
+// whole warps: each warp's by shuffles, then warp 0's over the warp maxima
+// in wmax (32 ints of shared memory). Returns the thread's prefix max and
+// sets total to the block's. wmax is read until every thread has
+// returned: a barrier must come before the next call.
+__device__ __forceinline__ int block_max_scan(int v, int* wmax, int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
   for (int d = 1; d < 32; d <<= 1) {
     const int y = __shfl_up_sync(FULL, v, d);
     if (lane >= d) v = max(v, y);
@@ -1065,7 +1080,7 @@ __global__ void __launch_bounds__(1024)
   if (lane == 31) wmax[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    int w = lane < (int)(blockDim.x >> 5) ? wmax[lane] : 0;
+    int w = lane < nw ? wmax[lane] : 0;
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(FULL, w, d);
       if (lane >= d) w = max(w, y);
@@ -1073,27 +1088,108 @@ __global__ void __launch_bounds__(1024)
     wmax[lane] = w;
   }
   __syncthreads();
-  if (warp > 0) v = max(v, wmax[warp - 1]);
-  if (i < RP) g[i] = v;
-  if (t == (int)blockDim.x - 1) gagg[blockIdx.x] = v;
+  total = wmax[nw - 1];
+  return warp > 0 ? max(v, wmax[warp - 1]) : v;
 }
 
-__global__ void scan_carry_kernel(const int* scal, int* g, const int* gagg,
-                                  int RP, int blocks) {
+__global__ void __launch_bounds__(SCAN_ROWS)
+    scan_local_kernel(const int* rows, const int* scal, int* g, int* gagg,
+                      int R, int RP, int NK, int MW) {
   const int b = blockIdx.y;
   if (scal[(size_t)b * NSCAL + ACT] == 0) return;
-  g += (size_t)b * RP;
-  gagg += (size_t)b * blocks;
-  __shared__ int carry;
-  const int q0 = blockIdx.x + 1;
-  if (threadIdx.x == 0) {
-    int c = 0;
-    for (int q = 0; q < q0; ++q) c = max(c, gagg[q]);
-    carry = c;
+  __shared__ int wmax[32];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int* krows = rows + (size_t)b * RP * NK;
+  int total;
+  const int v = block_max_scan(
+      i < R && !same_grp(krows, NK, i, MW) ? i : 0, wmax, total);
+  if (i < R) g[(size_t)b * RP + i] = v;
+  if (threadIdx.x == 0) gagg[(size_t)b * gridDim.x + blockIdx.x] = total;
+}
+
+// ---------------------------------------------------------------------------
+// K5 seg_active (B9: active at tpu.py:368-369, seg_active at :681-682, the
+// condition of the reference's lax.while_loop(seg_active, body_n, carry)).
+// After each level pair of a segment it adds the levels the pair ran to
+// the segment's counter (the first always ran, the host launches only an
+// active search; the second ran if some key's K1 found it active), then
+// decides whether any key is still active (not done, rows alive, the level
+// budget not spent) and the segment under its bound; in the segment graph
+// it sets the WHILE node's condition.
+//
+// What bounds it. It reads B x 32 bytes of scalars: as a launch of its
+// own it costs a graph node's floor, ~1.4 us. So in the segment graph it
+// is the tail of the pair's second K4, whose blocks hold each key's new
+// scalars in registers: with one key, the key's block decides from
+// those; with B keys, each key's block puts its two flags (it ran the
+// level; it is still active) on the ticket word seg[SEG_TICKET] and takes
+// a ticket there, and the block that takes the last decides from the
+// word's flags and zeroes it. Atomics on one word are ordered, so the last
+// ticket sees every key's flags: no fence and no read of the B keys'
+// scalars (reading them, one warp's loop of dependent L2 loads, cost
+// ~2 us at 256 keys on the H100). The levels run and the bound are read as the K4 begins
+// (only the decider writes them). seg_active_kernel, one block, is K5
+// standing alone: the step of the host loop (jt_seg_active). Both run the
+// rule below.
+// ---------------------------------------------------------------------------
+
+enum { SEG_RUN, SEG_BOUND, SEG_GO, SEG_TICKET, NSEG };
+// the ticket word: tickets taken in its low bits, the keys' flags above
+constexpr unsigned TICKET_RAN = 1u << 30, TICKET_ACT = 1u << 31;
+constexpr unsigned TICKETS = TICKET_RAN - 1;
+
+// A key's search goes on (tpu.py:368): not done, rows alive, the level
+// budget not spent.
+__device__ __forceinline__ bool key_active(int done, int nalive, int level,
+                                           int lmax) {
+  return done == 0 && nalive > 0 && level <= lmax;
+}
+
+// K5's three steps, by one thread: ran, some key ran the pair's second
+// level; act, some key is still active; run and bound, seg's words.
+__device__ __forceinline__ void seg_decide(bool ran, bool act, int run,
+                                           int bound, int* seg,
+                                           cudaGraphConditionalHandle cond,
+                                           int in_graph) {
+  run += 1 + ran;
+  const int go = act && run < bound;
+  seg[SEG_RUN] = run;
+  seg[SEG_GO] = go;
+  if (in_graph) cudaGraphSetConditional(cond, go);
+}
+
+// The pair's end for one of B keys, by one thread of the key's block,
+// with the key's flags: onto the ticket word, then a ticket; the last of
+// the B tickets decides from every key's flags (B = 1: at once).
+__device__ void pair_end(bool ran, bool act, int B, int run, int bound,
+                         int* seg, cudaGraphConditionalHandle cond,
+                         int in_graph) {
+  if (B > 1) {
+    unsigned* word = reinterpret_cast<unsigned*>(seg + SEG_TICKET);
+    const unsigned flags = (ran ? TICKET_RAN : 0u) | (act ? TICKET_ACT : 0u);
+    if (flags) atomicOr(word, flags);
+    const unsigned old = atomicAdd(word, 1u) | flags;
+    if ((old & TICKETS) != (unsigned)B - 1) return;
+    *word = 0u;
+    ran = (old & TICKET_RAN) != 0u;
+    act = (old & TICKET_ACT) != 0u;
   }
-  __syncthreads();
-  const int i = q0 * blockDim.x + threadIdx.x;
-  if (i < RP) g[i] = max(g[i], carry);
+  seg_decide(ran, act, run, bound, seg, cond, in_graph);
+}
+
+__global__ void __launch_bounds__(256)
+    seg_active_kernel(const int* scal, int B, int lmax, int* seg) {
+  bool act = false, ran = false;
+  for (int b = threadIdx.x; b < B; b += blockDim.x) {
+    const int* s = scal + (size_t)b * NSCAL;
+    act |= key_active(s[DONE], s[NALIVE], s[LEVEL], lmax);
+    ran |= s[ACT] != 0;
+  }
+  act = __syncthreads_or(act);
+  ran = __syncthreads_or(ran);
+  if (threadIdx.x == 0)
+    seg_decide(ran, act, seg[SEG_RUN], seg[SEG_BOUND], seg,
+               cudaGraphConditionalHandle(), 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1102,13 +1198,15 @@ __global__ void scan_carry_kernel(const int* scal, int* g, const int* gagg,
 // truncation into the other pool buffer, pk/ps/pa, and the level's
 // counters, stats row and scalars. While a key is inactive its pool is
 // copied through unchanged: the per-lane masked update of tpu.py:652-654.
+// In the segment graph the pair's second K4 also ends the pair (K5).
 //
 // What bounds it. Not bytes (R rows read once, C pool rows written) and
 // not operations: latency. A row's tests read its neighbour and up to 8
-// leader rows found through g; and a key's counters are summed across its
-// blocks, so with a block per 256 rows a level ends in a serial tail
-// through L2 (atomics on the key's accumulators, a fence, a ticket, a
-// barrier, then a fence and volatile reads in the key's last block).
+// leader rows found through its group start; and a key's counters are
+// summed across its blocks, so with a block per 256 rows a level ends in
+// a serial tail through L2 (atomics on the key's accumulators, a fence, a
+// ticket, a barrier, then a fence and volatile reads in the key's last
+// block).
 //
 // Design: two paths, both one CUDA launch; the host picks one per shape
 // (kernels/search.py dedup_one_block).
@@ -1117,23 +1215,25 @@ __global__ void scan_carry_kernel(const int* scal, int* g, const int* gagg,
 //   dedup_block_kernel, one block of up to 1,024 threads per key. It
 //   loads the key's R rows into shared memory with 16-byte loads, at an
 //   odd word stride so that a warp's neighbouring rows fall in different
-//   banks; dup, dominance and truncation then read shared memory only.
-//   The key's flag, thread 0's scalars and K1's expanded count, each
-//   thread's first group start and pool entries are read in the same hop
-//   as the rows. The counters are block reductions (warp reductions into
-//   shared memory, then one warp over those); thread 0 writes the stats
-//   row and the scalars and zeroes the accumulators: no atomic, ticket or
-//   fence. Its shared memory above 48 KB is granted
-//   before a graph capture begins (GRANT_ONLY).
+//   banks; where CR > 0 it scans their group starts there (K3, 16-bit,
+//   after the rows); dup, dominance and truncation then read shared memory
+//   only. The key's flag, thread 0's scalars and K1's expanded count and
+//   each thread's first pool entries are read in the same hop as the rows.
+//   The counters are block reductions (warp reductions into shared memory,
+//   then one warp over those); thread 0 writes the stats row and the
+//   scalars and zeroes the accumulators: no atomic, ticket or fence. Its
+//   shared memory above 48 KB is granted before a graph capture begins
+//   (GRANT_ONLY).
 //   R > T (the wide rungs): dedup_kernel, a thread per row in blocks of
-//   256, warp reductions into the key's accumulators, and the key's last
-//   block (a ticket per key) writing its stats row and scalars and zeroing
-//   its accumulators.
+//   256, the group starts from K3 with its carry, warp reductions into the
+//   key's accumulators, and the key's last block (a ticket per key)
+//   writing its stats row and scalars and zeroing its accumulators.
 // ---------------------------------------------------------------------------
 
 struct DedupArgs {
   const int* rows;
   const int* g;
+  const int* gagg;
   PoolIn pin;
   PoolOut pout;
   int* pk;
@@ -1143,8 +1243,22 @@ struct DedupArgs {
   int* scal;
   int* acc;
   int* stats;
+  // the pair's second level only: the segment's words, which the launch
+  // ends the pair in (K5), and, in the segment graph, the WHILE node's
+  // condition; null otherwise
+  int* seg;
+  cudaGraphConditionalHandle cond;
+  int in_graph;
   int C, MW, MCX, NK, CR, R, RP, lmax;
 };
+
+// The pair's end at key blockIdx.y's block, by one thread: ran, the key
+// ran this level; act, it is still active; sw, seg's levels run and bound
+// as the launch began.
+__device__ __forceinline__ void key_pair_end(const DedupArgs& a, bool ran,
+                                             bool act, const int* sw) {
+  pair_end(ran, act, gridDim.y, sw[0], sw[1], a.seg, a.cond, a.in_graph);
+}
 
 // Both paths' row work. Rows lie at a stride of S words: device memory at
 // NK, a block's shared tile at NK | 1.
@@ -1217,17 +1331,41 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   int* scal = a.scal + (size_t)b * NSCAL;
   if (scal[ACT] == 0) {
     if (i < C) copy_pool(pin, pout, i, MW, MCX);
+    // the key's first block ends the pair for it: it ran no level
+    if (a.seg != nullptr && blockIdx.x == 0 && t == 0) {
+      const int sw[2] = {a.seg[SEG_RUN], a.seg[SEG_BOUND]};
+      key_pair_end(a, false,
+                   key_active(scal[DONE], scal[NALIVE], scal[LEVEL],
+                              a.lmax),
+                   sw);
+    }
     return;
+  }
+  // seg's words, for the key's last block if it ends the pair
+  int sw[2] = {0, 0};
+  if (a.seg != nullptr && t == 0) {
+    sw[0] = a.seg[SEG_RUN];
+    sw[1] = a.seg[SEG_BOUND];
   }
   const int* rows = a.rows + (size_t)b * a.RP * NK;
   const int* g = a.g + (size_t)b * a.RP;
   int* acc = a.acc + (size_t)b * NACC;
   const int nr = a.nr[b];
 
+  // the carry of K3's blocks before this block's rows: a warp's max over
+  // gagg[0 .. q), q the scan block of this block's rows
+  int carry = 0;
+  if (a.CR > 0) {
+    const int q = blockIdx.x * blockDim.x / SCAN_ROWS;
+    const int* gagg =
+        a.gagg + (size_t)b * ((a.R + SCAN_ROWS - 1) / SCAN_ROWS);
+    for (int j = t & 31; j < q; j += 32) carry = max(carry, gagg[j]);
+    carry = __reduce_max_sync(FULL, carry);
+  }
   bool fv = false, dup = false, dom = false, uniq = false;
   int fk = 0;
   if (i < a.R) {
-    const int gi = a.CR > 0 ? g[i] : 0;
+    const int gi = a.CR > 0 ? max(g[i], carry) : 0;
     row_tests(rows, NK, i, gi, a.R, MW, NK, a.CR > 0, fv, dup, dom);
     fk = rows[(size_t)i * NK + 1];
     uniq = fv && !dup && !dom;
@@ -1260,7 +1398,8 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
   __shared__ bool last;
   if (t == 0) last = atomicAdd(&acc[A_TICKET], 1) == (int)gridDim.x - 1;
   __syncthreads();
-  if (last && t == 0) {
+  if (!last || t > 0) return;
+  {
     __threadfence();
     volatile int* vacc = acc;
     const int level = scal[LEVEL];
@@ -1271,12 +1410,16 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
     srow[2] = vacc[A_DOM];
     srow[3] = vacc[A_TRUNC];
     srow[4] = vacc[A_FRONTIER];
-    scal[DONE] |= vacc[A_DONE];
+    const int done = scal[DONE] | vacc[A_DONE];
+    const int nalive = vacc[A_FRONTIER];
+    scal[DONE] = done;
     scal[LOSSY] |= vacc[A_LOSSY];
     scal[LEVEL] = level + 1;
     scal[BEST] = max(scal[BEST], (int)vacc[A_BEST]);
-    scal[NALIVE] = vacc[A_FRONTIER];
+    scal[NALIVE] = nalive;
     for (int q = 0; q < NACC; ++q) vacc[q] = 0;
+    if (a.seg != nullptr)
+      key_pair_end(a, true, key_active(done, nalive, level + 1, a.lmax), sw);
   }
 }
 
@@ -1303,10 +1446,32 @@ __device__ void load_rows(const int* g, int n, int NK, int* sh, int S) {
   for (int w = 4 * n4 + t; w < total; w += nt) put(w, g[w]);
 }
 
+// K3 in dedup_block_kernel: each of the R rows' group starts into gs
+// (16-bit: R <= 4,096), by the whole block from the rows in shared memory
+// at stride S. The rows go in stripes of blockDim.x (thread t's are t,
+// t + nt, ..., as in the row loop), each stripe a block max-scan carried
+// on from the stripes before: at most 4 at R = 4,096.
+__device__ void block_group_starts(const int* rows, int S, int R, int MW,
+                                   uint16_t* gs, int* wmax) {
+  int carry = 0;
+  for (int i0 = 0; i0 < R; i0 += blockDim.x) {
+    const int i = i0 + threadIdx.x;
+    int total;
+    const int v = block_max_scan(
+        i < R && !same_grp(rows, S, i, MW) ? i : 0, wmax, total);
+    if (i < R) gs[i] = (uint16_t)max(v, carry);
+    carry = max(carry, total);
+    // wmax is read again by the next stripe's scan; a thread reads back
+    // only the starts it wrote
+    if (i0 + (int)blockDim.x < R) __syncthreads();
+  }
+}
+
 // At most 32 registers a thread, so that two blocks of up to 1,024
 // threads share an SM: a 184-key batch at R = 768 in one wave.
 __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
   const int t = threadIdx.x, nt = blockDim.x, b = blockIdx.y;
+  const int lane = t & 31, warp = t >> 5;
   const int MW = a.MW, MCX = a.MCX, NK = a.NK, C = a.C, R = a.R;
   const PoolIn pin = pool_at(a.pin, b, C, MW, MCX);
   const PoolOut pout = pool_at(a.pout, b, C, MW, MCX);
@@ -1314,36 +1479,45 @@ __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
   int* acc = a.acc + (size_t)b * NACC;
   extern __shared__ int sh_words[];
   __shared__ int part[32][6];  // per warp: done, best, dup, dom, lost, kept
+  __shared__ int wmax[32];
   const int S = NK | 1;
-  const int* g = a.g + (size_t)b * a.RP;
-  // one hop: the key's flag, thread 0's scalars, the thread's first row's
-  // group start and pool entries, and the rows into shared memory
+  // the rows at stride S, then (CR > 0) their group starts
+  uint16_t* gs = reinterpret_cast<uint16_t*>(sh_words + R * S);
+  // one hop: the key's flag, thread 0's scalars and K1's expanded count,
+  // the thread's first row's pool entries, and the rows into shared
+  // memory. seg's words wait for the end: held through the row loop they
+  // cost spills there (0.0004 ms at 184 keys on the H100).
   const int act = scal[ACT], nr = a.nr[b];
-  int sc[4] = {0, 0, 0, 0};   // thread 0: done, lossy, level, best
+  int sc[5] = {0, 0, 0, 0, 0};  // thread 0: done, lossy, level, best, live
   int expanded = 0;
   if (t == 0) {
     sc[0] = scal[DONE];
     sc[1] = scal[LOSSY];
     sc[2] = scal[LEVEL];
     sc[3] = scal[BEST];
+    sc[4] = scal[NALIVE];
     expanded = acc[A_EXPANDED];
   }
-  const int g0 = a.CR > 0 && t < R ? g[t] : 0;
   const int k0 = t < C ? pin.k[t] : 0, s0 = t < C ? pin.state[t] : 0;
   const uint8_t a0 = t < C ? pin.alive[t] : 0;
   load_rows(a.rows + (size_t)b * a.RP * NK, R, NK, sh_words, S);
   if (act == 0) {
     for (int i = t; i < C; i += nt) copy_pool(pin, pout, i, MW, MCX);
+    if (a.seg != nullptr && t == 0) {
+      const int sw[2] = {a.seg[SEG_RUN], a.seg[SEG_BOUND]};
+      key_pair_end(a, false, key_active(sc[0], sc[4], sc[2], a.lmax), sw);
+    }
     return;
   }
   __syncthreads();
+  if (a.CR > 0) block_group_starts(sh_words, S, R, MW, gs, wmax);
 
   int ndup = 0, ndom = 0, nlost = 0, nkept = 0, best = 0;
   bool done = false;
   for (int i = t; i < R; i += nt) {
     const bool first = i == t;
     const int* ri = sh_words + i * S;
-    const int gi = a.CR > 0 ? (first ? g0 : g[i]) : 0;
+    const int gi = a.CR > 0 ? gs[i] : 0;
     bool fv, dup, dom;
     row_tests(sh_words, S, i, gi, R, MW, NK, a.CR > 0, fv, dup, dom);
     const bool uniq = fv && !dup && !dom;
@@ -1362,7 +1536,6 @@ __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
   }
 
   // the key's sums: each warp's into part, then warp 0's over those
-  const int lane = t & 31, warp = t >> 5;
   const unsigned d = __reduce_or_sync(FULL, done);
   const int mx = __reduce_max_sync(FULL, best);
   const int sdup = __reduce_add_sync(FULL, ndup);
@@ -1379,6 +1552,12 @@ __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
   }
   __syncthreads();
   if (warp > 0) return;
+  // seg's words, loaded under the warp's sums below
+  int sw[2] = {0, 0};
+  if (lane == 0 && a.seg != nullptr) {
+    sw[0] = a.seg[SEG_RUN];
+    sw[1] = a.seg[SEG_BOUND];
+  }
   const bool in = lane < (nt >> 5);
   const unsigned kd = __reduce_or_sync(FULL, in ? part[lane][0] : 0);
   const int kbest = __reduce_max_sync(FULL, in ? part[lane][1] : 0);
@@ -1395,47 +1574,16 @@ __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
     srow[2] = kdom;
     srow[3] = klost;
     srow[4] = kkept;
-    scal[DONE] = sc[0] | (kd != 0u);
+    const int kdone = sc[0] | (kd != 0u);
+    scal[DONE] = kdone;
     scal[LOSSY] = sc[1] | (klost != 0);
     scal[LEVEL] = level + 1;
     scal[BEST] = max(sc[3], kbest);
     scal[NALIVE] = kkept;
     for (int q = 0; q < NACC; ++q) acc[q] = 0;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// K5 seg_active (B9: active at tpu.py:368-369, seg_active at :681-682, the
-// condition of the reference's lax.while_loop(seg_active, body_n, carry)).
-// One block, after each level pair of a segment: it adds the levels the
-// pair ran to the segment's counter (the first always ran, the host
-// launches only an active search; the second ran if some key's K1 found
-// it active), then decides whether any key is still active (not done,
-// rows alive, the level budget not spent) and the segment is under its
-// bound. In a graph it sets the WHILE node's condition; standing alone it
-// only writes the flag. Reads B x 32 bytes of scalars: its time is a
-// launch.
-// ---------------------------------------------------------------------------
-
-enum { SEG_RUN, SEG_BOUND, SEG_GO, NSEG = 4 };
-
-__global__ void __launch_bounds__(256)
-    seg_active_kernel(const int* scal, int B, int lmax, int* seg,
-                      cudaGraphConditionalHandle cond, int in_graph) {
-  int act = 0, ran = 0;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const int* s = scal + (size_t)b * NSCAL;
-    act |= s[DONE] == 0 && s[NALIVE] > 0 && s[LEVEL] <= lmax;
-    ran |= s[ACT] != 0;
-  }
-  act = __syncthreads_or(act);
-  ran = __syncthreads_or(ran);
-  if (threadIdx.x == 0) {
-    const int run = seg[SEG_RUN] + 1 + (ran != 0);
-    const int go = act != 0 && run < seg[SEG_BOUND];
-    seg[SEG_RUN] = run;
-    seg[SEG_GO] = go;
-    if (in_graph) cudaGraphSetConditional(cond, go);
+    if (a.seg != nullptr)
+      key_pair_end(a, true, key_active(kdone, kkept, level + 1, a.lmax),
+                   sw);
   }
 }
 
@@ -1545,10 +1693,18 @@ int sort_any(int* rows, int* alt, const int* scal, int B, int R, int RP,
                                  mode, st, launched);
 }
 
+// dedup_block_kernel's dynamic shared memory: the key's R rows at stride
+// NK | 1 and, where CR > 0, their 16-bit group starts (kernels/search.py
+// dedup_block_smem).
+size_t dedup_block_smem(int R, int NK, int CR) {
+  return (size_t)R * (NK | 1) * sizeof(int)
+         + (CR > 0 ? (size_t)R * sizeof(uint16_t) : 0);
+}
+
 // K4's launch for B keys: dedup_block_kernel, a block per key, when
-// one_block (R <= T, kernels/search.py dedup_one_block), its shared memory
-// the key's R rows at stride NK | 1; else dedup_kernel, a block per 256
-// rows of each key. Adds the launch to *launched.
+// one_block (kernels/search.py dedup_one_block: R <= T and the block's
+// shared memory fits); else dedup_kernel, a block per 256 rows of each
+// key. Adds the launch to *launched.
 int dedup_any(const DedupArgs& a, int B, int one_block, int mode,
               cudaStream_t st, int* launched) {
   if (!one_block) {
@@ -1557,7 +1713,7 @@ int dedup_any(const DedupArgs& a, int B, int one_block, int mode,
     ++*launched;
     return (int)cudaGetLastError();
   }
-  const size_t smem = (size_t)a.R * (a.NK | 1) * sizeof(int);
+  const size_t smem = dedup_block_smem(a.R, a.NK, a.CR);
   if (mode != LAUNCH_ONLY) {
     const cudaError_t e = allow_smem(dedup_block_kernel, smem);
     if (e != cudaSuccess || mode == GRANT_ONLY) return (int)e;
@@ -1568,13 +1724,17 @@ int dedup_any(const DedupArgs& a, int B, int one_block, int mode,
   return (int)cudaGetLastError();
 }
 
-DedupArgs dedup_args(const int* rows, const int* g, const PoolIn& pin,
-                     const PoolOut& pout, int* pk, int* ps, uint8_t* pa,
-                     const int* nr, int* scal, int* acc, int* stats, int C,
-                     int W, int CR, int R, int lmax) {
+// K4's arguments; seg non-null makes the launch end the level pair (K5),
+// outside a graph until the caller sets cond and in_graph.
+DedupArgs dedup_args(const int* rows, const int* g, const int* gagg,
+                     const PoolIn& pin, const PoolOut& pout, int* pk,
+                     int* ps, uint8_t* pa, const int* nr, int* scal,
+                     int* acc, int* stats, int* seg, int C, int W, int CR,
+                     int R, int lmax) {
   DedupArgs a;
   a.rows = rows;
   a.g = g;
+  a.gagg = gagg;
   a.pin = pin;
   a.pout = pout;
   a.pk = pk;
@@ -1584,6 +1744,9 @@ DedupArgs dedup_args(const int* rows, const int* g, const PoolIn& pin,
   a.scal = scal;
   a.acc = acc;
   a.stats = stats;
+  a.seg = seg;
+  a.cond = cudaGraphConditionalHandle();
+  a.in_graph = 0;
   a.C = C;
   a.MW = mask_words(W);
   a.MCX = cmask_words(CR);
@@ -1598,24 +1761,28 @@ DedupArgs dedup_args(const int* rows, const int* g, const PoolIn& pin,
 // B9: one segment of levels as a CUDA graph. A memset node zeroes the
 // segment's level counter, then a WHILE conditional node (its condition 1
 // at each launch) runs its body until K5 clears the condition: the body
-// is a level pair, pool A into pool B, then B back into A, then K5, so
-// the pool pointers are where they started after every iteration and
-// the host's buffers need no swap. The body is captured from the same
-// launch functions as the single-level entry points; K2's and K4's
-// shared-memory grants are made before the capture begins.
+// is a level pair, pool A into pool B, then B back into A, whose second K4
+// ends with K5's step, so the pool pointers are where they started after
+// every iteration and the host's buffers need no swap. The body is
+// captured from the same launch functions as the single-level entry
+// points; K2's and K4's shared-memory grants are made before the capture
+// begins.
 struct SegmentGraph {
   cudaGraph_t graph;
   cudaGraphExec_t exec;
 };
 
-// The level pair and K5 captured into `body` on stream st.
+// The level pair, K5 in its second K4, captured into `body` on stream st;
+// scan: whether K3 runs as a launch of its own (kernels/search.py
+// group_scan_runs).
 struct PairArgs {
   const int *f, *v1, *v2, *ro, *fr, *inv, *ret, *sm, *cf, *cv1, *cv2, *cinv,
       *cps, *cb, *nr;
   PoolOut a, b;
   int *pk, *ps, *scal, *acc, *rows, *alt, *g, *gagg, *stats, *seg;
   uint8_t* pa;
-  int B, C, W, E, n, CR, lmax, model, tiebreak, T, passes, dedup_block;
+  int B, C, W, E, n, CR, lmax, model, tiebreak, T, passes, dedup_block,
+      scan;
 };
 
 }  // namespace
@@ -1628,12 +1795,13 @@ extern "C" int jt_expand(const int*, const int*, const int*, const int*,
                          const uint8_t*, int*, int*, int*, int, int, int, int,
                          int, int, int, int, void*, int*);
 extern "C" int jt_group_scan(const int*, const int*, int*, int*, int, int,
-                             int, int, void*, int*);
+                             int, int, int, void*, int*);
 
 namespace {
 
-// Captures one level pair and K5 on st; counts[0..4] take the CUDA
-// launches of K1, K2, K3, K4 and K5.
+// Captures one level pair on st, K3 only where p.scan, the second K4
+// ending the pair (K5's step); counts[0..3] take the CUDA launches of K1,
+// K2, K3 and K4.
 int capture_pair(const PairArgs& p, cudaGraphConditionalHandle cond,
                  cudaStream_t st, int* counts) {
   const int MW = mask_words(p.W), MCX = cmask_words(p.CR);
@@ -1651,21 +1819,22 @@ int capture_pair(const PairArgs& p, cudaGraphConditionalHandle cond,
     if (!e)
       e = sort_any(p.rows, p.alt, p.scal, p.B, R, RP, NK, MW, p.tiebreak,
                    p.T, p.passes, LAUNCH_ONLY, st, &counts[1]);
-    if (!e)
-      e = jt_group_scan(p.rows, p.scal, p.g, p.gagg, p.B, RP, NK, MW, st,
+    if (!e && p.scan)
+      e = jt_group_scan(p.rows, p.scal, p.g, p.gagg, p.B, R, RP, NK, MW, st,
                         &counts[2]);
-    if (!e)
-      e = dedup_any(dedup_args(p.rows, p.g,
-                               PoolIn{in.k, in.mask, in.cmask, in.state,
-                                      in.alive},
-                               out, p.pk, p.ps, p.pa, p.nr, p.scal, p.acc,
-                               p.stats, p.C, p.W, p.CR, R, p.lmax),
-                    p.B, p.dedup_block, LAUNCH_ONLY, st, &counts[3]);
+    if (!e) {
+      DedupArgs a = dedup_args(
+          p.rows, p.g, p.gagg,
+          PoolIn{in.k, in.mask, in.cmask, in.state, in.alive}, out, p.pk,
+          p.ps, p.pa, p.nr, p.scal, p.acc, p.stats, level ? p.seg : nullptr,
+          p.C, p.W, p.CR, R, p.lmax);
+      a.cond = cond;
+      a.in_graph = 1;
+      e = dedup_any(a, p.B, p.dedup_block, LAUNCH_ONLY, st, &counts[3]);
+    }
     if (e) return e;
   }
-  seg_active_kernel<<<1, 256, 0, st>>>(p.scal, p.B, p.lmax, p.seg, cond, 1);
-  ++counts[4];
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // namespace
@@ -1733,41 +1902,43 @@ int jt_sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
                   LAUNCH_ALL, (cudaStream_t)stream, launched);
 }
 
+// K3 over the R live rows of B keys' [RP, NK] rows: each block's scan into
+// g, its maximum into gagg ([B, ceil(R / SCAN_ROWS)]).
 int jt_group_scan(const int* rows, const int* scal, int* g, int* gagg, int B,
-                  int RP, int NK, int MW, void* stream, int* launched) {
-  const cudaStream_t st = (cudaStream_t)stream;
-  const int threads = RP < 1024 ? (RP < 32 ? 32 : RP) : 1024;
-  const int blocks = RP < 1024 ? 1 : RP / 1024;
-  scan_local_kernel<<<dim3(blocks, B), threads, 0, st>>>(rows, scal, g, gagg,
-                                                         RP, NK, MW);
+                  int R, int RP, int NK, int MW, void* stream,
+                  int* launched) {
+  if (R < 1 || R > RP) return (int)cudaErrorInvalidValue;
+  const int threads = R < SCAN_ROWS ? (R + 31) / 32 * 32 : SCAN_ROWS;
+  scan_local_kernel<<<dim3((R + threads - 1) / threads, B), threads, 0,
+                      (cudaStream_t)stream>>>(rows, scal, g, gagg, R, RP, NK,
+                                              MW);
   ++*launched;
-  if (blocks > 1) {
-    scan_carry_kernel<<<dim3(blocks - 1, B), threads, 0, st>>>(scal, g, gagg,
-                                                               RP, blocks);
-    ++*launched;
-  }
   return (int)cudaGetLastError();
 }
 
-int jt_dedup_truncate(const int* rows, const int* g, const int* in_k,
-                      const unsigned* in_mask, const unsigned* in_cmask,
-                      const int* in_state, const uint8_t* in_alive,
-                      int* out_k, unsigned* out_mask, unsigned* out_cmask,
+// K4; with seg non-null the launch also ends the level pair (K5's step,
+// no conditional: outside a graph).
+int jt_dedup_truncate(const int* rows, const int* g, const int* gagg,
+                      const int* in_k, const unsigned* in_mask,
+                      const unsigned* in_cmask, const int* in_state,
+                      const uint8_t* in_alive, int* out_k,
+                      unsigned* out_mask, unsigned* out_cmask,
                       int* out_state, uint8_t* out_alive, int* pk, int* ps,
                       uint8_t* pa, const int* nr, int* scal, int* acc,
                       int* stats, int B, int C, int W, int CR, int R,
-                      int lmax, int one_block, void* stream, int* launched) {
+                      int lmax, int one_block, int* seg, void* stream,
+                      int* launched) {
   return dedup_any(
-      dedup_args(rows, g, PoolIn{in_k, in_mask, in_cmask, in_state, in_alive},
+      dedup_args(rows, g, gagg,
+                 PoolIn{in_k, in_mask, in_cmask, in_state, in_alive},
                  PoolOut{out_k, out_mask, out_cmask, out_state, out_alive},
-                 pk, ps, pa, nr, scal, acc, stats, C, W, CR, R, lmax),
+                 pk, ps, pa, nr, scal, acc, stats, seg, C, W, CR, R, lmax),
       B, one_block, LAUNCH_ALL, (cudaStream_t)stream, launched);
 }
 
 int jt_seg_active(const int* scal, int* seg, int B, int lmax, void* stream,
                   int* launched) {
-  seg_active_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(
-      scal, B, lmax, seg, cudaGraphConditionalHandle(), 0);
+  seg_active_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(scal, B, lmax, seg);
   ++*launched;
   return (int)cudaGetLastError();
 }
@@ -1783,8 +1954,9 @@ int jt_cuda_versions(int* runtime, int* driver) {
 // pointers and ints of jt_expand, jt_sort_rows, jt_group_scan and
 // jt_dedup_truncate for it, with the pool the host holds (a) and the
 // other pool buffer (b), and seg, the segment's int32 words (levels run,
-// bound, go). Writes the graph's handle to *out and the CUDA launches
-// one iteration of its body makes, per kernel K1..K5, to counts[0..4].
+// bound, go, ticket), whether K3 runs as a launch of its own (scan).
+// Writes the graph's handle to *out and the CUDA launches one iteration
+// of its body makes, per kernel K1..K4, to counts[0..3].
 int jt_segment_graph_create(
     const int* f, const int* v1, const int* v2, const int* ro, const int* fr,
     const int* inv, const int* ret, const int* sm, const int* cf,
@@ -1796,22 +1968,22 @@ int jt_segment_graph_create(
     uint8_t* pa, int* scal, int* acc, int* stats, int* rows, int* alt,
     int* g, int* gagg, int* seg, int B, int C, int W, int E, int n, int CR,
     int lmax, int model, int tiebreak, int T, int passes, int dedup_block,
-    void** out, int* counts) {
+    int scan, void** out, int* counts) {
   PairArgs p{f,  v1, v2, ro, fr, inv, ret, sm, cf, cv1, cv2, cinv, cps, cb,
              nr, PoolOut{a_k, a_mask, a_cmask, a_state, a_alive},
              PoolOut{b_k, b_mask, b_cmask, b_state, b_alive},
              pk, ps, scal, acc, rows, alt, g, gagg, stats, seg, pa,
              B, C, W, E, n, CR, lmax, model, tiebreak, T, passes,
-             dedup_block};
+             dedup_block, scan};
   const int MW = mask_words(W), MCX = cmask_words(CR);
   const int R = E * (W + 1 + CR) + (C - E);
-  for (int i = 0; i < 5; ++i) counts[i] = 0;
+  for (int i = 0; i < 4; ++i) counts[i] = 0;
   int prep = 0;
   int e = sort_any(rows, alt, scal, B, R, padded_rows(R), 4 + MW + MCX, MW,
                    tiebreak, T, passes, GRANT_ONLY, nullptr, &prep);
   if (!e)
-    e = dedup_any(dedup_args(rows, g, PoolIn{}, PoolOut{}, pk, ps, pa, nr,
-                             scal, acc, stats, C, W, CR, R, lmax),
+    e = dedup_any(dedup_args(rows, g, gagg, PoolIn{}, PoolOut{}, pk, ps, pa,
+                             nr, scal, acc, stats, seg, C, W, CR, R, lmax),
                   B, dedup_block, GRANT_ONLY, nullptr, &prep);
   if (e) return e;
   cudaGraph_t graph = nullptr;

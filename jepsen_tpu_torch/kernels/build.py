@@ -36,12 +36,14 @@ _N = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "jt_expand": [_P] * 23 + [_I] * 8 + [_P, _N],
     "jt_sort_rows": [_P] * 3 + [_I] * 8 + [_P, _N],
-    "jt_group_scan": [_P] * 4 + [_I] * 4 + [_P, _N],
-    "jt_dedup_truncate": [_P] * 19 + [_I] * 7 + [_P, _N],
+    "jt_group_scan": [_P] * 4 + [_I] * 5 + [_P, _N],
+    # then seg (null but at a pair's end) and the stream
+    "jt_dedup_truncate": [_P] * 20 + [_I] * 7 + [_P, _P, _N],
     "jt_seg_active": [_P, _P, _I, _I, _P, _N],
     # the segment graph: the four entry points' pointers and ints for one
-    # shape, then where its handle and its body's launch counts go
-    "jt_segment_graph_create": ([_P] * 36 + [_I] * 12
+    # shape, whether K3 runs, then where its handle and its body's launch
+    # counts go
+    "jt_segment_graph_create": ([_P] * 36 + [_I] * 13
                                 + [ctypes.POINTER(_P), _N]),
     "jt_segment_graph_launch": [_P, _P],
     "jt_segment_graph_destroy": [_P],

@@ -32,6 +32,43 @@ def max_abs_err(xs: List[torch.Tensor], ys: List[torch.Tensor]) -> int:
     return err
 
 
+def grouped_rows(shape: K.LevelShape, seed: int) -> np.ndarray:
+    """Rows [B, RP, NK] for K3 and K4, drawn from ``seed`` with numpy: each
+    key's R live rows in runs of one (key1, k, mask, state), among them
+    runs longer than a scan block (SCAN_ROWS) and than a stripe of K4's
+    block, each run's crashed masks sparse and in ascending popcount (as
+    the sort leaves them) so that its first rows cover later ones; the last
+    rows of each key invalid, then K1's pad tail."""
+    rng = np.random.default_rng(seed)
+    B, R, MW, MCX, CR = shape.B, shape.R, shape.MW, shape.MCX, shape.CR
+    rows = np.zeros((B, shape.RP, shape.NK), np.int64)
+    rows[:, :, 0] = K.INT32_MAX
+    for b in range(B):
+        i, live = 0, R - int(rng.integers(0, max(1, R // 20)))
+        while i < R:
+            n = min(R - i, int(rng.choice([1, 2, 9, 40, 700, 1500])))
+            k = int(rng.integers(0, 256))
+            run = rows[b, i:i + n]
+            run[:, 0] = K.MAXK - int(rng.integers(0, 64))
+            run[:, 1] = k
+            run[:, 2:2 + MW] = rng.integers(0, 2**32, MW)
+            run[:, 2 + MW] = int(rng.integers(-1, 9))
+            bits = rng.random((n, 32 * MCX)) < 0.06
+            bits[:, CR:] = False
+            words = (bits.reshape(n, MCX, 32).astype(np.int64)
+                     << np.arange(32)).sum(-1)
+            pc = bits.sum(1)
+            order = np.lexsort(tuple(words[:, w] for w in
+                                     reversed(range(MCX))) + (pc,))
+            run[:, 3 + MW] = pc[order]
+            run[:, 4 + MW:] = words[order]
+            i += n
+        tail = rows[b, live:R]
+        tail[:, 0] = K.MAXK + 1 + tail[:, 1]
+    return np.where(rows >= 2**31, rows - 2**32, rows).astype(np.int32)
+
+
+
 def copy_state(carry: G.Carry, scratch: G.Scratch
                ) -> Tuple[G.Carry, G.Scratch]:
     """Independent copies of a carry and its scratch buffers."""
@@ -166,18 +203,23 @@ class Level:
         return int(scal[:, K.NALIVE][scal[:, K.DONE] == 0].sum())
 
     def stages(self):
-        """(name, kernel call, plain call, outputs) for each kernel; each
-        call takes a (carry, scratch) holding that kernel's inputs."""
+        """(name, kernel call, plain call, outputs) for each kernel a level
+        at this shape launches (``group_scan`` only where
+        :func:`~jepsen_tpu_torch.kernels.search.group_scan_runs`; else the
+        kernel ``dedup_truncate`` finds the group starts itself, and is
+        held against the plain versions of both); each call takes a
+        (carry, scratch) holding that kernel's inputs."""
         cols, shape, nr = self.cols, self.shape, self.nr
 
         def k1(impl):
             return lambda c, s: impl(cols, c.pool, c.scal, s.acc, s.rows,
                                      shape, nr)
 
-        def k4(impl):
-            return lambda c, s: impl(s.rows, s.g, c.pool, s.pool_next, c.pk,
-                                     c.ps, c.pa, c.scal, s.acc, c.stats,
-                                     shape, nr)
+        def k3(impl):
+            return lambda c, s: impl(s.rows, c.scal, s.g, s.gagg, shape)
+
+        scan = [("group_scan", k3(K.group_scan), k3(K.group_scan_plain),
+                 lambda c, s: [s.g, s.gagg])]
         return [
             ("expand", k1(K.expand), k1(K.expand_plain),
              lambda c, s: [c.scal, s.acc, s.rows]),
@@ -185,23 +227,58 @@ class Level:
              lambda c, s: K.sort_rows(s.rows, c.scal, shape, s.rows_alt),
              lambda c, s: K.sort_rows_plain(s.rows, c.scal, shape),
              lambda c, s: [s.rows]),
-            ("group_scan",
-             lambda c, s: K.group_scan(s.rows, c.scal, s.g, s.gagg, shape),
-             lambda c, s: K.group_scan_plain(s.rows, c.scal, s.g, shape),
-             lambda c, s: [s.g]),
-            ("dedup_truncate", k4(K.dedup_truncate),
-             k4(K.dedup_truncate_plain),
+        ] + (scan if K.group_scan_runs(shape) else []) + [
+            ("dedup_truncate", self.dedup_call(K.dedup_truncate),
+             self.dedup_call(K.dedup_truncate_plain),
              lambda c, s: list(s.pool_next.tensors())
              + [c.pk, c.ps, c.pa, c.scal, s.acc, c.stats]),
         ]
 
-    def walk(self) -> Iterator[tuple]:
-        """One level from the current state, stage by stage: yields
-        (name, kernel call, plain call, inputs, max_abs_err), where inputs
-        is the (carry, scratch) both calls started from. The next stage
-        starts from the plain version's outputs."""
+    def dedup_call(self, impl, seg=None):
+        """``impl`` (``dedup_truncate`` or its plain version) as a call on
+        a (carry, scratch); with ``seg``, ending a level pair in it."""
+        shape, nr = self.shape, self.nr
+        return lambda c, s: impl(s.rows, s.g, s.gagg, c.pool, s.pool_next,
+                                 c.pk, c.ps, c.pa, c.scal, s.acc, c.stats,
+                                 shape, nr, seg)
+
+    def dedup_inputs(self) -> tuple:
+        """The inputs of this state's next ``dedup_truncate``: a copy of
+        the state after the level's earlier stages, run by the kernels."""
+        c, s = copy_state(self.carry, self.scratch)
+        for _, kern, _, _ in self.stages()[:-1]:
+            kern(c, s)
+        return c, s
+
+    def pair_end(self, cases) -> tuple:
+        """``dedup_truncate`` ending a level pair (the segment graph's
+        second K4) against the plain one and then ``seg_active_plain``,
+        from the inputs of this state's next K4 (:meth:`dedup_inputs`),
+        over segment words (levels run, bound) ``cases``: (the largest
+        difference in any K4 output or segment word, those inputs)."""
+        state = self.dedup_inputs()
+        err = 0
+        for run, bound in cases:
+            outs = []
+            for impl in (K.dedup_truncate, K.dedup_truncate_plain):
+                c, s = copy_state(*state)
+                seg = torch.tensor([run, bound, 9, 0], dtype=torch.int32,
+                                   device=c.scal.device)
+                self.dedup_call(impl, seg)(c, s)
+                outs.append(list(s.pool_next.tensors())
+                            + [c.pk, c.ps, c.pa, c.scal, s.acc, c.stats,
+                               seg])
+            err = max(err, max_abs_err(*outs))
+        return err, state
+
+    def walk(self, first: int = 0) -> Iterator[tuple]:
+        """One level from the current state, stage by stage from stage
+        ``first`` (2: from the rows as they stand, sorted): yields (name,
+        kernel call, plain call, inputs, max_abs_err), where inputs is the
+        (carry, scratch) both calls started from. The next stage starts
+        from the plain version's outputs."""
         state = copy_state(self.carry, self.scratch)
-        for name, kern, plain, outputs in self.stages():
+        for name, kern, plain, outputs in self.stages()[first:]:
             ck, sk = copy_state(*state)
             cp, sp = copy_state(*state)
             kern(ck, sk)

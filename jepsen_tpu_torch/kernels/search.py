@@ -1,7 +1,7 @@
-"""The four kernels of one search level: wrappers, plain versions, counts.
+"""The kernels of one search level: wrappers, plain versions, counts.
 
 One level of the pool search (``jepsen_tpu/checker/tpu.py`` ``_search_fn``
-body, one ``lax.while_loop`` iteration) is four kernels in
+body, one ``lax.while_loop`` iteration) is three or four kernels in
 ``csrc/search.cu``:
 
 ==================  =====================================================
@@ -11,7 +11,10 @@ body, one ``lax.while_loop`` iteration) is four kernels in
                     sortable rows (a warp per expanded row)
 ``sort_rows``       B5 (lex) or B5' (hash): merge sort of the R live
                     rows (the pad tail after them is already in place)
-``group_scan``      B6: the cummax group-start scan over the sorted rows
+``group_scan``      B6: the cummax group-start scan over the sorted rows,
+                    only where there are crashed ops; a launch of its own
+                    only on the wide rungs (:func:`group_scan_runs`), in
+                    ``dedup_truncate``'s shared memory elsewhere
 ``dedup_truncate``  B6/B7: dup and 8-leader dominance kills, done/best,
                     first-C truncation into the other pool buffer, lossy,
                     the five per-level counters, level+1, pk/ps/pa (a
@@ -36,8 +39,8 @@ tensors run the plain PyTorch version beside it, CUDA tensors launch the
 kernel on the current stream (or raise; there is no fallback). Each
 launch adds one to ``launches[name]``, and the CUDA launches it issued,
 as the C entry point counts them where it makes them (the sort's merge
-passes and the scan's carry step are launches of their own; the count
-:func:`grid_launches` predicts), to ``grid_launches_total[name]``. The
+passes are launches of their own; the count :func:`grid_launches`
+predicts), to ``grid_launches_total[name]``. The
 plain versions take CUDA tensors too when called directly, which is how
 the kernels are held against them on the card.
 
@@ -65,13 +68,15 @@ unchanged: the masked update, tested on the device with no host
 synchronisation.
 
 A segment of levels (B9, the reference's ``lax.while_loop(seg_active,
-body_n, carry)``) is a fifth kernel and a CUDA graph. ``seg_active`` (K5)
-runs after each pair of levels: it adds the levels the pair ran to the
-segment's counter and decides whether any key is active and the segment
-under its bound, in the int32 words ``seg`` (levels run, bound, go).
-:class:`SegmentGraph` captures a level pair and K5 once, as the body of
-a WHILE graph node whose condition K5 sets, so a whole segment is one
-graph launch with no host code between levels.
+body_n, carry)``) is a CUDA graph. ``seg_active`` (K5) ends each pair of
+levels: it adds the levels the pair ran to the segment's counter and
+decides whether any key is active and the segment under its bound, in the
+int32 words ``seg`` (levels run, bound, go, ticket). :class:`SegmentGraph`
+captures a level pair once, as the body of a WHILE graph node, and the
+pair's second ``dedup_truncate`` runs K5's step at its end and sets the
+node's condition, so a whole segment is one graph launch with no host
+code between levels. ``seg_active`` standing alone is the step of the
+host loop.
 """
 
 from __future__ import annotations
@@ -123,14 +128,25 @@ COLS = ("f", "v1", "v2", "ro", "fr", "inv", "ret", "sm", "cf", "cv1",
         "cv2", "cinv", "cps", "cb")
 
 #: the words of a segment's ``seg`` tensor (int32 [NSEG]): levels run so
-#: far, the segment's bound in levels, and whether to run another pair
-SEG_RUN, SEG_BOUND, SEG_GO = range(3)
+#: far, the segment's bound in levels, whether to run another pair, and
+#: the word a batch's keys end a pair on inside the graph (tickets in its
+#: low bits, the keys' ran and active flags in bits 30 and 31; 0 between
+#: pairs)
+SEG_RUN, SEG_BOUND, SEG_GO, SEG_TICKET = range(4)
 NSEG = 4
+#: rows a block of the ``group_scan`` kernel scans; ``gagg`` holds one
+#: maximum per block
+SCAN_ROWS = 1024
+#: ``dedup_truncate``'s one-block kernel's static shared memory: per-warp
+#: sums (32 x 6 ints) and the group-start scan's warp maxima (32 ints)
+DEDUP_BLOCK_STATIC = 4 * (32 * 6 + 32)
 
 #: launches of each kernel since the last :func:`reset_launches`: a
-#: wrapper call, or a level (K5: a level pair) a segment graph ran, as
-#: read from the device; the sort counts its lex and its hash tie-break
-#: apart
+#: wrapper call, or a level a segment graph ran where its body launches
+#: the kernel, as read from the device (a graph launches no
+#: ``seg_active``: K5's step ends each pair in its second
+#: ``dedup_truncate``, counted in ``segments["pair_ends"]``); the sort
+#: counts its lex and its hash tie-break apart
 launches: Dict[str, int] = {"expand": 0, "sort_rows": 0,
                             "sort_rows_hash": 0, "group_scan": 0,
                             "dedup_truncate": 0, "seg_active": 0}
@@ -141,8 +157,10 @@ grid_launches_total: Dict[str, int] = dict.fromkeys(launches, 0)
 #: calls from Python into the kernel library: one per wrapper call, and
 #: one per kernel a segment graph captures (not one per level it runs)
 host_calls: Dict[str, int] = dict.fromkeys(launches, 0)
-#: segment graphs captured and launched, and the levels they ran
-segments: Dict[str, int] = {"captures": 0, "launches": 0, "levels": 0}
+#: segment graphs captured and launched, the levels they ran, and the
+#: level pairs their second ``dedup_truncate`` ended with K5's step
+segments: Dict[str, int] = {"captures": 0, "launches": 0, "levels": 0,
+                            "pair_ends": 0}
 
 
 def reset_launches() -> None:
@@ -547,26 +565,65 @@ def _same_grp(rows: torch.Tensor, MW: int) -> torch.Tensor:
     return out
 
 
+def _start_marks(rows: torch.Tensor, MW: int) -> torch.Tensor:
+    """``where(same_grp, 0, i)`` over rows [B, R, NK]: int32 [B, R]."""
+    iota = torch.arange(rows.shape[1], device=rows.device,
+                        dtype=torch.int32)
+    return torch.where(_same_grp(rows, MW), 0, iota)
+
+
 def group_scan_plain(rows: torch.Tensor, scal: torch.Tensor,
-                     g: torch.Tensor, shape: LevelShape) -> None:
-    """Plain version of ``group_scan``: g[b, i] = index of row i's group
-    start, ``cummax(where(same_grp, 0, i))`` (tpu.py:605)."""
+                     g: torch.Tensor, gagg: torch.Tensor,
+                     shape: LevelShape) -> None:
+    """Plain version of ``group_scan`` over each active key's R live rows,
+    in blocks of SCAN_ROWS rows: g[b, i] the group starts' scan (tpu.py:605)
+    within row i's block, and gagg[b, q] the largest start in block q; the
+    form ``dedup_truncate`` reads them in (:func:`group_starts`)."""
     act = scal[:, ACT] != 0
     if not bool(act.any()):
         return
-    iota = torch.arange(rows.shape[1], device=rows.device,
-                        dtype=torch.int32)
-    v = torch.where(_same_grp(rows, shape.MW), 0, iota)
-    g.copy_(torch.where(act[:, None], torch.cummax(v, 1).values, g))
+    B, R, nb = rows.shape[0], shape.R, gagg.shape[1]
+    v = _start_marks(rows[:, :R], shape.MW)
+    pad = torch.zeros(B, nb * SCAN_ROWS - R, dtype=v.dtype, device=v.device)
+    scan = torch.cummax(torch.cat([v, pad], 1).view(B, nb, SCAN_ROWS),
+                        2).values
+    g[:, :R] = torch.where(act[:, None], scan.view(B, -1)[:, :R], g[:, :R])
+    gagg.copy_(torch.where(act[:, None], scan[..., -1], gagg))
+
+
+def group_starts(g: torch.Tensor, gagg: torch.Tensor, R: int
+                 ) -> torch.Tensor:
+    """Each of the R rows' group start from ``group_scan``'s outputs: the
+    scan within its block raised to the largest start of the blocks before
+    (the carry ``dedup_truncate`` applies where it reads g), int32
+    [B, R]."""
+    B = gagg.shape[0]
+    before = torch.cummax(gagg, 1).values[:, :-1]
+    carry = torch.cat([torch.zeros(B, 1, dtype=gagg.dtype,
+                                   device=gagg.device), before], 1)
+    return torch.maximum(g[:, :R],
+                         carry.repeat_interleave(SCAN_ROWS, 1)[:, :R])
 
 
 def dedup_truncate_plain(rows: torch.Tensor, g: torch.Tensor,
-                         pool_in: Pool, pool_out: Pool, pk: torch.Tensor,
-                         ps: torch.Tensor, pa: torch.Tensor,
-                         scal: torch.Tensor, acc: torch.Tensor,
-                         stats: torch.Tensor, shape: LevelShape,
-                         nr: torch.Tensor) -> None:
-    """Plain version of ``dedup_truncate`` (tpu.py:589-664)."""
+                         gagg: torch.Tensor, pool_in: Pool, pool_out: Pool,
+                         pk: torch.Tensor, ps: torch.Tensor,
+                         pa: torch.Tensor, scal: torch.Tensor,
+                         acc: torch.Tensor, stats: torch.Tensor,
+                         shape: LevelShape, nr: torch.Tensor,
+                         seg: Optional[torch.Tensor] = None) -> None:
+    """Plain version of ``dedup_truncate`` (tpu.py:589-664): the group
+    starts from g and gagg, or, where the kernel scans them in its shared
+    memory (:func:`group_scan_runs` false), from the rows; with ``seg``,
+    then :func:`seg_active_plain` (the pair's second level)."""
+    _dedup_levels(rows, g, gagg, pool_in, pool_out, pk, ps, pa, scal, acc,
+                  stats, shape, nr)
+    if seg is not None:
+        seg_active_plain(scal, shape.lmax, seg)
+
+
+def _dedup_levels(rows, g, gagg, pool_in, pool_out, pk, ps, pa, scal, acc,
+                  stats, shape: LevelShape, nr) -> None:
     act = scal[:, ACT] != 0
     if not bool(act.any()):
         pool_out.copy_(pool_in)
@@ -583,7 +640,10 @@ def dedup_truncate_plain(rows: torch.Tensor, g: torch.Tensor,
     dominated = torch.zeros_like(fv)
     if shape.CR:
         iota = torch.arange(R, device=rows.device)
-        gr = g[:, :R].long()
+        # the group starts (tpu.py:605): K3's, or scanned here as the
+        # kernel scans them in its shared memory
+        gr = (group_starts(g, gagg, R) if group_scan_runs(shape)
+              else torch.cummax(_start_marks(rw, MW), 1).values).long()
         for p in range(LEADERS):
             li = (gr + p).clamp(max=R - 1)
             rl = rw.gather(1, li[..., None].expand(-1, -1, rw.shape[2]))
@@ -762,12 +822,29 @@ def tile_rows(shape: LevelShape) -> int:
     return T
 
 
+def dedup_block_smem(shape: LevelShape) -> int:
+    """Dynamic shared memory of ``dedup_truncate``'s one-block kernel: the
+    key's R rows at a stride of NK | 1 words and, where CR > 0, their
+    16-bit group starts."""
+    return 4 * shape.R * (shape.NK | 1) + (2 * shape.R if shape.CR else 0)
+
+
 def dedup_one_block(shape: LevelShape) -> bool:
     """Whether ``dedup_truncate`` takes its one-block-per-key path, the
-    key's rows in shared memory: while the R live rows fit one sort tile
-    (:func:`tile_rows`), whose shared memory holds them at any row width.
-    Past it (the wide rungs) a block takes 256 rows of a key."""
-    return shape.R <= tile_rows(shape)
+    key's rows and group starts in shared memory: while the R live rows
+    fit one sort tile (:func:`tile_rows`) and the block's shared memory
+    (:func:`dedup_block_smem` and its static arrays) fits SMEM_MAX. Past
+    it (the wide rungs) a block takes 256 rows of a key."""
+    return (shape.R <= tile_rows(shape) and dedup_block_smem(shape)
+            + DEDUP_BLOCK_STATIC <= SMEM_MAX)
+
+
+def group_scan_runs(shape: LevelShape) -> bool:
+    """Whether a level at ``shape`` launches ``group_scan``: its one
+    reader, the dominance test, runs only with crashed ops (CR > 0), and
+    on the one-block path ``dedup_truncate`` scans the group starts in
+    its own shared memory."""
+    return shape.CR > 0 and not dedup_one_block(shape)
 
 
 def sort_passes(shape: LevelShape) -> int:
@@ -779,46 +856,53 @@ def sort_passes(shape: LevelShape) -> int:
 
 def group_scan(rows: torch.Tensor, scal: torch.Tensor, g: torch.Tensor,
                gagg: torch.Tensor, shape: LevelShape) -> None:
-    """Write each sorted row's group start into g; ``gagg`` is the
-    kernel's scratch for per-block maxima."""
+    """Scan each sorted row's group start over the R live rows: within
+    each block of SCAN_ROWS rows into g, each block's largest into
+    ``gagg`` (:func:`group_starts` gives the starts)."""
     _check_rows(rows, scal, shape)
     _check(g, "g", torch.int32, (shape.B, shape.RP))
-    _check(gagg, "gagg", torch.int32, (shape.B, scan_blocks(shape.RP)))
+    _check(gagg, "gagg", torch.int32, (shape.B, scan_blocks(shape)))
     if _on_cpu([rows, scal, g, gagg]):
-        group_scan_plain(rows, scal, g, shape)
+        group_scan_plain(rows, scal, g, gagg, shape)
         return
     _launch("group_scan", _lib().jt_group_scan, _ptr(rows), _ptr(scal),
-            _ptr(g), _ptr(gagg), shape.B, shape.RP, shape.NK, shape.MW,
-            _stream(rows))
+            _ptr(g), _ptr(gagg), shape.B, shape.R, shape.RP, shape.NK,
+            shape.MW, _stream(rows))
 
 
-def scan_blocks(RP: int) -> int:
-    """Blocks the group-scan kernel uses for RP rows (1024 rows each)."""
-    return max(1, RP // 1024)
+def scan_blocks(shape: LevelShape) -> int:
+    """Blocks of SCAN_ROWS rows the group-scan kernel takes the R live rows
+    in: the width of ``gagg``."""
+    return -(-shape.R // SCAN_ROWS)
 
 
 def grid_launches(name: str, shape: LevelShape) -> int:
     """CUDA kernel launches one call of wrapper ``name`` should issue at
     ``shape`` (what ``grid_launches_total`` is held against). The sort
-    takes its tile pass and :func:`sort_passes` merge passes; the scan
-    adds a carry launch once it spans several blocks."""
+    takes its tile pass and :func:`sort_passes` merge passes; every other
+    kernel one."""
     if name.startswith("sort_rows"):
         return 1 + sort_passes(shape)
-    if name == "group_scan":
-        return 1 if scan_blocks(shape.RP) == 1 else 2
     return 1
 
 
-def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
-                   pool_out: Pool, pk: torch.Tensor, ps: torch.Tensor,
-                   pa: torch.Tensor, scal: torch.Tensor, acc: torch.Tensor,
-                   stats: torch.Tensor, shape: LevelShape,
-                   nr: torch.Tensor) -> None:
+def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, gagg: torch.Tensor,
+                   pool_in: Pool, pool_out: Pool, pk: torch.Tensor,
+                   ps: torch.Tensor, pa: torch.Tensor, scal: torch.Tensor,
+                   acc: torch.Tensor, stats: torch.Tensor,
+                   shape: LevelShape, nr: torch.Tensor,
+                   seg: Optional[torch.Tensor] = None) -> None:
     """Kill dups and dominated rows, truncate to C rows into ``pool_out``,
-    and finish each active key's level scalars and counters."""
+    and finish each active key's level scalars and counters. The group
+    starts come from ``group_scan``'s g and gagg where
+    :func:`group_scan_runs`, else the kernel scans them itself. With
+    ``seg``, the words of a segment, the launch then ends the level pair
+    as ``seg_active`` does (the step the segment graph's pair runs at its
+    end)."""
     B, C = shape.B, shape.C
     _check_rows(rows, scal, shape)
     _check(g, "g", torch.int32, (B, shape.RP))
+    _check(gagg, "gagg", torch.int32, (B, scan_blocks(shape)))
     _check_pool(pool_in, "pool_in", shape)
     _check_pool(pool_out, "pool_out", shape)
     _check(pk, "pk", torch.int32, (B, C))
@@ -827,17 +911,21 @@ def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, pool_in: Pool,
     _check_nr(nr, shape)
     _check(acc, "acc", torch.int32, (B, NACC))
     _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
-    tensors = ([rows, g] + list(pool_in.tensors())
+    tensors = ([rows, g, gagg] + list(pool_in.tensors())
                + list(pool_out.tensors())
                + [pk, ps, pa, nr, scal, acc, stats])
-    if _on_cpu(tensors):
-        dedup_truncate_plain(rows, g, pool_in, pool_out, pk, ps, pa, scal,
-                             acc, stats, shape, nr)
+    if seg is not None:
+        _check(seg, "seg", torch.int32, (NSEG,))
+    if _on_cpu(tensors + ([] if seg is None else [seg])):
+        dedup_truncate_plain(rows, g, gagg, pool_in, pool_out, pk, ps, pa,
+                             scal, acc, stats, shape, nr, seg)
         return
     _launch("dedup_truncate", _lib().jt_dedup_truncate,
             *[_ptr(t) for t in tensors],
             B, C, shape.W, shape.CR, shape.R, shape.lmax,
-            int(dedup_one_block(shape)), _stream(rows))
+            int(dedup_one_block(shape)),
+            ctypes.c_void_p(None) if seg is None else _ptr(seg),
+            _stream(rows))
 
 
 def seg_active(scal: torch.Tensor, lmax: int, seg: torch.Tensor) -> None:
@@ -855,20 +943,21 @@ def seg_active(scal: torch.Tensor, lmax: int, seg: torch.Tensor) -> None:
 
 #: the kernels a segment graph's body launches, in the order of the
 #: counts its C entry point returns
-GRAPH_KERNELS = ("expand", "sort_rows", "group_scan", "dedup_truncate",
-                 "seg_active")
+GRAPH_KERNELS = ("expand", "sort_rows", "group_scan", "dedup_truncate")
 
 
 class SegmentGraph:
     """A segment of levels over one shape's buffers as a CUDA graph: a
     memset node zeroes ``seg[SEG_RUN]``, then a WHILE node runs a level
-    pair (``pool`` into ``pool_next``, then back) and K5 until K5 finds no
-    key active or ``seg[SEG_RUN]`` at the bound. After any number of
+    pair (``pool`` into ``pool_next``, then back), until the pair's
+    second ``dedup_truncate``, ending the pair with K5's step, finds no key
+    active or ``seg[SEG_RUN]`` at the bound. After any number of
     iterations the pool is back in ``pool``, so the caller's buffers need
     no swap. The graph holds the buffers' device pointers; it keeps
     references to them, and its owner destroys it (:meth:`destroy`)
     before it lets them go. ``body`` is the CUDA launches one iteration
-    makes, per kernel, as the C entry points counted them at capture."""
+    makes, per kernel, as the C entry points counted them at capture:
+    ``group_scan`` only on the wide rungs of a search with crashed ops."""
 
     def __init__(self, cols: dict, nr: torch.Tensor, pool: Pool,
                  pool_next: Pool, pk: torch.Tensor, ps: torch.Tensor,
@@ -891,7 +980,7 @@ class SegmentGraph:
         _check(acc, "acc", torch.int32, (B, NACC))
         _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
         _check(g, "g", torch.int32, (B, shape.RP))
-        _check(gagg, "gagg", torch.int32, (B, scan_blocks(shape.RP)))
+        _check(gagg, "gagg", torch.int32, (B, scan_blocks(shape)))
         if sort_passes(shape):
             if rows_alt is None:
                 raise ValueError(f"segment graph: R = {shape.R} rows exceed "
@@ -918,7 +1007,8 @@ class SegmentGraph:
                 B, C, shape.W, shape.E, n, CR, shape.lmax,
                 MODELS.index(shape.model), TIEBREAKS.index(shape.tiebreak),
                 tile_rows(shape), sort_passes(shape),
-                int(dedup_one_block(shape)), ctypes.byref(handle), counts)
+                int(dedup_one_block(shape)), int(group_scan_runs(shape)),
+                ctypes.byref(handle), counts)
         if rc != 0:
             raise RuntimeError(f"segment graph: CUDA error {rc}: "
                                f"{build.error_string(rc)}")
@@ -926,8 +1016,8 @@ class SegmentGraph:
         sort = "sort_rows" if shape.tiebreak == "lex" else "sort_rows_hash"
         self.body = {(sort if k == "sort_rows" else k): int(n)
                      for k, n in zip(GRAPH_KERNELS, counts)}
-        for name in self.body:
-            if name != "seg_active":
+        for name, n in self.body.items():
+            if n:
                 host_calls[name] += 1
         segments["captures"] += 1
 
@@ -954,12 +1044,15 @@ class SegmentGraph:
     def account(self, run: int) -> None:
         """Add a segment that ran ``run`` levels, as read from
         ``seg[SEG_RUN]``, to the launch counts: ceil(run / 2) iterations
-        of the body, two levels each."""
+        of the body, two levels of each kernel it launches and one end of
+        a pair (K5's step, in the second ``dedup_truncate``) each."""
         pairs = (run + 1) // 2
         segments["levels"] += run
         for name, per_body in self.body.items():
-            launches[name] += pairs * (1 if name == "seg_active" else 2)
+            if per_body:
+                launches[name] += 2 * pairs
             grid_launches_total[name] += pairs * per_body
+        segments["pair_ends"] += pairs
 
     def destroy(self) -> None:
         """Free the graph and let its buffers go."""

@@ -115,8 +115,10 @@ def test_each_wrapper_counts_its_launches(cuda):
     lv = parity.Level(cols, (128, 32, 8), cuda)
     K.reset_launches()
     lv.advance(5)
+    # a narrow rung: K4 scans the group starts itself
     assert K.launches == {**{name: 5 for name in K.launches},
-                          "sort_rows_hash": 0, "seg_active": 0}
+                          "sort_rows_hash": 0, "group_scan": 0,
+                          "seg_active": 0}
     assert K.grid_launches_total == K.launches
 
 
@@ -130,7 +132,8 @@ def test_grid_launches_count_the_sorts_passes(cuda):
     assert K.launches["sort_rows"] == 2
     assert K.grid_launches_total["sort_rows"] == 2 * (
         1 + math.ceil(math.log2(tiles)))
-    assert K.grid_launches_total["group_scan"] == 2 * 2
+    # one scan launch a level, its blocks' carry applied in K4
+    assert K.grid_launches_total["group_scan"] == 2 * 1
 
 
 def _batch_cols(histories, cr):
@@ -667,9 +670,12 @@ def test_the_graph_loop_matches_the_host_loop(cuda, name):
 
 
 def test_a_segment_is_one_graph_launch(cuda):
-    """The batch loop on the card: one capture of K1-K4 from Python, one
-    graph launch a segment, and the launches counted from the levels the
-    device ran times the body's captured launches."""
+    """The batch loop on the card: one capture of K1, K2 and K4 from
+    Python (a narrow rung: K4 scans the group starts, and the pair's
+    second K4 ends the pair), one graph launch a segment, and the launches
+    counted from the levels the device ran times the body's captured
+    launches (K5's step: one a pair in the second K4, counted as a pair
+    end and not as a ``seg_active`` launch)."""
     from jepsen_tpu_torch.checker.engine import default_engine
     _, _, cols = _cols(FIXTURES["mc2"]())
     lv = parity.Level([cols], (128, 32, 8), cuda)
@@ -681,14 +687,15 @@ def test_a_segment_is_one_graph_launch(cuda):
     pairs = sum((r + 1) // 2 for r in segs)
     graph = default_engine().segment_graph(lv.cols, lv.nr, lv.carry,
                                            lv.scratch, lv.shape)
-    assert graph.body == {"expand": 2, "sort_rows": 2, "group_scan": 2,
-                          "dedup_truncate": 2, "seg_active": 1}
+    assert graph.body == {"expand": 2, "sort_rows": 2, "group_scan": 0,
+                          "dedup_truncate": 2}
     assert K.host_calls == {"expand": 1, "sort_rows": 1,
-                            "sort_rows_hash": 0, "group_scan": 1,
+                            "sort_rows_hash": 0, "group_scan": 0,
                             "dedup_truncate": 1, "seg_active": 0}
     assert K.launches == {"expand": 2 * pairs, "sort_rows": 2 * pairs,
-                          "sort_rows_hash": 0, "group_scan": 2 * pairs,
-                          "dedup_truncate": 2 * pairs, "seg_active": pairs}
+                          "sort_rows_hash": 0, "group_scan": 0,
+                          "dedup_truncate": 2 * pairs, "seg_active": 0}
+    assert K.segments["pair_ends"] == pairs
     assert K.grid_launches_total == {
         name: pairs * graph.body.get(name, 0) for name in K.launches}
     # the host loop over the same levels ends in the same carry
@@ -831,3 +838,133 @@ def test_dedup_matches_on_both_sides_of_one_block(cuda, CR, C):
             assert int(scratch.acc[[0, 2]].abs().sum()) == 0
             assert int(carry.scal[1, K.LEVEL]) == int(state[0].scal[1,
                                                                    K.LEVEL])
+
+
+# -- K3 in K4's shared memory, one K3 launch on the wide rungs, K5 in K4 ----
+
+
+@pytest.mark.parametrize("CR", [0, 8, 40])
+@pytest.mark.parametrize("W", [16, 48, 128])
+@pytest.mark.parametrize("model", K.MODELS)
+def test_the_fused_dedup_matches_scan_and_dedup_plain(cuda, model, W, CR):
+    """K4 scanning the group starts in its shared memory (CR > 0) or not
+    at all (CR = 0), every model, three keys one of them done, against
+    ``group_scan_plain`` and ``dedup_truncate_plain``; no K3 stage runs."""
+    shape = K.LevelShape(64, W, 8, 256, CR, B=3, model=model)
+    assert K.dedup_one_block(shape) and not K.group_scan_runs(shape)
+    lv = parity.Level.random(shape, W * CR + 7, cuda, inactive=(1,))
+    stages = []
+    for stage, _, _, _, err in lv.walk():
+        assert err == 0, (model, W, CR, stage)
+        stages.append(stage)
+    assert stages == ["expand", "sort_rows", "dedup_truncate"]
+
+
+def _grouped_level(shape, seed, device, inactive=()):
+    """A random state of ``shape`` whose rows are
+    :func:`~jepsen_tpu_torch.kernels.parity.grouped_rows` (long groups
+    across scan blocks and stripes), as K2 leaves them."""
+    lv = parity.Level.random(shape, seed, device, inactive=inactive)
+    lv.scratch.rows.copy_(torch.from_numpy(parity.grouped_rows(shape,
+                                                               seed)))
+    lv.carry.scal[:, K.ACT] = 1
+    lv.carry.scal[list(inactive), K.ACT] = 0
+    return lv
+
+
+#: (C, W, E, CR): R = 4,095, 4,096 (one block, NK = 12: 221,184 bytes of
+#: rows and starts) and 4,097 (the wide path, K3 and its carry) at four
+#: mask and four crashed words; R = 4,096 at NK = 6; 37,376 rows at CR = 8
+EDGE_SHAPES = [(2047, 128, 8, 128), (2048, 128, 8, 128), (2049, 128, 8, 128),
+               (1536, 32, 64, 8), (512, 64, 512, 8)]
+
+
+@pytest.mark.parametrize("C,W,E,CR", EDGE_SHAPES)
+def test_group_starts_across_blocks_and_stripes(cuda, C, W, E, CR):
+    """Groups longer than a 1,024-row scan block and than K4's stripe:
+    the fused K4, or K3 and K4 with its carry, against the plain
+    versions from the sorted rows."""
+    shape = K.LevelShape(C, W, E, 512, CR, B=3)
+    lv = _grouped_level(shape, C + CR, cuda, inactive=(1,))
+    stages = []
+    for stage, _, _, _, err in lv.walk(2):
+        assert err == 0, (shape.R, stage)
+        stages.append(stage)
+    want = (["group_scan"] if shape.R > 4096 else []) + ["dedup_truncate"]
+    assert stages == want, (shape.R, stages)
+    if shape.R <= 4096:
+        assert K.dedup_one_block(shape)
+        assert K.dedup_block_smem(shape) + K.DEDUP_BLOCK_STATIC <= K.SMEM_MAX
+
+
+#: (keys, rung, CR): the one-block kernel at 1, 8 and 256 keys, the wide
+#: one (R = 4,097) at 1 and 8
+DECIDE_CASES = [(B, rung, CR) for B in (1, 8, 256)
+                for rung, CR in (((32, 32, 4), 8), ((64, 48, 8), 0))] + [
+    (B, (1537, 32, 64), 8) for B in (1, 8)]
+
+
+@pytest.mark.parametrize("B,rung,CR", DECIDE_CASES)
+def test_the_deciding_dedup_matches_seg_active_plain(cuda, B, rung, CR):
+    """K5's step at the end of K4: the segment words (levels run, go, the
+    batch's ticket word back at 0) and every K4 output, with a third of the
+    keys done (all of them in the second state), the pair's second level
+    run or not, and the count below, at and past the bound."""
+    C, W, E = rung
+    shape = K.LevelShape(C, W, E, 256, CR, B=B)
+    cases = ((0, 2), (0, 1024), (1022, 1024), (5, 4), (7, 8))
+    for seed, inactive in ((B, tuple(range(0, B, 3))),
+                           (B + 1, tuple(range(B)))):
+        lv = parity.Level.random(shape, seed, cuda, inactive=inactive)
+        assert lv.pair_end(cases)[0] == 0, (B, rung, CR, inactive)
+    # a state where every key is done after the pair's second level
+    lv = parity.Level.random(shape, B + 2, cuda)
+    lv.carry.scal[:, K.LEVEL] = shape.lmax
+    assert lv.pair_end(cases)[0] == 0, (B, rung, CR)
+
+
+@pytest.mark.parametrize("B", [1, 8, 256])
+def test_the_graph_decides_inside_dedup_as_the_plain_route(cuda, B):
+    """The WHILE node's condition, set by the pair's second K4: segments
+    of random states at B = 1, 8 and 256 (a third of the keys done, and
+    every key's level budget near its end so that keys stop at other
+    pairs) run the levels the plain route runs, to the same carry."""
+    shape = K.LevelShape(32, 32, 4, 64, 8, B=B)
+    lvs = {}
+    for route in ("graph", "plain"):
+        lv = parity.Level.random(shape, B, cuda,
+                                 inactive=tuple(range(1, B, 3)), forced=0.2)
+        lv.carry.scal[:, K.LEVEL] = shape.lmax - 2 * torch.arange(
+            B, device=cuda, dtype=torch.int32) % 9
+        lvs[route] = lv
+    for n in (2, 6, 64):
+        runs = []
+        for route, lv in lvs.items():
+            words, graph = G.run_segment(
+                lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr, n,
+                G.KERNELS if route == "graph" else G.PLAIN)
+            assert (graph is None) == (route == "plain")
+            runs.append(words.tolist())
+            G.end_segment(lv.carry, lv.shape, words, graph)
+        assert runs[0] == runs[1], (B, n, runs)
+        for x, y in zip(*(interop.batch_carry_to_numpy(v.carry)
+                          for v in lvs.values()), strict=True):
+            assert np.array_equal(x, y), (B, n)
+
+
+@pytest.mark.parametrize("rung,cr,scan", [((128, 32, 8), 8, 0),
+                                          ((512, 64, 512), 8, 2),
+                                          ((512, 64, 512), 0, 0)])
+def test_the_graph_body_launches_k3_only_where_it_runs(cuda, rung, cr, scan):
+    """The captured body: two levels of K1, K2 (its merge passes on the
+    wide rung) and K4, K3 only on a wide rung with crashed ops, and no
+    K5 launch."""
+    from jepsen_tpu_torch.checker.engine import default_engine
+    hs = ([FIXTURES[n]() for n in ("wide40a", "wide40b")] if cr
+          else [wide_history(40, 2, seed=s) for s in (1, 2)])
+    lv = parity.Level(_batch_cols(hs, cr), rung, cuda)
+    graph = default_engine().segment_graph(lv.cols, lv.nr, lv.carry,
+                                           lv.scratch, lv.shape)
+    assert graph.body == {"expand": 2,
+                          "sort_rows": 2 * (1 + K.sort_passes(lv.shape)),
+                          "group_scan": scan, "dedup_truncate": 2}

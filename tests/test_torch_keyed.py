@@ -465,8 +465,10 @@ def test_grid_launches_counts_every_cuda_launch(rung, cr):
     if shape.R <= tile:    # the narrow rungs: one launch
         assert K.grid_launches("sort_rows", shape) == 1
         assert K.grid_launches("sort_rows_hash", hashed) == 1
-    assert K.grid_launches("group_scan", shape) == (
-        1 if shape.RP <= 1024 else 2)
+    # one scan launch where it runs (past one tile: on the narrow rungs K4
+    # scans), its blocks' carry applied in K4
+    assert K.grid_launches("group_scan", shape) == 1
+    assert K.group_scan_runs(shape) == (shape.R > tile)
     assert K.grid_launches("expand", shape) == 1
     assert K.grid_launches("dedup_truncate", shape) == 1
     if rung == (512, 64, 512):

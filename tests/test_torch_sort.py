@@ -118,12 +118,13 @@ def test_state_bytes_count_the_second_buffer_only_beyond_one_tile():
     assert G.state_bytes(narrow) == 88788 + 7208 == 95996
     # (512, 64, 512), CR 8, three keys: R = 37,376 rows, ten tiles, four
     # merge passes. Pools 512 x (4 x 5 + 1) = 10,752; carry 21,504 + 4,608
-    # + 32 + 87,380 = 113,524; scratch 36 + 4 x 65,536 x 8 + 4 x 64 =
-    # 2,097,444, and the second buffer 4 x 65,536 x 7 = 1,835,008
+    # + 32 + 87,380 = 113,524; scratch 36 + 4 x 65,536 x 8 + 4 x 37 (the
+    # group scan's maxima, one per 1,024 live rows) = 2,097,336, and the
+    # second buffer 4 x 65,536 x 7 = 1,835,008
     wide = K.LevelShape(512, 64, 512, 2048, 8, B=3)
     assert (wide.R, K.sort_passes(wide)) == (37376, 4)
-    assert G.state_bytes(wide) == 3 * (113524 + 2097444 + 1835008)
-    assert G.state_bytes(wide) == 12137928
+    assert G.state_bytes(wide) == 3 * (113524 + 2097336 + 1835008)
+    assert G.state_bytes(wide) == 12137604
 
 
 def test_search_level_hands_the_sort_its_second_buffer():

@@ -16,6 +16,11 @@ line with
   device ms (median of 30 launches, each behind a device-side sleep), its
   ms as a node of a CUDA graph of 64 launches of it alone, its bound, and
   ``torch.sort``'s and ``torch.cummax``'s ms on K2's and K3's inputs;
+  and the end of a level pair as graph nodes: K5 alone, and, where the
+  checkout's K4 ends the pair itself, that K4 beside K4 alone; and the
+  device ms a level of one segment graph launch of up to 512 levels from
+  the state (CUDA events behind a device-side sleep, median of 5, each
+  from the same state);
 * warm, end to end: the 10k-op register headline through
   ``linearizable``, the set model's 10,000-add history, the mutex's
   10,000-op history, the 256-key dense batch through ``check_keyed_gpu``
@@ -91,11 +96,50 @@ def one_checkout(root: str) -> dict:
         return p, kernel, G._split_packed(
             p, breq or G._bucket(p.n_required), cr, kernel)
 
+    def pair_end(lv):
+        from jepsen_tpu_torch.kernels import search as K
+        scal, lmax = lv.carry.scal.clone(), lv.shape.lmax
+        seg = torch.tensor([0, 1 << 30, 0, 0], dtype=torch.int32,
+                           device=dev)
+        out = {"seg_active_graph_ms": S.graph_ms(
+            lambda x: K.seg_active(scal, lmax, x), (seg,))}
+        if hasattr(lv, "dedup_call"):
+            r = S.check_pair_end(lv, plain_times=False)
+            out.update(pair_end_graph_ms=r["graph_ms"],
+                       dedup_graph_ms=r["dedup_graph_ms"])
+        return out
+
+    def segment(lv, levels=512, reps=5):
+        state = parity.copy_state(lv.carry, lv.scratch)
+        work = parity.copy_state(*state)
+
+        def once():
+            S.load_state(work, state)
+            torch.cuda.synchronize()
+            torch.cuda._sleep(S.SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            words, graph = G.run_segment(lv.cols, work[0], work[1],
+                                         lv.shape, lv.nr, levels)
+            end.record()
+            end.synchronize()
+            run = G.end_segment(work[0], lv.shape, words, graph)[0]
+            return start.elapsed_time(end), run
+        once()
+        res = [once() for _ in range(reps)]
+        run = res[0][1]
+        assert all(r == run for _, r in res)
+        return {"levels": run,
+                "ms_per_level": statistics.median(t for t, _ in res) / run}
+
     def state(tag, cols, rung, warm, **kw):
         lv = parity.Level(cols, rung, dev, **kw)
         assert lv.advance(warm) > 0, tag
         res = S.check_and_time(lv, parity, plain_times=False)
-        out["states"][tag] = {"R": lv.shape.R, "B": lv.shape.B, **{
+        out["states"][tag] = {"R": lv.shape.R, "B": lv.shape.B,
+                              "pair_end": pair_end(lv),
+                              "segment": segment(lv), **{
             name: {k: r[k] for k in ("ms", "graph_ms", "bound_ms",
                                      "library_ms")}
             for name, r in res.items()}}
@@ -227,11 +271,21 @@ def turns(a: str, b: str, dest=None) -> int:
                                       for k in ("ms", "graph_ms")]
                                      for r in mine]
                               for name in states[tag]
-                              if name not in ("R", "B")}
+                              if name not in ("R", "B", "pair_end",
+                                              "segment")}
                         for tag in states},
+            # per state: each run's device ms a level of one segment
+            # graph launch (and the levels it ran)
+            "segment": {tag: [r["states"][tag]["segment"] for r in mine]
+                        for tag in states},
+            # per state: each run's graph-node ms of K5 alone and of K4
+            # ending the pair beside K4 alone
+            "pair_end": {tag: [r["states"][tag]["pair_end"] for r in mine]
+                         for tag in states},
             "bound_ms": {tag: {name: v["bound_ms"]
                                for name, v in states[tag].items()
-                               if name not in ("R", "B")}
+                               if name not in ("R", "B", "pair_end",
+                                               "segment")}
                          for tag in states},
             "headline_cold_s": [r["headline_cold_s"] for r in mine],
             "headline_warm_s": med(t for r in mine
