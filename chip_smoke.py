@@ -32,7 +32,14 @@ kernel held against its plain version at a gang's state (8 same-bucket
 checked one by one, and the daemon (``serve.run_daemon`` on port 0)
 answering register requests from 4 tenants in gangs, beside the
 headline, its corrupted copy, a mutex history, a request past its
-deadline and a poisoned gang member. Every phase is a hard assertion.
+deadline and a poisoned gang member; and the host engines behind the
+facade: the native C++ engine built from ``jepsen_tpu_torch/native`` with
+g++, the headline through ``linearizable(CASRegister(), backend="cpu")``
+timed beside the device's warm seconds (with the card and the host CPU),
+the corrupted headline and the etcd batch on both, a ``competition``
+race, histories the device leaves UNKNOWN ending in the native engine
+after K1-K4 ran, and ``linear.svg`` written for an invalid history. Every
+phase is a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -146,6 +153,21 @@ GANG_SIZE, GANG_RUNG, GANG_WARM_LEVELS, GANG_REPS = 8, (128, 32, 8), 300, 3
 #: the result fields a served verdict shares with the serial check's
 VERDICT = ("valid", "levels", "max-linearized-prefix", "final-states",
            "frontier-op")
+
+#: the host engines phase: repeats of each timed native headline check;
+#: histories the device search leaves UNKNOWN, each with the result the
+#: JAX package's facade (backend="cpu", its native engine) gives on it on
+#: the CPU: the far-write history (its write 129 offsets past the first
+#: read, beyond the device's 128-offset window) valid and refuted, and a
+#: set history whose crashed adds all lost their effect (the beam is
+#: truncated on every rung)
+HOST_REPS = 5
+FAR_WRITE_REFERENCE = {
+    7: {"valid": True, "configs-explored": 132},
+    8: {"valid": False, "configs-explored": 3, "max-linearized-prefix": 0,
+        "final-states": [-1, 1]}}
+LOST_ADD = dict(n_adds=1000, n_procs=5, seed=1, crash_p=0.005, lost_p=1.0)
+LOST_ADD_REFERENCE = {"valid": True, "configs-explored": 29179}
 
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
@@ -1055,6 +1077,188 @@ def serve_phases(dev, seconds, shapes, head):
             serve_segments)
 
 
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo's first processor names it (model
+    name, vendor, family and model numbers; lscpu's model name where
+    /proc/cpuinfo has none) and its count of logical CPUs."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as fh:
+            for line in fh:
+                if not line.strip():
+                    break
+                key, _, value = line.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    name = info.get("model name")
+    if name in (None, "", "unknown"):
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=30).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), name)
+        except (OSError, subprocess.SubprocessError):
+            pass
+    ids = " ".join(f"{k}={info[k]}" for k in ("vendor_id", "cpu family",
+                                              "model", "stepping")
+                   if k in info)
+    return f"{name or 'unknown'} ({ids}) x{os.cpu_count()}"
+
+
+def host_engine_phases(dev, seconds, head, head_warm_s, etcd, invalid):
+    """The host engines behind the facade on the card's host: the native
+    engine built and answering the headline beside the device's warm
+    seconds, the corrupted headline and the etcd batch on both, a race,
+    the device's UNKNOWN routed to the native engine, and linear.svg.
+    Returns the phase's JSON line."""
+    import tempfile
+    from jepsen_tpu_torch import independent, native, testing
+    from jepsen_tpu_torch.checker import native as N
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister, SetModel
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    from jepsen_tpu_torch.testing import (keyed_history,
+                                          simulate_register_history)
+
+    etcd_hs, etcd_out, etcd_wall, etcd_batches = etcd
+    with phase("host engines", seconds):
+        # the facades built above already loaded the engine: time a build
+        # of the same source into a scratch directory
+        assert N.available(), "the native engine did not build"
+        build_dir = native.BUILD_DIR
+        with tempfile.TemporaryDirectory() as d:
+            native.BUILD_DIR = d
+            try:
+                t0 = time.perf_counter()
+                assert native.build("wgl_engine") is not None
+                build_s = time.perf_counter() - t0
+            finally:
+                native.BUILD_DIR = build_dir
+        path = os.path.relpath(N.library_path())
+        assert path.startswith("jepsen_tpu_torch" + os.sep), path
+        host = linearizable(CASRegister(), backend="cpu")
+        assert host.algorithm == "native", host.algorithm
+        device = linearizable(CASRegister(), device=dev)
+
+        def timed(fn, reps=1):
+            times, out = [], None
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                out = fn()
+                times.append(time.perf_counter() - t0)
+            return out, statistics.median(times), times
+
+        # the headline: the facade (packing included, as the device's
+        # warm seconds include it) and the engine call alone
+        r, native_s, native_times = timed(lambda: host.check({}, head),
+                                          HOST_REPS)
+        assert r["valid"] is True and r["engine"] == "native", r
+        packed, kernel = pack_with_init(head, CASRegister())
+        _, engine_s, _ = timed(lambda: N.check_packed_native(packed, kernel),
+                               HOST_REPS)
+        cpu = cpu_model()
+        line = {"card": nvidia_smi(), "cpu": cpu, "build_s": build_s,
+                "library": path,
+                "headline": {"native_s": native_s,
+                             "native_runs_s": native_times,
+                             "native_engine_only_s": engine_s,
+                             "device_warm_s": head_warm_s,
+                             "device_over_native": head_warm_s / native_s,
+                             "configs_explored": r["configs-explored"]}}
+        print(f"host engines: headline native_s={native_s:.4f} (engine "
+              f"alone {engine_s:.4f}) device_warm_s={head_warm_s:.4f} "
+              f"device/native={head_warm_s / native_s:.2f} "
+              f"card={line['card']!r} cpu={cpu!r}", flush=True)
+
+        # the corrupted headline on both
+        bad = testing.corrupt_model_history(head, "cas-register")
+        rd, dev_s, _ = timed(lambda: device.check({}, bad), HOST_REPS)
+        rn, nat_s, _ = timed(lambda: host.check({}, bad), HOST_REPS)
+        assert rd["valid"] is rn["valid"] is False, (rd, rn)
+        assert rd["max-linearized-prefix"] == rn["max-linearized-prefix"]
+        line["corrupt_headline"] = {
+            "device_s": dev_s, "native_s": nat_s,
+            "max_linearized_prefix": rn["max-linearized-prefix"]}
+
+        # the race on a 2,000-op history, against the device's verdict
+        h2k = simulate_register_history(seed=SERVE_SEED, **SERVE)
+        race = linearizable(CASRegister(), backend="cpu",
+                            algorithm="competition")
+        rc, race_s, _ = timed(lambda: race.check({}, h2k))
+        assert rc["valid"] is device.check({}, h2k)["valid"] is True, rc
+        line["competition"] = {"seconds": race_s,
+                               "winner": rc["algorithm"]}
+
+        # histories the device leaves UNKNOWN: its host fallback is the
+        # native engine, after K1-K4 ran
+        routed = {}
+        for tag, h, model, want in (
+                ("far-write", testing.far_write_history(130, 7),
+                 CASRegister(), FAR_WRITE_REFERENCE[7]),
+                ("far-write-bad", testing.far_write_history(130, 8),
+                 CASRegister(), FAR_WRITE_REFERENCE[8]),
+                ("set-lost-add", testing.simulate_set_history(**LOST_ADD),
+                 SetModel(), LOST_ADD_REFERENCE)):
+            K.reset_launches()
+            ru, u_s, _ = timed(lambda: linearizable(
+                model, device=dev).check({}, h))
+            launched = dict(K.launches)
+            assert all(launched[k] > 0 for k in (
+                "expand", "sort_rows", "dedup_truncate")), (tag, launched)
+            assert ru["fallback-from"] == "gpu", (tag, ru)
+            assert ru["engine"] == "native", (tag, ru)
+            assert {k: ru.get(k) for k in want} == want, (tag, ru, want)
+            routed[tag] = {"seconds": u_s, "launches": launched,
+                           "fallback_reason": ru["fallback-reason"],
+                           "valid": ru["valid"]}
+            print(f"host engines: {tag} valid={ru['valid']} "
+                  f"reason={ru['fallback-reason']!r} launches={launched} "
+                  f"({u_s:.2f} s)", flush=True)
+        line["device_unknown"] = routed
+
+        # the etcd-shaped batch, key by key against the device's run: the
+        # engine over the split keys, and the keyed checker on both routes
+        # over the [k v] history, warm
+        rk, keyed_s, _ = timed(lambda: N.check_keyed_native(
+            etcd_hs, CASRegister()), HOST_REPS)
+        verdicts = {k: r["valid"] for k, r in etcd_out["results"].items()}
+        assert rk["valid"] is etcd_out["valid"] is False
+        assert {k: r["valid"] for k, r in rk["results"].items()} == verdicts
+        kh = keyed_history(etcd_hs)
+        by = {}
+        for tag, chk in (("device", device), ("native", host)):
+            out, by[tag], _ = timed(lambda: independent.checker(chk).check(
+                {}, kh), HOST_REPS)
+            assert {k: r["valid"] for k, r in out["results"].items()} == \
+                verdicts, tag
+        assert all(r["engine"] == "native" for r in out["results"].values())
+        line["etcd"] = {"native_engine_s": keyed_s,
+                        "native_keyed_checker_s": by["native"],
+                        "device_keyed_checker_s": by["device"],
+                        "device_first_run_wall_s": etcd_wall,
+                        "device_first_run_batch_s": sum(
+                            b["seconds"] for b in etcd_batches)}
+        print(f"host engines: etcd native_keyed_s={by['native']:.4f} "
+              f"device_keyed_s={by['device']:.4f} (engine over the split "
+              f"keys {keyed_s:.4f})", flush=True)
+
+        # an invalid history with a store-dir: linear.svg, on both routes
+        with tempfile.TemporaryDirectory() as d:
+            for tag, chk in (("device", device), ("native", host)):
+                store = os.path.join(d, tag)
+                ri = chk.check({"store-dir": store}, invalid)
+                assert ri["valid"] is False, (tag, ri)
+                assert ri["counterexample"] == "linear.svg", (tag, ri)
+                assert os.path.getsize(os.path.join(store,
+                                                    "linear.svg")) > 0
+                assert ri["final-path"] and ri["configs"], (tag, ri)
+        print("host engines:", json.dumps(line), flush=True)
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1233,6 +1437,7 @@ def smoke(dev: torch.device) -> None:
         seed = cfg.pop("seed")
         bad = corrupt_one_read(simulate_register_history(seed=seed, **cfg),
                                random.Random(seed))
+        invalid_h = bad
         t0 = time.perf_counter()
         ri = checker.check({}, bad)
         ti = time.perf_counter() - t0
@@ -1352,6 +1557,7 @@ def smoke(dev: torch.device) -> None:
             seed += 1
         hs[0] = bad
         out, wall, batches = keyed_run(keyed_history(hs))
+        etcd = (hs, out, wall, batches)
         keyed_lines.append(describe("etcd", out, wall, batches, "cold"))
         assert out["valid"] is False and out["failures"] == [0], \
             out["failures"]
@@ -1402,6 +1608,10 @@ def smoke(dev: torch.device) -> None:
     # -- the serve daemon's gangs ------------------------------------------
     (gang_line, serve_line, serve_launches, serve_grid_launches,
      path_segments["serve"]) = serve_phases(dev, seconds, shapes, head)
+
+    # -- the host engines behind the facade --------------------------------
+    host_line = host_engine_phases(dev, seconds, head, warm_s, etcd,
+                                   invalid_h)
 
     # -- summary ------------------------------------------------------------
     for tag, res in k5.items():
@@ -1491,7 +1701,8 @@ def smoke(dev: torch.device) -> None:
         "cold_s": cold_headline, "warm_s": warm_s, "levels": r["levels"],
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
         "models": model_lines, "gang_vs_serial": gang_line,
-        "serve": serve_line, "phase_seconds": seconds, "nvidia_smi": smi}))
+        "serve": serve_line, "host_engines": host_line,
+        "phase_seconds": seconds, "nvidia_smi": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -15,5 +15,10 @@ one at a time or as a keyed batch::
     independent.checker(linearizable(CASRegister())).check({}, kv_history)
 
 The device search's kernels are in ``csrc/search.cu``, built with nvcc at
-first use (``kernels/build.py``).
+first use (``kernels/build.py``). On the host, behind the same facade,
+the reference's engines: the C++ WGL engine (``native/wgl_engine.cc``,
+built with g++ at first use), the Python WGL, ``:linear`` and their
+race, chosen by ``linearizable(..., algorithm=, max_configs=)``::
+
+    linearizable(CASRegister(), backend="cpu").check({}, history)
 """

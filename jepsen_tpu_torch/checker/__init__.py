@@ -1,8 +1,11 @@
 """History checkers. A checker examines a completed history and returns a
 result map whose ``valid`` key is True, False or :data:`UNKNOWN`.
 
-The linearizability checker is :mod:`jepsen_tpu_torch.checker.wgl`; its
-device search is :mod:`jepsen_tpu_torch.checker.gpu`.
+The linearizability checker is :mod:`jepsen_tpu_torch.checker.wgl`
+(``linearizable``, exported here); its device search is
+:mod:`jepsen_tpu_torch.checker.gpu`, its host engines
+:mod:`jepsen_tpu_torch.checker.native` and
+:mod:`jepsen_tpu_torch.checker.jitlin`.
 """
 
 from __future__ import annotations
@@ -54,3 +57,7 @@ def check_safe(checker: Checker, test: dict, history,
         if trail:
             out["attempts"] = list(trail)
         return out
+
+
+from jepsen_tpu_torch.checker.wgl import (  # noqa: E402,F401
+    LinearizableChecker, linearizable)

@@ -6,9 +6,9 @@ fixtures ``random_set_history``, ``random_queue_history``,
 ``unique_queue_history`` and ``random_fifo_history``: each draws from a
 ``random.Random`` built from the ``seed`` it is given (or takes one), so
 the same seed yields the same history as the JAX package's copy.
-``crash_writes`` and the three full-size simulators of the other models
-(``simulate_mutex_history``, ``simulate_queue_history``,
-``simulate_set_history``) are the port's own.
+``crash_writes``, ``far_write_history`` and the three full-size
+simulators of the other models (``simulate_mutex_history``,
+``simulate_queue_history``, ``simulate_set_history``) are the port's own.
 """
 
 from __future__ import annotations
@@ -148,6 +148,28 @@ def wide_history(n_procs=100, rounds=2, write_frac=0.12, seed=0,
                 break
         h = History.of(rows)
     return h
+
+
+def far_write_history(offset: int = 130, read_value=7) -> History:
+    """A register history whose first op to return is a read of a value
+    that only a write ``offset`` ops later in return order can have
+    written: the write is invoked before the read returns and returns
+    after ``offset - 1`` sequential reads of its value. Past an offset of
+    128 the device search cannot reach the write (its window holds 128
+    offsets) and answers UNKNOWN at once, while the host searches take it.
+    Linearizable when ``read_value`` is 7, the written value; with another
+    value the first read is refuted."""
+    rows = [Op(type="invoke", f="read", value=None, process=0, time=0),
+            Op(type="invoke", f="write", value=7, process=1, time=1),
+            Op(type="ok", f="read", value=read_value, process=0, time=2)]
+    t = 3
+    for _ in range(offset - 1):
+        rows.append(Op(type="invoke", f="read", value=None, process=2,
+                       time=t))
+        rows.append(Op(type="ok", f="read", value=7, process=2, time=t + 1))
+        t += 2
+    rows.append(Op(type="ok", f="write", value=7, process=1, time=t))
+    return History(rows)
 
 
 def keyed_history(histories: dict) -> History:

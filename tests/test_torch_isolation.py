@@ -69,6 +69,28 @@ def test_importing_the_checker_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_the_native_engine_loads_from_the_port():
+    """The host engine the facade's ``auto`` takes is built from the
+    port's own ``native/wgl_engine.cc`` into ``jepsen_tpu_torch/_build``;
+    loading it imports nothing of JAX or the JAX package, and maps no
+    library of the JAX package's ``native/``."""
+    code = ("import sys; from jepsen_tpu_torch.checker import native; "
+            "ok = native.available(); print(native.library_path()); "
+            "maps = open('/proc/self/maps').read(); "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; "
+            "sys.exit(1 if bad or not ok or 'jepsen_tpu/native' in maps "
+            "else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = os.path.realpath(proc.stdout.strip())
+    assert path.startswith(os.path.join(ROOT, "jepsen_tpu_torch", "_build")
+                           + os.sep), path
+    assert os.path.exists(path)
+
+
 def test_default_device_is_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
