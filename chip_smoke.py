@@ -38,8 +38,15 @@ g++, the headline through ``linearizable(CASRegister(), backend="cpu")``
 timed beside the device's warm seconds (with the card and the host CPU),
 the corrupted headline and the etcd batch on both, a ``competition``
 race, histories the device leaves UNKNOWN ending in the native engine
-after K1-K4 ran, and ``linear.svg`` written for an invalid history. Every
-phase is a hard assertion.
+after K1-K4 ran, and ``linear.svg`` written for an invalid history; and
+streams: the daemon's ``/stream`` routes taking 10,000-op register
+histories in 1,000-event chunks (crash-free with a duplicate and a
+reordered chunk; the headline, whose first crash pins the watermark; its
+corrupted copy, refuted before its last chunk; a stream whose daemon is
+stopped after a checkpoint and resumed by a new one), each verdict
+against the offline check on the card, and a lock-step stream on the
+kernels against the same stream on their plain versions. Every phase is
+a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -168,6 +175,22 @@ FAR_WRITE_REFERENCE = {
         "final-states": [-1, 1]}}
 LOST_ADD = dict(n_adds=1000, n_procs=5, seed=1, crash_p=0.005, lost_p=1.0)
 LOST_ADD_REFERENCE = {"valid": True, "configs-explored": 29179}
+
+#: the stream phase: histories POSTed to the daemon's /stream routes in
+#: chunks of STREAM_CHUNK ops: the headline's shape without crashes (every
+#: stable prefix checked online), the headline itself (its first crash
+#: pins the watermark: the rest is checked at close) and its corrupted
+#: copy (refuted before the last chunk is sent); the crash-free history
+#: again, its daemon killed after a checkpoint at level > 0 once
+#: STREAM_KILL_AFTER chunks are in, resumed by a new daemon; and
+#: STREAM_PLAIN_OPS ops streamed in lock step on the kernels and on their
+#: plain versions
+STREAM_FREE = dict(HEADLINE, crash_p=0.0)
+STREAM_CHUNK = 1000
+STREAM_KILL_AFTER = 5
+STREAM_PLAIN_OPS, STREAM_PLAIN_CHUNK = 1000, 100
+#: the kernels whose launches the stream line counts
+STREAM_KERNELS = ("expand", "sort_rows", "group_scan", "dedup_truncate")
 
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
@@ -1077,6 +1100,340 @@ def serve_phases(dev, seconds, shapes, head):
             serve_segments)
 
 
+def stream_post(port, ops, order=None, close=True, tag=""):
+    """Open a stream on the daemon at ``port`` and POST the chunks of
+    ``ops`` in ``order`` (chunk indices, all of them in order when None;
+    a repeat is a duplicate), with their CRCs; then, with ``close``, wait
+    for the online check to catch up and seal the stream. Returns the
+    stream id, its chunks, the intake seconds (the first POST to the last
+    ack) and the close's ``time.perf_counter()``."""
+    from jepsen_tpu_torch.stream import chunk_crc
+    code, body = http_json(port, "POST", "/stream",
+                           {"tenant": tag, "model": "cas-register"})
+    assert code == 202, (code, body)
+    sid = body["id"]
+    chunks = [ops[i:i + STREAM_CHUNK]
+              for i in range(0, len(ops), STREAM_CHUNK)]
+    t0 = time.perf_counter()
+    for i in range(len(chunks)) if order is None else order:
+        code, body = http_json(port, "POST", f"/stream/{sid}/ops",
+                               {"seq": i, "ops": chunks[i],
+                                "crc": chunk_crc(chunks[i])})
+        assert code == 202, (tag, i, code, body)
+    intake = time.perf_counter() - t0
+    if close:
+        stream_idle(port, sid)
+        code, body = http_json(port, "POST", f"/stream/{sid}/close",
+                               {"chunks": len(chunks)})
+        assert code == 200, (tag, code, body)
+    return sid, chunks, intake
+
+
+def stream_idle(port, sid, timeout=120.0, quiet=3):
+    """Wait until the stream's checked prefix and level have not moved for
+    ``quiet`` polls 50 ms apart (a live client's close comes long after
+    its last op; this one's comes once the online check is idle)."""
+    t0 = time.perf_counter()
+    last, still = None, 0
+    while time.perf_counter() - t0 < timeout:
+        code, doc = http_json(port, "GET", f"/stream/{sid}")
+        key = (doc["checked-events"], doc["checked-level"])
+        if doc["state"] != "open":
+            return doc
+        still = still + 1 if key == last and key[1] > 0 else 0
+        if still >= quiet:
+            return doc
+        last = key
+        time.sleep(0.05)
+    raise AssertionError(f"stream {sid} never went idle: {doc}")
+
+
+def stream_wait(port, root, sid, timeout=300.0):
+    """The stream's status once done, and the seconds from its seal to its
+    verdict as the daemon journaled them."""
+    from jepsen_tpu_torch import journal
+    from jepsen_tpu_torch import stream as stream_ns
+    t0 = time.perf_counter()
+    while True:
+        code, doc = http_json(port, "GET", f"/stream/{sid}")
+        assert code == 200, (code, doc)
+        if doc["state"] == "done" and doc.get("result"):
+            break
+        assert time.perf_counter() - t0 < timeout, doc
+        time.sleep(0.01)
+    records, _ = journal.read_json_records(os.path.join(
+        root, "streams", sid, stream_ns.WAL_NAME))
+    return doc, [r for r in records if r["event"] == "verdict"][-1][
+        "seconds"]
+
+
+def stream_lockstep(stream_ns):
+    """The stream runner fed one chunk of the scripted sizes at a time,
+    each once its search is idle, so that two runs take the same barriers
+    whatever the threads' timing."""
+
+    class Lockstep(stream_ns.StreamRunner):
+        def __init__(self, *a, sizes=(), **kw):
+            super().__init__(*a, **kw)
+            self._sizes = list(sizes)
+
+        def _poll(self):
+            if self._work_pending():
+                return [], False
+            s = self.session
+            with s.cond:
+                if self._sizes:
+                    k = self._sizes.pop(0)
+                    new = list(s.ops[self._fed:self._fed + k])
+                    self._fed += len(new)
+                    return new, False
+                new = list(s.ops[self._fed:])
+                self._fed += len(new)
+                return new, s.state != "open"
+
+    return Lockstep
+
+
+def stream_phases(dev, seconds, head, smi):
+    """The streaming path: the daemon on port 0 on CUDA, histories POSTed
+    to its /stream routes (see STREAM_FREE), each verdict against the
+    offline check of the same history on the card; a daemon killed after a
+    checkpoint and a new one resuming its stream; and a stream on the
+    kernels against the same stream on their plain versions. Returns the
+    stream line, the kernels' launch counts and CUDA launches on the
+    stream path, and its segment counts."""
+    import shutil
+    from jepsen_tpu_torch import resilience, serve
+    from jepsen_tpu_torch import stream as stream_ns
+    from jepsen_tpu_torch import testing
+    from jepsen_tpu_torch.checker import check_safe
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.history import History
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister
+
+    def bounded(res, want, tag):
+        """The stream's verdict equals the offline check's; its levels are
+        the offline search's plus at most one a barrier (a barrier where
+        the search was done, followed by a forced op, costs a level in the
+        reference's online check as here)."""
+        for k in ("valid", "max-linearized-prefix", "final-states",
+                  "frontier-op"):
+            assert res.get(k) == want.get(k), (tag, k, res, want)
+        extra = res["levels"] - want["levels"]
+        assert 0 <= extra <= res["stream"]["barriers"], (tag, res, want)
+        return extra
+
+    with phase("stream", seconds):
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "store", "stream-smoke")
+        shutil.rmtree(root, ignore_errors=True)
+        free = testing.simulate_register_history(**STREAM_FREE)
+        bad = testing.corrupt_model_history(head, "cas-register")
+        hist = {"free": free, "head": head, "bad": bad}
+        ops = {k: [o.to_dict() for o in h] for k, h in hist.items()}
+        checker = linearizable(CASRegister(), device=dev)
+        offline, offline_s = {}, {}
+        for tag, h in hist.items():
+            offline[tag] = check_safe(checker, {}, h)
+            gc.collect()
+            t0 = time.perf_counter()
+            again = check_safe(checker, {}, h)
+            offline_s[tag] = time.perf_counter() - t0
+            assert again["levels"] == offline[tag]["levels"], tag
+        assert offline["free"]["valid"] is True
+        assert offline["head"]["valid"] is True
+        assert offline["bad"]["valid"] is False
+        first_info = next(i for i, o in enumerate(ops["head"])
+                          if o["type"] == "info")
+
+        K.reset_launches()
+        cfg = serve.ServeConfig(root=root, device=(
+            None if dev.type == "cuda" else "cpu"))
+        daemon, server = serve.run_daemon(cfg, port=0)
+        port = server.server_port
+        lines, results, before = {}, {}, dict(K.launches)
+        try:
+            def account(tag, res, intake, close_s, n):
+                st = res["stream"]
+                now = dict(K.launches)
+                lines[tag] = {
+                    "ops": n, "valid": res["valid"],
+                    "levels": res["levels"],
+                    "offline_levels": offline[tag]["levels"],
+                    "watermark": st["watermark"],
+                    "barriers": st["barriers"], "rebases": st["rebases"],
+                    "segments": st["segments"], "captures": st["captures"],
+                    "close_level": st["close-level"],
+                    "failed_fast": st["failed-fast"],
+                    "close_to_verdict_s": close_s,
+                    "offline_warm_s": offline_s[tag],
+                    "intake_ops_per_s": n / intake,
+                    "launches": {k: now[k] - before[k]
+                                 for k in STREAM_KERNELS}}
+                before.update(now)
+                results[tag] = res
+                print(f"stream {tag}: {json.dumps(lines[tag])}", flush=True)
+
+            # the crash-free history: chunk 2 before chunk 1, then chunk 1
+            # again
+            n = -(-len(ops["free"]) // STREAM_CHUNK)
+            order = [0, 2, 1, 1] + list(range(3, n))
+            sid, chunks, intake = stream_post(port, ops["free"], order,
+                                                 tag="free")
+            doc, close_s = stream_wait(port, root, sid)
+            res = doc["result"]
+            assert res["stream"]["dup-chunks"] == 1
+            assert res["stream"]["reordered"] == 1
+            assert res["stream"]["watermark"] == len(ops["free"])
+            # checked online: the close found a carry deep in the search
+            assert res["stream"]["barriers"] >= 2, res["stream"]
+            assert res["stream"]["close-level"] > 0, res["stream"]
+            bounded(res, offline["free"], "free")
+            account("free", res, intake, close_s, len(ops["free"]))
+
+            # the headline: its first crash pins the watermark
+            sid, chunks, intake = stream_post(port, ops["head"],
+                                                 tag="head")
+            doc, close_s = stream_wait(port, root, sid)
+            res = doc["result"]
+            assert res["stream"]["rebases"] == [], res["stream"]
+            assert res["stream"]["close-level"] is not None
+            assert res["crash-width"] > 0
+            bounded(res, offline["head"], "head")
+            account("head", res, intake, close_s, len(ops["head"]))
+            lines["head"]["first_info_event"] = first_info
+
+            # the corrupted headline: refuted before its last chunk is
+            # sent, which then answers 409
+            sid, chunks, _ = stream_post(port, ops["bad"], [],
+                                            close=False, tag="bad")
+            t0 = time.perf_counter()
+            sent = 0
+            for i in range(len(chunks) - 1):
+                code, body = http_json(port, "POST", f"/stream/{sid}/ops",
+                                       {"seq": i, "ops": chunks[i]})
+                if code == 409 and body["error"] == "stream-failed":
+                    break
+                assert code == 202, (code, body)
+                sent += 1
+            intake = time.perf_counter() - t0
+            doc, _ = stream_wait(port, root, sid)
+            res = doc["result"]
+            code, body = http_json(port, "POST", f"/stream/{sid}/ops",
+                                   {"seq": len(chunks) - 1,
+                                    "ops": chunks[-1]})
+            assert code == 409 and body["error"] == "stream-failed", body
+            assert res["valid"] is False and res["stream"]["failed-fast"]
+            assert res["stream"]["watermark"] < len(ops["bad"])
+            for k in ("max-linearized-prefix", "final-states",
+                      "frontier-op"):
+                assert res.get(k) == offline["bad"].get(k), (k, res)
+            account("bad", res, intake, None,
+                    sum(len(c) for c in chunks[:max(sent, 1)]))
+            lines["bad"]["chunks_sent"] = sent
+
+            # a kill after a checkpoint at level > 0, then a new daemon
+            sid, chunks, intake = stream_post(
+                port, ops["free"], range(STREAM_KILL_AFTER), close=False,
+                tag="kill")
+            cp_path = os.path.join(root, "streams", sid,
+                                   stream_ns.CHECKPOINT_NAME)
+            stream_idle(port, sid)
+        finally:
+            http_json(port, "POST", "/drain")
+            server.shutdown()
+            server.server_close()
+            daemon.stop()
+        # the kill: the daemon stopped its runner, leaving the WAL and the
+        # last checkpoint
+        cp = resilience.Checkpoint.load(cp_path)
+        assert cp.level > 0 and cp.n_required > 0, cp.level
+        daemon, server = serve.run_daemon(cfg, port=0)
+        port = server.server_port
+        try:
+            assert daemon.replay_stats["streams-resumed"] == 1
+            t0 = time.perf_counter()
+            for i in range(STREAM_KILL_AFTER, len(chunks)):
+                code, body = http_json(port, "POST", f"/stream/{sid}/ops",
+                                       {"seq": i, "ops": chunks[i]})
+                assert code == 202, (code, body)
+            intake += time.perf_counter() - t0
+            stream_idle(port, sid)
+            code, body = http_json(port, "POST", f"/stream/{sid}/close",
+                                   {"chunks": len(chunks)})
+            assert code == 200, body
+            doc, close_s = stream_wait(port, root, sid)
+            res = doc["result"]
+            assert res["stream"]["resume-level"] == cp.level > 0, res
+            offline["kill"], offline_s["kill"] = (offline["free"],
+                                                  offline_s["free"])
+            bounded(res, offline["kill"], "kill")
+            account("kill", res, intake, close_s, len(ops["free"]))
+            lines["kill"]["resume_level"] = cp.level
+            lines["kill"]["checkpoint_n_required"] = cp.n_required
+            code, health = http_json(port, "GET", "/healthz")
+            assert health["streams"]["sessions"] == health["streams"][
+                "done"] == 4, health["streams"]
+        finally:
+            http_json(port, "POST", "/drain")
+            server.shutdown()
+            server.server_close()
+            daemon.stop()
+        launches = dict(K.launches)
+        grid = dict(K.grid_launches_total)
+        segs = dict(K.segments)
+        assert all(launches[k] > 0 for k in (
+            "expand", "sort_rows", "dedup_truncate")), launches
+        assert segs["pair_ends"] > 0 and grid["seg_active"] == 0, segs
+        print(f"stream launches: {launches} cuda_launches={grid} "
+              f"graphs={segs}", flush=True)
+
+    with phase("stream plain", seconds):
+        # the same lock-step stream on the kernels and on their plain
+        # versions, on the card: equal results
+        small = ops["free"][:STREAM_PLAIN_OPS]
+        sizes = [len(small[i:i + STREAM_PLAIN_CHUNK])
+                 for i in range(0, len(small), STREAM_PLAIN_CHUNK)]
+        plain = {}
+        for name, step_ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+            sess = stream_ns.StreamSession(name, "t", "cas-register",
+                                           os.path.join(root, "lockstep"))
+            sess.append(0, small)
+            sess.close(1)
+            runner = stream_lockstep(stream_ns)(
+                sess, CASRegister(), device=dev, ops=step_ops, sizes=sizes)
+            t0 = time.perf_counter()
+            runner.start()
+            runner.join(300)
+            assert sess.state == "done", sess.status()
+            sess.stop_wal()
+            plain[name] = dict(sess.result, wall_s=time.perf_counter() - t0)
+        fields = ("valid", "levels", "max-linearized-prefix",
+                  "final-states", "rung", "segments")
+        a = {k: plain["kernels"].get(k) for k in fields}
+        b = {k: plain["plain"].get(k) for k in fields}
+        assert a == b, (a, b)
+        for k in ("watermark", "barriers", "rebases"):
+            assert plain["kernels"]["stream"][k] == \
+                plain["plain"]["stream"][k], k
+        want = check_safe(linearizable(CASRegister(), device=dev), {},
+                          History.of(small))
+        extra = bounded(plain["kernels"], want, "lockstep")
+        plain_line = {"ops": len(small), "chunk": STREAM_PLAIN_CHUNK,
+                      "levels": a["levels"], "offline_levels":
+                      want["levels"], "extra_levels": extra,
+                      "barriers": plain["kernels"]["stream"]["barriers"],
+                      "kernels_s": plain["kernels"]["wall_s"],
+                      "plain_s": plain["plain"]["wall_s"]}
+        print(f"stream plain: {json.dumps(plain_line)}", flush=True)
+    line = {"streams": lines, "lockstep": plain_line, "nvidia_smi": smi,
+            "chunk": STREAM_CHUNK}
+    print("stream:", json.dumps(line), flush=True)
+    return line, launches, grid, segs
+
+
 def cpu_model() -> str:
     """The host CPU as /proc/cpuinfo's first processor names it (model
     name, vendor, family and model numbers; lscpu's model name where
@@ -1613,6 +1970,10 @@ def smoke(dev: torch.device) -> None:
     host_line = host_engine_phases(dev, seconds, head, warm_s, etcd,
                                    invalid_h)
 
+    # -- streaming: the online check over a growing stable prefix ---------
+    (stream_line, stream_launches, stream_grid_launches,
+     path_segments["stream"]) = stream_phases(dev, seconds, head, smi)
+
     # -- summary ------------------------------------------------------------
     for tag, res in k5.items():
         shapes[tag]["seg_active"] = res
@@ -1620,9 +1981,11 @@ def smoke(dev: torch.device) -> None:
     keep = ("ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "cuda_launches_per_call")
     path_launches = {"headline": launches, "keyed": keyed_launches,
-                     "models": model_launches, "serve": serve_launches}
+                     "models": model_launches, "serve": serve_launches,
+                     "stream": stream_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
-                 "models": model_grid_launches, "serve": serve_grid_launches}
+                 "models": model_grid_launches, "serve": serve_grid_launches,
+                 "stream": stream_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -1702,6 +2065,7 @@ def smoke(dev: torch.device) -> None:
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
         "models": model_lines, "gang_vs_serial": gang_line,
         "serve": serve_line, "host_engines": host_line,
+        "stream": stream_line,
         "phase_seconds": seconds, "nvidia_smi": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

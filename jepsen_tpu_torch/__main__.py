@@ -1,28 +1,44 @@
-"""Command line of the port: ``python -m jepsen_tpu_torch serve
---check-daemon`` runs the check daemon (:mod:`jepsen_tpu_torch.serve`).
+"""Command line of the port.
 
-Its flags are the reference's daemon flags (``jtpu serve``): ``--host``,
-``--port``, ``--serve-dir``, ``--workers``, ``--queue-max``,
-``--tenant-max`` and ``--deadline-s``; ``--device cpu`` runs the searches
-on the CPU (the kernels' plain versions) instead of CUDA. The process
-serves until ``POST /drain`` (or an interrupt) and then exits 0.
+``python -m jepsen_tpu_torch serve --check-daemon`` runs the check daemon
+(:mod:`jepsen_tpu_torch.serve`). Its flags are the reference's daemon
+flags (``jtpu serve``): ``--host``, ``--port``, ``--serve-dir``,
+``--workers``, ``--queue-max``, ``--tenant-max`` and ``--deadline-s``;
+``--device cpu`` runs the searches on the CPU (the kernels' plain
+versions) instead of CUDA. The process serves until ``POST /drain`` (or
+an interrupt) and then exits 0.
+
+``python -m jepsen_tpu_torch stream --history FILE`` is the client of a
+daemon's stream routes (the reference's ``jtpu stream``): it opens a
+stream, POSTs the history's ops (a JSON array or JSON lines of op maps)
+as sequenced, CRC'd chunks, waiting out 429s and resending from the
+daemon's ``need`` on a 409 gap, seals it and polls for the verdict, which
+it prints. Exit 0 when valid, 1 when not (or unknown), 254 for bad
+arguments or an empty history, 255 when the daemon fails a call.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
+import time
+
+#: exit codes, as the reference's command line has them
+OK, TEST_FAILED, INVALID_ARGS, CRASHED = 0, 1, 254, 255
 
 
 def _parser() -> argparse.ArgumentParser:
+    from jepsen_tpu_torch.serve import models
     p = argparse.ArgumentParser(prog="python -m jepsen_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="run the multi-tenant check daemon")
     s.add_argument("--check-daemon", action="store_true",
-                   help="serve POST /check, GET /check/<id>, /healthz and "
-                        "/drain (the only service of the port)")
+                   help="serve POST /check, GET /check/<id>, /healthz, "
+                        "/drain and the /stream routes (the only service "
+                        "of the port)")
     s.add_argument("-b", "--host", default="0.0.0.0")
     s.add_argument("-p", "--port", type=int, default=8080,
                    help="port to listen on (0: any free port)")
@@ -42,6 +58,23 @@ def _parser() -> argparse.ArgumentParser:
                         "answers :info/timeout (JTPU_SERVE_DEADLINE_S)")
     s.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the searches run (default: cuda)")
+    t = sub.add_parser("stream", help="stream a history into a check "
+                                      "daemon's /stream routes and await "
+                                      "the verdict")
+    t.add_argument("--url", default="http://127.0.0.1:8080",
+                   help="daemon base URL")
+    t.add_argument("--history", required=True, metavar="FILE",
+                   help="history file: a JSON array or JSON lines of op "
+                        "maps")
+    t.add_argument("--model", default="cas-register", choices=list(models()))
+    t.add_argument("--tenant", default="default")
+    t.add_argument("--chunk", type=int, default=1000, help="ops per chunk")
+    t.add_argument("--auth-token", default=None, metavar="TOKEN",
+                   help="Authorization: Bearer TOKEN")
+    t.add_argument("--poll", type=float, default=0.5,
+                   help="verdict poll interval (seconds)")
+    t.add_argument("--timeout", type=float, default=600.0,
+                   help="the client's whole budget (seconds)")
     return p
 
 
@@ -62,7 +95,8 @@ def serve(opts: argparse.Namespace) -> int:
     daemon, server = serve_ns.run_daemon(cfg, host=opts.host,
                                          port=opts.port)
     print(f"Listening on http://{opts.host}:{server.server_port}/ (check "
-          f"daemon: POST /check, GET /check/<id>, /healthz, /drain)",
+          f"daemon: POST /check, GET /check/<id>, /healthz, /drain"
+          f"{', /stream' if daemon._streams is not None else ''})",
           flush=True)
     try:
         daemon.drained.wait()
@@ -74,9 +108,110 @@ def serve(opts: argparse.Namespace) -> int:
     return 0
 
 
+def _load_ops(path: str) -> list:
+    """A history file's op maps: a JSON array, or one per line."""
+    with open(path) as f:
+        text = f.read().strip()
+    if text.startswith("["):
+        return json.loads(text)
+    return [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+
+
+def stream(opts: argparse.Namespace) -> int:
+    import urllib.error
+    import urllib.request
+
+    from jepsen_tpu_torch.stream import chunk_crc
+    base = opts.url.rstrip("/")
+
+    def call(method, path, doc=None):
+        req = urllib.request.Request(
+            base + path, method=method,
+            data=None if doc is None else json.dumps(doc).encode(),
+            headers={"Content-Type": "application/json"})
+        if opts.auth_token:
+            req.add_header("Authorization", f"Bearer {opts.auth_token}")
+        try:
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.status, json.loads(r.read() or b"{}")
+        except urllib.error.HTTPError as e:
+            try:
+                body = json.loads(e.read() or b"{}")
+            except ValueError:
+                body = {}
+            return e.code, body
+
+    try:
+        ops = _load_ops(opts.history)
+    except (OSError, ValueError) as e:
+        print(f"cannot read {opts.history}: {e}", file=sys.stderr)
+        return INVALID_ARGS
+    if not ops:
+        print("history is empty; nothing to stream", file=sys.stderr)
+        return INVALID_ARGS
+    deadline = time.monotonic() + opts.timeout
+
+    def budget() -> float:
+        left = deadline - time.monotonic()
+        if left <= 0:
+            raise TimeoutError("stream client budget exhausted")
+        return left
+
+    opening = {"tenant": opts.tenant, "model": opts.model}
+    code, body = call("POST", "/stream", opening)
+    while code == 429:
+        time.sleep(min(float(body.get("retry-after-s") or 1.0), budget()))
+        code, body = call("POST", "/stream", opening)
+    if code != 202:
+        print(f"open failed: HTTP {code} {body}", file=sys.stderr)
+        return CRASHED
+    sid = body["id"]
+    n_chunk = max(1, opts.chunk)
+    chunks = [ops[i:i + n_chunk] for i in range(0, len(ops), n_chunk)]
+    print(f"# stream: {sid} -> {base} ({len(ops)} ops in {len(chunks)} "
+          f"chunk(s) of <= {n_chunk})", flush=True)
+    seq = 0
+    while seq < len(chunks):
+        code, body = call("POST", f"/stream/{sid}/ops",
+                          {"seq": seq, "ops": chunks[seq],
+                           "crc": chunk_crc(chunks[seq])})
+        if code == 202:
+            seq += 1
+        elif code == 429:
+            time.sleep(min(float(body.get("retry-after-s") or 1.0),
+                           budget()))
+        elif code == 409 and body.get("error") == "gap":
+            # chunks are idempotent: resend from the daemon's cursor
+            seq = int(body["need"])
+        elif code == 409 and body.get("error") == "stream-failed":
+            # the online check refuted a stable prefix: the verdict is in
+            print(f"# stream: {sid} failed fast at chunk {seq}; awaiting "
+                  f"the verdict", flush=True)
+            break
+        else:
+            print(f"chunk {seq} failed: HTTP {code} {body}", file=sys.stderr)
+            return CRASHED
+        budget()
+    code, body = call("POST", f"/stream/{sid}/close",
+                      {"chunks": len(chunks)})
+    if code not in (200, 202) and body.get("error") != "stream-failed":
+        print(f"close failed: HTTP {code} {body}", file=sys.stderr)
+        return CRASHED
+    while True:
+        code, body = call("GET", f"/stream/{sid}")
+        if code == 200 and body.get("state") == "done" \
+                and body.get("result") is not None:
+            break
+        time.sleep(min(opts.poll, budget()))
+    result = body["result"]
+    print(json.dumps(result, indent=2, default=repr))
+    return OK if result.get("valid") is True else TEST_FAILED
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
-    return serve(_parser().parse_args(argv))
+    opts = _parser().parse_args(argv)
+    return stream(opts) if opts.cmd == "stream" else serve(opts)
 
 
 if __name__ == "__main__":

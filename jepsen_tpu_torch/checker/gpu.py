@@ -274,6 +274,21 @@ def _summarize_carry(carry) -> tuple:
             (carry[10], carry[11], carry[12]))
 
 
+def _reopen_carry(carry, n_required: int):
+    """Clear a carry's ``done`` so that a finished search goes on over a
+    longer history (the streaming check). ``done`` was set by ``fk >=
+    n_required`` against the old required count; a longer stable prefix
+    appends required ops after every packed row's return, so the pool,
+    masks, states and counters all carry over, and the level count goes
+    on from where it was. A host carry (the reference's numpy tuple)
+    comes back as a new tuple; a device :class:`Carry` has its ``DONE``
+    lane cleared in place and comes back itself."""
+    if isinstance(carry, Carry):
+        carry.scal[:, K.DONE] = int(n_required == 0)
+        return carry
+    return tuple(carry[:5]) + (np.bool_(n_required == 0),) + tuple(carry[6:])
+
+
 def _result(done: bool, lossy: bool, wovf: bool, best_k: int, levels: int,
             p: Optional[PackedHistory] = None,
             pool: Optional[tuple] = None) -> Dict[str, Any]:

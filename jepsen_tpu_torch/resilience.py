@@ -301,8 +301,9 @@ class Checkpoint:
     either package's search. ``rung`` is the REQUESTED ladder rung;
     ``expand_eff`` and the carry's own row count give the effective
     (possibly OOM-shrunk) shape. Serializes to one ``.npz`` file, in the
-    reference's layout. ``watermark`` and ``n_required`` are the
-    streaming fields, -1 offline; they round-trip and are not used."""
+    reference's layout. ``watermark`` and ``n_required`` are the stream
+    runner's (:mod:`jepsen_tpu_torch.stream`): the events and required ops
+    of the stable prefix the carry has checked; -1 offline."""
 
     carry: tuple
     rung: tuple                      # (capacity, window, expand) requested

@@ -39,20 +39,33 @@ each shape's buffers) and takes histories over HTTP:
   jittered cooldown one probe is admitted.
 * **Warm-state bound**: the engine keeps at most ``engine_max_buckets``
   warm buckets (LRU), freeing the evicted buckets' buffers.
-* **Auth and drain**: an optional bearer token on ``POST /check`` and
-  ``POST /drain``; a drain finishes the running work and leaves the
-  queued requests journaled for the next incarnation.
+* **Auth and drain**: an optional bearer token on ``POST /check``,
+  ``POST /drain`` and the stream routes; a drain finishes the running
+  work and the sealed streams' checks, and leaves the queued requests and
+  the open streams journaled for the next incarnation.
+* **Streams** (:mod:`jepsen_tpu_torch.stream`, imported only while
+  ``JTPU_SERVE_STREAM`` is on): a client appends a history in sequenced,
+  CRC'd chunks and an online check runs over its growing stable prefix,
+  refuting an invalid prefix before the stream ends. Each session has its
+  own WAL under ``streams/<sid>/``, replayed at start; appends answer 429
+  when the ops not yet checked pass ``stream_buffer_ops`` or the session's
+  footprint does not fit the byte budget.
 
 HTTP API (:func:`make_handler`): ``POST /check`` (body ``{"tenant",
 "model", "history": [op dicts], "deadline-s"?}``: 202 ``{"id", "state"}``,
 400, 429, 503), ``GET /check/<id>`` (``{"state", "result"?}``; 500 for a
-gang's poison member), ``POST /drain``, ``GET /healthz``.
+gang's poison member), ``POST /drain``, ``GET /healthz``; with streams
+on, ``POST /stream`` (``{"tenant", "model"}``: 202 ``{"id", "state"}``,
+400, 429, 503), ``POST /stream/<id>/ops`` (``{"seq", "ops", "crc"?}``:
+202, 400, 404, 409 with the ``need``ed sequence number, 429, 503),
+``POST /stream/<id>/close`` (``{"chunks"?}``: 200, 409) and ``GET
+/stream/<id>`` (the session's status, with its ``result`` once done).
 
 Searches run on CUDA unless the configuration asks for the CPU
-(``ServeConfig.device="cpu"``). Not ported: the fleet placer, streaming
-sessions, the telemetry stack (time series, SLOs, usage, flight
-recorder, the progress heartbeat), trace ids and phase breakdowns,
-``/metrics``, the results browser, and the batch-verify mode.
+(``ServeConfig.device="cpu"``). Not ported: the fleet placer, the
+telemetry stack (time series, SLOs, usage, flight recorder, the progress
+heartbeat), trace ids and phase breakdowns, ``/metrics``, the results
+browser, and the batch-verify mode.
 """
 
 from __future__ import annotations
@@ -168,6 +181,31 @@ class ServeConfig:
         default_factory=lambda: _env_float("JTPU_SERVE_RATE", 0.0))
     rate_burst: int = field(
         default_factory=lambda: _env_int("JTPU_SERVE_RATE_BURST", 0))
+    #: the stream routes and the online check (JTPU_SERVE_STREAM); off,
+    #: the daemon has no stream route, directory or healthz key
+    stream_enabled: bool = field(
+        default_factory=lambda: _env_on("JTPU_SERVE_STREAM", "1"))
+    #: how far past the next sequence number a chunk may come and still
+    #: be buffered; past it the append answers 409 with ``need``
+    stream_reorder: int = field(
+        default_factory=lambda: _env_int("JTPU_SERVE_STREAM_REORDER", 64))
+    #: ops a stream may hold past its checked stable prefix before its
+    #: appends answer 429
+    stream_buffer_ops: int = field(
+        default_factory=lambda: _env_int("JTPU_SERVE_STREAM_BUFFER",
+                                         250000))
+    #: streams open at once (each has a runner thread); past it an open
+    #: answers 429
+    stream_max: int = field(
+        default_factory=lambda: _env_int("JTPU_SERVE_STREAM_MAX", 8))
+
+    @property
+    def stream_on(self) -> bool:
+        """Whether the stream routes exist, read at call time:
+        JTPU_SERVE_STREAM=0 wins over ``stream_enabled``."""
+        if os.environ.get("JTPU_SERVE_STREAM", "").strip() == "0":
+            return False
+        return bool(self.stream_enabled)
 
 
 @dataclass
@@ -453,6 +491,12 @@ class CheckDaemon:
                         and self.config.batch_max > 1 else None)
         if self.config.engine_max_buckets > 0:
             self.engine.set_max_warm_buckets(self.config.engine_max_buckets)
+        #: stream sessions by id (a slot reserved by an open in progress
+        #: holds None); None while streaming is off, and then
+        #: jepsen_tpu_torch.stream is never imported
+        self._streams: Optional[Dict[str, Any]] = (
+            {} if self.config.stream_on else None)
+        self._stream_seq = 0
 
     # -- planning -----------------------------------------------------------
 
@@ -881,6 +925,8 @@ class CheckDaemon:
                 self.journal.append({"event": "dropped",
                                      "id": doc.get("id"),
                                      "reason": body.get("error")})
+        if self._streams is not None:
+            self._stream_replay()
         for i in range(max(1, self.config.workers)):
             t = threading.Thread(target=self._worker_loop, daemon=True,
                                  name=f"jtpu-serve-worker-{i}")
@@ -891,8 +937,9 @@ class CheckDaemon:
         return self
 
     def drain(self, timeout_s: float = 600.0) -> Dict[str, Any]:
-        """Stop admission, let the running requests finish, leave the
-        queued ones journaled for the next incarnation."""
+        """Stop admission, let the running requests and the sealed
+        streams' checks finish, leave the queued requests and the open
+        streams journaled for the next incarnation."""
         with self._work:
             self.draining = True
             queued = self._depth
@@ -902,6 +949,14 @@ class CheckDaemon:
             with self._lock:
                 if not self._inflight:
                     break
+            time.sleep(0.05)
+        # a sealed stream owes its verdict; an open one is resumed later
+        while self._streams is not None and time.monotonic() < deadline:
+            with self._lock:
+                finishing = [s for s in self._streams.values()
+                             if s is not None and s.state == "closed"]
+            if not finishing:
+                break
             time.sleep(0.05)
         with self._lock:
             inflight = len(self._inflight)
@@ -916,7 +971,175 @@ class CheckDaemon:
             self._work.notify_all()
         for t in self._threads:
             t.join(timeout=2.0)
+        if self._streams is not None:
+            with self._lock:
+                sessions = [s for s in self._streams.values()
+                            if s is not None]
+            for s in sessions:
+                if s.runner is not None:
+                    s.runner.stop()
+            for s in sessions:
+                if s.runner is not None:
+                    s.runner.join(timeout=2.0)
+                s.stop_wal()
         self.journal.close()
+
+    # -- streams --------------------------------------------------------------
+    # Reached only while self._streams is not None: with streaming off the
+    # handler has no stream route and jepsen_tpu_torch.stream is never
+    # imported.
+
+    def _make_runner(self, session) -> Any:
+        from jepsen_tpu_torch import stream as stream_ns
+        model = models().get(session.model)
+        runner = stream_ns.StreamRunner(
+            session, model() if model is not None else None,
+            backend=self.config.backend, device=self.config.device)
+        session.runner = runner
+        return runner
+
+    def stream_open(self, doc: Dict[str, Any]
+                    ) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+        """``POST /stream``: open a session, with ``submit``'s admission
+        shape: 503 while draining, 400 for an unknown model, 429 with
+        ``Retry-After`` past ``stream_max`` open streams."""
+        from jepsen_tpu_torch import stream as stream_ns
+        if self.draining:
+            return 503, {"error": "draining"}, {"Retry-After": "30"}
+        tenant = str(doc.get("tenant") or "default")
+        model_name = str(doc.get("model") or "cas-register")
+        if model_name not in models():
+            return 400, {"error": "bad-request",
+                         "detail": f"unknown model {model_name!r}"}, {}
+        # the quota check and the slot's reservation are one critical
+        # section, so two opens racing at stream_max - 1 cannot both pass;
+        # the slot holds None until the session is built
+        with self._lock:
+            live = sum(1 for s in self._streams.values()
+                       if s is None or s.state != "done")
+            over = live >= self.config.stream_max
+            if not over:
+                self._stream_seq += 1
+                sid = f"s{self._stream_seq:06d}-{os.getpid()}"
+                self._streams[sid] = None
+        if over:
+            retry = self._retry_after()
+            return 429, {"error": "stream-quota", "open": live,
+                         "retry-after-s": round(retry, 3)}, \
+                {"Retry-After": str(max(1, int(round(retry))))}
+        try:
+            session = stream_ns.StreamSession(
+                sid, tenant, model_name, self.config.root,
+                reorder_max=self.config.stream_reorder)
+            runner = self._make_runner(session)
+        except BaseException:
+            with self._lock:
+                self._streams.pop(sid, None)
+            raise
+        with self._lock:
+            self._streams[sid] = session
+        runner.start()
+        return 202, {"id": sid, "state": "open", "tenant": tenant,
+                     "model": model_name}, {}
+
+    def _stream_session(self, sid: str):
+        with self._lock:
+            return self._streams.get(sid)
+
+    def stream_append(self, sid: str, doc: Dict[str, Any]
+                      ) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+        """``POST /stream/<id>/ops``: one idempotent chunk. 429 with
+        ``Retry-After`` while the ops not yet checked pass
+        ``stream_buffer_ops`` (backpressure), or while the session's
+        footprint on top of the committed bytes passes the byte budget."""
+        session = self._stream_session(sid)
+        if session is None:
+            return 404, {"error": "no such stream", "id": sid}, {}
+        if self.draining and session.state == "open":
+            return 503, {"error": "draining"}, {"Retry-After": "30"}
+        lag = session.lag()
+        if session.state == "open" and lag > self.config.stream_buffer_ops:
+            retry = self._retry_after()
+            return 429, {"error": "backpressure", "id": sid,
+                         "lag-ops": lag,
+                         "buffer-ops": self.config.stream_buffer_ops,
+                         "retry-after-s": round(retry, 3)}, \
+                {"Retry-After": str(max(1, int(round(retry))))}
+        budget = self._budget()
+        if budget and session.footprint:
+            with self._lock:
+                committed = self._footprint_committed
+            if committed + session.footprint > budget:
+                retry = self._retry_after()
+                return 429, {"error": "footprint", "id": sid,
+                             "predicted-bytes": session.footprint,
+                             "committed-bytes": committed,
+                             "budget-bytes": budget,
+                             "retry-after-s": round(retry, 3)}, \
+                    {"Retry-After": str(max(1, int(round(retry))))}
+        code, body = session.append(doc.get("seq"), doc.get("ops"),
+                                    doc.get("crc"))
+        return code, body, {}
+
+    def stream_close(self, sid: str, doc: Dict[str, Any]
+                     ) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
+        """``POST /stream/<id>/close``: seal the stream."""
+        session = self._stream_session(sid)
+        if session is None:
+            return 404, {"error": "no such stream", "id": sid}, {}
+        code, body = session.close(doc.get("chunks"))
+        return code, body, {}
+
+    def stream_status(self, sid: str) -> Optional[Dict[str, Any]]:
+        session = self._stream_session(sid)
+        return session.status() if session is not None else None
+
+    def _stream_replay(self) -> None:
+        """Rebuild the sessions from their WALs after a restart: open and
+        sealed streams without a verdict get a new runner (which resumes
+        the session's checkpoint); finished ones are registered so that
+        ``GET /stream/<id>`` still answers."""
+        from jepsen_tpu_torch import stream as stream_ns
+        base = os.path.join(self.config.root, "streams")
+        if not os.path.isdir(base):
+            return
+        replayed = resumed = 0
+        for name in sorted(os.listdir(base)):
+            sdir = os.path.join(base, name)
+            try:
+                session = stream_ns.StreamSession.replay(
+                    sdir, self.config.root,
+                    reorder_max=self.config.stream_reorder)
+            except Exception:  # noqa: BLE001 -- one bad directory
+                log.exception("stream replay failed for %s", sdir)
+                continue
+            if session is None:
+                continue
+            replayed += 1
+            with self._lock:
+                self._streams[session.id] = session
+            if session.state != "done":
+                self._make_runner(session).start()
+                resumed += 1
+        if replayed:
+            self.replay_stats["streams"] = replayed
+            self.replay_stats["streams-resumed"] = resumed
+            log.info("replayed %d stream session(s), %d resumed", replayed,
+                     resumed)
+
+    def _stream_summary(self) -> Dict[str, Any]:
+        with self._lock:
+            sessions = [s for s in self._streams.values() if s is not None]
+        by_state = {"open": 0, "closed": 0, "done": 0, "failed": 0}
+        ops = checked = lag = 0
+        for s in sessions:
+            by_state[s.state] = by_state.get(s.state, 0) + 1
+            with s.lock:
+                ops += len(s.ops)
+                checked += s.checked_events
+                lag += max(0, len(s.ops) - s.checked_events)
+        return {"sessions": len(sessions), "ops": ops, "checked": checked,
+                "lag": lag, **by_state}
 
     # -- status -------------------------------------------------------------
 
@@ -935,7 +1158,8 @@ class CheckDaemon:
                           for r in self._inflight.values()), default=None)
             committed = self._footprint_committed
             stats = dict(self.stats)
-        return {
+            has_streams = bool(self._streams)
+        doc = {
             "ok": True,
             "state": "draining" if self.draining else "serving",
             "uptime-s": round(time.time() - self._started, 3),
@@ -955,6 +1179,9 @@ class CheckDaemon:
                 "evictions": self.engine.evictions,
             },
         }
+        if has_streams:
+            doc["streams"] = self._stream_summary()
+        return doc
 
 
 # ---------------------------------------------------------------------------
@@ -988,25 +1215,52 @@ def make_handler(daemon: CheckDaemon):
             # constant-time: the token cannot be guessed byte by byte
             return hmac.compare_digest(got, f"Bearer {token}")
 
+        def _body(self) -> Optional[dict]:
+            """The request's JSON object; None after answering 400."""
+            try:
+                n = int(self.headers.get("Content-Length") or 0)
+                doc = json.loads(self.rfile.read(n) or b"{}")
+                if not isinstance(doc, dict):
+                    raise ValueError("body must be a JSON object")
+            except (ValueError, TypeError) as e:
+                self._json(400, {"error": "bad-request", "detail": str(e)})
+                return None
+            return doc
+
         def do_POST(self):  # noqa: N802 -- http.server's naming
             path = self.path.split("?", 1)[0]
+            streams = (path.startswith("/stream")
+                       and daemon._streams is not None)
             try:
-                if path in ("/check", "/drain") and not self._authorized():
+                if (path in ("/check", "/drain") or streams) \
+                        and not self._authorized():
                     return self._json(401, {"error": "unauthorized"},
                                       {"WWW-Authenticate": "Bearer"})
                 if path == "/check":
-                    try:
-                        n = int(self.headers.get("Content-Length") or 0)
-                        doc = json.loads(self.rfile.read(n) or b"{}")
-                        if not isinstance(doc, dict):
-                            raise ValueError("body must be a JSON object")
-                    except (ValueError, TypeError) as e:
-                        return self._json(400, {"error": "bad-request",
-                                                "detail": str(e)})
+                    doc = self._body()
+                    if doc is None:
+                        return None
                     code, body, hdrs = daemon.submit(doc)
                     return self._json(code, body, hdrs)
                 if path == "/drain":
                     return self._json(200, daemon.drain())
+                if streams:
+                    parts = path.strip("/").split("/")
+                    if path == "/stream":
+                        route = daemon.stream_open
+                    elif len(parts) == 3 and parts[2] == "ops":
+                        route = (lambda d, sid=parts[1]:
+                                 daemon.stream_append(sid, d))
+                    elif len(parts) == 3 and parts[2] == "close":
+                        route = (lambda d, sid=parts[1]:
+                                 daemon.stream_close(sid, d))
+                    else:
+                        return self._json(404, {"error": "not-found"})
+                    doc = self._body()
+                    if doc is None:
+                        return None
+                    code, body, hdrs = route(doc)
+                    return self._json(code, body, hdrs)
                 return self._json(404, {"error": "not-found"})
             except BrokenPipeError:
                 pass
@@ -1027,6 +1281,14 @@ def make_handler(daemon: CheckDaemon):
                     serve = (doc.get("result") or {}).get("serve") or {}
                     poison = (serve.get("gang") or {}).get("poison")
                     return self._json(500 if poison else 200, doc)
+                if path.startswith("/stream/") and \
+                        daemon._streams is not None:
+                    sid = path[len("/stream/"):].strip("/")
+                    doc = daemon.stream_status(sid)
+                    if doc is None:
+                        return self._json(404, {"error": "no such stream",
+                                                "id": sid})
+                    return self._json(200, doc)
                 return self._json(404, {"error": "not-found"})
             except BrokenPipeError:
                 pass
@@ -1049,5 +1311,6 @@ def run_daemon(config: Optional[ServeConfig] = None,
     threading.Thread(target=server.serve_forever, daemon=True,
                      name="jtpu-serve-http").start()
     log.info("check daemon on http://%s:%s/ (POST /check, GET "
-             "/check/<id>, /healthz, /drain)", host, server.server_port)
+             "/check/<id>, /healthz, /drain%s)", host, server.server_port,
+             ", /stream" if daemon._streams is not None else "")
     return daemon, server

@@ -28,6 +28,7 @@ def _port_files():
              os.path.join(ROOT, "tools", "profile_torch_gang.py"),
              os.path.join(ROOT, "tools", "probe_torch_models.py"),
              os.path.join(ROOT, "tools", "time_torch.py"),
+             os.path.join(ROOT, "tools", "profile_torch_stream_close.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
