@@ -45,8 +45,14 @@ reordered chunk; the headline, whose first crash pins the watermark; its
 corrupted copy, refuted before its last chunk; a stream whose daemon is
 stopped after a checkpoint and resumed by a new one), each verdict
 against the offline check on the card, and a lock-step stream on the
-kernels against the same stream on their plain versions. Every phase is
-a hard assertion.
+kernels against the same stream on their plain versions; and the plan
+gate: the headline's ``plan`` entry, each footprint against what a fresh
+engine allocates (``torch.cuda.memory_allocated``), a pool seeded under a
+pinned byte budget and an oversized rung rejected before any allocation;
+and, last, the segment watchdog: an injected wedge continued on the CPU, a
+real GPU-side stall ended by a 0.5 s deadline, a second check answered at
+once while the card still spins, and the warm headline with a deadline
+beside it without one. Every phase is a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -191,6 +197,23 @@ STREAM_KILL_AFTER = 5
 STREAM_PLAIN_OPS, STREAM_PLAIN_CHUNK = 1000, 100
 #: the kernels whose launches the stream line counts
 STREAM_KERNELS = ("expand", "sort_rows", "group_scan", "dedup_truncate")
+
+#: the plan phase: the explicit rung that cannot fit PLAN_OOM_LIMIT bytes,
+#: and the repeats of the timed gate
+PLAN_OOM_RUNG, PLAN_OOM_LIMIT = (16384, 32, 1024), 200_000
+PLAN_GATE_REPS = 200
+#: the watchdog phase: a 2,000-op register history wedged (through the
+#: fault seam) at segment WEDGE_SEGMENT under a WATCH_DEADLINE_S
+#: watchdog, and its checkpoint resumed by the caller on the CPU; a
+#: GPU-side spin of STALL_S seconds before the headline's first segment,
+#: which the watchdog's STALL_DEADLINE_S deadline overruns; and the warm
+#: headline with a WATCH_DEADLINE_S deadline and without, WATCH_REPS
+#: times each in turns
+WEDGE_HISTORY = dict(n_ops=2000, n_procs=5, n_vals=16, seed=9000,
+                     crash_p=0.002)
+WEDGE_SEGMENT = 2
+STALL_S, STALL_DEADLINE_S = 3.0, 0.5
+WATCH_DEADLINE_S, WATCH_REPS = 30.0, 3
 
 #: H100 SXM peaks from its datasheet: HBM bytes/s, and the
 #: non-tensor 32-bit rate, against which the integer work is counted
@@ -1616,6 +1639,276 @@ def host_engine_phases(dev, seconds, head, head_warm_s, etcd, invalid):
     return line
 
 
+def plan_phase(dev, seconds, head_p, head_kernel, r, states):
+    """The plan gate on the card: the headline's ``plan`` entry, each
+    state's footprint against what a fresh engine allocates, a pool seeded
+    under a pinned byte budget, and an explicit rung rejected before any
+    allocation. ``states`` maps a tag to the LevelShape of a state the
+    kernels ran at. Returns the phase's JSON entry."""
+    from jepsen_tpu_torch.analysis.plan_lint import PlanRejectedError
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker import plan
+    from jepsen_tpu_torch.checker.engine import Engine, default_engine
+    from jepsen_tpu_torch.kernels import search as K
+    line = {}
+    with phase("plan", seconds):
+        total = torch.cuda.mem_get_info(dev)[1]
+        entry = r["plan"]
+        print(f"plan: headline {json.dumps(entry)} card_bytes={total}")
+        assert entry["selected"] == "segment 128/32/8 @8192+16", entry
+        assert entry["bytes-limit"] == total and not entry["rejected"], entry
+        line["headline"] = entry
+
+        # each footprint against a fresh engine's allocation
+        line["footprints"] = {}
+        for tag, shape in states.items():
+            cand = plan.Candidate("batch" if shape.B > 1 else "segment",
+                                  shape.C, shape.W, shape.E, shape.n,
+                                  shape.CR, keys=shape.B,
+                                  tiebreak=shape.tiebreak)
+            fp = plan.footprint(cand)
+            cols = {c: np.zeros((shape.B, shape.n + 1 if c == "sm" else
+                                 shape.n if c in K.COLS[:8] else shape.CR),
+                                np.int32) for c in K.COLS}
+            cols["nr"] = np.zeros(shape.B, np.int32)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            a0 = torch.cuda.memory_allocated(dev)
+            q0 = torch.cuda.memory_stats(dev).get(
+                "requested_bytes.all.current")
+            eng = Engine()
+            eng.state(shape, dev)
+            eng.batch_cols(cols, dev, copy=False)
+            grown = torch.cuda.memory_allocated(dev) - a0
+            q1 = torch.cuda.memory_stats(dev).get(
+                "requested_bytes.all.current")
+            requested = None if q0 is None else q1 - q0
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            line["footprints"][tag] = {
+                "label": cand.label(), "footprint": fp,
+                "memory_allocated_growth": grown,
+                "requested_bytes_growth": requested}
+            print(f"plan: {tag} {cand.label()} footprint={fp} "
+                  f"memory_allocated_growth={grown} "
+                  f"requested_bytes_growth={requested}")
+            assert grown == fp["allocated-bytes"], (tag, grown, fp)
+            assert requested in (None, fp["total-bytes"]), (tag, requested)
+
+        # the gate's host cost a check (the supervisor's own call)
+        wneed = G._window_needed(head_p)
+        ladder = G._ladder_for(wneed, dev)
+        t0 = time.perf_counter()
+        for _ in range(PLAN_GATE_REPS):
+            plan.gate_ladder(plan.PlanDims.from_packed(head_p, wneed),
+                             head_kernel, ladder, kind="segment",
+                             explicit=False, derate=True, device=dev)
+        line["gate_us"] = (time.perf_counter() - t0) / PLAN_GATE_REPS * 1e6
+        print(f"plan: gate_us={line['gate_us']:.1f} (PlanDims and "
+              f"gate_ladder over {len(ladder)} rungs, mean of "
+              f"{PLAN_GATE_REPS})")
+
+        # a byte budget between the first rung's footprint and its half's
+        # seeds the pool at the half
+        n, cr = states["headline"].n, states["headline"].CR
+
+        def fp_at(cap, exp):
+            return plan.footprint(plan.Candidate("segment", cap, 32, exp, n,
+                                                 cr))["total-bytes"]
+
+        limit = (fp_at(128, 8) + fp_at(64, 4)) // 2
+        os.environ["JTPU_PLAN_BYTES_LIMIT"] = str(limit)
+        try:
+            seeded = G.check_packed_gpu(head_p, head_kernel, device=dev)
+        finally:
+            del os.environ["JTPU_PLAN_BYTES_LIMIT"]
+        explicit = G.check_packed_gpu(head_p, head_kernel, capacity=64,
+                                      expand=4, device=dev)
+        seeds = [a["outcome"] for a in seeded["attempts"]
+                 if a.get("event") == "plan"]
+        line["seeded"] = {"limit": limit, "seeds": seeds,
+                          "valid": seeded["valid"],
+                          "levels": seeded["levels"],
+                          "rung": seeded["rung"],
+                          "explicit_valid": explicit["valid"],
+                          "explicit_levels": explicit["levels"]}
+        print(f"plan: seeded {json.dumps(line['seeded'], default=str)}")
+        assert seeds and seeds[0] == "plan-seeded-pool-64", seeds
+        assert (seeded["valid"], seeded["levels"]) == (
+            explicit["valid"], explicit["levels"])
+
+        # an explicit rung that cannot fit: rejected before any allocation
+        eng = default_engine()
+        buckets = len(eng._states)
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated(dev)
+        cap, win, exp = PLAN_OOM_RUNG
+        os.environ["JTPU_PLAN_BYTES_LIMIT"] = str(PLAN_OOM_LIMIT)
+        try:
+            G.check_packed_gpu(head_p, head_kernel, capacity=cap,
+                               window=win, expand=exp, device=dev)
+            raise AssertionError("the oversized rung was not rejected")
+        except PlanRejectedError as e:
+            rejected = str(e)
+        finally:
+            del os.environ["JTPU_PLAN_BYTES_LIMIT"]
+        print(f"plan: {rejected}")
+        assert "PLAN-OOM" in rejected
+        assert len(eng._states) == buckets
+        assert torch.cuda.memory_allocated(dev) == a0
+        line["rejected"] = rejected
+    return line
+
+
+def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
+    """The segment watchdog on the card: an injected wedge that ends
+    UNKNOWN with its last segment end, which the caller resumes on the
+    CPU; a real device stall that the watchdog ends with a wedge, a second
+    check answered at once while the card still spins, the headline again
+    once the record is cleared, and the warm headline with a deadline
+    beside it without one. Returns the phase's JSON entry."""
+    import warnings
+    from jepsen_tpu_torch import accel, resilience
+    from jepsen_tpu_torch.checker import UNKNOWN
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    from jepsen_tpu_torch.testing import simulate_register_history
+    line = {}
+    with phase("watchdog", seconds):
+        # (a) an injected wedge under a watchdog: UNKNOWN with the last
+        # segment end as its checkpoint; CUDA then refuses checks, and the
+        # caller resumes the checkpoint on the CPU
+        wp, wk = pack_with_init(simulate_register_history(**WEDGE_HISTORY),
+                                CASRegister())
+        base = G.check_packed_gpu(wp, wk, device=dev)
+        wedged = []
+
+        def wedge(ctx):
+            if ctx["segment"] == WEDGE_SEGMENT and not wedged:
+                wedged.append(ctx["level"])
+                raise resilience.WedgeError("injected wedged execution")
+
+        resilience._inject_fault = wedge
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                cut = G.check_packed_gpu(wp, wk, device=dev,
+                                         deadline_s=WATCH_DEADLINE_S)
+        finally:
+            resilience._inject_fault = None
+        refused = G.check_packed_gpu(wp, wk, device=dev)
+        cp = cut.get("checkpoint")
+        resumed = (resilience.supervised_check_packed(
+            wp, wk, device="cpu", resume=cp) if cp is not None else {})
+        accel._reset_for_tests()
+        line["resume"] = {
+            "wedged": cut["valid"] is UNKNOWN, "error": cut.get("error"),
+            "checkpoint": (None if cp is None
+                           else {"segment": cp.segment, "level": cp.level}),
+            "cuda_refused": refused["valid"] is UNKNOWN,
+            "valid": resumed.get("valid"), "levels": resumed.get("levels"),
+            "base_levels": base["levels"], "wedged_at_level": wedged,
+            "attempts": cut["attempts"]}
+        print(f"watchdog: wedge at level {wedged} -> "
+              f"{cut['valid']} checkpoint={line['resume']['checkpoint']}; "
+              f"CUDA refused={line['resume']['cuda_refused']}; resumed on "
+              f"the CPU valid={resumed.get('valid')} "
+              f"levels={resumed.get('levels')} (unwedged {base['levels']})")
+        assert wedged and cut["valid"] is UNKNOWN and cp is not None
+        assert (cp.segment, cp.level) == (WEDGE_SEGMENT, wedged[0])
+        assert refused["valid"] is UNKNOWN and "backend-fallback" not in cut
+        assert (resumed["valid"], resumed["levels"]) == (base["valid"],
+                                                         base["levels"])
+
+        # (b) a real stall: a GPU-side spin ahead of the first segment
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        e1.record()
+        e1.synchronize()
+        cycles = int(SLEEP_CYCLES * STALL_S * 1e3 / e0.elapsed_time(e1))
+        stream = torch.cuda.current_stream(dev)
+        stalled = []
+
+        def stall(ctx):
+            if ctx["segment"] == 0 and not stalled:
+                stalled.append(1)
+                torch.cuda._sleep(cycles)
+
+        os.environ["JTPU_SEGMENT_DEADLINE_S"] = str(STALL_DEADLINE_S)
+        resilience._inject_fault = stall
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                t0 = time.perf_counter()
+                stuck = G.check_packed_gpu(head_p, head_kernel, device=dev)
+                fire_s = time.perf_counter() - t0
+            resilience._inject_fault = None
+            t0 = time.perf_counter()
+            again = G.check_packed_gpu(head_p, head_kernel, device=dev)
+            again_s = time.perf_counter() - t0
+            spinning = not stream.query()
+        finally:
+            resilience._inject_fault = None
+            del os.environ["JTPU_SEGMENT_DEADLINE_S"]
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        spin_left_s = time.perf_counter() - t0
+        workers = accel.abandoned_workers()
+        for w in workers:
+            w.join(30)
+        ended = not any(w.is_alive() for w in workers)
+        line["stall"] = {"spin_s": STALL_S, "deadline_s": STALL_DEADLINE_S,
+                         "fire_s": fire_s, "error": stuck.get("error"),
+                         "second_check_s": again_s,
+                         "card_still_spinning": spinning,
+                         "spin_left_s": spin_left_s,
+                         "workers": len(workers), "workers_ended": ended}
+        print(f"watchdog: stall fire_s={fire_s:.3f} "
+              f"error={stuck.get('error')!r} second_check_s={again_s:.4f} "
+              f"card_still_spinning={spinning} "
+              f"spin_left_s={spin_left_s:.2f} workers={len(workers)} "
+              f"ended={ended}")
+        assert stalled and stuck["valid"] is UNKNOWN
+        assert "deadline" in stuck["error"], stuck
+        assert fire_s < STALL_DEADLINE_S + 1.0, fire_s
+        assert again["valid"] is UNKNOWN and again_s < 1.0, again
+        assert spinning and workers and ended
+        accel._reset_for_tests()
+        after = checker.check({}, head)
+        assert after["valid"] is True and after["levels"] == r["levels"]
+
+        # (c) the watchdog's cost on the warm headline
+        times = {"unset": [], "deadline": []}
+        for turn in range(WATCH_REPS):
+            for tag in (("unset", "deadline") if turn % 2 == 0
+                        else ("deadline", "unset")):
+                if tag == "deadline":
+                    os.environ["JTPU_SEGMENT_DEADLINE_S"] = str(
+                        WATCH_DEADLINE_S)
+                try:
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    rr = checker.check({}, head)
+                    times[tag].append(time.perf_counter() - t0)
+                finally:
+                    os.environ.pop("JTPU_SEGMENT_DEADLINE_S", None)
+                assert rr["valid"] is True and rr["levels"] == r["levels"]
+        line["warm_headline_s"] = {
+            tag: {"median": statistics.median(v), "runs": v}
+            for tag, v in times.items()}
+        print(f"watchdog: warm headline median_s unset="
+              f"{statistics.median(times['unset']):.4f} deadline="
+              f"{statistics.median(times['deadline']):.4f} "
+              f"(runs {json.dumps(times)})")
+        assert not accel.runtime_wedged()
+    return line
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1720,6 +2013,7 @@ def smoke(dev: torch.device) -> None:
         # the deferred keys' rung crosses the sort's tiles and the scan's
         # blocks, so the sort's merge passes run there
         assert lv.shape.RP > 1024 and lv.shape.B >= 2
+        dwide_shape = lv.shape
 
     # -- the single-history path end to end ---------------------------------
     checker = linearizable(CASRegister(), device=dev)
@@ -1784,6 +2078,12 @@ def smoke(dev: torch.device) -> None:
               f"best_k={r['best-k']} ({time.perf_counter() - t0:.1f} s)")
         assert (rp["valid"], rp["levels"], rp["best-k"], rp["rung"]) == (
             r["valid"], r["levels"], r["best-k"], r["rung"])
+
+    # -- the plan gate ------------------------------------------------------
+    plan_line = plan_phase(dev, seconds, head_p, head_kernel, r, {
+        "headline": K.LevelShape(C=128, W=32, E=8, n=head_cols["f"].shape[0],
+                                 CR=head_cols["cf"].shape[0]),
+        "wide": level_shapes["wide"], "dwide": dwide_shape})
 
     # -- the segment loop: graph, host loop and plain route at each state -
     loops, k5 = segment_loop_phases(dev, seconds, loop_recipes, head_p,
@@ -1974,6 +2274,10 @@ def smoke(dev: torch.device) -> None:
     (stream_line, stream_launches, stream_grid_launches,
      path_segments["stream"]) = stream_phases(dev, seconds, head, smi)
 
+    # -- the watchdog (last: it wedges the card on purpose) ----------------
+    watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
+                                head_kernel, r)
+
     # -- summary ------------------------------------------------------------
     for tag, res in k5.items():
         shapes[tag]["seg_active"] = res
@@ -2065,8 +2369,8 @@ def smoke(dev: torch.device) -> None:
         "invalid_s": ti, "wide_s": tw}, "keyed": keyed_lines,
         "models": model_lines, "gang_vs_serial": gang_line,
         "serve": serve_line, "host_engines": host_line,
-        "stream": stream_line,
-        "phase_seconds": seconds, "nvidia_smi": smi}))
+        "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
+        "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,16 @@ as sequenced, CRC'd chunks, waiting out 429s and resending from the
 daemon's ``need`` on a 409 gap, seals it and polls for the verdict, which
 it prints. Exit 0 when valid, 1 when not (or unknown), 254 for bad
 arguments or an empty history, 255 when the daemon fails a call.
+
+``python -m jepsen_tpu_torch plan --dims N[,CRASHED[,WINDOW[,EVENTS]]]``
+(or ``--dims @file.json``, or ``--history FILE``) verifies a search plan
+before any device time (the reference's ``jtpu plan``): every candidate
+rung with its footprint in the port's own buffers, the ``PLAN-*`` rules
+and the shape check (:mod:`jepsen_tpu_torch.checker.plan`). It plans for
+CUDA unless ``--device cpu``. Exit 0 when no error-severity finding, 1
+when one, 254 for bad arguments. ``--mesh`` (the sharded plan) and
+``--format sarif`` are refused: the port has neither the multi-GPU search
+nor a SARIF renderer yet.
 """
 
 from __future__ import annotations
@@ -75,6 +85,35 @@ def _parser() -> argparse.ArgumentParser:
                    help="verdict poll interval (seconds)")
     t.add_argument("--timeout", type=float, default=600.0,
                    help="the client's whole budget (seconds)")
+    q = sub.add_parser("plan", help="verify a search plan ahead of any "
+                                    "device time: encoding, memory and "
+                                    "kernel shape")
+    q.add_argument("--history", default=None, metavar="FILE",
+                   help="derive the dims from a history file (a JSON array "
+                        "or JSON lines of op maps)")
+    q.add_argument("--dims", default=None, metavar="SPEC",
+                   help="dims without a history: 'N_REQUIRED[,N_CRASHED"
+                        "[,WINDOW_NEEDED[,N_EVENTS]]]' or @file.json (keys: "
+                        "n_required, n_crashed, window_needed, n_events, "
+                        "keys, capacity, window, expand, bytes_limit)")
+    q.add_argument("--model", default="cas-register", choices=list(models()))
+    q.add_argument("--keys", type=int, default=1,
+                   help="verify the keyed-batch plan for this many keys")
+    q.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="the pool-sharded plan (not in this package yet)")
+    q.add_argument("--capacity", type=int, default=None,
+                   help="pin the rung instead of the ladder")
+    q.add_argument("--window", type=int, default=None)
+    q.add_argument("--expand", type=int, default=None)
+    q.add_argument("--bytes-limit", type=int, default=None,
+                   help="byte budget (default: JTPU_PLAN_BYTES_LIMIT, else "
+                        "the card's memory, else unchecked)")
+    q.add_argument("--no-trace", action="store_true",
+                   help="skip the shape check (arithmetic only)")
+    q.add_argument("--format", default="text",
+                   choices=["text", "json", "sarif"])
+    q.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="the device whose ladder and memory to plan for")
     return p
 
 
@@ -208,10 +247,105 @@ def stream(opts: argparse.Namespace) -> int:
     return OK if result.get("valid") is True else TEST_FAILED
 
 
+def _plan_dims(opts: argparse.Namespace, model):
+    """The dims ``plan`` verifies, or an error message. Shape knobs a
+    ``@file.json`` pins fill the flags not given."""
+    from jepsen_tpu_torch.checker import plan
+    from jepsen_tpu_torch.history import History
+    if opts.history:
+        try:
+            h = History.of(_load_ops(opts.history))
+        except (OSError, ValueError) as e:
+            return f"cannot read {opts.history}: {e}"
+        dims = plan.PlanDims.from_history(h, model)
+        if dims is None:
+            return f"model {opts.model} has no integer kernel; nothing to plan"
+        return dims
+    if not opts.dims:
+        return "pass --history FILE or --dims SPEC"
+    spec = opts.dims
+    if spec.startswith("@"):
+        try:
+            with open(spec[1:], encoding="utf-8") as f:
+                d = json.load(f)
+        except (OSError, ValueError) as e:
+            return f"--dims {spec!r}: {e}"
+        for knob in ("capacity", "window", "expand", "mesh", "bytes_limit"):
+            if getattr(opts, knob) is None and d.get(knob) is not None:
+                setattr(opts, knob, int(d[knob]))
+        return plan.PlanDims(
+            n_required=int(d["n_required"]),
+            n_crashed=int(d.get("n_crashed", 0)),
+            window_needed=int(d.get("window_needed", 1)),
+            n_events=(int(d["n_events"]) if d.get("n_events") is not None
+                      else None),
+            keys=int(d.get("keys", opts.keys or 1)))
+    try:
+        parts = [int(x) for x in spec.split(",")]
+    except ValueError:
+        return (f"--dims {spec!r}: expected comma-separated integers or "
+                f"@file.json")
+    if not parts or len(parts) > 4:
+        return f"--dims {spec!r}: 1-4 integers"
+    return plan.PlanDims(*parts, keys=opts.keys or 1)
+
+
+def plan_cmd(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch.checker import plan
+    from jepsen_tpu_torch.models.core import kernel_spec_for
+    from jepsen_tpu_torch.serve import models
+    if opts.format == "sarif":
+        print("plan: --format sarif is refused: this package has no SARIF "
+              "renderer yet; use text or json", file=sys.stderr)
+        return INVALID_ARGS
+    model = models()[opts.model]()
+    dims = _plan_dims(opts, model)
+    if isinstance(dims, str):
+        print(dims, file=sys.stderr)
+        return INVALID_ARGS
+    if opts.mesh is not None:
+        print("plan: --mesh is refused: the pool-sharded plan needs the "
+              "multi-GPU search, which this package does not have yet",
+              file=sys.stderr)
+        return INVALID_ARGS
+    if (opts.keys or 1) > 1 and dims.keys == 1:
+        dims = plan.PlanDims(dims.n_required, dims.n_crashed,
+                             dims.window_needed, dims.n_events,
+                             keys=opts.keys)
+    report = plan.analyze(dims, kernel=kernel_spec_for(model),
+                          capacity=opts.capacity, window=opts.window,
+                          expand=opts.expand, bytes_limit=opts.bytes_limit,
+                          trace=not opts.no_trace, device=opts.device)
+    errors = [i for i in report["issues"] if i["severity"] == "error"]
+    if opts.format == "json":
+        print(json.dumps(report, indent=2))
+        return TEST_FAILED if errors else OK
+    d, lim = report["dims"], report["bytes-limit"]
+    print(f"# plan: dims n={d['n-required']}+{d['n-crashed']} "
+          f"window<={d['window-needed']} keys={d['keys']}, limit "
+          f"{'unchecked' if lim is None else f'{lim} B'}")
+    for i in report["issues"]:
+        if not i.get("label"):   # dims-level, not per-candidate
+            print(f"# plan: {i['severity'].upper()} [{i['rule']}] "
+                  f"{i['message']}")
+    for c in report["candidates"]:
+        mark = "ok " if c["status"] == "ok" else "REJ"
+        line = (f"# plan: {mark} {c['label']:<36} "
+                f"{c['footprint']['total-bytes'] / 1e6:9.3f} MB")
+        rules = sorted({i["rule"] for i in c["issues"]})
+        if rules:
+            line += "  " + " ".join(rules)
+        print(line)
+    print(f"# plan: selected {report['selected'] or 'NONE'}; "
+          f"{len(errors)} error finding(s)")
+    return TEST_FAILED if errors else OK
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     opts = _parser().parse_args(argv)
-    return stream(opts) if opts.cmd == "stream" else serve(opts)
+    run = {"stream": stream, "serve": serve, "plan": plan_cmd}[opts.cmd]
+    return run(opts)
 
 
 if __name__ == "__main__":

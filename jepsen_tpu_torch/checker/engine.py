@@ -21,6 +21,13 @@ holds: the carry and scratch, the columns, and the graph's own segment
 words. A graph is destroyed before any buffer it points to is dropped:
 when the state or the columns it uses leave their cache, and when its
 bucket is evicted.
+
+Once a CUDA segment has wedged (:mod:`jepsen_tpu_torch.accel` holds the
+record), the engine hands out no CUDA state, columns or graphs again: the
+card may never come back. The buffers and graphs the wedged segment's
+abandoned worker still holds leave the caches (:meth:`Engine.abandon`)
+and are kept, never freed nor handed out, until the record is cleared
+after that worker has ended (``accel._reset_for_tests``).
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from jepsen_tpu_torch import accel
 from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.kernels import search as K
 
@@ -76,6 +84,7 @@ class Engine:
         The key holds every pointer the graph would hold, the pool's
         buffer among them, so a hit is a graph over exactly these
         buffers."""
+        _refuse_if_wedged(carry.scal.device)
         key = (shape, str(carry.scal.device), tuple(
             t.data_ptr() for t in _tensors(cols, nr, carry, scratch)))
         with self._glock:
@@ -105,7 +114,9 @@ class Engine:
               device: torch.device) -> Tuple[G.Carry, G.Scratch]:
         """Carry and scratch buffers for one search shape. On a CUDA
         device the kernel library is built and loaded first; a failure
-        raises, and so does an allocation the device cannot hold."""
+        raises, and so does an allocation the device cannot hold, and a
+        CUDA device once a segment has wedged."""
+        _refuse_if_wedged(device)
         if device.type == "cuda" and self.lib is None:
             from jepsen_tpu_torch.kernels import build
             self.lib = build.load()
@@ -122,19 +133,53 @@ class Engine:
                 f"W={shape.W}, E={shape.E}), n={shape.n}, CR={shape.CR} "
                 f"needs {G.state_bytes(shape)} bytes on {device}") from e
 
-    def batch_cols(self, cols_np: dict, device: torch.device) -> dict:
+    def batch_cols(self, cols_np: dict, device: torch.device,
+                   copy: bool = True) -> dict:
         """A batch's stacked columns copied into this engine's buffers for
-        their shape."""
+        their shape; with ``copy=False`` the buffers only, for the caller
+        to fill (``interop.batch_cols_from_numpy(..., out=)``)."""
         from jepsen_tpu_torch import interop
-        key = (cols_np["f"].shape, cols_np["cf"].shape, str(device))
-        bufs = self._cached(self._cols, key, lambda: interop.
-                            batch_cols_from_numpy(cols_np, device))
-        return interop.batch_cols_from_numpy(cols_np, device, out=bufs)
+        _refuse_if_wedged(device)
+        B, n, cr = cols_np["f"].shape + cols_np["cf"].shape[1:]
+
+        def dims(c):
+            if c == "nr":
+                return (B,)
+            return (B, n + 1 if c == "sm" else n if c in K.COLS[:8] else cr)
+
+        bufs = self._cached(self._cols, ((B, n), (B, cr), str(device)),
+                            lambda: {c: torch.empty(dims(c), dtype=torch.int32,
+                                                    device=device)
+                                     for c in interop.DEVICE_COLS})
+        if copy:
+            interop.batch_cols_from_numpy(cols_np, device, out=bufs)
+        return bufs
 
     def cols(self, cols_np: dict, device: torch.device) -> dict:
         """One history's columns, as a batch of one."""
         from jepsen_tpu_torch import interop
         return self.batch_cols(interop.stack_cols([cols_np]), device)
+
+    def abandon(self, shape: K.LevelShape, device: torch.device,
+                cols: dict) -> None:
+        """Take the state of ``shape`` on ``device``, the columns ``cols``
+        and every segment graph over them out of the caches, for good: a
+        wedged segment's worker still holds them. They are kept, neither
+        freed nor handed out, until :func:`release_abandoned`. The caller
+        holds ``lock``."""
+        held = [self._cols.pop(k) for k, v in list(self._cols.items())
+                if v is cols]
+        doomed = {t.data_ptr() for t in cols.values()}
+        state = self._states.pop((shape, str(device)), None)
+        if state is not None:
+            held.append(state)
+            doomed |= {t.data_ptr() for t in _tensors({}, None, *state)}
+        with self._glock:
+            for key in [k for k, g in self._graphs.items()
+                        if g.ptrs() & doomed]:
+                held.append(self._graphs.pop(key))
+        with _ABANDONED_LOCK:
+            _ABANDONED.extend(held)
 
 
     # -- shape buckets and warm state ---------------------------------------
@@ -257,6 +302,29 @@ def _env_max_warm_buckets() -> int:
         return max(0, int(os.environ.get("JTPU_ENGINE_MAX_BUCKETS") or "0"))
     except ValueError:
         return 0
+
+
+def _refuse_if_wedged(device) -> None:
+    if accel.runtime_wedged(device):
+        raise accel.WedgeError(
+            "a device segment wedged earlier in this process; the engine "
+            "hands out no CUDA state until the record is cleared")
+
+
+#: what wedged segments' workers hold (:meth:`Engine.abandon`)
+_ABANDONED: list = []
+_ABANDONED_LOCK = threading.Lock()
+
+
+def release_abandoned() -> None:
+    """Let go of the buffers and graphs that wedged segments left behind;
+    only once their workers have ended (``accel._reset_for_tests``)."""
+    with _ABANDONED_LOCK:
+        held = list(_ABANDONED)
+        _ABANDONED.clear()
+    for item in held:
+        if isinstance(item, K.SegmentGraph):
+            item.destroy()
 
 
 _DEFAULT: Optional[Engine] = None

@@ -442,16 +442,35 @@ def empty_scratch(shape: K.LevelShape, device) -> Scratch:
                              if K.sort_passes(shape) else None))
 
 
+def _pool_nbytes(shape: K.LevelShape) -> List[int]:
+    B, C = shape.B, shape.C
+    return [4 * B * C, 4 * B * C * shape.MW, 4 * B * C * shape.MCX,
+            4 * B * C, B * C]
+
+
+def carry_nbytes(shape: K.LevelShape) -> List[int]:
+    """The bytes of each tensor :func:`empty_carry` allocates, in its
+    order."""
+    B, C = shape.B, shape.C
+    return _pool_nbytes(shape) + [4 * B * C, 4 * B * C, B * C,
+                                  4 * B * K.NSCAL,
+                                  4 * B * (shape.lmax + 1) * NSTAT]
+
+
+def scratch_nbytes(shape: K.LevelShape) -> List[int]:
+    """The bytes of each tensor :func:`empty_scratch` allocates, in its
+    order (the sort's second rows buffer only where the shape has one)."""
+    B, rows = shape.B, 4 * shape.B * shape.RP * shape.NK
+    return (_pool_nbytes(shape)
+            + [4 * B * K.NACC, rows, 4 * B * shape.RP,
+               4 * B * K.scan_blocks(shape)]
+            + ([rows] if K.sort_passes(shape) else []))
+
+
 def state_bytes(shape: K.LevelShape) -> int:
     """Device bytes of one shape's carry and scratch (the sort's second
     rows buffer included where the shape has one)."""
-    C, MW, MCX = shape.C, shape.MW, shape.MCX
-    pool = C * (4 * (2 + MW + MCX) + 1)
-    carry = 2 * pool + C * 9 + 4 * K.NSCAL + 4 * (shape.lmax + 1) * NSTAT
-    scratch = (4 * K.NACC + 4 * shape.RP * (shape.NK + 1)
-               + 4 * K.scan_blocks(shape)
-               + (4 * shape.RP * shape.NK if K.sort_passes(shape) else 0))
-    return shape.B * (carry + scratch)
+    return sum(carry_nbytes(shape)) + sum(scratch_nbytes(shape))
 
 
 class Ops(NamedTuple):
@@ -677,14 +696,18 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
 
 def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   tiebreak0: Optional[str], packed: dict, breq: int,
-                  results: dict, device, ops: Ops, model: str) -> list:
+                  results: dict, device, ops: Ops, model: str,
+                  chunk: Optional[Callable[[tuple, int, int], int]] = None
+                  ) -> list:
     """The keyed batch's escalation loop (``_keyed_ladder`` in the
     reference) for the model named ``model`` (a KernelSpec name): per
     rung, the runnable keys in one batch per crashed-op
     width; keys that overflowed retry on a later rung that grows their
     capacity or window. Fills ``results`` and returns one entry per
     batch run: its rung, crash width, tie-break, keys, largest level
-    count, levels run (``levels-launched``) and seconds."""
+    count, levels run (``levels-launched``) and seconds.
+    ``chunk(rung, crw, keys)`` is the most keys one launch takes (default
+    ``MAX_KEYS``): the plan gate's byte budget sets it."""
     batches = []
     for step, (cap, win, exp) in enumerate(ladder):
         if not rows:
@@ -717,11 +740,15 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
         by_cr: Dict[int, list] = {}
         for r in runnable:
             by_cr.setdefault(r.crw, []).append(r)
-        # a launch's grid takes at most MAX_KEYS keys: a larger cohort runs
-        # in chunks, which changes no key's result
-        chunks = [(crw, keys[i:i + K.MAX_KEYS])
-                  for crw, keys in sorted(by_cr.items())
-                  for i in range(0, len(keys), K.MAX_KEYS)]
+        # a launch's grid takes at most MAX_KEYS keys, and the byte budget
+        # may take fewer: a larger cohort runs in chunks, which changes no
+        # key's result
+        chunks = []
+        for crw, keys in sorted(by_cr.items()):
+            size = (K.MAX_KEYS if chunk is None
+                    else chunk((cap, win, exp), crw, len(keys)))
+            chunks += [(crw, keys[i:i + size])
+                       for i in range(0, len(keys), size)]
         for crw, grp in chunks:
             shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
                                  n=breq, CR=crw, B=len(grp), tiebreak=tb,
@@ -768,18 +795,23 @@ def check_packed_gpu(p: PackedHistory, kernel: KernelSpec,
                      expand: Optional[int] = None,
                      segment_iters: Optional[int] = None,
                      device=None,
-                     deadline: Optional[float] = None) -> Dict[str, Any]:
+                     deadline: Optional[float] = None,
+                     deadline_s: Optional[float] = None
+                     ) -> Dict[str, Any]:
     """Check one packed history. ``capacity=None`` escalates through the
     ladder for the history's needed window; with an explicit capacity,
     ``expand`` < capacity selects best-first search (None = BFS). Runs in
     checkpointed segments of ``segment_iters`` levels. ``device=None``
     means CUDA. Past ``deadline`` (a ``time.monotonic()`` instant) the
-    search stops at its next segment barrier with the timeout result."""
+    search stops at its next segment barrier with the timeout result.
+    ``deadline_s`` is each segment's watchdog: past it the result is
+    UNKNOWN with the wedge and the search's ``checkpoint`` (see
+    :func:`jepsen_tpu_torch.resilience.supervised_check_packed`)."""
     from jepsen_tpu_torch import resilience
     return resilience.supervised_check_packed(
         p, kernel, capacity=capacity, window=window, expand=expand,
         segment_iters=segment_iters, device=resolve_device(device),
-        deadline=deadline)
+        deadline=deadline, deadline_s=deadline_s)
 
 
 def check_history_gpu(history, model: Model,
@@ -787,7 +819,8 @@ def check_history_gpu(history, model: Model,
                       window: Optional[int] = WINDOW,
                       expand: Optional[int] = None,
                       segment_iters: Optional[int] = None,
-                      device=None, deadline: Optional[float] = None
+                      device=None, deadline: Optional[float] = None,
+                      deadline_s: Optional[float] = None
                       ) -> Optional[Dict[str, Any]]:
     """Gate, pack and check one history with the model's kernel (see
     :func:`check_packed_gpu`). None when the model has no integer kernel,
@@ -807,7 +840,7 @@ def check_history_gpu(history, model: Model,
     packed, kernel = pk
     return check_packed_gpu(packed, kernel, capacity, window, expand,
                             segment_iters=segment_iters, device=dev,
-                            deadline=deadline)
+                            deadline=deadline, deadline_s=deadline_s)
 
 
 def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
@@ -834,6 +867,7 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     from jepsen_tpu_torch.analysis import summarize
     from jepsen_tpu_torch.analysis.history_lint import (MalformedHistoryError,
                                                         gate_history)
+    from jepsen_tpu_torch.checker import plan
     if window is not None:
         _check_window(window)
     if tiebreak0 not in (None,) + K.TIEBREAKS:
@@ -893,16 +927,41 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
         _check_window(window or WINDOW)
         ladder = ((capacity, window or WINDOW, expand),)
     else:
-        lad0 = _capacity_ladder(dev)
-        cap0, exp0 = lad0[0]
         adaptive = True
-        ladder = (((cap0, 32, exp0), (cap0, 32, max(8, exp0 * 2)))
-                  + tuple((c, 32, e) for c, e in lad0[1:])
-                  + ((512, 64, 512), (4096, 128, 1024), (16384, 128, 4096)))
+        ladder = _keyed_auto_ladder(dev)
+    out: Dict[str, Any] = {}
+    chunk = None
+    if rows and plan.gate_enabled():
+        # the dims aggregate over the keys: the widest required section,
+        # the crashiest key, the widest needed window
+        dims = plan.PlanDims(
+            n_required=max(packed[r.key].n_required for r in rows),
+            n_crashed=max(packed[r.key].n - packed[r.key].n_required
+                          for r in rows),
+            window_needed=max(r.wneed for r in rows), keys=len(rows))
+        ladder, out["plan"] = plan.gate_ladder(
+            dims, kernel, ladder, kind="batch",
+            explicit=capacity is not None, keys=len(rows),
+            where="the keyed device search", device=dev)
+        limit = out["plan"]["bytes-limit"]
+        if limit is not None:
+            def chunk(rung, crw, keys):
+                return plan.batch_chunk(plan.Candidate(
+                    "batch", *rung, breq, crw, keys=keys), limit)
     batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed, breq,
-                            results, dev, ops, kernel.name)
+                            results, dev, ops, kernel.name, chunk)
     return {"valid": merge_valid(r["valid"] for r in results.values()),
-            "results": results, "backend": "gpu", "batches": batches}
+            "results": results, "backend": "gpu", "batches": batches, **out}
+
+
+def _keyed_auto_ladder(device: torch.device) -> tuple:
+    """The keyed batch's adaptive schedule: the slim first rung, the dense
+    keys' double-expansion rung, the narrow escalations, the wide tail."""
+    lad0 = _capacity_ladder(device)
+    cap0, exp0 = lad0[0]
+    return (((cap0, 32, exp0), (cap0, 32, max(8, exp0 * 2)))
+            + tuple((c, 32, e) for c, e in lad0[1:])
+            + ((512, 64, 512), (4096, 128, 1024), (16384, 128, 4096)))
 
 
 # ---------------------------------------------------------------------------

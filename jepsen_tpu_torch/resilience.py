@@ -30,16 +30,36 @@ abandons a late check's thread, which holds no lock across its device
 calls; this search holds :attr:`Engine.lock` for its whole ladder, so an
 abandoned search must stop by itself.)
 
-Not ported yet: the per-segment watchdog thread and its CPU
-continuation, the headroom pre-shrink, and the observatory and profiler
-publication.
+Before any device state is allocated the plan gate
+(:mod:`jepsen_tpu_torch.checker.plan`) checks the ladder and seeds each
+rung's pool from its footprint; at each barrier a device short of memory
+halves the pool once per rung (the headroom pre-shrink,
+:mod:`jepsen_tpu_torch.obs.devices`).
+
+``deadline_s`` (``JTPU_SEGMENT_DEADLINE_S``) is the reference's segment
+watchdog (:class:`SegmentWatchdog`): a segment that does not come back
+in time is a wedge. The wedge is recorded for the process
+(:mod:`jepsen_tpu_torch.accel`), the abandoned worker keeps the shape's
+buffers (the engine never hands them out again) and the engine's lock is
+released. The result is UNKNOWN with the wedge as its ``error`` and the
+search's last segment end as its ``checkpoint``; a later check on CUDA
+answers UNKNOWN at once. The port goes on nowhere by itself: a caller who
+wants the answer resumes that checkpoint on the CPU,
+``supervised_check_packed(p, kernel, device="cpu", resume=cp)``, where
+the search runs its plain versions as it does on any CPU tensor.
+
+Not ported yet: the observatory and profiler publication.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import logging
 import os
+import queue
 import random
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
@@ -47,13 +67,16 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import interop
+from jepsen_tpu_torch import accel, interop
+from jepsen_tpu_torch.accel import WedgeError
 from jepsen_tpu_torch.checker import UNKNOWN
 from jepsen_tpu_torch.checker import gpu as G
+from jepsen_tpu_torch.checker import plan as plan_mod
 from jepsen_tpu_torch.checker.engine import default_engine
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.kernels.search import LevelShape
 from jepsen_tpu_torch.models.core import KernelSpec, Model
+from jepsen_tpu_torch.obs import devices as obs_devices
 from jepsen_tpu_torch.ops.encode import PackedHistory, pack_with_init
 
 log = logging.getLogger("jepsen.resilience")
@@ -78,10 +101,6 @@ FATAL = "fatal"
 RETRYABLE = (DCN, TRANSIENT)
 
 _CLASSES = (OOM, WEDGE, DCN, TRANSIENT, FATAL)
-
-
-class WedgeError(Exception):
-    """A supervised call exceeded its deadline."""
 
 
 #: Substrings marking an out-of-memory failure in the error text; the
@@ -419,7 +438,7 @@ def _carry_active(carry: tuple, lmax: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# The segment supervisor
+# Segment execution and the watchdog
 # ---------------------------------------------------------------------------
 
 #: Fault-injection seam for the tests: a callable invoked with a context
@@ -427,6 +446,108 @@ def _carry_active(carry: tuple, lmax: int) -> bool:
 #: device segment; raising from it stands for that failure at that point.
 #: None in production.
 _inject_fault: Optional[Callable[[Dict[str, Any]], None]] = None
+
+class SegmentWatchdog:
+    """The segment watchdog of one search (the reference's
+    ``_call_segment`` with its ``deadline_s``). :meth:`call` runs a
+    segment's device work ``step(stop)``: without a deadline in the
+    caller's thread; with one, in a daemon thread named
+    ``jepsen-device-segment`` on the caller's device and CUDA stream,
+    waited for up to the deadline. The thread is started at the first
+    segment and serves the search's later ones (a thread a segment costs
+    about 0.5 ms to start on a shared host). An overrun raises
+    :class:`WedgeError`, whose ``worker`` is the thread: abandoned, never
+    killed, its ``stop()`` true, so that it launches nothing more once it
+    comes back, and it ends after that segment. A failure in the worker is
+    raised here, for the supervisor to classify. A segment graph the
+    worker captures is safe from the caller's CUDA calls: csrc/search.cu
+    captures in the thread-local mode. :meth:`close` ends the thread."""
+
+    def __init__(self, device: torch.device, deadline_s: Optional[float]):
+        self.device, self.deadline_s = device, deadline_s
+        self._stream = (torch.cuda.current_stream(device)
+                        if deadline_s and device.type == "cuda" else None)
+        self._jobs: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._thread: Optional[threading.Thread] = None
+
+    def call(self, step: Callable[[Callable[[], bool]], Any]) -> Any:
+        if not self.deadline_s:
+            return step(lambda: False)
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._serve, daemon=True,
+                                            name="jepsen-device-segment")
+            self._thread.start()
+        box: Dict[str, Any] = {}
+        done, abandoned = threading.Event(), threading.Event()
+        self._jobs.put((step, box, done, abandoned.is_set))
+        if not done.wait(self.deadline_s):
+            abandoned.set()
+            err = WedgeError(f"device segment exceeded its "
+                             f"{self.deadline_s:.1f}s deadline")
+            err.worker = self._thread
+            self.close()
+            raise err
+        if "err" in box:
+            raise box["err"]
+        return box["ok"]
+
+    def close(self) -> None:
+        """The thread ends after the segment it is in, if any."""
+        if self._thread is not None:
+            self._jobs.put(None)
+            self._thread = None
+
+    def _serve(self) -> None:
+        ctx = (contextlib.ExitStack() if self._stream is None
+               else _on_stream(self.device, self._stream))
+        with ctx:
+            while True:
+                job = self._jobs.get()
+                if job is None:
+                    return
+                step, box, done, stop = job
+                try:
+                    box["ok"] = step(stop)
+                except BaseException as e:  # noqa: BLE001 -- relayed
+                    box["err"] = e
+                done.set()
+
+
+@contextlib.contextmanager
+def _on_stream(device: torch.device, stream):
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        yield
+
+
+def _device_segment(stop: Callable[[], bool], cols: dict,
+                    cols_np: Optional[dict], carry: G.Carry,
+                    scratch: G.Scratch, host: Optional[tuple],
+                    shape: LevelShape, seg_len: int, ops: G.Ops,
+                    keep: bool) -> Optional[tuple]:
+    """One segment on a shape's buffers: the stacked columns ``cols_np``
+    and the host carry ``host`` go up where given, the segment runs, and
+    its end is read (with the whole carry where ``keep``). Returns (each
+    key's active flag, each key's level, the host carry or None), or None
+    when ``stop()`` turned true on the way."""
+    dev = carry.scal.device
+    if cols_np is not None:
+        interop.batch_cols_from_numpy(cols_np, dev, out=cols)
+    if host is not None:
+        interop.carry_from_numpy(host, dev, out=carry)
+        scratch.acc.zero_()
+    if stop():
+        return None
+    words, graph = G.run_segment(cols, carry, scratch, shape, cols["nr"],
+                                 seg_len, ops)
+    _, act, lv = G.end_segment(carry, shape, words, graph)
+    if stop():
+        return None
+    return act, lv, interop.carry_to_numpy(carry) if keep else None
+
+
+# ---------------------------------------------------------------------------
+# The segment supervisor
+# ---------------------------------------------------------------------------
 
 
 def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
@@ -441,7 +562,8 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             resume: Optional[Checkpoint] = None,
                             checkpoint_path: Optional[str] = None,
                             on_checkpoint: Optional[
-                                Callable[[Checkpoint], None]] = None
+                                Callable[[Checkpoint], None]] = None,
+                            deadline_s: Optional[float] = None
                             ) -> Dict[str, Any]:
     """Check one packed history rung by rung, in growing segments
     (see :func:`jepsen_tpu_torch.checker.gpu.check_packed_gpu`).
@@ -455,26 +577,58 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     of the same packed history (from either package); ``checkpoint_path``
     and ``on_checkpoint`` save and observe a checkpoint at each segment
     end; ``policy`` (default :class:`RetryPolicy`) sets the retries, the
-    backoff and the OOM floor. A checkpoint comes to the host at a
-    segment end only where a path, a callback or an explicit ``policy``
-    asks for it; otherwise an OOM resumes from the rung's start (or its
-    resumed checkpoint). The result carries ``attempts``, the
+    backoff and the OOM floor. The plan gate
+    (:func:`jepsen_tpu_torch.checker.plan.gate_ladder`) runs before any
+    device state is allocated: an explicit rung that cannot run raises
+    ``PlanRejectedError``, a rung whose pool does not fit the byte budget
+    starts smaller (a ``plan-seeded-pool-N`` event), and the result
+    carries the ``plan`` entry. At each segment barrier a device headroom
+    below ``JTPU_HEADROOM_MIN`` halves the pool once per rung
+    (``preemptive-halve-to-N``).
+
+    ``deadline_s`` (``JTPU_SEGMENT_DEADLINE_S`` when None; unset or 0: no
+    watchdog) runs each segment in a watchdog thread
+    (:class:`SegmentWatchdog`). A segment past it is a wedge: recorded for
+    the process (:mod:`jepsen_tpu_torch.accel`), its buffers left to the
+    abandoned worker and the engine's lock released. The result is then
+    UNKNOWN, with the wedge as its ``error`` and the last host
+    :class:`Checkpoint` as its ``checkpoint``, which ``resume=`` continues
+    on ``device="cpu"``. A later check on CUDA in the process answers
+    UNKNOWN at once; one on the CPU runs.
+
+    A checkpoint comes to the host at a segment end only where a path, a
+    callback, an explicit ``policy`` or a watchdog asks for it; otherwise
+    an OOM resumes from the rung's start (or its resumed checkpoint), and
+    so does a wedge's ``checkpoint``. The result carries ``attempts``, the
     supervision trail; a fatal failure is raised with the trail as
     ``exc.resilience_trail``."""
+    # a CUDA device that wedged earlier in the process is not fed again
+    if accel.runtime_wedged("cuda" if device is None else device):
+        return _wedged_earlier()
     dev = G.resolve_device(device)
     if window is not None:
         G._check_window(window)
     cols_np, early = G._prep_single(p, kernel)
     if early is not None:
         return early
+    if deadline_s is None:
+        deadline_s = _env_float("JTPU_SEGMENT_DEADLINE_S", 0.0) or None
     keep = bool(checkpoint_path or on_checkpoint is not None
-                or policy is not None)
+                or policy is not None or deadline_s)
     policy = policy or RetryPolicy()
+    wneed = G._window_needed(p)
     if capacity is not None:
         G._check_window(window or G.WINDOW)
         ladder = ((capacity, window or G.WINDOW, expand),)
     else:
-        ladder = G._ladder_for(G._window_needed(p), dev)
+        ladder = G._ladder_for(wneed, dev)
+    plan_entry = None
+    if plan_mod.gate_enabled():
+        ladder, plan_entry = plan_mod.gate_ladder(
+            plan_mod.PlanDims.from_packed(p, wneed), kernel, ladder,
+            kind="segment", explicit=capacity is not None,
+            derate=capacity is None,
+            where="the supervised device search", device=dev)
     if resume is not None:
         idx = next((i for i, r in enumerate(ladder)
                     if tuple(r) == tuple(resume.rung)), None)
@@ -485,12 +639,23 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     nr = int(cols_np["nr"])
     lmax = G._level_budget(n, cr_pad)
     seg, first = G._segment_schedule(segment_iters, lmax)
+    hr_min = obs_devices.headroom_threshold()
+    stacked = interop.stack_cols([cols_np])
+    watchdog = SegmentWatchdog(dev, deadline_s)
     eng = default_engine()
+    eng.lock.acquire()
+    held = True
+    if accel.runtime_wedged(dev):
+        # the device wedged while this check waited for the lock
+        eng.lock.release()
+        return _wedged_earlier()
     trail: list = []
     work: list = []
     out: Dict[str, Any] = {}
-    with eng.lock:
-        cols = eng.cols(cols_np, dev)
+    try:
+        # filled by the first segment, under the watchdog
+        cols = eng.batch_cols(stacked, dev, copy=False)
+        cols_up = False
         for cap, win, exp in ladder:
             if resume is not None and tuple(resume.rung) == (cap, win, exp):
                 host = tuple(resume.carry)
@@ -498,9 +663,26 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                 seg_idx = resume.segment
                 resume = None
             else:
-                host = G._carry0_host(cap, win, cr_pad, cols_np["ini"], nr,
-                                      stats_rows=lmax + 1)
                 cap_eff, exp_eff, seg_idx = cap, exp, 0
+                if plan_entry is not None:
+                    cap_s, exp_s, pred, blim = plan_mod.seed_rung(
+                        cap, win, exp, breq=n, crw=cr_pad,
+                        floor=policy.min_capacity, device=dev)
+                    if cap_s != cap_eff:
+                        trail.append({"rung": (cap, win, exp),
+                                      "effective": (cap_s, win, exp_s),
+                                      "segment": 0, "level": 0,
+                                      "event": "plan",
+                                      "outcome": f"plan-seeded-pool-{cap_s}",
+                                      "predicted-bytes": pred,
+                                      "bytes-limit": blim})
+                        log.warning(
+                            "predicted footprint at %s rows exceeds the %s B "
+                            "byte budget; seeding the pool at %s rows "
+                            "(predicted %s B)", cap, blim, cap_s, pred)
+                        cap_eff, exp_eff = cap_s, exp_s
+                host = G._carry0_host(cap_eff, win, cr_pad, cols_np["ini"],
+                                      nr, stats_rows=lmax + 1)
             # the rung's last checkpoint: where a failed segment resumes
             host = _grow_carry_stats(_fit_carry_stats(host, True, lmax),
                                      lmax)
@@ -508,8 +690,36 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             level, live = int(host[8]), _carry_active(host, lmax)
             carry = shape = None
             transients = ooms = 0
+            preempted = False
             abort: Optional[str] = None
+            wedge_cp: Optional[Checkpoint] = None
             while live:
+                # a device short of memory halves the pool before the
+                # allocator fails; once per rung, since freed pages stay
+                # cached and the headroom would not come back
+                headroom = obs_devices.headroom_ratio(device=dev)
+                if (headroom is not None and hr_min > 0 and not preempted
+                        and headroom < hr_min
+                        and cap_eff // 2 >= policy.min_capacity):
+                    if carry is not None:
+                        host = interop.carry_to_numpy(carry)
+                        saved_idx = seg_idx
+                    host, dropped = _shrink_carry(host, cap_eff // 2)
+                    cap_eff //= 2
+                    if isinstance(exp_eff, int):
+                        exp_eff = max(1, min(exp_eff // 2, cap_eff))
+                    carry, preempted = None, True
+                    trail.append({"rung": (cap, win, exp),
+                                  "effective": (cap_eff, win, exp_eff),
+                                  "segment": seg_idx, "level": int(host[8]),
+                                  "event": OOM,
+                                  "outcome": f"preemptive-halve-to-{cap_eff}",
+                                  "headroom": round(headroom, 4),
+                                  "lossy": dropped})
+                    log.warning(
+                        "device headroom %.1f%% below the %.1f%% floor; "
+                        "pre-emptively halving the pool to %s rows",
+                        100 * headroom, 100 * hr_min, cap_eff)
                 # the schedule of an unbroken run: a resumed search ends
                 # its segments on the same levels
                 seg_len = min(seg, first << min(seg_idx, 16))
@@ -520,17 +730,40 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                 try:
                     if _inject_fault is not None:
                         _inject_fault(dict(ctx))
+                    upload = None
                     if carry is None:
                         shape = LevelShape(C=cap_eff, W=win,
                                            E=min(exp_eff or cap_eff,
                                                  cap_eff),
                                            n=n, CR=cr_pad, model=kernel.name)
                         carry, scratch = eng.state(shape, dev)
-                        interop.carry_from_numpy(host, dev, out=carry)
-                        scratch.acc.zero_()
-                    words, graph = G.run_segment(cols, carry, scratch, shape,
-                                                 cols["nr"], seg_len, ops)
-                    _, act, lv = G.end_segment(carry, shape, words, graph)
+                        upload = host
+                    step = functools.partial(
+                        _device_segment, cols=cols,
+                        cols_np=None if cols_up else stacked, carry=carry,
+                        scratch=scratch, host=upload, shape=shape,
+                        seg_len=seg_len, ops=ops, keep=keep)
+                    act, lv, snap = watchdog.call(step)
+                    cols_up = True
+                except WedgeError as e:
+                    accel.note_runtime_wedge(
+                        "supervised_check_packed", deadline_s or 0.0,
+                        device=dev, worker=getattr(e, "worker", None),
+                        level=ctx["level"])
+                    # the abandoned worker keeps this state; the engine
+                    # never hands it out again, and its lock is free
+                    eng.abandon(shape, dev, cols)
+                    eng.lock.release()
+                    held = False
+                    carry, seg_idx = None, saved_idx
+                    level = int(host[8])
+                    trail.append({**ctx, "event": WEDGE,
+                                  "outcome": "gave-up", "error": _errstr(e)})
+                    abort = f"device segment wedged: {e}"
+                    wedge_cp = Checkpoint(carry=host, rung=(cap, win, exp),
+                                          window=win, expand_eff=exp_eff,
+                                          crash_width=crw, segment=seg_idx)
+                    break
                 except Exception as e:  # noqa: BLE001 -- classified below
                     cls = classify_failure(e)
                     # resume from the last checkpoint, in a new upload
@@ -590,8 +823,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                 transients = 0
                 level, live = lv[0], bool(act[0])
                 if keep:
-                    host = interop.carry_to_numpy(carry)
-                    saved_idx = seg_idx
+                    host, saved_idx = snap, seg_idx
                     cp = Checkpoint(carry=host, rung=(cap, win, exp),
                                     window=win, expand_eff=exp_eff,
                                     crash_width=crw, segment=seg_idx)
@@ -614,6 +846,8 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             if abort is not None:
                 out = {"valid": UNKNOWN, "backend": "gpu", "levels": levels,
                        "error": abort}
+                if wedge_cp is not None:
+                    out["checkpoint"] = wedge_cp
             else:
                 out = G._result(done, lossy, wovf, best, levels, p,
                                 pool=pool)
@@ -625,6 +859,8 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             out["tiebreak"] = "lex"
             work.append((rung_eff, crw, "lex", levels))
             out["work"] = list(work)
+            if plan_entry is not None:
+                out["plan"] = plan_entry
             out["segments"] = seg_idx
             out["segment-iters"] = seg
             out["attempts"] = list(trail)
@@ -635,7 +871,21 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                 return out
             if wovf and win >= G.MAX_WINDOW and not lossy:
                 return out  # a bigger pool won't fix a window overflow
+    finally:
+        watchdog.close()
+        if held:
+            eng.lock.release()
     return out
+
+
+def _wedged_earlier() -> Dict[str, Any]:
+    """The result of a check on CUDA after a CUDA segment wedged in this
+    process: it never touches the card."""
+    error = ("a device segment wedged earlier in this process; CUDA "
+             "takes no more searches (device='cpu' does)")
+    return {"valid": UNKNOWN, "backend": "gpu", "error": error,
+            "attempts": [{"event": WEDGE, "outcome": "gave-up",
+                          "error": error}]}
 
 
 def _attach_trail(e: BaseException, trail: list) -> None:

@@ -35,9 +35,14 @@ it. Within one required-op bucket the buffers stay the same, and the
 segment graph captured for them is launched again over the new columns;
 a new bucket, or the crashed section that close adds, is a new shape.
 
-Left out until the watchdog is ported: the reference's per-segment
-deadline and its continuation of a wedged stream on the CPU. A search
-that fails raises, and the stream's verdict is UNKNOWN with the error.
+A runner given a ``deadline_s`` runs each segment under the supervisor's
+watchdog (:class:`jepsen_tpu_torch.resilience.SegmentWatchdog`). A segment
+past it is a wedge: recorded for the process, its buffers left to the
+abandoned worker and the engine's lock released, and the verdict is
+UNKNOWN, ``"stream segment wedged: ..."``. The stream's checkpoint of its
+last segment end stays on disk: a runner on ``device="cpu"`` over the
+same session resumes it. A search that fails otherwise raises, and the
+stream's verdict is UNKNOWN with the error.
 Left out until the telemetry stack is ported: trace ids, the Prometheus
 counters and the progress heartbeat's stream keys.
 
@@ -47,6 +52,7 @@ The daemon imports this module only when streaming is on
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -57,7 +63,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from jepsen_tpu_torch import interop
+from jepsen_tpu_torch import accel, interop
 from jepsen_tpu_torch import journal as journal_ns
 from jepsen_tpu_torch import resilience as R
 from jepsen_tpu_torch.checker import UNKNOWN
@@ -365,6 +371,10 @@ class StreamRunner(threading.Thread):
 
     ``device`` (None: CUDA) is where the search runs; ``ops`` the level
     steps, :data:`gpu.KERNELS` or their plain versions :data:`gpu.PLAIN`.
+    ``deadline_s`` is each segment's watchdog (None: none), as in
+    :func:`jepsen_tpu_torch.resilience.supervised_check_packed`; a runner
+    on CUDA started after a wedge in the process ends UNKNOWN at its
+    first segment.
     The result's ``stream`` dict has the reference's keys (ops, chunks,
     dup-chunks, reordered, watermark, barriers, rebases, failed-fast,
     resume-level) and three of the port's: ``segments``, the segment
@@ -381,7 +391,8 @@ class StreamRunner(threading.Thread):
     def __init__(self, session: StreamSession, model: Any,
                  backend: str = "gpu", device=None,
                  segment_iters: Optional[int] = None,
-                 ops: G.Ops = G.KERNELS):
+                 ops: G.Ops = G.KERNELS,
+                 deadline_s: Optional[float] = None):
         super().__init__(name=f"jtpu-stream-{session.id}", daemon=True)
         self.session = session
         self.model = model
@@ -393,6 +404,8 @@ class StreamRunner(threading.Thread):
         self._seg = (G._segment_config(segment_iters)
                      or G.DEFAULT_SEGMENT_ITERS)
         self._policy = R.RetryPolicy()
+        self._deadline_s = deadline_s
+        self._watchdog: Optional[R.SegmentWatchdog] = None
         self._resume_cp: Optional[R.Checkpoint] = None
         if os.path.exists(self.checkpoint_path):
             try:
@@ -454,6 +467,9 @@ class StreamRunner(threading.Thread):
             log.exception("stream %s online check crashed", self.session.id)
             self._deliver({"valid": UNKNOWN, "backend": self.backend,
                            "error": f"stream checker crashed: {e}"})
+        finally:
+            if self._watchdog is not None:
+                self._watchdog.close()
 
     def _deliver(self, result: Dict[str, Any]) -> None:
         result.setdefault("stream", {}).update(self._telemetry())
@@ -656,10 +672,11 @@ class StreamRunner(threading.Thread):
 
     def _segment(self) -> None:
         """One segment of the search under the engine's lock, on its shared
-        buffers: the columns and the carry go up, the carry comes back.
-        An OOM halves the pool and a transient failure is retried after
-        the policy's backoff, both from the carry before the segment;
-        anything else raises."""
+        buffers: the columns and the carry go up, the carry comes back
+        (in the watchdog's thread, where there is a deadline). An OOM
+        halves the pool and a transient failure is retried after the
+        policy's backoff, both from the carry before the segment; a wedge
+        ends the stream; anything else raises."""
         eng = default_engine()
         dev = self._dev
         cap_eff, exp_eff, win = self._cap_eff, self._exp_eff, self._rung[1]
@@ -667,6 +684,12 @@ class StreamRunner(threading.Thread):
         ctx = {"rung": self._rung, "effective": (cap_eff, win, exp_eff),
                "segment": self._seg_idx, "level": lvl0,
                "backend": "stream"}
+        if accel.runtime_wedged(dev):
+            raise _Verdict({"valid": UNKNOWN, "backend": "gpu",
+                            "levels": lvl0,
+                            "error": "stream segment wedged: a device "
+                                     "segment wedged earlier in this "
+                                     "process"})
         try:
             if R._inject_fault is not None:
                 R._inject_fault(dict(ctx))
@@ -675,18 +698,35 @@ class StreamRunner(threading.Thread):
                                  n=self._cols["f"].shape[0],
                                  CR=self._cols["cf"].shape[0],
                                  model=self.kernel.name)
+            stacked = interop.stack_cols([self._cols])
             with eng.lock:
                 captures = K.segments["captures"]
-                cols = eng.cols(self._cols, dev)
+                cols = eng.batch_cols(stacked, dev, copy=False)
                 carry, scratch = eng.state(shape, dev)
-                interop.carry_from_numpy(self._carry, dev, out=carry)
-                scratch.acc.zero_()
-                words, graph = G.run_segment(cols, carry, scratch, shape,
-                                             cols["nr"], self._seg,
-                                             self.ops)
-                G.end_segment(carry, shape, words, graph)
-                host = interop.carry_to_numpy(carry)
+                if self._watchdog is None:
+                    self._watchdog = R.SegmentWatchdog(dev, self._deadline_s)
+                try:
+                    _, _, host = self._watchdog.call(functools.partial(
+                        R._device_segment, cols=cols, cols_np=stacked,
+                        carry=carry, scratch=scratch, host=self._carry,
+                        shape=shape, seg_len=self._seg, ops=self.ops,
+                        keep=True))
+                except R.WedgeError as e:
+                    accel.note_runtime_wedge(
+                        "stream", self._deadline_s or 0.0, device=dev,
+                        worker=getattr(e, "worker", None), level=lvl0)
+                    eng.abandon(shape, dev, cols)
+                    e.noted = True
+                    raise
                 self._captures += K.segments["captures"] - captures
+        except R.WedgeError as e:
+            if not getattr(e, "noted", False):
+                # a wedge that came through the fault seam
+                accel.note_runtime_wedge("stream", self._deadline_s or 0.0,
+                                         device=dev, level=lvl0)
+            raise _Verdict({"valid": UNKNOWN, "backend": "gpu",
+                            "levels": lvl0,
+                            "error": f"stream segment wedged: {e}"})
         except Exception as e:  # noqa: BLE001 -- classified below
             cls = R.classify_failure(e)
             if cls == R.OOM:

@@ -29,6 +29,8 @@ def _port_files():
              os.path.join(ROOT, "tools", "probe_torch_models.py"),
              os.path.join(ROOT, "tools", "time_torch.py"),
              os.path.join(ROOT, "tools", "profile_torch_stream_close.py"),
+             os.path.join(ROOT, "tools", "time_torch_watchdog.py"),
+             os.path.join(ROOT, "tools", "profile_torch_cold.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -61,6 +63,8 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.independent, jepsen_tpu_torch.models, "
             "jepsen_tpu_torch.testing, jepsen_tpu_torch.serve, "
             "jepsen_tpu_torch.journal, jepsen_tpu_torch.checker.plan, "
+            "jepsen_tpu_torch.accel, jepsen_tpu_torch.obs.devices, "
+            "jepsen_tpu_torch.analysis.plan_lint, "
             "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -187,3 +191,29 @@ def test_mixed_devices_are_refused():
         K.sort_rows(rows, scal, shape)
     with pytest.raises(TypeError):
         K.sort_rows(rows.to(torch.int64), scal, shape)
+
+
+def test_the_plan_gate_plans_for_cuda(capsys):
+    """The plan's entry points plan the CUDA ladder unless asked for the
+    CPU's, and without a card they check no byte budget."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from jepsen_tpu_torch.__main__ import main
+    from jepsen_tpu_torch.checker import plan
+    from jepsen_tpu_torch.obs import devices
+    dims = plan.PlanDims(n_required=150, n_crashed=3, window_needed=5)
+
+    def labels(**kw):
+        return [c.label() for c in plan.enumerate_candidates(dims, **kw)]
+
+    assert labels() == labels(device="cuda") != labels(device="cpu")
+    assert labels()[0] == "single 128/32/8 @256+8"
+    rep = plan.analyze(dims)
+    assert rep["selected"] == "single 128/32/8 @256+8"
+    assert rep["bytes-limit"] is None and plan.plan_bytes_limit() is None
+    assert devices.poll() == [] and devices.headroom_ratio() is None
+    assert main(["plan", "--dims", "150,3,5"]) == 0
+    out = capsys.readouterr().out
+    assert "# plan: selected single 128/32/8 @256+8" in out
+    assert main(["plan", "--dims", "150,3,5", "--device", "cpu"]) == 0
+    assert "selected single 32/32/4" in capsys.readouterr().out
