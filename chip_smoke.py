@@ -397,41 +397,27 @@ def add_bounds(out, lv):
     """The least time the card could take for each kernel's work on this
     state (those the level launched, in ``out``): bytes (each input read
     once, each output written once) over HBM bandwidth, against integer
-    operations over the 32-bit rate. Where K4 scans the group starts
-    itself, the scan's compares are K4's too, its reads are the rows K4
-    reads anyway, and no g is read."""
+    operations over the 32-bit rate, both from the level's cost model
+    (``kernels/cost.py``) with the column entries this state's expanded
+    rows touch counted live. Where K4 scans the group starts itself, the
+    scan's operations are K4's too, and it reads no starts: the rows it
+    scans are the rows it reads anyway."""
+    from jepsen_tpu_torch.kernels import cost as kcost
     sh = lv.shape
-    B, C, E, W, R, NK, MW, MCX, CR = (sh.B, sh.C, sh.E, sh.W, sh.R, sh.NK,
-                                      sh.MW, sh.MCX, sh.CR)
-    scan_ops = R * (3 + MW)
-    gagg_b = 4 * -(-R // 1024)     # K3's block maxima
-    # K4's group starts: from K3 (g and gagg read), scanned in K4, or
-    # none (CR = 0)
-    starts_b = R * 4 + gagg_b if "group_scan" in out else 0
-    fused_ops = scan_ops if CR and "group_scan" not in out else 0
-    pool_b = C * (4 * (2 + MW + MCX) + 1)
-    # the column entries the expanded rows' windows touch, five words each
-    # (f, v1, v2, ro, inv), the crashed columns, and ret and sm per row
+    B, E, W = sh.B, sh.E, sh.W
     k_e = lv.carry.pool.k[:, :E].to(torch.int64)
     window = (k_e[..., None] + torch.arange(W, device=k_e.device)).clamp(
         0, sh.n - 1)
     window = window + sh.n * torch.arange(B, device=k_e.device)[:, None,
                                                                 None]
     touched = int(torch.unique(window).numel())
-    cols_b = touched * 4 * 5 + B * (CR * 4 * 5 + E * 4 * 2)
-    hash_ops = R * (3 * MW + 8) if sh.tiebreak == "hash" else 0
-    work = {
-        "expand": (B * (pool_b + sh.RP * NK * 4) + cols_b,
-                   B * E * (W + CR) * 24),
-        sort_name(sh): (B * 2 * R * NK * 4,
-                        B * (R * max(1, int(np.log2(R))) * NK + hash_ops)),
-        "group_scan": (B * (R * (3 + MW) * 4 + R * 4 + gagg_b),
-                       B * scan_ops),
-        "dedup_truncate": (B * (R * NK * 4 + starts_b + pool_b
-                                + C * (4 * (4 + MW + MCX) + 2)),
-                           B * (R * (NK + (8 * (3 + MW + MCX) if CR else 0))
-                                + fused_ops)),
-    }
+    stage = kcost.level_cost(sh, touched)
+    dedup = stage["dedup"]
+    if sh.CR and "group_scan" not in out:
+        dedup = (dedup[0] - B * sh.R * 4,
+                 dedup[1] + stage["group_starts"][1])
+    work = {"expand": stage["expand"], sort_name(sh): stage["sort"],
+            "group_scan": stage["group_starts"], "dedup_truncate": dedup}
     for name, (nbytes, nops) in work.items():
         if name not in out:
             continue
@@ -1762,6 +1748,257 @@ def plan_phase(dev, seconds, head_p, head_kernel, r, states):
     return line
 
 
+#: warm headlines a mode, in turns: tracing on, off, and JTPU_PROF=1
+TELEMETRY_TURNS = 5
+#: the headline's K1, K2 and K4, as the profile names their kernels
+PROFILE_KERNELS = ("expand_kernel", "sort_tile_kernel", "dedup_block_kernel")
+#: a graph launch of this many levels at the headline state, timed with
+#: CUDA events against the profile's attributed kernel time
+TELEMETRY_LEVELS = 512
+
+
+def telemetry_phase(dev, seconds, checker, head, r, head_cols, dwide):
+    """The device path's telemetry: the headline traced and untraced (the
+    same verdict and levels), the search counters against the result,
+    the ``cost`` entry against the model the kernel bounds read, K4
+    without its stats buffer against its plain version bit for bit (and
+    the stats-off segment graph against the stats-on one) at the
+    headline and dwide states, a ``JTPU_PROF=1`` capture whose kernels
+    sit under ``checker.segment`` spans (or a counted, sticky refusal),
+    the daemon's ``/metrics`` families, the CUDA-init probe, and the warm
+    headline's medians with tracing on, off and profiled, in turns."""
+    import shutil
+    import tempfile
+    import urllib.request
+    from jepsen_tpu_torch import accel, interop, obs, serve
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.kernels import cost as kcost
+    from jepsen_tpu_torch.kernels import parity
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.obs import metrics as obs_metrics
+    from jepsen_tpu_torch.obs import profiler
+    line = {}
+    with phase("telemetry", seconds):
+        # -- traced against untraced -------------------------------------
+        lv0 = G._LEVELS_TOTAL.value()
+        sg0 = G._SEGMENTS_TOTAL.value()
+        on = checker.check({}, head)
+        assert G._LEVELS_TOTAL.value() - lv0 == on["levels"]
+        assert G._SEGMENTS_TOTAL.value() - sg0 == on["segments"]
+        os.environ["JTPU_TRACE"] = "0"
+        try:
+            off = checker.check({}, head)
+        finally:
+            os.environ.pop("JTPU_TRACE")
+        assert (off["valid"], off["levels"]) == (on["valid"], on["levels"])
+        assert "searchstats" not in off and "cost" not in off
+        assert on["searchstats"]["levels"] == on["levels"]
+        print(f"telemetry: traced valid={on['valid']} levels={on['levels']}"
+              f" segments={on['segments']} device-s={on['device-s']} "
+              f"segment-levels={on['segment-levels']} frontier-hwm="
+              f"{on['frontier-hwm']} transfer-bytes={on['transfer-bytes']}"
+              f"; untraced levels={off['levels']}", flush=True)
+        # -- the cost entry is the model the kernel bounds read ----------
+        rung = tuple(on["rung"])
+        shape = K.LevelShape(C=rung[0], W=rung[1],
+                             E=min(rung[2] or rung[0], rung[0]),
+                             n=head_cols["f"].shape[0],
+                             CR=head_cols["cf"].shape[0])
+        assert on["cost"] == [kcost.cost_entry("segment", rung, shape,
+                                               on["levels"])], on["cost"]
+        stages = kcost.level_cost(shape)
+        lv = parity.Level(head_cols, HEADLINE_RUNG, dev)
+        lv.advance(HEADLINE_WARM_LEVELS)
+        bounds = {}
+        add_bounds_out = {n: {} for n in ("expand", "sort_rows",
+                                          "dedup_truncate")}
+        add_bounds(add_bounds_out, lv)
+        assert add_bounds_out["sort_rows"]["bytes"] == stages["sort"][0]
+        assert add_bounds_out["sort_rows"]["ops"] == stages["sort"][1]
+        assert add_bounds_out["expand"]["ops"] == stages["expand"][1]
+        assert add_bounds_out["dedup_truncate"]["ops"] == (
+            stages["dedup"][1] + stages["group_starts"][1])
+        for n, b in add_bounds_out.items():
+            bounds[n] = {k: b[k] for k in ("bytes", "ops", "bound_ms")}
+        print(f"telemetry: cost={on['cost'][0]} bounds={bounds}",
+              flush=True)
+        line["cost"] = on["cost"][0]
+        # -- K4 with stats off, bit for bit ------------------------------
+        k4 = {}
+        for tag, level in (("headline", lv), ("dwide", dwide)):
+            off_lv = level.without_stats()
+            errs = {name: err for name, _, _, _, err in off_lv.walk()}
+            pair_err, _ = off_lv.pair_end(SEG_CASES)
+            assert all(e == 0 for e in errs.values()), (tag, errs)
+            assert pair_err == 0, (tag, pair_err)
+            # a segment graph over the stats-off buffers against the
+            # stats-on one from the same state
+            ends = []
+            for lvl in (level, off_lv):
+                c, sc = parity.copy_state(lvl.carry, lvl.scratch)
+                words, graph = G.run_segment(lvl.cols, c, sc, lvl.shape,
+                                             lvl.nr, 64, G.KERNELS)
+                G.end_segment(c, lvl.shape, words, graph)
+                ends.append(interop.batch_carry_to_numpy(c)[:13])
+            assert carries_equal(*ends), tag
+            k4[tag] = {"max_abs_err": max(errs.values()),
+                       "pair_end_err": pair_err, "graph": "equal"}
+        print(f"telemetry: K4 stats off {k4}", flush=True)
+        line["k4_stats_off"] = k4
+        # -- a torch.profiler capture of the segment graphs --------------
+        run_dir = tempfile.mkdtemp(prefix="jtpu-prof-")
+        os.environ["JTPU_PROF"] = "1"
+        try:
+            obs.start_run(run_dir)
+            pr = checker.check({}, head)
+            obs.finish_run()
+        finally:
+            os.environ.pop("JTPU_PROF")
+        assert (pr["valid"], pr["levels"]) == (on["valid"], on["levels"])
+        refusal = profiler.failure()
+        if refusal is not None:
+            failed = obs_metrics.REGISTRY.counter(
+                "jtpu_prof_captures_total").value(outcome="failed")
+            assert failed >= 1
+            assert not profiler.find_traces(profiler.profile_dir(run_dir))
+            print(f"telemetry: the profiler REFUSED the capture "
+                  f"(counted {failed:.0f}, sticky): {refusal}", flush=True)
+            line["profile"] = {"refused": refusal}
+        else:
+            merged, mstats = profiler.merged_records(run_dir)
+            segs = {x["sid"]: x for x in merged
+                    if x["name"] == "checker.segment"}
+            under = [x for x in merged if x.get("track") == "device"
+                     and x.get("pid") in segs]
+            names = {x["name"] for x in under}
+            for k in PROFILE_KERNELS:
+                assert any(k in nm for nm in names), (k, sorted(names))
+            rows = profiler.segment_kernel_times(merged)
+            # the graph's nodes (K1, K2, K4), apart from PyTorch's own
+            # kernels and copies at each segment's end
+            attributed, other = {}, {}
+            for row in rows:
+                into = attributed if row["graph"] else other
+                into[row["name"]] = into.get(row["name"], 0.0) + row["ns"]
+            how = sorted({row["attribution"] for row in rows
+                          if row["graph"]})
+            recorded = sum(row["records"] for row in rows if row["graph"])
+            assert recorded > 0 or dev.type != "cuda", "no graph node"
+            body = sorted({int(sp.get("body") or 0)
+                           for sp in segs.values()})
+            # CUDA events around one graph launch of TELEMETRY_LEVELS
+            # levels at the headline state
+            c, sc = parity.copy_state(lv.carry, lv.scratch)
+            G.run_segment(lv.cols, c, sc, lv.shape, lv.nr, 64, G.KERNELS)
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            words, graph = G.run_segment(lv.cols, c, sc, lv.shape, lv.nr,
+                                         TELEMETRY_LEVELS, G.KERNELS)
+            e1.record()
+            run = G.end_segment(c, lv.shape, words, graph)[0]
+            event_ms_level = e0.elapsed_time(e1) / run
+            attr_ms_level = sum(attributed.values()) / 1e6 / pr["levels"]
+            seg_host_ms = sum(sp["dur"] for sp in segs.values()) / 1e6
+            print(f"telemetry: profile files={mstats['profile-files']} "
+                  f"device records={mstats['device']} under segments="
+                  f"{len(under)} graph-node records={recorded} "
+                  f"body={body} segments={len(segs)} "
+                  f"levels={pr['levels']} attribution={how}", flush=True)
+            for nm, ns in sorted(attributed.items(), key=lambda t: -t[1]):
+                print(f"  attributed {ns / 1e6:10.3f} ms  {nm[:90]}")
+            print(f"  outside the graph {sum(other.values()) / 1e6:.3f} ms "
+                  f"in {len(other)} kernel names")
+            print(f"telemetry: attributed kernel ms a level "
+                  f"{attr_ms_level:.5f} against CUDA events "
+                  f"{event_ms_level:.5f} (one {run}-level graph launch); "
+                  f"segment spans {seg_host_ms:.3f} ms host", flush=True)
+            line["profile"] = {
+                "records": recorded, "under_segments": len(under),
+                "body": body, "attribution": how,
+                "attributed_ms_per_level": attr_ms_level,
+                "event_ms_per_level": event_ms_level,
+                "segment_host_ms": seg_host_ms,
+                "kernels_ms": {nm: ns / 1e6
+                               for nm, ns in attributed.items()},
+                "outside_graph_ms": sum(other.values()) / 1e6}
+        shutil.rmtree(run_dir, ignore_errors=True)
+        # -- the daemon's /metrics ---------------------------------------
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "store", "telemetry-smoke")
+        shutil.rmtree(root, ignore_errors=True)
+        daemon, server = serve.run_daemon(serve.ServeConfig(
+            root=root, device=None if dev.type == "cuda" else "cpu"),
+            port=0)
+        try:
+            port = server.server_port
+            code, body = http_json(port, "POST", "/check", {
+                "tenant": "t", "model": "cas-register",
+                "history": [o.to_dict() for o in head]})
+            assert code == 202, body
+            deadline = time.monotonic() + 300
+            while time.monotonic() < deadline:
+                code, doc = http_json(port, "GET", f"/check/{body['id']}")
+                if doc.get("state") == "done":
+                    break
+                time.sleep(0.1)
+            assert doc["result"]["valid"] is True, doc
+            phases = doc["result"]["serve"]["phases"]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=60) as resp:
+                text = resp.read().decode()
+            families = sorted({ln.split()[2] for ln in text.splitlines()
+                               if ln.startswith("# TYPE ")})
+            for prefix in ("jtpu_device_", "jtpu_search_", "jtpu_engine_"):
+                assert any(f.startswith(prefix) for f in families), prefix
+            print(f"telemetry: /metrics {len(families)} families, "
+                  f"{len(text)} bytes; phases={phases}", flush=True)
+            line["metrics_families"] = len(families)
+        finally:
+            server.shutdown()
+            server.server_close()
+            daemon.stop()
+        # -- the CUDA-init probe -----------------------------------------
+        t0 = time.perf_counter()
+        probed = accel._spawn_probe(accel._probe_timeout())
+        probe_s = time.perf_counter() - t0
+        assert probed == "cuda" and accel.probe_default_backend() == "cuda"
+        print(f"telemetry: CUDA-init probe child -> {probed} in "
+              f"{probe_s:.2f} s", flush=True)
+        line["probe_s"] = probe_s
+        # -- the warm headline: tracing on, off, profiled, in turns ------
+        times = {"on": [], "off": [], "prof": []}
+        for _ in range(TELEMETRY_TURNS):
+            for mode in times:
+                env = {"off": {"JTPU_TRACE": "0"},
+                       "prof": {"JTPU_PROF": "1"}}.get(mode, {})
+                os.environ.update(env)
+                run_dir = tempfile.mkdtemp(prefix="jtpu-turn-")
+                try:
+                    if mode == "prof":
+                        obs.start_run(run_dir)
+                    gc.collect()
+                    t0 = time.perf_counter()
+                    res = checker.check({}, head)
+                    times[mode].append(time.perf_counter() - t0)
+                    if mode == "prof":
+                        obs.finish_run()
+                finally:
+                    for k in env:
+                        os.environ.pop(k)
+                    shutil.rmtree(run_dir, ignore_errors=True)
+                assert res["levels"] == on["levels"], mode
+        med = {m: statistics.median(v) for m, v in times.items()}
+        print(f"telemetry: warm headline medians of {TELEMETRY_TURNS} in "
+              f"turns: traced {med['on']:.4f} s, untraced "
+              f"{med['off']:.4f} s, profiled {med['prof']:.4f} s; "
+              f"all {json.dumps(times)}", flush=True)
+        line["warm_s"] = med
+        line["warm_s_all"] = times
+    return line
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -2274,6 +2511,15 @@ def smoke(dev: torch.device) -> None:
     (stream_line, stream_launches, stream_grid_launches,
      path_segments["stream"]) = stream_phases(dev, seconds, head, smi)
 
+    # -- the device path's telemetry ----------------------------------------
+    dwide_lv = next(parity.Level(cols_np, rung, dev, **kw)
+                    for tag, cols_np, rung, kw, warm in loop_recipes
+                    if tag == "keyed dense wide lex")
+    dwide_lv.advance(next(warm for tag, _, _, _, warm in loop_recipes
+                          if tag == "keyed dense wide lex"))
+    telemetry_line = telemetry_phase(dev, seconds, checker, head, r,
+                                     head_cols, dwide_lv)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -2370,6 +2616,7 @@ def smoke(dev: torch.device) -> None:
         "models": model_lines, "gang_vs_serial": gang_line,
         "serve": serve_line, "host_engines": host_line,
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
+        "telemetry": telemetry_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -332,6 +332,10 @@ def plan_cmd(opts: argparse.Namespace) -> int:
         mark = "ok " if c["status"] == "ok" else "REJ"
         line = (f"# plan: {mark} {c['label']:<36} "
                 f"{c['footprint']['total-bytes'] / 1e6:9.3f} MB")
+        if c.get("cost"):
+            # integer operations and bytes of one level (kernels/cost.py)
+            line += (f" {c['cost']['flops'] / 1e6:10.2f} MOP/level "
+                     f"{c['cost']['bytes-accessed'] / 1e6:9.3f} MB/level")
         rules = sorted({i["rule"] for i in c["issues"]})
         if rules:
             line += "  " + " ".join(rules)

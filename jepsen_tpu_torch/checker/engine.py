@@ -12,8 +12,14 @@ For the serve daemon it also names the shape bucket a history lands in
 (:meth:`Engine.bucket_key`) and warms a bucket ahead of its requests
 (:meth:`Engine.warm`): there is nothing to compile, so warming builds the
 kernel library and allocates each rung's buffers. Warm buckets are kept
-in LRU order up to ``JTPU_ENGINE_MAX_BUCKETS`` (0: no bound); evicting a
-bucket frees its buffers.
+in LRU order up to ``JTPU_ENGINE_MAX_BUCKETS`` (0: no bound) and, as the
+reference's warm accounting does (``jepsen_tpu/checker/engine.py:304-397``),
+up to a byte budget of their records' plan footprints
+(``JTPU_ENGINE_BYTES_BUDGET``, :meth:`Engine.set_max_warm_bytes`) and
+above a device headroom (:meth:`Engine.evict_below_headroom`); evicting a
+bucket frees its buffers. The reference's engine counters count the
+buffers allocated and found (``jtpu_engine_builds_total``,
+``jtpu_engine_cache_hits_total``), the warming and the evictions.
 
 It also caches the segment graphs (:class:`~jepsen_tpu_torch.kernels.
 search.SegmentGraph`), keyed by the shape and the device pointers each
@@ -32,6 +38,7 @@ after that worker has ended (``accel._reset_for_tests``).
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -43,13 +50,36 @@ import torch
 from jepsen_tpu_torch import accel
 from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.kernels import search as K
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch.obs import trace as obs_trace
+
+log = logging.getLogger("jepsen.engine")
+
+_WARMED_SHAPES = obs_metrics.counter(
+    "jtpu_engine_warmed_shapes_total",
+    "search shapes warmed ahead of time by an Engine (the kernel "
+    "library loaded and the shape's buffers allocated)")
+_WARM_SECONDS = obs_metrics.counter(
+    "jtpu_engine_warm_seconds_total",
+    "wall seconds spent in ahead-of-time Engine warming")
+_ENGINE_BUILDS = obs_metrics.counter(
+    "jtpu_engine_builds_total",
+    "search-state buffers an Engine allocated (first use of a shape)")
+_ENGINE_HITS = obs_metrics.counter(
+    "jtpu_engine_cache_hits_total",
+    "Engine search-state cache hits (a shape's buffers found allocated)")
+_ENGINE_EVICTIONS = obs_metrics.counter(
+    "jtpu_engine_evictions_total",
+    "warm shape buckets LRU-evicted past the max-warm-buckets cap "
+    "(JTPU_ENGINE_MAX_BUCKETS / --engine-max-buckets)")
 
 
 class Engine:
     #: shapes (and column shapes) kept before the oldest is dropped
     MAX_ENTRIES = 16
 
-    def __init__(self, max_warm_buckets: Optional[int] = None):
+    def __init__(self, max_warm_buckets: Optional[int] = None,
+                 max_warm_bytes: Optional[int] = None):
         self.lock = threading.Lock()
         self.lib = None
         self._states: "OrderedDict[tuple, Tuple[G.Carry, G.Scratch]]" = \
@@ -62,6 +92,9 @@ class Engine:
         self.max_warm_buckets = (_env_max_warm_buckets()
                                  if max_warm_buckets is None
                                  else max(0, int(max_warm_buckets)))
+        self.max_warm_bytes = (_env_max_warm_bytes()
+                               if max_warm_bytes is None
+                               else max(0, int(max_warm_bytes)))
         self.evictions = 0
         #: segment graphs by (shape, device pointers), stalest first
         self._graphs: "OrderedDict[tuple, K.SegmentGraph]" = OrderedDict()
@@ -83,9 +116,9 @@ class Engine:
         """The segment graph over these buffers, captured at first use.
         The key holds every pointer the graph would hold, the pool's
         buffer among them, so a hit is a graph over exactly these
-        buffers."""
+        buffers, and whether K4 writes the stats lane."""
         _refuse_if_wedged(carry.scal.device)
-        key = (shape, str(carry.scal.device), tuple(
+        key = (shape, str(carry.scal.device), carry.stats is not None, tuple(
             t.data_ptr() for t in _tensors(cols, nr, carry, scratch)))
         with self._glock:
             hit = self._graphs.get(key)
@@ -110,9 +143,11 @@ class Engine:
                         if g.ptrs() & doomed]:
                 self._graphs.pop(key).destroy()
 
-    def state(self, shape: K.LevelShape,
-              device: torch.device) -> Tuple[G.Carry, G.Scratch]:
-        """Carry and scratch buffers for one search shape. On a CUDA
+    def state(self, shape: K.LevelShape, device: torch.device,
+              stats: bool = True) -> Tuple[G.Carry, G.Scratch]:
+        """Carry and scratch buffers for one search shape, the carry with
+        the stats lane or without it (``stats``; a segment graph over
+        either is cached apart, since their pointers differ). On a CUDA
         device the kernel library is built and loaded first; a failure
         raises, and so does an allocation the device cannot hold, and a
         CUDA device once a segment has wedged."""
@@ -120,18 +155,25 @@ class Engine:
         if device.type == "cuda" and self.lib is None:
             from jepsen_tpu_torch.kernels import build
             self.lib = build.load()
-        return self._cached(self._states, (shape, str(device)),
-                            lambda: self._alloc(shape, device))
+        key = (shape, str(device), bool(stats))
+        if key in self._states:
+            _ENGINE_HITS.inc()
+        else:
+            _ENGINE_BUILDS.inc()
+        return self._cached(self._states, key,
+                            lambda: self._alloc(shape, device, stats))
 
-    def _alloc(self, shape: K.LevelShape, device: torch.device):
+    def _alloc(self, shape: K.LevelShape, device: torch.device,
+               stats: bool = True):
         try:
-            return (G.empty_carry(shape, device),
+            return (G.empty_carry(shape, device, stats),
                     G.empty_scratch(shape, device))
         except torch.OutOfMemoryError as e:
             raise MemoryError(
                 f"the search state of {shape.B} keys at rung (C={shape.C}, "
                 f"W={shape.W}, E={shape.E}), n={shape.n}, CR={shape.CR} "
-                f"needs {G.state_bytes(shape)} bytes on {device}") from e
+                f"needs {G.state_bytes(shape, stats)} bytes on {device}"
+            ) from e
 
     def batch_cols(self, cols_np: dict, device: torch.device,
                    copy: bool = True) -> dict:
@@ -170,10 +212,11 @@ class Engine:
         held = [self._cols.pop(k) for k, v in list(self._cols.items())
                 if v is cols]
         doomed = {t.data_ptr() for t in cols.values()}
-        state = self._states.pop((shape, str(device)), None)
-        if state is not None:
-            held.append(state)
-            doomed |= {t.data_ptr() for t in _tensors({}, None, *state)}
+        for stats in (True, False):
+            state = self._states.pop((shape, str(device), stats), None)
+            if state is not None:
+                held.append(state)
+                doomed |= {t.data_ptr() for t in _tensors({}, None, *state)}
         with self._glock:
             for key in [k for k, g in self._graphs.items()
                         if g.ptrs() & doomed]:
@@ -205,8 +248,11 @@ class Engine:
         first ``rungs`` rungs of its ladder (all when None), the carry and
         scratch buffers of a single search. Idempotent per bucket; a warm
         bucket moves to the newest end of the LRU order. Returns
-        ``{"bucket", "shapes", "bytes", "seconds", "already-warm"}``.
-        ``device=None`` means CUDA."""
+        ``{"bucket", "shapes", "bytes", "seconds", "already-warm"}``:
+        ``bytes`` is the footprint of the buffers it allocated, the port's
+        own carry and scratch of each shape as the plan prices them
+        (:func:`jepsen_tpu_torch.checker.gpu.state_bytes`), what the byte
+        budget counts. ``device=None`` means CUDA."""
         dev = G.resolve_device(device)
         bucket = self.bucket_key(p, kernel)
         with self.lock:
@@ -216,28 +262,51 @@ class Engine:
                     self._warm.move_to_end(bucket)
                     return dict(rec, bucket=bucket,
                                 **{"already-warm": True})
+            from jepsen_tpu_torch import obs
+            stats = obs.enabled()
             t0 = time.perf_counter()
             shapes, nbytes = 0, 0
             crw = bucket[2]
-            if crw >= 0 and p.n_required:
-                cols = G._split_packed(p, bucket[1], crw, kernel)
-                self.cols(cols, dev)
-                ladder = G._ladder_for(G._window_needed(p), dev)
-                for cap, win, exp in ladder[:rungs] if rungs else ladder:
-                    shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
-                                         n=bucket[1], CR=crw,
-                                         model=kernel.name)
-                    self.state(shape, dev)
-                    shapes += 1
-                    nbytes += G.state_bytes(shape)
+            with obs_trace.span("engine.warm", bucket=list(bucket),
+                                phase="compile") as sp:
+                if crw >= 0 and p.n_required:
+                    cols = G._split_packed(p, bucket[1], crw, kernel)
+                    self.cols(cols, dev)
+                    ladder = G._ladder_for(G._window_needed(p), dev)
+                    for cap, win, exp in ladder[:rungs] if rungs else ladder:
+                        shape = K.LevelShape(C=cap, W=win,
+                                             E=min(exp or cap, cap),
+                                             n=bucket[1], CR=crw,
+                                             model=kernel.name)
+                        self.state(shape, dev, stats)
+                        shapes += 1
+                        nbytes += G.state_bytes(shape, stats)
+                sp.set(shapes=shapes)
+            _WARMED_SHAPES.inc(shapes)
             rec = {"shapes": shapes, "bytes": nbytes,
                    "seconds": time.perf_counter() - t0, "ts": time.time(),
                    "device": str(dev)}
+            _WARM_SECONDS.inc(rec["seconds"])
             with self._meta:
                 self._warm[bucket] = rec
                 victims = self._trim_warm_locked()
             self._free(victims)
         return dict(rec, bucket=bucket, **{"already-warm": False})
+
+    def warm_info(self, bucket: tuple) -> Optional[Dict[str, Any]]:
+        """A bucket's warm record (``{"shapes", "bytes", "seconds",
+        "ts", "device"}``), or None when it is not warm."""
+        with self._meta:
+            rec = self._warm.get(bucket)
+            return dict(rec) if rec else None
+
+    def warm_bytes(self) -> int:
+        """The warm buckets' claim: the sum of their records' ``bytes``."""
+        with self._meta:
+            return self._warm_bytes_locked()
+
+    def _warm_bytes_locked(self) -> int:
+        return sum(int(r.get("bytes") or 0) for r in self._warm.values())
 
     def warm_buckets(self) -> list:
         """The warm buckets, stalest (the next to be evicted) first."""
@@ -253,13 +322,62 @@ class Engine:
                 victims = self._trim_warm_locked()
             self._free(victims)
 
+    def set_max_warm_bytes(self, n: int) -> None:
+        """Bound the warm buckets' claim in bytes (0: no bound;
+        ``JTPU_ENGINE_BYTES_BUDGET``): the stalest are evicted while the
+        sum of their records' ``bytes`` is over it, the newest kept."""
+        with self.lock:
+            with self._meta:
+                self.max_warm_bytes = max(0, int(n))
+                victims = self._trim_warm_locked()
+            self._free(victims)
+
+    def evict_below_headroom(self, min_ratio: float, poll=None) -> int:
+        """Evict the stalest warm buckets while the device's headroom
+        (:func:`jepsen_tpu_torch.obs.devices.headroom_ratio`, or
+        ``poll()``) is below ``min_ratio``, freeing their buffers; the
+        newest is kept, and a poll that answers None (the CPU) or raises
+        evicts nothing. Returns the buckets evicted."""
+        if poll is None:
+            from jepsen_tpu_torch.obs import devices as obs_devices
+            poll = obs_devices.headroom_ratio
+        evicted = 0
+        while True:
+            try:
+                ratio = poll()
+            except Exception:  # noqa: BLE001 -- the gauge is advisory
+                return evicted
+            if ratio is None or ratio >= min_ratio:
+                return evicted
+            with self.lock:
+                with self._meta:
+                    if len(self._warm) <= 1:
+                        return evicted
+                    victims = [self._evict_one_locked(
+                        f"headroom {ratio:.3f} < {min_ratio:.3f}")]
+                self._free(victims)
+            evicted += 1
+
+    def _evict_one_locked(self, why: str) -> tuple:
+        victim = self._warm.popitem(last=False)
+        self.evictions += 1
+        _ENGINE_EVICTIONS.inc()
+        log.info("engine: evicted warm bucket %s (%s)", victim[0], why)
+        return victim
+
     def _trim_warm_locked(self) -> list:
-        """Drop the stalest warm records past the bound (caller holds
-        ``_meta``); returns the dropped (bucket, record) pairs."""
+        """Drop the stalest warm records past the bucket bound, then while
+        their bytes are over the byte budget, always keeping the newest
+        (caller holds ``_meta``); returns the dropped (bucket, record)
+        pairs."""
         victims = []
         while 0 < self.max_warm_buckets < len(self._warm):
-            victims.append(self._warm.popitem(last=False))
-            self.evictions += 1
+            victims.append(self._evict_one_locked(
+                f"cap {self.max_warm_buckets}"))
+        while (self.max_warm_bytes > 0 and len(self._warm) > 1
+               and self._warm_bytes_locked() > self.max_warm_bytes):
+            victims.append(self._evict_one_locked(
+                f"bytes budget {self.max_warm_bytes}"))
         return victims
 
     def _free(self, victims: list) -> None:
@@ -289,10 +407,9 @@ def _tensors(cols: dict, nr: Optional[torch.Tensor], carry: G.Carry,
         out.append(nr)
     out += list(carry.pool.tensors()) + list(scratch.pool_next.tensors())
     out += [carry.pk, carry.ps, carry.pa, carry.scal, carry.stats,
-            scratch.acc, scratch.rows, scratch.g, scratch.gagg]
-    if scratch.rows_alt is not None:
-        out.append(scratch.rows_alt)
-    return out
+            scratch.acc, scratch.rows, scratch.g, scratch.gagg,
+            scratch.rows_alt]
+    return [t for t in out if t is not None]
 
 
 def _env_max_warm_buckets() -> int:
@@ -300,6 +417,15 @@ def _env_max_warm_buckets() -> int:
     past it); 0, absent or malformed: no bound."""
     try:
         return max(0, int(os.environ.get("JTPU_ENGINE_MAX_BUCKETS") or "0"))
+    except ValueError:
+        return 0
+
+
+def _env_max_warm_bytes() -> int:
+    """JTPU_ENGINE_BYTES_BUDGET: the warm buckets' byte budget; 0, absent
+    or malformed: no bound."""
+    try:
+        return max(0, int(os.environ.get("JTPU_ENGINE_BYTES_BUDGET") or "0"))
     except ValueError:
         return 0
 

@@ -35,8 +35,11 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from jepsen_tpu_torch import obs
 from jepsen_tpu_torch.checker import UNKNOWN, merge_valid
+from jepsen_tpu_torch.kernels import cost as kcost
 from jepsen_tpu_torch.kernels import search as K
+from jepsen_tpu_torch.obs import metrics as obs_metrics
 from jepsen_tpu_torch.models.core import (NIL_ID, KernelSpec, Model,
                                           kernel_spec_for)
 from jepsen_tpu_torch.ops.encode import (RET_INF, PackedHistory,
@@ -69,6 +72,124 @@ CPU_FIRST_RUNG = (32, 4)
 WIDE_LADDER = ((512, 512), (4096, 1024), (16384, 4096))
 
 _COLS = K.COLS + ("nr", "ini")
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the reference's device metrics and compile accounting
+# (tpu.py:700-928), recorded on the host around a CUDA synchronisation,
+# never inside a captured graph. In the port a shape's "compile" is its
+# first call in the process: the kernel library's load (and nvcc build,
+# counted by ``jtpu_persistent_cache_*``), the buffers' allocation, the
+# segment graph's capture, and one execution.
+# ---------------------------------------------------------------------------
+
+_DEVICE_SECONDS = obs_metrics.histogram(
+    "jtpu_device_call_seconds",
+    "wall time of one device call (host-side, around a CUDA "
+    "synchronisation), labeled kind=segment|batch|batch-segment and "
+    "phase=compile|execute; 'compile' is the shape's first call in this "
+    "process: the kernel library's load, the buffers, the segment "
+    "graph's capture and one execution",
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+             1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0))
+_LEVELS_TOTAL = obs_metrics.counter(
+    "jtpu_search_levels_total",
+    "search levels executed on device (per-call/per-segment deltas)")
+_SEGMENTS_TOTAL = obs_metrics.counter(
+    "jtpu_search_segments_total", "checkpointed device segments run")
+_FRONTIER_HWM = obs_metrics.gauge(
+    "jtpu_search_frontier_rows_hwm",
+    "high-water mark of live pool rows observed at segment boundaries")
+_TRANSFER_BYTES = obs_metrics.counter(
+    "jtpu_search_transfer_bytes_total",
+    "packed-history and checkpoint bytes moved, labeled by direction")
+_COMPILE_COLD = obs_metrics.counter(
+    "jtpu_compile_cold_total",
+    "search shapes first called in this process (the kernel library's "
+    "load, the buffers, the graph capture and one execution), labeled "
+    "kind")
+_COMPILE_HIT = obs_metrics.counter(
+    "jtpu_compile_cache_hit_total",
+    "device calls at a shape already called in this process (its "
+    "buffers and segment graph cached), labeled kind")
+_COMPILE_SECONDS = obs_metrics.histogram(
+    "jtpu_compile_seconds",
+    "wall time of a shape's first call in this process, labeled kind",
+    buckets=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+             120.0, 300.0))
+
+#: Shape keys that have run once in this process: the compile/execute
+#: phase separator.
+_EXECUTED_SHAPES: set = set()
+
+
+def note_call_phase(kind: str, phase: str, seconds: float) -> None:
+    """Account one device call: the wall-time histogram and the cold
+    first call against the cache hit (and the cold call's seconds)."""
+    _DEVICE_SECONDS.observe(seconds, kind=kind, phase=phase)
+    if phase == "compile":
+        _COMPILE_COLD.inc(kind=kind)
+        _COMPILE_SECONDS.observe(seconds, kind=kind)
+    else:
+        _COMPILE_HIT.inc(kind=kind)
+
+
+def call_phase(key: tuple) -> str:
+    """``compile`` for a shape key's first call in this process, else
+    ``execute``; decided before the call, and the key is marked run only
+    by :func:`mark_executed` after it succeeded (a call that died in its
+    first run pays its compile again)."""
+    return "execute" if key in _EXECUTED_SHAPES else "compile"
+
+
+def mark_executed(key: tuple) -> None:
+    _EXECUTED_SHAPES.add(key)
+
+
+def compile_snapshot() -> Dict[str, Any]:
+    """A readout of the compile/execute/transfer accounting; diff two
+    around a check (:func:`compile_delta`, :func:`compile_line`)."""
+    from jepsen_tpu_torch.kernels import build
+    return {
+        "cold": _COMPILE_COLD.total(),
+        "cache-hits": _COMPILE_HIT.total(),
+        "persistent-hits": build.PERSISTENT_HIT.total(),
+        "persistent-misses": build.PERSISTENT_MISS.total(),
+        "compile-s": _COMPILE_SECONDS.total()["sum"],
+        "execute-s": _DEVICE_SECONDS.total(phase="execute")["sum"],
+        "transfer-bytes": _TRANSFER_BYTES.total(),
+    }
+
+
+def compile_delta(before: Dict[str, Any],
+                  after: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """after - before, field by field (after defaults to a fresh
+    snapshot)."""
+    after = after or compile_snapshot()
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def compile_line(delta: Dict[str, Any],
+                 wall_s: Optional[float] = None) -> str:
+    """One ``# compile:`` line splitting a check's wall clock into cold
+    first calls, execution and transfer; ``persistent-cache`` counts the
+    kernel library found built (hit) against built now (miss)."""
+    line = (f"# compile: cold={int(delta['cold'])} shape(s) "
+            f"{delta['compile-s']:.3f}s | "
+            f"cache-hit={int(delta['cache-hits'])} | "
+            f"execute={delta['execute-s']:.3f}s | "
+            f"transfer={delta['transfer-bytes'] / 1e6:.1f}MB | "
+            f"persistent-cache hit={int(delta['persistent-hits'])}"
+            f"/miss={int(delta['persistent-misses'])}")
+    if wall_s is not None:
+        host = max(0.0, wall_s - delta["compile-s"] - delta["execute-s"])
+        line += f" | host={host:.3f}s of {wall_s:.3f}s wall"
+    return line
+
+
+def cols_nbytes(cols: dict) -> int:
+    """Host-to-device bytes of one (stacked) column set."""
+    return int(sum(np.asarray(v).nbytes for v in cols.values()))
 
 
 def resolve_device(device=None) -> torch.device:
@@ -381,15 +502,15 @@ def _segment_schedule(segment_iters: Optional[int], lmax: int) -> tuple:
 class Carry:
     """The search carry of B keys on the device: the pool, the snapshot of
     the pool the last level expanded (pk, ps, pa), the scalars and the
-    per-level counter log. ``interop`` converts it to and from the
-    reference's numpy tuple."""
+    per-level counter log (None with the stats lane off: tracing off).
+    ``interop`` converts it to and from the reference's numpy tuple."""
 
     pool: K.Pool
     pk: torch.Tensor      # int32 [B, C]
     ps: torch.Tensor      # int32 [B, C]
     pa: torch.Tensor      # bool [B, C]
     scal: torch.Tensor    # int32 [B, 8], lanes named in kernels.search
-    stats: torch.Tensor   # int32 [B, LMAX+1, NSTAT]
+    stats: Optional[torch.Tensor]   # int32 [B, LMAX+1, NSTAT]
 
 
 @dataclass
@@ -417,15 +538,15 @@ def empty_pool(shape: K.LevelShape, device) -> K.Pool:
                   alive=torch.zeros(B, C, dtype=torch.bool, device=device))
 
 
-def empty_carry(shape: K.LevelShape, device) -> Carry:
+def empty_carry(shape: K.LevelShape, device, stats: bool = True) -> Carry:
     B, C, i32 = shape.B, shape.C, torch.int32
     return Carry(pool=empty_pool(shape, device),
                  pk=torch.zeros(B, C, dtype=i32, device=device),
                  ps=torch.zeros(B, C, dtype=i32, device=device),
                  pa=torch.zeros(B, C, dtype=torch.bool, device=device),
                  scal=torch.zeros(B, K.NSCAL, dtype=i32, device=device),
-                 stats=torch.zeros(B, shape.lmax + 1, NSTAT, dtype=i32,
-                                   device=device))
+                 stats=(torch.zeros(B, shape.lmax + 1, NSTAT, dtype=i32,
+                                    device=device) if stats else None))
 
 
 def empty_scratch(shape: K.LevelShape, device) -> Scratch:
@@ -448,13 +569,13 @@ def _pool_nbytes(shape: K.LevelShape) -> List[int]:
             4 * B * C, B * C]
 
 
-def carry_nbytes(shape: K.LevelShape) -> List[int]:
+def carry_nbytes(shape: K.LevelShape, stats: bool = True) -> List[int]:
     """The bytes of each tensor :func:`empty_carry` allocates, in its
     order."""
     B, C = shape.B, shape.C
     return _pool_nbytes(shape) + [4 * B * C, 4 * B * C, B * C,
-                                  4 * B * K.NSCAL,
-                                  4 * B * (shape.lmax + 1) * NSTAT]
+                                  4 * B * K.NSCAL] + (
+        [4 * B * (shape.lmax + 1) * NSTAT] if stats else [])
 
 
 def scratch_nbytes(shape: K.LevelShape) -> List[int]:
@@ -467,10 +588,10 @@ def scratch_nbytes(shape: K.LevelShape) -> List[int]:
             + ([rows] if K.sort_passes(shape) else []))
 
 
-def state_bytes(shape: K.LevelShape) -> int:
+def state_bytes(shape: K.LevelShape, stats: bool = True) -> int:
     """Device bytes of one shape's carry and scratch (the sort's second
     rows buffer included where the shape has one)."""
-    return sum(carry_nbytes(shape)) + sum(scratch_nbytes(shape))
+    return sum(carry_nbytes(shape, stats)) + sum(scratch_nbytes(shape))
 
 
 class Ops(NamedTuple):
@@ -571,16 +692,19 @@ def capture_segment(cols: dict, nr: torch.Tensor, carry: Carry,
 
 def end_segment(carry: Carry, shape: K.LevelShape, seg: torch.Tensor,
                 graph: Optional[K.SegmentGraph]) -> tuple:
-    """The segment end's one host read: ``(run, live, level)``, the levels
-    the segment ran and each key's ``active`` flag and level. A graph's
-    launches are counted here, from ``run``."""
+    """The segment end's one host read: ``(run, live, level, nalive)``,
+    the levels the segment ran and each key's ``active`` flag, level and
+    live pool rows. A graph's launches are counted here, from ``run``."""
+    B = shape.B
     act = K.active(carry.scal, shape.lmax)
     vals = torch.cat((seg[K.SEG_RUN:K.SEG_RUN + 1], act,
-                      carry.scal[:, K.LEVEL])).tolist()
-    run, live, level = vals[0], vals[1:1 + shape.B], vals[1 + shape.B:]
+                      carry.scal[:, K.LEVEL], carry.scal[:, K.NALIVE])
+                     ).tolist()
+    run, live = vals[0], vals[1:1 + B]
+    level, nalive = vals[1 + B:1 + 2 * B], vals[1 + 2 * B:]
     if graph is not None:
         graph.account(run)
-    return run, live, level
+    return run, live, level, nalive
 
 
 def run_batch(cols: dict, carry: Carry, scratch: Scratch,
@@ -606,7 +730,7 @@ def run_batch(cols: dict, carry: Carry, scratch: Scratch,
     while True:
         words, graph = run_segment(cols, carry, scratch, shape, cols["nr"],
                                    seg, ops)
-        run, live, level = end_segment(carry, shape, words, graph)
+        run, live, level, _ = end_segment(carry, shape, words, graph)
         segs.append(run)
         if not (any(live) if barrier is None else barrier(live, level)):
             return segs
@@ -655,15 +779,21 @@ def _start_batch(eng, rows: List[dict], shape: K.LevelShape,
                  device) -> tuple:
     """(cols, carry, scratch): the engine's buffers for ``shape`` holding
     the columns of ``rows`` (``_split_packed`` dicts, one per key) and
-    their initial carries. The caller holds ``eng.lock``."""
+    their initial carries (with the stats lane while tracing is on); the
+    bytes copied up are counted. The caller holds ``eng.lock``."""
     from jepsen_tpu_torch import interop
-    carry, scratch = eng.state(shape, device)
-    cols = eng.batch_cols(interop.stack_cols(rows), device)
+    stats = obs.enabled()
+    carry, scratch = eng.state(shape, device, stats)
+    stacked = interop.stack_cols(rows)
+    cols = eng.batch_cols(stacked, device)
     host = _batch_carry0_host(
         shape.C, shape.W, shape.CR, [r["ini"] for r in rows],
-        [int(r["nr"]) for r in rows], stats_rows=shape.lmax + 1)
+        [int(r["nr"]) for r in rows],
+        stats_rows=shape.lmax + 1 if stats else 0)
     interop.batch_carry_from_numpy(host, device, out=carry)
     scratch.acc.zero_()
+    up = cols_nbytes(stacked) + sum(int(np.asarray(x).nbytes) for x in host)
+    _TRANSFER_BYTES.inc(up, direction="host-to-device")
     return cols, carry, scratch
 
 
@@ -675,13 +805,20 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
     some key was refuted, else None, and the levels the batch ran."""
     from jepsen_tpu_torch.checker.engine import default_engine
     eng = default_engine()
-    with eng.lock:
+    key = ("batch", shape, obs.enabled())
+    phase = call_phase(key)
+    with eng.lock, obs.span("checker.device.batch", phase=phase,
+                            rung=[shape.C, shape.W, shape.E],
+                            keys=shape.B, crash_width=shape.CR,
+                            tiebreak=shape.tiebreak):
+        t0 = time.perf_counter()
         cols, carry, scratch = _start_batch(eng, [r.cols for r in grp],
                                             shape, device)
         seg, first = _segment_schedule(None, shape.lmax)
-        launched = sum(run_batch(cols, carry, scratch, shape, seg, ops,
-                                 first))
+        segs = run_batch(cols, carry, scratch, shape, seg, ops, first)
+        launched = sum(segs)
         scal = carry.scal.cpu().numpy()
+        dt = time.perf_counter() - t0
         done = scal[:, K.DONE] != 0
         wovf = scal[:, K.WOVF] != 0
         # stopped by the level budget with work left: not a refutation
@@ -690,6 +827,13 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
         if (~done & ~lossy & ~wovf).any():
             pools = tuple(t.cpu().numpy()
                           for t in (carry.pk, carry.ps, carry.pa))
+    mark_executed(key)
+    note_call_phase("batch", phase, dt)
+    # the keys advance together: the device ran the deepest key's levels
+    _LEVELS_TOTAL.inc(launched)
+    _SEGMENTS_TOTAL.inc(len(segs))
+    _TRANSFER_BYTES.inc(scal.nbytes + (0 if pools is None else sum(
+        x.nbytes for x in pools)), direction="device-to-host")
     return (done, lossy, wovf, scal[:, K.BEST], scal[:, K.LEVEL], pools,
             launched)
 
@@ -697,8 +841,8 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
 def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   tiebreak0: Optional[str], packed: dict, breq: int,
                   results: dict, device, ops: Ops, model: str,
-                  chunk: Optional[Callable[[tuple, int, int], int]] = None
-                  ) -> list:
+                  chunk: Optional[Callable[[tuple, int, int], int]] = None,
+                  cost_entries: Optional[list] = None) -> list:
     """The keyed batch's escalation loop (``_keyed_ladder`` in the
     reference) for the model named ``model`` (a KernelSpec name): per
     rung, the runnable keys in one batch per crashed-op
@@ -707,7 +851,8 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
     batch run: its rung, crash width, tie-break, keys, largest level
     count, levels run (``levels-launched``) and seconds.
     ``chunk(rung, crw, keys)`` is the most keys one launch takes (default
-    ``MAX_KEYS``): the plan gate's byte budget sets it."""
+    ``MAX_KEYS``): the plan gate's byte budget sets it. With tracing on,
+    one ``cost`` entry per batch goes into ``cost_entries``."""
     batches = []
     for step, (cap, win, exp) in enumerate(ladder):
         if not rows:
@@ -761,6 +906,10 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                             "levels": int(levels.max()),
                             "levels-launched": launched,
                             "seconds": time.perf_counter() - t0})
+            if cost_entries is not None and obs.enabled():
+                cost_entries.append(kcost.cost_entry(
+                    "batch", (cap, win, exp), shape, int(levels.max()),
+                    keys=len(grp), crash_width=crw))
             for i, r in enumerate(grp):
                 res = _result(bool(done[i]), bool(lossy[i]), bool(wovf[i]),
                               int(best[i]), int(levels[i]), packed[r.key],
@@ -863,7 +1012,10 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     does not encode is UNKNOWN alone, with the ``error``. ``device=None``
     means CUDA; ``ops=PLAIN`` runs the kernels' plain versions instead.
     Besides the per-key ``results``, ``batches`` lists every batch run
-    (see :func:`_keyed_ladder`)."""
+    (see :func:`_keyed_ladder`); with tracing on, the top-level ``cost``
+    has one entry per batch (one level's work of all its keys, and the
+    levels it ran), and ``JTPU_PROF=1`` captures the batches with
+    ``torch.profiler``."""
     from jepsen_tpu_torch.analysis import summarize
     from jepsen_tpu_torch.analysis.history_lint import (MalformedHistoryError,
                                                         gate_history)
@@ -915,6 +1067,9 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
         rows.append(_KeyRow(key, cols, _window_needed(p), 0, 0, ffrac, crw,
                             []))
 
+    if rows:
+        from jepsen_tpu_torch import accel
+        accel.ensure_usable("check_keyed_gpu", device=dev)
     adaptive = False
     if ladder is not None:
         if capacity is not None or expand is not None:
@@ -948,8 +1103,14 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
             def chunk(rung, crw, keys):
                 return plan.batch_chunk(plan.Candidate(
                     "batch", *rung, breq, crw, keys=keys), limit)
-    batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed, breq,
-                            results, dev, ops, kernel.name, chunk)
+    cost_entries: list = []
+    with obs.profiler.capture():
+        batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed,
+                                breq, results, dev, ops, kernel.name, chunk,
+                                cost_entries)
+    if cost_entries:
+        # at the top level: a batch's cost belongs to all its keys
+        out["cost"] = cost_entries
     return {"valid": merge_valid(r["valid"] for r in results.values()),
             "results": results, "backend": "gpu", "batches": batches, **out}
 
@@ -1015,6 +1176,8 @@ def check_packed_gang_gpu(pks: Sequence[PackedHistory], kernel: KernelSpec,
         return []
     if _GANG_FAULT is not None:
         _GANG_FAULT(pks)
+    from jepsen_tpu_torch import accel
+    accel.ensure_usable("check_packed_gang_gpu", device=dev)
     results: List[Optional[Dict[str, Any]]] = [None] * len(pks)
     seg = _segment_config(segment_iters) or DEFAULT_SEGMENT_ITERS
     for ladder, idx in _gang_groups(pks, results, dev).items():
@@ -1097,10 +1260,18 @@ def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
     from jepsen_tpu_torch.checker.engine import default_engine
     eng = default_engine()
     cancelled: Dict[int, int] = {}
+    key = ("batch-segment", shape, obs.enabled())
     with eng.lock:
+        # each segment is one timed call, ended by the barrier's host read
+        clock = {"t0": time.perf_counter(), "phase": call_phase(key)}
         cols, carry, scratch = _start_batch(eng, rows, shape, device)
 
         def barrier(live: list, level: list) -> bool:
+            dt = time.perf_counter() - clock["t0"]
+            note_call_phase("batch-segment", clock["phase"], dt)
+            mark_executed(key)
+            _SEGMENTS_TOTAL.inc()
+            clock.update(t0=time.perf_counter(), phase="execute")
             now = time.monotonic()
             late = [j for j, dl in enumerate(deadlines)
                     if live[j] and dl is not None and now >= dl]
@@ -1109,6 +1280,12 @@ def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
                 cancelled.update((j, level[j]) for j in late)
             return sum(live) > len(late)
 
-        run_batch(cols, carry, scratch, shape, seg, ops,
-                  min(FIRST_BATCH_SEGMENT, seg), barrier)
-        return interop.batch_carry_to_numpy(carry), cancelled
+        with obs.span("checker.device.batch-segment",
+                      rung=[shape.C, shape.W, shape.E], gang=shape.B):
+            _LEVELS_TOTAL.inc(sum(run_batch(
+                cols, carry, scratch, shape, seg, ops,
+                min(FIRST_BATCH_SEGMENT, seg), barrier)))
+        host = interop.batch_carry_to_numpy(carry)
+        _TRANSFER_BYTES.inc(sum(int(x.nbytes) for x in host),
+                            direction="device-to-host")
+        return host, cancelled

@@ -45,6 +45,7 @@ import torch
 
 from jepsen_tpu_torch.analysis.history_lint import ERROR, NOTE, WARNING
 from jepsen_tpu_torch.checker import gpu as G
+from jepsen_tpu_torch.kernels import cost as kcost
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.ops.encode import RET_INF, PackedHistory
 
@@ -398,8 +399,10 @@ def trace_candidate(cand: Candidate, kernel) -> Dict[str, Any]:
     instantiation for the kernel's model, the window and the crashed set
     fit the mask words, and K2's tile and merge passes are defined (a
     keyed batch past one launch's keys runs in chunks). Returns ``{"ok",
-    "error", "cost"}``; ``cost`` is None, there being no cost model to
-    ask."""
+    "error", "cost"}``; ``cost`` is one level's ``{"flops",
+    "bytes-accessed"}`` from the cost model
+    (:func:`jepsen_tpu_torch.kernels.cost.per_level`), None where the
+    shape is refused."""
     try:
         if cand.window > G.MAX_WINDOW or cand.crw > G.CRASH_MAX:
             raise ValueError(f"W = {cand.window}, CR = {cand.crw}: the "
@@ -412,7 +415,7 @@ def trace_candidate(cand: Candidate, kernel) -> Dict[str, Any]:
     except ValueError as e:
         return {"ok": False, "error": f"{type(e).__name__}: {e}",
                 "cost": None}
-    return {"ok": True, "error": None, "cost": None}
+    return {"ok": True, "error": None, "cost": kcost.per_level(shape)}
 
 
 # ---------------------------------------------------------------------------
@@ -446,7 +449,8 @@ def analyze(dims: PlanDims, kernel=None,
          "issues": [{rule, severity, message, label}],
          "candidates": [{"label", "kind", "rung", "breq", "crash-width",
                          "footprint": {...}, "status": "ok"|"rejected",
-                         "issues": [...], "traced": bool}],
+                         "issues": [...], "traced": bool,
+                         "cost": {"flops", "bytes-accessed"}}],
          "selected": label|None}
 
     ``selected`` is the first candidate with no error: enumeration is
@@ -464,11 +468,11 @@ def analyze(dims: PlanDims, kernel=None,
     for cand in cands:
         fp = footprint(cand)
         ci = check_candidate(cand, dims, limit, fp)
-        traced = None
+        traced = ccost = None
         if trace and kernel is not None and not dims_fatal \
                 and not any(i.severity == ERROR for i in ci):
             tr = trace_candidate(cand, kernel)
-            traced = tr["ok"]
+            traced, ccost = tr["ok"], tr["cost"]
             if not tr["ok"]:
                 ci = ci + [PlanIssue(
                     "PLAN-TRACE", ERROR,
@@ -479,6 +483,8 @@ def analyze(dims: PlanDims, kernel=None,
         row = _row(cand, ci, bad, fp)
         if traced is not None:
             row["traced"] = traced
+        if ccost:
+            row["cost"] = ccost
         rows.append(row)
         if selected is None and not bad:
             selected = cand.label()

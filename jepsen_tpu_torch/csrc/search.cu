@@ -1242,6 +1242,8 @@ struct DedupArgs {
   const int* nr;
   int* scal;
   int* acc;
+  // the per-level counter rows; null when the stats lane is off (tracing
+  // off), and then no row is written
   int* stats;
   // the pair's second level only: the segment's words, which the launch
   // ends the pair in (K5), and, in the segment graph, the WHILE node's
@@ -1403,13 +1405,16 @@ __global__ void __launch_bounds__(256) dedup_kernel(DedupArgs a) {
     __threadfence();
     volatile int* vacc = acc;
     const int level = scal[LEVEL];
-    int* srow = a.stats + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
-                              * NSTAT;
-    srow[0] = vacc[A_EXPANDED];
-    srow[1] = vacc[A_DUP];
-    srow[2] = vacc[A_DOM];
-    srow[3] = vacc[A_TRUNC];
-    srow[4] = vacc[A_FRONTIER];
+    if (a.stats != nullptr) {  // the stats lane is off without a buffer
+      int* srow = a.stats
+                  + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
+                        * NSTAT;
+      srow[0] = vacc[A_EXPANDED];
+      srow[1] = vacc[A_DUP];
+      srow[2] = vacc[A_DOM];
+      srow[3] = vacc[A_TRUNC];
+      srow[4] = vacc[A_FRONTIER];
+    }
     const int done = scal[DONE] | vacc[A_DONE];
     const int nalive = vacc[A_FRONTIER];
     scal[DONE] = done;
@@ -1567,13 +1572,16 @@ __global__ void __launch_bounds__(1024, 2) dedup_block_kernel(DedupArgs a) {
   const int kkept = __reduce_add_sync(FULL, in ? part[lane][5] : 0);
   if (lane == 0) {
     const int level = sc[2];
-    int* srow = a.stats + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
-                              * NSTAT;
-    srow[0] = expanded;
-    srow[1] = kdup;
-    srow[2] = kdom;
-    srow[3] = klost;
-    srow[4] = kkept;
+    if (a.stats != nullptr) {  // the stats lane is off without a buffer
+      int* srow = a.stats
+                  + ((size_t)b * (a.lmax + 1) + clampi(level, 0, a.lmax))
+                        * NSTAT;
+      srow[0] = expanded;
+      srow[1] = kdup;
+      srow[2] = kdom;
+      srow[3] = klost;
+      srow[4] = kkept;
+    }
     const int kdone = sc[0] | (kd != 0u);
     scal[DONE] = kdone;
     scal[LOSSY] = sc[1] | (klost != 0);

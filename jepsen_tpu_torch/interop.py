@@ -74,14 +74,16 @@ def _bool(a) -> torch.Tensor:
 
 def batch_carry_from_numpy(carry: tuple, device,
                            out: Optional[Carry] = None) -> Carry:
-    """The reference's vmapped 14-lane carry (a leading key axis on every
-    lane) as a device :class:`Carry`. With ``out``, copies into its
-    tensors."""
-    if len(carry) != 14:
-        raise ValueError(f"expected the 14-lane carry with its stats lane, "
-                         f"got {len(carry)} lanes")
+    """The reference's vmapped carry (a leading key axis on every lane),
+    13 lanes, or 14 with the stats lane, as a device :class:`Carry`
+    (``stats`` None without it). With ``out``, copies into its tensors;
+    ``out`` and ``carry`` have the stats lane both or neither."""
+    if len(carry) not in (13, 14):
+        raise ValueError(f"expected the 13-lane carry, or 14 with its "
+                         f"stats lane, got {len(carry)} lanes")
     (k, mask, cmask, state, alive, done, lossy, wovf, level, best, pk, ps,
-     pa, stats) = (np.asarray(x) for x in carry)
+     pa) = (np.asarray(x) for x in carry[:13])
+    stats = np.asarray(carry[13]) if len(carry) == 14 else None
     scal = np.zeros((k.shape[0], K.NSCAL), np.int32)
     scal[:, K.DONE], scal[:, K.LOSSY], scal[:, K.WOVF] = done, lossy, wovf
     scal[:, K.LEVEL], scal[:, K.BEST] = level, best
@@ -89,31 +91,37 @@ def batch_carry_from_numpy(carry: tuple, device,
     src = Carry(pool=K.Pool(k=_i32(k), mask=_i32(mask), cmask=_i32(cmask),
                             state=_i32(state), alive=_bool(alive)),
                 pk=_i32(pk), ps=_i32(ps), pa=_bool(pa),
-                scal=torch.from_numpy(scal), stats=_i32(stats))
+                scal=torch.from_numpy(scal),
+                stats=None if stats is None else _i32(stats))
     if out is None:
         return Carry(pool=K.Pool(*(t.to(device) for t in src.pool.tensors())),
                      pk=src.pk.to(device), ps=src.ps.to(device),
                      pa=src.pa.to(device), scal=src.scal.to(device),
-                     stats=src.stats.to(device))
+                     stats=None if stats is None else src.stats.to(device))
+    if (out.stats is None) != (src.stats is None):
+        raise ValueError("the carry and the device buffers disagree on the "
+                         "stats lane")
     out.pool.copy_(src.pool)
     for dst, t in ((out.pk, src.pk), (out.ps, src.ps), (out.pa, src.pa),
                    (out.scal, src.scal), (out.stats, src.stats)):
-        dst.copy_(t)
+        if t is not None:
+            dst.copy_(t)
     return out
 
 
 def carry_from_numpy(carry: tuple, device,
                      out: Optional[Carry] = None) -> Carry:
-    """One history's 14-lane carry as a device :class:`Carry` of one
-    key."""
+    """One history's carry (13 lanes, or 14 with the stats lane) as a
+    device :class:`Carry` of one key."""
     return batch_carry_from_numpy(tuple(np.asarray(x)[None] for x in carry),
                                   device, out)
 
 
 def batch_carry_to_numpy(carry: Carry) -> tuple:
-    """A device :class:`Carry` as the reference's vmapped 14-lane numpy
-    tuple (a leading key axis on every lane). The arrays are copies, on
-    the CPU too: a checkpoint does not change with the search after it."""
+    """A device :class:`Carry` as the reference's vmapped numpy tuple (a
+    leading key axis on every lane): 14 lanes, or the reference's 13
+    without the stats lane. The arrays are copies, on the CPU too: a
+    checkpoint does not change with the search after it."""
     def host(t):
         return t.to("cpu", copy=True).numpy()
 
@@ -124,12 +132,13 @@ def batch_carry_to_numpy(carry: Carry) -> tuple:
             scal[:, K.DONE] != 0, scal[:, K.LOSSY] != 0,
             scal[:, K.WOVF] != 0, scal[:, K.LEVEL].copy(),
             scal[:, K.BEST].copy(), host(carry.pk), host(carry.ps),
-            host(carry.pa), host(carry.stats))
+            host(carry.pa)) + (() if carry.stats is None
+                               else (host(carry.stats),))
 
 
 def carry_to_numpy(carry: Carry) -> tuple:
-    """A device :class:`Carry` of one key as the reference's 14-lane numpy
-    tuple."""
+    """A device :class:`Carry` of one key as the reference's numpy tuple
+    (14 lanes with the stats lane, else 13)."""
     if carry.scal.shape[0] != 1:
         raise ValueError(f"carry_to_numpy takes one key, got "
                          f"{carry.scal.shape[0]}; use batch_carry_to_numpy")

@@ -22,6 +22,8 @@ import subprocess
 import threading
 from typing import Optional
 
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = (os.path.join(_PKG, "csrc", "search.cu"),)
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -53,6 +55,15 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 
+#: the reference's persistent-compilation-cache pair: in the port, the
+#: kernel library found built in ``_build/`` (a hit) against built now
+PERSISTENT_HIT = obs_metrics.counter(
+    "jtpu_persistent_cache_hit_total",
+    "kernel library builds found in _build/ for these sources")
+PERSISTENT_MISS = obs_metrics.counter(
+    "jtpu_persistent_cache_miss_total",
+    "kernel library builds made now with nvcc")
+
 
 class BuildError(RuntimeError):
     """The kernels could not be built or loaded."""
@@ -81,7 +92,9 @@ def build() -> str:
     its path."""
     path = library_path()
     if os.path.exists(path):
+        PERSISTENT_HIT.inc()
         return path
+    PERSISTENT_MISS.inc()
     tmp = f"{path}.{os.getpid()}.tmp"
     cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -10,6 +10,7 @@ tolerance 0). ``chip_smoke.py`` and the card-only tests use it.
 
 from __future__ import annotations
 
+import copy
 from typing import Iterator, List, Sequence, Tuple
 
 import numpy as np
@@ -21,9 +22,14 @@ from jepsen_tpu_torch.kernels import search as K
 
 
 def max_abs_err(xs: List[torch.Tensor], ys: List[torch.Tensor]) -> int:
-    """The largest absolute difference between paired integer tensors."""
+    """The largest absolute difference between paired integer tensors
+    (a pair of Nones, an absent optional buffer, agrees)."""
     err = 0
     for x, y in zip(xs, ys, strict=True):
+        if x is None and y is None:
+            continue
+        if x is None or y is None:
+            raise ValueError("one output is absent, the other not")
         if x.shape != y.shape or x.dtype != y.dtype:
             raise ValueError(f"{x.shape}/{x.dtype} vs {y.shape}/{y.dtype}")
         if x.numel():
@@ -75,7 +81,8 @@ def copy_state(carry: G.Carry, scratch: G.Scratch
     return (G.Carry(pool=K.Pool(*(t.clone() for t in carry.pool.tensors())),
                     pk=carry.pk.clone(), ps=carry.ps.clone(),
                     pa=carry.pa.clone(), scal=carry.scal.clone(),
-                    stats=carry.stats.clone()),
+                    stats=(None if carry.stats is None
+                           else carry.stats.clone())),
             G.Scratch(pool_next=K.Pool(*(t.clone() for t in
                                          scratch.pool_next.tensors())),
                       acc=scratch.acc.clone(), rows=scratch.rows.clone(),
@@ -105,6 +112,15 @@ class Level:
                                  [int(c["nr"]) for c in batch],
                                  stats_rows=self.shape.lmax + 1), device)
         self.scratch = G.empty_scratch(self.shape, device)
+
+    def without_stats(self) -> "Level":
+        """This state with the stats lane off: the carry without its
+        counter rows, which K4 then does not write (tracing off)."""
+        other = copy.copy(self)
+        c, s = copy_state(self.carry, self.scratch)
+        c.stats = None
+        other.carry, other.scratch = c, s
+        return other
 
     @classmethod
     def random(cls, shape: K.LevelShape, seed: int, device,

@@ -609,13 +609,14 @@ def dedup_truncate_plain(rows: torch.Tensor, g: torch.Tensor,
                          gagg: torch.Tensor, pool_in: Pool, pool_out: Pool,
                          pk: torch.Tensor, ps: torch.Tensor,
                          pa: torch.Tensor, scal: torch.Tensor,
-                         acc: torch.Tensor, stats: torch.Tensor,
+                         acc: torch.Tensor, stats: Optional[torch.Tensor],
                          shape: LevelShape, nr: torch.Tensor,
                          seg: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``dedup_truncate`` (tpu.py:589-664): the group
     starts from g and gagg, or, where the kernel scans them in its shared
     memory (:func:`group_scan_runs` false), from the rows; with ``seg``,
-    then :func:`seg_active_plain` (the pair's second level)."""
+    then :func:`seg_active_plain` (the pair's second level). Without
+    ``stats`` no counter row is written."""
     _dedup_levels(rows, g, gagg, pool_in, pool_out, pk, ps, pa, scal, acc,
                   stats, shape, nr)
     if seg is not None:
@@ -672,8 +673,9 @@ def _dedup_levels(rows, g, gagg, pool_in, pool_out, pk, ps, pa, scal, acc,
                           dominated.sum(1, dtype=i32),
                           uniq[:, C:].sum(1, dtype=i32), frontier], dim=1)
     keys = act.nonzero()[:, 0]
-    row = scal[:, LEVEL].clamp(0, shape.lmax).long()
-    stats[keys, row[keys]] = counts[keys]
+    if stats is not None:
+        row = scal[:, LEVEL].clamp(0, shape.lmax).long()
+        stats[keys, row[keys]] = counts[keys]
     new = scal.clone()
     new[:, DONE] |= (fv & (fk >= nr[:, None])).any(1).to(i32)
     new[:, LOSSY] |= uniq[:, C:].any(1).to(i32)
@@ -733,6 +735,11 @@ def _check_nr(nr, shape: LevelShape) -> None:
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _nptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's pointer, or null for None (an optional buffer)."""
+    return ctypes.c_void_p(None) if t is None else _ptr(t)
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -889,11 +896,12 @@ def grid_launches(name: str, shape: LevelShape) -> int:
 def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, gagg: torch.Tensor,
                    pool_in: Pool, pool_out: Pool, pk: torch.Tensor,
                    ps: torch.Tensor, pa: torch.Tensor, scal: torch.Tensor,
-                   acc: torch.Tensor, stats: torch.Tensor,
+                   acc: torch.Tensor, stats: Optional[torch.Tensor],
                    shape: LevelShape, nr: torch.Tensor,
                    seg: Optional[torch.Tensor] = None) -> None:
     """Kill dups and dominated rows, truncate to C rows into ``pool_out``,
-    and finish each active key's level scalars and counters. The group
+    and finish each active key's level scalars and counters (its row of
+    ``stats``; none when ``stats`` is None, the stats lane off). The group
     starts come from ``group_scan``'s g and gagg where
     :func:`group_scan_runs`, else the kernel scans them itself. With
     ``seg``, the words of a segment, the launch then ends the level pair
@@ -910,18 +918,19 @@ def dedup_truncate(rows: torch.Tensor, g: torch.Tensor, gagg: torch.Tensor,
     _check(pa, "pa", torch.bool, (B, C))
     _check_nr(nr, shape)
     _check(acc, "acc", torch.int32, (B, NACC))
-    _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
+    if stats is not None:
+        _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
     tensors = ([rows, g, gagg] + list(pool_in.tensors())
                + list(pool_out.tensors())
                + [pk, ps, pa, nr, scal, acc, stats])
     if seg is not None:
         _check(seg, "seg", torch.int32, (NSEG,))
-    if _on_cpu(tensors + ([] if seg is None else [seg])):
+    if _on_cpu([t for t in tensors + [seg] if t is not None]):
         dedup_truncate_plain(rows, g, gagg, pool_in, pool_out, pk, ps, pa,
                              scal, acc, stats, shape, nr, seg)
         return
     _launch("dedup_truncate", _lib().jt_dedup_truncate,
-            *[_ptr(t) for t in tensors],
+            *[_nptr(t) for t in tensors],
             B, C, shape.W, shape.CR, shape.R, shape.lmax,
             int(dedup_one_block(shape)),
             ctypes.c_void_p(None) if seg is None else _ptr(seg),
@@ -957,12 +966,14 @@ class SegmentGraph:
     references to them, and its owner destroys it (:meth:`destroy`)
     before it lets them go. ``body`` is the CUDA launches one iteration
     makes, per kernel, as the C entry points counted them at capture:
-    ``group_scan`` only on the wide rungs of a search with crashed ops."""
+    ``group_scan`` only on the wide rungs of a search with crashed ops.
+    ``stats`` None captures K4 without its counter rows (the stats lane
+    off)."""
 
     def __init__(self, cols: dict, nr: torch.Tensor, pool: Pool,
                  pool_next: Pool, pk: torch.Tensor, ps: torch.Tensor,
                  pa: torch.Tensor, scal: torch.Tensor, acc: torch.Tensor,
-                 stats: torch.Tensor, rows: torch.Tensor,
+                 stats: Optional[torch.Tensor], rows: torch.Tensor,
                  rows_alt: Optional[torch.Tensor], g: torch.Tensor,
                  gagg: torch.Tensor, shape: LevelShape):
         from jepsen_tpu_torch.kernels import build
@@ -978,7 +989,8 @@ class SegmentGraph:
         _check(pa, "pa", torch.bool, (B, C))
         _check_rows(rows, scal, shape)
         _check(acc, "acc", torch.int32, (B, NACC))
-        _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
+        if stats is not None:
+            _check(stats, "stats", torch.int32, (B, shape.lmax + 1, NSTAT))
         _check(g, "g", torch.int32, (B, shape.RP))
         _check(gagg, "gagg", torch.int32, (B, scan_blocks(shape)))
         if sort_passes(shape):
@@ -1002,8 +1014,7 @@ class SegmentGraph:
         counts = (ctypes.c_int * len(GRAPH_KERNELS))()
         with torch.cuda.device(scal.device):
             rc = _lib().jt_segment_graph_create(
-                *[ctypes.c_void_p(None) if t is None else _ptr(t)
-                  for t in self.tensors],
+                *[_nptr(t) for t in self.tensors],
                 B, C, shape.W, shape.E, n, CR, shape.lmax,
                 MODELS.index(shape.model), TIEBREAKS.index(shape.tiebreak),
                 tile_rows(shape), sort_passes(shape),

@@ -48,7 +48,19 @@ wants the answer resumes that checkpoint on the CPU,
 ``supervised_check_packed(p, kernel, device="cpu", resume=cp)``, where
 the search runs its plain versions as it does on any CPU tensor.
 
-Not ported yet: the observatory and profiler publication.
+The supervisor is instrumented as the reference's is: the OOM, wedge,
+transient, backoff and pre-emptive-halving counters; a
+``checker.segment`` span around each segment with its compile or execute
+phase; the segment's host-timed seconds, levels, live rows and transfer
+bytes in the device metrics (:mod:`jepsen_tpu_torch.checker.gpu`) and in
+the result (``device-s``, ``segment-levels``, ``frontier-hwm``,
+``transfer-bytes``, ``cost``); the stats lane's rows recorded at each
+segment end (:mod:`jepsen_tpu_torch.obs.searchstats`, the result's
+``searchstats`` rollup); the live observatory; and a ``torch.profiler``
+capture around the whole search under ``JTPU_PROF=1``. With
+``JTPU_TRACE=0`` the carry has no stats lane (13 slots, its checkpoint
+too), K4 writes no counter row, and no span, artifact, ``searchstats`` or
+``cost`` appears.
 """
 
 from __future__ import annotations
@@ -62,24 +74,48 @@ import random
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from jepsen_tpu_torch import accel, interop
+from jepsen_tpu_torch import accel, interop, obs
 from jepsen_tpu_torch.accel import WedgeError
 from jepsen_tpu_torch.checker import UNKNOWN
 from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.checker import plan as plan_mod
 from jepsen_tpu_torch.checker.engine import default_engine
+from jepsen_tpu_torch.kernels import cost as kcost
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.kernels.search import LevelShape
 from jepsen_tpu_torch.models.core import KernelSpec, Model
 from jepsen_tpu_torch.obs import devices as obs_devices
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch.obs import observatory as obs_observatory
+from jepsen_tpu_torch.obs import searchstats as obs_searchstats
 from jepsen_tpu_torch.ops.encode import PackedHistory, pack_with_init
 
 log = logging.getLogger("jepsen.resilience")
+
+# the reference's supervisor counters (resilience.py:66-83); a DCN-class
+# fault, retried like a transient one, counts as a transient retry here:
+# one card has no interconnect of its own
+_OOM_TOTAL = obs_metrics.counter(
+    "jtpu_search_oom_total",
+    "device OOMs answered by pool-halving during supervised searches")
+_WEDGE_TOTAL = obs_metrics.counter(
+    "jtpu_search_wedge_total",
+    "device segments abandoned by the wedge watchdog")
+_TRANSIENT_TOTAL = obs_metrics.counter(
+    "jtpu_search_transient_retries_total",
+    "transient device failures retried from their checkpoint")
+_BACKOFF_SECONDS = obs_metrics.counter(
+    "jtpu_search_backoff_seconds_total",
+    "seconds slept in supervised-search retry backoff")
+_PREEMPT_TOTAL = obs_metrics.counter(
+    "jtpu_search_preemptive_halve_total",
+    "pool halvings triggered by low device-memory headroom BEFORE any "
+    "OOM fired (see JTPU_HEADROOM_MIN)")
 
 # ---------------------------------------------------------------------------
 # Failure taxonomy
@@ -309,8 +345,9 @@ CARRY_FIELDS = ("k", "mask", "cmask", "state", "alive", "done", "lossy",
                 "pool_alive")
 
 #: The optional 14th carry slot: the per-level counter log ([LMAX+1,
-#: NSTAT] int32, level-indexed). The port always carries it; a
-#: checkpoint without it loads, and the lane is added as zeros.
+#: NSTAT] int32, level-indexed), carried while tracing is on. A
+#: checkpoint without it loads, and the lane is added as zeros; with
+#: tracing off it is dropped.
 CARRY_STATS_FIELD = "slog"
 
 
@@ -354,7 +391,7 @@ class Checkpoint:
             segment=np.int64(self.segment),
             watermark=np.int64(self.watermark),
             n_required=np.int64(self.n_required))
-        names = CARRY_FIELDS + (CARRY_STATS_FIELD,)
+        names = CARRY_FIELDS + (CARRY_STATS_FIELD,)   # zip stops at 13
         arrays = {f"carry_{n}": np.asarray(v)
                   for n, v in zip(names, self.carry)}
         tmp = f"{path}.tmp.{os.getpid()}.npz"
@@ -519,16 +556,29 @@ def _on_stream(device: torch.device, stream):
         yield
 
 
+class SegmentEnd(NamedTuple):
+    """What a segment end read: each key's ``active`` flag, level and
+    live pool rows, the host carry (where asked for), and the CUDA
+    launches one iteration of the segment graph makes (None on the host
+    loop)."""
+
+    act: list
+    level: list
+    nalive: list
+    host: Optional[tuple]
+    body: Optional[int]
+
+
 def _device_segment(stop: Callable[[], bool], cols: dict,
                     cols_np: Optional[dict], carry: G.Carry,
                     scratch: G.Scratch, host: Optional[tuple],
                     shape: LevelShape, seg_len: int, ops: G.Ops,
-                    keep: bool) -> Optional[tuple]:
+                    keep: bool) -> Optional[SegmentEnd]:
     """One segment on a shape's buffers: the stacked columns ``cols_np``
     and the host carry ``host`` go up where given, the segment runs, and
-    its end is read (with the whole carry where ``keep``). Returns (each
-    key's active flag, each key's level, the host carry or None), or None
-    when ``stop()`` turned true on the way."""
+    its end is read (with the whole carry where ``keep``). Returns its
+    :class:`SegmentEnd`, or None when ``stop()`` turned true on the
+    way."""
     dev = carry.scal.device
     if cols_np is not None:
         interop.batch_cols_from_numpy(cols_np, dev, out=cols)
@@ -539,10 +589,12 @@ def _device_segment(stop: Callable[[], bool], cols: dict,
         return None
     words, graph = G.run_segment(cols, carry, scratch, shape, cols["nr"],
                                  seg_len, ops)
-    _, act, lv = G.end_segment(carry, shape, words, graph)
+    _, act, lv, nalive = G.end_segment(carry, shape, words, graph)
     if stop():
         return None
-    return act, lv, interop.carry_to_numpy(carry) if keep else None
+    return SegmentEnd(act, lv, nalive,
+                      interop.carry_to_numpy(carry) if keep else None,
+                      None if graph is None else sum(graph.body.values()))
 
 
 # ---------------------------------------------------------------------------
@@ -551,22 +603,12 @@ def _device_segment(stop: Callable[[], bool], cols: dict,
 
 
 def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
-                            capacity: Optional[int] = None,
-                            window: Optional[int] = None,
-                            expand: Optional[int] = None,
-                            segment_iters: Optional[int] = None,
-                            device: Optional[torch.device] = None,
-                            ops: G.Ops = G.KERNELS,
-                            deadline: Optional[float] = None,
-                            policy: Optional[RetryPolicy] = None,
-                            resume: Optional[Checkpoint] = None,
-                            checkpoint_path: Optional[str] = None,
-                            on_checkpoint: Optional[
-                                Callable[[Checkpoint], None]] = None,
-                            deadline_s: Optional[float] = None
-                            ) -> Dict[str, Any]:
+                            **kwargs) -> Dict[str, Any]:
     """Check one packed history rung by rung, in growing segments
     (see :func:`jepsen_tpu_torch.checker.gpu.check_packed_gpu`).
+    Keyword arguments: ``capacity``, ``window``, ``expand``,
+    ``segment_iters``, ``device``, ``ops``, ``deadline``, ``policy``,
+    ``resume``, ``checkpoint_path``, ``on_checkpoint``, ``deadline_s``.
     ``ops=gpu.PLAIN`` runs the kernels' plain versions instead, on any
     device: the reference a run on the card is held against.
     ``deadline`` is a ``time.monotonic()`` instant: at the first segment
@@ -601,7 +643,43 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     an OOM resumes from the rung's start (or its resumed checkpoint), and
     so does a wedge's ``checkpoint``. The result carries ``attempts``, the
     supervision trail; a fatal failure is raised with the trail as
-    ``exc.resilience_trail``."""
+    ``exc.resilience_trail``.
+
+    The result also carries the reference's telemetry: ``device-s`` (the
+    host-timed seconds of first calls, ``compile``, and of the others,
+    ``execute``), ``segment-levels``, ``frontier-hwm`` and
+    ``transfer-bytes`` (what this search copied between host and card);
+    with tracing on, ``searchstats`` (the stats lane's rollup) and
+    ``cost`` (one entry per shape: one level's work from
+    :mod:`jepsen_tpu_torch.kernels.cost`, and the levels it ran). The
+    observatory publishes each segment end, and ``JTPU_PROF=1`` captures
+    the search with ``torch.profiler``."""
+    try:
+        with obs.profiler.capture():
+            out = _supervised_check_packed(p, kernel, **kwargs)
+    except BaseException:
+        # a raised search must not leave the observatory "searching"
+        obs_observatory.finish(valid="error")
+        raise
+    obs_observatory.finish(valid=out.get("valid"), levels=out.get("levels"))
+    return out
+
+
+def _supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
+                             capacity: Optional[int] = None,
+                             window: Optional[int] = None,
+                             expand: Optional[int] = None,
+                             segment_iters: Optional[int] = None,
+                             device: Optional[torch.device] = None,
+                             ops: G.Ops = G.KERNELS,
+                             deadline: Optional[float] = None,
+                             policy: Optional[RetryPolicy] = None,
+                             resume: Optional[Checkpoint] = None,
+                             checkpoint_path: Optional[str] = None,
+                             on_checkpoint: Optional[
+                                 Callable[[Checkpoint], None]] = None,
+                             deadline_s: Optional[float] = None
+                             ) -> Dict[str, Any]:
     # a CUDA device that wedged earlier in the process is not fed again
     if accel.runtime_wedged("cuda" if device is None else device):
         return _wedged_earlier()
@@ -616,32 +694,6 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     keep = bool(checkpoint_path or on_checkpoint is not None
                 or policy is not None or deadline_s)
     policy = policy or RetryPolicy()
-    wneed = G._window_needed(p)
-    if capacity is not None:
-        G._check_window(window or G.WINDOW)
-        ladder = ((capacity, window or G.WINDOW, expand),)
-    else:
-        ladder = G._ladder_for(wneed, dev)
-    plan_entry = None
-    if plan_mod.gate_enabled():
-        ladder, plan_entry = plan_mod.gate_ladder(
-            plan_mod.PlanDims.from_packed(p, wneed), kernel, ladder,
-            kind="segment", explicit=capacity is not None,
-            derate=capacity is None,
-            where="the supervised device search", device=dev)
-    if resume is not None:
-        idx = next((i for i, r in enumerate(ladder)
-                    if tuple(r) == tuple(resume.rung)), None)
-        ladder = ((tuple(resume.rung),) + tuple(ladder) if idx is None
-                  else ladder[idx:])
-    crw = G._crash_width(p.n - p.n_required) or 0
-    n, cr_pad = cols_np["f"].shape[0], cols_np["cf"].shape[0]
-    nr = int(cols_np["nr"])
-    lmax = G._level_budget(n, cr_pad)
-    seg, first = G._segment_schedule(segment_iters, lmax)
-    hr_min = obs_devices.headroom_threshold()
-    stacked = interop.stack_cols([cols_np])
-    watchdog = SegmentWatchdog(dev, deadline_s)
     eng = default_engine()
     eng.lock.acquire()
     held = True
@@ -652,7 +704,45 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     trail: list = []
     work: list = []
     out: Dict[str, Any] = {}
+    watchdog: Optional[SegmentWatchdog] = None
     try:
+        # the CUDA-init probe (once a process), before anything touches
+        # the card; it raises rather than move the search to the CPU
+        accel.ensure_usable("supervised_check_packed", device=dev)
+        wneed = G._window_needed(p)
+        if capacity is not None:
+            G._check_window(window or G.WINDOW)
+            ladder = ((capacity, window or G.WINDOW, expand),)
+        else:
+            ladder = G._ladder_for(wneed, dev)
+        plan_entry = None
+        if plan_mod.gate_enabled():
+            ladder, plan_entry = plan_mod.gate_ladder(
+                plan_mod.PlanDims.from_packed(p, wneed), kernel, ladder,
+                kind="segment", explicit=capacity is not None,
+                derate=capacity is None,
+                where="the supervised device search", device=dev)
+        if resume is not None:
+            idx = next((i for i, r in enumerate(ladder)
+                        if tuple(r) == tuple(resume.rung)), None)
+            ladder = ((tuple(resume.rung),) + tuple(ladder) if idx is None
+                      else ladder[idx:])
+        crw = G._crash_width(p.n - p.n_required) or 0
+        n, cr_pad = cols_np["f"].shape[0], cols_np["cf"].shape[0]
+        nr = int(cols_np["nr"])
+        lmax = G._level_budget(n, cr_pad)
+        seg, first = G._segment_schedule(segment_iters, lmax)
+        hr_min = obs_devices.headroom_threshold()
+        stacked = interop.stack_cols([cols_np])
+        # telemetry (the reference's resilience.py:600-640): the stats lane
+        # and everything below ride with tracing
+        stats = obs.enabled()
+        device_s = {"compile": 0.0, "execute": 0.0}
+        seg_levels: list = []
+        frontier_hwm = 0
+        transfer_bytes = 0
+        cost_entries: Dict[tuple, Dict[str, Any]] = {}
+        watchdog = SegmentWatchdog(dev, deadline_s)
         # filled by the first segment, under the watchdog
         cols = eng.batch_cols(stacked, dev, copy=False)
         cols_up = False
@@ -682,10 +772,14 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             "(predicted %s B)", cap, blim, cap_s, pred)
                         cap_eff, exp_eff = cap_s, exp_s
                 host = G._carry0_host(cap_eff, win, cr_pad, cols_np["ini"],
-                                      nr, stats_rows=lmax + 1)
+                                      nr, stats_rows=(lmax + 1) if stats
+                                      else 0)
             # the rung's last checkpoint: where a failed segment resumes
-            host = _grow_carry_stats(_fit_carry_stats(host, True, lmax),
-                                     lmax)
+            host = _fit_carry_stats(host, stats, lmax)
+            if stats:
+                host = _grow_carry_stats(host, lmax)
+            # the stats lane's rows on the host, filled at segment ends
+            slog = np.array(host[13]) if stats else None
             saved_idx = seg_idx
             level, live = int(host[8]), _carry_active(host, lmax)
             carry = shape = None
@@ -693,6 +787,9 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             preempted = False
             abort: Optional[str] = None
             wedge_cp: Optional[Checkpoint] = None
+            obs_observatory.begin(level_budget=lmax,
+                                  rung=(cap_eff, win, exp_eff),
+                                  segment_iters=seg, backend="default")
             while live:
                 # a device short of memory halves the pool before the
                 # allocator fails; once per rung, since freed pages stay
@@ -709,6 +806,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                     if isinstance(exp_eff, int):
                         exp_eff = max(1, min(exp_eff // 2, cap_eff))
                     carry, preempted = None, True
+                    _PREEMPT_TOTAL.inc()
                     trail.append({"rung": (cap, win, exp),
                                   "effective": (cap_eff, win, exp_eff),
                                   "segment": seg_idx, "level": int(host[8]),
@@ -727,25 +825,46 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                        "effective": (cap_eff, win, exp_eff),
                        "segment": seg_idx, "level": level,
                        "backend": "default"}
+                shape_key = ("segment", kernel.name, cap_eff, win, exp_eff,
+                             n, cr_pad, stats)
+                # decided up front, marked run only on success: a segment
+                # that dies in its first call pays it again on the retry
+                phase = G.call_phase(shape_key)
+                lvl0 = level
                 try:
                     if _inject_fault is not None:
                         _inject_fault(dict(ctx))
-                    upload = None
-                    if carry is None:
-                        shape = LevelShape(C=cap_eff, W=win,
-                                           E=min(exp_eff or cap_eff,
-                                                 cap_eff),
-                                           n=n, CR=cr_pad, model=kernel.name)
-                        carry, scratch = eng.state(shape, dev)
-                        upload = host
-                    step = functools.partial(
-                        _device_segment, cols=cols,
-                        cols_np=None if cols_up else stacked, carry=carry,
-                        scratch=scratch, host=upload, shape=shape,
-                        seg_len=seg_len, ops=ops, keep=keep)
-                    act, lv, snap = watchdog.call(step)
+                    with obs.span("checker.segment", phase=phase,
+                                  segment=seg_idx, level=lvl0,
+                                  rung=[cap_eff, win, exp_eff],
+                                  backend=ctx["backend"]) as sp:
+                        t0 = time.perf_counter()
+                        upload = None
+                        if carry is None:
+                            shape = LevelShape(C=cap_eff, W=win,
+                                               E=min(exp_eff or cap_eff,
+                                                     cap_eff),
+                                               n=n, CR=cr_pad,
+                                               model=kernel.name)
+                            carry, scratch = eng.state(shape, dev, stats)
+                            upload = host
+                        step = functools.partial(
+                            _device_segment, cols=cols,
+                            cols_np=None if cols_up else stacked,
+                            carry=carry, scratch=scratch, host=upload,
+                            shape=shape, seg_len=seg_len, ops=ops,
+                            keep=keep)
+                        end = watchdog.call(step)
+                        seg_s = time.perf_counter() - t0
+                        sp.set(level_end=end.level[0])
+                        if end.body is not None:
+                            sp.set(body=end.body)
+                    moved_up = ((0 if cols_up else G.cols_nbytes(stacked))
+                                + (0 if upload is None
+                                   else _carry_nbytes(upload)))
                     cols_up = True
                 except WedgeError as e:
+                    _WEDGE_TOTAL.inc()
                     accel.note_runtime_wedge(
                         "supervised_check_packed", deadline_s or 0.0,
                         device=dev, worker=getattr(e, "worker", None),
@@ -771,6 +890,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                     level = int(host[8])
                     if cls == OOM:
                         ooms += 1
+                        _OOM_TOTAL.inc()
                         new_cap = cap_eff // 2
                         if new_cap < policy.min_capacity:
                             trail.append({**ctx, "event": OOM,
@@ -793,9 +913,11 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             "device OOM at level %s; halving the pool to %s "
                             "rows and resuming the checkpoint (backoff "
                             "%.2fs)", ctx["level"], cap_eff, delay)
+                        _BACKOFF_SECONDS.inc(delay)
                         time.sleep(delay)
                     elif cls in (TRANSIENT, DCN):
                         transients += 1
+                        _TRANSIENT_TOTAL.inc()
                         if transients > policy.max_retries:
                             trail.append({**ctx, "event": cls,
                                           "outcome": "retries-exhausted",
@@ -811,6 +933,7 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                             "%s device failure (%s); retrying the segment "
                             "from its checkpoint in %.2fs", cls,
                             _errstr(e), delay)
+                        _BACKOFF_SECONDS.inc(delay)
                         time.sleep(delay)
                     else:
                         trail.append({**ctx, "event": FATAL,
@@ -821,9 +944,50 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                     continue
                 seg_idx += 1
                 transients = 0
-                level, live = lv[0], bool(act[0])
+                level, live = end.level[0], bool(end.act[0])
+                # success: account the segment (the reference's
+                # resilience.py:875-914); the stats rows and the cost
+                # model ride with tracing
+                rung_eff = (cap_eff, win, exp_eff)
+                G.mark_executed(shape_key)
+                device_s[phase] += seg_s
+                G.note_call_phase("segment", phase, seg_s)
+                seg_levels.append(level - lvl0)
+                alive = end.nalive[0]
+                frontier_hwm = max(frontier_hwm, alive)
+                G._LEVELS_TOTAL.inc(level - lvl0)
+                G._SEGMENTS_TOTAL.inc()
+                G._FRONTIER_HWM.set_max(alive)
+                moved_down = 4 * (1 + 3 * shape.B) + (
+                    0 if end.host is None else _carry_nbytes(end.host))
+                dup_rate = trunc = None
+                if stats:
+                    # the stats rows this segment wrote come down with
+                    # the segment end; the rest of the lane stays put
+                    rows = carry.stats[0, lvl0:level].cpu().numpy()
+                    slog[lvl0:level] = rows
+                    moved_down += rows.nbytes
+                    ent = cost_entries.get(shape_key)
+                    if ent is None:
+                        ent = cost_entries[shape_key] = kcost.cost_entry(
+                            "segment", rung_eff, shape, 0)
+                    ent["levels"] += level - lvl0
+                    obs_searchstats.record(slog[:level], rung=rung_eff)
+                    if rows.size:
+                        dup_rate = obs_searchstats.dup_rate(rows)
+                        trunc = int(rows[:, 3].sum())
+                G._TRANSFER_BYTES.inc(moved_up, direction="host-to-device")
+                G._TRANSFER_BYTES.inc(moved_down, direction="device-to-host")
+                transfer_bytes += moved_up + moved_down
+                obs_observatory.publish(
+                    level=level, frontier=alive, segments=seg_idx,
+                    seg_seconds=seg_s, levels_delta=level - lvl0,
+                    expansions=(level - lvl0) * shape.E, rung=rung_eff,
+                    backend=ctx["backend"], headroom=headroom,
+                    warmup=phase == "compile", dup_rate=dup_rate,
+                    trunc=trunc)
                 if keep:
-                    host, saved_idx = snap, seg_idx
+                    host, saved_idx = end.host, seg_idx
                     cp = Checkpoint(carry=host, rung=(cap, win, exp),
                                     window=win, expand_eff=exp_eff,
                                     crash_width=crw, segment=seg_idx)
@@ -836,6 +1000,9 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
                     return timeout_result(level, (cap, win, exp))
             if carry is not None:
                 host = interop.carry_to_numpy(carry)
+                nb = _carry_nbytes(host)
+                G._TRANSFER_BYTES.inc(nb, direction="device-to-host")
+                transfer_bytes += nb
             done, lossy, wovf, best, levels, pool = G._summarize_carry(host)
             rung_eff = (cap_eff, win, exp_eff)
             trail.append({"rung": (cap, win, exp), "effective": rung_eff,
@@ -864,15 +1031,23 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
             out["segments"] = seg_idx
             out["segment-iters"] = seg
             out["attempts"] = list(trail)
-            out["searchstats"] = dict(zip(
-                G.SEARCHSTAT_COLS,
-                (int(x) for x in np.asarray(host[13])[:levels].sum(0))))
+            out["device-s"] = {k: round(v, 6) for k, v in device_s.items()}
+            out["segment-levels"] = list(seg_levels)
+            out["frontier-hwm"] = frontier_hwm
+            out["transfer-bytes"] = transfer_bytes
+            if stats:
+                ss = obs_searchstats.rollup(np.asarray(host[13])[:levels])
+                out["searchstats"] = ss
+                obs_searchstats.finalize(ss)
+                if cost_entries:
+                    out["cost"] = [dict(e) for e in cost_entries.values()]
             if out["valid"] is not UNKNOWN or abort is not None:
                 return out
             if wovf and win >= G.MAX_WINDOW and not lossy:
                 return out  # a bigger pool won't fix a window overflow
     finally:
-        watchdog.close()
+        if watchdog is not None:
+            watchdog.close()
         if held:
             eng.lock.release()
     return out
@@ -886,6 +1061,10 @@ def _wedged_earlier() -> Dict[str, Any]:
     return {"valid": UNKNOWN, "backend": "gpu", "error": error,
             "attempts": [{"event": WEDGE, "outcome": "gave-up",
                           "error": error}]}
+
+
+def _carry_nbytes(carry: tuple) -> int:
+    return int(sum(np.asarray(x).nbytes for x in carry))
 
 
 def _attach_trail(e: BaseException, trail: list) -> None:

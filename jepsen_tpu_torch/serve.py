@@ -61,11 +61,24 @@ on, ``POST /stream`` (``{"tenant", "model"}``: 202 ``{"id", "state"}``,
 ``POST /stream/<id>/close`` (``{"chunks"?}``: 200, 409) and ``GET
 /stream/<id>`` (the session's status, with its ``result`` once done).
 
+Telemetry, as the reference's daemon has it: ``GET /metrics`` (the
+process's metrics registry in Prometheus text: the daemon's
+``jtpu_serve_*`` families, latency histograms with trace-id exemplars,
+and the device, search and engine families); the daemon's own
+``trace.jsonl`` in its directory; a trace id for each request, taken
+from a ``traceparent`` header or body field or made at admission,
+journaled with the request and kept on replay, answered in a
+``traceparent`` header; the request's phase breakdown (queue, coalesce,
+compile, device, verdict) in ``GET /check/<id>``; admission refused with
+429 ``headroom`` while the card's memory headroom is under
+``headroom_min``; and warm buckets evicted while it is under
+``engine_headroom_min``. ``JTPU_TRACE=0`` leaves out the trace ids, the
+trace file and the phases.
+
 Searches run on CUDA unless the configuration asks for the CPU
-(``ServeConfig.device="cpu"``). Not ported: the fleet placer, the
-telemetry stack (time series, SLOs, usage, flight recorder, the progress
-heartbeat), trace ids and phase breakdowns, ``/metrics``, the results
-browser, and the batch-verify mode.
+(``ServeConfig.device="cpu"``). Not ported: the fleet placer, the time
+series, SLOs, usage metering, the flight recorder, the progress
+heartbeat, the results browser, and the batch-verify mode.
 """
 
 from __future__ import annotations
@@ -84,11 +97,75 @@ from typing import Any, Dict, Optional, Tuple
 
 from jepsen_tpu_torch import journal as journal_ns
 from jepsen_tpu_torch.history import History
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch.obs import trace as obs_trace
 
 log = logging.getLogger("jepsen_tpu_torch.serve")
 
 #: The request journal's filename inside the daemon directory.
 WAL_NAME = "serve.wal"
+
+#: Prometheus text exposition's content type.
+PROMETHEUS_CTYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+# the reference daemon's families (jepsen_tpu/serve.py:110-168, 931)
+_QUEUE_DEPTH = obs_metrics.gauge(
+    "jtpu_serve_queue_depth",
+    "requests queued (all tenants) in the check daemon")
+_INFLIGHT = obs_metrics.gauge(
+    "jtpu_serve_inflight", "requests currently being checked")
+_ADMITTED = obs_metrics.counter(
+    "jtpu_serve_admitted_total",
+    "requests accepted past admission control, labeled tenant")
+_REJECTED = obs_metrics.counter(
+    "jtpu_serve_rejected_total",
+    "requests refused by admission control, labeled reason "
+    "(queue-full|tenant-quota|footprint|headroom|breaker-open|draining"
+    "|rate-limited|bad-request|malformed)")
+_COMPLETED = obs_metrics.counter(
+    "jtpu_serve_completed_total",
+    "requests checked to a verdict, labeled valid")
+_TIMEOUTS = obs_metrics.counter(
+    "jtpu_serve_deadline_timeouts_total",
+    "requests answered :info/timeout by the per-request deadline")
+_REPLAYED = obs_metrics.counter(
+    "jtpu_serve_replayed_total",
+    "journaled requests re-queued by restart replay")
+_QUEUE_WAIT = obs_metrics.histogram(
+    "jtpu_serve_queue_wait_seconds",
+    "seconds a request spent queued before a worker picked it up",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+             60.0, 300.0))
+_BATCH_SIZE = obs_metrics.histogram(
+    "jtpu_serve_batch_size",
+    "realized gang size per batched dispatch (1 = a request that "
+    "found no same-bucket cohort inside the coalesce window)",
+    buckets=(1, 2, 4, 8, 16, 32, 64))
+_COALESCE_WAIT = obs_metrics.histogram(
+    "jtpu_serve_batch_coalesce_wait_seconds",
+    "seconds a gang leader spent coalescing cohort members before "
+    "dispatch (bounded by --batch-wait-ms)",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.25, 0.5))
+_BATCH_BISECTIONS = obs_metrics.counter(
+    "jtpu_serve_batch_bisections_total",
+    "gang splits performed by poison-request bisection after a failed "
+    "batched device call")
+_BATCH_POISON = obs_metrics.counter(
+    "jtpu_serve_batch_poison_total",
+    "requests isolated as the poison member of a failed gang, labeled "
+    "tenant — only these count toward their bucket's circuit breaker")
+_RATE_LIMITED = obs_metrics.counter(
+    "jtpu_serve_rate_limited_total",
+    "requests answered 429 by the per-tenant token bucket, labeled "
+    "tenant")
+_REQUEST_SECONDS = obs_metrics.histogram(
+    "jtpu_serve_request_seconds",
+    "end-to-end seconds from admission to verdict, labeled tenant")
+
+
+def _exemplar(trace_id: Optional[str]) -> Optional[Dict[str, str]]:
+    return {"trace_id": trace_id} if trace_id else None
 
 
 def _env_int(name: str, default: int) -> int:
@@ -148,6 +225,14 @@ class ServeConfig:
     bytes_budget: Optional[int] = field(
         default_factory=lambda: _env_int(
             "JTPU_SERVE_BYTES_BUDGET", 0) or None)
+    #: admission refuses (429 ``headroom``) while the card's memory
+    #: headroom is under this ratio (0: off; none on the CPU)
+    headroom_min: float = field(
+        default_factory=lambda: _env_float("JTPU_SERVE_HEADROOM_MIN", 0.02))
+    #: after each request, the stalest warm buckets are evicted while the
+    #: card's headroom is under this ratio (0: off)
+    engine_headroom_min: float = field(
+        default_factory=lambda: _env_float("JTPU_ENGINE_HEADROOM_MIN", 0.0))
     warm: bool = field(
         default_factory=lambda: _env_on("JTPU_SERVE_WARM", "1"))
     warm_rungs: int = field(
@@ -227,11 +312,16 @@ class CheckRequest:
     dims: Optional[Any] = None         # plan.PlanDims, to price a gang
     probe: bool = False                # a half-open breaker's probe
     started_at: Optional[float] = None  # monotonic, set at dequeue
+    trace: Optional[str] = None        # the request's trace id
+    trace_parent: Optional[str] = None  # the inbound traceparent's span
+    coalesce_s: float = 0.0            # a gang leader's gather wait
 
     def public(self) -> Dict[str, Any]:
         doc = {"id": self.id, "tenant": self.tenant,
                "model": self.model, "state": self.state,
                "submitted": self.submitted}
+        if self.trace:
+            doc["trace"] = self.trace
         if self.bucket is not None:
             doc["bucket"] = list(self.bucket)
         if self.footprint is not None:
@@ -428,7 +518,8 @@ class BatchScheduler:
                 or d.draining or d._stop.is_set()):
             return gang
         limit = self.max_fit(leader)
-        deadline = time.monotonic() + self.wait_s
+        t0 = time.monotonic()
+        deadline = t0 + self.wait_s
         while len(gang) < limit:
             nxt = d._take_matching(leader)
             if nxt is not None:
@@ -439,6 +530,10 @@ class BatchScheduler:
                 break
             with d._work:
                 d._work.wait(timeout=min(deadline - now, 0.05))
+        leader.coalesce_s = time.monotonic() - t0
+        _COALESCE_WAIT.observe(leader.coalesce_s, tenant=leader.tenant,
+                               exemplar=_exemplar(leader.trace))
+        _BATCH_SIZE.observe(len(gang))
         return gang
 
 
@@ -491,6 +586,7 @@ class CheckDaemon:
                         and self.config.batch_max > 1 else None)
         if self.config.engine_max_buckets > 0:
             self.engine.set_max_warm_buckets(self.config.engine_max_buckets)
+        self._trace_path: Optional[str] = None
         #: stream sessions by id (a slot reserved by an open in progress
         #: holds None); None while streaming is off, and then
         #: jepsen_tpu_torch.stream is never imported
@@ -552,6 +648,7 @@ class CheckDaemon:
                    **extra):
             if not replayed:
                 self._bump("rejected")
+                _REJECTED.inc(reason=reason)
             hdrs = {}
             if retry is not None:
                 hdrs["Retry-After"] = str(max(1, int(round(retry))))
@@ -611,6 +708,7 @@ class CheckDaemon:
                     wait = tb.take()
                 if wait > 0.0:
                     self._bump("rate-limited")
+                    _RATE_LIMITED.inc(tenant=tenant)
                     return reject(429, "rate-limited", retry=wait,
                                   tenant=tenant)
             ok, retry, probe = self.breaker.allow(bucket)
@@ -634,18 +732,43 @@ class CheckDaemon:
                               **{"predicted-bytes": footprint,
                                  "committed-bytes": committed,
                                  "budget-bytes": budget})
+            if self.config.headroom_min > 0 and self.device is not None:
+                from jepsen_tpu_torch.obs import devices as obs_devices
+                head = obs_devices.headroom_ratio(device=self.device)
+                if head is not None and head < self.config.headroom_min:
+                    return reject(429, "headroom",
+                                  retry=self._retry_after(),
+                                  headroom=round(head, 4))
         with self._lock:
             self._seq += 1
             rid = doc.get("id") if replayed else None
             rid = rid or f"r{self._seq:06d}-{os.getpid()}"
+        # the trace id: a replayed request keeps its journaled one, else
+        # an inbound traceparent's, else a new one; none with tracing off
+        trace_id, trace_parent = None, None
+        if obs_trace.enabled():
+            tp = obs_trace.parse_traceparent(doc.get("traceparent"))
+            if replayed and doc.get("trace"):
+                trace_id = str(doc["trace"])
+                trace_parent = (str(doc["trace-parent"])
+                                if doc.get("trace-parent") else None)
+            elif tp is not None:
+                trace_id, trace_parent = tp
+            else:
+                trace_id = obs_trace.new_trace_id()
         req = CheckRequest(id=rid, tenant=tenant, model=model_name,
                            history=ops, deadline_s=deadline, bucket=bucket,
-                           footprint=footprint, dims=dims, probe=probe)
+                           footprint=footprint, dims=dims, probe=probe,
+                           trace=trace_id, trace_parent=trace_parent)
         if not replayed:
-            self.journal.append({
-                "event": "accepted", "id": req.id, "tenant": tenant,
-                "model": model_name, "deadline-s": deadline,
-                "ts": req.submitted, "history": ops})
+            rec = {"event": "accepted", "id": req.id, "tenant": tenant,
+                   "model": model_name, "deadline-s": deadline,
+                   "ts": req.submitted, "history": ops}
+            if trace_id:
+                rec["trace"] = trace_id
+                if trace_parent:
+                    rec["trace-parent"] = trace_parent
+            self.journal.append(rec)
         with self._work:
             q = self._queues.get(tenant)
             if q is None:
@@ -658,11 +781,19 @@ class CheckDaemon:
                 self._footprint_committed += footprint
             if not replayed:
                 self.stats["admitted"] += 1
+            depth = self._depth
             self._work.notify()
+        _QUEUE_DEPTH.set(depth)
+        if not replayed:
+            _ADMITTED.inc(tenant=tenant)
         body = {"id": req.id, "state": "queued", "tenant": tenant}
         if bucket is not None:
             body["bucket"] = list(bucket)
-        return 202, body, {}
+        hdrs: Dict[str, str] = {}
+        if req.trace:
+            body["trace"] = req.trace
+            hdrs["traceparent"] = obs_trace.format_traceparent(req.trace)
+        return 202, body, hdrs
 
     # -- the worker side ----------------------------------------------------
 
@@ -673,6 +804,8 @@ class CheckDaemon:
         req.state = "running"
         req.started_at = time.monotonic()
         self._inflight[req.id] = req
+        _QUEUE_DEPTH.set(self._depth)
+        _INFLIGHT.set(len(self._inflight))
         return req
 
     def _dequeue(self) -> Optional[CheckRequest]:
@@ -737,28 +870,101 @@ class CheckDaemon:
         except Exception as e:  # noqa: BLE001 -- warming is advisory
             log.warning("bucket warm failed (%s); checking cold", e)
 
+    @staticmethod
+    def _trace_phases(trace_id: Optional[str]) -> Tuple[float, float]:
+        """(compile_s, device_s) of one trace id from the tracer's ring:
+        ``engine.warm`` spans are compile time; the device spans
+        (``checker.segment``, ``checker.device.*``) split by their
+        ``phase``, except those under a warm span. The two families never
+        nest in each other, so nothing counts twice."""
+        comp = dev = 0.0
+        if not trace_id:
+            return comp, dev
+        recs = [r for r in obs_trace.tracer().spans()
+                if r.get("trace") == trace_id]
+        parent = {r.get("sid"): r.get("pid") for r in recs}
+        warm_sids = {r.get("sid") for r in recs
+                     if r.get("name") == "engine.warm"}
+
+        def under_warm(rec: dict) -> bool:
+            sid, hops = rec.get("pid"), 0
+            while sid and hops < 64:
+                if sid in warm_sids:
+                    return True
+                sid, hops = parent.get(sid), hops + 1
+            return False
+
+        for rec in recs:
+            name = str(rec.get("name", ""))
+            dur = int(rec.get("dur", 0) or 0) / 1e9
+            if name == "engine.warm":
+                comp += dur
+                continue
+            if name != "checker.segment" \
+                    and not name.startswith("checker.device."):
+                continue
+            if under_warm(rec):
+                continue
+            if rec.get("phase") == "compile":
+                comp += dur
+            elif rec.get("phase") == "execute":
+                dev += dur
+        return comp, dev
+
+    def _phase_doc(self, req: CheckRequest, queue_s: float, secs: float,
+                   extra_trace: Optional[str] = None) -> Dict[str, float]:
+        """The request's phase breakdown (``GET /check/<id>``): queue and
+        coalesce from the scheduler's clocks, compile and device from the
+        request's spans (and a gang leader's, ``extra_trace``), verdict
+        the rest of the service time."""
+        comp, dev = self._trace_phases(req.trace)
+        if extra_trace and extra_trace != req.trace:
+            c2, d2 = self._trace_phases(extra_trace)
+            comp, dev = comp + c2, dev + d2
+        return {"queue_s": round(queue_s, 6),
+                "coalesce_s": round(req.coalesce_s or 0.0, 6),
+                "compile_s": round(comp, 6),
+                "device_s": round(dev, 6),
+                "verdict_s": round(max(0.0, secs - comp - dev), 6)}
+
     def _run_one(self, req: CheckRequest) -> None:
         from jepsen_tpu_torch.resilience import WEDGE, result_failure_class
+        queue_s = time.monotonic() - req.queued_at
+        _QUEUE_WAIT.observe(queue_s, tenant=req.tenant,
+                            exemplar=_exemplar(req.trace))
         t0 = time.monotonic()
         box: Dict[str, Any] = {}
         timed_out = False
-        if req.deadline_s:
-            # the worker stops waiting at the deadline; the search itself
-            # stops at its next segment barrier and releases the engine
-            deadline = t0 + req.deadline_s
-            worker = threading.Thread(
-                target=lambda: box.update(r=self._check(req, deadline)),
-                daemon=True, name=f"jtpu-serve-check-{req.id}")
-            worker.start()
-            worker.join(req.deadline_s)
-            timed_out = worker.is_alive() or (
-                box.get("r", {}).get("error") == ":info/timeout")
-        else:
-            box["r"] = self._check(req)
+        with obs_trace.context(req.trace, req.trace_parent), \
+                obs_trace.span("serve.request", id=req.id,
+                               tenant=req.tenant, model=req.model,
+                               queue_s=round(queue_s, 6)):
+            if req.deadline_s:
+                # the worker stops waiting at the deadline; the search
+                # itself stops at its next segment barrier and releases
+                # the engine
+                deadline = t0 + req.deadline_s
+                ctx = obs_trace.current_context()
+
+                def checked():
+                    # the search's spans join the request's trace
+                    obs_trace.set_context(*ctx)
+                    box.update(r=self._check(req, deadline))
+
+                worker = threading.Thread(
+                    target=checked, daemon=True,
+                    name=f"jtpu-serve-check-{req.id}")
+                worker.start()
+                worker.join(req.deadline_s)
+                timed_out = worker.is_alive() or (
+                    box.get("r", {}).get("error") == ":info/timeout")
+            else:
+                box["r"] = self._check(req)
         if timed_out:
             result = {"valid": "unknown", "error": ":info/timeout",
                       "deadline-s": req.deadline_s, "error-class": WEDGE}
             self._bump("timeouts")
+            _TIMEOUTS.inc()
         else:
             result = box.get("r") or {"valid": "unknown",
                                       "error": "worker died"}
@@ -766,6 +972,9 @@ class CheckDaemon:
         result = dict(result)
         result["serve"] = {"id": req.id, "tenant": req.tenant,
                            "seconds": secs, "timed-out": timed_out}
+        if req.trace:
+            result["serve"]["trace"] = req.trace
+            result["serve"]["phases"] = self._phase_doc(req, queue_s, secs)
         self.breaker.record(req.bucket, result_failure_class(result),
                             req.probe)
         self._finish(req, result, secs)
@@ -781,6 +990,22 @@ class CheckDaemon:
         from jepsen_tpu_torch.resilience import (bisect_poison,
                                                  result_failure_class)
         t0 = time.monotonic()
+        leader = gang[0]
+        queue_s = []
+        for req in gang:
+            w = t0 - req.queued_at
+            queue_s.append(w)
+            _QUEUE_WAIT.observe(w, tenant=req.tenant,
+                                exemplar=_exemplar(req.trace))
+        # the gang runs under its leader's trace; each member's trace
+        # gets an event naming it
+        if leader.trace:
+            for i, req in enumerate(gang[1:], start=1):
+                if req.trace:
+                    with obs_trace.context(req.trace, req.trace_parent):
+                        obs_trace.event("serve.gang.join", id=req.id,
+                                        leader=leader.trace,
+                                        size=len(gang), index=i)
         # the membership is journaled before the search: a crash mid-gang
         # replays every member (none has a done record); replay ignores
         # this record, which has no id
@@ -818,11 +1043,14 @@ class CheckDaemon:
                 [packs[i][0] for i in span], kernel,
                 deadlines=[deadlines[i] for i in span], device=self.device)
 
-        results, poison, bisections = bisect_poison(
-            list(range(len(gang))), run_gang)
+        with obs_trace.context(leader.trace, leader.trace_parent), \
+                obs_trace.span("serve.gang", id=leader.id, size=len(gang)):
+            results, poison, bisections = bisect_poison(
+                list(range(len(gang))), run_gang)
         poison_set = set(poison)
         if bisections:
             self._bump("bisections", bisections)
+            _BATCH_BISECTIONS.inc(bisections)
         for i, r in enumerate(results):
             if i not in poison_set and (
                     not isinstance(r, dict)
@@ -843,14 +1071,20 @@ class CheckDaemon:
             if timed_out:
                 result.setdefault("deadline-s", req.deadline_s)
                 self._bump("timeouts")
+                _TIMEOUTS.inc()
             result["serve"] = {
                 "id": req.id, "tenant": req.tenant, "seconds": secs,
                 "timed-out": timed_out,
                 "gang": {"size": len(gang), "index": i,
                          "bisections": bisections,
                          "poison": i in poison_set}}
+            if req.trace:
+                result["serve"]["trace"] = req.trace
+                result["serve"]["phases"] = self._phase_doc(
+                    req, queue_s[i], secs, extra_trace=leader.trace)
             if i in poison_set:
                 self._bump("poisoned")
+                _BATCH_POISON.inc(tenant=req.tenant)
             self.breaker.record(req.bucket, result_failure_class(result),
                                 req.probe)
             self._finish(req, result, secs, batch_size=len(gang),
@@ -875,10 +1109,20 @@ class CheckDaemon:
         if gang is not None:
             done["gang"] = list(gang)
         self.journal.append(done)
+        _REQUEST_SECONDS.observe(time.monotonic() - req.queued_at,
+                                 tenant=req.tenant,
+                                 exemplar=_exemplar(req.trace))
+        _COMPLETED.inc(valid=str(result.get("valid")))
+        if req.trace and obs_trace.enabled():
+            with obs_trace.context(req.trace, req.trace_parent):
+                obs_trace.event("serve.verdict", id=req.id,
+                                valid=repr(result.get("valid")),
+                                seconds=round(secs, 6))
         with self._work:
             req.result = result
             req.state = "done"
             self._inflight.pop(req.id, None)
+            _INFLIGHT.set(len(self._inflight))
             if req.footprint:
                 self._footprint_committed = max(
                     0, self._footprint_committed - req.footprint)
@@ -908,17 +1152,31 @@ class CheckDaemon:
                         self._finish(r, {"valid": "unknown",
                                          "error": "serve worker crashed"},
                                      0.0)
+            if self.config.engine_headroom_min > 0:
+                # memory pressure evicts the stalest warm buckets
+                try:
+                    self.engine.evict_below_headroom(
+                        self.config.engine_headroom_min)
+                except Exception as e:  # noqa: BLE001 -- advisory
+                    log.warning("headroom eviction failed: %s", e)
 
     # -- lifecycle ----------------------------------------------------------
 
     def start(self) -> "CheckDaemon":
-        """Replay the journal, then start the workers."""
+        """Attach the daemon's ``trace.jsonl`` (tracing on), replay the
+        journal, then start the workers."""
+        if obs_trace.enabled():
+            self._trace_path = os.path.join(self.config.root,
+                                            obs_trace.TRACE_NAME)
+            obs_trace.tracer().attach(self._trace_path)
+            obs_trace.sync_event()
         pending, stats = RequestJournal.replay(self.journal.path)
         self.replay_stats = dict(stats, requeued=len(pending))
         for doc in pending:
             code, body, _ = self.submit(doc, replayed=True)
             if code == 202:
                 self._bump("replayed")
+                _REPLAYED.inc()
             else:
                 # journaled but no longer admissible: a terminal record,
                 # so the next restart does not try it again
@@ -983,6 +1241,10 @@ class CheckDaemon:
                     s.runner.join(timeout=2.0)
                 s.stop_wal()
         self.journal.close()
+        tr = obs_trace.tracer()
+        if self._trace_path is not None and tr.path == self._trace_path:
+            # only this daemon's sink: another's stays attached
+            tr.detach()
 
     # -- streams --------------------------------------------------------------
     # Reached only while self._streams is not None: with streaming off the
@@ -1240,6 +1502,9 @@ def make_handler(daemon: CheckDaemon):
                     doc = self._body()
                     if doc is None:
                         return None
+                    tp = self.headers.get("traceparent")
+                    if tp and not doc.get("traceparent"):
+                        doc["traceparent"] = tp
                     code, body, hdrs = daemon.submit(doc)
                     return self._json(code, body, hdrs)
                 if path == "/drain":
@@ -1270,6 +1535,14 @@ def make_handler(daemon: CheckDaemon):
             try:
                 if path == "/healthz":
                     return self._json(200, daemon.healthz())
+                if path == "/metrics":
+                    body = obs_metrics.REGISTRY.to_prometheus().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", PROMETHEUS_CTYPE)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return None
                 if path.startswith("/check/"):
                     rid = path[len("/check/"):].strip("/")
                     doc = daemon.status(rid)
@@ -1280,7 +1553,9 @@ def make_handler(daemon: CheckDaemon):
                     # caller that retries on 5xx treats it as such
                     serve = (doc.get("result") or {}).get("serve") or {}
                     poison = (serve.get("gang") or {}).get("poison")
-                    return self._json(500 if poison else 200, doc)
+                    hdrs = ({"traceparent": obs_trace.format_traceparent(
+                        doc["trace"])} if doc.get("trace") else None)
+                    return self._json(500 if poison else 200, doc, hdrs)
                 if path.startswith("/stream/") and \
                         daemon._streams is not None:
                     sid = path[len("/stream/"):].strip("/")

@@ -61,9 +61,10 @@ import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
-from jepsen_tpu_torch import accel, interop
+from jepsen_tpu_torch import accel, interop, obs
 from jepsen_tpu_torch import journal as journal_ns
 from jepsen_tpu_torch import resilience as R
 from jepsen_tpu_torch.checker import UNKNOWN
@@ -72,6 +73,8 @@ from jepsen_tpu_torch.checker.engine import default_engine
 from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models.core import kernel_spec_for
+from jepsen_tpu_torch.obs import metrics as obs_metrics
+from jepsen_tpu_torch.obs import searchstats as obs_searchstats
 from jepsen_tpu_torch.ops.encode import StreamPacker, _Interner
 
 log = logging.getLogger("jepsen_tpu_torch.stream")
@@ -80,6 +83,28 @@ WAL_NAME = "wal.jsonl"
 CHECKPOINT_NAME = "checkpoint.npz"
 HISTORY_NAME = "history.json"
 RESULT_NAME = "result.json"
+
+# the reference's stream counters (jepsen_tpu/stream.py:76-96)
+_CHUNKS = obs_metrics.counter(
+    "jtpu_stream_chunks_total", "Stream chunks accepted")
+_DUPS = obs_metrics.counter(
+    "jtpu_stream_dup_chunks_total", "Duplicate stream chunks absorbed")
+_REORDERED = obs_metrics.counter(
+    "jtpu_stream_reordered_chunks_total",
+    "Out-of-order stream chunks buffered")
+_GAPS = obs_metrics.counter(
+    "jtpu_stream_gap_rejects_total", "Stream appends rejected on a gap")
+_OPS = obs_metrics.counter(
+    "jtpu_stream_ops_total", "Stream ops accepted")
+_RESUMES = obs_metrics.counter(
+    "jtpu_stream_resumes_total",
+    "Stream sessions resumed from a partial-verdict checkpoint")
+_FAILFAST = obs_metrics.counter(
+    "jtpu_stream_failfast_total",
+    "Streams short-circuited by an invalid prefix")
+_LAG = obs_metrics.gauge(
+    "jtpu_stream_lag_ops",
+    "Buffered ops not yet covered by a checked stable prefix")
 
 
 def chunk_crc(ops: list) -> str:
@@ -170,6 +195,7 @@ class StreamSession:
                     # a late duplicate: still 202, so the client's retries
                     # converge after the close
                     self.dups += 1
+                    _DUPS.inc()
                     return 202, {"id": self.id, "seq": seq,
                                  "duplicate": True, "state": self.state,
                                  "need": self.next_seq}
@@ -182,10 +208,12 @@ class StreamSession:
                              "state": self.state}
             if seq < self.next_seq or seq in self.reorder:
                 self.dups += 1
+                _DUPS.inc()
                 return 202, {"id": self.id, "seq": seq, "duplicate": True,
                              "need": self.next_seq}
             if seq > self.next_seq:
                 if seq - self.next_seq > self.reorder_max:
+                    _GAPS.inc()
                     return 409, {"error": "gap", "id": self.id,
                                  "seq": seq, "need": self.next_seq,
                                  "reorder-max": self.reorder_max}
@@ -193,12 +221,15 @@ class StreamSession:
                 self._journal({"event": "chunk", "seq": seq, "ops": ops})
                 self.reorder[seq] = ops
                 self.reordered += 1
+                _REORDERED.inc()
+                _CHUNKS.inc()
                 return 202, {"id": self.id, "seq": seq, "buffered": True,
                              "need": self.next_seq}
             self._journal({"event": "chunk", "seq": seq, "ops": ops})
             self._admit(seq, ops)
             while self.next_seq in self.reorder:
                 self._admit(self.next_seq, self.reorder.pop(self.next_seq))
+            _CHUNKS.inc()
             self.cond.notify_all()
             return 202, {"id": self.id, "seq": seq, "ops": len(self.ops),
                          "need": self.next_seq}
@@ -206,6 +237,7 @@ class StreamSession:
     def _admit(self, seq: int, ops: list) -> None:
         self.ops.extend(ops)
         self.next_seq = seq + 1
+        _OPS.inc(len(ops))
 
     def close(self, chunks: Optional[Any] = None
               ) -> Tuple[int, Dict[str, Any]]:
@@ -218,6 +250,7 @@ class StreamSession:
                              "ops": len(self.ops)}
             if self.reorder or (chunks is not None
                                 and int(chunks) != self.next_seq):
+                _GAPS.inc()
                 return 409, {"error": "gap", "id": self.id,
                              "need": self.next_seq,
                              "buffered": sorted(self.reorder)}
@@ -448,6 +481,8 @@ class StreamRunner(threading.Thread):
         self._failed_fast = False
         self._captures = 0
         self._close_level: Optional[int] = None
+        # the stats lane rides with tracing, as in the offline search
+        self._stats = obs.enabled()
 
     def stop(self) -> None:
         self._halt.set()
@@ -536,6 +571,7 @@ class StreamRunner(threading.Thread):
             # history would give one for the prefix)
             if not self._final:
                 self._failed_fast = True
+                _FAILFAST.inc()
             raise _Verdict(self._result(False, False, False, best, levels,
                                         pool))
 
@@ -596,7 +632,8 @@ class StreamRunner(threading.Thread):
             # find done again a level later than the offline search
             if nr > self._checked_nr:
                 self._carry = G._reopen_carry(self._carry, nr)
-            self._carry = R._grow_carry_stats(self._carry, lmax)
+            if self._stats:
+                self._carry = R._grow_carry_stats(self._carry, lmax)
         else:
             self._carry = None
             self._ladder = G._ladder_for(wneed, self._dev)
@@ -624,14 +661,16 @@ class StreamRunner(threading.Thread):
             self._cap_eff = cp.capacity_eff
             self._exp_eff = cp.expand_eff
             self._seg_idx = cp.segment
-            carry = R._grow_carry_stats(
-                R._fit_carry_stats(carry, True, self._lmax), self._lmax)
+            carry = R._fit_carry_stats(carry, self._stats, self._lmax)
+            if self._stats:
+                carry = R._grow_carry_stats(carry, self._lmax)
             if self._checked_nr > cp.n_required:
                 # the WAL replay rebuilt a longer stable prefix than the
                 # checkpoint saw: the same reopen rule as _rebuild's
                 carry = G._reopen_carry(carry, self._checked_nr)
             self._carry = carry
             self._resume_level = int(self._carry[8])
+            _RESUMES.inc()
             log.info("stream %s: resumed from its checkpoint at level %s "
                      "(watermark %s, %s required ops)", self.session.id,
                      self._resume_level, cp.watermark, cp.n_required)
@@ -646,7 +685,8 @@ class StreamRunner(threading.Thread):
         self._seg_idx = 0
         self._carry = G._carry0_host(
             cap, win, self._cols["cf"].shape[0], self._cols["ini"],
-            int(self._cols["nr"]), stats_rows=self._lmax + 1)
+            int(self._cols["nr"]),
+            stats_rows=(self._lmax + 1) if self._stats else 0)
 
     def _escalate(self, lossy: bool, wovf: bool, best: int,
                   levels: int) -> None:
@@ -699,18 +739,28 @@ class StreamRunner(threading.Thread):
                                  CR=self._cols["cf"].shape[0],
                                  model=self.kernel.name)
             stacked = interop.stack_cols([self._cols])
-            with eng.lock:
+            shape_key = ("segment", self.kernel.name, cap_eff, win,
+                         exp_eff, shape.n, shape.CR, self._stats)
+            phase = G.call_phase(shape_key)
+            with eng.lock, obs.span(
+                    "stream.segment", phase=phase, segment=self._seg_idx,
+                    level=lvl0, rung=[cap_eff, win, exp_eff],
+                    watermark=self._checked_wm) as sp:
                 captures = K.segments["captures"]
+                t0 = time.perf_counter()
                 cols = eng.batch_cols(stacked, dev, copy=False)
-                carry, scratch = eng.state(shape, dev)
+                carry, scratch = eng.state(shape, dev, self._stats)
                 if self._watchdog is None:
                     self._watchdog = R.SegmentWatchdog(dev, self._deadline_s)
                 try:
-                    _, _, host = self._watchdog.call(functools.partial(
+                    seg_end = self._watchdog.call(functools.partial(
                         R._device_segment, cols=cols, cols_np=stacked,
                         carry=carry, scratch=scratch, host=self._carry,
                         shape=shape, seg_len=self._seg, ops=self.ops,
                         keep=True))
+                    seg_s = time.perf_counter() - t0
+                    host = seg_end.host
+                    sp.set(level_end=int(host[8]))
                 except R.WedgeError as e:
                     accel.note_runtime_wedge(
                         "stream", self._deadline_s or 0.0, device=dev,
@@ -755,8 +805,17 @@ class StreamRunner(threading.Thread):
         self._carry = host
         self._seg_idx += 1
         self._transients = 0
-        self.session.note_progress(self._checked_wm, int(host[8]),
+        G.mark_executed(shape_key)
+        G.note_call_phase("segment", phase, seg_s)
+        lvl1 = int(host[8])
+        G._LEVELS_TOTAL.inc(lvl1 - lvl0)
+        G._SEGMENTS_TOTAL.inc()
+        if self._stats and len(host) > 13:
+            obs_searchstats.record(np.asarray(host[13])[:lvl1],
+                                   rung=(cap_eff, win, exp_eff))
+        self.session.note_progress(self._checked_wm, lvl1,
                                    footprint=self._footprint())
+        _LAG.set(self.session.lag())
         R.Checkpoint(carry=host, rung=self._rung, window=win,
                      expand_eff=self._exp_eff, crash_width=self._crw,
                      segment=self._seg_idx, watermark=self._checked_wm,

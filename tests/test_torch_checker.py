@@ -7,6 +7,7 @@ its CPU backend."""
 import random
 
 import pytest
+import torch
 
 from jepsen_tpu.checker.tpu import check_history_tpu
 from jepsen_tpu.models import CASRegister as JCASRegister
@@ -21,6 +22,9 @@ from jepsen_tpu_torch.checker.wgl import (LinearizableChecker, check_packed,
 from jepsen_tpu_torch.history import History, Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 KEYS = ("valid", "levels", "max-linearized-prefix", "rung", "work")
 

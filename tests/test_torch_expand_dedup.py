@@ -32,6 +32,9 @@ from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
 from jepsen_tpu_torch.testing import simulate_register_history
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 HISTORIES = {
     "headline-2000": lambda: simulate_register_history(
         2000, n_procs=5, n_vals=16, seed=42, crash_p=0.002),

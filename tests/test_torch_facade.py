@@ -22,6 +22,7 @@ kernel packs every op, so its host route is the native engine (``engine:
 import random
 
 import pytest
+import torch
 
 from jepsen_tpu import independent as j_independent
 from jepsen_tpu.checker import native as jn
@@ -39,6 +40,9 @@ from jepsen_tpu_torch.models import core as P
 
 from test_checker_tpu import random_set_history
 from test_linearizable import H, random_register_history
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.skipif(
     not (pn.available() and jn.available()),

@@ -41,6 +41,9 @@ from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 #: the fields a gang member's result must share with the reference's and
 #: with its serial search
 FIELDS = ("valid", "levels", "max-linearized-prefix", "final-states",
@@ -332,7 +335,10 @@ def test_the_serial_deadline_stops_at_a_barrier_and_frees_the_engine():
     # a search that ends within its deadline is not cut
     full = G.check_packed_gpu(p[0], kernel, device="cpu",
                               deadline=time.monotonic() + 600)
-    assert full == G.check_packed_gpu(p[0], kernel, device="cpu")
+    plain = G.check_packed_gpu(p[0], kernel, device="cpu")
+    # the host-timed seconds differ from run to run; their keys do not
+    assert full.pop("device-s").keys() == plain.pop("device-s").keys()
+    assert full == plain
     # through the facade: the timeout is returned, with no host search
     from jepsen_tpu_torch.checker.wgl import linearizable
     r = linearizable(CASRegister(), device="cpu").check(
@@ -366,7 +372,7 @@ def test_warm_allocates_the_buckets_buffers_and_eviction_frees_them():
     assert (w["shapes"], w["already-warm"]) == (4, False)
     assert eng.warm(ps[0], kernel, device="cpu")["already-warm"] is True
     assert len(eng._states) == 4 and w["bytes"] == sum(
-        G.state_bytes(s) for s, _ in eng._states)
+        G.state_bytes(s) for s, *_ in eng._states)
     eng.warm(ps[1], kernel, rungs=1, device="cpu")
     assert eng.warm_buckets() == buckets[:2]
     eng.warm(ps[0], kernel, device="cpu")          # touch: now newest
@@ -374,11 +380,11 @@ def test_warm_allocates_the_buckets_buffers_and_eviction_frees_them():
     assert eng.warm_buckets() == [buckets[0], buckets[2]]
     assert eng.evictions == 1
     # every buffer of the evicted bucket went; the others stayed
-    assert {(s.n, s.CR) for s, _ in eng._states} == {
+    assert {(s.n, s.CR) for s, *_ in eng._states} == {
         (b[1], b[2]) for b in (buckets[0], buckets[2])}
     eng.set_max_warm_buckets(1)
     assert eng.warm_buckets() == [buckets[2]] and eng.evictions == 2
-    assert {(s.n, s.CR) for s, _ in eng._states} == {
+    assert {(s.n, s.CR) for s, *_ in eng._states} == {
         (buckets[2][1], buckets[2][2])}
 
 

@@ -13,6 +13,7 @@ import os
 import random
 
 import pytest
+import torch
 
 from jepsen_tpu import independent as jind
 from jepsen_tpu import testing as jt
@@ -26,6 +27,9 @@ from jepsen_tpu_torch.checker.wgl import linearizable
 from jepsen_tpu_torch.history import History, Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.util import real_pmap
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 
 def _key_histories():

@@ -17,6 +17,9 @@ from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.testing import simulate_register_history
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "jepsen_tpu")
 

@@ -16,6 +16,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from jepsen_tpu.checker.jitlin import check_jit_model as j_jit_model
 from jepsen_tpu.checker.jitlin import check_jit_packed as j_jit_packed
@@ -36,6 +37,9 @@ from jepsen_tpu_torch.models import core as P
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
 from test_linearizable import H, random_register_history
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 
 def _port(jh) -> History:

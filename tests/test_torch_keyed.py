@@ -35,6 +35,9 @@ from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models import CASRegister
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 KEYS = ("valid", "levels", "max-linearized-prefix", "rung", "crash-width",
         "tiebreak", "work")
 LANES = ("k", "mask", "cmask", "state", "alive", "done", "lossy", "wovf",

@@ -49,6 +49,9 @@ from jepsen_tpu_torch.ops.encode import pack_with_init
 from test_torch_keyed import run_batch_both
 from test_torch_search import run_both
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 KEYS = ("valid", "levels", "max-linearized-prefix", "rung", "work")
 
 #: port model -> JAX model, by family

@@ -25,6 +25,9 @@ from jepsen_tpu_torch.models import (CAS_REGISTER_KERNEL, CASRegister,
                                      cas_register_step_torch)
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 
 def _grid():
     vals = np.arange(-1, 5, dtype=np.int32)

@@ -29,6 +29,7 @@ import unittest.mock as mock
 
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu.checker import UNKNOWN as J_UNKNOWN
 from jepsen_tpu.checker import native as jn
@@ -51,6 +52,9 @@ from jepsen_tpu_torch.ops.encode import pack_with_init
 from test_checker_tpu import (random_fifo_history, random_queue_history,
                               random_set_history)
 from test_linearizable import random_register_history
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

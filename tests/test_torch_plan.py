@@ -58,8 +58,12 @@ from jepsen_tpu_torch.checker import engine as engine_mod
 from jepsen_tpu_torch.checker import gpu as G
 from jepsen_tpu_torch.checker import plan
 from jepsen_tpu_torch.history import History
+from jepsen_tpu_torch.kernels import cost as kcost
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = os.path.join(REPO, "tests", "fixtures", "plan")
@@ -213,8 +217,9 @@ def test_the_footprint_is_the_engines_allocation(rung):
         fp["cols-bytes"] + fp["carry-bytes"] + fp["scratch-bytes"])
     assert fp["total-bytes"] <= fp["allocated-bytes"] < fp["total-bytes"] \
         + 512 * 32
-    assert plan.trace_candidate(cand, k) == {"ok": True, "error": None,
-                                             "cost": None}
+    assert plan.trace_candidate(cand, k) == {
+        "ok": True, "error": None,
+        "cost": kcost.per_level(cand.shape(k.name))}
 
 
 def test_seed_rung_and_a_seeded_search(monkeypatch):
@@ -270,6 +275,8 @@ def test_the_kill_switch_gives_the_same_results(monkeypatch):
     off = R.supervised_check_packed(p, k, device="cpu", segment_iters=SEG)
     assert "plan" in on and "plan" not in off
     on.pop("plan")
+    # the host-timed seconds differ from run to run; their keys do not
+    assert on.pop("device-s").keys() == off.pop("device-s").keys()
     assert on == off
 
 
@@ -372,9 +379,14 @@ def test_the_plan_command_equals_the_references(name, capsys):
         return
     assert rc == ref_rc
     assert _json_rules(out) == _json_rules(ref_out)
-    rc_text, text = _run_ours(spec + ["--device", "cpu"])
+    rc_text, text = _run_ours(spec + ["--device", "cpu", "--no-trace"])
     ref_rc_text, ref_text = _run_ref(spec + ["--no-trace"])
     assert rc_text == ref_rc_text == rc
+    # traced, the port's rows add one level's work from the cost model
+    rc_traced, traced = _run_ours(spec + ["--device", "cpu"])
+    assert rc_traced == rc
+    assert all(" MOP/level " in ln for ln in traced.splitlines()
+               if ln.startswith("# plan: ok "))
     # the text lines, but the footprints and the level budget's value
     # (the port's is of the padded widths)
 

@@ -38,6 +38,9 @@ from jepsen_tpu_torch.kernels import search as K
 from test_torch_keyed import assert_batch_equal
 from test_torch_segloop import _port_segment, _port_state, _vmapped
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 SIZES = (1, 31, 32, 33, 512, 768, 1025, 4096)
 THREADS = (32, 512, 1024)
 

@@ -26,6 +26,9 @@ from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 FIXTURES = {
     # the 48-op history of __graft_entry__.entry()
     "entry": lambda: simulate_register_history(48, n_procs=4, seed=3,

@@ -37,6 +37,9 @@ from jepsen_tpu_torch.kernels import search as K
 from test_torch_keyed import assert_batch_equal
 from test_torch_search import assert_carry_equal
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 #: segment lengths asked for (1 and 7 run as 2 and 8)
 LENGTHS = (1, 2, 7, 64)
 #: segments compared per case

@@ -24,6 +24,8 @@ import time
 import urllib.error
 import urllib.request
 
+import torch
+
 from jepsen_tpu.checker import check_safe as j_check_safe
 from jepsen_tpu.checker.wgl import linearizable as j_linearizable
 from jepsen_tpu.history import History as JHistory
@@ -40,6 +42,9 @@ from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
 from test_torch_gang import bad_read, conc_ops
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VERDICT = ("valid", "levels", "max-linearized-prefix", "final-states",
@@ -418,7 +423,12 @@ def test_an_http_round_trip(tmp_path):
         assert code == 200 and health["stats"]["completed"] == 1
         assert health["device"] == "cpu"
         assert http(port, "GET", "/check/nope")[0] == 404
-        assert http(port, "GET", "/metrics")[0] == 404
+        # the registry in Prometheus text
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            assert resp.status == 200
+            assert (b"# TYPE jtpu_serve_admitted_total counter"
+                    in resp.read())
         code, drained, _ = http(port, "POST", "/drain")
         assert code == 200 and drained["drained"] is True
         assert d.drained.is_set()

@@ -25,6 +25,9 @@ from jepsen_tpu_torch.ops.encode import pack_with_init
 from jepsen_tpu_torch.testing import (crash_writes, simulate_register_history,
                                       wide_history)
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 #: two histories per shape (one keyed batch of B = 2): register histories
 #: with crashed writes for the narrow rungs, window-40 histories for the
 #: wide rung, and a crash-heavy pair for four crashed-mask words

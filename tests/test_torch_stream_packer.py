@@ -17,6 +17,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from jepsen_tpu import models as jmodels
 from jepsen_tpu.checker import tpu as T
@@ -34,6 +35,9 @@ from jepsen_tpu_torch.ops import encode as pencode
 from jepsen_tpu_torch.stream import chunk_crc
 
 from test_stream import _conc_ops
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 COLS = ("f", "v1", "v2", "inv", "ret", "process")
 

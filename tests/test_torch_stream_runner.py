@@ -28,6 +28,7 @@ import os
 import time
 
 import pytest
+import torch
 
 from jepsen_tpu import stream as JS
 from jepsen_tpu.models import CASRegister as JCASRegister
@@ -41,6 +42,9 @@ from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.models import CASRegister, SetModel
 
 from test_stream import _chunks, _conc_ops, _offline
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 VERDICT = ("valid", "levels", "max-linearized-prefix", "final-states",
            "frontier-op")

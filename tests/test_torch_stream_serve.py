@@ -27,6 +27,7 @@ import urllib.error
 import urllib.request
 
 import pytest
+import torch
 
 from jepsen_tpu import stream as JS
 
@@ -39,6 +40,9 @@ from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.models import CASRegister
 
 from test_stream import _chunks, _conc_ops
+
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VERDICT = ("valid", "max-linearized-prefix", "final-states", "frontier-op")

@@ -45,6 +45,9 @@ from jepsen_tpu_torch.history import History
 from jepsen_tpu_torch.models import core as P
 from jepsen_tpu_torch.ops.encode import pack_with_init
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 SEG = 64
 FIELDS = ("valid", "levels", "max-linearized-prefix", "final-states",
           "rung", "work")

@@ -57,6 +57,9 @@ from jepsen_tpu_torch.ops.encode import pack_with_init
 from test_stream import _chunks, _conc_ops
 from test_torch_stream_runner import VERDICT, feed, offline, run, session
 
+# one intra-op thread: the tier-1 run puts six workers on eight cores
+torch.set_num_threads(1)
+
 SEG = 64
 
 
