@@ -49,10 +49,16 @@ kernels against the same stream on their plain versions; and the plan
 gate: the headline's ``plan`` entry, each footprint against what a fresh
 engine allocates (``torch.cuda.memory_allocated``), a pool seeded under a
 pinned byte budget and an oversized rung rejected before any allocation;
-and, last, the segment watchdog: an injected wedge continued on the CPU, a
-real GPU-side stall ended by a 0.5 s deadline, a second check answered at
-once while the card still spins, and the warm headline with a deadline
-beside it without one. Every phase is a hard assertion.
+and the test runner: ``core.run`` of the 10,000-op atom test (first and
+second), its store, its verdict against the native engine's, 2,000-op and
+local-kv histories on the kernels against the plain route, the local-kv
+suite's three kvnode daemons under hammer-time, the unsafe suite refuted,
+``analyze`` in its own process, and ``recover`` of a run SIGKILLed
+mid-workload, each check on the card; and, last, the segment watchdog: an
+injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
+deadline, a second check answered at once while the card still spins, and
+the warm headline with a deadline beside it without one. Every phase is a
+hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -67,6 +73,7 @@ import gc
 import json
 import os
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -1999,6 +2006,271 @@ def telemetry_phase(dev, seconds, checker, head, r, head_cols, dwide):
     return line
 
 
+#: the runner's atom test: the headline's width through ``core.run``
+#: (10,000 ops of ``gen.cas_gen()`` at concurrency 5, about 20,000 events)
+RUNNER_OPS = 10000
+#: the atom run whose history is checked on the kernels and on the plain
+#: route (``device="cpu"``), valid and with one read corrupted
+RUNNER_PLAIN_OPS = 2000
+#: the safe local-kv run: three kvnode daemons, hammer-time every 3 s
+LOCALKV_RUN = {"time-limit": 10, "nemesis-period": 3}
+#: the recover child's clients hang after this many invocations; it is
+#: SIGKILLed there, mid-workload
+RECOVER_HANG_AT = 4000
+#: the child ``recover`` rebuilds: a 10,000-op atom run whose clients
+#: stop mid-workload (argv: repo root, store root, hang point)
+RECOVER_CHILD = """
+import sys, threading, time
+sys.path.insert(0, sys.argv[1])
+from jepsen_tpu_torch import core, generator as gen
+from jepsen_tpu_torch.checker import linearizable
+from jepsen_tpu_torch.models import CASRegister
+from jepsen_tpu_torch.testing import AtomClient, SharedRegister, atom_test
+
+class HangingClient(AtomClient):
+    count, lock = [0], threading.Lock()
+    def open(self, test, node):
+        return HangingClient(self.register)
+    def invoke(self, test, op):
+        with self.lock:
+            self.count[0] += 1
+            n = self.count[0]
+        if n == int(sys.argv[3]):
+            print("mid-workload", flush=True)
+        if n >= int(sys.argv[3]):
+            time.sleep(3600)
+        return super().invoke(test, op)
+
+reg = SharedRegister()
+core.run(atom_test(reg, client=HangingClient(reg),
+                   checker=linearizable(CASRegister()),
+                   generator=gen.clients(gen.limit(10000, gen.cas_gen())),
+                   **{"store-root": sys.argv[2]}))
+"""
+
+
+def run_split(test) -> dict:
+    """A stored run's wall clock split into workload, store save and check
+    seconds, read from its ``trace.jsonl`` spans."""
+    from jepsen_tpu_torch import obs
+    recs, _ = obs.read_trace(os.path.join(test["store-dir"], "trace.jsonl"))
+    dur = {r["name"]: r["dur"] / 1e9 for r in recs}
+    return {"wall_s": dur["core.run"], "workload_s": dur["core.run_case"],
+            "save_s": dur["store.save"], "check_s": dur["checker.check"]}
+
+
+def port_cmd(*args, timeout=600):
+    """``python -m jepsen_tpu_torch ARGS`` from the repository root:
+    (rc, stdout, stderr)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    p = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch", *args],
+                       cwd=root, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    return p.returncode, p.stdout, p.stderr
+
+
+def runner_phase(dev, seconds, smi):
+    """The test runner on the card: the 10,000-op atom test through
+    ``core.run``, first and second in this process, its stored artifacts,
+    its verdict against the native engine's; a 2,000-op atom run checked
+    on the kernels and on the plain route, as is a copy with one read
+    corrupted, and the safe local-kv run's history on the plain route on
+    the card; the safe local-kv suite under hammer-time and the unsafe one
+    refuted; ``analyze`` of the atom run and of a corrupted copy; a
+    10,000-op atom run SIGKILLed mid-workload and ``recover``ed. Every
+    check on the card: ``backend`` gpu, no ``fallback-from``, no
+    ``error``. Returns the phase's JSON entry and the launches, CUDA
+    launches and segment counts of the in-process runs."""
+    import select
+    import shutil
+    import signal
+    import tempfile
+    from jepsen_tpu_torch import core, resilience, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    from jepsen_tpu_torch.suites.localkv import (localkv_test,
+                                                 localkv_unsafe_test)
+    from jepsen_tpu_torch.testing import atom_test, corrupt_one_read
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-runner-")
+
+    def on_card(res, tag):
+        assert res.get("backend") == "gpu", (tag, res)
+        assert "fallback-from" not in res and "error" not in res, (tag, res)
+
+    def atom(n_ops, name):
+        return core.run(atom_test(
+            checker=linearizable(CASRegister(), device=dev),
+            generator=gen.clients(gen.limit(n_ops, gen.cas_gen())),
+            concurrency=5, name=name, **{"store-root": root}))
+
+    def report(tag, test, res):
+        split = run_split(test)
+        entry = dict(split, ops=len(test["history"]), valid=res["valid"],
+                     levels=res.get("levels"),
+                     device_s=res.get("device-s"))
+        print(f"runner: {tag}: {entry} [{smi}]", flush=True)
+        line[tag] = entry
+        return entry
+
+    try:
+        with phase("runner", seconds):
+            K.reset_launches()
+            # -- the atom test at the headline's width, first and second
+            for tag in ("atom first", "atom second"):
+                t = atom(RUNNER_OPS, "atom-cas")
+                res = t["results"]
+                assert res["valid"] is True, res
+                on_card(res, tag)
+                report(tag, t, res)
+                d = t["store-dir"]
+                for f in ("history.jsonl", "results.json", "run.state",
+                          "history.wal", "trace.jsonl", "metrics.json",
+                          "searchstats.json"):
+                    assert os.path.exists(os.path.join(d, f)), (d, f)
+                assert store.read_state(d)["state"] == "done"
+                assert 2 * RUNNER_OPS - 10 <= len(t["history"]) \
+                    <= 2 * RUNNER_OPS, len(t["history"])
+            atom_dir, atom_h = d, t["history"]
+            # -- 2,000 ops on the kernels ------------------------------
+            t2 = atom(RUNNER_PLAIN_OPS, "atom-cas-2k")
+            r2 = t2["results"]
+            assert r2["valid"] is True, r2
+            on_card(r2, "atom 2k")
+            report("atom 2k", t2, r2)
+            # -- local-kv: three kvnode daemons under hammer-time --------
+            kv = core.run(localkv_test(dict(LOCALKV_RUN,
+                                            **{"store-root": root})))
+            lin = kv["results"]["linear"]
+            assert kv["results"]["valid"] is True and lin["valid"] is True, \
+                kv["results"]
+            on_card(lin, "local-kv")
+            report("local-kv", kv, lin)
+            paused = [o for o in kv["history"] if o.process == "nemesis"
+                      and "paused" in str(o.value)]
+            assert paused, "hammer-time paused no node"
+            pids = set()
+            for node in kv["nodes"]:
+                with open(os.path.join(kv["store-dir"], node,
+                                       "kv.log")) as fh:
+                    body = fh.read()
+                got = {int(m) for m in re.findall(r"kvnode\[(\d+)\]", body)}
+                assert got and "listening on" in body, (node, body[-300:])
+                pids |= got
+            assert len(pids) >= len(kv["nodes"]) and os.getpid() not in pids
+            line["local-kv"]["pids"] = sorted(pids)
+            line["local-kv"]["paused"] = len(paused)
+            # -- local-kv-unsafe: a stale read refuted on the card ------
+            un = core.run(localkv_unsafe_test({"store-root": root}))
+            ulin = un["results"]["linear"]
+            assert un["results"]["valid"] is False and ulin["valid"] is False
+            on_card(ulin, "local-kv-unsafe")
+            assert os.path.exists(os.path.join(un["store-dir"], "linear.svg"))
+            report("local-kv-unsafe", un, ulin)
+            launches = dict(K.launches)
+            grid = dict(K.grid_launches_total)
+            segs = dict(K.segments)
+            assert all(launches[k] > 0 for k in (
+                "expand", "sort_rows", "dedup_truncate")), launches
+            assert segs["pair_ends"] > 0 and grid["seg_active"] == 0, segs
+            print(f"runner launches: {launches} cuda_launches={grid} "
+                  f"graphs={segs}", flush=True)
+            # -- the native engine on the atom run's history -------------
+            t0 = time.perf_counter()
+            nat = linearizable(CASRegister(), backend="cpu").check(
+                {}, atom_h)
+            line["atom second"]["native_s"] = time.perf_counter() - t0
+            assert nat["valid"] is True and nat.get("engine") == "native", \
+                nat
+            print(f"runner: native engine on the atom history: "
+                  f"{line['atom second']['native_s']:.4f} s [{smi}]")
+            # -- the kernels against the plain route on one history -----
+            plain = linearizable(CASRegister(), device="cpu")
+            kern = linearizable(CASRegister(), device=dev)
+            h2 = t2["history"]
+            for i in range(100):
+                bad = corrupt_one_read(h2, random.Random(i))
+                if any(a.value != b.value for a, b in zip(bad, h2)):
+                    break
+            for tag, h in (("valid", h2), ("corrupted", bad)):
+                rk, rp = kern.check({}, h), plain.check({}, h)
+                keys = ("valid", "levels", "best-k", "max-linearized-prefix")
+                assert [rk.get(k) for k in keys] == [rp.get(k) for k in keys], \
+                    (tag, rk, rp)
+                print(f"runner: {tag}: kernels = plain route: "
+                      f"{[rk.get(k) for k in keys]}", flush=True)
+                line.setdefault("plain_route", {})[tag] = [
+                    rk.get(k) for k in keys]
+            assert line["plain_route"]["corrupted"][0] is False
+            # the local-kv history (crashed ops, hundreds of levels) on the
+            # plain route on the card: the CPU's ladder starts on another
+            # rung, so the card's is held to the same one
+            kvp, kvk = pack_with_init(kv["history"], CASRegister())
+            rp = resilience.supervised_check_packed(kvp, kvk, device=dev,
+                                                    ops=G.PLAIN)
+            keys = ("valid", "levels", "best-k", "rung")
+            assert [lin[k] for k in keys] == [rp[k] for k in keys], (lin, rp)
+            line["plain_route"]["local-kv"] = [lin[k] for k in keys]
+            print(f"runner: local-kv: kernels = plain route on the card: "
+                  f"{line['plain_route']['local-kv']}", flush=True)
+            # -- analyze, in its own process -----------------------------
+            rc, out, err = port_cmd("analyze", "--store", atom_dir)
+            assert rc == 0, (rc, out[-2000:], err[-2000:])
+            assert "# compile:" in out and "# search:" in out, out[:2000]
+            line["analyze"] = [ln for ln in out.splitlines()
+                               if ln.startswith("# ")]
+            print("runner: analyze:\n  " + "\n  ".join(line["analyze"]))
+            bad_dir = os.path.join(root, "corrupted-copy")
+            shutil.copytree(atom_dir, bad_dir)
+            for i in range(100):
+                bad = corrupt_one_read(atom_h, random.Random(i))
+                if any(a.value != b.value for a, b in zip(bad, atom_h)):
+                    break
+            store.write_history(bad_dir, bad)
+            rc, out, err = port_cmd("analyze", "--store", bad_dir)
+            assert rc == 1, (rc, out[-2000:], err[-2000:])
+            # -- recover a run SIGKILLed mid-workload --------------------
+            rroot = os.path.join(root, "recover")
+            repo = os.path.dirname(os.path.abspath(__file__))
+            child = subprocess.Popen(
+                [sys.executable, "-c", RECOVER_CHILD, repo, rroot,
+                 str(RECOVER_HANG_AT)], stdout=subprocess.PIPE, text=True)
+            try:
+                ready, _, _ = select.select([child.stdout], [], [], 300)
+                assert ready and child.stdout.readline().strip() == \
+                    "mid-workload", "the recover child never reached its " \
+                    "hang point"
+                time.sleep(0.5)
+            finally:
+                child.send_signal(signal.SIGKILL)
+                child.wait(timeout=60)
+            (dead,) = store.dead_runs(rroot)
+            rc, out, err = port_cmd("recover", "--store-root", rroot)
+            assert rc == 0, (rc, out[-2000:], err[-2000:])
+            st = store.read_state(dead)
+            assert st["state"] == "done" and st["recovered"] is True, st
+            rec = store.load(dead)
+            on_card(rec["results"], "recover")
+            assert rec["results"]["valid"] is True, rec["results"]
+            dangling = st["recovery"]["reconciled"]
+            assert 1 <= dangling <= 5, st
+            assert sum(1 for o in rec["history"] if o.type == "info"
+                       and "wal-recovery" in str(o.error)) == dangling
+            line["recover"] = dict(st["recovery"],
+                                   levels=rec["results"].get("levels"))
+            print(f"runner: recover: {line['recover']}; "
+                  + " ".join(ln for ln in out.splitlines()
+                             if ln.startswith("# recovery")), flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -2520,6 +2792,10 @@ def smoke(dev: torch.device) -> None:
     telemetry_line = telemetry_phase(dev, seconds, checker, head, r,
                                      head_cols, dwide_lv)
 
+    # -- the test runner: core.run, the suites, analyze and recover -------
+    (runner_line, run_launches, run_grid_launches,
+     path_segments["run"]) = runner_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -2532,10 +2808,10 @@ def smoke(dev: torch.device) -> None:
             "library_ms", "cuda_launches_per_call")
     path_launches = {"headline": launches, "keyed": keyed_launches,
                      "models": model_launches, "serve": serve_launches,
-                     "stream": stream_launches}
+                     "stream": stream_launches, "run": run_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
-                 "stream": stream_grid_launches}
+                 "stream": stream_grid_launches, "run": run_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -2616,7 +2892,7 @@ def smoke(dev: torch.device) -> None:
         "models": model_lines, "gang_vs_serial": gang_line,
         "serve": serve_line, "host_engines": host_line,
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
-        "telemetry": telemetry_line,
+        "telemetry": telemetry_line, "runner": runner_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

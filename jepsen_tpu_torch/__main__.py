@@ -25,6 +25,31 @@ CUDA unless ``--device cpu``. Exit 0 when no error-severity finding, 1
 when one, 254 for bad arguments. ``--mesh`` (the sharded plan) and
 ``--format sarif`` are refused: the port has neither the multi-GPU search
 nor a SARIF renderer yet.
+
+``python -m jepsen_tpu_torch run --suite local-kv`` runs a test (the
+reference's ``jtpu run``): ``core.run`` boots the suite's system, drives
+its clients under the generator with the nemesis, tees every op into the
+WAL, saves the store under ``--store-root`` and then checks the history,
+on the card unless ``--device cpu`` (the kernels' plain versions) or
+``--backend cpu`` (the host search). ``--node``, ``--concurrency`` and
+``--time-limit`` default to the suite's own settings. ``--watch`` and
+``--fleet`` are refused: the port has neither the live status printer
+nor the multi-GPU fleet yet.
+
+``python -m jepsen_tpu_torch analyze --store DIR`` re-checks a stored run
+(by either package) and prints, before the result, its lint summary, its
+``# plan:`` line, the ``# contention:`` forecast, the ``# compile:`` split
+of the check's wall clock and the ``# search:`` analytics.
+``python -m jepsen_tpu_torch recover`` finds the runs under
+``--store-root`` whose process died mid-flight, rebuilds each history
+from its WAL (dangling invokes become ``info``), re-checks it and marks
+the run done. All three take ``--backend`` and ``--device``; ``analyze``
+and ``recover`` also ``--model`` and ``--algorithm``.
+
+Exit codes, as the reference's command line has them: 0 valid, 1 not
+valid (or unknown), 254 bad arguments or a missing store, 255 an internal
+error, a CUDA device that does not initialise among them: with the card's
+backend, nothing carries on on the CPU.
 """
 
 from __future__ import annotations
@@ -35,14 +60,28 @@ import logging
 import os
 import sys
 import time
+from typing import Optional
 
 #: exit codes, as the reference's command line has them
 OK, TEST_FAILED, INVALID_ARGS, CRASHED = 0, 1, 254, 255
 
 
+class _ArgError(Exception):
+    pass
+
+
+class _Parser(argparse.ArgumentParser):
+    """Raises instead of exiting, so :func:`main` answers bad arguments
+    with 254."""
+
+    def error(self, message):
+        raise _ArgError(message)
+
+
 def _parser() -> argparse.ArgumentParser:
     from jepsen_tpu_torch.serve import models
-    p = argparse.ArgumentParser(prog="python -m jepsen_tpu_torch")
+    from jepsen_tpu_torch.suites import SUITES
+    p = _Parser(prog="python -m jepsen_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="run the multi-tenant check daemon")
     s.add_argument("--check-daemon", action="store_true",
@@ -114,7 +153,91 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["text", "json", "sarif"])
     q.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="the device whose ladder and memory to plan for")
+    r = sub.add_parser("run", help="run a registered suite: workload, "
+                                   "store, then the check")
+    r.add_argument("--suite", required=True, choices=sorted(SUITES))
+    r.add_argument("-n", "--node", action="append", metavar="HOSTNAME",
+                   help="node to run the test on; repeatable (default: "
+                        "the suite's nodes)")
+    r.add_argument("--nodes-file", metavar="FILENAME",
+                   help="file of node hostnames, one per line")
+    r.add_argument("--username", default="root", help="ssh username")
+    r.add_argument("--password", default="root", help="sudo password")
+    r.add_argument("--strict-host-key-checking", action="store_true",
+                   help="check ssh host keys")
+    r.add_argument("--ssh-private-key", metavar="FILE",
+                   help="ssh identity file")
+    r.add_argument("--ssh-mode", default=None,
+                   choices=[None, "ssh", "dummy", "local"],
+                   help="control-plane transport (dummy = record only)")
+    r.add_argument("--concurrency", default=None,
+                   help="worker count; an integer, optionally followed by "
+                        "n to multiply by the node count (e.g. 3n; "
+                        "default: the suite's)")
+    r.add_argument("--test-count", type=int, default=1,
+                   help="how many times to repeat the test")
+    r.add_argument("--time-limit", type=int, default=None,
+                   help="test phase duration in seconds (default: the "
+                        "suite's)")
+    r.add_argument("--op-timeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="bound each client op: a hung invoke becomes an "
+                        ":info op and the process reincarnates")
+    r.add_argument("--store-root", default="store", metavar="DIR",
+                   help="where runs are stored")
+    _add_device_opts(r)
+    r.add_argument("--watch", action="store_true",
+                   help="live search status (not in this package yet)")
+    r.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="the elastic multi-GPU fleet (not in this "
+                        "package yet)")
+    a = sub.add_parser("analyze", help="re-check a stored run offline")
+    a.add_argument("--store", default=None,
+                   help="store directory (default: the latest under "
+                        "./store)")
+    _add_check_opts(a)
+    v = sub.add_parser("recover", help="recover runs that died mid-flight "
+                                       "from their WALs and re-check them")
+    v.add_argument("--store", default=None,
+                   help="a specific run directory (default: scan "
+                        "--store-root for dead runs)")
+    v.add_argument("--store-root", default="store",
+                   help="store root to scan for dead runs")
+    v.add_argument("--no-analyze", action="store_true",
+                   help="reconstruct histories only; skip the checker")
+    v.add_argument("--force", action="store_true",
+                   help="recover --store even if its run.state says done "
+                        "or its pid looks alive")
+    _add_check_opts(v)
     return p
+
+
+def _add_check_opts(p: argparse.ArgumentParser) -> None:
+    """The checker options of analyze and recover."""
+    from jepsen_tpu_torch.serve import models
+    p.add_argument("--model", default="cas-register", choices=list(models()),
+                   help="the model to check against")
+    p.add_argument("--algorithm", default="auto",
+                   choices=["auto", "wgl", "linear", "native",
+                            "competition"],
+                   help="the host search")
+    _add_device_opts(p)
+
+
+def _add_device_opts(p: argparse.ArgumentParser) -> None:
+    """Where the check runs: the options of run, analyze and recover."""
+    p.add_argument("--backend", default="gpu", choices=["gpu", "cpu"],
+                   help="gpu: the device search (default); cpu: the host "
+                        "search")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="where the device search runs (default: cuda; cpu "
+                        "runs the kernels' plain versions)")
+    p.add_argument("--segment-iters", type=int, default=None, metavar="N",
+                   help="device-search levels per checkpointed segment "
+                        "(JTPU_SEGMENT_ITERS)")
+    p.add_argument("--profile", action="store_true",
+                   help="capture a torch.profiler trace of the check into "
+                        "<run>/profile/ (JTPU_PROF=1)")
 
 
 def serve(opts: argparse.Namespace) -> int:
@@ -345,11 +468,268 @@ def plan_cmd(opts: argparse.Namespace) -> int:
     return TEST_FAILED if errors else OK
 
 
+def _apply_check_env(opts: argparse.Namespace) -> None:
+    """--segment-iters and --profile reach the device search through the
+    environment it reads, for every check this process runs."""
+    if opts.segment_iters is not None:
+        os.environ["JTPU_SEGMENT_ITERS"] = str(opts.segment_iters)
+    if opts.profile:
+        os.environ["JTPU_PROF"] = "1"
+
+
+def _device(opts: argparse.Namespace):
+    """The device argument of the checkers: None (CUDA) or "cpu"."""
+    return "cpu" if opts.device == "cpu" else None
+
+
+def _card_refused(opts: argparse.Namespace, cmd: str) -> bool:
+    """True, with the reason on stderr, when the check is to run on the
+    card and CUDA does not initialise: the command then stops before any
+    work, and does not carry on on the CPU."""
+    if opts.backend != "gpu" or opts.device == "cpu":
+        return False
+    from jepsen_tpu_torch import accel
+    try:
+        accel.ensure_usable(cmd)
+    except accel.AcceleratorUnavailable as e:
+        print(f"{cmd}: {e}", file=sys.stderr)
+        return True
+    return False
+
+
+def _parse_concurrency(c: str, n_nodes: int) -> int:
+    """'3n' -> 3 * nodes; a plain integer otherwise."""
+    import re
+    m = re.fullmatch(r"(\d+)(n?)", str(c))
+    if not m:
+        raise _ArgError(f"--concurrency {c} should be an integer "
+                        f"optionally followed by n")
+    return int(m.group(1)) * (n_nodes if m.group(2) == "n" else 1)
+
+
+def _test_opts(opts: argparse.Namespace) -> dict:
+    """The option map a suite constructor takes (the reference's
+    ``test_opt_fn``); options left at None are the suite's own."""
+    nodes = list(opts.node or [])
+    if opts.nodes_file:
+        with open(opts.nodes_file) as f:
+            nodes += [ln.strip() for ln in f if ln.strip()]
+    out = {"ssh": {"username": opts.username, "password": opts.password,
+                   "strict-host-key-checking":
+                       opts.strict_host_key_checking,
+                   "private-key-path": opts.ssh_private_key,
+                   "mode": opts.ssh_mode},
+           "test-count": opts.test_count, "op-timeout": opts.op_timeout,
+           "store-root": opts.store_root, "backend": opts.backend,
+           "device": _device(opts), "segment-iters": opts.segment_iters,
+           "profile": opts.profile}
+    if nodes:
+        out["nodes"] = nodes
+    if opts.concurrency is not None:
+        if str(opts.concurrency).endswith("n") and not nodes:
+            raise _ArgError("--concurrency Nn needs --node or --nodes-file")
+        out["concurrency"] = _parse_concurrency(opts.concurrency, len(nodes))
+    if opts.time_limit is not None:
+        out["time-limit"] = opts.time_limit
+    return out
+
+
+def run_cmd(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch import core, suites
+    if opts.watch or opts.fleet is not None:
+        flag = "--watch" if opts.watch else "--fleet"
+        item = "A8 (the live status printer)" if opts.watch \
+            else "A7 (the multi-GPU fleet)"
+        print(f"run: {flag} is refused: this package does not have "
+              f"{item} yet", file=sys.stderr)
+        return INVALID_ARGS
+    test_opts = _test_opts(opts)
+    _apply_check_env(opts)
+    if _card_refused(opts, "run"):
+        return CRASHED
+    ctor = suites.registry()[opts.suite]
+    for _ in range(opts.test_count):
+        test = core.run(ctor(dict(test_opts)))
+        if test["results"].get("valid") is not True:
+            return TEST_FAILED
+    return OK
+
+
+def _search_line(out) -> Optional[str]:
+    """The ``# search:`` analytics line from the result's searchstats
+    roll-up; None when the check ran without the stats lane."""
+    ss = (out or {}).get("searchstats")
+    if not isinstance(ss, dict):
+        return None
+    return ("# search: dup-rate {dr:.0%}, prune-efficiency {pe:.0%}, "
+            "frontier area {fa} (peak {fp}), truncation-losses {tr} "
+            "over {lv} level(s)").format(
+                dr=ss.get("dup-rate", 0.0),
+                pe=ss.get("prune-efficiency", 0.0),
+                fa=ss.get("frontier-area", 0),
+                fp=ss.get("frontier-peak", 0),
+                tr=ss.get("trunc-losses", 0),
+                lv=ss.get("levels", 0))
+
+
+def _forecast(history, model, opts: argparse.Namespace) -> None:
+    """The ``# plan:`` line and the ``# contention:`` lines."""
+    from jepsen_tpu_torch.analysis import contention
+    from jepsen_tpu_torch.checker import plan
+    print(plan.summary_line(history, model, device=opts.device))
+    for ln in contention.forecast_lines(contention.profile(history)):
+        print(ln)
+
+
+def _recheck(test: dict, model, opts: argparse.Namespace) -> dict:
+    """Re-check a stored run's history; prints the ``# compile:`` and
+    ``# search:`` lines. Live progress (and a --profile capture) go to the
+    run's directory."""
+    from jepsen_tpu_torch import repl
+    from jepsen_tpu_torch.checker import gpu
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.obs import observatory, profiler
+    checker = linearizable(model, backend=opts.backend, device=_device(opts),
+                           algorithm=opts.algorithm)
+    observatory.attach(test.get("store-dir"))
+    profiler.attach(test.get("store-dir"))
+    comp0 = gpu.compile_snapshot()
+    t0 = time.perf_counter()
+    try:
+        out = repl.recheck(test, checker)
+    finally:
+        wall = time.perf_counter() - t0
+        observatory.detach()
+        profiler.detach()
+    print(gpu.compile_line(gpu.compile_delta(comp0), wall))
+    sline = _search_line(out)
+    if sline:
+        print(sline)
+    return out
+
+
+def analyze_cmd(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch import analysis, core, repl, store
+    from jepsen_tpu_torch.analysis.history_lint import lint_history
+    from jepsen_tpu_torch.serve import models
+    if opts.store and not os.path.isdir(opts.store):
+        # a missing directory is a typo, not an empty run
+        print(f"no such store directory: {opts.store}", file=sys.stderr)
+        return INVALID_ARGS
+    test = store.load(opts.store) if opts.store else repl.last_test()
+    if test is None:
+        print("no stored test found", file=sys.stderr)
+        return INVALID_ARGS
+    _apply_check_env(opts)
+    if _card_refused(opts, "analyze"):
+        return CRASHED
+    history = test.get("history") or []
+    model = models()[opts.model]()
+    print(analysis.summary_line(lint_history(history)))
+    _forecast(history, model, opts)
+    out = _recheck(test, model, opts)
+    leaked = core.abandoned_threads()
+    if leaked:
+        print(f"# leaked-threads: {leaked} hung client-op thread(s) "
+              f"abandoned by op-timeout and still resident")
+    print(json.dumps(out, indent=2, default=repr))
+    return OK if out.get("valid") is True else TEST_FAILED
+
+
+def recover_cmd(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch import analysis, store
+    from jepsen_tpu_torch.analysis import history_lint as hl
+    from jepsen_tpu_torch.obs import trace as trace_ns
+    from jepsen_tpu_torch.serve import models
+    if opts.store:
+        d = opts.store
+        if not os.path.isdir(d):
+            print(f"no such store directory: {d}", file=sys.stderr)
+            return INVALID_ARGS
+        status = store.run_status(d)
+        if status != "dead" and not opts.force:
+            print(f"# recovery: {d}: status={status or 'no run.state'}; "
+                  f"nothing to recover (--force overrides)")
+            return OK if status in ("done", "recovered") else INVALID_ARGS
+        targets = [d]
+    else:
+        targets = store.dead_runs(opts.store_root or "store")
+        if not targets:
+            print("# recovery: no dead runs found")
+            return OK
+    _apply_check_env(opts)
+    if not opts.no_analyze and _card_refused(opts, "recover"):
+        return CRASHED
+    worst = OK
+    for d in targets:
+        try:
+            rec = store.recover_run(d)
+        except (OSError, ValueError) as e:
+            print(f"# recovery: {d}: FAILED: {e}", file=sys.stderr)
+            worst = TEST_FAILED
+            continue
+        s = rec["stats"]
+        print(f"# recovery: {d}: {s['ops']} ops recovered "
+              f"({s['records']} WAL records, {s['torn']} torn, "
+              f"{s['corrupt']} corrupt, {s['reconciled']} dangling "
+              f"invoke(s) -> info)")
+        tpath = os.path.join(d, trace_ns.TRACE_NAME)
+        if os.path.exists(tpath):
+            try:
+                _, tstats = trace_ns.read_trace(tpath)
+                print(f"# trace: {tstats['spans']} span(s) recovered from "
+                      f"trace.jsonl ({tstats['torn']} torn, "
+                      f"{tstats['corrupt']} corrupt)")
+            except OSError as e:
+                print(f"# trace: unreadable trace.jsonl: {e}",
+                      file=sys.stderr)
+        # the structure the reconciler could not repair fails the
+        # recovery; decode damage was counted above
+        findings = hl.lint_history(rec["history"], decode_errors=0)
+        print(analysis.summary_line(findings))
+        model = models()[opts.model]()
+        _forecast(rec["history"], model, opts)
+        errs = hl.errors(findings)
+        if errs:
+            for f in errs[:10]:
+                print(f"# lint: {d}: {f.format()}", file=sys.stderr)
+            print(f"# recovery: {d}: FAILED: recovered history is "
+                  f"malformed ({len(errs)} error finding(s); see above)",
+                  file=sys.stderr)
+            worst = TEST_FAILED
+            continue
+        if opts.no_analyze:
+            continue
+        out = _recheck(store.load(d), model, opts)
+        store.write_results(d, out)
+        store.write_state(d, "done", recovered=True, recovery=s)
+        print(f"# recovery: {d}: verdict valid={out.get('valid')}")
+        if out.get("valid") is not True:
+            worst = TEST_FAILED
+    return worst
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
-    opts = _parser().parse_args(argv)
-    run = {"stream": stream, "serve": serve, "plan": plan_cmd}[opts.cmd]
-    return run(opts)
+    try:
+        opts = _parser().parse_args(argv)
+    except _ArgError as e:
+        print(f"python -m jepsen_tpu_torch: {e}", file=sys.stderr)
+        return INVALID_ARGS
+    run = {"stream": stream, "serve": serve, "plan": plan_cmd}.get(opts.cmd)
+    if run is not None:
+        return run(opts)
+    run = {"run": run_cmd, "analyze": analyze_cmd,
+           "recover": recover_cmd}[opts.cmd]
+    try:
+        return run(opts)
+    except _ArgError as e:
+        print(f"python -m jepsen_tpu_torch: {e}", file=sys.stderr)
+        return INVALID_ARGS
+    except Exception:  # noqa: BLE001 -- the exit-code contract's 255
+        import traceback
+        traceback.print_exc()
+        return CRASHED
 
 
 if __name__ == "__main__":

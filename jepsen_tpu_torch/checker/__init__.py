@@ -1,17 +1,21 @@
 """History checkers. A checker examines a completed history and returns a
 result map whose ``valid`` key is True, False or :data:`UNKNOWN`.
 
-The linearizability checker is :mod:`jepsen_tpu_torch.checker.wgl`
-(``linearizable``, exported here); its device search is
-:mod:`jepsen_tpu_torch.checker.gpu`, its host engines
-:mod:`jepsen_tpu_torch.checker.native` and
-:mod:`jepsen_tpu_torch.checker.jitlin`.
+Checkers compose (:class:`Compose`); a composed validity is the most
+severe of its parts (False, then unknown, then True). The linearizability
+checker is :mod:`jepsen_tpu_torch.checker.wgl` (``linearizable``,
+exported here); its device search is :mod:`jepsen_tpu_torch.checker.gpu`,
+its host engines :mod:`jepsen_tpu_torch.checker.native` and
+:mod:`jepsen_tpu_torch.checker.jitlin`. The latency and rate artifacts are
+:mod:`jepsen_tpu_torch.checker.perf`.
 """
 
 from __future__ import annotations
 
 import traceback
 from typing import Any, Dict, Optional
+
+from jepsen_tpu_torch.util import real_pmap
 
 UNKNOWN = "unknown"
 
@@ -39,6 +43,17 @@ class Checker:
         return self.check(test, history, opts)
 
 
+class FnChecker(Checker):
+    """Adapt a plain function (test, history, opts) -> result."""
+
+    def __init__(self, fn, name=None):
+        self.fn = fn
+        self.name = name or getattr(fn, "__name__", "fn-checker")
+
+    def check(self, test, history, opts=None):
+        return self.fn(test, history, opts)
+
+
 def check_safe(checker: Checker, test: dict, history,
                opts: Optional[dict] = None) -> Dict[str, Any]:
     """Like ``checker.check``, but an exception yields ``{"valid":
@@ -59,5 +74,39 @@ def check_safe(checker: Checker, test: dict, history,
         return out
 
 
+class Compose(Checker):
+    """A map of name -> checker, all run in parallel threads; the result
+    holds each one's under its name and the merged ``valid``."""
+
+    def __init__(self, checkers: Dict[str, Checker]):
+        self.checkers = checkers
+
+    def check(self, test, history, opts=None):
+        names = list(self.checkers)
+        results = real_pmap(
+            lambda n: check_safe(self.checkers[n], test, history, opts),
+            names)
+        return {"valid": merge_valid(r.get("valid", UNKNOWN)
+                                     for r in results),
+                **dict(zip(names, results))}
+
+
+def compose(checkers: Dict[str, Checker]) -> Compose:
+    return Compose(checkers)
+
+
+class Unbridled(Checker):
+    """A checker which is always happy."""
+
+    def check(self, test, history, opts=None):
+        return {"valid": True}
+
+
+def noop_checker() -> Checker:
+    return Unbridled()
+
+
 from jepsen_tpu_torch.checker.wgl import (  # noqa: E402,F401
     LinearizableChecker, linearizable)
+from jepsen_tpu_torch.checker.perf import (  # noqa: E402,F401
+    latency_graph, perf, rate_graph)

@@ -70,12 +70,14 @@ def start_run(store_dir: Optional[str]) -> None:
 
 def finish_run() -> None:
     """Write ``metrics.json`` into the run directory (tracing on) and
-    detach every sink."""
+    detach every sink, also when the write fails."""
     global _RUN_DIR
-    if _RUN_DIR is not None and enabled():
-        metrics.write_snapshot(os.path.join(_RUN_DIR, METRICS_NAME))
-    _RUN_DIR = None
-    _trace.finish_run()
-    observatory.detach()
-    searchstats.detach()
-    profiler.detach()
+    run_dir, _RUN_DIR = _RUN_DIR, None
+    try:
+        if run_dir is not None and enabled():
+            metrics.write_snapshot(os.path.join(run_dir, METRICS_NAME))
+    finally:
+        _trace.finish_run()
+        observatory.detach()
+        searchstats.detach()
+        profiler.detach()

@@ -9,14 +9,115 @@ the same seed yields the same history as the JAX package's copy.
 ``crash_writes``, ``far_write_history`` and the three full-size
 simulators of the other models (``simulate_mutex_history``,
 ``simulate_queue_history``, ``simulate_set_history``) are the port's own.
+
+The in-process fake backend of ``core.run`` is a copy of the reference's:
+``noop_test``, a complete test map that does nothing, and ``AtomDB`` and
+``AtomClient`` over a lock-guarded ``SharedRegister``, which ``atom_test``
+puts together into a runnable CAS-register test.
 """
 
 from __future__ import annotations
 
 import collections
 import random
+import threading
+from typing import Any, Optional
 
+from jepsen_tpu_torch import client as client_ns
+from jepsen_tpu_torch import db as db_ns
+from jepsen_tpu_torch import os as os_ns
 from jepsen_tpu_torch.history import History, Op
+
+
+def noop_test() -> dict:
+    """A test map that does nothing: the skeleton other tests merge
+    over."""
+    return {
+        "name": "noop",
+        "nodes": ["n1", "n2", "n3", "n4", "n5"],
+        "concurrency": 5,
+        "os": os_ns.noop(),
+        "db": db_ns.noop(),
+        "client": client_ns.noop(),
+        "nemesis": None,
+        "generator": None,
+        "checker": None,
+        "ssh": {"mode": "dummy"},
+    }
+
+
+class SharedRegister:
+    """A lock-guarded register with an atomic cas: the 'database'."""
+
+    def __init__(self, value: Any = None):
+        self._value = value
+        self._lock = threading.Lock()
+
+    def read(self):
+        with self._lock:
+            return self._value
+
+    def write(self, v):
+        with self._lock:
+            self._value = v
+
+    def cas(self, old, new) -> bool:
+        with self._lock:
+            if self._value == old:
+                self._value = new
+                return True
+            return False
+
+
+class AtomDB(db_ns.DB):
+    """A DB whose state is an in-memory register; setup resets it."""
+
+    def __init__(self, register: Optional[SharedRegister] = None):
+        self.register = register or SharedRegister()
+
+    def setup(self, test, node):
+        self.register.write(None)
+
+    def teardown(self, test, node):
+        self.register.write(None)
+
+
+class AtomClient(client_ns.Client):
+    """A client of the shared register: linearizable by construction."""
+
+    def __init__(self, register: SharedRegister):
+        self.register = register
+
+    def open(self, test, node):
+        return AtomClient(self.register)
+
+    def invoke(self, test, op: Op) -> Op:
+        if op.f == "read":
+            return op.replace(type="ok", value=self.register.read())
+        if op.f == "write":
+            self.register.write(op.value)
+            return op.replace(type="ok")
+        if op.f == "cas":
+            old, new = op.value
+            ok = self.register.cas(old, new)
+            return op.replace(type="ok" if ok else "fail")
+        raise ValueError(f"unknown op {op.f!r}")
+
+
+def atom_test(register: Optional[SharedRegister] = None, **overrides) -> dict:
+    """A runnable in-memory CAS-register test: ``noop_test`` over an
+    ``AtomDB`` and ``AtomClient``, with the ``CASRegister`` model."""
+    from jepsen_tpu_torch.models import CASRegister
+    reg = register or SharedRegister()
+    test = noop_test()
+    test.update({
+        "name": "atom-cas",
+        "db": AtomDB(reg),
+        "client": AtomClient(reg),
+        "model": CASRegister(),
+    })
+    test.update(overrides)
+    return test
 
 
 def simulate_register_history(n_ops: int, n_procs: int = 5, n_vals: int = 8,

@@ -34,6 +34,7 @@ def _port_files():
              os.path.join(ROOT, "tools", "profile_torch_stream_close.py"),
              os.path.join(ROOT, "tools", "time_torch_watchdog.py"),
              os.path.join(ROOT, "tools", "profile_torch_cold.py"),
+             os.path.join(ROOT, "tools", "torch_runner_windows.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -68,6 +69,12 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.journal, jepsen_tpu_torch.checker.plan, "
             "jepsen_tpu_torch.accel, jepsen_tpu_torch.obs.devices, "
             "jepsen_tpu_torch.analysis.plan_lint, "
+            "jepsen_tpu_torch.core, jepsen_tpu_torch.generator, "
+            "jepsen_tpu_torch.control.util, jepsen_tpu_torch.control.net, "
+            "jepsen_tpu_torch.nemesis, jepsen_tpu_torch.store, "
+            "jepsen_tpu_torch.repl, jepsen_tpu_torch.checker.perf, "
+            "jepsen_tpu_torch.suites.localkv, "
+            "jepsen_tpu_torch.analysis.contention, "
             "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -158,6 +165,45 @@ def test_the_serve_slice_defaults_to_cuda(tmp_path):
     assert plan.request_footprint(dims) == plan.request_footprint(
         dims, "cuda") != plan.request_footprint(dims, "cpu")
     assert plan.plan_bytes_limit() is None
+
+
+def test_the_runner_defaults_to_cuda(tmp_path, capsys):
+    """``run``, ``analyze`` and ``recover`` check on the GPU unless asked
+    otherwise; without one they refuse (exit 255) before any work: no
+    daemon booted, no store written, a dead run left as it was. The
+    local-kv suites' checker is the GPU's, and raises without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    import json
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.__main__ import main
+    from jepsen_tpu_torch.suites import registry
+    root = tmp_path / "store"
+    assert main(["run", "--suite", "local-kv", "--time-limit", "1",
+                 "--store-root", str(root)]) == 255
+    assert not root.exists()
+    assert "CUDA" in capsys.readouterr().err
+    h = simulate_register_history(20, seed=1)
+    test = {"name": "r", "store-root": str(root), "history": h,
+            "results": {"valid": True}}
+    store.save_1(test)
+    store.write_state(test["store-dir"], "running")
+    state = os.path.join(test["store-dir"], store.RUN_STATE)
+    with open(state) as f:
+        doc = json.load(f)
+    doc["pid"] = 2 ** 22 + 1        # past the kernel's pid range: dead
+    with open(state, "w") as f:
+        json.dump(doc, f)
+    assert main(["analyze", "--store", test["store-dir"]]) == 255
+    assert main(["recover", "--store-root", str(root)]) == 255
+    assert store.run_status(test["store-dir"]) == "dead"
+    assert not os.path.exists(os.path.join(test["store-dir"],
+                                           "results.json"))
+    for name, ctor in registry().items():
+        linear = ctor({})["checker"].checkers["linear"]
+        assert (linear.backend, linear.device) == ("gpu", None), name
+        with pytest.raises(RuntimeError, match="CUDA"):
+            linear.check({}, h)
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):
