@@ -54,7 +54,11 @@ second), its store, its verdict against the native engine's, 2,000-op and
 local-kv histories on the kernels against the plain route, the local-kv
 suite's three kvnode daemons under hammer-time, the unsafe suite refuted,
 ``analyze`` in its own process, and ``recover`` of a run SIGKILLed
-mid-workload, each check on the card; and, last, the segment watchdog: an
+mid-workload, each check on the card; and the sqlite tier: the real
+SQLite engine's register suite under the lock hammer (its check held
+against the plain route on the card and the native engine), its toctou
+suite refuted with ``linear.svg`` and explained, and its bank suite;
+and, last, the segment watchdog: an
 injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
 deadline, a second check answered at once while the card still spins, and
 the warm headline with a deadline beside it without one. Every phase is a
@@ -2271,6 +2275,135 @@ def runner_phase(dev, seconds, smi):
     return line, launches, grid, segs
 
 
+#: the sqlite phase: the three suites of the real SQLite engine at their
+#: own default sizes (register and bank 10 s at concurrency 5 under the
+#: lock hammer every 3 s; the toctou schedule's four client ops)
+SQLITE_SUITES = ("sqlite-register", "sqlite-register-toctou", "sqlite-bank")
+#: the result fields the register histories' checks are held to
+SQLITE_KEYS = ("valid", "levels", "best-k", "rung", "max-linearized-prefix")
+
+
+def sqlite_phase(dev, seconds, smi):
+    """The sqlite tier on the card: ``sqlite-register`` under the lock
+    hammer, valid, its check on the kernels held against the plain route
+    on the card and against the native engine on the same history;
+    ``sqlite-register-toctou`` refuted on the kernels with ``linear.svg``,
+    held to both likewise, and ``explain`` of its store (the report and
+    ``python -m jepsen_tpu_torch explain``) naming the violating level;
+    ``sqlite-bank`` valid. Every check on the card: ``backend`` gpu, no
+    ``fallback-from``, no ``error``. Returns the phase's JSON entry and
+    the launches, CUDA launches and segment counts of the three runs."""
+    import io
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import core, explain, resilience, suites
+    from jepsen_tpu_torch.__main__ import main as port_main
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-sqlite-")
+    ctors = suites.registry()
+    runs = {}
+    try:
+        with phase("sqlite", seconds):
+            K.reset_launches()
+            for name in SQLITE_SUITES:
+                before = dict(K.launches)
+                t = core.run(ctors[name]({"store-root": root}))
+                res = t["results"]
+                entry = dict(run_split(t), valid=res["valid"],
+                             ops=sum(1 for o in t["history"]
+                                     if o.process != "nemesis"),
+                             launches={k: K.launches[k] - before.get(k, 0)
+                                       for k in K.launches})
+                lin = res.get("linear")
+                if lin is not None:
+                    assert lin.get("backend") == "gpu", (name, lin)
+                    assert "fallback-from" not in lin \
+                        and "error" not in lin, (name, lin)
+                    entry.update(levels=lin.get("levels"),
+                                 rung=lin.get("rung"),
+                                 device_s=lin.get("device-s"))
+                runs[name] = t
+                line[name] = entry
+            launches = dict(K.launches)
+            grid = dict(K.grid_launches_total)
+            segs = dict(K.segments)
+            # -- the verdicts ------------------------------------------
+            reg, toc, bank = (runs[n] for n in SQLITE_SUITES)
+            assert reg["results"]["valid"] is True, reg["results"]
+            nem = [o for o in reg["history"] if o.process == "nemesis"]
+            assert any("lock held" in str(o.value) for o in nem), nem
+            busy = [o for o in reg["history"] if o.type == "fail"
+                    and "locked" in str(o.error)]
+            assert busy, "the lock hammer produced no busy failures"
+            line["sqlite-register"]["busy_failures"] = len(busy)
+            assert toc["results"]["valid"] is False, toc["results"]
+            oks = [o for o in toc["history"] if o.is_ok and o.f == "cas"]
+            assert len(oks) == 2, oks
+            assert os.path.exists(os.path.join(toc["store-dir"],
+                                               "linear.svg"))
+            assert bank["results"]["valid"] is True, bank["results"]
+            reads = [o for o in bank["history"]
+                     if o.is_ok and o.f == "read"]
+            assert reads and all(sum(o.value) == 50 for o in reads)
+            line["sqlite-bank"]["reads"] = len(reads)
+            assert all(launches[k] > 0 for k in (
+                "expand", "sort_rows", "dedup_truncate")), launches
+            assert segs["pair_ends"] > 0 and grid["seg_active"] == 0, segs
+            # -- the kernels against the plain route on the card, and the
+            # native engine, on each register history --------------------
+            native = linearizable(CASRegister(), backend="cpu")
+            for name in SQLITE_SUITES[:2]:
+                t, lin = runs[name], runs[name]["results"]["linear"]
+                packed, kernel = pack_with_init(t["history"], CASRegister())
+                rp = resilience.supervised_check_packed(
+                    packed, kernel, device=dev, ops=G.PLAIN)
+                assert [lin.get(k) for k in SQLITE_KEYS] == \
+                    [rp.get(k) for k in SQLITE_KEYS], (name, lin, rp)
+                t0 = time.perf_counter()
+                nat = native.check({}, t["history"])
+                native_s = time.perf_counter() - t0
+                assert nat["valid"] == lin["valid"], (name, nat, lin)
+                assert nat.get("engine") == "native", nat
+                if lin["valid"] is False:
+                    assert nat.get("max-linearized-prefix") == \
+                        lin["max-linearized-prefix"], (nat, lin)
+                line[name].update(
+                    plain_route=[rp.get(k) for k in SQLITE_KEYS],
+                    native_s=native_s,
+                    max_linearized_prefix=lin.get("max-linearized-prefix"))
+            # -- explain the refutation --------------------------------
+            rep = explain.explain_report(toc["store-dir"])
+            cex = rep.get("counterexample") or {}
+            assert rep["kind"] == "invalid" and isinstance(
+                cex.get("violating-level"), int), rep
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = port_main(["explain", "--store", toc["store-dir"]])
+            text = out.getvalue()
+            assert rc == 1 and "non-linearizable at op" in text, (rc, text)
+            line["explain"] = {
+                "violating-level": cex["violating-level"],
+                "n-required": cex.get("n-required"),
+                "final-path": cex.get("final-path"),
+                "lines": [ln for ln in text.splitlines()
+                          if ln.startswith("# explain:")]}
+            print("sqlite: explain:\n  " + "\n  ".join(
+                line["explain"]["lines"]), flush=True)
+        brief = {name: {k: line[name].get(k) for k in (
+            "wall_s", "workload_s", "save_s", "check_s", "ops", "valid",
+            "levels", "rung", "native_s")} for name in SQLITE_SUITES}
+        print(f"sqlite: {json.dumps(brief)} launches={launches} "
+              f"cuda_launches={grid} graphs={segs} [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -2796,6 +2929,10 @@ def smoke(dev: torch.device) -> None:
     (runner_line, run_launches, run_grid_launches,
      path_segments["run"]) = runner_phase(dev, seconds, smi)
 
+    # -- the sqlite tier: a real engine's histories, and explain ----------
+    (sqlite_line, sqlite_launches, sqlite_grid_launches,
+     path_segments["sqlite"]) = sqlite_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -2808,10 +2945,12 @@ def smoke(dev: torch.device) -> None:
             "library_ms", "cuda_launches_per_call")
     path_launches = {"headline": launches, "keyed": keyed_launches,
                      "models": model_launches, "serve": serve_launches,
-                     "stream": stream_launches, "run": run_launches}
+                     "stream": stream_launches, "run": run_launches,
+                     "sqlite": sqlite_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
-                 "stream": stream_grid_launches, "run": run_grid_launches}
+                 "stream": stream_grid_launches, "run": run_grid_launches,
+                 "sqlite": sqlite_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -2893,6 +3032,7 @@ def smoke(dev: torch.device) -> None:
         "serve": serve_line, "host_engines": host_line,
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
         "telemetry": telemetry_line, "runner": runner_line,
+        "sqlite": sqlite_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -44,7 +44,17 @@ of the check's wall clock and the ``# search:`` analytics.
 ``--store-root`` whose process died mid-flight, rebuilds each history
 from its WAL (dangling invokes become ``info``), re-checks it and marks
 the run done. All three take ``--backend`` and ``--device``; ``analyze``
-and ``recover`` also ``--model`` and ``--algorithm``.
+and ``recover`` also ``--model`` and ``--algorithm``. ``run --suite``
+offers the local-kv suites and the sqlite ones (``sqlite-register``,
+``sqlite-bank``, ``sqlite-register-toctou``: the real SQLite engine).
+
+``python -m jepsen_tpu_torch explain [--store DIR]`` says why a stored
+run (by either package; the latest under ``--store-root`` by default) got
+its verdict (:mod:`jepsen_tpu_torch.explain`): the search's shape for a
+valid run, the violating level, blocking ops and witness region for an
+invalid one, the cause chain for an unknown one, as ``# explain:`` lines
+or, with ``--format json``, the report. It reads the artifacts only: no
+check runs.
 
 Exit codes, as the reference's command line has them: 0 valid, 1 not
 valid (or unknown), 254 bad arguments or a missing store, 255 an internal
@@ -209,6 +219,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="recover --store even if its run.state says done "
                         "or its pid looks alive")
     _add_check_opts(v)
+    e = sub.add_parser("explain", help="explain a stored run's verdict "
+                                       "from its artifacts (results, "
+                                       "searchstats, attempts trail)")
+    e.add_argument("--store", default=None,
+                   help="run directory (default: the latest under "
+                        "--store-root)")
+    e.add_argument("--store-root", default="store")
+    e.add_argument("--model", default="cas-register", choices=list(models()),
+                   help="the model the counterexample is packed with "
+                        "(invalid verdicts only)")
+    e.add_argument("--format", default="text", choices=["text", "json"])
     return p
 
 
@@ -709,6 +730,24 @@ def recover_cmd(opts: argparse.Namespace) -> int:
     return worst
 
 
+def explain_cmd(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch import explain, store
+    from jepsen_tpu_torch.serve import models
+    d = opts.store
+    if d is None:
+        t = store.latest(opts.store_root or "store")
+        d = t.get("store-dir") if t else None
+    if not d or not os.path.isdir(d):
+        print(f"no such store directory: {d}", file=sys.stderr)
+        return INVALID_ARGS
+    report = explain.explain_report(d, model=models()[opts.model]())
+    if opts.format == "json":
+        print(json.dumps(report, indent=2, default=repr))
+    else:
+        print(explain.render_text(report))
+    return OK if report.get("valid") is True else TEST_FAILED
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     try:
@@ -720,7 +759,7 @@ def main(argv=None) -> int:
     if run is not None:
         return run(opts)
     run = {"run": run_cmd, "analyze": analyze_cmd,
-           "recover": recover_cmd}[opts.cmd]
+           "recover": recover_cmd, "explain": explain_cmd}[opts.cmd]
     try:
         return run(opts)
     except _ArgError as e:

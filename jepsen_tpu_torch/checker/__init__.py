@@ -7,7 +7,9 @@ checker is :mod:`jepsen_tpu_torch.checker.wgl` (``linearizable``,
 exported here); its device search is :mod:`jepsen_tpu_torch.checker.gpu`,
 its host engines :mod:`jepsen_tpu_torch.checker.native` and
 :mod:`jepsen_tpu_torch.checker.jitlin`. The latency and rate artifacts are
-:mod:`jepsen_tpu_torch.checker.perf`.
+:mod:`jepsen_tpu_torch.checker.perf`; the fold checkers (set, counter,
+queue, total-queue, unique-ids) :mod:`jepsen_tpu_torch.checker.basic`,
+exported here; the HTML timeline :mod:`jepsen_tpu_torch.checker.timeline`.
 """
 
 from __future__ import annotations
@@ -106,6 +108,18 @@ def noop_checker() -> Checker:
     return Unbridled()
 
 
+from jepsen_tpu_torch.checker.basic import (  # noqa: E402,F401
+    Counter,
+    QueueChecker,
+    SetChecker,
+    TotalQueue,
+    UniqueIds,
+    counter,
+    queue,
+    set_checker,
+    total_queue,
+    unique_ids,
+)
 from jepsen_tpu_torch.checker.wgl import (  # noqa: E402,F401
     LinearizableChecker, linearizable)
 from jepsen_tpu_torch.checker.perf import (  # noqa: E402,F401

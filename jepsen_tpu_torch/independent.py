@@ -1,7 +1,7 @@
 """Independent keys: one history over many registers, checked per key.
 
-Counterpart of the checker half of ``jepsen_tpu.independent`` (itself a
-rebuild of jepsen.independent). Linearizability checking is exponential
+Counterpart of ``jepsen_tpu.independent`` (itself a rebuild of
+jepsen.independent). Linearizability checking is exponential
 in history length, so a test runs a *map* of keys to registers: op values
 are ``[k v]`` tuples (:class:`KV`), and the checker splits the history
 per key and checks each subhistory on its own. When the inner checker is
@@ -10,14 +10,21 @@ with ``backend="gpu"`` and its model has an integer kernel, every key is
 searched in one batch on the device
 (:func:`~jepsen_tpu_torch.checker.gpu.check_keyed_gpu`); keys the batch
 cannot settle are checked again one by one through the inner checker.
+
+The generators wrap each op's value in its key:
+:class:`SequentialGenerator` runs one key at a time,
+:class:`ConcurrentGenerator` n threads a key with several keys in
+flight.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional, Sequence
+import threading
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
+from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch.checker import UNKNOWN, Checker, check_safe, merge_valid
 from jepsen_tpu_torch.history import History, Op
 from jepsen_tpu_torch.util import real_pmap
@@ -57,6 +64,131 @@ def tuple_(k, v) -> KV:
 
 def is_tuple(v) -> bool:
     return isinstance(v, KV)
+
+
+class SequentialGenerator(gen.Generator):
+    """One key at a time: ops of ``fgen(k1)`` until it is exhausted, then
+    of ``fgen(k2)``, each value wrapped as ``[k v]``."""
+
+    def __init__(self, keys: Iterable, fgen: Callable[[Any], Any]):
+        self.fgen = fgen
+        self._lock = threading.Lock()
+        self._keys = iter(keys)
+        self._gen: Optional[gen.Generator] = None
+        self._done = False
+        self._advance()
+
+    def _advance(self) -> bool:
+        try:
+            k = next(self._keys)
+        except StopIteration:
+            self._gen = None
+            self._done = True
+            return False
+        self._key = k
+        self._gen = gen.gen(self.fgen(k))
+        return True
+
+    def op(self, test, process):
+        while True:
+            with self._lock:
+                if self._done:
+                    return None
+                g, k = self._gen, self._key
+            o = g.op(test, process)
+            if o is not None:
+                return o.replace(value=KV(k, o.value))
+            with self._lock:
+                if self._gen is g:  # else another thread advanced it
+                    if not self._advance():
+                        return None
+
+
+class ConcurrentGenerator(gen.Generator):
+    """n threads a key, ``thread_count // n`` keys in flight at once. The
+    worker threads are split into contiguous groups of n; each group runs
+    one key's generator with the thread scope bound to the group (so that
+    barrier-style combinators synchronise within a key, not across keys).
+    A group whose generator is exhausted takes the next key; out of keys,
+    its workers retire. The nemesis never draws from it."""
+
+    def __init__(self, n: int, keys: Iterable, fgen: Callable[[Any], Any]):
+        assert n > 0 and int(n) == n
+        self.n = int(n)
+        self.fgen = fgen
+        self._keys = iter(keys)
+        self._lock = threading.Lock()
+        self._state: Optional[dict] = None
+
+    def _init_state(self, test):
+        threads = sorted(t for t in (gen.current_threads()
+                                     or gen.all_threads(test))
+                         if isinstance(t, int))
+        thread_count = len(threads)
+        assert threads == list(range(thread_count)), (
+            f"expected integer threads 0..{thread_count - 1}, got {threads}")
+        assert test.get("concurrency") == thread_count, (
+            f"expected test concurrency ({test.get('concurrency')}) to equal "
+            f"the number of integer threads ({thread_count})")
+        group_size = self.n
+        group_count = thread_count // group_size
+        assert group_size <= thread_count, (
+            f"with {thread_count} worker threads, this concurrent-generator "
+            f"cannot run a key with {group_size} threads; raise concurrency "
+            f"to at least {group_size}")
+        assert thread_count == group_size * group_count, (
+            f"{thread_count} threads cannot be split into groups of "
+            f"{group_size}; make concurrency a multiple of {group_size}")
+        active = []
+        for _ in range(group_count):
+            try:
+                k = next(self._keys)
+                active.append((k, gen.gen(self.fgen(k))))
+            except StopIteration:
+                active.append(None)
+        self._state = {
+            "active": active,
+            "group_threads": [frozenset(threads[g * group_size:
+                                                (g + 1) * group_size])
+                              for g in range(group_count)],
+            "group_size": group_size,
+        }
+
+    def op(self, test, process):
+        with self._lock:
+            if self._state is None:
+                self._init_state(test)
+            s = self._state
+        thread = gen.process_to_thread(process, test)
+        assert isinstance(thread, int), (
+            f"only worker threads with numeric ids can draw from a "
+            f"concurrent-generator; got a request from {thread!r}")
+        group = thread // s["group_size"]
+        while True:
+            with self._lock:
+                pair = s["active"][group]
+            if pair is None:
+                return None  # out of keys: this group's workers retire
+            k, g = pair
+            with gen.threads_bound(s["group_threads"][group]):
+                o = g.op(test, process)
+            if o is not None:
+                return o.replace(value=KV(k, o.value))
+            with self._lock:
+                if s["active"][group] is pair:  # one thread advances
+                    try:
+                        nk = next(self._keys)
+                        s["active"][group] = (nk, gen.gen(self.fgen(nk)))
+                    except StopIteration:
+                        s["active"][group] = None
+
+
+def sequential_generator(keys, fgen) -> SequentialGenerator:
+    return SequentialGenerator(keys, fgen)
+
+
+def concurrent_generator(n, keys, fgen) -> ConcurrentGenerator:
+    return ConcurrentGenerator(n, keys, fgen)
 
 
 def _with_value(o: Op, value) -> Op:

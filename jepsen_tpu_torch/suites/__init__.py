@@ -2,9 +2,11 @@
 constructors, by name.
 
 The port has the two local-kv suites (:mod:`.localkv`), whose nodes are
-real local processes; every other suite of ``jepsen_tpu.suites`` is still
-to port (ROADMAP). Their linearizability check runs on the card unless
-the options ask for the CPU (``backend: "cpu"``, or ``device: "cpu"``).
+real local processes, and the three sqlite suites (:mod:`.sqlitedb`),
+whose system is the real SQLite engine; every other suite of
+``jepsen_tpu.suites`` is still to port (ROADMAP). Their linearizability
+check runs on the card unless the options ask for the CPU (``backend:
+"cpu"``, or ``device: "cpu"``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from typing import Callable, Dict
 SUITES = {
     "local-kv": ("localkv", "localkv_test"),
     "local-kv-unsafe": ("localkv", "localkv_unsafe_test"),
+    "sqlite-register": ("sqlitedb", "sqlite_register_test"),
+    "sqlite-bank": ("sqlitedb", "sqlite_bank_test"),
+    "sqlite-register-toctou": ("sqlitedb", "sqlite_register_toctou_test"),
 }
 
 

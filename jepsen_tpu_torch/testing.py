@@ -13,7 +13,12 @@ simulators of the other models (``simulate_mutex_history``,
 The in-process fake backend of ``core.run`` is a copy of the reference's:
 ``noop_test``, a complete test map that does nothing, and ``AtomDB`` and
 ``AtomClient`` over a lock-guarded ``SharedRegister``, which ``atom_test``
-puts together into a runnable CAS-register test.
+puts together into a runnable CAS-register test. So are the in-memory
+backends the workload checkers are held against, each correct or, with
+``broken=True``, deliberately broken: ``FlakyClient``, ``SharedBank`` and
+``BankClient``, ``SharedMonotonic`` and ``MonotonicClient``, ``SharedKV``
+and ``SequentialClient``, ``G2Client``, ``SharedQueue`` and
+``QueueClient``.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import collections
 import random
 import threading
+import time
 from typing import Any, Optional
 
 from jepsen_tpu_torch import client as client_ns
@@ -101,6 +107,265 @@ class AtomClient(client_ns.Client):
             old, new = op.value
             ok = self.register.cas(old, new)
             return op.replace(type="ok" if ok else "fail")
+        raise ValueError(f"unknown op {op.f!r}")
+
+
+class FlakyClient(AtomClient):
+    """An AtomClient that sometimes times out after applying (or not
+    applying) the op: indeterminate ``info`` completions, for tests of
+    process reincarnation and of the checkers' crashed-op semantics."""
+
+    def __init__(self, register: SharedRegister, flake_p: float = 0.1,
+                 seed: Optional[int] = None):
+        super().__init__(register)
+        self.flake_p = flake_p
+        self.rng = random.Random(seed)
+
+    def open(self, test, node):
+        return FlakyClient(self.register, self.flake_p,
+                           self.rng.randrange(2**31))
+
+    def invoke(self, test, op: Op) -> Op:
+        if self.rng.random() < self.flake_p:
+            # maybe apply, then time out
+            if self.rng.random() < 0.5 and op.f != "read":
+                super().invoke(test, op)
+            raise TimeoutError("simulated client timeout")
+        return super().invoke(test, op)
+
+
+class SharedBank:
+    """Lock-guarded accounts for the bank workload: transfers are atomic
+    and refuse overdrafts (what a serializable SQL transaction gives)."""
+
+    def __init__(self, n: int = 5, per_account: int = 10):
+        self.n = n
+        self.total = n * per_account
+        self.balances = [per_account] * n
+        self._lock = threading.Lock()
+
+    def read(self):
+        with self._lock:
+            return list(self.balances)
+
+    def transfer(self, frm: int, to: int, amount: int) -> bool:
+        with self._lock:
+            if self.balances[frm] < amount:
+                return False
+            self.balances[frm] -= amount
+            self.balances[to] += amount
+            return True
+
+
+class BankClient(client_ns.Client):
+    """A client of a SharedBank; ``broken=True`` loses the credit half of
+    every third transfer, so that reads show a wrong total."""
+
+    def __init__(self, bank: SharedBank, broken: bool = False):
+        self.bank = bank
+        self.broken = broken
+        self._n = 0
+
+    def open(self, test, node):
+        return BankClient(self.bank, self.broken)
+
+    def invoke(self, test, op: Op) -> Op:
+        if op.f == "read":
+            return op.replace(type="ok", value=self.bank.read())
+        if op.f == "transfer":
+            v = op.value
+            if self.broken:
+                self._n += 1
+                if self._n % 3 == 0:  # lose the credit half of the txn
+                    with self.bank._lock:
+                        self.bank.balances[v["from"]] -= v["amount"]
+                    return op.replace(type="ok")
+            ok = self.bank.transfer(v["from"], v["to"], v["amount"])
+            return op.replace(type="ok" if ok else "fail")
+        raise ValueError(f"unknown op {op.f!r}")
+
+
+class SharedMonotonic:
+    """A monotonic-insert table: an add assigns (val, sts) under one lock,
+    so that value order and timestamp order agree."""
+
+    def __init__(self):
+        self.rows = []
+        self._lock = threading.Lock()
+        self._next = 0
+        self._sts = 0
+
+    def add(self, proc, node, skew: int = 0):
+        with self._lock:
+            val = self._next
+            self._next += 1
+            self._sts += 1
+            self.rows.append({"val": val, "sts": self._sts + skew,
+                              "proc": proc, "node": node, "tb": 0})
+            return val
+
+    def read(self):
+        with self._lock:
+            return sorted(self.rows, key=lambda r: r["sts"])
+
+
+class MonotonicClient(client_ns.Client):
+    """A client of a SharedMonotonic; ``broken=True`` skews timestamps so
+    that timestamp order disagrees with value order."""
+
+    def __init__(self, table: SharedMonotonic, broken: bool = False):
+        self.table = table
+        self.broken = broken
+
+    def open(self, test, node):
+        c = MonotonicClient(self.table, self.broken)
+        c.node = node
+        return c
+
+    def invoke(self, test, op: Op) -> Op:
+        if op.f == "add":
+            skew = (-3 if self.broken and self.table._next % 5 == 4 else 0)
+            val = self.table.add(op.process, getattr(self, "node", None),
+                                 skew)
+            return op.replace(type="ok", value=val)
+        if op.f == "read":
+            return op.replace(type="ok", value=self.table.read())
+        raise ValueError(f"unknown op {op.f!r}")
+
+
+class SharedKV:
+    """A flat lock-guarded key-value namespace for the sequential
+    workload."""
+
+    def __init__(self):
+        self.data = {}
+        self._lock = threading.Lock()
+
+    def put(self, k, v=True):
+        with self._lock:
+            self.data[k] = v
+
+    def get(self, k):
+        with self._lock:
+            return self.data.get(k)
+
+
+class SequentialClient(client_ns.Client):
+    """Writes insert subkeys in client order; reads probe them in reverse.
+    ``broken=True`` writes the subkeys in reverse order, so that a
+    concurrent reader can see a later subkey without an earlier one (a
+    trailing nil)."""
+
+    def __init__(self, kv: SharedKV, broken: bool = False):
+        self.kv = kv
+        self.broken = broken
+
+    def open(self, test, node):
+        return SequentialClient(self.kv, self.broken)
+
+    def invoke(self, test, op: Op) -> Op:
+        from jepsen_tpu_torch.suites.workloads import subkeys
+        key_count = test.get("key-count", 5)
+        ks = subkeys(key_count, op.value)
+        if op.f == "write":
+            if self.broken:
+                for k in reversed(ks):
+                    self.kv.put(k)
+                    time.sleep(0.001)  # widen the visibility window
+            else:
+                for k in ks:
+                    self.kv.put(k)
+            return op.replace(type="ok")
+        if op.f == "read":
+            vals = [k if self.kv.get(k) else None for k in reversed(ks)]
+            return op.replace(type="ok", value=(op.value, vals))
+        raise ValueError(f"unknown op {op.f!r}")
+
+
+class G2Client(client_ns.Client):
+    """A predicate read and an insert over two tables. Under one global
+    transaction lock the G2 anomaly is impossible; ``broken=True`` drops
+    the lock, so that both inserts of a key can succeed."""
+
+    def __init__(self, broken: bool = False, state=None, lock=None):
+        self.broken = broken
+        self.state = state if state is not None else {}
+        self.lock = lock or threading.Lock()
+
+    def open(self, test, node):
+        return G2Client(self.broken, self.state, self.lock)
+
+    def _txn(self, k, a_id, b_id):
+        a = self.state.setdefault("a", {})
+        b = self.state.setdefault("b", {})
+        if any(row["key"] == k for row in a.values()) or \
+           any(row["key"] == k for row in b.values()):
+            return False
+        if a_id is not None:
+            a[a_id] = {"key": k, "value": 30}
+        else:
+            b[b_id] = {"key": k, "value": 30}
+        return True
+
+    def invoke(self, test, op: Op) -> Op:
+        k, (a_id, b_id) = op.value.key, op.value.value
+        if self.broken:
+            ok1 = not any(row["key"] == k
+                          for row in self.state.setdefault("a", {}).values())
+            ok2 = not any(row["key"] == k
+                          for row in self.state.setdefault("b", {}).values())
+            time.sleep(0.001)  # widen the race window
+            if ok1 and ok2:
+                tbl = self.state["a"] if a_id is not None else self.state["b"]
+                tbl[a_id if a_id is not None else b_id] = {"key": k,
+                                                           "value": 30}
+                return op.replace(type="ok")
+            return op.replace(type="fail")
+        with self.lock:
+            ok = self._txn(k, a_id, b_id)
+        return op.replace(type="ok" if ok else "fail")
+
+
+class SharedQueue:
+    """A lock-guarded FIFO for the queue workloads."""
+
+    def __init__(self):
+        self.q = collections.deque()
+        self._lock = threading.Lock()
+
+    def enqueue(self, v):
+        with self._lock:
+            self.q.append(v)
+
+    def dequeue(self):
+        with self._lock:
+            return self.q.popleft() if self.q else None
+
+
+class QueueClient(client_ns.Client):
+    """A client of a SharedQueue; ``broken=True`` drops every fourth
+    enqueue after acknowledging it (lost messages)."""
+
+    def __init__(self, queue: SharedQueue, broken: bool = False):
+        self.queue = queue
+        self.broken = broken
+        self._n = 0
+
+    def open(self, test, node):
+        return QueueClient(self.queue, self.broken)
+
+    def invoke(self, test, op: Op) -> Op:
+        if op.f == "enqueue":
+            self._n += 1
+            if self.broken and self._n % 4 == 0:
+                return op.replace(type="ok")  # acked but dropped
+            self.queue.enqueue(op.value)
+            return op.replace(type="ok")
+        if op.f in ("dequeue", "drain"):
+            v = self.queue.dequeue()
+            if v is None:
+                return op.replace(type="fail")
+            return op.replace(type="ok", value=v)
         raise ValueError(f"unknown op {op.f!r}")
 
 

@@ -74,6 +74,11 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.nemesis, jepsen_tpu_torch.store, "
             "jepsen_tpu_torch.repl, jepsen_tpu_torch.checker.perf, "
             "jepsen_tpu_torch.suites.localkv, "
+            "jepsen_tpu_torch.suites.sqlitedb, "
+            "jepsen_tpu_torch.suites.workloads, "
+            "jepsen_tpu_torch.checker.basic, "
+            "jepsen_tpu_torch.checker.timeline, "
+            "jepsen_tpu_torch.explain, "
             "jepsen_tpu_torch.analysis.contention, "
             "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -199,11 +204,16 @@ def test_the_runner_defaults_to_cuda(tmp_path, capsys):
     assert store.run_status(test["store-dir"]) == "dead"
     assert not os.path.exists(os.path.join(test["store-dir"],
                                            "results.json"))
+    checked = 0
     for name, ctor in registry().items():
-        linear = ctor({})["checker"].checkers["linear"]
+        linear = ctor({})["checker"].checkers.get("linear")
+        if linear is None:      # a suite with no linearizability check
+            continue
+        checked += 1
         assert (linear.backend, linear.device) == ("gpu", None), name
         with pytest.raises(RuntimeError, match="CUDA"):
             linear.check({}, h)
+    assert checked == 4     # local-kv, -unsafe, sqlite-register, -toctou
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):
