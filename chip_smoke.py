@@ -17,8 +17,8 @@ held against both plain versions); at each state K5 ``seg_active``
 standing alone, and K4 ending a level pair with K5's step, as the
 segment graph runs it. Then it drives both paths end to end, counting
 each kernel's launches on each: the 10k-op CAS-register headline history through
-``linearizable(CASRegister())``, held against the plain versions, an
-invalid and a wide history; the keyed batch through
+``linearizable(CASRegister())``, its first three segments held against
+the plain versions, an invalid and a wide history; the keyed batch through
 ``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
 staggered and dense, cold and warm, an etcd-shaped batch with one
 corrupted key, and a mixed sub-batch held against the plain versions; and
@@ -58,7 +58,12 @@ mid-workload, each check on the card; and the sqlite tier: the real
 SQLite engine's register suite under the lock hammer (its check held
 against the plain route on the card and the native engine), its toctou
 suite refuted with ``linear.svg`` and explained, and its bank suite;
-and, last, the segment watchdog: an
+and the wire-protocol suites through ``python -m jepsen_tpu_torch run``
+against the in-process fakes of ``tools/torch_suite_fakes.py``: etcd at
+its canonical shapes on 50 workers for 30 s (its keyed check held
+against the plain route on the card, the native engine and ``analyze``
+of its store), etcd against lagging replicas refuted, and the hazelcast
+lock checked as a ``Mutex``; and, last, the segment watchdog: an
 injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
 deadline, a second check answered at once while the card still spins, and
 the warm headline with a deadline beside it without one. Every phase is a
@@ -91,6 +96,8 @@ HEADLINE = dict(n_ops=10000, n_procs=5, n_vals=16, seed=42, crash_p=0.002)
 HEADLINE_RUNG = (128, 32, 8)
 #: levels run before the kernels are held against their plain versions
 HEADLINE_WARM_LEVELS = 300
+#: the headline's segments run on the kernels and on the plain versions
+HEADLINE_PLAIN_SEGMENTS = 3
 #: a 2,000-op history with one corrupted read (refuted on the third rung)
 INVALID = dict(n_ops=2000, n_procs=5, n_vals=16, seed=16)
 #: a one-client history of the headline's length: every op is forced, so
@@ -2404,6 +2411,282 @@ def sqlite_phase(dev, seconds, smi):
     return line, launches, grid, segs
 
 
+#: the suites phase: the wire-protocol suites through the port's command
+#: line against the in-process fakes of tools/torch_suite_fakes.py (one
+#: subprocess a run; five listeners, one a member): etcd at its own
+#: shapes (10 threads, 300 ops and a 1/30 s stagger a key) on 50 workers
+#: for ETCD_SECONDS, valid; the same suite for STALE_SECONDS against the
+#: fake's lagging replicas, refuted; and the hazelcast lock for
+#: LOCK_SECONDS. Each database's lifecycle runs under the dummy control
+#: plane, with the fakes' scripted replies
+SUITES_RUN = {"members": 5, "concurrency": "10n", "etcd_seconds": 30,
+              "stale_seconds": 10, "lock_seconds": 10}
+#: the fields a key's verdict is held to across the run, the plain route
+#: and analyze
+SUITE_KEYS = ("valid", "levels")
+#: the fields a refuted key's result is held to on the plain route
+PREFIX_KEYS = ("max-linearized-prefix", "deepest-expanded", "final-states")
+
+
+class SuiteFake:
+    """One fake of ``tools/torch_suite_fakes.py`` in a subprocess: its
+    node names; stopped (stdin closed, then killed if need be) on exit."""
+
+    def __init__(self, *args):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(root, "tools",
+                                          "torch_suite_fakes.py"), *args],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.nodes = json.loads(self.proc.stdout.readline())["nodes"]
+        self.stats = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.proc.stdin.close()
+            line = self.proc.stdout.readline()
+            self.stats = json.loads(line)["stats"] if line.strip() else None
+            self.proc.wait(timeout=30)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
+    """The wire-protocol suites on the card, each through ``python -m
+    jepsen_tpu_torch run`` (its ``main``, in this process) against the
+    fakes: the canonical etcd run valid, its keyed check on K1, K2 and K4
+    and never K5 standing alone, every key's verdict and levels held
+    against the keyed check on the plain route on the card, against the
+    native engine on the same subhistories (timed) and against
+    ``analyze`` of the stored run; the stale-read etcd run refuted, each
+    failing key refuted by the plain route and the native engine at the
+    same ``max-linearized-prefix``; the hazelcast lock valid, its
+    ``Mutex`` check held to the plain route and the native engine. Every
+    check on the card: ``backend`` gpu, no ``fallback-from``, no
+    ``error``. Returns the phase's JSON entry and the launches, CUDA
+    launches and segment counts of the three runs."""
+    import io
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import independent, resilience, store
+    from jepsen_tpu_torch.__main__ import main as port_main
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister, Mutex
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_suite_fakes as fakes
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-suites-")
+    on_cpu = dev.type == "cpu"
+
+    def on_card(res, tag):
+        assert res.get("backend") == "gpu", (tag, res)
+        assert "fallback-from" not in res and "error" not in res, (tag, res)
+
+    def stored(x):
+        """``x`` as a stored result holds it (tuples become lists)."""
+        return json.loads(json.dumps(x))
+
+    counters = (K.launches, K.grid_launches_total, K.segments)
+    #: the launches, CUDA launches and segment counts of the three runs
+    totals = tuple(dict.fromkeys(c, 0) for c in counters)
+
+    def run(suite, nodes, secs, *extra):
+        """``run --suite`` in this process; (exit code, the stored run,
+        the keyed batches its check ran, its kernel launches). Its
+        counts are added to ``totals``."""
+        responses = os.path.join(root, f"{suite}-responses.json")
+        with open(responses, "w") as fh:
+            json.dump(fakes.DUMMY_RESPONSES[suite], fh)
+        argv = ["run", "--suite", suite, "--ssh-mode", "dummy",
+                "--dummy-responses", responses, "--time-limit", str(secs),
+                "--store-root", root, *extra]
+        for n in nodes:
+            argv += ["-n", n]
+        if on_cpu:
+            argv += ["--device", "cpu"]
+        batches, orig = [], G.check_keyed_gpu
+        before = tuple(dict(c) for c in counters)
+
+        def spy(*a, **kw):
+            out = orig(*a, **kw)
+            batches.extend(out["batches"])
+            return out
+        G.check_keyed_gpu = spy
+        try:
+            rc = port_main(argv)
+        finally:
+            G.check_keyed_gpu = orig
+        for c, was, total in zip(counters, before, totals):
+            for k in c:
+                total[k] += c[k] - was[k]
+        name = suite if suite != "hazelcast" else "hazelcast-lock"
+        return (rc, store.load(os.path.join(root, name, "latest")), batches,
+                {k: K.launches[k] - before[0][k] for k in K.launches})
+
+    def etcd_entry(tag, t, batches, keyed):
+        res = t["results"]["indep"]["results"]
+        levels = [r.get("levels") for r in res.values()]
+        entry = dict(run_split(t), events=len(t["history"]),
+                     keys=len(keyed), valid=t["results"]["valid"],
+                     events_per_key=[min(len(h) for h in keyed.values()),
+                                     max(len(h) for h in keyed.values())],
+                     levels_per_key=[min(levels), max(levels)],
+                     device_s=sum(b["seconds"] for b in batches),
+                     batches=[{"rung": list(b["rung"]), "keys": b["keys"],
+                               "levels": b["levels"],
+                               "tiebreak": b["tiebreak"],
+                               "crash_width": b["crash-width"]}
+                              for b in batches])
+        line[tag] = entry
+        return entry
+
+    def per_key_checks(tag, keyed, res, refuted):
+        """The keyed check on the plain route on the card, and the native
+        engine, on the run's subhistories, against the run's verdicts."""
+        t0 = time.perf_counter()
+        plain = G.check_keyed_gpu(keyed, CASRegister(), device=dev,
+                                  ops=G.PLAIN)["results"]
+        plain_s = time.perf_counter() - t0
+        native = linearizable(CASRegister(), backend="cpu")
+        nat_s = {}
+        for k, h in keyed.items():
+            r = res[str(k)]
+            on_card(r, f"{tag} key {k}")
+            assert [plain[k].get(f) for f in SUITE_KEYS] == \
+                [r.get(f) for f in SUITE_KEYS], (tag, k, plain[k], r)
+            t1 = time.perf_counter()
+            nat = native.check({}, h)
+            nat_s[k] = time.perf_counter() - t1
+            assert nat["valid"] == r["valid"] and \
+                nat.get("engine") == "native", (tag, k, nat, r)
+            if r["valid"] is False:
+                # the device's prefix is its last living pool's deepest
+                # k, and the all-time deepest (the native engine's) is
+                # deepest-expanded where the two differ, as in the
+                # reference (checker/tpu.py:1270-1295)
+                deepest = r.get("deepest-expanded",
+                                r["max-linearized-prefix"])
+                assert stored([plain[k].get(f) for f in PREFIX_KEYS]) == \
+                    stored([r.get(f) for f in PREFIX_KEYS]) and \
+                    nat.get("max-linearized-prefix") == deepest, \
+                    (tag, k, plain[k], nat, r)
+        assert {k for k, r in res.items() if r["valid"] is False} == \
+            {str(k) for k in refuted}
+        line[tag].update(plain_route_s=plain_s,
+                         native_s=sum(nat_s.values()),
+                         native_key_s=[min(nat_s.values()),
+                                       max(nat_s.values())])
+
+    try:
+        with phase("suites", seconds):
+            K.reset_launches()
+            # -- etcd at its canonical shapes: valid --------------------
+            with SuiteFake("etcd", "--members", str(cfg["members"])) as f:
+                rc, t, batches, etcd_launches = run(
+                    "etcd", f.nodes, cfg["etcd_seconds"], "--concurrency",
+                    cfg["concurrency"])
+            assert rc == 0, rc
+            res = t["results"]
+            assert res["valid"] is True and res["indep"]["valid"] is True
+            keyed = independent.subhistories(t["history"])
+            entry = etcd_entry("etcd", t, batches, keyed)
+            entry.update(fake=f.stats, launches=etcd_launches)
+            assert set(res["indep"]["results"]) == {str(k) for k in keyed}
+            assert batches and len(keyed) >= 2, (batches, len(keyed))
+            print(f"suites: etcd: {json.dumps(entry)} [{smi}]", flush=True)
+            if not on_cpu:
+                # K2 under either tie-break: the keyed ladder's first
+                # rungs sort with the hash key
+                assert etcd_launches["expand"] > 0 and \
+                    etcd_launches["dedup_truncate"] > 0 and \
+                    etcd_launches["sort_rows"] + \
+                    etcd_launches["sort_rows_hash"] > 0, etcd_launches
+            per_key_checks("etcd", keyed, res["indep"]["results"], ())
+            # -- analyze of the stored run: the same per-key verdicts ----
+            out = io.StringIO()
+            argv = ["analyze", "--store", t["store-dir"]]
+            with contextlib.redirect_stdout(out):
+                rc = port_main(argv + (["--device", "cpu"] if on_cpu
+                                       else []))
+            text = out.getvalue()
+            assert rc == 0, (rc, text[-2000:])
+            again = json.loads(text[text.index("\n{") + 1:])
+            for k, r in res["indep"]["results"].items():
+                assert [again["results"][k].get(f) for f in SUITE_KEYS] == \
+                    [r.get(f) for f in SUITE_KEYS], (k, again["results"][k])
+            line["etcd"]["analyze"] = [ln for ln in text.splitlines()
+                                       if ln.startswith("# ")]
+            # -- etcd against lagging replicas: refuted -----------------
+            with SuiteFake("etcd", "--members", str(cfg["members"]),
+                           "--stale-reads") as f:
+                rc, st, sbatches, _ = run("etcd", f.nodes,
+                                          cfg["stale_seconds"],
+                                          "--concurrency",
+                                          cfg["concurrency"])
+            assert rc == 1, rc
+            sres = st["results"]
+            assert sres["valid"] is False and sres["indep"]["failures"], sres
+            skeyed = independent.subhistories(st["history"])
+            entry = etcd_entry("etcd stale", st, sbatches, skeyed)
+            entry.update(fake=f.stats,
+                         failures=sorted(sres["indep"]["failures"]))
+            print(f"suites: etcd stale: {json.dumps(entry)} [{smi}]",
+                  flush=True)
+            per_key_checks("etcd stale", skeyed, sres["indep"]["results"],
+                           sres["indep"]["failures"])
+            # -- the hazelcast lock: a Mutex on the card -----------------
+            with SuiteFake("hazelcast", "--members",
+                           str(cfg["members"])) as f:
+                rc, ht, _, lock_launches = run(
+                    "hazelcast", f.nodes, cfg["lock_seconds"], "--workload",
+                    "lock")
+            assert rc == 0, rc
+            lin = ht["results"]["workload"]
+            assert ht["results"]["valid"] is True and lin["valid"] is True
+            on_card(lin, "hazelcast lock")
+            hist = ht["history"]
+            packed, kernel = pack_with_init(hist, Mutex())
+            assert kernel.name == "mutex", kernel.name
+            rp = resilience.supervised_check_packed(packed, kernel,
+                                                    device=dev, ops=G.PLAIN)
+            keys = ("valid", "levels", "best-k", "rung")
+            assert stored([lin.get(k) for k in keys]) == \
+                stored([rp.get(k) for k in keys]), (lin, rp)
+            t0 = time.perf_counter()
+            nat = linearizable(Mutex(), backend="cpu").check({}, hist)
+            native_s = time.perf_counter() - t0
+            assert nat["valid"] is True and nat.get("engine") == "native"
+            line["hazelcast lock"] = dict(
+                run_split(ht), events=len(hist), valid=lin["valid"],
+                levels=lin.get("levels"), rung=lin.get("rung"),
+                device_s=lin.get("device-s"), native_s=native_s,
+                plain_route=[rp.get(k) for k in keys],
+                launches=lock_launches)
+            print(f"suites: hazelcast lock: "
+                  f"{json.dumps(line['hazelcast lock'])} [{smi}]",
+                  flush=True)
+            launches, grid, segs = totals
+            if not on_cpu:
+                assert all(lock_launches[k] > 0 for k in (
+                    "expand", "sort_rows", "dedup_truncate")), lock_launches
+                assert segs["pair_ends"] > 0 and \
+                    grid["seg_active"] == 0, (segs, grid)
+        print(f"suites: launches={launches} cuda_launches={grid} "
+              f"graphs={segs} [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -2699,27 +2982,27 @@ def smoke(dev: torch.device) -> None:
               f"searchstats={r['searchstats']}")
 
     with phase("headline plain", seconds):
-        # the first segment, kernels against plain versions, every lane
-        seg = {}
-        for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
-            lv = parity.Level(head_cols, r["rung"], dev)
-            t0 = time.perf_counter()
-            G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr,
-                          G.DEFAULT_SEGMENT_ITERS, ops)
-            seg[name] = interop.carry_to_numpy(lv.carry)
-            print(f"first segment ({name}): "
-                  f"{time.perf_counter() - t0:.3f} s, "
-                  f"level={int(seg[name][8])}")
-        assert carries_equal(seg["kernels"], seg["plain"]), "first segment"
-        # the whole run, against the plain versions' run
-        t0 = time.perf_counter()
-        rp = resilience.supervised_check_packed(head_p, head_kernel,
-                                                device=dev, ops=G.PLAIN)
-        print(f"headline plain run: valid={rp['valid']} "
-              f"levels={rp['levels']} best_k={rp['best-k']} vs kernels "
-              f"best_k={r['best-k']} ({time.perf_counter() - t0:.1f} s)")
-        assert (rp["valid"], rp["levels"], rp["best-k"], rp["rung"]) == (
-            r["valid"], r["levels"], r["best-k"], r["rung"])
+        # the first HEADLINE_PLAIN_SEGMENTS segments of the headline's
+        # search, kernels against plain versions, every lane of the carry
+        # after each (the whole run on the plain route took 64.6 s and is
+        # cut to this depth, to keep the smoke inside half its limit)
+        lvs = {name: parity.Level(head_cols, r["rung"], dev)
+               for name in ("kernels", "plain")}
+        for i in range(HEADLINE_PLAIN_SEGMENTS):
+            seg = {}
+            for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+                lv = lvs[name]
+                t0 = time.perf_counter()
+                G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape,
+                              lv.nr, G.DEFAULT_SEGMENT_ITERS, ops)
+                seg[name] = interop.carry_to_numpy(lv.carry)
+                print(f"segment {i + 1} ({name}): "
+                      f"{time.perf_counter() - t0:.3f} s, "
+                      f"level={int(seg[name][8])}")
+            assert carries_equal(seg["kernels"], seg["plain"]), \
+                f"segment {i + 1}"
+        assert int(seg["plain"][8]) == min(
+            r["levels"], HEADLINE_PLAIN_SEGMENTS * G.DEFAULT_SEGMENT_ITERS)
 
     # -- the plan gate ------------------------------------------------------
     plan_line = plan_phase(dev, seconds, head_p, head_kernel, r, {
@@ -2933,6 +3216,10 @@ def smoke(dev: torch.device) -> None:
     (sqlite_line, sqlite_launches, sqlite_grid_launches,
      path_segments["sqlite"]) = sqlite_phase(dev, seconds, smi)
 
+    # -- the wire-protocol suites against their fakes ----------------------
+    (suites_line, suites_launches, suites_grid_launches,
+     path_segments["suites"]) = suites_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -2946,11 +3233,12 @@ def smoke(dev: torch.device) -> None:
     path_launches = {"headline": launches, "keyed": keyed_launches,
                      "models": model_launches, "serve": serve_launches,
                      "stream": stream_launches, "run": run_launches,
-                     "sqlite": sqlite_launches}
+                     "sqlite": sqlite_launches, "suites": suites_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
-                 "sqlite": sqlite_grid_launches}
+                 "sqlite": sqlite_grid_launches,
+                 "suites": suites_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -3032,7 +3320,7 @@ def smoke(dev: torch.device) -> None:
         "serve": serve_line, "host_engines": host_line,
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
         "telemetry": telemetry_line, "runner": runner_line,
-        "sqlite": sqlite_line,
+        "sqlite": sqlite_line, "suites": suites_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,9 +32,15 @@ its clients under the generator with the nemesis, tees every op into the
 WAL, saves the store under ``--store-root`` and then checks the history,
 on the card unless ``--device cpu`` (the kernels' plain versions) or
 ``--backend cpu`` (the host search). ``--node``, ``--concurrency`` and
-``--time-limit`` default to the suite's own settings. ``--watch`` and
-``--fleet`` are refused: the port has neither the live status printer
-nor the multi-GPU fleet yet.
+``--time-limit`` default to the suite's own settings; ``--workload``
+selects the hazelcast suite's workload (the reference's hazelcast
+``main`` takes it). With ``--ssh-mode dummy`` the control plane records
+each node's commands and runs none; ``--dummy-responses FILE`` scripts
+its replies (a JSON object: command substring -> stdout, or ``[exit,
+stdout, stderr]``), as the reference's tests put ``dummy-responses`` in
+the test map, so that a database's install can be recorded through to
+its start. ``--watch`` and ``--fleet`` are refused: the port has neither
+the live status printer nor the multi-GPU fleet yet.
 
 ``python -m jepsen_tpu_torch analyze --store DIR`` re-checks a stored run
 (by either package) and prints, before the result, its lint summary, its
@@ -45,8 +51,12 @@ of the check's wall clock and the ``# search:`` analytics.
 from its WAL (dangling invokes become ``info``), re-checks it and marks
 the run done. All three take ``--backend`` and ``--device``; ``analyze``
 and ``recover`` also ``--model`` and ``--algorithm``. ``run --suite``
-offers the local-kv suites and the sqlite ones (``sqlite-register``,
-``sqlite-bank``, ``sqlite-register-toctou``: the real SQLite engine).
+offers the local-kv suites, the sqlite ones (``sqlite-register``,
+``sqlite-bank``, ``sqlite-register-toctou``: the real SQLite engine) and
+the wire-protocol ones (``etcd``, ``zookeeper``, ``consul``, ``disque``,
+``raftis``, ``rabbitmq``, ``rabbitmq-mutex``, ``hazelcast``). A stored
+run whose ops carry ``[k v]`` values (etcd's) is re-checked key by key,
+as the run checked it (``independent.checker``).
 
 ``python -m jepsen_tpu_torch explain [--store DIR]`` says why a stored
 run (by either package; the latest under ``--store-root`` by default) got
@@ -91,6 +101,7 @@ class _Parser(argparse.ArgumentParser):
 def _parser() -> argparse.ArgumentParser:
     from jepsen_tpu_torch.serve import models
     from jepsen_tpu_torch.suites import SUITES
+    from jepsen_tpu_torch.suites.hazelcast import workloads
     p = _Parser(prog="python -m jepsen_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="run the multi-tenant check daemon")
@@ -180,6 +191,13 @@ def _parser() -> argparse.ArgumentParser:
     r.add_argument("--ssh-mode", default=None,
                    choices=[None, "ssh", "dummy", "local"],
                    help="control-plane transport (dummy = record only)")
+    r.add_argument("--dummy-responses", default=None, metavar="FILE",
+                   help="with --ssh-mode dummy: a JSON object mapping a "
+                        "command substring to its reply (stdout, or "
+                        "[exit, stdout, stderr])")
+    r.add_argument("--workload", default=None,
+                   choices=sorted(workloads()),
+                   help="the hazelcast suite's workload (default: lock)")
     r.add_argument("--concurrency", default=None,
                    help="worker count; an integer, optionally followed by "
                         "n to multiply by the node count (e.g. 3n; "
@@ -552,6 +570,40 @@ def _test_opts(opts: argparse.Namespace) -> dict:
         out["concurrency"] = _parse_concurrency(opts.concurrency, len(nodes))
     if opts.time_limit is not None:
         out["time-limit"] = opts.time_limit
+    if opts.workload is not None:
+        if opts.suite != "hazelcast":
+            raise _ArgError("--workload selects a workload of --suite "
+                            "hazelcast only")
+        out["workload"] = opts.workload
+    if opts.dummy_responses is not None:
+        if opts.ssh_mode != "dummy":
+            raise _ArgError("--dummy-responses needs --ssh-mode dummy")
+        out["ssh"]["dummy-responses"] = _dummy_responses(
+            opts.dummy_responses)
+    return out
+
+
+def _dummy_responses(path: str) -> dict:
+    """The dummy control plane's scripted replies from a JSON file: a
+    command substring -> its stdout, or ``[exit, stdout, stderr]``."""
+    try:
+        with open(path, encoding="utf-8") as f:
+            doc = json.load(f)
+    except (OSError, ValueError) as e:
+        raise _ArgError(f"--dummy-responses {path}: {e}")
+    if not isinstance(doc, dict):
+        raise _ArgError(f"--dummy-responses {path}: expected a JSON object")
+    out = {}
+    for pat, resp in doc.items():
+        if isinstance(resp, list):
+            if len(resp) != 3:
+                raise _ArgError(f"--dummy-responses {path}: {pat!r} needs "
+                                f"[exit, stdout, stderr]")
+            resp = (int(resp[0]), str(resp[1]), str(resp[2]))
+        elif not isinstance(resp, str):
+            raise _ArgError(f"--dummy-responses {path}: {pat!r}: expected "
+                            f"a string or a list")
+        out[str(pat)] = resp
     return out
 
 
@@ -594,24 +646,31 @@ def _search_line(out) -> Optional[str]:
 
 
 def _forecast(history, model, opts: argparse.Namespace) -> None:
-    """The ``# plan:`` line and the ``# contention:`` lines."""
+    """The ``# plan:`` line and the ``# contention:`` lines; a history of
+    ``[k v]`` values is forecast as its keys' batch."""
+    from jepsen_tpu_torch import independent
     from jepsen_tpu_torch.analysis import contention
     from jepsen_tpu_torch.checker import plan
+    if independent.history_keys(history):
+        history = independent.subhistories(history)
     print(plan.summary_line(history, model, device=opts.device))
     for ln in contention.forecast_lines(contention.profile(history)):
         print(ln)
 
 
 def _recheck(test: dict, model, opts: argparse.Namespace) -> dict:
-    """Re-check a stored run's history; prints the ``# compile:`` and
-    ``# search:`` lines. Live progress (and a --profile capture) go to the
-    run's directory."""
-    from jepsen_tpu_torch import repl
+    """Re-check a stored run's history (key by key when its ops carry
+    ``[k v]`` values); prints the ``# compile:`` and ``# search:`` lines.
+    Live progress (and a --profile capture) go to the run's directory."""
+    from jepsen_tpu_torch import independent, repl
     from jepsen_tpu_torch.checker import gpu
     from jepsen_tpu_torch.checker.wgl import linearizable
     from jepsen_tpu_torch.obs import observatory, profiler
     checker = linearizable(model, backend=opts.backend, device=_device(opts),
                            algorithm=opts.algorithm)
+    if independent.history_keys(test.get("history") or []):
+        # [k v] values: checked key by key, as the run checked them
+        checker = independent.checker(checker)
     observatory.attach(test.get("store-dir"))
     profiler.attach(test.get("store-dir"))
     comp0 = gpu.compile_snapshot()

@@ -495,10 +495,14 @@ def analyze(dims: PlanDims, kernel=None,
 
 def summary_line(history, model, device=None) -> str:
     """One ``# plan:`` line: the candidate count, the cheapest valid plan,
-    its footprint and the byte budget, or the rejection rules. Arithmetic
-    only; never raises."""
+    its footprint and the byte budget, or the rejection rules. A ``{key:
+    history}`` map is planned as the keyed batch, over its widest key.
+    Arithmetic only; never raises."""
     try:
-        dims = PlanDims.from_history(history, model)
+        if isinstance(history, dict):
+            dims = _keyed_dims(history, model)
+        else:
+            dims = PlanDims.from_history(history, model)
         if dims is None:
             return "# plan: no integer kernel (object search; unplanned)"
         rep = analyze(dims, device=device)
@@ -519,6 +523,18 @@ def summary_line(history, model, device=None) -> str:
                 f"limit {'n/a' if lim is None else f'{lim / 1e6:.1f} MB'}")
     except Exception as e:  # noqa: BLE001 -- a summary must never break a run
         return f"# plan: unavailable ({type(e).__name__}: {e})"
+
+
+def _keyed_dims(keyed: Dict[Any, Any], model) -> Optional[PlanDims]:
+    """The keyed batch's dims: each width the widest key's, ``keys`` the
+    key count (as :func:`check_keyed_gpu` plans its batch)."""
+    per = [PlanDims.from_history(h, model) for h in keyed.values()]
+    if not per or any(d is None for d in per):
+        return None
+    return PlanDims(n_required=max(d.n_required for d in per),
+                    n_crashed=max(d.n_crashed for d in per),
+                    window_needed=max(d.window_needed for d in per),
+                    n_events=max(d.events() for d in per), keys=len(per))
 
 
 # ---------------------------------------------------------------------------

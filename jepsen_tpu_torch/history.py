@@ -37,6 +37,49 @@ def invalid_op_type(t: Any) -> Optional[str]:
     return f"op type {t!r} is not one of {'/'.join(VALID_TYPES)}"
 
 
+#: The key of a keyed op value's stored form (:meth:`KV.to_json`).
+KV_TAG = "independent/kv"
+
+
+class KV:
+    """A key/value tuple in an op's value (``independent.tuple_``). A type
+    of its own, not a Python tuple, so that op values that are tuples (cas
+    pairs) are never taken for keyed values. A history stores it as
+    ``{"independent/kv": [k, v]}``, and loads it back as a KV."""
+
+    __slots__ = ("key", "value")
+
+    def __init__(self, key, value):
+        self.key = key
+        self.value = value
+
+    def __iter__(self):
+        return iter((self.key, self.value))
+
+    def __eq__(self, other):
+        return (isinstance(other, KV) and self.key == other.key
+                and self.value == other.value)
+
+    def __hash__(self):
+        return hash((KV, self.key, self.value))
+
+    def __repr__(self):
+        return f"[{self.key!r} {self.value!r}]"
+
+    def to_json(self) -> dict:
+        """The stored form, which :meth:`Op.from_dict` reads back."""
+        return {KV_TAG: [self.key, self.value]}
+
+
+def _stored_value(v):
+    """An op value as loaded: a stored :class:`KV` becomes one again."""
+    if type(v) is dict and len(v) == 1 and KV_TAG in v:
+        pair = v[KV_TAG]
+        if isinstance(pair, list) and len(pair) == 2:
+            return KV(pair[0], pair[1])
+    return v
+
+
 @dataclass(slots=True)
 class Op:
     """One operation event: type, f, value, process, time, index, error,
@@ -87,7 +130,8 @@ class Op:
         bad = invalid_op_type(d["type"])
         if bad and INVALID_TYPE_FLAG not in extra:
             extra[INVALID_TYPE_FLAG] = bad
-        return cls(type=d["type"], f=d.get("f"), value=d.get("value"),
+        return cls(type=d["type"], f=d.get("f"),
+                   value=_stored_value(d.get("value")),
                    process=d.get("process"), time=d.get("time", 0),
                    index=d.get("index", -1), error=d.get("error"),
                    extra=extra or None)
@@ -260,6 +304,8 @@ class History(list):
 
 
 def _json_default(x):
+    if isinstance(x, KV):
+        return x.to_json()
     if isinstance(x, (set, frozenset, tuple)):
         return list(x)
     return str(x)

@@ -26,36 +26,11 @@ from typing import Any, Callable, Dict, Iterable, Optional, Sequence
 
 from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch.checker import UNKNOWN, Checker, check_safe, merge_valid
-from jepsen_tpu_torch.history import History, Op
+from jepsen_tpu_torch.history import KV, History, Op
 from jepsen_tpu_torch.util import real_pmap
 
 #: Subdirectory of the store dir for per-key results.
 DIR = "independent"
-
-
-class KV:
-    """A key/value tuple in an op's value. A type of its own, not a Python
-    tuple, so that op values that are tuples (cas pairs) are never taken
-    for keyed values."""
-
-    __slots__ = ("key", "value")
-
-    def __init__(self, key, value):
-        self.key = key
-        self.value = value
-
-    def __iter__(self):
-        return iter((self.key, self.value))
-
-    def __eq__(self, other):
-        return (isinstance(other, KV) and self.key == other.key
-                and self.value == other.value)
-
-    def __hash__(self):
-        return hash((KV, self.key, self.value))
-
-    def __repr__(self):
-        return f"[{self.key!r} {self.value!r}]"
 
 
 def tuple_(k, v) -> KV:

@@ -37,7 +37,7 @@ import time
 import zlib
 from typing import Optional, Tuple
 
-from jepsen_tpu_torch.history import History, INFO, Op
+from jepsen_tpu_torch.history import INFO, KV, History, Op
 from jepsen_tpu_torch.obs import metrics as obs_metrics
 
 log = logging.getLogger("jepsen_tpu_torch.journal")
@@ -64,6 +64,8 @@ DEFAULT_BATCH_MS = 50.0
 
 
 def _json_default(x):
+    if isinstance(x, KV):
+        return x.to_json()
     if isinstance(x, (set, frozenset)):
         return sorted(x, key=repr)
     if isinstance(x, bytes):

@@ -47,7 +47,7 @@ import threading
 from datetime import datetime
 from typing import Any, Dict, List, Optional
 
-from jepsen_tpu_torch.history import History
+from jepsen_tpu_torch.history import KV, History
 from jepsen_tpu_torch.util import chunk_vec, real_pmap
 
 #: Keys dropped before serialization (store.clj:155-163).
@@ -130,6 +130,8 @@ def serializable_test(test: dict) -> dict:
 
 
 def _json_default(x):
+    if isinstance(x, KV):
+        return x.to_json()
     if isinstance(x, (set, frozenset)):
         return sorted(x, key=repr)
     if isinstance(x, bytes):

@@ -2,11 +2,13 @@
 constructors, by name.
 
 The port has the two local-kv suites (:mod:`.localkv`), whose nodes are
-real local processes, and the three sqlite suites (:mod:`.sqlitedb`),
-whose system is the real SQLite engine; every other suite of
-``jepsen_tpu.suites`` is still to port (ROADMAP). Their linearizability
-check runs on the card unless the options ask for the CPU (``backend:
-"cpu"``, or ``device: "cpu"``).
+real local processes, the three sqlite suites (:mod:`.sqlitedb`), whose
+system is the real SQLite engine, and the wire-protocol suites of the
+register, mutex and queue families: etcd, consul, zookeeper, raftis,
+disque, rabbitmq (a queue and a mutex) and hazelcast (seven workloads).
+Every other suite of ``jepsen_tpu.suites`` is still to port (ROADMAP).
+Their linearizability check runs on the card unless the options ask for
+the CPU (``backend: "cpu"``, or ``device: "cpu"``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,14 @@ from typing import Callable, Dict
 
 #: name -> (module, constructor attribute)
 SUITES = {
+    "etcd": ("etcd", "etcd_test"),
+    "zookeeper": ("zookeeper", "zk_test"),
+    "consul": ("consul", "consul_test"),
+    "disque": ("disque", "disque_test"),
+    "raftis": ("raftis", "raftis_test"),
+    "rabbitmq": ("rabbitmq", "rabbitmq_test"),
+    "rabbitmq-mutex": ("rabbitmq", "mutex_test"),
+    "hazelcast": ("hazelcast", "hazelcast_test"),
     "local-kv": ("localkv", "localkv_test"),
     "local-kv-unsafe": ("localkv", "localkv_unsafe_test"),
     "sqlite-register": ("sqlitedb", "sqlite_register_test"),
@@ -31,3 +41,12 @@ def registry() -> Dict[str, Callable[[dict], dict]]:
         m = importlib.import_module(f"jepsen_tpu_torch.suites.{mod}")
         out[name] = getattr(m, attr)
     return out
+
+
+def run_main(name: str, argv=None) -> int:
+    """A suite module's ``main``: the command line's ``run --suite NAME``
+    with ``argv`` (default: the process's arguments) after it."""
+    import sys
+    from jepsen_tpu_torch.__main__ import main as cli_main
+    argv = list(sys.argv[1:] if argv is None else argv)
+    return cli_main(["run", "--suite", name, *argv])

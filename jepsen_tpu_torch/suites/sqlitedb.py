@@ -460,10 +460,8 @@ def sqlite_register_toctou_test(opts: dict) -> dict:
 def main(argv=None):
     """``python -m jepsen_tpu_torch.suites.sqlitedb [run flags]``: the
     command line's ``run --suite sqlite-register``."""
-    import sys
-    from jepsen_tpu_torch.__main__ import main as cli_main
-    argv = list(sys.argv[1:] if argv is None else argv)
-    return cli_main(["run", "--suite", "sqlite-register", *argv])
+    from jepsen_tpu_torch.suites import run_main
+    return run_main("sqlite-register", argv)
 
 
 if __name__ == "__main__":

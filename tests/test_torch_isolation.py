@@ -35,6 +35,7 @@ def _port_files():
              os.path.join(ROOT, "tools", "time_torch_watchdog.py"),
              os.path.join(ROOT, "tools", "profile_torch_cold.py"),
              os.path.join(ROOT, "tools", "torch_runner_windows.py"),
+             os.path.join(ROOT, "tools", "torch_suite_fakes.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -80,6 +81,16 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.checker.timeline, "
             "jepsen_tpu_torch.explain, "
             "jepsen_tpu_torch.analysis.contention, "
+            "jepsen_tpu_torch.codec, jepsen_tpu_torch.report, "
+            "jepsen_tpu_torch.net, jepsen_tpu_torch.reconnect, "
+            "jepsen_tpu_torch.os.debian, jepsen_tpu_torch.os.ubuntu, "
+            "jepsen_tpu_torch.os.smartos, jepsen_tpu_torch.suites.resp, "
+            "jepsen_tpu_torch.suites.etcd, jepsen_tpu_torch.suites.consul, "
+            "jepsen_tpu_torch.suites.zookeeper, "
+            "jepsen_tpu_torch.suites.raftis, "
+            "jepsen_tpu_torch.suites.disque, "
+            "jepsen_tpu_torch.suites.rabbitmq, "
+            "jepsen_tpu_torch.suites.hazelcast, "
             "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -175,8 +186,9 @@ def test_the_serve_slice_defaults_to_cuda(tmp_path):
 def test_the_runner_defaults_to_cuda(tmp_path, capsys):
     """``run``, ``analyze`` and ``recover`` check on the GPU unless asked
     otherwise; without one they refuse (exit 255) before any work: no
-    daemon booted, no store written, a dead run left as it was. The
-    local-kv suites' checker is the GPU's, and raises without one."""
+    daemon booted, no store written, a dead run left as it was. Every
+    suite's linearizability checker is the GPU's (the CPU's only when the
+    options ask for it), and raises without one."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     import json
@@ -204,16 +216,29 @@ def test_the_runner_defaults_to_cuda(tmp_path, capsys):
     assert store.run_status(test["store-dir"]) == "dead"
     assert not os.path.exists(os.path.join(test["store-dir"],
                                            "results.json"))
-    checked = 0
+    checked = []
     for name, ctor in registry().items():
-        linear = ctor({})["checker"].checkers.get("linear")
+        checkers = ctor({})["checker"].checkers
+        linear = checkers.get("linear")
+        if name == "etcd":
+            linear = checkers["indep"].inner
+        elif name == "hazelcast":       # the lock workload, the default
+            linear = checkers["workload"]
         if linear is None:      # a suite with no linearizability check
             continue
-        checked += 1
+        checked.append(name)
         assert (linear.backend, linear.device) == ("gpu", None), name
         with pytest.raises(RuntimeError, match="CUDA"):
             linear.check({}, h)
-    assert checked == 4     # local-kv, -unsafe, sqlite-register, -toctou
+        asked = ctor({"backend": "cpu"})["checker"].checkers
+        asked = (asked["indep"].inner if name == "etcd" else
+                 asked["workload"] if name == "hazelcast" else
+                 asked["linear"])
+        assert (asked.backend, asked.device) == ("cpu", None), name
+    assert sorted(checked) == sorted([
+        "local-kv", "local-kv-unsafe", "sqlite-register",
+        "sqlite-register-toctou", "etcd", "zookeeper", "consul", "raftis",
+        "rabbitmq-mutex", "hazelcast"])
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):
