@@ -18,7 +18,9 @@ standing alone, and K4 ending a level pair with K5's step, as the
 segment graph runs it. Then it drives both paths end to end, counting
 each kernel's launches on each: the 10k-op CAS-register headline history through
 ``linearizable(CASRegister())``, its first three segments held against
-the plain versions, an invalid and a wide history; the keyed batch through
+the plain versions, an invalid history (its first segments held against
+the plain versions, and a smaller one refuted on both), a wide history;
+the keyed batch through
 ``independent.checker(linearizable(CASRegister()))``: 256 keys x 2,000 ops
 staggered and dense, cold and warm, an etcd-shaped batch with one
 corrupted key, and a mixed sub-batch held against the plain versions; and
@@ -26,7 +28,8 @@ the other model families (mutex, unordered queue, FIFO queue, set, no-op):
 each kernel held against its plain version at a live state of each
 model's 10,000-op history, each history through ``linearizable(<Model>())``
 cold and warm, a corrupted copy refuted, and 1,000-op histories on the
-kernels and on their plain versions; and the serve daemon's gangs: each
+kernels and on their plain versions (whole up to 256 levels, else their
+first 256); and the serve daemon's gangs: each
 kernel held against its plain version at a gang's state (8 same-bucket
 2,000-op register histories), the gang against the same 8 histories
 checked one by one, and the daemon (``serve.run_daemon`` on port 0)
@@ -63,7 +66,14 @@ against the in-process fakes of ``tools/torch_suite_fakes.py``: etcd at
 its canonical shapes on 50 workers for 30 s (its keyed check held
 against the plain route on the card, the native engine and ``analyze``
 of its store), etcd against lagging replicas refuted, and the hazelcast
-lock checked as a ``Mutex``; and, last, the segment watchdog: an
+lock checked as a ``Mutex``; and the keyed CAS-register suites whose data
+plane is a command on the nodes, each through ``core.run`` with the
+command-line fake's sessions: aerospike at 100 workers and cockroachdb's
+register under a clock-skew nemesis, valid with crashed ops in their
+histories (held against the plain route, the native engine and
+``analyze``), and mongodb against lagging secondaries, valid with
+linearizable reads and refuted with local ones; and, last, the segment
+watchdog: an
 injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
 deadline, a second check answered at once while the card still spins, and
 the warm headline with a deadline beside it without one. Every phase is a
@@ -100,6 +110,14 @@ HEADLINE_WARM_LEVELS = 300
 HEADLINE_PLAIN_SEGMENTS = 3
 #: a 2,000-op history with one corrupted read (refuted on the third rung)
 INVALID = dict(n_ops=2000, n_procs=5, n_vals=16, seed=16)
+#: its search's first INVALID_PLAIN_SEGMENTS segments of PLAIN_SEGMENT_LEVELS
+#: levels run on the kernels and on the plain versions (its whole plain run
+#: took 61.9-85.9 s of the smoke)
+INVALID_PLAIN_SEGMENTS = 2
+PLAIN_SEGMENT_LEVELS = 256
+#: a 500-op history with one corrupted read that the search refutes on its
+#: first rung, run whole on the kernels and on the plain versions
+INVALID_SMALL = dict(n_ops=500, n_procs=5, n_vals=16, seed=28)
 #: a one-client history of the headline's length: every op is forced, so
 #: the first level's one forced run (K1's warp walk) crosses the whole
 #: history
@@ -168,6 +186,11 @@ MODEL_UNREFUTED = ("set",)
 MODEL_WARM_LEVELS = 300
 #: the size of the histories run on the kernels and on the plain versions
 MODEL_PLAIN_OPS = 1000
+#: the plain versions run a search whole up to this many levels; a longer
+#: one is held for its first MODEL_PLAIN_LEVELS levels, in segments of
+#: PLAIN_SEGMENT_LEVELS, carry against carry (the whole runs took 41.9-70.8
+#: s of the smoke, the set's UNKNOWN copy 32 s of it)
+MODEL_PLAIN_LEVELS = 256
 
 #: the serve phase: register requests of 2,000 ops (seeds 9000 + i) from
 #: 4 tenants, in gangs of up to 8
@@ -466,6 +489,33 @@ def print_kernels(tag, lv, live, warm, res):
 def carries_equal(a, b):
     return len(a) == len(b) and all(
         np.array_equal(np.asarray(x), np.asarray(y)) for x, y in zip(a, b))
+
+
+def hold_segments(tag, cols_np, rung, dev, segments, iters,
+                  model="cas-register"):
+    """The first ``segments`` segments of ``iters`` levels of a search
+    from ``cols_np`` on ``rung``, on the kernels and on their plain
+    versions, every lane of the carry held equal after each. Returns the
+    level the plain route reached."""
+    from jepsen_tpu_torch import interop
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.kernels import parity
+    lvs = {name: parity.Level(cols_np, rung, dev, model=model)
+           for name in ("kernels", "plain")}
+    for i in range(segments):
+        seg = {}
+        for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
+            lv = lvs[name]
+            t0 = time.perf_counter()
+            G.run_segment(lv.cols, lv.carry, lv.scratch, lv.shape, lv.nr,
+                          iters, ops)
+            seg[name] = interop.carry_to_numpy(lv.carry)
+            print(f"{tag} segment {i + 1} ({name}): "
+                  f"{time.perf_counter() - t0:.3f} s, "
+                  f"level={int(seg[name][8])}", flush=True)
+        assert carries_equal(seg["kernels"], seg["plain"]), \
+            f"{tag} segment {i + 1}"
+    return int(seg["plain"][8])
 
 
 def cohort_cols(histories, cr, wide):
@@ -856,44 +906,71 @@ def model_phases(dev, seconds, shapes):
 
     with phase("models plain", seconds):
         # 1,000-op histories of each model, valid and corrupted, on the
-        # kernels and on their plain versions; a corrupted copy on its
-        # first rung
-        for tag, (cls, sim, kw) in MODEL_HISTORIES.items():
-            model, kernel, _ = model_runs[tag]
-            size = "n_adds" if "n_adds" in kw else "n_ops"
-            h = getattr(testing, sim)(**{**kw, size: MODEL_PLAIN_OPS})
-            cases = [("valid", h)]
-            if tag != "noop":
-                cases.append(("corrupt", testing.corrupt_model_history(
-                    h, kernel.name)))
-            for label, hh in cases:
-                pk = pack_with_init(hh, model)[0]
-                pin = {}
-                if label == "corrupt":
-                    pin = dict(zip(("capacity", "window", "expand"),
-                                   G._ladder_for(G._window_needed(pk),
-                                                 dev)[0]))
-                out = {}
-                for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN)):
-                    t0 = time.perf_counter()
-                    rr = resilience.supervised_check_packed(
-                        pk, kernel, device=dev, ops=ops, **pin)
-                    out[name] = {f: rr.get(f) for f in (
-                        "valid", "levels", "max-linearized-prefix", "rung",
-                        "work")}
-                    out[name]["s"] = time.perf_counter() - t0
-                print(f"model {tag} {label} {MODEL_PLAIN_OPS} ops: "
-                      f"{out}", flush=True)
-                a, b = ({k: v for k, v in out[n].items() if k != "s"}
-                        for n in ("kernels", "plain"))
-                assert a == b, (tag, label, a, b)
-                if label == "valid":
-                    assert a["valid"] is True, (tag, a)
-                elif tag in MODEL_UNREFUTED:
-                    assert a["valid"] is not True, (tag, a)
-                else:
-                    assert a["valid"] is False, (tag, a)
+        # kernels and on their plain versions (a search longer than
+        # MODEL_PLAIN_LEVELS held for its first levels); a corrupted copy
+        # on its first rung
+        models_plain(dev, model_runs)
     return model_lines, model_launches, model_grid_launches, model_segments
+
+
+def models_plain(dev, model_runs, n_ops=MODEL_PLAIN_OPS):
+    """Each model's ``n_ops``-op history, valid and corrupted, through the
+    supervised search on the kernels and on their plain versions: the
+    results equal where the search takes at most MODEL_PLAIN_LEVELS
+    levels, else its first levels held carry against carry. ``model_runs``
+    maps a MODEL_HISTORIES tag to its (model, kernel, history)."""
+    from jepsen_tpu_torch import resilience, testing
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    for tag, (cls, sim, kw) in MODEL_HISTORIES.items():
+        model, kernel, _ = model_runs[tag]
+        size = "n_adds" if "n_adds" in kw else "n_ops"
+        h = getattr(testing, sim)(**{**kw, size: n_ops})
+        cases = [("valid", h)]
+        if tag != "noop":
+            cases.append(("corrupt", testing.corrupt_model_history(
+                h, kernel.name)))
+        for label, hh in cases:
+            pk = pack_with_init(hh, model)[0]
+            pin = {}
+            if label == "corrupt":
+                pin = dict(zip(("capacity", "window", "expand"),
+                               G._ladder_for(G._window_needed(pk),
+                                             dev)[0]))
+            fields = ("valid", "levels", "max-linearized-prefix", "rung",
+                      "work")
+            t0 = time.perf_counter()
+            rr = resilience.supervised_check_packed(
+                pk, kernel, device=dev, ops=G.KERNELS, **pin)
+            a = {f: rr.get(f) for f in fields}
+            kernels_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            if a["levels"] <= MODEL_PLAIN_LEVELS:
+                rr = resilience.supervised_check_packed(
+                    pk, kernel, device=dev, ops=G.PLAIN, **pin)
+                b = {f: rr.get(f) for f in fields}
+                assert a == b, (tag, label, a, b)
+                held = "whole"
+            else:
+                # a longer search: its first levels on the first rung
+                # it ran, carry against carry
+                cols = G._split_packed(
+                    pk, G._bucket(pk.n_required),
+                    G._crash_width(pk.n - pk.n_required), kernel)
+                hold_segments(f"model {tag} {label}", cols,
+                              a["work"][0][0], dev,
+                              MODEL_PLAIN_LEVELS // PLAIN_SEGMENT_LEVELS,
+                              PLAIN_SEGMENT_LEVELS, model=kernel.name)
+                held = f"first {MODEL_PLAIN_LEVELS} levels"
+            print(f"model {tag} {label} {n_ops} ops: {a}, "
+                  f"kernels {kernels_s:.3f} s, plain ({held}) "
+                  f"{time.perf_counter() - t0:.3f} s", flush=True)
+            if label == "valid":
+                assert a["valid"] is True, (tag, a)
+            elif tag in MODEL_UNREFUTED:
+                assert a["valid"] is not True, (tag, a)
+            else:
+                assert a["valid"] is False, (tag, a)
 
 
 def http_json(port, method, path, doc=None):
@@ -2456,6 +2533,111 @@ class SuiteFake:
                 self.proc.wait()
 
 
+def on_card(res, tag):
+    """A check ran on the card: backend gpu, no host fallback, no
+    error."""
+    assert res.get("backend") == "gpu", (tag, res)
+    assert "fallback-from" not in res and "error" not in res, (tag, res)
+
+
+def stored(x):
+    """``x`` as a stored result holds it (tuples become lists)."""
+    return json.loads(json.dumps(x))
+
+
+@contextlib.contextmanager
+def keyed_batches():
+    """The keyed batches the checks inside the block run, read back
+    through a wrapper of ``check_keyed_gpu``."""
+    from jepsen_tpu_torch.checker import gpu as G
+    batches, orig = [], G.check_keyed_gpu
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        batches.extend(out["batches"])
+        return out
+    G.check_keyed_gpu = spy
+    try:
+        yield batches
+    finally:
+        G.check_keyed_gpu = orig
+
+
+def keyed_entry(t, batches, keyed) -> dict:
+    """A keyed run's line: its wall split, events, keys, verdict, events
+    and levels a key, the batches' device seconds and the batches."""
+    res = t["results"]["indep"]["results"]
+    levels = [r.get("levels") for r in res.values()]
+    return dict(run_split(t), events=len(t["history"]), keys=len(keyed),
+                valid=t["results"]["valid"],
+                events_per_key=[min(len(h) for h in keyed.values()),
+                                max(len(h) for h in keyed.values())],
+                levels_per_key=[min(levels), max(levels)],
+                device_s=sum(b["seconds"] for b in batches),
+                batches=[{"rung": list(b["rung"]), "keys": b["keys"],
+                          "levels": b["levels"], "tiebreak": b["tiebreak"],
+                          "crash_width": b["crash-width"]}
+                         for b in batches])
+
+
+def per_key_checks(dev, entry, tag, keyed, res, refuted):
+    """The keyed check on the plain route on the card, and the native
+    engine, on a run's subhistories, against the run's per-key verdicts
+    (``res``); the refuted keys are ``refuted``. Their seconds go into
+    ``entry``."""
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    t0 = time.perf_counter()
+    plain = G.check_keyed_gpu(keyed, CASRegister(), device=dev,
+                              ops=G.PLAIN)["results"]
+    plain_s = time.perf_counter() - t0
+    native = linearizable(CASRegister(), backend="cpu")
+    nat_s = {}
+    for k, h in keyed.items():
+        r = res[str(k)]
+        on_card(r, f"{tag} key {k}")
+        assert [plain[k].get(f) for f in SUITE_KEYS] == \
+            [r.get(f) for f in SUITE_KEYS], (tag, k, plain[k], r)
+        t1 = time.perf_counter()
+        nat = native.check({}, h)
+        nat_s[k] = time.perf_counter() - t1
+        assert nat["valid"] == r["valid"] and \
+            nat.get("engine") == "native", (tag, k, nat, r)
+        if r["valid"] is False:
+            # the device's prefix is its last living pool's deepest k, and
+            # the all-time deepest (the native engine's) is
+            # deepest-expanded where the two differ, as in the reference
+            # (checker/tpu.py:1270-1295)
+            deepest = r.get("deepest-expanded", r["max-linearized-prefix"])
+            assert stored([plain[k].get(f) for f in PREFIX_KEYS]) == \
+                stored([r.get(f) for f in PREFIX_KEYS]) and \
+                nat.get("max-linearized-prefix") == deepest, \
+                (tag, k, plain[k], nat, r)
+    assert {k for k, r in res.items() if r["valid"] is False} == \
+        {str(k) for k in refuted}
+    entry.update(plain_route_s=plain_s, native_s=sum(nat_s.values()),
+                 native_key_s=[min(nat_s.values()), max(nat_s.values())])
+
+
+def analyze_keys(store_dir, res, on_cpu):
+    """``analyze`` of a stored valid keyed run (in this process): exit 0
+    and the run's per-key verdicts and levels. Its ``# `` lines."""
+    import io
+    from jepsen_tpu_torch.__main__ import main as port_main
+    out = io.StringIO()
+    argv = ["analyze", "--store", store_dir]
+    with contextlib.redirect_stdout(out):
+        rc = port_main(argv + (["--device", "cpu"] if on_cpu else []))
+    text = out.getvalue()
+    assert rc == 0, (rc, text[-2000:])
+    again = json.loads(text[text.index("\n{") + 1:])
+    for k, r in res.items():
+        assert [again["results"][k].get(f) for f in SUITE_KEYS] == \
+            [r.get(f) for f in SUITE_KEYS], (k, again["results"][k])
+    return [ln for ln in text.splitlines() if ln.startswith("# ")]
+
+
 def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
     """The wire-protocol suites on the card, each through ``python -m
     jepsen_tpu_torch run`` (its ``main``, in this process) against the
@@ -2470,7 +2652,6 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
     check on the card: ``backend`` gpu, no ``fallback-from``, no
     ``error``. Returns the phase's JSON entry and the launches, CUDA
     launches and segment counts of the three runs."""
-    import io
     import shutil
     import tempfile
     from jepsen_tpu_torch import independent, resilience, store
@@ -2478,7 +2659,7 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
     from jepsen_tpu_torch.checker import gpu as G
     from jepsen_tpu_torch.checker.wgl import linearizable
     from jepsen_tpu_torch.kernels import search as K
-    from jepsen_tpu_torch.models import CASRegister, Mutex
+    from jepsen_tpu_torch.models import Mutex
     from jepsen_tpu_torch.ops.encode import pack_with_init
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "tools"))
@@ -2486,14 +2667,6 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
     line = {"card": smi}
     root = tempfile.mkdtemp(prefix="jtpu-suites-")
     on_cpu = dev.type == "cpu"
-
-    def on_card(res, tag):
-        assert res.get("backend") == "gpu", (tag, res)
-        assert "fallback-from" not in res and "error" not in res, (tag, res)
-
-    def stored(x):
-        """``x`` as a stored result holds it (tuples become lists)."""
-        return json.loads(json.dumps(x))
 
     counters = (K.launches, K.grid_launches_total, K.segments)
     #: the launches, CUDA launches and segment counts of the three runs
@@ -2513,78 +2686,15 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
             argv += ["-n", n]
         if on_cpu:
             argv += ["--device", "cpu"]
-        batches, orig = [], G.check_keyed_gpu
         before = tuple(dict(c) for c in counters)
-
-        def spy(*a, **kw):
-            out = orig(*a, **kw)
-            batches.extend(out["batches"])
-            return out
-        G.check_keyed_gpu = spy
-        try:
+        with keyed_batches() as batches:
             rc = port_main(argv)
-        finally:
-            G.check_keyed_gpu = orig
         for c, was, total in zip(counters, before, totals):
             for k in c:
                 total[k] += c[k] - was[k]
         name = suite if suite != "hazelcast" else "hazelcast-lock"
         return (rc, store.load(os.path.join(root, name, "latest")), batches,
                 {k: K.launches[k] - before[0][k] for k in K.launches})
-
-    def etcd_entry(tag, t, batches, keyed):
-        res = t["results"]["indep"]["results"]
-        levels = [r.get("levels") for r in res.values()]
-        entry = dict(run_split(t), events=len(t["history"]),
-                     keys=len(keyed), valid=t["results"]["valid"],
-                     events_per_key=[min(len(h) for h in keyed.values()),
-                                     max(len(h) for h in keyed.values())],
-                     levels_per_key=[min(levels), max(levels)],
-                     device_s=sum(b["seconds"] for b in batches),
-                     batches=[{"rung": list(b["rung"]), "keys": b["keys"],
-                               "levels": b["levels"],
-                               "tiebreak": b["tiebreak"],
-                               "crash_width": b["crash-width"]}
-                              for b in batches])
-        line[tag] = entry
-        return entry
-
-    def per_key_checks(tag, keyed, res, refuted):
-        """The keyed check on the plain route on the card, and the native
-        engine, on the run's subhistories, against the run's verdicts."""
-        t0 = time.perf_counter()
-        plain = G.check_keyed_gpu(keyed, CASRegister(), device=dev,
-                                  ops=G.PLAIN)["results"]
-        plain_s = time.perf_counter() - t0
-        native = linearizable(CASRegister(), backend="cpu")
-        nat_s = {}
-        for k, h in keyed.items():
-            r = res[str(k)]
-            on_card(r, f"{tag} key {k}")
-            assert [plain[k].get(f) for f in SUITE_KEYS] == \
-                [r.get(f) for f in SUITE_KEYS], (tag, k, plain[k], r)
-            t1 = time.perf_counter()
-            nat = native.check({}, h)
-            nat_s[k] = time.perf_counter() - t1
-            assert nat["valid"] == r["valid"] and \
-                nat.get("engine") == "native", (tag, k, nat, r)
-            if r["valid"] is False:
-                # the device's prefix is its last living pool's deepest
-                # k, and the all-time deepest (the native engine's) is
-                # deepest-expanded where the two differ, as in the
-                # reference (checker/tpu.py:1270-1295)
-                deepest = r.get("deepest-expanded",
-                                r["max-linearized-prefix"])
-                assert stored([plain[k].get(f) for f in PREFIX_KEYS]) == \
-                    stored([r.get(f) for f in PREFIX_KEYS]) and \
-                    nat.get("max-linearized-prefix") == deepest, \
-                    (tag, k, plain[k], nat, r)
-        assert {k for k, r in res.items() if r["valid"] is False} == \
-            {str(k) for k in refuted}
-        line[tag].update(plain_route_s=plain_s,
-                         native_s=sum(nat_s.values()),
-                         native_key_s=[min(nat_s.values()),
-                                       max(nat_s.values())])
 
     try:
         with phase("suites", seconds):
@@ -2598,7 +2708,7 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
             res = t["results"]
             assert res["valid"] is True and res["indep"]["valid"] is True
             keyed = independent.subhistories(t["history"])
-            entry = etcd_entry("etcd", t, batches, keyed)
+            entry = line["etcd"] = keyed_entry(t, batches, keyed)
             entry.update(fake=f.stats, launches=etcd_launches)
             assert set(res["indep"]["results"]) == {str(k) for k in keyed}
             assert batches and len(keyed) >= 2, (batches, len(keyed))
@@ -2610,21 +2720,11 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
                     etcd_launches["dedup_truncate"] > 0 and \
                     etcd_launches["sort_rows"] + \
                     etcd_launches["sort_rows_hash"] > 0, etcd_launches
-            per_key_checks("etcd", keyed, res["indep"]["results"], ())
+            per_key_checks(dev, entry, "etcd", keyed,
+                           res["indep"]["results"], ())
             # -- analyze of the stored run: the same per-key verdicts ----
-            out = io.StringIO()
-            argv = ["analyze", "--store", t["store-dir"]]
-            with contextlib.redirect_stdout(out):
-                rc = port_main(argv + (["--device", "cpu"] if on_cpu
-                                       else []))
-            text = out.getvalue()
-            assert rc == 0, (rc, text[-2000:])
-            again = json.loads(text[text.index("\n{") + 1:])
-            for k, r in res["indep"]["results"].items():
-                assert [again["results"][k].get(f) for f in SUITE_KEYS] == \
-                    [r.get(f) for f in SUITE_KEYS], (k, again["results"][k])
-            line["etcd"]["analyze"] = [ln for ln in text.splitlines()
-                                       if ln.startswith("# ")]
+            entry["analyze"] = analyze_keys(t["store-dir"],
+                                            res["indep"]["results"], on_cpu)
             # -- etcd against lagging replicas: refuted -----------------
             with SuiteFake("etcd", "--members", str(cfg["members"]),
                            "--stale-reads") as f:
@@ -2636,12 +2736,13 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
             sres = st["results"]
             assert sres["valid"] is False and sres["indep"]["failures"], sres
             skeyed = independent.subhistories(st["history"])
-            entry = etcd_entry("etcd stale", st, sbatches, skeyed)
+            entry = line["etcd stale"] = keyed_entry(st, sbatches, skeyed)
             entry.update(fake=f.stats,
                          failures=sorted(sres["indep"]["failures"]))
             print(f"suites: etcd stale: {json.dumps(entry)} [{smi}]",
                   flush=True)
-            per_key_checks("etcd stale", skeyed, sres["indep"]["results"],
+            per_key_checks(dev, entry, "etcd stale", skeyed,
+                           sres["indep"]["results"],
                            sres["indep"]["failures"])
             # -- the hazelcast lock: a Mutex on the card -----------------
             with SuiteFake("hazelcast", "--members",
@@ -2681,6 +2782,166 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
                 assert segs["pair_ends"] > 0 and \
                     grid["seg_active"] == 0, (segs, grid)
         print(f"suites: launches={launches} cuda_launches={grid} "
+              f"graphs={segs} [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
+
+
+#: the cas-suites phase: the keyed CAS-register suites whose data plane is
+#: a command on the nodes (cockroachdb's ``cockroach sql``, aerospike's
+#: ``aql``, mongodb's ``mongosh``), each through ``core.run`` with its test
+#: map from the registry and ``tools/torch_suite_fakes.py``'s ``CliFake``
+#: sessions on five nodes under the dummy control plane. aerospike at its
+#: canonical shapes (100 workers, 5 threads, 100 ops and a 1/10 s stagger
+#: a key) for AEROSPIKE_SECONDS; cockroachdb's register under the
+#: small-skews nemesis for COCKROACH_SECONDS; a seeded TIMEOUT_P of both
+#: runs' writes and CAS's time out (half of them applied), so their
+#: histories hold crashed ops; mongodb's document CAS for MONGO_SECONDS
+#: twice against a primary whose secondaries apply its writes DELAY_S
+#: late, with linearizable and with local reads
+CAS_RUN = {"members": 5, "aerospike_workers": 100, "aerospike_seconds": 30,
+           "cockroach_workers": 50, "cockroach_seconds": 20,
+           "mongo_workers": 50, "mongo_seconds": 10, "timeout_p": 0.02,
+           "seed": 16, "delay_s": 0.5, "cockroach_opts": {}}
+
+
+def cas_suites_phase(dev, seconds, smi, cfg=CAS_RUN):
+    """The keyed CAS-register suites of the command-line data planes on
+    the card, each through ``core.run`` with the registry's test map and
+    the fake's sessions: aerospike at 100 workers and cockroachdb's
+    register under a clock-skew nemesis valid with crashed ops in their
+    histories, mongodb with linearizable reads valid and with local reads
+    from lagging secondaries refuted. Each keyed check on K1, K2 and K4
+    (K3 where a key reaches a wide rung with crashed ops), every key held
+    against the plain route on the card and the native engine (timed),
+    and the valid runs' stores against ``analyze``; the skew nemesis's
+    helper install and its bump and reset commands on the nodes it
+    planned. Every check on the card: ``backend`` gpu, no
+    ``fallback-from``, no ``error``. Returns the phase's JSON entry and
+    the four runs' launches, CUDA launches and segment counts."""
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import core, independent, store, suites
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.suites import cockroachdb
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_suite_fakes as fakes
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-cas-suites-")
+    on_cpu = dev.type == "cpu"
+    nodes = [f"n{i + 1}" for i in range(cfg["members"])]
+    counters = (K.launches, K.grid_launches_total, K.segments)
+    #: the launches, CUDA launches and segment counts of the four runs
+    totals = tuple(dict.fromkeys(c, 0) for c in counters)
+
+    def run(tag, suite, workers, secs, fake, **opts):
+        """``suite``'s test map from the registry through ``core.run``
+        on the fake's sessions; the stored run, its keyed subhistories,
+        its line (the run's kernel launches in it) and the nodes' command
+        logs."""
+        test = suites.registry()[suite](dict(
+            opts, nodes=nodes, concurrency=workers, **{
+                "time-limit": secs, "store-root": root,
+                "ssh": {"mode": "dummy"}},
+            **({"device": "cpu"} if on_cpu else {})))
+        sessions = test["_sessions"] = fake.sessions()
+        before = tuple(dict(c) for c in counters)
+        with keyed_batches() as batches:
+            t = store.load(core.run(test)["store-dir"])
+        for c, was, total in zip(counters, before, totals):
+            for k in c:
+                total[k] += c[k] - was[k]
+        keyed = independent.subhistories(t["history"])
+        entry = line[tag] = keyed_entry(t, batches, keyed)
+        res = t["results"]["indep"]["results"]
+        assert set(res) == {str(k) for k in keyed} and len(keyed) >= 2
+        for k, r in res.items():
+            on_card(r, f"{tag} key {k}")
+        crashed = [o for o in t["history"]
+                   if o.type == "info" and o.process != "nemesis"]
+        launches = {k: K.launches[k] - before[0][k] for k in K.launches}
+        entry.update(crashed=len(crashed), fake=dict(fake.stats),
+                     crash_widths=sorted({b["crash-width"]
+                                          for b in batches}),
+                     launches=launches,
+                     k3_launched=launches["group_scan"] > 0)
+        if not on_cpu:
+            assert launches["expand"] > 0 and \
+                launches["dedup_truncate"] > 0 and \
+                launches["sort_rows"] + launches["sort_rows_hash"] > 0, \
+                (tag, launches)
+        print(f"cas-suites: {tag}: {json.dumps(entry)} [{smi}]", flush=True)
+        return t, keyed, entry, {n: s.log for n, s in sessions.items()}
+
+    def crashing_fake(suite):
+        return fakes.CliFake(nodes, fakes.DUMMY_RESPONSES[suite],
+                             timeout_p=cfg["timeout_p"], seed=cfg["seed"])
+
+    try:
+        with phase("cas-suites", seconds):
+            K.reset_launches()
+            # -- aerospike at its canonical shapes, with crashed ops -----
+            t, keyed, entry, _ = run(
+                "aerospike", "aerospike", cfg["aerospike_workers"],
+                cfg["aerospike_seconds"], crashing_fake("aerospike"))
+            res = t["results"]["indep"]["results"]
+            assert t["results"]["valid"] is True and entry["crashed"] > 0, \
+                entry
+            per_key_checks(dev, entry, "aerospike", keyed, res, ())
+            entry["analyze"] = analyze_keys(t["store-dir"], res, on_cpu)
+            # -- cockroachdb's register under small skews ----------------
+            t, keyed, entry, logs = run(
+                "cockroachdb", "cockroachdb", cfg["cockroach_workers"],
+                cfg["cockroach_seconds"], crashing_fake("cockroachdb"),
+                nemesis=cockroachdb.named_nemesis(["small-skews"], None),
+                **cfg["cockroach_opts"])
+            res = t["results"]["indep"]["results"]
+            assert t["results"]["valid"] is True and entry["crashed"] > 0, \
+                entry
+            # the skew nemesis compiled its helper on every node, bumped
+            # the clocks of the nodes each start planned, and reset them
+            plans = [o.value for o in t["history"] if o.process == "nemesis"
+                     and tuple(o.f) == ("small-skews", "start")
+                     and isinstance(o.value, dict)]
+            assert plans, [o for o in t["history"]
+                           if o.process == "nemesis"]
+            bumped = set()
+            for node, cmds in logs.items():
+                assert any("g++ -O2 -o bump-time" in c for c in cmds), node
+                assert any("ntpdate -b" in c for c in cmds), node
+                for plan in plans:
+                    if node in plan:
+                        assert any(f"/opt/jepsen/bump-time {plan[node]}" in c
+                                   for c in cmds), (node, plan, cmds)
+                        bumped.add(node)
+                assert node in bumped or not any(
+                    "/opt/jepsen/bump-time " in c for c in cmds), node
+            entry["skews"] = plans
+            per_key_checks(dev, entry, "cockroachdb", keyed, res, ())
+            entry["analyze"] = analyze_keys(t["store-dir"], res, on_cpu)
+            # -- mongodb against lagging secondaries ---------------------
+            for concern, valid in (("linearizable", True), ("local", False)):
+                fake = fakes.CliFake(nodes, fakes.DUMMY_RESPONSES["mongodb"],
+                                     stale_reads=True,
+                                     delay_s=cfg["delay_s"])
+                tag = f"mongodb {concern}"
+                t, keyed, entry, _ = run(
+                    tag, "mongodb", cfg["mongo_workers"],
+                    cfg["mongo_seconds"], fake,
+                    **{"read-concern": concern})
+                ind = t["results"]["indep"]
+                assert t["results"]["valid"] is valid, (tag, ind["failures"])
+                assert bool(ind["failures"]) is not valid, ind["failures"]
+                entry["failures"] = sorted(ind["failures"])
+                per_key_checks(dev, entry, tag, keyed, ind["results"],
+                               ind["failures"])
+            launches, grid, segs = totals
+            if not on_cpu:
+                assert segs["pair_ends"] > 0 and \
+                    grid["seg_active"] == 0, (segs, grid)
+        print(f"cas-suites: launches={launches} cuda_launches={grid} "
               f"graphs={segs} [{smi}]", flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3023,17 +3284,35 @@ def smoke(dev: torch.device) -> None:
         t0 = time.perf_counter()
         ri = checker.check({}, bad)
         ti = time.perf_counter() - t0
-        bad_p, bad_kernel, _ = packed_cols(bad)
-        rip = resilience.supervised_check_packed(bad_p, bad_kernel,
-                                                 device=dev, ops=G.PLAIN)
         print(f"invalid: valid={ri['valid']} levels={ri['levels']} "
               f"rung={ri['rung']} prefix={ri.get('max-linearized-prefix')} "
-              f"plain prefix={rip.get('max-linearized-prefix')} "
               f"work={ri['work']} ({ti:.2f} s)")
         assert ri["valid"] is False and ri["backend"] == "gpu"
-        assert rip["valid"] is False
-        assert ri["max-linearized-prefix"] == rip["max-linearized-prefix"]
-        assert ri["levels"] == rip["levels"] and ri["work"] == rip["work"]
+        # its search's first segments on the plain versions, carry against
+        # carry (the whole plain run is cut to this depth)
+        _, _, bad_cols = packed_cols(bad)
+        level = hold_segments("invalid", bad_cols, ri["work"][0][0], dev,
+                              INVALID_PLAIN_SEGMENTS, PLAIN_SEGMENT_LEVELS)
+        assert level == INVALID_PLAIN_SEGMENTS * PLAIN_SEGMENT_LEVELS, level
+        # the refutation's prefix on both routes, on a history small enough
+        # for the plain route's whole search
+        cfg = dict(INVALID_SMALL)
+        seed = cfg.pop("seed")
+        small = corrupt_one_read(simulate_register_history(seed=seed, **cfg),
+                                 random.Random(seed))
+        small_p, small_kernel, _ = packed_cols(small)
+        rs = {name: resilience.supervised_check_packed(
+            small_p, small_kernel, device=dev, ops=ops)
+            for name, ops in (("kernels", G.KERNELS), ("plain", G.PLAIN))}
+        print(f"invalid {cfg['n_ops']} ops: " + ", ".join(
+            f"{name} valid={x['valid']} levels={x['levels']} "
+            f"prefix={x.get('max-linearized-prefix')} rung={x['rung']}"
+            for name, x in rs.items()), flush=True)
+        assert rs["kernels"]["valid"] is False
+        assert [rs["kernels"].get(f) for f in (
+            "valid", "levels", "max-linearized-prefix", "work")] == \
+            [rs["plain"].get(f) for f in (
+                "valid", "levels", "max-linearized-prefix", "work")], rs
 
     with phase("wide", seconds):
         wh = wide_history(**WIDE)
@@ -3220,6 +3499,10 @@ def smoke(dev: torch.device) -> None:
     (suites_line, suites_launches, suites_grid_launches,
      path_segments["suites"]) = suites_phase(dev, seconds, smi)
 
+    # -- the keyed CAS-register suites of the command-line data planes -----
+    (cas_line, cas_launches, cas_grid_launches,
+     path_segments["cas-suites"]) = cas_suites_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -3233,12 +3516,14 @@ def smoke(dev: torch.device) -> None:
     path_launches = {"headline": launches, "keyed": keyed_launches,
                      "models": model_launches, "serve": serve_launches,
                      "stream": stream_launches, "run": run_launches,
-                     "sqlite": sqlite_launches, "suites": suites_launches}
+                     "sqlite": sqlite_launches, "suites": suites_launches,
+                     "cas-suites": cas_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
                  "sqlite": sqlite_grid_launches,
-                 "suites": suites_grid_launches}
+                 "suites": suites_grid_launches,
+                 "cas-suites": cas_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -3321,6 +3606,7 @@ def smoke(dev: torch.device) -> None:
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
+        "cas_suites": cas_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

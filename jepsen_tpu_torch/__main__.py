@@ -33,8 +33,12 @@ WAL, saves the store under ``--store-root`` and then checks the history,
 on the card unless ``--device cpu`` (the kernels' plain versions) or
 ``--backend cpu`` (the host search). ``--node``, ``--concurrency`` and
 ``--time-limit`` default to the suite's own settings; ``--workload``
-selects the hazelcast suite's workload (the reference's hazelcast
-``main`` takes it). With ``--ssh-mode dummy`` the control plane records
+selects a workload of the hazelcast, aerospike, mongodb and cockroachdb
+suites, ``--nemesis`` and ``--nemesis2`` (repeatable) name the
+cockroachdb nemeses to compose, and ``--write-concern`` and
+``--read-concern`` set the mongodb client's concerns, as the reference's
+``main`` of each of those suites takes them; each exits 254 for a suite
+that does not take it. With ``--ssh-mode dummy`` the control plane records
 each node's commands and runs none; ``--dummy-responses FILE`` scripts
 its replies (a JSON object: command substring -> stdout, or ``[exit,
 stdout, stderr]``), as the reference's tests put ``dummy-responses`` in
@@ -54,9 +58,12 @@ and ``recover`` also ``--model`` and ``--algorithm``. ``run --suite``
 offers the local-kv suites, the sqlite ones (``sqlite-register``,
 ``sqlite-bank``, ``sqlite-register-toctou``: the real SQLite engine) and
 the wire-protocol ones (``etcd``, ``zookeeper``, ``consul``, ``disque``,
-``raftis``, ``rabbitmq``, ``rabbitmq-mutex``, ``hazelcast``). A stored
-run whose ops carry ``[k v]`` values (etcd's) is re-checked key by key,
-as the run checked it (``independent.checker``).
+``raftis``, ``rabbitmq``, ``rabbitmq-mutex``, ``hazelcast``) and those
+whose data plane is a command on the nodes (the eight ``cockroachdb``
+rows, ``aerospike``, ``aerospike-counter``, ``mongodb``,
+``mongodb-transfer``). A stored run whose ops carry ``[k v]`` values
+(etcd's, the keyed registers') is re-checked key by key, as the run
+checked it (``independent.checker``).
 
 ``python -m jepsen_tpu_torch explain [--store DIR]`` says why a stored
 run (by either package; the latest under ``--store-root`` by default) got
@@ -75,6 +82,7 @@ backend, nothing carries on on the CPU.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import logging
 import os
@@ -101,7 +109,8 @@ class _Parser(argparse.ArgumentParser):
 def _parser() -> argparse.ArgumentParser:
     from jepsen_tpu_torch.serve import models
     from jepsen_tpu_torch.suites import SUITES
-    from jepsen_tpu_torch.suites.hazelcast import workloads
+    from jepsen_tpu_torch.suites.cockroachdb import NEMESES
+    from jepsen_tpu_torch.suites.mongodb import READ_CONCERNS, WRITE_CONCERNS
     p = _Parser(prog="python -m jepsen_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("serve", help="run the multi-tenant check daemon")
@@ -196,8 +205,23 @@ def _parser() -> argparse.ArgumentParser:
                         "command substring to its reply (stdout, or "
                         "[exit, stdout, stderr])")
     r.add_argument("--workload", default=None,
-                   choices=sorted(workloads()),
-                   help="the hazelcast suite's workload (default: lock)")
+                   choices=sorted({w for m in _WORKLOAD_MODULES
+                                   for w in _workloads(m)}),
+                   help="the workload of a hazelcast, aerospike, mongodb "
+                        "or cockroachdb suite (default: the row's own)")
+    r.add_argument("--nemesis", action="append", default=None,
+                   choices=sorted(NEMESES),
+                   help="a cockroachdb nemesis; repeatable")
+    r.add_argument("--nemesis2", action="append", default=None,
+                   choices=sorted(NEMESES),
+                   help="a second cockroachdb nemesis to compose with "
+                        "--nemesis; repeatable")
+    r.add_argument("--write-concern", default=None, choices=WRITE_CONCERNS,
+                   help="the mongodb client's write concern (default: "
+                        "majority)")
+    r.add_argument("--read-concern", default=None, choices=READ_CONCERNS,
+                   help="the mongodb client's read concern (default: "
+                        "linearizable)")
     r.add_argument("--concurrency", default=None,
                    help="worker count; an integer, optionally followed by "
                         "n to multiply by the node count (e.g. 3n; "
@@ -536,6 +560,22 @@ def _card_refused(opts: argparse.Namespace, cmd: str) -> bool:
     return False
 
 
+#: the suite modules whose rows take ``--workload``
+_WORKLOAD_MODULES = ("hazelcast", "aerospike", "mongodb", "cockroachdb")
+
+
+def _workloads(module: str):
+    """The workload names of a suite module in _WORKLOAD_MODULES (a
+    mapping keyed by them)."""
+    m = importlib.import_module(f"jepsen_tpu_torch.suites.{module}")
+    return m.workloads() if module == "hazelcast" else m.WORKLOADS
+
+
+def _suite_module(suite: str) -> str:
+    from jepsen_tpu_torch.suites import SUITES
+    return SUITES[suite][0]
+
+
 def _parse_concurrency(c: str, n_nodes: int) -> int:
     """'3n' -> 3 * nodes; a plain integer otherwise."""
     import re
@@ -570,11 +610,33 @@ def _test_opts(opts: argparse.Namespace) -> dict:
         out["concurrency"] = _parse_concurrency(opts.concurrency, len(nodes))
     if opts.time_limit is not None:
         out["time-limit"] = opts.time_limit
+    module = _suite_module(opts.suite)
     if opts.workload is not None:
-        if opts.suite != "hazelcast":
-            raise _ArgError("--workload selects a workload of --suite "
-                            "hazelcast only")
+        if module not in _WORKLOAD_MODULES:
+            raise _ArgError(f"--workload selects a workload of a "
+                            f"{', '.join(_WORKLOAD_MODULES)} suite only")
+        choices = _workloads(module)
+        if opts.workload not in choices:
+            raise _ArgError(f"--workload {opts.workload} is not a workload "
+                            f"of --suite {opts.suite} (choose from "
+                            f"{', '.join(sorted(choices))})")
         out["workload"] = opts.workload
+    if module == "cockroachdb":
+        # composed as the reference's cockroachdb main composes them
+        from jepsen_tpu_torch.suites import cockroachdb
+        out["nemesis"] = cockroachdb.named_nemesis(opts.nemesis,
+                                                   opts.nemesis2)
+    elif opts.nemesis or opts.nemesis2:
+        raise _ArgError("--nemesis and --nemesis2 name the nemeses of a "
+                        "cockroachdb suite only")
+    for flag in ("write_concern", "read_concern"):
+        value = getattr(opts, flag)
+        if value is None:
+            continue
+        if module != "mongodb":
+            raise _ArgError(f"--{flag.replace('_', '-')} sets the client "
+                            f"of a mongodb suite only")
+        out[flag.replace("_", "-")] = value
     if opts.dummy_responses is not None:
         if opts.ssh_mode != "dummy":
             raise _ArgError("--dummy-responses needs --ssh-mode dummy")
@@ -621,6 +683,11 @@ def run_cmd(opts: argparse.Namespace) -> int:
     if _card_refused(opts, "run"):
         return CRASHED
     ctor = suites.registry()[opts.suite]
+    module = _suite_module(opts.suite)
+    if opts.workload is not None and module != "hazelcast":
+        # the workload picks the module's constructor, as its reference
+        # main does; hazelcast's reads the option itself
+        ctor = _workloads(module)[opts.workload]
     for _ in range(opts.test_count):
         test = core.run(ctor(dict(test_opts)))
         if test["results"].get("valid") is not True:

@@ -5,7 +5,10 @@ The port has the two local-kv suites (:mod:`.localkv`), whose nodes are
 real local processes, the three sqlite suites (:mod:`.sqlitedb`), whose
 system is the real SQLite engine, and the wire-protocol suites of the
 register, mutex and queue families: etcd, consul, zookeeper, raftis,
-disque, rabbitmq (a queue and a mutex) and hazelcast (seven workloads).
+disque, rabbitmq (a queue and a mutex) and hazelcast (seven workloads),
+and the suites whose data plane is a command run over the control plane:
+cockroachdb (eight workloads, with the clock nemeses), aerospike (a CAS
+register and a counter) and mongodb (a document CAS and a transfer).
 Every other suite of ``jepsen_tpu.suites`` is still to port (ROADMAP).
 Their linearizability check runs on the card unless the options ask for
 the CPU (``backend: "cpu"``, or ``device: "cpu"``).
@@ -26,6 +29,19 @@ SUITES = {
     "rabbitmq": ("rabbitmq", "rabbitmq_test"),
     "rabbitmq-mutex": ("rabbitmq", "mutex_test"),
     "hazelcast": ("hazelcast", "hazelcast_test"),
+    "cockroachdb": ("cockroachdb", "register_test"),
+    "cockroachdb-bank": ("cockroachdb", "bank_test"),
+    "cockroachdb-sets": ("cockroachdb", "sets_test"),
+    "cockroachdb-comments": ("cockroachdb", "comments_test"),
+    "cockroachdb-monotonic": ("cockroachdb", "monotonic_test"),
+    "cockroachdb-sequential": ("cockroachdb", "sequential_test"),
+    "cockroachdb-g2": ("cockroachdb", "g2_test"),
+    "cockroachdb-bank-multitable": ("cockroachdb",
+                                    "bank_multitable_test"),
+    "aerospike": ("aerospike", "cas_register_test"),
+    "aerospike-counter": ("aerospike", "counter_test"),
+    "mongodb": ("mongodb", "document_cas_test"),
+    "mongodb-transfer": ("mongodb", "transfer_test"),
     "local-kv": ("localkv", "localkv_test"),
     "local-kv-unsafe": ("localkv", "localkv_unsafe_test"),
     "sqlite-register": ("sqlitedb", "sqlite_register_test"),

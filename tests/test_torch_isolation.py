@@ -62,6 +62,22 @@ def test_no_file_of_the_port_imports_jax_or_the_jax_package():
             assert not any(_forbidden(m) for m in mods), (path, mods)
 
 
+def test_the_suite_fakes_use_the_standard_library_only():
+    """``tools/torch_suite_fakes.py`` runs beside any test, on a host
+    with nothing installed: it imports only the standard library."""
+    path = os.path.join(ROOT, "tools", "torch_suite_fakes.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add((node.module or "").split(".")[0])
+    assert mods and mods <= set(sys.stdlib_module_names), \
+        mods - set(sys.stdlib_module_names)
+
+
 def test_importing_the_checker_loads_no_jax():
     code = ("import sys, jepsen_tpu_torch.checker.wgl, "
             "jepsen_tpu_torch.resilience, jepsen_tpu_torch.interop, "
@@ -217,28 +233,29 @@ def test_the_runner_defaults_to_cuda(tmp_path, capsys):
     assert not os.path.exists(os.path.join(test["store-dir"],
                                            "results.json"))
     checked = []
+
+    def linear_of(name, checkers):
+        if "indep" in checkers:         # the keyed registers
+            return checkers["indep"].inner
+        if name == "hazelcast":         # the lock workload, the default
+            return checkers["workload"]
+        return checkers.get("linear")
+
     for name, ctor in registry().items():
-        checkers = ctor({})["checker"].checkers
-        linear = checkers.get("linear")
-        if name == "etcd":
-            linear = checkers["indep"].inner
-        elif name == "hazelcast":       # the lock workload, the default
-            linear = checkers["workload"]
+        linear = linear_of(name, ctor({})["checker"].checkers)
         if linear is None:      # a suite with no linearizability check
             continue
         checked.append(name)
         assert (linear.backend, linear.device) == ("gpu", None), name
         with pytest.raises(RuntimeError, match="CUDA"):
             linear.check({}, h)
-        asked = ctor({"backend": "cpu"})["checker"].checkers
-        asked = (asked["indep"].inner if name == "etcd" else
-                 asked["workload"] if name == "hazelcast" else
-                 asked["linear"])
+        asked = linear_of(name, ctor({"backend": "cpu"})["checker"].checkers)
         assert (asked.backend, asked.device) == ("cpu", None), name
     assert sorted(checked) == sorted([
         "local-kv", "local-kv-unsafe", "sqlite-register",
         "sqlite-register-toctou", "etcd", "zookeeper", "consul", "raftis",
-        "rabbitmq-mutex", "hazelcast"])
+        "rabbitmq-mutex", "hazelcast", "cockroachdb", "aerospike",
+        "mongodb", "mongodb-transfer"])
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):

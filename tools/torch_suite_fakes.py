@@ -22,6 +22,25 @@ reentrant, ``UNLOCK`` by a connection that does not hold the lock is
 ``FAIL``, ``ID`` counts, ``MAPCAS`` with ``NIL`` is a put-if-absent, and
 the queues are FIFO.
 
+``CliFake`` is the data plane of the suites that run their database's
+own command-line client on the nodes: cockroachdb's ``cockroach sql -e
+STATEMENT``, aerospike's ``aql -c STATEMENT`` (with ``asinfo``'s roster
+and statistics) and mongodb's ``mongosh --eval JS`` (with
+``rs.status()``). Its :meth:`CliFake.sessions` are control-plane
+sessions, one a node, to put in a test map's ``_sessions`` before
+``core.run`` under ``ssh`` mode ``dummy``: they record every other
+command, as the dummy control plane does, answer it from ``responses``
+(the dummy control plane's scripted replies), and interpret those three
+commands against one in-memory store (the cockroachdb registers table,
+aerospike's generation-counted records and counter, mongodb's ``cas``
+documents and accounts). A seeded ``timeout_p`` of the writes and CAS's
+is answered with the client's timeout or broken connection, and half of
+those are applied all the same, so the history holds crashed ops. In
+``stale_reads`` mode the first node is mongodb's primary: the others
+refuse writes and linearizable reads with ``not master`` and serve
+other reads from a replica that applies the primary's writes ``delay_s``
+late.
+
 ``DUMMY_RESPONSES`` holds, per suite, the dummy control plane's replies
 that let the suite's database lifecycle be recorded from its install to
 its start (``run --ssh-mode dummy --dummy-responses FILE``).
@@ -33,10 +52,16 @@ terminated::
 
     python3 tools/torch_suite_fakes.py etcd --members 5 [--stale-reads]
     python3 tools/torch_suite_fakes.py hazelcast --members 5
+
+(``CliFake`` has no listener: it is used in the process that runs the
+test.)
 """
 
 import argparse
 import json
+import random
+import re
+import shlex
 import signal
 import socketserver
 import sys
@@ -55,6 +80,19 @@ DUMMY_RESPONSES = {
     "etcd": {"stat ": [1, "", "no such file"],
              "ls -A": "etcd-v3.1.5-linux-amd64", "dirname": "/opt"},
     "hazelcast": {},
+    "cockroachdb": {"stat ": [1, "", "no such file"],
+                    "ls -A": "cockroach-v1.0.linux-amd64",
+                    "dirname": "/opt"},
+    # the roster dance's and the replica set's answers for five nodes
+    "aerospike": {
+        "roster:namespace": "roster=A1,A2,A3,A4,A5:pending_roster=A1,A2,"
+                            "A3,A4,A5:observed_nodes=A1,A2,A3,A4,A5",
+        "asinfo -v statistics": "cluster_size=5;migrate_allowed=true;"
+                                "migrate_partitions_remaining=0"},
+    "mongodb": {"rs.status()": json.dumps({"set": "jepsen", "members": [
+        {"name": f"n{i}:27017",
+         "stateStr": "PRIMARY" if i == 1 else "SECONDARY"}
+        for i in range(1, 6)]})},
 }
 
 
@@ -274,6 +312,307 @@ class ShimFake:
             s.shutdown()
             s.server_close()
         self.servers = []
+
+
+#: the cockroachdb register table's statements (cockroachdb.RegisterClient)
+_SQL_SELECT = re.compile(r"SELECT val FROM registers WHERE id = (-?\d+)$")
+_SQL_UPSERT = re.compile(r"UPSERT INTO registers \(id, val\) VALUES "
+                         r"\((-?\d+), (-?\d+)\)$")
+_SQL_CAS = re.compile(r"UPDATE registers SET val = (-?\d+) WHERE id = "
+                      r"(-?\d+) AND val = (-?\d+) RETURNING val$")
+#: aerospike's aql statements (aerospike.CasRegisterClient, CounterClient)
+_AQL_SELECT = re.compile(r"SELECT value FROM (\w+)\.(\w+) WHERE PK = "
+                         r"(-?\d+)$")
+_AQL_INSERT = re.compile(r"INSERT INTO (\w+)\.(\w+) \(PK, value\) VALUES "
+                         r"\((-?\d+), (-?\d+)\)(?: WITH gen_equal = "
+                         r"(\d+))?$")
+_AQL_ADD = re.compile(r"EXECUTE add\.add\('value', (-?\d+)\) ON "
+                      r"(\w+)\.(\w+) WHERE PK = (-?\d+)$")
+#: mongosh's scripts (mongodb.DocumentCASClient, TransferClient)
+_JS_FIND = re.compile(r"\.cas\.find\(\{_id: (-?\d+)\}\)\.readConcern\("
+                      r"'(\w+)'\)")
+_JS_UPDATE = re.compile(r"\.cas\.update\(\{_id: (-?\d+)\}, \{\$set: "
+                        r"\{value: (-?\d+)\}\}")
+_JS_CAS = re.compile(r"\.cas\.findAndModify\(\{query: \{_id: (-?\d+), "
+                     r"value: (-?\d+)\}, update: \{\$set: \{value: "
+                     r"(-?\d+)\}\}\}\)")
+_JS_OPEN = re.compile(r"\.accounts\.update\(\{_id: (\d+)\}, \{"
+                      r"\$setOnInsert: \{balance: (-?\d+)\}\}")
+_JS_TRANSFER = re.compile(r"from: (\d+), to: (\d+), amount: (\d+)\}")
+
+#: the clients' answers to a write that timed out or lost its connection
+TIMEOUTS = {
+    "cockroachdb": "Error: read tcp: connection reset by peer",
+    "aerospike": "Error: (9) AEROSPIKE_ERR_TIMEOUT: timeout",
+    "mongodb": "MongoNetworkTimeoutError: connection timed out",
+}
+NOT_MASTER = "MongoServerError: not master and secondaryOk=false"
+
+
+class CliSession:
+    """A control-plane session on one node of a :class:`CliFake`: the
+    dummy session's interface (``execute``, ``upload``, ``download``,
+    ``close``, ``log``)."""
+
+    def __init__(self, fake, node):
+        self.fake = fake
+        self.node = node
+        #: the commands this node ran that are not a data-plane command
+        self.log = []
+
+    def execute(self, cmd, stdin=None, timeout=None):
+        reply = self.fake.data_plane(self.node, cmd)
+        if reply is not None:
+            return reply
+        self.log.append(cmd)
+        for pat, resp in self.fake.responses.items():
+            if pat in cmd:
+                if isinstance(resp, (list, tuple)):
+                    return tuple(resp)
+                return 0, resp, ""
+        return 0, "", ""
+
+    def upload(self, local, remote):
+        self.log.append(f"UPLOAD {local} -> {remote}")
+
+    def download(self, remote, local):
+        self.log.append(f"DOWNLOAD {remote} -> {local}")
+
+    def close(self):
+        pass
+
+
+class CliFake:
+    """The command-line data planes of the cockroachdb, aerospike and
+    mongodb suites over one in-memory store (module docstring)."""
+
+    def __init__(self, nodes, responses=None, timeout_p: float = 0.0,
+                 seed: int = 0, stale_reads: bool = False,
+                 delay_s: float = 0.5):
+        self.nodes = [str(n) for n in nodes]
+        self.responses = {k: v for k, v in (responses or {}).items()}
+        self.timeout_p = timeout_p
+        self.rng = random.Random(seed)
+        self.stale_reads = stale_reads
+        self.delay_s = delay_s
+        self.lock = threading.Lock()
+        #: cockroachdb: id -> val
+        self.registers = {}
+        #: aerospike: (set, pk) -> [value, generation]
+        self.records = {}
+        #: mongodb: _id -> value; _id -> [(acknowledged at, value)]
+        self.docs = {}
+        self.doc_log = {}
+        self.accounts = {}
+        #: [pattern, (rc, out, err), times left]: scripted data-plane
+        #: replies, taken before the store is consulted
+        self.scripted = []
+        self.stats = {"reads": 0, "writes": 0, "cas": 0, "timeouts": 0,
+                      "applied-timeouts": 0, "stale": 0, "not-master": 0,
+                      "generation": 0}
+
+    def sessions(self) -> dict:
+        """One session a node, for a test map's ``_sessions``."""
+        return {n: CliSession(self, n) for n in self.nodes}
+
+    def script(self, pattern: str, reply, times: int = 1) -> None:
+        """Answer the next ``times`` data-plane commands that contain
+        ``pattern`` with ``reply`` (rc, stdout, stderr), applying
+        nothing."""
+        with self.lock:
+            self.scripted.append([pattern, tuple(reply), times])
+
+    # -- dispatch -----------------------------------------------------------
+
+    def data_plane(self, node, cmd):
+        """(rc, stdout, stderr) of a data-plane command; None for any
+        other command."""
+        try:
+            argv = shlex.split(cmd)
+        except ValueError:
+            return None
+        if len(argv) > 2 and argv[0].endswith("cockroach") \
+                and argv[1] == "sql" and "-e" in argv:
+            kind, body = "cockroachdb", argv[argv.index("-e") + 1]
+        elif argv[:1] == ["aql"] and "-c" in argv:
+            kind, body = "aerospike", argv[argv.index("-c") + 1]
+        elif argv[:1] == ["mongosh"] and "--eval" in argv:
+            kind, body = "mongodb", argv[argv.index("--eval") + 1]
+        else:
+            return None
+        with self.lock:
+            for entry in self.scripted:
+                if entry[0] in body and entry[2] > 0:
+                    entry[2] -= 1
+                    return entry[1]
+            return getattr(self, "_" + kind)(node, body)
+
+    def _timed_out(self, kind):
+        """Whether this write times out; with half of those it is applied
+        all the same (the caller's ``apply``)."""
+        if self.timeout_p <= 0 or self.rng.random() >= self.timeout_p:
+            return None
+        self.stats["timeouts"] += 1
+        applied = self.rng.random() < 0.5
+        self.stats["applied-timeouts"] += applied
+        return applied, (1, "", TIMEOUTS[kind])
+
+    # -- cockroach sql --------------------------------------------------------
+
+    def _cockroachdb(self, node, stmt):
+        stmt = stmt.strip()
+        if stmt.startswith("CREATE TABLE"):
+            return 0, "", ""
+        m = _SQL_SELECT.match(stmt)
+        if m:
+            self.stats["reads"] += 1
+            v = self.registers.get(int(m.group(1)))
+            return 0, "val\n" + ("" if v is None else f"{v}\n"), ""
+        m = _SQL_UPSERT.match(stmt)
+        if m:
+            self.stats["writes"] += 1
+            t = self._timed_out("cockroachdb")
+            if t is None or t[0]:
+                self.registers[int(m.group(1))] = int(m.group(2))
+            return t[1] if t else (0, "", "")
+        m = _SQL_CAS.match(stmt)
+        if m:
+            self.stats["cas"] += 1
+            new, k, old = (int(g) for g in m.groups())
+            hit = self.registers.get(k) == old
+            t = self._timed_out("cockroachdb")
+            if hit and (t is None or t[0]):
+                self.registers[k] = new
+            if t:
+                return t[1]
+            return 0, "val\n" + (f"{new}\n" if hit else ""), ""
+        return 1, "", f"ERROR: the fake does not run {stmt!r}"
+
+    # -- aerospike aql --------------------------------------------------------
+
+    def _aerospike(self, node, stmt):
+        stmt = stmt.strip()
+        m = _AQL_SELECT.match(stmt)
+        if m:
+            self.stats["reads"] += 1
+            rec = self.records.get((m.group(2), int(m.group(3))))
+            if rec is None:
+                return 0, "Error: (2) AEROSPIKE_ERR_RECORD_NOT_FOUND\n", ""
+            return 0, (f"+-------+\n| value |\n+-------+\n"
+                       f"| {rec[0]:<5} |\n+-------+\n"
+                       f'{{"gen": {rec[1]}}}\n'), ""
+        m = _AQL_INSERT.match(stmt)
+        if m:
+            key = (m.group(2), int(m.group(3)))
+            rec = self.records.get(key)
+            predicate = m.group(5)
+            self.stats["cas" if predicate is not None else "writes"] += 1
+            if predicate is not None and (rec is None
+                                          or rec[1] != int(predicate)):
+                self.stats["generation"] += 1
+                return 1, "", ("Error: (3) AEROSPIKE_ERR_RECORD_GENERATION "
+                               "FAIL_GENERATION")
+            t = self._timed_out("aerospike")
+            if t is None or t[0]:
+                self.records[key] = [int(m.group(4)),
+                                     (rec[1] if rec else 0) + 1]
+            return t[1] if t else (0, "OK, 1 record affected.\n", "")
+        m = _AQL_ADD.match(stmt)
+        if m:
+            self.stats["writes"] += 1
+            key = (m.group(3), int(m.group(4)))
+            rec = self.records.setdefault(key, [0, 0])
+            t = self._timed_out("aerospike")
+            if t is None or t[0]:
+                rec[0] += int(m.group(1))
+                rec[1] += 1
+            return t[1] if t else (0, "", "")
+        return 1, "", f"Error: the fake does not run {stmt!r}"
+
+    # -- mongosh ----------------------------------------------------------------
+
+    def _primary(self):
+        return self.nodes[0]
+
+    def _replica_value(self, k):
+        cutoff = time.monotonic() - self.delay_s
+        value = None
+        for t, v in self.doc_log.get(k, ()):
+            if t > cutoff:
+                break
+            value = v
+        return value
+
+    def _set_doc(self, k, v):
+        self.docs[k] = v
+        self.doc_log.setdefault(k, []).append((time.monotonic(), v))
+
+    def _mongodb(self, node, js):
+        if "rs.status()" in js:
+            return 0, json.dumps({"set": "jepsen", "members": [
+                {"_id": i, "name": f"{n}:27017",
+                 "stateStr": "PRIMARY" if n == self._primary()
+                 else "SECONDARY", "self": n == node}
+                for i, n in enumerate(self.nodes)]}), ""
+        if "rs.initiate(" in js or "rs.reconfig(" in js:
+            return 0, '{ ok: 1 }', ""
+        if "rs.conf()" in js:
+            return 0, json.dumps({"_id": "jepsen", "version": 1,
+                                  "members": [{"_id": i,
+                                               "host": f"{n}:27017"}
+                                              for i, n in
+                                              enumerate(self.nodes)]}), ""
+        secondary = self.stale_reads and node != self._primary()
+        m = _JS_FIND.search(js)
+        if m:
+            self.stats["reads"] += 1
+            k, concern = int(m.group(1)), m.group(2)
+            if secondary and concern == "linearizable":
+                self.stats["not-master"] += 1
+                return 1, "", NOT_MASTER
+            v = self.docs.get(k)
+            if secondary:
+                r = self._replica_value(k)
+                self.stats["stale"] += r != v
+                v = r
+            return 0, json.dumps([] if v is None
+                                 else [{"_id": k, "value": v}]), ""
+        m = _JS_UPDATE.search(js) or _JS_CAS.search(js)
+        if m:
+            cas = len(m.groups()) == 3
+            self.stats["cas" if cas else "writes"] += 1
+            if secondary:
+                self.stats["not-master"] += 1
+                return 1, "", NOT_MASTER
+            k = int(m.group(1))
+            hit = not cas or self.docs.get(k) == int(m.group(2))
+            t = self._timed_out("mongodb")
+            if hit and (t is None or t[0]):
+                self._set_doc(k, int(m.group(3 if cas else 2)))
+            if t:
+                return t[1]
+            if not cas:
+                return 0, 'WriteResult({ "nMatched" : 1 })', ""
+            return 0, (json.dumps({"_id": k, "value": int(m.group(2))})
+                       if hit else "null"), ""
+        m = _JS_OPEN.search(js)
+        if m:
+            self.accounts.setdefault(int(m.group(1)), int(m.group(2)))
+            return 0, "", ""
+        if ".accounts.find()" in js:
+            self.stats["reads"] += 1
+            return 0, json.dumps([{"_id": i, "balance": b} for i, b in
+                                  sorted(self.accounts.items())]), ""
+        m = _JS_TRANSFER.search(js)
+        if m and "insertOne" in js:
+            self.stats["writes"] += 1
+            frm, to, amount = (int(g) for g in m.groups())
+            if self.accounts.get(frm, 0) < amount:
+                return 0, "FAIL", ""
+            self.accounts[frm] -= amount
+            self.accounts[to] = self.accounts.get(to, 0) + amount
+            return 0, "OK", ""
+        return 1, "", f"MongoServerError: the fake does not run {js!r}"
 
 
 def main(argv=None) -> int:
