@@ -17,7 +17,7 @@ held against both plain versions); at each state K5 ``seg_active``
 standing alone, and K4 ending a level pair with K5's step, as the
 segment graph runs it. Then it drives both paths end to end, counting
 each kernel's launches on each: the 10k-op CAS-register headline history through
-``linearizable(CASRegister())``, its first three segments held against
+``linearizable(CASRegister())``, its first segment held against
 the plain versions, an invalid history (its first segments held against
 the plain versions, and a smaller one refuted on both), a wide history;
 the keyed batch through
@@ -72,8 +72,14 @@ command-line fake's sessions: aerospike at 100 workers and cockroachdb's
 register under a clock-skew nemesis, valid with crashed ops in their
 histories (held against the plain route, the native engine and
 ``analyze``), and mongodb against lagging secondaries, valid with
-linearizable reads and refuted with local ones; and, last, the segment
-watchdog: an
+linearizable reads and refuted with local ones; and the single registers
+of the small suites, through ``core.run``: logcabin with 33-128 crashed
+ops left open in its one history (a crashed mask of two to four words),
+ravendb against 503s, rethinkdb with majority reads valid and with
+outdated reads from a lagging replica refuted, each held against the
+plain route on the card and the native engine (logcabin's store against
+``analyze``), and mongodb-rocks' keyed document CAS; and, last, the
+segment watchdog: an
 injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
 deadline, a second check answered at once while the card still spins, and
 the warm headline with a deadline beside it without one. Every phase is a
@@ -107,7 +113,8 @@ HEADLINE_RUNG = (128, 32, 8)
 #: levels run before the kernels are held against their plain versions
 HEADLINE_WARM_LEVELS = 300
 #: the headline's segments run on the kernels and on the plain versions
-HEADLINE_PLAIN_SEGMENTS = 3
+#: (three took 29.5 s of the smoke)
+HEADLINE_PLAIN_SEGMENTS = 1
 #: a 2,000-op history with one corrupted read (refuted on the third rung)
 INVALID = dict(n_ops=2000, n_procs=5, n_vals=16, seed=16)
 #: its search's first INVALID_PLAIN_SEGMENTS segments of PLAIN_SEGMENT_LEVELS
@@ -2948,6 +2955,249 @@ def cas_suites_phase(dev, seconds, smi, cfg=CAS_RUN):
     return line, launches, grid, segs
 
 
+#: the small-suites phase: the registers of ``suites/small.py``, each
+#: through ``core.run`` with its test map from the registry on five nodes
+#: under the dummy control plane. logcabin at its own shapes (5 workers, a
+#: 1/10 s stagger, the partition cycle) for LOGCABIN_SECONDS, not 60,
+#: against ``CliFake``'s logcabin CLI with a seeded TIMEOUT_P of its
+#: writes and CAS's timing out (half of them applied): a crashed op stays
+#: open to the end of the one history, so it holds 33-128 of them, a
+#: crashed mask of two to four words; ravendb for RAVEN_SECONDS against
+#: ``RavenFake``'s five listeners with a seeded ERROR_P of PUTs answered
+#: 503 (half applied); rethinkdb for RETHINK_SECONDS twice against a
+#: primary (n1) whose replicas apply its writes DELAY_S late, with
+#: majority reads and with outdated reads on the client's own node; and
+#: mongodb-rocks' keyed document CAS for ROCKS_SECONDS. The plain route
+#: re-checks a whole history of at most PLAIN_LEVELS levels of search,
+#: else the deciding rung's first PLAIN_SEGMENTS segments, lane by lane.
+SMALL_RUN = {"members": 5, "workers": 5, "logcabin_seconds": 20,
+             "timeout_p": 0.06, "seed": 17, "raven_seconds": 10,
+             "error_p": 0.06, "rethink_seconds": 10, "delay_s": 0.5,
+             "rocks_workers": 50, "rocks_seconds": 5, "plain_levels": 1024,
+             "plain_segments": 1, "min_crash_width": 64}
+
+
+def analyze_single(store_dir, res, on_cpu):
+    """``analyze`` of a stored single-register run (in this process): the
+    run's verdict and levels. Its ``# `` lines."""
+    import io
+    from jepsen_tpu_torch.__main__ import main as port_main
+    out = io.StringIO()
+    argv = ["analyze", "--store", store_dir]
+    with contextlib.redirect_stdout(out):
+        rc = port_main(argv + (["--device", "cpu"] if on_cpu else []))
+    text = out.getvalue()
+    again = json.loads(text[text.index("\n{") + 1:])
+    assert rc == (0 if res["valid"] is True else 1), (rc, text[-2000:])
+    assert [again.get(f) for f in SUITE_KEYS] == \
+        [res.get(f) for f in SUITE_KEYS], again
+    return [ln for ln in text.splitlines() if ln.startswith("# ")]
+
+
+def single_checks(dev, entry, tag, hist, res, cfg):
+    """A single register history's check on the card held against the
+    plain route on the card (the whole search when it ran at most
+    ``plain_levels`` levels, else the deciding rung's first segments, lane
+    by lane) and against the native engine (timed); a refuted history at
+    the same ``max-linearized-prefix``. Their seconds go into ``entry``."""
+    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    on_card(res, tag)
+    packed, kernel = pack_with_init(hist, CASRegister())
+    searched = sum(w[-1] for w in res["work"])
+    t0 = time.perf_counter()
+    if searched <= cfg["plain_levels"]:
+        rp = resilience.supervised_check_packed(packed, kernel, device=dev,
+                                                ops=G.PLAIN)
+        keys = SUITE_KEYS + ("rung", "crash-width")
+        assert stored([rp.get(k) for k in keys]) == \
+            stored([res.get(k) for k in keys]), (tag, rp, res)
+        if res["valid"] is False:
+            assert stored([rp.get(f) for f in PREFIX_KEYS]) == \
+                stored([res.get(f) for f in PREFIX_KEYS]), (tag, rp, res)
+        entry["plain_route"] = "whole search"
+    else:
+        cols = G._split_packed(packed, G._bucket(packed.n_required),
+                               res["crash-width"], kernel)
+        level = hold_segments(f"{tag} plain", cols, tuple(res["rung"]), dev,
+                              cfg["plain_segments"], PLAIN_SEGMENT_LEVELS)
+        entry["plain_route"] = (f"first {cfg['plain_segments']} segment(s) "
+                                f"of rung {list(res['rung'])}, level "
+                                f"{level}, carries equal")
+    entry["plain_route_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = linearizable(CASRegister(), backend="cpu").check({}, hist)
+    entry["native_s"] = time.perf_counter() - t0
+    assert nat["valid"] == res["valid"] and nat.get("engine") == "native", \
+        (tag, nat, res)
+    if res["valid"] is False:
+        deepest = res.get("deepest-expanded", res["max-linearized-prefix"])
+        assert nat.get("max-linearized-prefix") == deepest, (tag, nat, res)
+
+
+def small_suites_phase(dev, seconds, smi, cfg=SMALL_RUN):
+    """The registers of ``suites/small.py`` on the card, each through
+    ``core.run`` with the registry's test map: logcabin valid with 33-128
+    crashed ops in its one history, checked at crash width 64 or 128 (the
+    rung trail printed), held to the plain route and native, and
+    ``analyze`` of its store agreeing; ravendb with 503s valid; rethinkdb
+    with majority reads valid, the reconfigure nemesis's commands on the
+    nodes it chose, and with outdated reads refuted by the device, the
+    plain route and native at one prefix; mongodb-rocks' keyed document
+    CAS valid with the rocksdb engine configured on every node. Every
+    check on the card: ``backend`` gpu, no ``fallback-from``, no
+    ``error``. Returns the phase's JSON entry and the five runs'
+    launches, CUDA launches and segment counts."""
+    import shutil
+    import tempfile
+    from jepsen_tpu_torch import core, independent, store, suites
+    from jepsen_tpu_torch.kernels import search as K
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tools"))
+    import torch_suite_fakes as fakes
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-small-suites-")
+    on_cpu = dev.type == "cpu"
+    nodes = [f"n{i + 1}" for i in range(cfg["members"])]
+    counters = (K.launches, K.grid_launches_total, K.segments)
+    #: the launches, CUDA launches and segment counts of the five runs
+    totals = tuple(dict.fromkeys(c, 0) for c in counters)
+
+    def run(tag, suite, secs, nodes, fake=None, responses=None, **opts):
+        """``suite``'s test map from the registry through ``core.run``,
+        on the fake's sessions if any; the stored run, its line (the
+        run's kernel launches in it) and the nodes' command logs."""
+        test = suites.registry()[suite](dict(
+            opts, nodes=nodes, concurrency=opts.pop(
+                "concurrency", cfg["workers"]), **{
+                "time-limit": secs, "store-root": root,
+                "ssh": {"mode": "dummy", "dummy-responses": {
+                    k: tuple(v) if isinstance(v, list) else v
+                    for k, v in (responses or {}).items()}}},
+            **({"device": "cpu"} if on_cpu else {})))
+        sessions = test["_sessions"] = fake.sessions() if fake else {}
+        before = tuple(dict(c) for c in counters)
+        with keyed_batches() as batches:
+            t = store.load(core.run(test)["store-dir"])
+        for c, was, total in zip(counters, before, totals):
+            for k in c:
+                total[k] += c[k] - was[k]
+        crashed = [o for o in t["history"]
+                   if o.type == "info" and o.process != "nemesis"]
+        launches = {k: K.launches[k] - before[0][k] for k in K.launches}
+        entry = line[tag] = dict(run_split(t), events=len(t["history"]),
+                                 valid=t["results"]["valid"],
+                                 crashed=len(crashed), launches=launches,
+                                 k3_launched=launches["group_scan"] > 0)
+        if fake is not None:
+            entry["fake"] = dict(fake.stats)
+        return t, entry, batches, {n: s.log for n, s in sessions.items()}
+
+    def single(tag, t, entry):
+        """The single history's check result, in the run's line."""
+        res = t["results"]["linear"]
+        entry.update(levels=res.get("levels"), rung=res.get("rung"),
+                     crash_width=res.get("crash-width"),
+                     segments=res.get("segments"),
+                     device_s=res.get("device-s"),
+                     trail=[[list(a["rung"]), a["event"], a["levels"]]
+                            for a in res.get("attempts", ())],
+                     work=res.get("work"))
+        single_checks(dev, entry, tag, t["history"], res, cfg)
+        if not on_cpu:
+            launches = entry["launches"]
+            assert launches["expand"] > 0 and \
+                launches["dedup_truncate"] > 0 and \
+                launches["sort_rows"] + launches["sort_rows_hash"] > 0, \
+                (tag, launches)
+        print(f"small-suites: {tag}: {json.dumps(entry, default=str)} "
+              f"[{smi}]", flush=True)
+        return res
+
+    try:
+        with phase("small-suites", seconds):
+            K.reset_launches()
+            # -- logcabin: one register, crashed ops to the end ----------
+            fake = fakes.CliFake(nodes, fakes.DUMMY_RESPONSES["logcabin"],
+                                 timeout_p=cfg["timeout_p"],
+                                 seed=cfg["seed"])
+            print(f"small-suites: logcabin: timeout share "
+                  f"{cfg['timeout_p']} of writes and CAS's, half applied",
+                  flush=True)
+            t, entry, _, _ = run("logcabin", "logcabin",
+                                 cfg["logcabin_seconds"], nodes, fake)
+            res = single("logcabin", t, entry)
+            assert res["valid"] is True, res
+            assert 33 <= entry["crashed"] <= 128 or on_cpu, entry["crashed"]
+            assert res["crash-width"] >= cfg["min_crash_width"], res
+            entry["analyze"] = analyze_single(t["store-dir"], res, on_cpu)
+            # -- ravendb: a read/write register over HTTP, 503s ----------
+            raven = fakes.RavenFake(cfg["members"], cfg["error_p"],
+                                    cfg["seed"])
+            try:
+                t, entry, _, _ = run(
+                    "ravendb", "ravendb", cfg["raven_seconds"],
+                    raven.start(),
+                    responses=fakes.DUMMY_RESPONSES["ravendb"])
+            finally:
+                raven.stop()
+            entry["fake"] = dict(raven.stats)
+            res = single("ravendb", t, entry)
+            assert res["valid"] is True, res
+            # -- rethinkdb against a lagging replica ---------------------
+            for mode, valid in (("majority", True), ("outdated", False)):
+                tag = f"rethinkdb {mode}"
+                fake = fakes.CliFake(nodes,
+                                     fakes.DUMMY_RESPONSES["rethinkdb"],
+                                     stale_reads=True,
+                                     delay_s=cfg["delay_s"])
+                t, entry, _, logs = run(
+                    tag, "rethinkdb", cfg["rethink_seconds"], nodes, fake,
+                    **{"write-acks": "majority", "read-mode": mode})
+                res = single(tag, t, entry)
+                assert res["valid"] is valid, (tag, res)
+                assert fake.write_acks == "majority", fake.write_acks
+                # each reconfiguration ran on the node it chose, as many
+                # as the nemesis completed
+                recon = [(n, c) for n, cmds in logs.items() for c in cmds
+                         if "rethinkdb admin" in c]
+                done = [o for o in t["history"] if o.process == "nemesis"
+                        and o.type == "info" and isinstance(o.value, dict)]
+                assert recon and len(recon) == len(done), (recon, done)
+                assert all(f"--join {n}:29015 reconfigure jepsen.cas" in c
+                           for n, c in recon), recon
+                entry["reconfigurations"] = len(recon)
+            # -- mongodb-rocks: the document CAS on RocksDB --------------
+            fake = fakes.CliFake(nodes,
+                                 fakes.DUMMY_RESPONSES["mongodb-rocks"])
+            t, entry, batches, logs = run(
+                "mongodb-rocks", "mongodb-rocks", cfg["rocks_seconds"],
+                nodes, fake, concurrency=cfg["rocks_workers"])
+            ind = t["results"]["indep"]
+            assert t["results"]["valid"] is True, ind["failures"]
+            keyed = independent.subhistories(t["history"])
+            entry.update(keyed_entry(t, batches, keyed))
+            per_key_checks(dev, entry, "mongodb-rocks", keyed,
+                           ind["results"], ())
+            for node, cmds in logs.items():
+                assert any("engine: rocksdb" in c and "/etc/mongod.conf"
+                           in c for c in cmds), node
+            print(f"small-suites: mongodb-rocks: {json.dumps(entry)} "
+                  f"[{smi}]", flush=True)
+            launches, grid, segs = totals
+            if not on_cpu:
+                assert segs["pair_ends"] > 0 and \
+                    grid["seg_active"] == 0, (segs, grid)
+        print(f"small-suites: launches={launches} cuda_launches={grid} "
+              f"graphs={segs} [{smi}]", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -3503,6 +3753,10 @@ def smoke(dev: torch.device) -> None:
     (cas_line, cas_launches, cas_grid_launches,
      path_segments["cas-suites"]) = cas_suites_phase(dev, seconds, smi)
 
+    # -- the single registers of the small suites, with crashed ops -------
+    (small_line, small_launches, small_grid_launches,
+     path_segments["small-suites"]) = small_suites_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -3517,13 +3771,15 @@ def smoke(dev: torch.device) -> None:
                      "models": model_launches, "serve": serve_launches,
                      "stream": stream_launches, "run": run_launches,
                      "sqlite": sqlite_launches, "suites": suites_launches,
-                     "cas-suites": cas_launches}
+                     "cas-suites": cas_launches,
+                     "small-suites": small_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
                  "sqlite": sqlite_grid_launches,
                  "suites": suites_grid_launches,
-                 "cas-suites": cas_grid_launches}
+                 "cas-suites": cas_grid_launches,
+                 "small-suites": small_grid_launches}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -3606,7 +3862,7 @@ def smoke(dev: torch.device) -> None:
         "stream": stream_line, "plan": plan_line, "watchdog": watch_line,
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
-        "cas_suites": cas_line,
+        "cas_suites": cas_line, "small_suites": small_line,
         "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -33,9 +33,11 @@ WAL, saves the store under ``--store-root`` and then checks the history,
 on the card unless ``--device cpu`` (the kernels' plain versions) or
 ``--backend cpu`` (the host search). ``--node``, ``--concurrency`` and
 ``--time-limit`` default to the suite's own settings; ``--workload``
-selects a workload of the hazelcast, aerospike, mongodb and cockroachdb
-suites, ``--nemesis`` and ``--nemesis2`` (repeatable) name the
-cockroachdb nemeses to compose, and ``--write-concern`` and
+selects a workload of the hazelcast, aerospike, mongodb, cockroachdb and
+tidb suites, ``--nemesis`` and ``--nemesis2`` (repeatable) name the
+cockroachdb or tidb nemeses to compose (a tidb row runs the first point
+of the reference ``tidb_main``'s matrix; without them it keeps its own
+partition cycle), and ``--write-concern`` and
 ``--read-concern`` set the mongodb client's concerns, as the reference's
 ``main`` of each of those suites takes them; each exits 254 for a suite
 that does not take it. With ``--ssh-mode dummy`` the control plane records
@@ -61,7 +63,11 @@ the wire-protocol ones (``etcd``, ``zookeeper``, ``consul``, ``disque``,
 ``raftis``, ``rabbitmq``, ``rabbitmq-mutex``, ``hazelcast``) and those
 whose data plane is a command on the nodes (the eight ``cockroachdb``
 rows, ``aerospike``, ``aerospike-counter``, ``mongodb``,
-``mongodb-transfer``). A stored run whose ops carry ``[k v]`` values
+``mongodb-transfer``), and the rest but chronos: ``logcabin``,
+``robustirc``, ``rethinkdb``, ``rethinkdb-aggressive``, ``ravendb``,
+``mongodb-rocks``, the three ``galera`` rows, the three ``tidb`` rows,
+the three ``percona`` rows, ``mysql-cluster``, ``postgres-rds``, the
+three ``crate`` rows and the seven ``elasticsearch`` rows. A stored run whose ops carry ``[k v]`` values
 (etcd's, the keyed registers') is re-checked key by key, as the run
 checked it (``independent.checker``).
 
@@ -82,6 +88,7 @@ backend, nothing carries on on the CPU.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import json
 import logging
@@ -207,15 +214,18 @@ def _parser() -> argparse.ArgumentParser:
     r.add_argument("--workload", default=None,
                    choices=sorted({w for m in _WORKLOAD_MODULES
                                    for w in _workloads(m)}),
-                   help="the workload of a hazelcast, aerospike, mongodb "
-                        "or cockroachdb suite (default: the row's own)")
+                   help="the workload of a hazelcast, aerospike, mongodb, "
+                        "cockroachdb or tidb suite (default: the row's "
+                        "own)")
     r.add_argument("--nemesis", action="append", default=None,
                    choices=sorted(NEMESES),
-                   help="a cockroachdb nemesis; repeatable")
+                   help="a cockroachdb or tidb nemesis (a tidb row takes "
+                        "none, parts, majring, startstop, startstop2, "
+                        "startkill and startkill2); repeatable")
     r.add_argument("--nemesis2", action="append", default=None,
                    choices=sorted(NEMESES),
-                   help="a second cockroachdb nemesis to compose with "
-                        "--nemesis; repeatable")
+                   help="a second cockroachdb or tidb nemesis to compose "
+                        "with --nemesis; repeatable")
     r.add_argument("--write-concern", default=None, choices=WRITE_CONCERNS,
                    help="the mongodb client's write concern (default: "
                         "majority)")
@@ -560,8 +570,10 @@ def _card_refused(opts: argparse.Namespace, cmd: str) -> bool:
     return False
 
 
-#: the suite modules whose rows take ``--workload``
-_WORKLOAD_MODULES = ("hazelcast", "aerospike", "mongodb", "cockroachdb")
+#: the suite modules whose rows take ``--workload`` (of sql_family, the
+#: tidb rows only: ``_takes_workload``)
+_WORKLOAD_MODULES = ("hazelcast", "aerospike", "mongodb", "cockroachdb",
+                     "sql_family")
 
 
 def _workloads(module: str):
@@ -574,6 +586,18 @@ def _workloads(module: str):
 def _suite_module(suite: str) -> str:
     from jepsen_tpu_torch.suites import SUITES
     return SUITES[suite][0]
+
+
+def _is_tidb(suite: str) -> bool:
+    """A tidb row: the rows the reference's ``tidb_main`` runs."""
+    from jepsen_tpu_torch.suites.sql_family import TIDB_WORKLOADS
+    return suite in TIDB_WORKLOADS
+
+
+def _takes_workload(suite: str) -> bool:
+    module = _suite_module(suite)
+    return module in _WORKLOAD_MODULES and (module != "sql_family"
+                                            or _is_tidb(suite))
 
 
 def _parse_concurrency(c: str, n_nodes: int) -> int:
@@ -612,9 +636,10 @@ def _test_opts(opts: argparse.Namespace) -> dict:
         out["time-limit"] = opts.time_limit
     module = _suite_module(opts.suite)
     if opts.workload is not None:
-        if module not in _WORKLOAD_MODULES:
-            raise _ArgError(f"--workload selects a workload of a "
-                            f"{', '.join(_WORKLOAD_MODULES)} suite only")
+        if not _takes_workload(opts.suite):
+            raise _ArgError("--workload selects a workload of a hazelcast, "
+                            "aerospike, mongodb, cockroachdb or tidb suite "
+                            "only")
         choices = _workloads(module)
         if opts.workload not in choices:
             raise _ArgError(f"--workload {opts.workload} is not a workload "
@@ -626,9 +651,20 @@ def _test_opts(opts: argparse.Namespace) -> dict:
         from jepsen_tpu_torch.suites import cockroachdb
         out["nemesis"] = cockroachdb.named_nemesis(opts.nemesis,
                                                    opts.nemesis2)
+    elif _is_tidb(opts.suite):
+        # composed in run_cmd, as the reference's tidb_main composes them
+        from jepsen_tpu_torch.suites.sql_family import TIDB_NEMESES
+        for flag, names in (("nemesis", opts.nemesis),
+                            ("nemesis2", opts.nemesis2)):
+            for name in names or ():
+                if name not in TIDB_NEMESES:
+                    raise _ArgError(
+                        f"--{flag} {name} is not a nemesis of --suite "
+                        f"{opts.suite} (choose from "
+                        f"{', '.join(sorted(TIDB_NEMESES))})")
     elif opts.nemesis or opts.nemesis2:
         raise _ArgError("--nemesis and --nemesis2 name the nemeses of a "
-                        "cockroachdb suite only")
+                        "cockroachdb or tidb suite only")
     for flag in ("write_concern", "read_concern"):
         value = getattr(opts, flag)
         if value is None:
@@ -688,6 +724,12 @@ def run_cmd(opts: argparse.Namespace) -> int:
         # the workload picks the module's constructor, as its reference
         # main does; hazelcast's reads the option itself
         ctor = _workloads(module)[opts.workload]
+    if _is_tidb(opts.suite) and (opts.nemesis or opts.nemesis2):
+        # the first point of the tidb matrix (the reference's tidb_main);
+        # without a nemesis the row keeps its own partition cycle
+        from jepsen_tpu_torch.suites.sql_family import named_test
+        ctor = functools.partial(named_test, opts.workload or opts.suite,
+                                 opts.nemesis, opts.nemesis2)
     for _ in range(opts.test_count):
         test = core.run(ctor(dict(test_opts)))
         if test["results"].get("valid") is not True:

@@ -1,17 +1,22 @@
 """Test suites of the port: ``<name>_test(opts) -> test map``
 constructors, by name.
 
-The port has the two local-kv suites (:mod:`.localkv`), whose nodes are
-real local processes, the three sqlite suites (:mod:`.sqlitedb`), whose
-system is the real SQLite engine, and the wire-protocol suites of the
-register, mutex and queue families: etcd, consul, zookeeper, raftis,
-disque, rabbitmq (a queue and a mutex) and hazelcast (seven workloads),
-and the suites whose data plane is a command run over the control plane:
-cockroachdb (eight workloads, with the clock nemeses), aerospike (a CAS
-register and a counter) and mongodb (a document CAS and a transfer).
-Every other suite of ``jepsen_tpu.suites`` is still to port (ROADMAP).
-Their linearizability check runs on the card unless the options ask for
-the CPU (``backend: "cpu"``, or ``device: "cpu"``).
+The port has every suite of ``jepsen_tpu.suites`` but chronos (ROADMAP):
+the two local-kv suites (:mod:`.localkv`), whose nodes are real local
+processes, the three sqlite suites (:mod:`.sqlitedb`), whose system is
+the real SQLite engine, the wire-protocol suites of the register, mutex
+and queue families: etcd, consul, zookeeper, raftis, disque, rabbitmq (a
+queue and a mutex) and hazelcast (seven workloads), the suites whose data
+plane is a command run over the control plane: cockroachdb (eight
+workloads, with the clock nemeses), aerospike (a CAS register and a
+counter) and mongodb (a document CAS and a transfer), and the rest:
+logcabin, rethinkdb and ravendb (one CAS or read/write register a run),
+mongodb-rocks, robustirc (:mod:`.small`), galera (:mod:`.galera`), tidb,
+percona, mysql-cluster, postgres-rds and crate (:mod:`.sql_family`) and
+elasticsearch (:mod:`.elasticsearch`). Their linearizability check runs
+on the card unless the options ask for the CPU (``backend: "cpu"``, or
+``device: "cpu"``); the set, bank, dirty-read and version-divergence
+checks run on the host.
 """
 
 from __future__ import annotations
@@ -47,6 +52,34 @@ SUITES = {
     "sqlite-register": ("sqlitedb", "sqlite_register_test"),
     "sqlite-bank": ("sqlitedb", "sqlite_bank_test"),
     "sqlite-register-toctou": ("sqlitedb", "sqlite_register_toctou_test"),
+    "galera": ("galera", "dirty_reads_test"),
+    "galera-set": ("galera", "sets_test"),
+    "galera-bank": ("galera", "bank_test"),
+    "mongodb-rocks": ("small", "mongodb_rocks_test"),
+    "elasticsearch": ("elasticsearch", "dirty_read_test"),
+    "elasticsearch-set": ("elasticsearch", "sets_test"),
+    "elasticsearch-set-cas": ("elasticsearch", "set_cas_test"),
+    "elasticsearch-set-isolate-primaries":
+        ("elasticsearch", "set_isolate_primaries_test"),
+    "elasticsearch-set-pause": ("elasticsearch", "set_pause_test"),
+    "elasticsearch-set-crash": ("elasticsearch", "set_crash_test"),
+    "elasticsearch-set-bridge": ("elasticsearch", "set_bridge_test"),
+    "tidb": ("sql_family", "tidb_bank_test"),
+    "tidb-register": ("sql_family", "tidb_register_test"),
+    "tidb-sets": ("sql_family", "tidb_sets_test"),
+    "percona": ("sql_family", "percona_dirty_reads_test"),
+    "percona-set": ("sql_family", "percona_sets_test"),
+    "percona-bank": ("sql_family", "percona_bank_test"),
+    "mysql-cluster": ("sql_family", "mysql_cluster_bank_test"),
+    "postgres-rds": ("sql_family", "postgres_rds_bank_test"),
+    "crate": ("sql_family", "crate_version_divergence_test"),
+    "crate-lost-updates": ("sql_family", "crate_lost_updates_test"),
+    "crate-dirty-read": ("sql_family", "crate_dirty_read_test"),
+    "logcabin": ("small", "logcabin_test"),
+    "robustirc": ("small", "robustirc_test"),
+    "rethinkdb": ("small", "rethinkdb_test"),
+    "rethinkdb-aggressive": ("small", "rethinkdb_aggressive_test"),
+    "ravendb": ("small", "ravendb_test"),
 }
 
 

@@ -255,7 +255,9 @@ def test_the_runner_defaults_to_cuda(tmp_path, capsys):
         "local-kv", "local-kv-unsafe", "sqlite-register",
         "sqlite-register-toctou", "etcd", "zookeeper", "consul", "raftis",
         "rabbitmq-mutex", "hazelcast", "cockroachdb", "aerospike",
-        "mongodb", "mongodb-transfer"])
+        "mongodb", "mongodb-transfer", "logcabin", "rethinkdb",
+        "rethinkdb-aggressive", "ravendb", "mongodb-rocks",
+        "tidb-register"])
 
 
 def test_a_cuda_request_without_a_library_raises(monkeypatch):

@@ -41,6 +41,27 @@ refuse writes and linearizable reads with ``not master`` and serve
 other reads from a replica that applies the primary's writes ``delay_s``
 late.
 
+The same sessions interpret four more command-line data planes:
+logcabin's ``logcabin --cluster ... read|write [--condition K:V] K`` (the
+value written on standard input; a condition that does not hold is
+LogCabin's ``Path '...' has value '...', not '...' as required``),
+rethinkdb's ``python3 -c`` ReQL snippets (the ``table_config`` update, a
+read under a read mode, the insert and the branch update, against one
+document: in ``stale_reads`` mode the first node is the primary and an
+``outdated`` read on another node is served by a replica ``delay_s``
+late), and the SQL of galera's and percona's ``mysql --batch
+--skip-column-names -e`` and postgres-rds's ``psql -c`` (the bank's
+accounts, the set's rows and the dirty-read table). Seeded timeouts
+answer logcabin, rethinkdb and mysql writes too.
+
+``RavenFake`` is RavenDB's document API behind N HTTP listeners over one
+document store: ``GET /databases/<db>/docs?id=<id>`` (404 for a missing
+document) and ``PUT`` of a JSON document; a seeded ``error_p`` of the
+PUTs is answered 503, and half of those are applied all the same.
+``IrcFake`` is a line-protocol IRC server behind N listeners over one
+channel log: ``JOIN`` replays the channel's messages, and a ``PRIVMSG``
+to a channel is logged and relayed to every member, its sender too.
+
 ``DUMMY_RESPONSES`` holds, per suite, the dummy control plane's replies
 that let the suite's database lifecycle be recorded from its install to
 its start (``run --ssh-mode dummy --dummy-responses FILE``).
@@ -53,8 +74,8 @@ terminated::
     python3 tools/torch_suite_fakes.py etcd --members 5 [--stale-reads]
     python3 tools/torch_suite_fakes.py hazelcast --members 5
 
-(``CliFake`` has no listener: it is used in the process that runs the
-test.)
+(``CliFake`` has no listener, and ``RavenFake`` and ``IrcFake`` are
+started in the process that runs the test.)
 """
 
 import argparse
@@ -93,7 +114,15 @@ DUMMY_RESPONSES = {
         {"name": f"n{i}:27017",
          "stateStr": "PRIMARY" if i == 1 else "SECONDARY"}
         for i in range(1, 6)]})},
+    "logcabin": {},
+    "rethinkdb": {},
+    "ravendb": {"stat ": [1, "", "no such file"],
+                "ls -A": "RavenDB-4.0.0", "dirname": "/opt"},
+    "galera": {},
+    "tidb": {"stat ": [1, "", "no such file"],
+             "ls -A": "tidb-latest-linux-amd64", "dirname": "/opt"},
 }
+DUMMY_RESPONSES["mongodb-rocks"] = DUMMY_RESPONSES["mongodb"]
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -314,6 +343,201 @@ class ShimFake:
         self.servers = []
 
 
+class RavenFake:
+    """RavenDB's document API behind N HTTP listeners over one store."""
+
+    def __init__(self, members: int = 5, error_p: float = 0.0,
+                 seed: int = 0):
+        self.members = members
+        self.error_p = error_p
+        self.rng = random.Random(seed)
+        self.lock = threading.Lock()
+        #: (database, id) -> the document
+        self.docs = {}
+        #: [method, status, times left]: scripted replies, applying
+        #: nothing, taken before the store is consulted
+        self.scripted = []
+        self.servers = []
+        self.stats = {"reads": 0, "writes": 0, "errors": 0,
+                      "applied-errors": 0}
+
+    def script(self, method: str, status: int, times: int = 1) -> None:
+        """Answer the next ``times`` requests of ``method`` with
+        ``status`` and apply nothing."""
+        with self.lock:
+            self.scripted.append([method, status, times])
+
+    def _scripted(self, method):
+        with self.lock:
+            for entry in self.scripted:
+                if entry[0] == method and entry[2] > 0:
+                    entry[2] -= 1
+                    return entry[1]
+        return None
+
+    def _handler(self):
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _doc_key(self):
+                url = urllib.parse.urlparse(self.path)
+                parts = url.path.strip("/").split("/")
+                query = urllib.parse.parse_qs(url.query)
+                if len(parts) != 3 or parts[0] != "databases" \
+                        or parts[2] != "docs" or "id" not in query:
+                    return None
+                return parts[1], query["id"][0]
+
+            def _reply(self, code, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802
+                key = self._doc_key()
+                if key is None:
+                    return self._reply(400, {"Message": "bad route"})
+                status = fake._scripted("GET")
+                if status is not None:
+                    return self._reply(status, {"Message": "scripted"})
+                with fake.lock:
+                    fake.stats["reads"] += 1
+                    doc = fake.docs.get(key)
+                if doc is None:
+                    return self._reply(404, {"Message": "not found"})
+                return self._reply(200, doc)
+
+            def do_PUT(self):  # noqa: N802
+                key = self._doc_key()
+                n = int(self.headers.get("Content-Length", 0))
+                doc = json.loads(self.rfile.read(n).decode() or "null")
+                if key is None or not isinstance(doc, dict):
+                    return self._reply(400, {"Message": "bad request"})
+                status = fake._scripted("PUT")
+                if status is not None:
+                    return self._reply(status, {"Message": "scripted"})
+                with fake.lock:
+                    fake.stats["writes"] += 1
+                    failed = (fake.error_p > 0
+                              and fake.rng.random() < fake.error_p)
+                    applied = not failed or fake.rng.random() < 0.5
+                    if failed:
+                        fake.stats["errors"] += 1
+                        fake.stats["applied-errors"] += applied
+                    if applied:
+                        fake.docs[key] = doc
+                if failed:
+                    return self._reply(503, {"Message": "Service "
+                                                        "Unavailable"})
+                return self._reply(201, {"Id": key[1]})
+
+        return Handler
+
+    def start(self) -> list:
+        """Start the listeners; their ``host:port`` node names."""
+        for _ in range(self.members):
+            s = _HTTPServer((HOST, 0), self._handler())
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+            self.servers.append(s)
+        return self.nodes()
+
+    def nodes(self) -> list:
+        return [f"{HOST}:{s.server_address[1]}" for s in self.servers]
+
+    def stop(self) -> None:
+        for s in self.servers:
+            s.shutdown()
+            s.server_close()
+        self.servers = []
+
+
+class IrcFake:
+    """A line-protocol IRC server behind N listeners over one channel
+    log."""
+
+    def __init__(self, members: int = 5):
+        self.members = members
+        self.lock = threading.Lock()
+        #: channel -> [message lines]; channel -> {connection's writer}
+        self.log = {}
+        self.joined = {}
+        self.servers = []
+        self.stats = {"messages": 0, "joins": 0}
+
+    def _send(self, wfile, line):
+        try:
+            wfile.write((line + "\r\n").encode())
+            wfile.flush()
+        except OSError:
+            pass
+
+    def start(self) -> list:
+        fake = self
+
+        class Handler(socketserver.StreamRequestHandler):
+            def handle(self):
+                nick = "anon"
+                channels = []
+                try:
+                    while True:
+                        try:
+                            raw = self.rfile.readline()
+                        except OSError:
+                            return
+                        if not raw:
+                            return
+                        line = raw.decode("utf-8", "replace").strip()
+                        verb, _, rest = line.partition(" ")
+                        if verb == "NICK":
+                            nick = rest.strip()
+                        elif verb == "PING":
+                            fake._send(self.wfile, "PONG " + rest)
+                        elif verb == "JOIN":
+                            ch = rest.strip()
+                            with fake.lock:
+                                fake.stats["joins"] += 1
+                                fake.joined.setdefault(ch, set()).add(
+                                    self.wfile)
+                                backlog = list(fake.log.get(ch, ()))
+                            channels.append(ch)
+                            for msg in backlog:
+                                fake._send(self.wfile, msg)
+                        elif verb == "PRIVMSG":
+                            ch = rest.split(" ", 1)[0]
+                            msg = f":{nick} {line}"
+                            with fake.lock:
+                                fake.stats["messages"] += 1
+                                fake.log.setdefault(ch, []).append(msg)
+                                members = list(fake.joined.get(ch, ()))
+                            for w in members:
+                                fake._send(w, msg)
+                finally:
+                    with fake.lock:
+                        for ch in channels:
+                            fake.joined.get(ch, set()).discard(self.wfile)
+
+        for _ in range(self.members):
+            s = _TCPServer((HOST, 0), Handler)
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+            self.servers.append(s)
+        return self.nodes()
+
+    def nodes(self) -> list:
+        return [f"{HOST}:{s.server_address[1]}" for s in self.servers]
+
+    def stop(self) -> None:
+        for s in self.servers:
+            s.shutdown()
+            s.server_close()
+        self.servers = []
+
+
 #: the cockroachdb register table's statements (cockroachdb.RegisterClient)
 _SQL_SELECT = re.compile(r"SELECT val FROM registers WHERE id = (-?\d+)$")
 _SQL_UPSERT = re.compile(r"UPSERT INTO registers \(id, val\) VALUES "
@@ -339,12 +563,46 @@ _JS_CAS = re.compile(r"\.cas\.findAndModify\(\{query: \{_id: (-?\d+), "
 _JS_OPEN = re.compile(r"\.accounts\.update\(\{_id: (\d+)\}, \{"
                       r"\$setOnInsert: \{balance: (-?\d+)\}\}")
 _JS_TRANSFER = re.compile(r"from: (\d+), to: (\d+), amount: (\d+)\}")
+#: LogCabin's answer to a condition that does not hold
+#: (small.LogCabinClient)
+LOGCABIN_MISMATCH = ("Exiting due to LogCabin::Client::Exception: Path "
+                     "'{path}' has value '{value}', not '{want}' as "
+                     "required")
+#: rethinkdb's ReQL snippets (small.RethinkClient)
+_REQL_NODE = re.compile(r"r\.connect\('([^']*)', 28015\)")
+_REQL_ACKS = re.compile(r"table\('table_config'\)\.filter\(\{'db': "
+                        r"'(\w+)', 'name': '(\w+)'\}\)\.update\(\{"
+                        r"'write_acks': '(\w+)'")
+_REQL_READ = re.compile(r"table\('cas', read_mode='(\w+)'\)\.get\("
+                        r"(-?\d+)\)\.run\(c\)")
+_REQL_INSERT = re.compile(r"table\('cas'\)\.insert\(\{'id': (-?\d+), "
+                          r"'v': (-?\d+)\}, conflict='replace'\)")
+_REQL_CAS = re.compile(r"table\('cas'\)\.get\((-?\d+)\)\.update\("
+                       r"lambda row: r\.branch\(row\['v'\]\.eq\((-?\d+)"
+                       r"\), \{'v': (-?\d+)\}, r\.error\('abort'\)\)")
+#: the SQL of galera's, percona's and postgres-rds's clients
+_MY_SEED = re.compile(r"INSERT (?:IGNORE )?INTO (accounts|dirty) VALUES "
+                      r"\((-?\d+), (-?\d+)\)")
+_MY_DEBIT = re.compile(r"UPDATE accounts SET balance = balance - (\d+) "
+                       r"WHERE id = (\d+) AND balance >= (\d+)")
+_MY_CREDIT = re.compile(r"UPDATE accounts SET balance = balance \+ (\d+) "
+                        r"WHERE id = (\d+)")
+_MY_SET_ADD = re.compile(r"INSERT INTO sets \(value\) VALUES (?:\()?"
+                         r"(-?\d+)")
+_MY_DIRTY = re.compile(r"UPDATE dirty SET x = (-?\d+) WHERE id = (-?\d+)")
 
 #: the clients' answers to a write that timed out or lost its connection
 TIMEOUTS = {
     "cockroachdb": "Error: read tcp: connection reset by peer",
     "aerospike": "Error: (9) AEROSPIKE_ERR_TIMEOUT: timeout",
     "mongodb": "MongoNetworkTimeoutError: connection timed out",
+    "logcabin": "Exiting due to LogCabin::Client::Exception: "
+                "Client-specified timeout elapsed",
+    "rethinkdb": "rethinkdb.errors.ReqlTimeoutError: Could not connect "
+                 "to the server, operation timed out.",
+    "mysql": "ERROR 2013 (HY000): Lost connection to MySQL server during "
+             "query",
+    "psql": "psql: error: server closed the connection unexpectedly",
 }
 NOT_MASTER = "MongoServerError: not master and secondaryOk=false"
 
@@ -361,7 +619,7 @@ class CliSession:
         self.log = []
 
     def execute(self, cmd, stdin=None, timeout=None):
-        reply = self.fake.data_plane(self.node, cmd)
+        reply = self.fake.data_plane(self.node, cmd, stdin)
         if reply is not None:
             return reply
         self.log.append(cmd)
@@ -404,6 +662,15 @@ class CliFake:
         self.docs = {}
         self.doc_log = {}
         self.accounts = {}
+        #: logcabin: path -> value; rethinkdb: id -> v, and its log
+        self.tree = {}
+        self.rdocs = {}
+        self.rdoc_log = {}
+        self.write_acks = None
+        #: mysql and psql: the accounts, the set's rows, the dirty table
+        self.sql_accounts = {}
+        self.sql_set = []
+        self.sql_dirty = {}
         #: [pattern, (rc, out, err), times left]: scripted data-plane
         #: replies, taken before the store is consulted
         self.scripted = []
@@ -424,7 +691,7 @@ class CliFake:
 
     # -- dispatch -----------------------------------------------------------
 
-    def data_plane(self, node, cmd):
+    def data_plane(self, node, cmd, stdin=None):
         """(rc, stdout, stderr) of a data-plane command; None for any
         other command."""
         try:
@@ -438,6 +705,16 @@ class CliFake:
             kind, body = "aerospike", argv[argv.index("-c") + 1]
         elif argv[:1] == ["mongosh"] and "--eval" in argv:
             kind, body = "mongodb", argv[argv.index("--eval") + 1]
+        elif argv[:1] == ["logcabin"] and "--cluster" in argv:
+            kind = "logcabin"
+            body = " ".join(argv[argv.index("--cluster") + 2:])
+        elif argv[:2] == ["python3", "-c"] and len(argv) == 3 \
+                and "rethinkdb as r" in argv[2]:
+            kind, body = "rethinkdb", argv[2]
+        elif argv[:1] == ["mysql"] and "-e" in argv:
+            kind, body = "mysql", argv[argv.index("-e") + 1]
+        elif argv[:1] == ["psql"] and "-c" in argv:
+            kind, body = "psql", argv[argv.index("-c") + 1]
         else:
             return None
         with self.lock:
@@ -445,6 +722,8 @@ class CliFake:
                 if entry[0] in body and entry[2] > 0:
                     entry[2] -= 1
                     return entry[1]
+            if kind == "logcabin":
+                return self._logcabin(node, body, stdin)
             return getattr(self, "_" + kind)(node, body)
 
     def _timed_out(self, kind):
@@ -534,10 +813,10 @@ class CliFake:
     def _primary(self):
         return self.nodes[0]
 
-    def _replica_value(self, k):
+    def _replica_value(self, log, k):
         cutoff = time.monotonic() - self.delay_s
         value = None
-        for t, v in self.doc_log.get(k, ()):
+        for t, v in log.get(k, ()):
             if t > cutoff:
                 break
             value = v
@@ -572,7 +851,7 @@ class CliFake:
                 return 1, "", NOT_MASTER
             v = self.docs.get(k)
             if secondary:
-                r = self._replica_value(k)
+                r = self._replica_value(self.doc_log, k)
                 self.stats["stale"] += r != v
                 v = r
             return 0, json.dumps([] if v is None
@@ -613,6 +892,167 @@ class CliFake:
             self.accounts[to] = self.accounts.get(to, 0) + amount
             return 0, "OK", ""
         return 1, "", f"MongoServerError: the fake does not run {js!r}"
+
+
+    # -- logcabin --------------------------------------------------------------
+
+    def _logcabin(self, node, body, stdin):
+        argv = body.split()
+        if argv[:1] == ["read"] and len(argv) == 2:
+            self.stats["reads"] += 1
+            v = self.tree.get(argv[1])
+            return 0, "" if v is None else f"{v}\n", ""
+        if argv[:1] == ["write"] and stdin is not None:
+            cond = None
+            if len(argv) == 4 and argv[1] == "--condition":
+                cond = argv[2].rsplit(":", 1)
+            elif len(argv) != 2:
+                return 1, "", f"Usage: the fake does not run {body!r}"
+            path = argv[-1]
+            value = stdin.strip()
+            self.stats["cas" if cond else "writes"] += 1
+            if cond is not None and self.tree.get(cond[0], "") != cond[1]:
+                return 1, "", LOGCABIN_MISMATCH.format(
+                    path=cond[0], value=self.tree.get(cond[0], ""),
+                    want=cond[1])
+            t = self._timed_out("logcabin")
+            if t is None or t[0]:
+                self.tree[path] = value
+            return t[1] if t else (0, "", "")
+        return 1, "", f"Usage: the fake does not run {body!r}"
+
+    # -- rethinkdb ReQL -------------------------------------------------------
+
+    def _rethinkdb(self, node, script):
+        m = _REQL_ACKS.search(script)
+        if m:
+            self.write_acks = m.group(3)
+            return 0, json.dumps({"replaced": 1, "errors": 0}) + "\n", ""
+        m = _REQL_READ.search(script)
+        if m:
+            self.stats["reads"] += 1
+            mode, k = m.group(1), int(m.group(2))
+            v = self.rdocs.get(k)
+            conn = _REQL_NODE.search(script)
+            if mode == "outdated" and self.stale_reads and conn \
+                    and conn.group(1) != self._primary():
+                r = self._replica_value(self.rdoc_log, k)
+                self.stats["stale"] += r != v
+                v = r
+            doc = None if v is None else {"id": k, "v": v}
+            return 0, json.dumps(doc) + "\n", ""
+        m = _REQL_INSERT.search(script)
+        if m:
+            self.stats["writes"] += 1
+            t = self._timed_out("rethinkdb")
+            if t is None or t[0]:
+                self._set_rdoc(int(m.group(1)), int(m.group(2)))
+            return t[1] if t else (0, json.dumps({
+                "inserted": 0, "replaced": 1, "errors": 0}) + "\n", "")
+        m = _REQL_CAS.search(script)
+        if m:
+            self.stats["cas"] += 1
+            k, old, new = (int(g) for g in m.groups())
+            if k not in self.rdocs:
+                return 0, json.dumps({"skipped": 1, "replaced": 0,
+                                      "errors": 0}) + "\n", ""
+            if self.rdocs[k] != old:
+                return 0, json.dumps({"replaced": 0, "errors": 1,
+                                      "first_error": "abort"}) + "\n", ""
+            t = self._timed_out("rethinkdb")
+            if t is None or t[0]:
+                self._set_rdoc(k, new)
+            return t[1] if t else (0, json.dumps({
+                "replaced": 1, "errors": 0}) + "\n", "")
+        return 1, "", ("rethinkdb.errors.ReqlCompileError: the fake does "
+                       f"not run {script!r}")
+
+    def _set_rdoc(self, k, v):
+        self.rdocs[k] = v
+        self.rdoc_log.setdefault(k, []).append((time.monotonic(), v))
+
+    # -- mysql and psql -------------------------------------------------------
+
+    def _sql_family(self, stmts):
+        """The statements of one ``-e``/``-c`` (a transaction is one):
+        the output's rows, tab-separated."""
+        rows = []
+        debited = None
+        for stmt in stmts:
+            if stmt.startswith(("CREATE", "SET SESSION", "BEGIN", "COMMIT",
+                                "SELECT x FROM dirty WHERE")):
+                continue
+            m = _MY_SEED.match(stmt)
+            if m:
+                table = (self.sql_accounts if m.group(1) == "accounts"
+                         else self.sql_dirty)
+                table.setdefault(int(m.group(2)), int(m.group(3)))
+                continue
+            if stmt.startswith("SELECT balance FROM accounts"):
+                self.stats["reads"] += 1
+                rows += [[str(b)] for _, b in
+                         sorted(self.sql_accounts.items())]
+                continue
+            if stmt == "SELECT value FROM sets":
+                self.stats["reads"] += 1
+                rows += [[str(v)] for v in self.sql_set]
+                continue
+            if stmt == "SELECT x FROM dirty":
+                self.stats["reads"] += 1
+                rows += [[str(x)] for _, x in sorted(self.sql_dirty.items())]
+                continue
+            m = _MY_DEBIT.match(stmt)
+            if m:
+                self.stats["writes"] += 1
+                amount, frm = int(m.group(1)), int(m.group(2))
+                debited = self.sql_accounts.get(frm, 0) >= amount
+                if debited:
+                    self.sql_accounts[frm] -= amount
+                continue
+            m = _MY_CREDIT.match(stmt)
+            if m:
+                if debited:
+                    to = int(m.group(2))
+                    self.sql_accounts[to] = self.sql_accounts.get(to, 0) + \
+                        int(m.group(1))
+                continue
+            if stmt == "SELECT ROW_COUNT()":
+                rows.append(["1" if debited else "0"])
+                continue
+            m = _MY_SET_ADD.match(stmt)
+            if m:
+                self.stats["writes"] += 1
+                self.sql_set.append(int(m.group(1)))
+                continue
+            m = _MY_DIRTY.match(stmt)
+            if m:
+                self.sql_dirty[int(m.group(2))] = int(m.group(1))
+                continue
+            return None
+        return rows
+
+    def _sql_run(self, kind, body):
+        stmts = [x.strip() for x in body.split(";") if x.strip()]
+        writes = any(x.startswith(("UPDATE", "INSERT INTO sets"))
+                     for x in stmts)
+        before = (dict(self.sql_accounts), list(self.sql_set),
+                  dict(self.sql_dirty))
+        rows = self._sql_family(stmts)
+        if rows is None:
+            self.sql_accounts, self.sql_set, self.sql_dirty = before
+            return 1, "", f"ERROR: the fake does not run {body!r}"
+        t = self._timed_out(kind) if writes else None
+        if t is not None and not t[0]:
+            self.sql_accounts, self.sql_set, self.sql_dirty = before
+        if t:
+            return t[1]
+        return 0, "".join("\t".join(r) + "\n" for r in rows), ""
+
+    def _mysql(self, node, body):
+        return self._sql_run("mysql", body)
+
+    def _psql(self, node, body):
+        return self._sql_run("psql", body)
 
 
 def main(argv=None) -> int:
