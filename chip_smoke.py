@@ -78,12 +78,20 @@ ops left open in its one history (a crashed mask of two to four words),
 ravendb against 503s, rethinkdb with majority reads valid and with
 outdated reads from a lagging replica refuted, each held against the
 plain route on the card and the native engine (logcabin's store against
-``analyze``), and mongodb-rocks' keyed document CAS; and, last, the
-segment watchdog: an
-injected wedge continued on the CPU, a real GPU-side stall ended by a 0.5 s
-deadline, a second check answered at once while the card still spins, and
-the warm headline with a deadline beside it without one. Every phase is a
-hard assertion.
+``analyze``), and mongodb-rocks' keyed document CAS; and the command
+line, each step a ``python -m jepsen_tpu_torch`` process: the daemon
+under ``serve --batch-max 4 --batch-wait-ms 50 --auth-token T`` checking
+8 same-bucket histories in gangs of at most 4 (each verdict that of a
+lone check, a POST without the token refused with 401, the kernels'
+launches read from its ``/metrics``), a local-kv run under ``run
+--watch`` followed by ``watch`` while in flight, ``stream --store`` of
+the runner's local-kv run against ``analyze --profile`` of it, and ``trace
+summary|request|find|export`` over the daemon's directory and over the
+profiled search (naming K1, K2 and K4); and, last, the segment watchdog:
+an injected wedge continued on the CPU, a real GPU-side stall ended by a
+0.5 s deadline, a second check answered at once while the card still
+spins, and the warm headline with a deadline beside it without one.
+Every phase is a hard assertion.
 
 It prints each phase's seconds, the card's ``nvidia-smi`` name and power
 limit, one JSON line of per-kernel numbers and, last, ``{"ok": true,
@@ -268,8 +276,9 @@ WATCH_DEADLINE_S, WATCH_REPS = 30.0, 3
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = 67e12
 #: GPU-side delay before a timed launch, so the window holds device time
-#: only (about 10 ms at H100 clocks)
-SLEEP_CYCLES = 20_000_000
+#: only (about 2.5 ms at H100 clocks, many times the host's enqueue of one
+#: call; each timed call waits it REPS times)
+SLEEP_CYCLES = 5_000_000
 REPS = 30
 #: back-to-back launches of one kernel in the CUDA graph that times it as
 #: a graph node (the segment graph's level runs its kernels so)
@@ -280,9 +289,11 @@ SLOW_MS, SLOW_REPS = 200.0, 3
 
 #: the segment loop phase: the levels each state's segment may run on the
 #: graph loop and on the plain route (the host loop runs the levels the
-#: graph ran), from the state the kernels are held at; the state whose
-#: lane 0 is cancelled first
-LOOP_LEVELS = 128
+#: graph ran), from the state the kernels are held at (the plain route's
+#: levels at the keyed states were most of the phase at 128; PERF.md §6
+#: has its seconds on an H100 at 128, 16 and 8); the state whose lane 0
+#: is cancelled first
+LOOP_LEVELS = 8
 LOOP_CANCELLED = ("gang",)
 #: the path each state's per-level times stand for in the summary
 LOOP_PATHS = {"headline": "headline", "keyed": "keyed dense hash",
@@ -719,8 +730,10 @@ def segment_loop(tag, lv, cancel):
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
     plain_state = parity.copy_state(*state)
+    t0 = time.perf_counter()
     words, _ = G.run_segment(lv.cols, plain_state[0], plain_state[1],
                              lv.shape, lv.nr, LOOP_LEVELS, G.PLAIN)
+    plain_s = time.perf_counter() - t0
     carries = [interop.batch_carry_to_numpy(c) for c, _ in (
         graph_state, host_state, plain_state)]
     # levels run, bound, go and the batch's ticket (back at 0): the pair's
@@ -730,7 +743,8 @@ def segment_loop(tag, lv, cancel):
     assert carries_equal(carries[0], carries[1]), (tag, "host loop")
     assert carries_equal(carries[0], carries[2]), (tag, "plain route")
     return {"B": lv.shape.B, "levels_run": run, "graph_s": graph_s,
-            "host_s": host_s, "per_level_ms_graph": graph_s / run * 1e3,
+            "host_s": host_s, "plain_s": plain_s,
+            "per_level_ms_graph": graph_s / run * 1e3,
             "per_level_ms_host": host_s / levels * 1e3,
             "cancelled": bool(cancel)}
 
@@ -762,12 +776,22 @@ def segment_loop_phases(dev, seconds, recipes, head_p, head_kernel, r):
                                 MODEL_WARM_LEVELS))
         loops, k5 = {}, {}
         for tag, cols_np, rung, kw, warm in recipes:
+            marks = [time.perf_counter()]
             lv = parity.Level(cols_np, rung, dev, **kw)
             assert lv.advance(warm) > 0, tag
+            marks.append(time.perf_counter())
             k5[tag] = check_pair_end(lv)
+            marks.append(time.perf_counter())
             alone = k5[tag]["host_loop"] = check_seg_active(lv)
+            marks.append(time.perf_counter())
             loops[tag] = segment_loop(tag, lv, tag in LOOP_CANCELLED)
+            marks.append(time.perf_counter())
             loops[tag]["rung"] = list(rung)
+            # where the state's seconds went: the warm levels, K4 ending a
+            # pair, K5 alone, and the graph against host loop and plain
+            loops[tag]["state_s"] = dict(zip(
+                ("advance", "pair_end", "k5_alone", "loop"),
+                (b - a for a, b in zip(marks, marks[1:]))))
             end = k5[tag]
             print(f"segment loop {tag}: {json.dumps(loops[tag])} "
                   f"dedup_truncate ending the pair ms={end['ms']:.4f} "
@@ -980,13 +1004,16 @@ def models_plain(dev, model_runs, n_ops=MODEL_PLAIN_OPS):
                 assert a["valid"] is False, (tag, a)
 
 
-def http_json(port, method, path, doc=None):
-    """(status, body) of one request to the daemon on localhost."""
+def http_json(port, method, path, doc=None, token=None):
+    """(status, body) of one request to the daemon on localhost, with a
+    bearer ``token`` when given."""
     import urllib.error
     import urllib.request
     data = None if doc is None else json.dumps(doc).encode()
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
                                  data=data, method=method)
+    if token:
+        req.add_header("Authorization", f"Bearer {token}")
     try:
         with urllib.request.urlopen(req, timeout=300) as resp:
             return resp.status, json.loads(resp.read())
@@ -2154,13 +2181,23 @@ def run_split(test) -> dict:
             "save_s": dur["store.save"], "check_s": dur["checker.check"]}
 
 
+def port_env() -> dict:
+    """The environment of a ``python -m jepsen_tpu_torch`` process: the
+    repository on its path and, once this process has run on the card,
+    ``JEPSEN_ACCEL_OK``, which spares it the CUDA-init probe's child."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    if torch.cuda.is_initialized():
+        env["JEPSEN_ACCEL_OK"] = "1"
+    return env
+
+
 def port_cmd(*args, timeout=600):
     """``python -m jepsen_tpu_torch ARGS`` from the repository root:
     (rc, stdout, stderr)."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=root)
     p = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch", *args],
-                       cwd=root, env=env, capture_output=True, text=True,
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=port_env(), capture_output=True, text=True,
                        timeout=timeout)
     return p.returncode, p.stdout, p.stderr
 
@@ -2175,8 +2212,9 @@ def runner_phase(dev, seconds, smi):
     refuted; ``analyze`` of the atom run and of a corrupted copy; a
     10,000-op atom run SIGKILLed mid-workload and ``recover``ed. Every
     check on the card: ``backend`` gpu, no ``fallback-from``, no
-    ``error``. Returns the phase's JSON entry and the launches, CUDA
-    launches and segment counts of the in-process runs."""
+    ``error``. Returns the phase's JSON entry, the launches, CUDA
+    launches and segment counts of the in-process runs, and a copy of the
+    local-kv run's store (for the ``cli`` phase, which removes it)."""
     import select
     import shutil
     import signal
@@ -2258,6 +2296,8 @@ def runner_phase(dev, seconds, smi):
                 assert got and "listening on" in body, (node, body[-300:])
                 pids |= got
             assert len(pids) >= len(kv["nodes"]) and os.getpid() not in pids
+            kv_store = tempfile.mkdtemp(prefix="jtpu-kv-store-")
+            shutil.copytree(kv["store-dir"], kv_store, dirs_exist_ok=True)
             line["local-kv"]["pids"] = sorted(pids)
             line["local-kv"]["paused"] = len(paused)
             # -- local-kv-unsafe: a stale read refuted on the card ------
@@ -2363,7 +2403,7 @@ def runner_phase(dev, seconds, smi):
                              if ln.startswith("# recovery")), flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return line, launches, grid, segs
+    return line, launches, grid, segs, kv_store
 
 
 #: the sqlite phase: the three suites of the real SQLite engine at their
@@ -3198,6 +3238,300 @@ def small_suites_phase(dev, seconds, smi, cfg=SMALL_RUN):
     return line, launches, grid, segs
 
 
+#: the cli phase: the daemon's gang bound, its leader's wait (ms) and its
+#: bearer token; the watched local-kv run's time limit (s)
+CLI_BATCH_MAX, CLI_WAIT_MS, CLI_TOKEN = 4, 50, "smoke-token"
+CLI_RUN_S = 2
+#: the kernels a profiled search's ``trace summary`` must name: K1, K2 and
+#: K4 (its block-per-key kernel on the narrow rungs, the multi-block one
+#: on the wide)
+CLI_PROFILE_KERNELS = {"K1": ("expand_kernel",), "K2": ("sort_tile_kernel",),
+                       "K4": ("dedup_block_kernel", "dedup_kernel")}
+
+
+def port_popen(out_dir, tag, *args):
+    """``python -m jepsen_tpu_torch ARGS`` started from the repository
+    root (:func:`port_env`), its stdout and stderr into
+    ``out_dir/TAG.out`` and ``.err``: (process, stdout path, stderr
+    path)."""
+    outp = os.path.join(out_dir, f"{tag}.out")
+    errp = os.path.join(out_dir, f"{tag}.err")
+    with open(outp, "w") as o, open(errp, "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "jepsen_tpu_torch", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=port_env(),
+            stdout=o, stderr=e)
+    return proc, outp, errp
+
+
+def read_text(path) -> str:
+    with open(path) as fh:
+        return fh.read()
+
+
+def result_json(out: str) -> dict:
+    """The result a command prints last (after its ``#`` lines)."""
+    return json.loads(out[out.index("\n{") + 1:])
+
+
+def daemon_launches(port) -> dict:
+    """The daemon process's kernel launches, from its ``/metrics``."""
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=60) as resp:
+        text = resp.read().decode()
+    out = {}
+    for m in re.finditer(r'^jtpu_kernel_launches_total\{kernel="(\w+)"\}'
+                         r' ([0-9.e+]+)$', text, re.M):
+        out[m.group(1)] = int(float(m.group(2)))
+    return out
+
+
+def cli_phase(dev, seconds, smi, kv_store):
+    """The command line on the card, each step a ``python -m
+    jepsen_tpu_torch`` process: the daemon under ``serve --batch-max 4
+    --batch-wait-ms 50 --auth-token T --serve-backend gpu`` answering 8
+    same-bucket register histories in gangs of at most 4, each verdict
+    and ``levels`` equal to a lone ``check_history_gpu`` here, a POST
+    without the token refused with 401; a local-kv run on the card under
+    ``run --watch`` exiting with its own code while ``watch`` follows its
+    store, and ``watch --once`` on it; ``stream --store`` of the local-kv
+    run in ``kv_store`` (the runner phase's) through the daemon, with the
+    verdict of ``analyze --profile`` of it; ``trace summary``,
+    ``request``, ``find --min-device-s 0`` and ``export --format
+    chrome`` over the daemon's directory, and ``trace summary --format
+    json`` of the profiled search naming K1, K2 and K4. Processes that
+    need not wait for each other run at once. Removes ``kv_store``.
+    Returns the phase's JSON entry, the daemon's kernel launches (its
+    ``/metrics``) and its pair ends."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import journal, serve, store
+    from jepsen_tpu_torch.checker.gpu import check_history_gpu
+    from jepsen_tpu_torch.models import CASRegister
+    line = {"card": smi}
+    # on the CPU (a dry run of the phase) each process checks there too
+    on = ("cuda",) if dev.type == "cuda" else ("cpu",)
+    root = tempfile.mkdtemp(prefix="jtpu-cli-")
+    serve_dir = os.path.join(root, "serve")
+    store_root = os.path.join(root, "store")
+    procs = []
+
+    def start(tag, *args):
+        p = port_popen(root, tag, *args)
+        procs.append(p[0])
+        return p
+
+    try:
+        with phase("cli", seconds):
+            t0 = time.perf_counter()
+            daemon, d_out, d_err = start(
+                "serve", "serve", "--check-daemon", "--host", "127.0.0.1",
+                "--port", "0", "--serve-dir", serve_dir, "--batch-max",
+                str(CLI_BATCH_MAX), "--batch-wait-ms", str(CLI_WAIT_MS),
+                "--auth-token", CLI_TOKEN, "--serve-backend", "gpu",
+                "--device", *on)
+            run, r_out, r_err = start(
+                "run", "run", "--suite", "local-kv", "--device", *on,
+                "--watch", "--time-limit", str(CLI_RUN_S), "--store-root",
+                store_root)
+            # ``watch`` follows the run's store from as soon as it exists,
+            # while the run is in flight, until its run.state is terminal
+            kv_root = os.path.join(store_root, "local-kv")
+            follower = {}
+
+            def follow():
+                while not (os.path.isdir(kv_root) and [
+                        d for d in os.listdir(kv_root) if d != "latest"]):
+                    if run.poll() is not None:
+                        return
+                    time.sleep(0.05)
+                follower["dir"] = os.path.join(kv_root, next(
+                    d for d in os.listdir(kv_root) if d != "latest"))
+                follower["in_flight"] = run.poll() is None
+                follower["proc"] = start("watch", "watch", "--store",
+                                         follower["dir"], "--interval",
+                                         "0.2")
+                # watch --once as soon as the search publishes its status
+                progress = os.path.join(follower["dir"], "progress.json")
+                while not os.path.exists(progress) and run.poll() is None:
+                    time.sleep(0.05)
+                follower["once_in_flight"] = run.poll() is None
+                follower["once"] = start("watch-once", "watch", "--once",
+                                         "--store", follower["dir"])
+
+            follow_thread = threading.Thread(target=follow)
+            follow_thread.start()
+            started = {"analyze": start("analyze", "analyze", "--store",
+                                        kv_store, "--profile", "--device",
+                                        *on)}
+            # meanwhile here: the gang's histories and lone checks
+            _, _, _, _, gang8 = serve_members()
+            lone = [check_history_gpu(m[0], CASRegister(), device=dev)
+                    for m in gang8]
+            marks = {"lone": time.perf_counter() - t0}
+            while "Listening on" not in read_text(d_out):
+                assert daemon.poll() is None, read_text(d_err)[-3000:]
+                assert time.perf_counter() - t0 < 300, "no daemon"
+                time.sleep(0.1)
+            port = int(re.search(r"http://127\.0\.0\.1:(\d+)/",
+                                 read_text(d_out)).group(1))
+            marks["daemon"] = time.perf_counter() - t0
+            docs = [{"tenant": f"tenant{i % 2}", "model": "cas-register",
+                     "history": [o.to_dict() for o in m[0]]}
+                    for i, m in enumerate(gang8)]
+            code, _ = http_json(port, "POST", "/check", docs[0])
+            assert code == 401, code
+            ids = [None] * len(docs)
+
+            def post(i):
+                code, body = http_json(port, "POST", "/check", docs[i],
+                                       token=CLI_TOKEN)
+                assert code == 202, (code, body)
+                ids[i] = body["id"]
+
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(docs))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            assert all(ids), ids
+            results = {}
+            while len(results) < len(ids):
+                for rid in ids:
+                    if rid not in results:
+                        code, doc = http_json(port, "GET", f"/check/{rid}")
+                        if doc.get("state") == "done":
+                            results[rid] = doc["result"]
+                assert time.perf_counter() - t0 < 600, "gangs timed out"
+                time.sleep(0.05)
+            marks["gangs"] = time.perf_counter() - t0
+            # the daemon's directory through trace, and the atom run
+            # through the daemon's stream routes
+            for tag, argv in (
+                    ("summary", ("trace", "summary", "--store", serve_dir)),
+                    ("request", ("trace", "request", ids[0], "--store",
+                                 serve_dir)),
+                    ("find", ("trace", "find", "--min-device-s", "0",
+                              "--format", "json", "--store", serve_dir)),
+                    ("export", ("trace", "export", "--format", "chrome",
+                                "--store", serve_dir)),
+                    ("stream", ("stream", "--url",
+                                f"http://127.0.0.1:{port}", "--store",
+                                kv_store, "--auth-token", CLI_TOKEN,
+                                "--chunk", "500", "--poll", "0.1"))):
+                started[tag] = start(f"{tag}", *argv)
+            proc, _, errp = started["analyze"]
+            assert proc.wait(timeout=600) == 0, read_text(errp)[-3000:]
+            started["profiled"] = start(
+                "trace-profiled", "trace", "summary", "--format", "json",
+                "--top", "100", "--store", kv_store)
+            # the watched run, the watch that followed it, watch --once
+            run_rc = run.wait(timeout=600)
+            marks["run"] = time.perf_counter() - t0
+            follow_thread.join(timeout=120)
+            assert "proc" in follower, read_text(r_err)[-3000:]
+            run_dir, in_flight = follower["dir"], follower["in_flight"]
+            follow, f_out, f_err = follower["proc"]
+            started["once"] = follower["once"]
+            outs = {}
+            for tag, (proc, outp, errp) in started.items():
+                assert proc.wait(timeout=600) == 0, (tag, read_text(errp))
+                outs[tag] = read_text(outp)
+            assert follow.wait(timeout=120) == 0, read_text(f_err)[-2000:]
+            marks["commands"] = time.perf_counter() - t0
+            launches = daemon_launches(port)
+            code, health = http_json(port, "GET", "/healthz")
+            records, _ = journal.read_json_records(
+                os.path.join(serve_dir, serve.WAL_NAME))
+            gangs = [r["ids"] for r in records if r.get("event") == "gang"]
+            assert http_json(port, "POST", "/drain",
+                             token=CLI_TOKEN)[0] == 200
+            assert daemon.wait(timeout=120) == 0, read_text(d_err)[-3000:]
+            marks["drained"] = time.perf_counter() - t0
+        # -- what they said ------------------------------------------------
+        for rid, want in zip(ids, lone):
+            got = results[rid]
+            assert (got["valid"], got["levels"]) == (
+                want["valid"], want["levels"]), (rid, got, want)
+            assert got["valid"] is True and got["backend"] == "gpu"
+        assert in_flight, "the run ended before watch started"
+        ticker = [ln for ln in read_text(r_err).splitlines()
+                  if ln.startswith("# watch:")]
+        run_res = store.load(run_dir)["results"]
+        assert run_rc == (0 if run_res["valid"] is True else 1), \
+            (run_rc, run_res["valid"])
+        assert run_res["linear"]["backend"] == "gpu"
+        assert ticker and "level" in ticker[-1], read_text(r_err)[-2000:]
+        followed = read_text(f_out).splitlines()
+        assert any(ln.startswith("# watch: level") for ln in followed), \
+            followed
+        once = outs["once"]
+        assert once.startswith("# watch: level"), once
+        stream_res = result_json(outs["stream"])
+        analyze_res = result_json(outs["analyze"])
+        assert stream_res["valid"] is analyze_res["valid"] is True
+        sizes = sorted(len(g) for g in gangs)
+        assert sizes and max(sizes) <= CLI_BATCH_MAX < 8, sizes
+        assert health["stats"]["max-batch"] <= CLI_BATCH_MAX, health
+        assert outs["summary"].startswith("# trace: integrity:")
+        waterfall = outs["request"].splitlines()
+        assert ids[0] in waterfall[0] and len(waterfall) > 2, waterfall
+        found = {r["id"]: r for r in json.loads(outs["find"])["requests"]}
+        assert set(ids) <= set(found), (ids, sorted(found))
+        assert all(found[rid]["device-s"] > 0 for rid in ids), found
+        chrome = json.loads(outs["export"])
+        assert chrome["traceEvents"], "empty export"
+        kernels = json.loads(outs["profiled"])["kernels"]
+        named = {k: sum(r["self-ns"] for r in kernels
+                        if any(n in r["name"] for n in names))
+                 for k, names in CLI_PROFILE_KERNELS.items()}
+        # the plain versions launch no kernel: a dry run on the CPU has
+        # neither kernels in its profile nor launches in its counts
+        assert all(ns > 0 for ns in named.values()) or dev.type != "cuda", \
+            (named, kernels[:20])
+        assert all(launches.get(k, 0) > 0 for k in (
+            "expand", "sort_rows", "dedup_truncate", "pair_end")) \
+            or dev.type != "cuda", launches
+        line.update({
+            "gang_sizes": sizes, "verdicts_equal_lone": len(ids),
+            "levels": [r["levels"] for r in lone],
+            "unauthorized": 401, "run_rc": run_rc,
+            "run_levels": run_res["linear"].get("levels"),
+            "watch_in_flight": in_flight, "watch_followed": followed[-3:],
+            "watch_once": once.strip(),
+            "watch_once_in_flight": follower["once_in_flight"],
+            "run_watch_ticker": ticker[-1],
+            "stream": {"valid": stream_res["valid"],
+                       "levels": stream_res.get("levels")},
+            "analyze": {"valid": analyze_res["valid"],
+                        "levels": analyze_res.get("levels")},
+            "trace_find_device_s": {rid: found[rid]["device-s"]
+                                    for rid in ids},
+            "trace_request_records": len(waterfall) - 1,
+            "chrome_events": len(chrome["traceEvents"]),
+            "profiled_kernel_ns": named, "daemon_launches": launches,
+            "seconds_at": marks})
+        print("cli:", json.dumps(line), flush=True)
+    finally:
+        # an interrupt lets a run tear its nodes down; then a kill
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(kv_store, ignore_errors=True)
+    return line, {k: launches.get(k, 0) for k in KERNELS}, launches.get(
+        "pair_end", 0)
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -3739,7 +4073,7 @@ def smoke(dev: torch.device) -> None:
 
     # -- the test runner: core.run, the suites, analyze and recover -------
     (runner_line, run_launches, run_grid_launches,
-     path_segments["run"]) = runner_phase(dev, seconds, smi)
+     path_segments["run"], kv_store) = runner_phase(dev, seconds, smi)
 
     # -- the sqlite tier: a real engine's histories, and explain ----------
     (sqlite_line, sqlite_launches, sqlite_grid_launches,
@@ -3757,6 +4091,11 @@ def smoke(dev: torch.device) -> None:
     (small_line, small_launches, small_grid_launches,
      path_segments["small-suites"]) = small_suites_phase(dev, seconds, smi)
 
+    # -- the command line, each step its own process ----------------------
+    cli_line, cli_launches, cli_pair_ends = cli_phase(dev, seconds, smi,
+                                                      kv_store)
+    path_segments["cli"] = {"pair_ends": cli_pair_ends}
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -3772,7 +4111,7 @@ def smoke(dev: torch.device) -> None:
                      "stream": stream_launches, "run": run_launches,
                      "sqlite": sqlite_launches, "suites": suites_launches,
                      "cas-suites": cas_launches,
-                     "small-suites": small_launches}
+                     "small-suites": small_launches, "cli": cli_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
@@ -3863,7 +4202,8 @@ def smoke(dev: torch.device) -> None:
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
         "cas_suites": cas_line, "small_suites": small_line,
-        "phase_seconds": seconds, "nvidia_smi": smi}, default=str))
+        "cli": cli_line, "phase_seconds": seconds, "nvidia_smi": smi},
+        default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

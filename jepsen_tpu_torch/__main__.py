@@ -3,17 +3,24 @@
 ``python -m jepsen_tpu_torch serve --check-daemon`` runs the check daemon
 (:mod:`jepsen_tpu_torch.serve`). Its flags are the reference's daemon
 flags (``jtpu serve``): ``--host``, ``--port``, ``--serve-dir``,
-``--workers``, ``--queue-max``, ``--tenant-max`` and ``--deadline-s``;
-``--device cpu`` runs the searches on the CPU (the kernels' plain
-versions) instead of CUDA. The process serves until ``POST /drain`` (or
-an interrupt) and then exits 0.
+``--workers``, ``--queue-max``, ``--tenant-max``, ``--deadline-s``,
+``--batch-max`` and ``--batch-wait-ms`` (the gangs), ``--auth-token``,
+``--engine-max-buckets``, ``--rate-limit`` and ``--serve-backend
+gpu|cpu``; each flag given wins over its ``JTPU_SERVE_*`` variable.
+``--compile-cache DIR`` is the kernel library's build directory, so that
+a restarted daemon loads the library built there. ``--device cpu`` runs
+the searches on the CPU (the kernels' plain versions) instead of CUDA.
+``--fleet`` is refused (254): the port has no multi-GPU fleet yet, and
+``serve`` without ``--check-daemon`` (the results browser) exits 2. The
+process serves until ``POST /drain`` (or an interrupt) and then exits 0.
 
-``python -m jepsen_tpu_torch stream --history FILE`` is the client of a
-daemon's stream routes (the reference's ``jtpu stream``): it opens a
-stream, POSTs the history's ops (a JSON array or JSON lines of op maps)
-as sequenced, CRC'd chunks, waiting out 429s and resending from the
-daemon's ``need`` on a 409 gap, seals it and polls for the verdict, which
-it prints. Exit 0 when valid, 1 when not (or unknown), 254 for bad
+``python -m jepsen_tpu_torch stream [--store DIR | --history FILE]`` is
+the client of a daemon's stream routes (the reference's ``jtpu stream``):
+it opens a stream, POSTs the ops of a stored run's ``history.jsonl`` (the
+latest under ``./store`` by default) or of a history file (a JSON array
+or JSON lines of op maps) as sequenced, CRC'd chunks, waiting out 429s
+and resending from the daemon's ``need`` on a 409 gap, seals it and
+polls for the verdict, which it prints. Exit 0 when valid, 1 when not (or unknown), 254 for bad
 arguments or an empty history, 255 when the daemon fails a call.
 
 ``python -m jepsen_tpu_torch plan --dims N[,CRASHED[,WINDOW[,EVENTS]]]``
@@ -22,9 +29,8 @@ before any device time (the reference's ``jtpu plan``): every candidate
 rung with its footprint in the port's own buffers, the ``PLAN-*`` rules
 and the shape check (:mod:`jepsen_tpu_torch.checker.plan`). It plans for
 CUDA unless ``--device cpu``. Exit 0 when no error-severity finding, 1
-when one, 254 for bad arguments. ``--mesh`` (the sharded plan) and
-``--format sarif`` are refused: the port has neither the multi-GPU search
-nor a SARIF renderer yet.
+when one, 254 for bad arguments. ``--format text|json|sarif``; ``--mesh``
+(the sharded plan) is refused: the port has no multi-GPU search yet.
 
 ``python -m jepsen_tpu_torch run --suite local-kv`` runs a test (the
 reference's ``jtpu run``): ``core.run`` boots the suite's system, drives
@@ -45,8 +51,10 @@ each node's commands and runs none; ``--dummy-responses FILE`` scripts
 its replies (a JSON object: command substring -> stdout, or ``[exit,
 stdout, stderr]``), as the reference's tests put ``dummy-responses`` in
 the test map, so that a database's install can be recorded through to
-its start. ``--watch`` and ``--fleet`` are refused: the port has neither
-the live status printer nor the multi-GPU fleet yet.
+its start. ``--watch`` prints the search's live status line to stderr
+while the check runs; ``--fleet`` is refused: the port has no multi-GPU
+fleet yet. Chronos's check runs on the host, so ``run --suite chronos``
+does not probe the card.
 
 ``python -m jepsen_tpu_torch analyze --store DIR`` re-checks a stored run
 (by either package) and prints, before the result, its lint summary, its
@@ -63,11 +71,12 @@ the wire-protocol ones (``etcd``, ``zookeeper``, ``consul``, ``disque``,
 ``raftis``, ``rabbitmq``, ``rabbitmq-mutex``, ``hazelcast``) and those
 whose data plane is a command on the nodes (the eight ``cockroachdb``
 rows, ``aerospike``, ``aerospike-counter``, ``mongodb``,
-``mongodb-transfer``), and the rest but chronos: ``logcabin``,
-``robustirc``, ``rethinkdb``, ``rethinkdb-aggressive``, ``ravendb``,
-``mongodb-rocks``, the three ``galera`` rows, the three ``tidb`` rows,
-the three ``percona`` rows, ``mysql-cluster``, ``postgres-rds``, the
-three ``crate`` rows and the seven ``elasticsearch`` rows. A stored run whose ops carry ``[k v]`` values
+``mongodb-transfer``), and the rest: ``logcabin``, ``robustirc``,
+``rethinkdb``, ``rethinkdb-aggressive``, ``ravendb``, ``mongodb-rocks``,
+the three ``galera`` rows, the three ``tidb`` rows, the three ``percona``
+rows, ``mysql-cluster``, ``postgres-rds``, the three ``crate`` rows, the
+seven ``elasticsearch`` rows and ``chronos``: all 53 rows of the
+reference's ``SUITES``. A stored run whose ops carry ``[k v]`` values
 (etcd's, the keyed registers') is re-checked key by key, as the run
 checked it (``independent.checker``).
 
@@ -78,6 +87,24 @@ valid run, the violating level, blocking ops and witness region for an
 invalid one, the cause chain for an unknown one, as ``# explain:`` lines
 or, with ``--format json``, the report. It reads the artifacts only: no
 check runs.
+
+``python -m jepsen_tpu_torch watch [--store DIR] [--once]`` follows
+another process's run from its ``progress.json`` (the search's level,
+frontier, rate and ETA) until its ``run.state`` is terminal; ``--fleet
+DIR...`` renders several hosts' directories side by side.
+``python -m jepsen_tpu_torch trace export|summary|request|find`` reads a
+run's or a serve directory's ``trace.jsonl``: a Chrome/Perfetto or jsonl
+export and a per-span rollup (each with the kernels of a ``--profile``d
+run's ``profile/`` merged in as a device lane), one request's stitched
+waterfall (by serve request id or trace id), and a search of the serve
+directory's requests by tenant, device seconds, error class and host.
+``python -m jepsen_tpu_torch lint`` runs the static analyzer's passes
+(:mod:`jepsen_tpu_torch.analysis`) over the port, or over the paths and
+``--history`` files given, against its baseline
+(``jepsen_tpu_torch/analysis/lint.baseline``): text, ``json`` or
+``sarif``, ``--write-baseline``, ``--prune-stale`` and ``--strict`` as in
+the reference. These print what the reference's commands print on the
+same inputs.
 
 Exit codes, as the reference's command line has them: 0 valid, 1 not
 valid (or unknown), 254 bad arguments or a missing store, 255 an internal
@@ -144,14 +171,42 @@ def _parser() -> argparse.ArgumentParser:
                         "answers :info/timeout (JTPU_SERVE_DEADLINE_S)")
     s.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the searches run (default: cuda)")
+    s.add_argument("--compile-cache", default=None, metavar="DIR",
+                   help="the kernel library's build directory, so that a "
+                        "restarted daemon loads the library built there "
+                        "instead of running nvcc again")
+    s.add_argument("--serve-backend", default=None, choices=["gpu", "cpu"],
+                   help="checker backend for daemon requests (default: gpu, "
+                        "the device search; JTPU_SERVE_BACKEND)")
+    s.add_argument("--batch-max", type=int, default=None,
+                   help="most same-bucket requests coalesced into one gang; "
+                        "0 or 1 turns gangs off (JTPU_SERVE_BATCH_MAX)")
+    s.add_argument("--batch-wait-ms", type=float, default=None,
+                   help="how long a gang's leader waits for members of its "
+                        "bucket (JTPU_SERVE_BATCH_WAIT_MS)")
+    s.add_argument("--auth-token", default=None, metavar="TOKEN",
+                   help="require 'Authorization: Bearer TOKEN' on POST "
+                        "/check, /stream and /drain (JTPU_SERVE_TOKEN)")
+    s.add_argument("--engine-max-buckets", type=int, default=None,
+                   help="evict the least recently used warm buckets past "
+                        "this count; 0: no bound (JTPU_ENGINE_MAX_BUCKETS)")
+    s.add_argument("--fleet", type=int, default=None, metavar="N",
+                   help="gangs on N fleet hosts (not in this package yet)")
+    s.add_argument("--rate-limit", type=float, default=None, metavar="R",
+                   help="per-tenant POST /check token bucket: R requests/s, "
+                        "429 with Retry-After past it; 0: off "
+                        "(JTPU_SERVE_RATE)")
     t = sub.add_parser("stream", help="stream a history into a check "
                                       "daemon's /stream routes and await "
                                       "the verdict")
     t.add_argument("--url", default="http://127.0.0.1:8080",
                    help="daemon base URL")
-    t.add_argument("--history", required=True, metavar="FILE",
-                   help="history file: a JSON array or JSON lines of op "
-                        "maps")
+    t.add_argument("--store", default=None,
+                   help="store directory whose history.jsonl to stream "
+                        "(default: the latest under ./store)")
+    t.add_argument("--history", default=None, metavar="FILE",
+                   help="history file (a JSON array or JSON lines of op "
+                        "maps) instead of --store")
     t.add_argument("--model", default="cas-register", choices=list(models()))
     t.add_argument("--tenant", default="default")
     t.add_argument("--chunk", type=int, default=1000, help="ops per chunk")
@@ -249,7 +304,9 @@ def _parser() -> argparse.ArgumentParser:
                    help="where runs are stored")
     _add_device_opts(r)
     r.add_argument("--watch", action="store_true",
-                   help="live search status (not in this package yet)")
+                   help="print a live search-progress status line "
+                        "(level/frontier/ETA) to stderr while the checker "
+                        "runs; `watch` follows another process's run")
     r.add_argument("--fleet", type=int, default=None, metavar="N",
                    help="the elastic multi-GPU fleet (not in this "
                         "package yet)")
@@ -282,7 +339,106 @@ def _parser() -> argparse.ArgumentParser:
                    help="the model the counterexample is packed with "
                         "(invalid verdicts only)")
     e.add_argument("--format", default="text", choices=["text", "json"])
+    _add_watch_parser(sub)
+    _add_trace_parser(sub)
+    _add_lint_parser(sub)
     return p
+
+
+def _add_watch_parser(sub) -> None:
+    w = sub.add_parser("watch", help="live status line of an in-flight "
+                                     "run's device search")
+    w.add_argument("--store", default=None,
+                   help="run directory (default: the latest under "
+                        "--store-root)")
+    w.add_argument("--store-root", default="store")
+    w.add_argument("--interval", type=float, default=1.0,
+                   help="seconds between refreshes")
+    w.add_argument("--once", action="store_true",
+                   help="print one status line and exit")
+    w.add_argument("--fleet", nargs="+", default=None, metavar="HOST_DIR",
+                   help="fleet mode: merge N hosts' run directories "
+                        "(trace, metrics, progress) and render each host's "
+                        "level, imbalance and headroom side by side")
+
+
+def _add_trace_parser(sub) -> None:
+    t = sub.add_parser("trace", help="export, summarize, stitch or search a "
+                                     "run's span trace (trace.jsonl)")
+    t.add_argument("action", choices=["export", "summary", "request",
+                                      "find"],
+                   help="export: Chrome/Perfetto (or raw jsonl) trace; "
+                        "summary: per-span rollup; request: one request's "
+                        "stitched waterfall; find: search a serve "
+                        "directory's requests")
+    t.add_argument("rid", nargs="?", default=None, metavar="ID",
+                   help="with `request`: the serve request id (or 32-hex "
+                        "trace id) to stitch")
+    t.add_argument("--store", default=None,
+                   help="store directory (default: the latest under "
+                        "./store)")
+    t.add_argument("--format", default=None,
+                   choices=["chrome", "jsonl", "json", "text"],
+                   help="output format (default: chrome for export, text "
+                        "for request)")
+    t.add_argument("-o", "--output", default=None, metavar="FILE",
+                   help="write the export here (default: stdout)")
+    t.add_argument("--top", type=int, default=None, metavar="N",
+                   help="with `summary`: also the N slowest span names by "
+                        "self time")
+    t.add_argument("--host-dir", action="append", default=None,
+                   metavar="DIR",
+                   help="with `request`: more host directories whose "
+                        "trace.jsonl joins the stitch (repeatable)")
+    t.add_argument("--tenant", default=None,
+                   help="with `find`: only this tenant's requests")
+    t.add_argument("--min-device-s", type=float, default=None, metavar="S",
+                   help="with `find`: only requests that took at least S "
+                        "device seconds")
+    t.add_argument("--error-class", default=None, metavar="CLASS",
+                   help="with `find`: only requests whose result carries "
+                        "this error class")
+    t.add_argument("--host", default=None,
+                   help="with `find`: only requests with spans on this host")
+    t.add_argument("--limit", type=int, default=50, metavar="N",
+                   help="with `find`: the newest N matches (default 50)")
+
+
+def _add_lint_parser(sub) -> None:
+    from jepsen_tpu_torch import analysis
+    q = sub.add_parser("lint", help="static analysis: broken suites, "
+                                    "malformed histories, races, lock "
+                                    "order, crash consistency, widths")
+    q.add_argument("paths", nargs="*", metavar="PATH",
+                   help="files to lint (.py through the code passes, "
+                        ".jsonl/.wal through the history pass); default: "
+                        "the port at its standard scopes")
+    q.add_argument("--history", action="append", default=[],
+                   metavar="FILE",
+                   help="also lint a saved history artifact (repeatable)")
+    q.add_argument("--pass", dest="passes", action="append",
+                   choices=list(analysis.PASSES), metavar="PASS",
+                   help=f"run only these passes (repeatable; choices: "
+                        f"{', '.join(analysis.PASSES)})")
+    q.add_argument("--baseline", default=None, metavar="FILE",
+                   help="baseline file (default: "
+                        "jepsen_tpu_torch/analysis/lint.baseline)")
+    q.add_argument("--no-baseline", action="store_true",
+                   help="ignore the baseline: report everything")
+    q.add_argument("--write-baseline", action="store_true",
+                   help="accept the current findings into the baseline "
+                        "file (existing justifications are kept; new "
+                        "entries get a TODO stub)")
+    q.add_argument("--prune-stale", action="store_true",
+                   help="rewrite the baseline without the entries that no "
+                        "longer match any finding")
+    q.add_argument("--strict", action="store_true",
+                   help="exit nonzero on new warnings too, not just errors")
+    q.add_argument("--format", default="text",
+                   choices=["text", "json", "sarif"],
+                   help="sarif: SARIF 2.1.0 of the new findings")
+    q.add_argument("--root", default=None,
+                   help="repo root override (fixtures, tests)")
 
 
 def _add_check_opts(p: argparse.ArgumentParser) -> None:
@@ -313,20 +469,46 @@ def _add_device_opts(p: argparse.ArgumentParser) -> None:
                         "<run>/profile/ (JTPU_PROF=1)")
 
 
+def serve_config(opts: argparse.Namespace):
+    """The daemon's ``ServeConfig`` from ``serve``'s flags: each flag given
+    wins over its ``JTPU_SERVE_*`` variable, which only sets the default.
+    ``--compile-cache`` points the kernel build directory at its
+    argument."""
+    from jepsen_tpu_torch import serve as serve_ns
+    cfg = serve_ns.ServeConfig(root=opts.serve_dir,
+                               device="cpu" if opts.device == "cpu"
+                               else None)
+    for name in ("workers", "queue_max", "tenant_max", "batch_wait_ms",
+                 "engine_max_buckets", "rate_limit"):
+        if getattr(opts, name) is not None:
+            setattr(cfg, name, getattr(opts, name))
+    if opts.deadline_s is not None:
+        cfg.deadline_s = opts.deadline_s or None
+    if opts.serve_backend is not None:
+        cfg.backend = opts.serve_backend
+    if opts.batch_max is not None:
+        cfg.batch_max = opts.batch_max
+        cfg.batch_enabled = opts.batch_max > 1
+    if opts.auth_token is not None:
+        cfg.auth_token = opts.auth_token or None
+    if opts.compile_cache is not None:
+        from jepsen_tpu_torch.kernels import build
+        build.BUILD_DIR = os.path.abspath(opts.compile_cache)
+    return cfg
+
+
 def serve(opts: argparse.Namespace) -> int:
     from jepsen_tpu_torch import serve as serve_ns
     if not opts.check_daemon:
         print("serve: the port serves only the check daemon; pass "
               "--check-daemon", file=sys.stderr)
         return 2
-    cfg = serve_ns.ServeConfig(root=opts.serve_dir,
-                               device="cpu" if opts.device == "cpu"
-                               else None)
-    for name in ("workers", "queue_max", "tenant_max"):
-        if getattr(opts, name) is not None:
-            setattr(cfg, name, getattr(opts, name))
-    if opts.deadline_s is not None:
-        cfg.deadline_s = opts.deadline_s or None
+    if opts.fleet is not None:
+        print("serve: --fleet is refused: gangs on fleet hosts need the "
+              "multi-GPU fleet, which this package does not have yet",
+              file=sys.stderr)
+        return INVALID_ARGS
+    cfg = serve_config(opts)
     daemon, server = serve_ns.run_daemon(cfg, host=opts.host,
                                          port=opts.port)
     print(f"Listening on http://{opts.host}:{server.server_port}/ (check "
@@ -376,11 +558,23 @@ def stream(opts: argparse.Namespace) -> int:
                 body = {}
             return e.code, body
 
-    try:
-        ops = _load_ops(opts.history)
-    except (OSError, ValueError) as e:
-        print(f"cannot read {opts.history}: {e}", file=sys.stderr)
-        return INVALID_ARGS
+    if opts.history:
+        try:
+            ops = _load_ops(opts.history)
+        except (OSError, ValueError) as e:
+            print(f"cannot read {opts.history}: {e}", file=sys.stderr)
+            return INVALID_ARGS
+    else:
+        from jepsen_tpu_torch import repl, store
+        if opts.store and not os.path.isdir(opts.store):
+            print(f"no such store directory: {opts.store}", file=sys.stderr)
+            return INVALID_ARGS
+        test = store.load(opts.store) if opts.store else repl.last_test()
+        if test is None:
+            print("no stored test found", file=sys.stderr)
+            return INVALID_ARGS
+        ops = [op.to_dict() if hasattr(op, "to_dict") else dict(op)
+               for op in (test.get("history") or [])]
     if not ops:
         print("history is empty; nothing to stream", file=sys.stderr)
         return INVALID_ARGS
@@ -490,10 +684,6 @@ def plan_cmd(opts: argparse.Namespace) -> int:
     from jepsen_tpu_torch.checker import plan
     from jepsen_tpu_torch.models.core import kernel_spec_for
     from jepsen_tpu_torch.serve import models
-    if opts.format == "sarif":
-        print("plan: --format sarif is refused: this package has no SARIF "
-              "renderer yet; use text or json", file=sys.stderr)
-        return INVALID_ARGS
     model = models()[opts.model]()
     dims = _plan_dims(opts, model)
     if isinstance(dims, str):
@@ -515,6 +705,10 @@ def plan_cmd(opts: argparse.Namespace) -> int:
     errors = [i for i in report["issues"] if i["severity"] == "error"]
     if opts.format == "json":
         print(json.dumps(report, indent=2))
+        return TEST_FAILED if errors else OK
+    if opts.format == "sarif":
+        from jepsen_tpu_torch.analysis import plan_lint, sarif
+        print(sarif.render(plan_lint.findings_from_report(report)), end="")
         return TEST_FAILED if errors else OK
     d, lim = report["dims"], report["bytes-limit"]
     print(f"# plan: dims n={d['n-required']}+{d['n-crashed']} "
@@ -574,6 +768,11 @@ def _card_refused(opts: argparse.Namespace, cmd: str) -> bool:
 #: tidb rows only: ``_takes_workload``)
 _WORKLOAD_MODULES = ("hazelcast", "aerospike", "mongodb", "cockroachdb",
                      "sql_family")
+
+
+#: the suites whose checks run on the host only: ``run`` does not probe
+#: the card for them
+_HOST_CHECKED = ("chronos",)
 
 
 def _workloads(module: str):
@@ -707,16 +906,14 @@ def _dummy_responses(path: str) -> dict:
 
 def run_cmd(opts: argparse.Namespace) -> int:
     from jepsen_tpu_torch import core, suites
-    if opts.watch or opts.fleet is not None:
-        flag = "--watch" if opts.watch else "--fleet"
-        item = "A8 (the live status printer)" if opts.watch \
-            else "A7 (the multi-GPU fleet)"
-        print(f"run: {flag} is refused: this package does not have "
-              f"{item} yet", file=sys.stderr)
+    from jepsen_tpu_torch.obs import observatory
+    if opts.fleet is not None:
+        print("run: --fleet is refused: this package does not have A7 "
+              "(the multi-GPU fleet) yet", file=sys.stderr)
         return INVALID_ARGS
     test_opts = _test_opts(opts)
     _apply_check_env(opts)
-    if _card_refused(opts, "run"):
+    if opts.suite not in _HOST_CHECKED and _card_refused(opts, "run"):
         return CRASHED
     ctor = suites.registry()[opts.suite]
     module = _suite_module(opts.suite)
@@ -730,11 +927,16 @@ def run_cmd(opts: argparse.Namespace) -> int:
         from jepsen_tpu_torch.suites.sql_family import named_test
         ctor = functools.partial(named_test, opts.workload or opts.suite,
                                  opts.nemesis, opts.nemesis2)
-    for _ in range(opts.test_count):
-        test = core.run(ctor(dict(test_opts)))
-        if test["results"].get("valid") is not True:
-            return TEST_FAILED
-    return OK
+    stop = observatory.live_status_printer() if opts.watch else None
+    try:
+        for _ in range(opts.test_count):
+            test = core.run(ctor(dict(test_opts)))
+            if test["results"].get("valid") is not True:
+                return TEST_FAILED
+        return OK
+    finally:
+        if stop is not None:
+            stop()
 
 
 def _search_line(out) -> Optional[str]:
@@ -916,6 +1118,324 @@ def explain_cmd(opts: argparse.Namespace) -> int:
     return OK if report.get("valid") is True else TEST_FAILED
 
 
+def _watch_fleet(opts: argparse.Namespace) -> int:
+    from jepsen_tpu_torch.obs import fleet
+    dirs = list(opts.fleet)
+    # all directories missing is a typo; some missing (or vanishing
+    # mid-poll) is a dead host, rendered as host=dead
+    if not any(os.path.isdir(d) for d in dirs):
+        print(f"no such host directory: {dirs[0]}", file=sys.stderr)
+        return INVALID_ARGS
+    while True:
+        merged = fleet.merge(dirs)
+        for line in fleet.format_fleet(merged):
+            print(line, flush=True)
+        states = [(p or {}).get("state")
+                  for p in merged["progress"].values()]
+        if opts.once or all(s in (None, "done") for s in states):
+            return OK
+        time.sleep(max(opts.interval or 1.0, 0.05))
+
+
+def watch_cmd(opts: argparse.Namespace) -> int:
+    """Follow another process's run from its ``progress.json`` until its
+    ``run.state`` is terminal; ``--once`` prints one line."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.obs import observatory
+    if opts.fleet:
+        return _watch_fleet(opts)
+    d = opts.store
+    if d is None:
+        t = store.latest(opts.store_root or "store")
+        d = t.get("store-dir") if t else None
+    if not d or not os.path.isdir(d):
+        print(f"no such store directory: {d}", file=sys.stderr)
+        return INVALID_ARGS
+    tty = sys.stdout.isatty()
+    while True:
+        p = observatory.read_progress(d)
+        state = store.run_status(d)
+        if p is None:
+            line = (f"# watch: no search progress published yet "
+                    f"(state={state or 'unknown'})")
+        else:
+            line = observatory.format_status(p)
+            if state and state != "running":
+                line += f" [{state}]"
+        print(line, end="\r" if tty else "\n", flush=True)
+        done = (p or {}).get("state") == "done"
+        if opts.once or done or state in ("done", "dead", "recovered"):
+            if tty:
+                print()
+            return OK
+        time.sleep(max(opts.interval or 1.0, 0.05))
+
+
+def trace_cmd(opts: argparse.Namespace) -> int:
+    """``trace export|summary|request|find`` over a run's or a serve
+    directory's ``trace.jsonl`` (torn-tail tolerant), with the device lane
+    of a ``--profile``d run merged into ``export`` and ``summary``."""
+    from jepsen_tpu_torch import store
+    from jepsen_tpu_torch.obs import profiler
+    from jepsen_tpu_torch.obs import trace as trace_ns
+    d = opts.store
+    if d is None:
+        t = store.latest()
+        d = t.get("store-dir") if t else None
+    if not d or not os.path.isdir(d):
+        print(f"no such store directory: {d}", file=sys.stderr)
+        return INVALID_ARGS
+    fmt = opts.format or "chrome"
+    if opts.action == "request":
+        return _trace_request(opts, d)
+    if opts.action == "find":
+        return _trace_find(opts, d)
+    path = os.path.join(d, trace_ns.TRACE_NAME)
+    if not os.path.exists(path):
+        print(f"no {trace_ns.TRACE_NAME} in {d} (run predates tracing, or "
+              f"JTPU_TRACE=0)", file=sys.stderr)
+        return INVALID_ARGS
+    records, stats = trace_ns.read_trace(path)
+    print(f"# trace: {stats['spans']} span(s) in {path} ({stats['torn']} "
+          f"torn, {stats['corrupt']} corrupt)", file=sys.stderr)
+    # a --profile run's kernels, merged under their host spans as a device
+    # lane; a run without (or with a torn) capture stays host-only
+    device = []
+    if os.path.isdir(profiler.profile_dir(d)):
+        raw_dev, pstats = profiler.read_profile(d)
+        device = profiler.merge_into_host(records, raw_dev)
+        print(f"# trace: {len(device)} device span(s) merged from profile/ "
+              f"({pstats['files']} file(s), {pstats['errors']} unreadable)",
+              file=sys.stderr)
+    if opts.action == "summary":
+        rollup = trace_ns.summarize(records)
+        kern = profiler.top_kernels(device, k=opts.top or 10)
+        if fmt == "json":
+            print(json.dumps({
+                "stats": stats, "summary": rollup,
+                "self-time": trace_ns.self_time_rollup(records),
+                "kernels": kern}, indent=2, default=repr))
+            return OK
+        print(f"# trace: integrity: {stats['torn']} torn, "
+              f"{stats['corrupt']} corrupt line(s); {stats['traces']} "
+              f"request trace id(s)")
+        width = max((len(n) for n in rollup), default=4)
+        print(f"# trace: {'name':<{width}}  count  total      max")
+        for name, st in sorted(rollup.items(),
+                               key=lambda kv: -kv[1]["total-ns"]):
+            print(f"# trace: {name:<{width}}  {st['count']:>5}  "
+                  f"{st['total-ns'] / 1e9:>8.3f}s "
+                  f"{st['max-ns'] / 1e9:>8.3f}s")
+        if opts.top:
+            top = trace_ns.self_time_rollup(records)
+            rows = sorted(top.items(),
+                          key=lambda kv: -kv[1]["self-ns"])[:opts.top]
+            print(f"# trace: top {len(rows)} by self-time")
+            print(f"# trace: {'name':<{width}}  count  self       p95")
+            for name, st in rows:
+                print(f"# trace: {name:<{width}}  {st['count']:>5}  "
+                      f"{st['self-ns'] / 1e9:>8.3f}s "
+                      f"{st['p95-ns'] / 1e9:>8.3f}s")
+        if kern:
+            print(f"# trace: device kernels, top {len(kern)} by self-time "
+                  f"(per rung)")
+            for row in kern:
+                rung = row.get("rung")
+                print(f"# trace:   {row['name'][:60]:<60} "
+                      f"{row['count']:>5}  "
+                      f"{row['self-ns'] / 1e9:>8.3f}s  "
+                      f"rung={rung if rung else '?'}")
+        return OK
+    if fmt == "chrome":
+        text = json.dumps(trace_ns.to_chrome(
+            records + device, process_name=os.path.basename(d) or "jtpu"))
+    else:
+        text = "\n".join(json.dumps(r, default=repr)
+                         for r in records + device) + "\n"
+    _emit(opts, text, f"# trace: wrote {fmt} export to {opts.output}")
+    return OK
+
+
+def _emit(opts: argparse.Namespace, text: str, note: str) -> None:
+    """An export to ``--output`` (with ``note`` on stderr), else stdout."""
+    if opts.output:
+        with open(opts.output, "w") as f:
+            f.write(text)
+        print(note, file=sys.stderr)
+    else:
+        print(text)
+
+
+def _resolve_trace_id(store_dir: str, token: str) -> Optional[str]:
+    """A serve request id (through the daemon's accepted records in
+    serve.wal) or a literal 32-hex trace id -> the trace id, else None."""
+    from jepsen_tpu_torch import journal as journal_ns
+    from jepsen_tpu_torch.serve import WAL_NAME
+    t = (token or "").strip()
+    low = t.lower()
+    if len(low) == 32 and all(c in "0123456789abcdef" for c in low):
+        return low
+    wal = os.path.join(store_dir, WAL_NAME)
+    if not os.path.exists(wal):
+        return None
+    try:
+        records, _ = journal_ns.read_json_records(wal)
+    except (OSError, ValueError):
+        return None
+    for r in records:
+        if r.get("event") == "accepted" and r.get("id") == t:
+            return r.get("trace")
+    return None
+
+
+def _trace_request(opts: argparse.Namespace, d: str) -> int:
+    """One request's trace, stitched across the serve daemon's
+    trace.jsonl and any host directories, as a waterfall (or chrome, json,
+    jsonl)."""
+    from jepsen_tpu_torch.obs import fleet as obs_fleet
+    rid = opts.rid
+    if not rid:
+        print("trace request needs a request id (or a 32-hex trace id): "
+              "jtpu trace request <id> --store <serve-dir>",
+              file=sys.stderr)
+        return INVALID_ARGS
+    tid = _resolve_trace_id(d, rid)
+    if not tid:
+        print(f"couldn't resolve {rid!r} to a trace id: no matching "
+              f"accepted record in {d}/serve.wal and it is not a 32-hex "
+              f"trace id (JTPU_TRACE=0 at admission?)", file=sys.stderr)
+        return INVALID_ARGS
+    stitched = obs_fleet.stitch_request(d, tid, extra_dirs=opts.host_dir)
+    recs = stitched["records"]
+    fmt = opts.format or "text"
+    text = None
+    if fmt == "json":
+        text = json.dumps(stitched, indent=2, default=repr)
+    elif fmt == "chrome":
+        text = json.dumps(obs_fleet.to_chrome(
+            {"hosts": stitched["hosts"], "trace": recs}))
+    elif fmt == "jsonl":
+        text = "\n".join(json.dumps(r, default=repr) for r in recs) + "\n"
+    if text is not None:
+        _emit(opts, text, f"# trace: wrote {fmt} request export to "
+                          f"{opts.output}")
+        return OK
+    hosts = stitched.get("hosts") or []
+    method = stitched.get("method")
+    print(f"# trace: request {rid}: trace {tid}: {len(recs)} record(s) "
+          f"across {max(len(hosts), 1)} process(es)"
+          + (f", clocks aligned via {method}" if method else ""))
+    if not recs:
+        print("# trace: no spans for this trace id (JTPU_TRACE=0, or the "
+              "request has not run yet)")
+        return OK
+    t0 = min(int(r.get("ts", 0)) for r in recs)
+    t1 = max(int(r.get("ts", 0)) + int(r.get("dur", 0) or 0) for r in recs)
+    total = max(t1 - t0, 1)
+    cols = 40
+    namew = max(len(str(r.get("name", "?"))) for r in recs)
+    hostw = max((len(str(r.get("host", ""))) for r in recs), default=0)
+    for r in recs:
+        ts = int(r.get("ts", 0))
+        dur = int(r.get("dur", 0) or 0)
+        a = (cols * (ts - t0)) // total
+        b = max(a + 1, (cols * (ts - t0 + dur) + total - 1) // total)
+        bar = " " * a + ("#" * (b - a) if dur else "|") \
+            + " " * max(0, cols - b)
+        dur_bit = f"{dur / 1e9:>9.4f}s" if dur else "   instant"
+        print(f"# trace: [{bar[:cols]}] {(ts - t0) / 1e9:>9.4f}s "
+              f"{dur_bit}  {str(r.get('host', '')):<{hostw}} "
+              f"{str(r.get('name', '?')):<{namew}}")
+    return OK
+
+
+def _trace_find(opts: argparse.Namespace, d: str) -> int:
+    """A serve directory's completed requests filtered by tenant, device
+    seconds, error class and host, one line each, newest first."""
+    from jepsen_tpu_torch.obs import federation
+    rows = federation.trace_find(
+        d, tenant=opts.tenant, min_device_s=opts.min_device_s,
+        error_class=opts.error_class, host=opts.host,
+        limit=opts.limit or 50)
+    if (opts.format or "text") == "json":
+        print(json.dumps({"requests": rows}, indent=2, default=repr))
+        return OK
+    print(f"# trace: find: {len(rows)} matching request(s) in {d}")
+    if not rows:
+        return OK
+    idw = max(len(str(r.get("id", ""))) for r in rows)
+    tw = max((len(str(r.get("tenant", ""))) for r in rows), default=6)
+    for r in rows:
+        dev = r.get("device-s")
+        secs = r.get("seconds")
+        print(f"# trace: {str(r.get('id', '')):<{idw}} "
+              f"{str(r.get('tenant', '')):<{tw}} "
+              f"valid={r.get('valid')} "
+              f"secs={secs if secs is not None else '-'} "
+              f"device-s={dev if dev is not None else '-'} "
+              f"err={r.get('error-class') or '-'} "
+              f"hosts={' '.join(r.get('hosts') or []) or '-'}")
+    print("# trace: drill in: jtpu trace request <id> --store " + d)
+    return OK
+
+
+def lint_cmd(opts: argparse.Namespace) -> int:
+    """The static analyzer's passes, gated against the port's baseline:
+    exit 1 on a new error (with ``--strict``, a new warning or a baseline
+    entry whose justification is still the stub)."""
+    from jepsen_tpu_torch import analysis
+    from jepsen_tpu_torch.analysis import baseline as bl
+    root = opts.root or analysis.repo_root()
+    passes = tuple(opts.passes or analysis.PASSES)
+    if opts.paths:
+        findings = analysis.lint_files(list(opts.paths) + list(opts.history),
+                                       passes=passes, root=root)
+    else:
+        findings = analysis.lint_repo(root=root, passes=passes,
+                                      histories=opts.history)
+    bpath = opts.baseline or bl.default_path(root)
+    if opts.write_baseline:
+        bl.write(bpath, findings)
+        print(f"# lint: baseline written to {bpath} ({len(findings)} "
+              f"finding(s))")
+        return OK
+    if opts.prune_stale:
+        pruned = bl.prune(bpath, (f.key() for f in findings))
+        for key in pruned:
+            print(f"# lint: pruned stale baseline entry: {key}")
+        print(f"# lint: {len(pruned)} stale baseline entr"
+              f"{'y' if len(pruned) == 1 else 'ies'} pruned from {bpath}")
+        return OK
+    accepted_keys = {} if opts.no_baseline else bl.load(bpath)
+    new, accepted = bl.split(findings, accepted_keys)
+    if opts.format == "json":
+        print(json.dumps({"findings": [vars(f) for f in new],
+                          "accepted": [vars(f) for f in accepted],
+                          "counts": analysis.summarize(new)}, indent=2))
+    elif opts.format == "sarif":
+        from jepsen_tpu_torch.analysis import sarif
+        print(sarif.render(new), end="")
+    else:
+        for f in sorted(new, key=lambda x: (x.path, x.line)):
+            print(f.format())
+        print(analysis.summary_line(new))
+        if accepted:
+            print(f"# lint: {len(accepted)} finding(s) accepted by {bpath}")
+    gate = [f for f in new if f.severity == "error"
+            or (opts.strict and f.severity == "warning")]
+    if opts.strict and accepted:
+        # an acceptance still carrying the --write-baseline stub was never
+        # reviewed: strict mode does not let it suppress a finding
+        stub_keys = set(bl.stubbed(accepted_keys))
+        unjustified = sorted({f.key() for f in accepted} & stub_keys)
+        for key in unjustified:
+            print(f"# lint: --strict: baseline entry {key!r} still carries "
+                  f"the stub justification ({bl.STUB!r}); replace it with "
+                  f"a real reason in {bpath}", file=sys.stderr)
+        gate = gate or unjustified
+    return TEST_FAILED if gate else OK
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     try:
@@ -927,7 +1447,9 @@ def main(argv=None) -> int:
     if run is not None:
         return run(opts)
     run = {"run": run_cmd, "analyze": analyze_cmd,
-           "recover": recover_cmd, "explain": explain_cmd}[opts.cmd]
+           "recover": recover_cmd, "explain": explain_cmd,
+           "watch": watch_cmd, "trace": trace_cmd,
+           "lint": lint_cmd}[opts.cmd]
     try:
         return run(opts)
     except _ArgError as e:

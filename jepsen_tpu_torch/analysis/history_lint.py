@@ -29,31 +29,12 @@ Only error-severity findings gate.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Any, Iterable, List, Optional
 
+from jepsen_tpu_torch.analysis import (ERROR, NOTE, WARNING,  # noqa: F401
+                                       Finding, relpath)
 from jepsen_tpu_torch.history import (INVALID_TYPE_FLAG, NEMESIS,
                                       invalid_op_type)
-
-ERROR = "error"
-WARNING = "warning"
-NOTE = "note"
-
-
-@dataclass(frozen=True)
-class Finding:
-    """One finding; ``anchor`` is its line-independent identity."""
-
-    rule: str
-    severity: str
-    path: str
-    line: int
-    message: str
-    anchor: str = ""
-
-    def format(self) -> str:
-        return (f"{self.path}:{self.line}: {self.severity}: "
-                f"[{self.rule}] {self.message}")
 
 
 class MalformedHistoryError(Exception):
@@ -194,3 +175,29 @@ def gate_history(history: Iterable[Any], where: str = "device search",
     if errs:
         raise MalformedHistoryError(errs, where=where)
     return findings
+
+
+def lint_history_file(path: str, root: Optional[str] = None
+                      ) -> List[Finding]:
+    """Lint a saved history artifact (.jsonl through History.from_jsonl,
+    .wal through the journal reader): the ``lint`` command's entry."""
+    rp = relpath(path, root)
+    if path.endswith(".wal"):
+        from jepsen_tpu_torch import journal
+        try:
+            h, stats = journal.read_wal(path)
+        except OSError as e:
+            return [Finding(rule="HIST-DECODE", severity=ERROR, path=rp,
+                            line=0, message=f"unreadable WAL: {e}",
+                            anchor="decode")]
+        return lint_history(h, source=rp,
+                            decode_errors=stats.get("corrupt", 0))
+    from jepsen_tpu_torch.history import History
+    try:
+        with open(path) as f:
+            h = History.from_jsonl(f.read())
+    except OSError as e:
+        return [Finding(rule="HIST-DECODE", severity=ERROR, path=rp,
+                        line=0, message=f"unreadable history: {e}",
+                        anchor="decode")]
+    return lint_history(h, source=rp)

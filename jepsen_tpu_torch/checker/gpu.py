@@ -1280,7 +1280,9 @@ def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
                 cancelled.update((j, level[j]) for j in late)
             return sum(live) > len(late)
 
-        with obs.span("checker.device.batch-segment",
+        # phase as the reference's span has it: "compile" on the shape's
+        # first call, so that a member's phases attribute the gang's time
+        with obs.span("checker.device.batch-segment", phase=clock["phase"],
                       rung=[shape.C, shape.W, shape.E], gang=shape.B):
             _LEVELS_TOTAL.inc(sum(run_batch(
                 cols, carry, scratch, shape, seg, ops,

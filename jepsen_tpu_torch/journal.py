@@ -220,6 +220,7 @@ class Journal:
     def __init__(self, path: str, sync: Optional[str] = None,
                  batch_s: Optional[float] = None):
         self.path = path
+        # guarded-by: none — the sync policy never changes after init
         self.sync = sync if sync in SYNC_POLICIES else sync_policy()
         self.batch_s = batch_window_s() if batch_s is None else batch_s
         self.records = 0

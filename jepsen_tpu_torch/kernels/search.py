@@ -88,6 +88,7 @@ from typing import Dict, Optional
 import torch
 
 from jepsen_tpu_torch.models.core import KERNELS as _SPECS
+from jepsen_tpu_torch.obs import metrics as obs_metrics
 from jepsen_tpu_torch.ops.encode import RET_INF as _RET_INF
 
 MAXK = 1 << 30
@@ -161,6 +162,16 @@ host_calls: Dict[str, int] = dict.fromkeys(launches, 0)
 #: level pairs their second ``dedup_truncate`` ended with K5's step
 segments: Dict[str, int] = {"captures": 0, "launches": 0, "levels": 0,
                             "pair_ends": 0}
+
+
+#: :data:`launches` in the process's metrics registry, so that a process
+#: that serves ``/metrics`` (the check daemon) shows its kernels; never
+#: reset
+_LAUNCHES_TOTAL = obs_metrics.counter(
+    "jtpu_kernel_launches_total",
+    "kernel launches as the launches counts have them (a wrapper call, "
+    "or a level a segment graph ran that launches the kernel), labeled "
+    "kernel; kernel=pair_end counts K5's steps in dedup_truncate")
 
 
 def reset_launches() -> None:
@@ -756,6 +767,7 @@ def _launch(name: str, fn, *args) -> None:
     launches[name] += 1
     grid_launches_total[name] += launched.value
     host_calls[name] += 1
+    _LAUNCHES_TOTAL.inc(kernel=name)
 
 
 def _lib():
@@ -1062,8 +1074,10 @@ class SegmentGraph:
         for name, per_body in self.body.items():
             if per_body:
                 launches[name] += 2 * pairs
+                _LAUNCHES_TOTAL.inc(2 * pairs, kernel=name)
             grid_launches_total[name] += pairs * per_body
         segments["pair_ends"] += pairs
+        _LAUNCHES_TOTAL.inc(pairs, kernel="pair_end")
 
     def destroy(self) -> None:
         """Free the graph and let its buffers go."""

@@ -22,8 +22,10 @@ segment wall time and the effective rung. The observatory
   budget (an upper bound — a witness can complete the search early),
 * mirrors the whole snapshot to ``progress.json`` in the run's store
   directory (plain tmp+replace writes, throttled), which other
-  processes read (:func:`read_progress`; the reference's ``watch`` CLI
-  and ``/live`` endpoint, not ported yet).
+  processes read (:func:`read_progress`; ``python -m jepsen_tpu_torch
+  watch`` renders it with :func:`format_status`, and ``run --watch``
+  prints the in-process snapshot through :func:`live_status_printer`;
+  the reference's ``/live`` page waits for the results browser).
 
 Kill switch: with ``JTPU_TRACE=0`` no ``progress.json`` is ever
 written (artifacts stay byte-identical to the pre-observability tree);
@@ -34,9 +36,10 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from jepsen_tpu_torch.obs import metrics as obs_metrics
 from jepsen_tpu_torch.obs import trace as obs_trace
@@ -314,3 +317,143 @@ def read_progress(run_dir: str) -> Optional[Dict[str, Any]]:
     except (OSError, ValueError):
         return None
     return doc if isinstance(doc, dict) else None
+
+
+def format_status(p: Optional[Dict[str, Any]]) -> str:
+    """One status line for a progress dict — the `watch` CLI's payload
+    and the run --watch stderr ticker."""
+    if not p:
+        return "# watch: no search progress published yet"
+    if p.get("serve") is not None:
+        # the check daemon's heartbeat (the serve daemon publishes the
+        # same progress.json shape into its own directory, so `watch
+        # --store <serve-dir>` and /live/<serve-dir> follow the queue
+        # the way they follow a search)
+        s = p["serve"]
+        bits = [f"queue {s.get('queue-depth', 0)}",
+                f"inflight {s.get('inflight', 0)}",
+                f"done {s.get('completed', 0)}",
+                f"rejected {s.get('rejected', 0)}"]
+        if s.get("oldest-inflight-s") is not None:
+            # the stuck-request signal: how long the longest-running
+            # in-flight check has been on a worker
+            bits.insert(2, f"oldest-inflight "
+                           f"{s['oldest-inflight-s']:g}s")
+        if s.get("batches"):
+            gang = f"batches {s['batches']} (max {s.get('max-batch', 0)})"
+            bits.append(gang)
+        if s.get("poisoned"):
+            bits.append(f"poisoned {s['poisoned']} "
+                        f"(bisections {s.get('bisections', 0)})")
+        if s.get("breakers-open"):
+            bits.append(f"breakers-open {s['breakers-open']}")
+        if s.get("fleet-hosts") is not None:
+            # fleet-backed serving: live/spawned hosts, plus re-mesh
+            # count once a host has been lost mid-gang
+            fbit = (f"fleet {s.get('fleet-live', 0)}/"
+                    f"{s['fleet-hosts']} host(s)")
+            if s.get("remeshes"):
+                fbit += f" | remesh {s['remeshes']}"
+            bits.append(fbit)
+        if s.get("straggler-hosts"):
+            # the straggler verdict: hosts whose per-segment device
+            # time or heartbeat age runs sigma-x the fleet median
+            bits.append("straggler "
+                        + " ".join(s["straggler-hosts"]))
+        if s.get("rate-limited") is not None:
+            bits.append(f"rate-limited {s['rate-limited']}")
+        if s.get("streams") is not None:
+            # streaming intake (the daemon's /stream routes): live
+            # sessions, intake vs online-checker progress, and the
+            # backpressure signal (buffered ops not yet searched)
+            sbit = (f"streams {s['streams']} "
+                    f"({s.get('stream-checked', 0)}/"
+                    f"{s.get('stream-ops', 0)} ops checked)")
+            if s.get("stream-lag"):
+                sbit += f" | stream-lag {s['stream-lag']}"
+            bits.append(sbit)
+        if s.get("slo") is not None:
+            # the SLO engine's verdict: breach count when burning,
+            # plus the worst short-window burn rate either way
+            n = s["slo"].get("breached", 0)
+            burn = s["slo"].get("max-burn", 0)
+            bits.append(f"slo BURN x{n} ({burn:g})" if n
+                        else f"slo OK ({burn:g})")
+        if s.get("usage-top"):
+            # the biggest tenant by device-seconds (GET /usage for all)
+            t, dev = s["usage-top"][0], s["usage-top"][1]
+            bits.append(f"usage {t}:{dev:g}s")
+        if s.get("warm-buckets") is not None:
+            bits.append(f"warm {s['warm-buckets']} bucket(s)")
+        if p.get("state") and p["state"] != "serving":
+            bits.append(str(p["state"]))
+        return "# serve: " + " | ".join(bits)
+    budget = p.get("level-budget") or 0
+    level = p.get("level") or 0
+    pct = f" ({100 * level // budget}%)" if budget else ""
+    bits = [f"level {level}/{budget}{pct}"]
+    if p.get("frontier-rows") is not None:
+        bits.append(f"frontier {p['frontier-rows']} rows")
+    if p.get("segments") is not None:
+        seg = f"seg {p['segments']}"
+        if p.get("segments-est"):
+            seg += f"/{p['segments-est']}"
+        bits.append(seg)
+    if p.get("levels-per-s"):
+        bits.append(f"{p['levels-per-s']:g} levels/s")
+    if p.get("configs-per-s"):
+        bits.append(f"{p['configs-per-s']:,.0f} configs/s")
+    if p.get("state") == "done":
+        bits.append(f"done valid={p.get('valid')}")
+    elif p.get("eta-s") is not None:
+        bits.append(f"eta {p['eta-s']:g}s")
+    if p.get("headroom") is not None:
+        bits.append(f"headroom {100 * p['headroom']:.0f}%")
+    if p.get("imbalance") is not None:
+        bits.append(f"imbalance {p['imbalance']:.2f}x")
+    if p.get("dup-rate") is not None:
+        bits.append(f"dup-rate {100 * p['dup-rate']:.0f}%")
+    if p.get("trunc-losses"):
+        bits.append(f"trunc {p['trunc-losses']}")
+    fl = p.get("fleet")
+    if fl:
+        fbit = f"fleet {fl.get('hosts')} host(s)"
+        if fl.get("remeshes"):
+            fbit += f" {fl['remeshes']} remesh(es)"
+        if fl.get("steals"):
+            fbit += f" {fl['steals']} steal(s)"
+        bits.append(fbit)
+    if p.get("backend") and p["backend"] != "default":
+        bits.append(str(p["backend"]))
+    return "# watch: " + " | ".join(bits)
+
+
+def live_status_printer(interval: float = 1.0, out=None
+                        ) -> Callable[[], None]:
+    """Start a daemon thread printing the in-process observatory's
+    status line whenever it changes (the ``run --watch`` surface).
+    Returns a stop callable; stopping prints the final state."""
+    out = out or sys.stderr
+    stop = threading.Event()
+
+    def loop():
+        last = -1
+        while not stop.wait(interval):
+            seq = OBSERVATORY.seq()
+            if seq != last:
+                last = seq
+                snap = OBSERVATORY.snapshot()
+                if snap is not None:
+                    print(format_status(snap), file=out, flush=True)
+
+    t = threading.Thread(target=loop, daemon=True, name="jepsen-watch")
+    t.start()
+
+    def stopper():
+        stop.set()
+        t.join(timeout=2 * interval + 1)
+        snap = OBSERVATORY.snapshot()
+        if snap is not None:
+            print(format_status(snap), file=out, flush=True)
+
+    return stopper

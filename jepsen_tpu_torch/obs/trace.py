@@ -26,7 +26,9 @@ A record is ``{"name", "ts", "dur", "tid", "sid", "pid", ...attrs}``
 with ``ts``/``dur`` in nanoseconds relative to the tracer's epoch.
 :func:`to_chrome` converts a record list to Chrome trace-event JSON
 (the ``traceEvents`` array form), which Perfetto and ``chrome://
-tracing`` load directly.
+tracing`` load directly; ``python -m jepsen_tpu_torch trace`` exports,
+summarizes (:func:`summarize`, :func:`self_time_rollup`) and searches
+it.
 
 Request-scoped tracing rides a per-thread **trace context**
 (:meth:`Tracer.set_context`): while a context is set, every span and
@@ -34,7 +36,9 @@ event recorded on that thread additionally carries a ``trace`` field
 (the W3C-style 32-hex trace id) and — for root spans with no local
 parent — a ``parent`` field naming the remote parent span id. The
 serve daemon sets the context around each request's execution, ships
-it in its request journal, and keeps it across a restart. :func:`parse_traceparent` /
+it in its request journal, and keeps it across a restart; the stitcher
+(:func:`jepsen_tpu_torch.obs.fleet.stitch_request`) reassembles one
+request's waterfall from the trace files. :func:`parse_traceparent` /
 :func:`format_traceparent` speak the ``00-<trace>-<span>-<flags>``
 header format.
 
@@ -486,6 +490,17 @@ def read_trace(path: str) -> Tuple[List[dict], Dict[str, int]]:
     return out, stats
 
 
+def by_trace(records: List[dict]) -> Dict[str, List[dict]]:
+    """Group records by their request trace id (records without one —
+    background daemon work — are omitted)."""
+    out: Dict[str, List[dict]] = {}
+    for r in records:
+        t = r.get("trace")
+        if t:
+            out.setdefault(str(t), []).append(r)
+    return out
+
+
 #: Chrome trace-event metadata keys a span record maps onto directly;
 #: everything else rides in ``args``.
 _RESERVED = ("name", "ts", "dur", "tid", "sid", "pid")
@@ -514,3 +529,55 @@ def to_chrome(records: List[dict], process_name: str = "jtpu") -> dict:
             ev["s"] = "t"
         events.append(ev)
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def summarize(records: List[dict],
+              trace: Optional[str] = None) -> Dict[str, Dict[str, Any]]:
+    """Per-name rollup: count, total/max duration (ns) — the payload of
+    ``trace summary`` and the ``# trace:`` recovery line. With
+    ``trace``, rolls up only that request's spans."""
+    if trace is not None:
+        records = [r for r in records if r.get("trace") == trace]
+    out: Dict[str, Dict[str, Any]] = {}
+    for r in records:
+        s = out.setdefault(str(r.get("name", "?")),
+                           {"count": 0, "total-ns": 0, "max-ns": 0})
+        s["count"] += 1
+        d = int(r.get("dur", 0) or 0)
+        s["total-ns"] += d
+        s["max-ns"] = max(s["max-ns"], d)
+    return dict(sorted(out.items()))
+
+
+def self_time_rollup(records: List[dict],
+                     trace: Optional[str] = None
+                     ) -> Dict[str, Dict[str, Any]]:
+    """Per-name SELF-time rollup: each span's duration minus its direct
+    children's (via the ``pid`` parent link), so an outer span that
+    merely contains a slow inner one stops dominating the table. The
+    ``trace summary --top N`` payload: ``{name: {count, self-ns,
+    p95-ns}}`` with p95 over the per-span self times. With ``trace``,
+    restricted to one request's spans."""
+    if trace is not None:
+        records = [r for r in records if r.get("trace") == trace]
+    child_ns: Dict[int, int] = {}
+    for r in records:
+        pid = r.get("pid")
+        if pid:
+            child_ns[pid] = child_ns.get(pid, 0) \
+                + int(r.get("dur", 0) or 0)
+    selves: Dict[str, List[int]] = {}
+    for r in records:
+        dur = int(r.get("dur", 0) or 0)
+        if dur <= 0:
+            continue
+        own = max(0, dur - child_ns.get(r.get("sid"), 0))
+        selves.setdefault(str(r.get("name", "?")), []).append(own)
+    out: Dict[str, Dict[str, Any]] = {}
+    for name, vals in selves.items():
+        vals.sort()
+        # nearest-rank p95: the smallest value covering 95% of spans
+        idx = min(len(vals) - 1, max(0, -(-95 * len(vals) // 100) - 1))
+        out[name] = {"count": len(vals), "self-ns": sum(vals),
+                     "p95-ns": vals[idx]}
+    return dict(sorted(out.items()))

@@ -73,12 +73,16 @@ compile, device, verdict) in ``GET /check/<id>``; admission refused with
 429 ``headroom`` while the card's memory headroom is under
 ``headroom_min``; and warm buckets evicted while it is under
 ``engine_headroom_min``. ``JTPU_TRACE=0`` leaves out the trace ids, the
-trace file and the phases.
+trace file and the phases. Each ``done`` record carries the request's
+usage document (tenant, ops, device seconds, bytes, lane share,
+seconds), as the reference's does with its meter on; ``python -m
+jepsen_tpu_torch trace find`` reads it.
 
 Searches run on CUDA unless the configuration asks for the CPU
 (``ServeConfig.device="cpu"``). Not ported: the fleet placer, the time
-series, SLOs, usage metering, the flight recorder, the progress
-heartbeat, the results browser, and the batch-verify mode.
+series, SLOs, the usage meter and ``GET /usage``, the flight recorder,
+the progress heartbeat, the results browser, and the batch-verify
+mode.
 """
 
 from __future__ import annotations
@@ -1108,6 +1112,17 @@ class CheckDaemon:
                 "valid": repr(result.get("valid")), "seconds": secs}
         if gang is not None:
             done["gang"] = list(gang)
+        # the reference's usage document (its meter is on by default):
+        # ``trace find`` reads the tenant and the device seconds from it
+        phases = (result.get("serve") or {}).get("phases") or {}
+        done["tenant"] = req.tenant
+        done["usage"] = {
+            "ops": len(req.history or []),
+            "device-s": round(phases.get("device_s", 0.0)
+                              + phases.get("compile_s", 0.0), 9),
+            "bytes": int(req.footprint or 0),
+            "lane-share": round(1.0 / max(1, batch_size), 9),
+            "seconds": round(secs, 6)}
         self.journal.append(done)
         _REQUEST_SECONDS.observe(time.monotonic() - req.queued_at,
                                  tenant=req.tenant,
@@ -1185,13 +1200,15 @@ class CheckDaemon:
                                      "reason": body.get("error")})
         if self._streams is not None:
             self._stream_replay()
+        with self._lock:
+            replayed = self.stats["replayed"]
         for i in range(max(1, self.config.workers)):
             t = threading.Thread(target=self._worker_loop, daemon=True,
                                  name=f"jtpu-serve-worker-{i}")
             t.start()
             self._threads.append(t)
         log.info("check daemon up: %d worker(s), %d replayed request(s)",
-                 len(self._threads), self.stats["replayed"])
+                 len(self._threads), replayed)
         return self
 
     def drain(self, timeout_s: float = 600.0) -> Dict[str, Any]:

@@ -175,9 +175,26 @@ def write_history(d: str, history: History) -> None:
     _atomic_write(os.path.join(d, "history.jsonl"), jsonl + "\n")
 
 
+def _json_keys(x):
+    """``x`` with every dict key JSON cannot hold (a tuple, say) written
+    as its ``str``."""
+    if isinstance(x, dict):
+        return {k if isinstance(k, (str, int, float, bool)) or k is None
+                else str(k): _json_keys(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_json_keys(v) for v in x]
+    return x
+
+
 def write_results(d: str, results: dict) -> None:
-    _atomic_write(os.path.join(d, "results.json"),
-                  json.dumps(results, indent=2, default=_json_default))
+    """results.json. A key JSON cannot hold is written as its ``str``:
+    chronos's solution maps each (start, deadline) target to its run."""
+    try:
+        text = json.dumps(results, indent=2, default=_json_default)
+    except TypeError:
+        text = json.dumps(_json_keys(results), indent=2,
+                          default=_json_default)
+    _atomic_write(os.path.join(d, "results.json"), text)
 
 
 def update_symlinks(test: dict) -> None:

@@ -1,8 +1,8 @@
 """Test suites of the port: ``<name>_test(opts) -> test map``
 constructors, by name.
 
-The port has every suite of ``jepsen_tpu.suites`` but chronos (ROADMAP):
-the two local-kv suites (:mod:`.localkv`), whose nodes are real local
+The port has every suite of ``jepsen_tpu.suites``: the two local-kv
+suites (:mod:`.localkv`), whose nodes are real local
 processes, the three sqlite suites (:mod:`.sqlitedb`), whose system is
 the real SQLite engine, the wire-protocol suites of the register, mutex
 and queue families: etcd, consul, zookeeper, raftis, disque, rabbitmq (a
@@ -13,10 +13,11 @@ counter) and mongodb (a document CAS and a transfer), and the rest:
 logcabin, rethinkdb and ravendb (one CAS or read/write register a run),
 mongodb-rocks, robustirc (:mod:`.small`), galera (:mod:`.galera`), tidb,
 percona, mysql-cluster, postgres-rds and crate (:mod:`.sql_family`) and
-elasticsearch (:mod:`.elasticsearch`). Their linearizability check runs
-on the card unless the options ask for the CPU (``backend: "cpu"``, or
-``device: "cpu"``); the set, bank, dirty-read and version-divergence
-checks run on the host.
+elasticsearch (:mod:`.elasticsearch`), and chronos (:mod:`.chronos`, a
+job scheduler on a mesos cluster, :mod:`.mesosphere`). Their
+linearizability check runs on the card unless the options ask for the CPU
+(``backend: "cpu"``, or ``device: "cpu"``); the set, bank, dirty-read,
+version-divergence and chronos schedule checks run on the host.
 """
 
 from __future__ import annotations
@@ -80,6 +81,7 @@ SUITES = {
     "rethinkdb": ("small", "rethinkdb_test"),
     "rethinkdb-aggressive": ("small", "rethinkdb_aggressive_test"),
     "ravendb": ("small", "ravendb_test"),
+    "chronos": ("chronos", "chronos_test"),
 }
 
 

@@ -36,6 +36,8 @@ def _port_files():
              os.path.join(ROOT, "tools", "profile_torch_cold.py"),
              os.path.join(ROOT, "tools", "torch_runner_windows.py"),
              os.path.join(ROOT, "tools", "torch_suite_fakes.py"),
+             os.path.join(ROOT, "tools", "torch_lint_gate.py"),
+             os.path.join(ROOT, "tools", "time_torch_smoke_phases.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
@@ -107,6 +109,16 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.suites.disque, "
             "jepsen_tpu_torch.suites.rabbitmq, "
             "jepsen_tpu_torch.suites.hazelcast, "
+            "jepsen_tpu_torch.suites.chronos, "
+            "jepsen_tpu_torch.suites.mesosphere, "
+            "jepsen_tpu_torch.analysis.suite_lint, "
+            "jepsen_tpu_torch.analysis.lockset_lint, "
+            "jepsen_tpu_torch.analysis.deadlock_lint, "
+            "jepsen_tpu_torch.analysis.walcheck_lint, "
+            "jepsen_tpu_torch.analysis.width_lint, "
+            "jepsen_tpu_torch.analysis.baseline, "
+            "jepsen_tpu_torch.analysis.sarif, "
+            "jepsen_tpu_torch.obs.fleet, jepsen_tpu_torch.obs.federation, "
             "jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
@@ -242,7 +254,9 @@ def test_the_runner_defaults_to_cuda(tmp_path, capsys):
         return checkers.get("linear")
 
     for name, ctor in registry().items():
-        linear = linear_of(name, ctor({})["checker"].checkers)
+        # chronos's one checker is its schedule check, on the host
+        linear = linear_of(name, getattr(ctor({})["checker"], "checkers",
+                                         {}))
         if linear is None:      # a suite with no linearizability check
             continue
         checked.append(name)
@@ -320,3 +334,20 @@ def test_the_plan_gate_plans_for_cuda(capsys):
     assert "# plan: selected single 128/32/8 @256+8" in out
     assert main(["plan", "--dims", "150,3,5", "--device", "cpu"]) == 0
     assert "selected single 32/32/4" in capsys.readouterr().out
+
+
+def test_the_lint_passes_and_the_observing_commands_load_no_jax(tmp_path):
+    """``lint`` over the port (every pass, the suite modules' registry
+    check and the plan matrix), ``trace find`` and ``watch --once`` run in
+    a process that never loads JAX nor the JAX package."""
+    code = ("import sys; from jepsen_tpu_torch.__main__ import main; "
+            "rcs = [main(['lint']), "
+            f"main(['trace', 'find', '--store', {str(tmp_path)!r}]), "
+            f"main(['watch', '--once', '--store', {str(tmp_path)!r}])]; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}]; print(rcs, bad); "
+            "sys.exit(1 if bad or rcs != [0, 0, 0] else 0)")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

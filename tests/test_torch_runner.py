@@ -358,5 +358,8 @@ def test_the_commands_run_as_a_module(tmp_path):
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 254 and "A7" in p.stderr
     assert not os.path.exists(tmp_path / "store")
-    assert port_main(["run", "--suite", "local-kv", "--watch"]) == 254
+    # --watch is taken now (tests/test_torch_cli_observe.py); --fleet is
+    # still refused with it
+    assert port_main(["run", "--suite", "local-kv", "--watch", "--fleet",
+                      "2"]) == 254
     assert port_main(["run", "--suite", "nope"]) == 254

@@ -62,6 +62,13 @@ PUTs is answered 503, and half of those are applied all the same.
 channel log: ``JOIN`` replays the channel's messages, and a ``PRIVMSG``
 to a channel is logged and relayed to every member, its sender too.
 
+``ChronosFake`` is chronos's scheduler API behind N HTTP listeners
+(``POST /scheduler/iso8601``, ``GET /scheduler/jobs``), whose schedule
+writes each run's logfile on a slave node as the job's command would,
+on a clock of the caller's (a test runs it faster than the wall clock);
+``CliFake(..., chronos=fake)`` answers ``ls`` and ``cat`` of those
+logfiles, and a switch drops or delays one due run.
+
 ``DUMMY_RESPONSES`` holds, per suite, the dummy control plane's replies
 that let the suite's database lifecycle be recorded from its install to
 its start (``run --ssh-mode dummy --dummy-responses FILE``).
@@ -74,11 +81,12 @@ terminated::
     python3 tools/torch_suite_fakes.py etcd --members 5 [--stale-reads]
     python3 tools/torch_suite_fakes.py hazelcast --members 5
 
-(``CliFake`` has no listener, and ``RavenFake`` and ``IrcFake`` are
-started in the process that runs the test.)
+(``CliFake`` has no listener, and ``RavenFake``, ``IrcFake`` and
+``ChronosFake`` are started in the process that runs the test.)
 """
 
 import argparse
+import datetime
 import json
 import random
 import re
@@ -538,6 +546,167 @@ class IrcFake:
         self.servers = []
 
 
+#: where chronos's runs write their logfiles on the nodes (chronos.JOB_DIR)
+CHRONOS_JOB_DIR = "/tmp/chronos-test/"
+_ISO_SCHEDULE = re.compile(r"R(\d+)/(\d{4}-\d\d-\d\dT\d\d:\d\d:\d\dZ)"
+                           r"/PT(\d+)S$")
+
+
+def _date_ins(t: float) -> str:
+    """``date -u -Ins`` of POSIX seconds ``t``, with the comma of a locale
+    that writes one."""
+    whole = int(t // 1)
+    stamp = datetime.datetime.fromtimestamp(whole, datetime.timezone.utc)
+    return (stamp.strftime("%Y-%m-%dT%H:%M:%S")
+            + f",{int(round((t - whole) * 1e9)) % 1000000000:09d}+00:00")
+
+
+class ChronosFake:
+    """Chronos's scheduler API behind N HTTP listeners, and the run
+    logfiles its schedule writes on the nodes.
+
+    ``POST /scheduler/iso8601`` registers a job from the client's
+    ``{"name", "schedule": "R<count>/<start>/PT<interval>S", "epsilon":
+    "PT<s>S", "command": "sleep <duration>"}`` (204); ``GET
+    /scheduler/jobs`` lists the jobs. The k-th run of a job begins at its
+    schedule's start plus k intervals plus a seeded scheduler lag of 1 to
+    2 s (the schedule has whole seconds, so a run never begins before the
+    job's own start), on one of the slaves (the nodes after the first
+    three, as mesos places them), and lasts the job's duration. At any
+    instant of ``clock`` the runs begun so far are on their nodes as
+    logfiles under ``CHRONOS_JOB_DIR`` in the format of the suite's
+    ``run_command`` (name, begin, end; a run still going has no end
+    line): :meth:`ls` and :meth:`cat` answer the suite's ``ls`` and
+    ``cat`` through ``CliFake(..., chronos=fake)``. With ``fault``
+    "drop" the first run of the first job registered never happens;
+    with "delay" it begins ``epsilon`` + 6 s late, past the checker's
+    forgiveness."""
+
+    def __init__(self, members: int = 5, clock=time.time, fault=None,
+                 seed: int = 0):
+        assert fault in (None, "drop", "delay"), fault
+        self.members = members
+        self.clock = clock
+        self.fault = fault
+        self.rng = random.Random(seed)
+        self.lock = threading.Lock()
+        #: name -> {"start", "interval", "count", "epsilon", "duration",
+        #: "lags": [s]}, in registration order
+        self.jobs = {}
+        self.servers = []
+        self.stats = {"jobs": 0, "reads": 0}
+
+    def _handler(self):
+        fake = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _reply(self, code, obj=None):
+                body = b"" if obj is None else json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802
+                if self.path.rstrip("/") != "/scheduler/jobs":
+                    return self._reply(404, {"message": "not found"})
+                with fake.lock:
+                    fake.stats["reads"] += 1
+                    jobs = [dict(name=str(n), **{k: v for k, v in j.items()
+                                                 if k != "lags"})
+                            for n, j in fake.jobs.items()]
+                return self._reply(200, jobs)
+
+            def do_POST(self):  # noqa: N802
+                n = int(self.headers.get("Content-Length", 0))
+                try:
+                    doc = json.loads(self.rfile.read(n).decode())
+                    m = _ISO_SCHEDULE.match(doc["schedule"])
+                    eps = re.fullmatch(r"PT(\d+)S", doc["epsilon"])
+                    dur = re.fullmatch(r"sleep (\d+)", doc["command"])
+                    name = int(doc["name"])
+                except (ValueError, KeyError, TypeError):
+                    m = eps = dur = None
+                if self.path != "/scheduler/iso8601" or not (m and eps
+                                                            and dur):
+                    return self._reply(400, {"message": "bad job"})
+                start = datetime.datetime.strptime(
+                    m.group(2), "%Y-%m-%dT%H:%M:%SZ").replace(
+                    tzinfo=datetime.timezone.utc).timestamp()
+                with fake.lock:
+                    fake.stats["jobs"] += 1
+                    count = int(m.group(1))
+                    fake.jobs[name] = {
+                        "start": start, "interval": int(m.group(3)),
+                        "count": count, "epsilon": int(eps.group(1)),
+                        "duration": int(dur.group(1)),
+                        "lags": [1.0 + fake.rng.random()
+                                 for _ in range(count)]}
+                return self._reply(204)
+
+        return Handler
+
+    def runs(self, now=None) -> list:
+        """(node, filename, name, begin, end or None) of every run begun
+        by ``now`` (default: the clock)."""
+        now = self.clock() if now is None else now
+        slaves = sorted(self.nodes(), key=str)
+        slaves = slaves[3:] or slaves
+        out = []
+        with self.lock:
+            first = next(iter(self.jobs), None)
+            for name, j in self.jobs.items():
+                for k in range(j["count"]):
+                    begin = j["start"] + k * j["interval"] + j["lags"][k]
+                    if name == first and k == 0 and self.fault:
+                        if self.fault == "drop":
+                            continue
+                        begin += j["epsilon"] + 6
+                    if begin > now:
+                        break
+                    end = begin + j["duration"]
+                    out.append((slaves[(name + k) % len(slaves)],
+                                f"tmp.{name}-{k}", name, begin,
+                                end if end <= now else None))
+        return out
+
+    def ls(self, node):
+        """``ls -A CHRONOS_JOB_DIR`` on ``node``: (rc, stdout, stderr)."""
+        names = [f for n, f, *_ in self.runs() if n == node]
+        return 0, "\n".join(names) + ("\n" if names else ""), ""
+
+    def cat(self, node, path):
+        """``cat`` of one run logfile on ``node``."""
+        for n, f, name, begin, end in self.runs():
+            if n == node and CHRONOS_JOB_DIR + f == path:
+                lines = [str(name), _date_ins(begin)]
+                if end is not None:
+                    lines.append(_date_ins(end))
+                return 0, "\n".join(lines) + "\n", ""
+        return 1, "", f"cat: {path}: No such file or directory"
+
+    def start(self) -> list:
+        """Start the listeners; their ``host:port`` node names."""
+        for _ in range(self.members):
+            s = _HTTPServer((HOST, 0), self._handler())
+            threading.Thread(target=s.serve_forever, daemon=True).start()
+            self.servers.append(s)
+        return self.nodes()
+
+    def nodes(self) -> list:
+        return [f"{HOST}:{s.server_address[1]}" for s in self.servers]
+
+    def stop(self) -> None:
+        for s in self.servers:
+            s.shutdown()
+            s.server_close()
+        self.servers = []
+
+
 #: the cockroachdb register table's statements (cockroachdb.RegisterClient)
 _SQL_SELECT = re.compile(r"SELECT val FROM registers WHERE id = (-?\d+)$")
 _SQL_UPSERT = re.compile(r"UPSERT INTO registers \(id, val\) VALUES "
@@ -646,8 +815,10 @@ class CliFake:
 
     def __init__(self, nodes, responses=None, timeout_p: float = 0.0,
                  seed: int = 0, stale_reads: bool = False,
-                 delay_s: float = 0.5):
+                 delay_s: float = 0.5, chronos=None):
         self.nodes = [str(n) for n in nodes]
+        #: a ChronosFake whose run logfiles ``ls`` and ``cat`` read
+        self.chronos = chronos
         self.responses = {k: v for k, v in (responses or {}).items()}
         self.timeout_p = timeout_p
         self.rng = random.Random(seed)
@@ -698,6 +869,12 @@ class CliFake:
             argv = shlex.split(cmd)
         except ValueError:
             return None
+        if self.chronos is not None and argv[:2] == ["ls", "-A"] \
+                and argv[2:] == [CHRONOS_JOB_DIR]:
+            return self.chronos.ls(node)
+        if self.chronos is not None and argv[:1] == ["cat"] \
+                and len(argv) == 2 and argv[1].startswith(CHRONOS_JOB_DIR):
+            return self.chronos.cat(node, argv[1])
         if len(argv) > 2 and argv[0].endswith("cockroach") \
                 and argv[1] == "sql" and "-e" in argv:
             kind, body = "cockroachdb", argv[argv.index("-e") + 1]
