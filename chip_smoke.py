@@ -3294,16 +3294,19 @@ def cli_phase(dev, seconds, smi, kv_store):
     same-bucket register histories in gangs of at most 4, each verdict
     and ``levels`` equal to a lone ``check_history_gpu`` here, a POST
     without the token refused with 401; a local-kv run on the card under
-    ``run --watch`` exiting with its own code while ``watch`` follows its
-    store, and ``watch --once`` on it; ``stream --store`` of the local-kv
-    run in ``kv_store`` (the runner phase's) through the daemon, with the
-    verdict of ``analyze --profile`` of it; ``trace summary``,
-    ``request``, ``find --min-device-s 0`` and ``export --format
-    chrome`` over the daemon's directory, and ``trace summary --format
-    json`` of the profiled search naming K1, K2 and K4. Processes that
-    need not wait for each other run at once. Removes ``kv_store``.
-    Returns the phase's JSON entry, the daemon's kernel launches (its
-    ``/metrics``) and its pair ends."""
+    ``run --watch --profile`` exiting with its own code while ``watch``
+    follows its store, and ``watch --once`` on it; ``stream --store`` of
+    the local-kv run in ``kv_store`` (the runner phase's) through the
+    daemon, with the verdict of ``analyze --profile`` of it; ``trace
+    summary``, ``request``, ``find --min-device-s 0`` and ``export
+    --format chrome`` over the daemon's directory, ``trace summary
+    --format json`` of the analyze's profiled search naming K1, K2 and
+    K4, and the watched run's own profile naming them (read here, with
+    ``obs.profiler.read_profile``). Processes that need not wait
+    for each other run at once. Returns the phase's JSON entry, the
+    daemon's kernel launches (its ``/metrics``), its pair ends, and a
+    copy of the watched run's directory with the lone checks' results
+    (``{"run", "lone"}``, for :func:`daemon_telemetry_phase`)."""
     import shutil
     import signal
     import tempfile
@@ -3311,6 +3314,7 @@ def cli_phase(dev, seconds, smi, kv_store):
     from jepsen_tpu_torch import journal, serve, store
     from jepsen_tpu_torch.checker.gpu import check_history_gpu
     from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.obs import profiler
     line = {"card": smi}
     # on the CPU (a dry run of the phase) each process checks there too
     on = ("cuda",) if dev.type == "cuda" else ("cpu",)
@@ -3335,8 +3339,8 @@ def cli_phase(dev, seconds, smi, kv_store):
                 "--device", *on)
             run, r_out, r_err = start(
                 "run", "run", "--suite", "local-kv", "--device", *on,
-                "--watch", "--time-limit", str(CLI_RUN_S), "--store-root",
-                store_root)
+                "--watch", "--profile", "--time-limit", str(CLI_RUN_S),
+                "--store-root", store_root)
             # ``watch`` follows the run's store from as soon as it exists,
             # while the run is in flight, until its run.state is terminal
             kv_root = os.path.join(store_root, "local-kv")
@@ -3429,7 +3433,8 @@ def cli_phase(dev, seconds, smi, kv_store):
             started["profiled"] = start(
                 "trace-profiled", "trace", "summary", "--format", "json",
                 "--top", "100", "--store", kv_store)
-            # the watched run, the watch that followed it, watch --once
+            # the watched run, the watch that followed it, watch --once,
+            # and the kernels of the run's own profile
             run_rc = run.wait(timeout=600)
             marks["run"] = time.perf_counter() - t0
             follow_thread.join(timeout=120)
@@ -3489,10 +3494,19 @@ def cli_phase(dev, seconds, smi, kv_store):
         named = {k: sum(r["self-ns"] for r in kernels
                         if any(n in r["name"] for n in names))
                  for k, names in CLI_PROFILE_KERNELS.items()}
+        # the watched run's own capture: its check is the process's first
+        # CUDA work, and its profile has the kernels all the same
+        run_records, _ = profiler.read_profile(run_dir)
+        run_named = {k: sum(r["dur"] for r in run_records
+                            if any(n in r["name"] for n in names))
+                     for k, names in CLI_PROFILE_KERNELS.items()}
         # the plain versions launch no kernel: a dry run on the CPU has
-        # neither kernels in its profile nor launches in its counts
-        assert all(ns > 0 for ns in named.values()) or dev.type != "cuda", \
-            (named, kernels[:20])
+        # neither kernels in its profiles nor launches in its counts
+        for got in (named, run_named):
+            assert all(ns > 0 for ns in got.values()) \
+                or dev.type != "cuda", (got, kernels[:20],
+                                        sorted({r["name"] for r in
+                                                run_records})[:40])
         assert all(launches.get(k, 0) > 0 for k in (
             "expand", "sort_rows", "dedup_truncate", "pair_end")) \
             or dev.type != "cuda", launches
@@ -3513,9 +3527,15 @@ def cli_phase(dev, seconds, smi, kv_store):
                                     for rid in ids},
             "trace_request_records": len(waterfall) - 1,
             "chrome_events": len(chrome["traceEvents"]),
-            "profiled_kernel_ns": named, "daemon_launches": launches,
-            "seconds_at": marks})
+            "profiled_kernel_ns": named,
+            "run_profiled_kernel_ns": run_named,
+            "daemon_launches": launches, "seconds_at": marks})
         print("cli:", json.dumps(line), flush=True)
+        # the watched, profiled run outlives the phase's directory: the
+        # daemon telemetry phase serves it
+        kept = tempfile.mkdtemp(prefix="jtpu-run-")
+        shutil.copytree(run_dir, os.path.join(kept,
+                                              os.path.basename(run_dir)))
     finally:
         # an interrupt lets a run tear its nodes down; then a kill
         for proc in procs:
@@ -3527,7 +3547,326 @@ def cli_phase(dev, seconds, smi, kv_store):
                     proc.kill()
                     proc.wait()
         shutil.rmtree(root, ignore_errors=True)
+    return line, {k: launches.get(k, 0) for k in KERNELS}, launches.get(
+        "pair_end", 0), {"run": os.path.join(
+            kept, os.path.basename(run_dir)), "lone": lone}
+
+
+#: the daemon telemetry phase: its daemon's time-series cadence (s), and
+#: the name the runner phase's local-kv store takes in the browser's store
+TEL_CADENCE_S = 0.5
+TEL_KV_TS = "20260101T000000.000"
+TEL_TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+
+
+def http_get(port, path):
+    """(status, body bytes) of a GET on localhost; an error status is an
+    answer too."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=300) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def wait_listening(proc, outp, errp, t0, limit=300):
+    """The port a ``serve`` process printed it listens on."""
+    while "Listening on" not in read_text(outp):
+        assert proc.poll() is None, read_text(errp)[-3000:]
+        assert time.perf_counter() - t0 < limit, "no daemon"
+        time.sleep(0.05)
+    return int(re.search(r"http://127\.0\.0\.1:(\d+)/",
+                         read_text(outp)).group(1))
+
+
+def daemon_telemetry_phase(dev, seconds, smi, kv_store, cli_kept):
+    """The daemon's telemetry plane and the results browser on the card:
+    ``serve --check-daemon --batch-max 4`` as a process, with
+    ``JTPU_TSDB_CADENCE=0.5`` and ``JTPU_SERVE_BATCH_VERIFY=1``, over a
+    store holding the runner phase's local-kv run (``kv_store``) and the
+    cli phase's watched, profiled run (``cli_kept["run"]``). The cli
+    phase's 8 same-bucket 2,000-op histories from three tenants: each
+    verdict and ``levels`` that of the lone check (``cli_kept["lone"]``),
+    each gang re-run serially (context-free ``checker.segment`` spans in
+    the daemon's trace, no ``batch-mismatch``); ``GET /usage`` against
+    ``usage --json`` on the WAL; ``/slo``'s default objectives; the
+    burn-rate gauge and K1, K2 and K4's launches in ``/metrics``;
+    ``metrics.tsdb`` with two ticks or more; a stream opened with a
+    ``traceparent`` (its trace id on ``GET /stream/<id>``, the stream keys
+    in ``progress.json`` while it is open); a gang member's ``GET
+    /trace/request/<id>`` with the gang's join event; ``top --once`` and
+    ``watch --store --once`` on the serve directory; the browser's home,
+    ``/live``, ``/trace`` (the profiled run's kernels as its device lane),
+    ``/explain``, a file and its zip; ``../`` refused. ``POST /drain``
+    (the process exits 0), a second incarnation on the same directory
+    replaying the meter to the same ``/usage``, SIGTERM (exit 0), and
+    ``flightrec`` listing the drain and sigterm dumps, the drain dump's
+    ``--json`` holding spans and the time-series annex. Removes
+    ``kv_store`` and the cli phase's copy. Returns the phase's JSON
+    entry, the first daemon's kernel launches (its ``/metrics``) and its
+    pair ends."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import journal, serve
+    from jepsen_tpu_torch.obs import flightrec as obs_flightrec
+    line = {"card": smi}
+    on = ("cuda",) if dev.type == "cuda" else ("cpu",)
+    root = tempfile.mkdtemp(prefix="jtpu-tel-")
+    store_root = os.path.join(root, "store")
+    serve_dir = os.path.join(store_root, "serve")
+    run_ts = os.path.basename(cli_kept["run"])
+    procs = []
+    env = dict(port_env(), JTPU_TSDB_CADENCE=str(TEL_CADENCE_S),
+               JTPU_SERVE_BATCH_VERIFY="1")
+
+    def start(tag, *args):
+        outp = os.path.join(root, f"{tag}.out")
+        errp = os.path.join(root, f"{tag}.err")
+        with open(outp, "w") as o, open(errp, "w") as e:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "jepsen_tpu_torch", *args],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                stdout=o, stderr=e)
+        procs.append(proc)
+        return proc, outp, errp
+
+    daemon_args = ("serve", "--check-daemon", "--host", "127.0.0.1",
+                   "--port", "0", "--store-root", store_root,
+                   "--batch-max", str(CLI_BATCH_MAX), "--batch-wait-ms",
+                   str(CLI_WAIT_MS), "--serve-backend", "gpu", "--device",
+                   *on)
+    try:
+        with phase("daemon telemetry", seconds):
+            t0 = time.perf_counter()
+            daemon, d_out, d_err = start("serve", *daemon_args)
+            shutil.copytree(kv_store, os.path.join(store_root, "local-kv",
+                                                   TEL_KV_TS))
+            shutil.copytree(cli_kept["run"], os.path.join(
+                store_root, "local-kv", run_ts))
+            _, _, _, _, gang8 = serve_members()
+            docs = [{"tenant": f"tenant{i % 3}", "model": "cas-register",
+                     "history": [o.to_dict() for o in m[0]]}
+                    for i, m in enumerate(gang8)]
+            port = wait_listening(daemon, d_out, d_err, t0)
+            marks = {"daemon": time.perf_counter() - t0}
+            ids = [None] * len(docs)
+
+            def post(i):
+                code, body = http_json(port, "POST", "/check", docs[i])
+                assert code == 202, (code, body)
+                ids[i] = body["id"]
+
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(docs))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            assert all(ids), ids
+            # top and watch read the live daemon's heartbeat while the
+            # gangs run (a process takes its seconds to start)
+            cmds = {tag: start(tag, *argv) for tag, argv in (
+                ("top", ("top", "--once", "--store", serve_dir)),
+                ("watch", ("watch", "--once", "--store", serve_dir)))}
+            # a traced stream, opened while the gangs run
+            import urllib.request
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/stream", method="POST",
+                data=json.dumps({"tenant": "streamer",
+                                 "model": "cas-register"}).encode(),
+                headers={"traceparent": TEL_TRACEPARENT})
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                opened = json.loads(resp.read())
+                stream_tp = resp.headers.get("traceparent")
+            sid = opened["id"]
+            sops = docs[0]["history"]
+            half = len(sops) // 2
+            code, _ = http_json(port, "POST", f"/stream/{sid}/ops",
+                                {"seq": 0, "ops": sops[:half]})
+            assert code == 202, code
+            progress_path = os.path.join(serve_dir, "progress.json")
+            while True:
+                with open(progress_path) as f:
+                    beat = json.load(f)
+                if "streams" in beat["serve"]:
+                    break
+                assert time.perf_counter() - t0 < 300, beat
+                time.sleep(0.05)
+            code, _ = http_json(port, "POST", f"/stream/{sid}/ops",
+                                {"seq": 1, "ops": sops[half:]})
+            assert code == 202, code
+            assert http_json(port, "POST", f"/stream/{sid}/close",
+                             {"chunks": 2})[0] == 200
+            results = {}
+            while len(results) < len(ids):
+                for rid in ids:
+                    if rid not in results:
+                        code, doc = http_json(port, "GET", f"/check/{rid}")
+                        if doc.get("state") == "done":
+                            results[rid] = doc["result"]
+                assert time.perf_counter() - t0 < 600, "gangs timed out"
+                time.sleep(0.05)
+            marks["gangs"] = time.perf_counter() - t0
+            while True:
+                code, sdoc = http_json(port, "GET", f"/stream/{sid}")
+                if sdoc["state"] == "done":
+                    break
+                assert time.perf_counter() - t0 < 600, sdoc
+                time.sleep(0.05)
+            # usage over the WAL, which the drain leaves as it is
+            cmds["usage"] = start("usage", "usage", "--json", "--serve-dir",
+                                  serve_dir)
+            usage = http_json(port, "GET", "/usage")[1]
+            slo = http_json(port, "GET", "/slo")[1]
+            code, metrics_text = http_get(port, "/metrics")
+            metrics_text = metrics_text.decode()
+            launches = daemon_launches(port)
+            records, _ = journal.read_json_records(
+                os.path.join(serve_dir, serve.WAL_NAME))
+            gangs = [r["ids"] for r in records if r.get("event") == "gang"]
+            # a member that joined a leader's gang: its trace has the join
+            member = next(g[1] for g in gangs if len(g) > 1)
+            pages = {}
+            for tag, path in (
+                    ("home", "/"),
+                    ("live", f"/live/local-kv/{run_ts}"),
+                    ("trace", f"/trace/local-kv/{run_ts}"),
+                    ("explain", f"/explain/local-kv/{TEL_KV_TS}"),
+                    ("file", f"/files/local-kv/{TEL_KV_TS}/results.json"),
+                    ("zip", f"/files/local-kv/{run_ts}?zip"),
+                    ("request", f"/trace/request/{member}"),
+                    ("files-up", "/files/../../etc/passwd"),
+                    ("flightrec-up", "/flightrec/..%2Fserve.wal")):
+                pages[tag] = http_get(port, path)
+            outs = {}
+            for tag in ("top", "watch"):
+                proc, outp, errp = cmds[tag]
+                assert proc.wait(timeout=300) == 0, (tag, read_text(errp))
+                outs[tag] = read_text(outp)
+            marks["commands"] = time.perf_counter() - t0
+            assert http_json(port, "POST", "/drain")[0] == 200
+            assert daemon.wait(timeout=120) == 0, read_text(d_err)[-3000:]
+            marks["drained"] = time.perf_counter() - t0
+            # the drain's dump through flightrec, while a second
+            # incarnation replays the meter and is SIGTERMed
+            drain_dump = next(
+                d["name"] for d in obs_flightrec.list_dumps(serve_dir)
+                if d["reason"] == "drain")
+            one = start("flightrec-one", "flightrec", drain_dump, "--json",
+                        "--serve-dir", serve_dir)
+            again, a_out, a_err = start("serve-again", *daemon_args)
+            port2 = wait_listening(again, a_out, a_err, t0)
+            usage2 = http_json(port2, "GET", "/usage")[1]
+            again.send_signal(signal.SIGTERM)
+            assert again.wait(timeout=120) == 0, read_text(a_err)[-3000:]
+            marks["sigterm"] = time.perf_counter() - t0
+            proc, outp, errp = start("flightrec", "flightrec", "--json",
+                                     "--serve-dir", serve_dir)
+            assert proc.wait(timeout=300) == 0, read_text(errp)
+            dumps = json.loads(read_text(outp))["dumps"]
+            proc, outp, errp = one
+            assert proc.wait(timeout=300) == 0, read_text(errp)
+            dump = json.loads(read_text(outp))
+            proc, outp, errp = cmds["usage"]
+            assert proc.wait(timeout=300) == 0, read_text(errp)
+            outs["usage"] = read_text(outp)
+            marks["flightrec"] = time.perf_counter() - t0
+        # -- what they said ------------------------------------------------
+        lone = cli_kept["lone"]
+        for rid, want in zip(ids, lone):
+            got = results[rid]
+            assert (got["valid"], got["levels"]) == (
+                want["valid"], want["levels"]), (rid, got, want)
+            assert got["valid"] is True and "batch-mismatch" not in got
+        sizes = sorted({r["serve"].get("gang", {}).get("size", 1)
+                        for r in results.values()})
+        assert max(sizes) <= CLI_BATCH_MAX, sizes
+        ganged = sum(len(g) for g in gangs)
+        # the serial re-runs of batch verify run outside any request's
+        # trace: their segments are the daemon's only trace-less ones
+        with open(os.path.join(serve_dir, "trace.jsonl")) as f:
+            text = f.read()
+        verify_segments = sum(
+            1 for ln in text.splitlines()
+            if '"name":"checker.segment"' in ln.replace(" ", "")
+            and '"trace"' not in ln)
+        assert gangs and verify_segments >= ganged, (gangs,
+                                                     verify_segments)
+        wal_usage = json.loads(outs["usage"])
+        for t, u in wal_usage["tenants"].items():
+            live = usage["tenants"][t]
+            assert (u["requests"], u["ops"]) == (live["requests"],
+                                                 live["ops"]), (t, u, live)
+            assert u["device-s"] > 0, (t, u)
+        assert sorted(wal_usage["tenants"]) == [
+            "tenant0", "tenant1", "tenant2"], wal_usage
+        assert usage2 == usage, (usage2, usage)
+        assert set(slo["objectives"]) == {
+            "verdict-latency-p99", "queue-wait-p95", "availability"}, slo
+        assert "jtpu_slo_burn_rate{" in metrics_text
+        assert all(launches.get(k, 0) > 0 for k in (
+            "expand", "sort_rows", "dedup_truncate")) \
+            or dev.type != "cuda", launches
+        tsdb_records, _ = journal.read_json_records(
+            os.path.join(serve_dir, "metrics.tsdb"))
+        ticks = sum(r.get("k") == "tick" for r in tsdb_records)
+        assert ticks >= 2, ticks
+        trace_id = TEL_TRACEPARENT.split("-")[1]
+        assert opened["trace"] == trace_id and trace_id in stream_tp
+        assert sdoc["trace"] == trace_id and sdoc["result"]["valid"] is True
+        assert {"streams", "stream-ops", "stream-checked",
+                "stream-lag"} <= set(beat["serve"]), beat
+        assert outs["top"].splitlines()[1].startswith(
+            "# top: state serving | queue "), outs["top"]
+        assert outs["watch"].strip(), outs["watch"]
+        for tag in ("home", "live", "trace", "explain", "file", "zip",
+                    "request"):
+            assert pages[tag][0] == 200, (tag, pages[tag][1][:500])
+        assert pages["files-up"][0] in (403, 404), pages["files-up"]
+        assert pages["flightrec-up"][0] == 404, pages["flightrec-up"]
+        assert b"serve.gang.join" in pages["request"][1]
+        assert pages["zip"][1][:2] == b"PK"
+        trace_page = pages["trace"][1].decode()
+        assert "device lane" in trace_page
+        device_kernels = {k: sum(trace_page.count(n) for n in names)
+                          for k, names in CLI_PROFILE_KERNELS.items()}
+        assert all(device_kernels.values()) or dev.type != "cuda", \
+            device_kernels
+        assert {d["reason"] for d in dumps} == {"drain", "sigterm"}, dumps
+        assert dump["reason"] == "drain" and dump["spans"] \
+            and dump["tsdb"]["series"], sorted(dump)
+        line.update({
+            "gang_sizes": sizes, "gangs": len(gangs),
+            "verdicts_equal_lone": len(ids),
+            "verify_segments": verify_segments,
+            "usage": {t: {k: u[k] for k in ("requests", "ops", "device-s")}
+                      for t, u in usage["tenants"].items()},
+            "usage_equal_wal": True, "usage_replayed_equal": True,
+            "slo_objectives": sorted(slo["objectives"]),
+            "tsdb_ticks": ticks, "stream_trace": sdoc["trace"],
+            "stream_keys": {k: beat["serve"][k] for k in (
+                "streams", "stream-ops", "stream-checked", "stream-lag")},
+            "top": outs["top"].splitlines()[1:],
+            "watch": outs["watch"].strip(),
+            "pages": {t: p[0] for t, p in pages.items()},
+            "trace_device_kernels": device_kernels,
+            "dumps": sorted(d["reason"] for d in dumps),
+            "dump_spans": len(dump["spans"]),
+            "daemon_launches": launches, "seconds_at": marks})
+        print("daemon telemetry:", json.dumps(line), flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(kv_store, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(cli_kept["run"]), ignore_errors=True)
     return line, {k: launches.get(k, 0) for k in KERNELS}, launches.get(
         "pair_end", 0)
 
@@ -4092,9 +4431,14 @@ def smoke(dev: torch.device) -> None:
      path_segments["small-suites"]) = small_suites_phase(dev, seconds, smi)
 
     # -- the command line, each step its own process ----------------------
-    cli_line, cli_launches, cli_pair_ends = cli_phase(dev, seconds, smi,
-                                                      kv_store)
+    cli_line, cli_launches, cli_pair_ends, cli_kept = cli_phase(
+        dev, seconds, smi, kv_store)
     path_segments["cli"] = {"pair_ends": cli_pair_ends}
+
+    # -- the daemon's telemetry plane and the results browser -------------
+    tel_line, tel_launches, tel_pair_ends = daemon_telemetry_phase(
+        dev, seconds, smi, kv_store, cli_kept)
+    path_segments["daemon-telemetry"] = {"pair_ends": tel_pair_ends}
 
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
@@ -4111,7 +4455,8 @@ def smoke(dev: torch.device) -> None:
                      "stream": stream_launches, "run": run_launches,
                      "sqlite": sqlite_launches, "suites": suites_launches,
                      "cas-suites": cas_launches,
-                     "small-suites": small_launches, "cli": cli_launches}
+                     "small-suites": small_launches, "cli": cli_launches,
+                     "daemon-telemetry": tel_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
@@ -4202,7 +4547,8 @@ def smoke(dev: torch.device) -> None:
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
         "cas_suites": cas_line, "small_suites": small_line,
-        "cli": cli_line, "phase_seconds": seconds, "nvidia_smi": smi},
+        "cli": cli_line, "daemon_telemetry": tel_line,
+        "phase_seconds": seconds, "nvidia_smi": smi},
         default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

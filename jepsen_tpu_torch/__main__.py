@@ -1,8 +1,11 @@
 """Command line of the port.
 
-``python -m jepsen_tpu_torch serve --check-daemon`` runs the check daemon
-(:mod:`jepsen_tpu_torch.serve`). Its flags are the reference's daemon
-flags (``jtpu serve``): ``--host``, ``--port``, ``--serve-dir``,
+``python -m jepsen_tpu_torch serve`` serves the results browser
+(:mod:`jepsen_tpu_torch.web`) over ``--store-root``; with
+``--check-daemon`` (or JTPU_SERVE=1) the check daemon
+(:mod:`jepsen_tpu_torch.serve`) is mounted on it, its directory
+``--serve-dir`` (default ``<store-root>/serve``). The daemon's flags are
+the reference's (``jtpu serve``): ``--host``, ``--port``, ``--serve-dir``,
 ``--workers``, ``--queue-max``, ``--tenant-max``, ``--deadline-s``,
 ``--batch-max`` and ``--batch-wait-ms`` (the gangs), ``--auth-token``,
 ``--engine-max-buckets``, ``--rate-limit`` and ``--serve-backend
@@ -10,9 +13,15 @@ gpu|cpu``; each flag given wins over its ``JTPU_SERVE_*`` variable.
 ``--compile-cache DIR`` is the kernel library's build directory, so that
 a restarted daemon loads the library built there. ``--device cpu`` runs
 the searches on the CPU (the kernels' plain versions) instead of CUDA.
-``--fleet`` is refused (254): the port has no multi-GPU fleet yet, and
-``serve`` without ``--check-daemon`` (the results browser) exits 2. The
-process serves until ``POST /drain`` (or an interrupt) and then exits 0.
+``--fleet`` is refused (254): the port has no multi-GPU fleet yet. The
+daemon serves until ``POST /drain`` or SIGTERM (after a flight-recorder
+dump) and then exits 0; the browser alone until an interrupt.
+
+``usage`` (per-tenant totals from a serve directory's WAL, the daemon's
+``GET /usage``), ``flightrec [DUMP]`` (the flight-recorder dumps) and
+``top`` (a serve directory's heartbeat on one screen; a run directory's
+is ``watch``'s line) read a daemon's artifacts, live or not, as the
+reference's commands of those names do.
 
 ``python -m jepsen_tpu_torch stream [--store DIR | --history FILE]`` is
 the client of a daemon's stream routes (the reference's ``jtpu stream``):
@@ -147,17 +156,22 @@ def _parser() -> argparse.ArgumentParser:
     from jepsen_tpu_torch.suites.mongodb import READ_CONCERNS, WRITE_CONCERNS
     p = _Parser(prog="python -m jepsen_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("serve", help="run the multi-tenant check daemon")
+    s = sub.add_parser("serve", help="serve the results browser (and, "
+                                     "opted in, the check daemon)")
     s.add_argument("--check-daemon", action="store_true",
-                   help="serve POST /check, GET /check/<id>, /healthz, "
-                        "/drain and the /stream routes (the only service "
-                        "of the port)")
+                   help="mount the multi-tenant check daemon: POST /check, "
+                        "GET /check/<id>, /healthz, /drain, the /stream "
+                        "routes and the telemetry (JTPU_SERVE=1 does the "
+                        "same)")
     s.add_argument("-b", "--host", default="0.0.0.0")
     s.add_argument("-p", "--port", type=int, default=8080,
                    help="port to listen on (0: any free port)")
-    s.add_argument("--serve-dir", default=os.path.join("store", "serve"),
-                   metavar="DIR",
-                   help="daemon directory: request journal and results")
+    s.add_argument("--store-root", default="store",
+                   help="the store the results browser serves")
+    s.add_argument("--serve-dir", default=None, metavar="DIR",
+                   help="daemon directory: request journal, results, "
+                        "heartbeat, time series (default: "
+                        "<store-root>/serve)")
     s.add_argument("--workers", type=int, default=None,
                    help="check worker threads (JTPU_SERVE_WORKERS)")
     s.add_argument("--queue-max", type=int, default=None,
@@ -342,7 +356,41 @@ def _parser() -> argparse.ArgumentParser:
     _add_watch_parser(sub)
     _add_trace_parser(sub)
     _add_lint_parser(sub)
+    _add_daemon_readers(sub)
     return p
+
+
+def _add_daemon_readers(sub) -> None:
+    """``usage``, ``flightrec`` and ``top``: readers of a serve
+    directory's artifacts, live or not."""
+    u = sub.add_parser("usage", help="per-tenant usage totals from a serve "
+                                     "daemon's request journal")
+    u.add_argument("--serve-dir", default=None, metavar="DIR",
+                   help="daemon directory (default: <store-root>/serve)")
+    u.add_argument("--store-root", default="store")
+    u.add_argument("--tenant", default=None,
+                   help="one tenant only (default: all)")
+    u.add_argument("--json", action="store_true",
+                   help="raw JSON instead of the table")
+    f = sub.add_parser("flightrec", help="list or show a serve daemon's "
+                                         "flight-recorder dumps")
+    f.add_argument("dump", nargs="?", default=None,
+                   help="dump file name (default: list them)")
+    f.add_argument("--serve-dir", default=None, metavar="DIR",
+                   help="daemon directory (default: <store-root>/serve)")
+    f.add_argument("--store-root", default="store")
+    f.add_argument("--json", action="store_true",
+                   help="raw JSON instead of the summary")
+    t = sub.add_parser("top", help="one-screen live status of a serve "
+                                   "directory from its published artifacts")
+    t.add_argument("--store", default=None,
+                   help="serve (or run) directory (default: latest under "
+                        "--store-root)")
+    t.add_argument("--store-root", default="store")
+    t.add_argument("--interval", type=float, default=2.0,
+                   help="seconds between refreshes")
+    t.add_argument("--once", action="store_true",
+                   help="print one screen and exit")
 
 
 def _add_watch_parser(sub) -> None:
@@ -475,9 +523,9 @@ def serve_config(opts: argparse.Namespace):
     ``--compile-cache`` points the kernel build directory at its
     argument."""
     from jepsen_tpu_torch import serve as serve_ns
-    cfg = serve_ns.ServeConfig(root=opts.serve_dir,
-                               device="cpu" if opts.device == "cpu"
-                               else None)
+    cfg = serve_ns.ServeConfig(
+        root=opts.serve_dir or os.path.join(opts.store_root, "serve"),
+        device="cpu" if opts.device == "cpu" else None)
     for name in ("workers", "queue_max", "tenant_max", "batch_wait_ms",
                  "engine_max_buckets", "rate_limit"):
         if getattr(opts, name) is not None:
@@ -498,11 +546,22 @@ def serve_config(opts: argparse.Namespace):
 
 
 def serve(opts: argparse.Namespace) -> int:
+    """The results browser over ``--store-root``; with ``--check-daemon``
+    (or JTPU_SERVE=1) the check daemon mounted on it, until ``POST
+    /drain`` or SIGTERM (which first dumps the flight recorder)."""
     from jepsen_tpu_torch import serve as serve_ns
-    if not opts.check_daemon:
-        print("serve: the port serves only the check daemon; pass "
-              "--check-daemon", file=sys.stderr)
-        return 2
+    from jepsen_tpu_torch import web
+    if not (opts.check_daemon or serve_ns.serve_enabled()):
+        server = web.serve(host=opts.host, port=opts.port,
+                           root=opts.store_root)
+        print(f"Listening on http://{opts.host}:{server.server_port}/",
+              flush=True)
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            pass
+        server.server_close()
+        return OK
     if opts.fleet is not None:
         print("serve: --fleet is refused: gangs on fleet hosts need the "
               "multi-GPU fleet, which this package does not have yet",
@@ -510,7 +569,20 @@ def serve(opts: argparse.Namespace) -> int:
         return INVALID_ARGS
     cfg = serve_config(opts)
     daemon, server = serve_ns.run_daemon(cfg, host=opts.host,
-                                         port=opts.port)
+                                         port=opts.port,
+                                         store_root=opts.store_root)
+    if daemon.flightrec is not None:
+        import signal
+
+        def on_sigterm(_sig, _frame):
+            # the recorder's last window, then the wait below ends
+            daemon.flightrec.dump("sigterm")
+            daemon.drained.set()
+
+        try:
+            signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:
+            pass    # not the main thread: no handler
     print(f"Listening on http://{opts.host}:{server.server_port}/ (check "
           f"daemon: POST /check, GET /check/<id>, /healthz, /drain"
           f"{', /stream' if daemon._streams is not None else ''})",
@@ -1436,6 +1508,152 @@ def lint_cmd(opts: argparse.Namespace) -> int:
     return TEST_FAILED if gate else OK
 
 
+def _serve_dir(opts: argparse.Namespace) -> str:
+    return opts.serve_dir or os.path.join(opts.store_root or "store",
+                                          "serve")
+
+
+def usage_cmd(opts: argparse.Namespace) -> int:
+    """Per-tenant usage totals recomputed from a serve directory's WAL
+    ``done`` records (:func:`jepsen_tpu_torch.obs.usage.from_wal`): what
+    a live daemon's ``GET /usage`` answers, offline too."""
+    from jepsen_tpu_torch import serve as serve_ns
+    from jepsen_tpu_torch.obs import usage as obs_usage
+    wal = os.path.join(_serve_dir(opts), serve_ns.WAL_NAME)
+    if not os.path.exists(wal):
+        print(f"no request journal at {wal}", file=sys.stderr)
+        return INVALID_ARGS
+    doc = obs_usage.from_wal(wal)
+    if opts.tenant is not None:
+        doc["tenants"] = {t: u for t, u in doc["tenants"].items()
+                          if t == opts.tenant}
+    if opts.json:
+        print(json.dumps(doc, indent=2))
+        return OK
+    for t in sorted(doc["tenants"]):
+        u = doc["tenants"][t]
+        print(f"# usage: {t}: {u['requests']} request(s), "
+              f"{u['ops']:g} op(s), {u['device-s']:g} device-s, "
+              f"{u['bytes']:g} byte(s), lane-share "
+              f"{u['lane-share']:g}, {u['seconds']:g}s wall")
+    tot = doc["total"]
+    print(f"# usage: total: {tot['requests']} request(s), "
+          f"{tot['ops']:g} op(s), {tot['device-s']:g} device-s, "
+          f"{tot['bytes']:g} byte(s), {tot['seconds']:g}s wall")
+    return OK
+
+
+def flightrec_cmd(opts: argparse.Namespace) -> int:
+    """A serve directory's flight-recorder dumps: the list, newest first,
+    or one dump's summary (``--json``: the dump itself)."""
+    from jepsen_tpu_torch.obs import flightrec as obs_flightrec
+    d = _serve_dir(opts)
+
+    def when(ts) -> str:
+        return time.strftime("%Y-%m-%d %H:%M:%S", time.localtime(ts or 0))
+
+    if opts.dump:
+        doc = obs_flightrec.load_dump(d, opts.dump)
+        if doc is None:
+            print(f"no such dump: {opts.dump}", file=sys.stderr)
+            return INVALID_ARGS
+        if opts.json:
+            print(json.dumps(doc, indent=2))
+            return OK
+        print(f"# flightrec: {opts.dump}: reason={doc.get('reason')} at "
+              f"{when(doc.get('wall-ts'))}, window "
+              f"{doc.get('window-s'):g}s")
+        print(f"# flightrec: {len(doc.get('spans') or [])} span(s), "
+              f"{len(doc.get('trace-ids') or [])} trace id(s), "
+              f"{len(doc.get('metrics') or {})} metric(s)")
+        if doc.get("extra"):
+            print(f"# flightrec: extra: "
+                  f"{json.dumps(doc['extra'], default=repr)}")
+        for tid in doc.get("trace-ids") or []:
+            print(f"# flightrec: trace {tid}")
+        return OK
+    dumps = obs_flightrec.list_dumps(d)
+    if opts.json:
+        print(json.dumps({"dumps": dumps}, indent=2))
+        return OK
+    if not dumps:
+        print(f"# flightrec: no dumps under "
+              f"{os.path.join(d, obs_flightrec.DIR_NAME)}")
+        return OK
+    for rec in dumps:
+        print(f"# flightrec: {rec['name']}: reason={rec.get('reason')} at "
+              f"{when(rec.get('wall-ts'))}, {rec.get('spans', 0)} span(s), "
+              f"{rec.get('trace-ids', 0)} trace(s), "
+              f"{rec.get('bytes', 0)} byte(s)")
+    return OK
+
+
+def _top_screen(d: str) -> list:
+    """One ``top`` screen of directory ``d``: the daemon's heartbeat, its
+    SLO burn and top tenant, and each fleet host's frame age; a run
+    directory's heartbeat gives ``watch``'s line."""
+    from jepsen_tpu_torch.obs import federation, observatory
+    p = observatory.read_progress(d)
+    lines = [f"# top: {d} at {time.strftime('%H:%M:%S')}"]
+    if p is None:
+        lines.append("# top: no progress.json yet (daemon not started, or "
+                     "JTPU_TRACE=0)")
+        return lines
+    s = p.get("serve")
+    if s is None:
+        lines.append(observatory.format_status(p))
+        return lines
+    lines.append(f"# top: state {p.get('state') or 'serving'} | queue "
+                 f"{s.get('queue-depth', 0)} | inflight "
+                 f"{s.get('inflight', 0)} | done {s.get('completed', 0)} | "
+                 f"rejected {s.get('rejected', 0)}")
+    bits = []
+    slo = s.get("slo")
+    if slo is not None:
+        n, burn = slo.get("breached", 0), slo.get("max-burn", 0)
+        bits.append(f"slo BURN x{n} ({burn:g})" if n
+                    else f"slo OK ({burn:g})")
+    if s.get("usage-top"):
+        bits.append(f"top tenant {s['usage-top'][0]}: "
+                    f"{s['usage-top'][1]:g} device-s")
+    if s.get("breakers-open"):
+        bits.append(f"breakers-open {s['breakers-open']}")
+    if bits:
+        lines.append("# top: " + " | ".join(bits))
+    if s.get("fleet-hosts") is not None:
+        fbit = f"fleet {s.get('fleet-live', 0)}/{s['fleet-hosts']} host(s)"
+        if s.get("remeshes"):
+            fbit += f" | remesh {s['remeshes']}"
+        lines.append("# top: " + fbit)
+    stragglers = set(s.get("straggler-hosts") or [])
+    ages = federation.fleet_ages(d)
+    for host in sorted(set(ages) | stragglers):
+        age = ages.get(host)
+        abit = f"age {age:g}s" if age is not None else "age ?"
+        sbit = "  STRAGGLER" if host in stragglers else ""
+        lines.append(f"# top:   {host:<16} {abit}{sbit}")
+    return lines
+
+
+def top_cmd(opts: argparse.Namespace) -> int:
+    """``top``: :func:`_top_screen` each ``--interval`` (``--once``: one
+    screen)."""
+    from jepsen_tpu_torch import store
+    d = opts.store
+    if d is None:
+        t = store.latest(opts.store_root or "store")
+        d = t.get("store-dir") if t else None
+    if not d or not os.path.isdir(d):
+        print(f"no such store directory: {d}", file=sys.stderr)
+        return INVALID_ARGS
+    while True:
+        for line in _top_screen(d):
+            print(line, flush=True)
+        if opts.once:
+            return OK
+        time.sleep(max(opts.interval or 2.0, 0.05))
+
+
 def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     try:
@@ -1449,7 +1667,8 @@ def main(argv=None) -> int:
     run = {"run": run_cmd, "analyze": analyze_cmd,
            "recover": recover_cmd, "explain": explain_cmd,
            "watch": watch_cmd, "trace": trace_cmd,
-           "lint": lint_cmd}[opts.cmd]
+           "lint": lint_cmd, "usage": usage_cmd,
+           "flightrec": flightrec_cmd, "top": top_cmd}[opts.cmd]
     try:
         return run(opts)
     except _ArgError as e:

@@ -1104,7 +1104,7 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
                 return plan.batch_chunk(plan.Candidate(
                     "batch", *rung, breq, crw, keys=keys), limit)
     cost_entries: list = []
-    with obs.profiler.capture():
+    with obs.profiler.capture(cuda=dev.type == "cuda"):
         batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed,
                                 breq, results, dev, ops, kernel.name, chunk,
                                 cost_entries)

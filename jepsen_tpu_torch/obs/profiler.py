@@ -7,7 +7,7 @@ ran inside it:
 
 * :func:`capture`: an opt-in (``JTPU_PROF=1``) context manager the
   supervised search wraps itself in. It runs ``torch.profiler.profile``
-  (CPU and, where CUDA is initialised, CUDA activities) and writes its
+  (CPU and, for a search on the card, CUDA activities) and writes its
   ``export_chrome_trace`` into ``<run_dir>/profile/`` at the end, under a
   ``prof.capture`` host span: the clock anchor of the merge. A nested
   capture does nothing; a capture the platform refuses is counted
@@ -125,10 +125,15 @@ def failure() -> Optional[str]:
         return _FAILED
 
 
-def _activities() -> list:
+def _activities(cuda: bool) -> list:
+    """The capture's activities: the CPU's, and CUDA's where the search
+    runs on the card (``cuda``), with CUDA initialised first: a check
+    that is its process's first CUDA work (``run``'s) is then traced with
+    its kernels, not with the CPU's operators alone."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
+    if cuda and torch.cuda.is_available():
+        torch.cuda.init()
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
 
@@ -137,10 +142,11 @@ class _Capture:
     """One ``capture()`` call. Inert when disabled, dir-less, nested in
     another capture, or after a refusal."""
 
-    def __init__(self):
+    def __init__(self, cuda: bool = False):
         self.dir: Optional[str] = None
         self.span = None
         self.prof = None
+        self.want_cuda = cuda
         self.cuda = False
 
     def __enter__(self) -> "_Capture":
@@ -156,7 +162,7 @@ class _Capture:
             if not os.path.isdir(target):
                 os.makedirs(target, exist_ok=True)
                 created = True
-            acts = _activities()
+            acts = _activities(self.want_cuda)
             self.cuda = len(acts) > 1
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.__enter__()
@@ -214,11 +220,12 @@ def _refused(e: BaseException) -> None:
                 "in this process from now on", msg)
 
 
-def capture() -> _Capture:
-    """``with profiler.capture(): <device search>``: a no-op unless
-    JTPU_PROF is on and a run directory is armed. Nested captures are
-    no-ops (the outermost wins)."""
-    return _Capture()
+def capture(cuda: bool = False) -> _Capture:
+    """``with profiler.capture(cuda=...): <device search>``: a no-op
+    unless JTPU_PROF is on and a run directory is armed. Nested captures
+    are no-ops (the outermost wins). ``cuda``: whether the search runs on
+    the card (see :func:`_activities`)."""
+    return _Capture(cuda)
 
 
 # ---------------------------------------------------------------------------

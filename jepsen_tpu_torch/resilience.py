@@ -654,8 +654,11 @@ def supervised_check_packed(p: PackedHistory, kernel: KernelSpec,
     :mod:`jepsen_tpu_torch.kernels.cost`, and the levels it ran). The
     observatory publishes each segment end, and ``JTPU_PROF=1`` captures
     the search with ``torch.profiler``."""
+    dev = kwargs.get("device")
     try:
-        with obs.profiler.capture():
+        with obs.profiler.capture(
+                cuda=torch.device("cuda" if dev is None else dev).type
+                == "cuda"):
             out = _supervised_check_packed(p, kernel, **kwargs)
     except BaseException:
         # a raised search must not leave the observatory "searching"

@@ -51,7 +51,9 @@ each shape's buffers) and takes histories over HTTP:
   when the ops not yet checked pass ``stream_buffer_ops`` or the session's
   footprint does not fit the byte budget.
 
-HTTP API (:func:`make_handler`): ``POST /check`` (body ``{"tenant",
+HTTP API (:func:`make_handler`, a subclass of the results browser's
+:class:`jepsen_tpu_torch.web.Handler`, so the browser's pages share the
+server): ``POST /check`` (body ``{"tenant",
 "model", "history": [op dicts], "deadline-s"?}``: 202 ``{"id", "state"}``,
 400, 429, 503), ``GET /check/<id>`` (``{"state", "result"?}``; 500 for a
 gang's poison member), ``POST /drain``, ``GET /healthz``; with streams
@@ -73,16 +75,34 @@ compile, device, verdict) in ``GET /check/<id>``; admission refused with
 429 ``headroom`` while the card's memory headroom is under
 ``headroom_min``; and warm buckets evicted while it is under
 ``engine_headroom_min``. ``JTPU_TRACE=0`` leaves out the trace ids, the
-trace file and the phases. Each ``done`` record carries the request's
-usage document (tenant, ops, device seconds, bytes, lane share,
-seconds), as the reference's does with its meter on; ``python -m
-jepsen_tpu_torch trace find`` reads it.
+trace file and the phases. ``GET /trace/request/<id or trace id>`` is one
+request's stitched waterfall (:func:`resolve_trace`).
+
+The telemetry stack (``JTPU_TSDB``, default on; :attr:`ServeConfig.
+tsdb_on`): the time series over the registry (:mod:`jepsen_tpu_torch.
+obs.tsdb`, ``metrics.tsdb``), the SLO engine on its tick
+(:mod:`~jepsen_tpu_torch.obs.slo`, ``GET /slo`` and the ``slo`` key of
+healthz), the usage meter (:mod:`~jepsen_tpu_torch.obs.usage`): each
+``done`` record carries the request's usage document (tenant, ops,
+device seconds, bytes, lane share, seconds), folded into the meter and
+replayed from the WAL at start (``GET /usage[?tenant=]``, ``python -m
+jepsen_tpu_torch usage``); and the flight recorder
+(:mod:`~jepsen_tpu_torch.obs.flightrec`, ``GET /flightrec[/<name>]``),
+which dumps on a breaker trip, on drain and on SIGTERM in ``serve``.
+``JTPU_TSDB=0`` constructs none of them: no ``metrics.tsdb`` or
+``flightrec/``, the three routes 404, and ``done`` records carry no usage.
+
+The progress heartbeat: ``progress.json`` in the daemon's directory
+(tmp + replace, throttled), with queue depth, in-flight count, the oldest
+in-flight request's age, the breakers and warm buckets; the stream keys
+while sessions exist; ``slo`` and ``usage-top`` under the telemetry stack
+(``watch --store`` and ``top`` read it). ``JTPU_SERVE_BATCH_VERIFY=1``
+re-runs each gang's survivors serially and serves the serial result
+where a verdict field differs.
 
 Searches run on CUDA unless the configuration asks for the CPU
-(``ServeConfig.device="cpu"``). Not ported: the fleet placer, the time
-series, SLOs, the usage meter and ``GET /usage``, the flight recorder,
-the progress heartbeat, the results browser, and the batch-verify
-mode.
+(``ServeConfig.device="cpu"``). Not ported: the fleet placer, with its
+``all-hosts-lost`` dump, and the federator's ``/trace/find``.
 """
 
 from __future__ import annotations
@@ -96,7 +116,7 @@ import threading
 import time
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 
 from jepsen_tpu_torch import journal as journal_ns
@@ -108,6 +128,9 @@ log = logging.getLogger("jepsen_tpu_torch.serve")
 
 #: The request journal's filename inside the daemon directory.
 WAL_NAME = "serve.wal"
+
+#: The heartbeat's filename inside the daemon directory.
+PROGRESS_NAME = "progress.json"
 
 #: Prometheus text exposition's content type.
 PROMETHEUS_CTYPE = "text/plain; version=0.0.4; charset=utf-8"
@@ -170,6 +193,14 @@ _REQUEST_SECONDS = obs_metrics.histogram(
 
 def _exemplar(trace_id: Optional[str]) -> Optional[Dict[str, str]]:
     return {"trace_id": trace_id} if trace_id else None
+
+
+def serve_enabled() -> bool:
+    """The JTPU_SERVE opt-in: a true value mounts the check daemon on the
+    ``serve`` command without ``--check-daemon``. Off by default: the
+    results browser alone."""
+    return os.environ.get("JTPU_SERVE", "").strip().lower() in (
+        "1", "true", "yes", "on")
 
 
 def _env_int(name: str, default: int) -> int:
@@ -258,6 +289,12 @@ class ServeConfig:
     batch_wait_ms: float = field(
         default_factory=lambda: _env_float(
             "JTPU_SERVE_BATCH_WAIT_MS", 5.0))
+    #: JTPU_SERVE_BATCH_VERIFY=1 re-runs each gang's survivors serially
+    #: and serves the serial result where a verdict field differs
+    batch_verify: bool = field(
+        default_factory=lambda: os.environ.get(
+            "JTPU_SERVE_BATCH_VERIFY", "").strip().lower()
+        in ("1", "true", "yes", "on"))
     #: bearer token for POST /check and POST /drain (None: no auth)
     auth_token: Optional[str] = field(
         default_factory=lambda: os.environ.get(
@@ -287,6 +324,28 @@ class ServeConfig:
     #: answers 429
     stream_max: int = field(
         default_factory=lambda: _env_int("JTPU_SERVE_STREAM_MAX", 8))
+    #: the telemetry stack (JTPU_TSDB): the time series, SLOs, the usage
+    #: meter and the flight recorder; off, none of them is constructed
+    tsdb_enabled: bool = field(
+        default_factory=lambda: _env_on("JTPU_TSDB", "1"))
+    #: the time series' sampling cadence, seconds (JTPU_TSDB_CADENCE)
+    tsdb_cadence_s: float = field(
+        default_factory=lambda: _env_float("JTPU_TSDB_CADENCE", 2.0))
+    #: the seconds of spans and samples a flight-recorder dump holds
+    flightrec_seconds: float = field(
+        default_factory=lambda: _env_float("JTPU_FLIGHTREC_SECONDS",
+                                           120.0))
+    #: a URL POSTed on each SLO breach and recovery (JTPU_SLO_WEBHOOK)
+    slo_webhook: Optional[str] = field(
+        default_factory=lambda: os.environ.get("JTPU_SLO_WEBHOOK") or None)
+
+    @property
+    def tsdb_on(self) -> bool:
+        """Whether the telemetry stack is constructed, read at call time:
+        JTPU_TSDB=0 wins over ``tsdb_enabled``."""
+        if os.environ.get("JTPU_TSDB", "").strip() == "0":
+            return False
+        return bool(self.tsdb_enabled)
 
     @property
     def stream_on(self) -> bool:
@@ -349,6 +408,9 @@ class CircuitBreaker:
         self.fails = max(1, int(fails))
         self.cooldown_s = float(cooldown_s)
         self._rng = rng or random.Random()
+        #: called outside the lock with (bucket, failure_class) each time
+        #: a breaker opens (the flight recorder); set before serving
+        self.on_trip = None
         self._lock = threading.Lock()
         #: bucket -> {"state", "fails", "until", "cooldown", "probing"}
         self._b: Dict[tuple, Dict[str, Any]] = {}
@@ -392,6 +454,7 @@ class CircuitBreaker:
             return
         from jepsen_tpu_torch.resilience import OOM, RETRYABLE, WEDGE
         now = time.monotonic()
+        tripped = False
         with self._lock:
             rec = self._rec(bucket)
             if failure_class in RETRYABLE:
@@ -408,12 +471,23 @@ class CircuitBreaker:
                     jit = 0.75 + self._rng.random() / 2
                     rec.update(state="open", probing=False,
                                until=now + rec["cooldown"] * jit)
+                    tripped = True
                     log.warning("breaker OPEN for bucket %s (%s, cooldown "
                                 "%.1fs)", bucket, failure_class,
                                 rec["cooldown"])
             else:
                 rec.update(state="closed", fails=0, probing=False,
                            cooldown=self.cooldown_s, until=0.0)
+        cb = self.on_trip
+        if tripped and cb is not None:
+            try:
+                cb(bucket, failure_class)
+            except Exception:  # noqa: BLE001 -- a hook must not fail it
+                log.warning("breaker on_trip hook failed", exc_info=True)
+
+    def open_count(self) -> int:
+        with self._lock:
+            return sum(1 for r in self._b.values() if r["state"] == "open")
 
     def snapshot(self) -> Dict[str, Dict[str, Any]]:
         now = time.monotonic()
@@ -597,6 +671,35 @@ class CheckDaemon:
         self._streams: Optional[Dict[str, Any]] = (
             {} if self.config.stream_on else None)
         self._stream_seq = 0
+        self._progress_last = 0.0
+        # JTPU_TSDB=0: none of the telemetry members exists, so no
+        # metrics.tsdb or flightrec/, no /usage, /slo or /flightrec, no
+        # usage in the done records, no slo keys
+        self.tsdb = None
+        self.slo = None
+        self.usage = None
+        self.flightrec = None
+        if self.config.tsdb_on:
+            from jepsen_tpu_torch.obs import flightrec as obs_flightrec
+            from jepsen_tpu_torch.obs import slo as obs_slo
+            from jepsen_tpu_torch.obs import tsdb as obs_tsdb
+            from jepsen_tpu_torch.obs import usage as obs_usage
+            self.tsdb = obs_tsdb.TSDB(self.config.root,
+                                      cadence=self.config.tsdb_cadence_s)
+            self.slo = obs_slo.SLOEngine(self.tsdb,
+                                         webhook=self.config.slo_webhook)
+            self.usage = obs_usage.UsageMeter()
+            self.flightrec = obs_flightrec.FlightRecorder(
+                self.config.root, seconds=self.config.flightrec_seconds,
+                tsdb=self.tsdb)
+            self.breaker.on_trip = self._breaker_tripped
+
+    def _breaker_tripped(self, bucket: tuple,
+                         failure_class: Optional[str]) -> None:
+        if self.flightrec is not None:
+            self.flightrec.dump("breaker-trip",
+                                extra={"bucket": [str(x) for x in bucket],
+                                       "class": failure_class})
 
     # -- planning -----------------------------------------------------------
 
@@ -790,6 +893,7 @@ class CheckDaemon:
         _QUEUE_DEPTH.set(depth)
         if not replayed:
             _ADMITTED.inc(tenant=tenant)
+        self._publish()
         body = {"id": req.id, "state": "queued", "tenant": tenant}
         if bucket is not None:
             body["bucket"] = list(bucket)
@@ -1055,12 +1159,18 @@ class CheckDaemon:
         if bisections:
             self._bump("bisections", bisections)
             _BATCH_BISECTIONS.inc(bisections)
+        serial_rerun = set()
         for i, r in enumerate(results):
             if i not in poison_set and (
                     not isinstance(r, dict)
                     or (r.get("valid") is UNKNOWN
                         and r.get("error") != ":info/timeout")):
-                results[i] = self._check(gang[i])
+                with obs_trace.context(gang[i].trace, gang[i].trace_parent), \
+                        obs_trace.span("serve.rerun", id=gang[i].id):
+                    results[i] = self._check(gang[i])
+                serial_rerun.add(i)
+        if self.config.batch_verify:
+            self._verify_gang(gang, results, poison_set | serial_rerun)
         secs = time.monotonic() - t0
         # survivors first (each resets its bucket's fail count), poison
         # last: a gang with one poison member moves its bucket's breaker
@@ -1094,6 +1204,31 @@ class CheckDaemon:
             self._finish(req, result, secs, batch_size=len(gang),
                          gang=gang_ids)
 
+    #: the verdict fields a gang member's result must share with its
+    #: serial re-run under JTPU_SERVE_BATCH_VERIFY=1
+    VERIFY_KEYS = ("valid", "levels", "max-linearized-prefix",
+                   "final-states", "frontier-op")
+
+    def _verify_gang(self, gang: list, results: list, skip: set) -> None:
+        """Re-run each gang member not in ``skip`` (poison, already
+        re-run) and not timed out serially, outside any request's trace;
+        where a verdict field differs, log it and serve the serial result
+        with ``batch-mismatch`` naming the fields."""
+        for i, req in enumerate(gang):
+            r = results[i]
+            if (i in skip or not isinstance(r, dict)
+                    or r.get("error") == ":info/timeout"):
+                continue
+            with obs_trace.context(None):
+                serial = self._check(req)
+            bad = [k for k in self.VERIFY_KEYS if r.get(k) != serial.get(k)]
+            if bad:
+                log.error("gang/serial verdict mismatch for %s on %s: "
+                          "gang=%r serial=%r; serving the serial result",
+                          req.id, bad, {k: r.get(k) for k in bad},
+                          {k: serial.get(k) for k in bad})
+                results[i] = dict(serial, **{"batch-mismatch": bad})
+
     def _finish(self, req: CheckRequest, result: Dict[str, Any],
                 secs: float, batch_size: int = 1,
                 gang: Optional[list] = None) -> None:
@@ -1112,17 +1247,19 @@ class CheckDaemon:
                 "valid": repr(result.get("valid")), "seconds": secs}
         if gang is not None:
             done["gang"] = list(gang)
-        # the reference's usage document (its meter is on by default):
-        # ``trace find`` reads the tenant and the device seconds from it
-        phases = (result.get("serve") or {}).get("phases") or {}
-        done["tenant"] = req.tenant
-        done["usage"] = {
-            "ops": len(req.history or []),
-            "device-s": round(phases.get("device_s", 0.0)
-                              + phases.get("compile_s", 0.0), 9),
-            "bytes": int(req.footprint or 0),
-            "lane-share": round(1.0 / max(1, batch_size), 9),
-            "seconds": round(secs, 6)}
+        if self.usage is not None:
+            # the meter folds the very document the WAL holds, so
+            # usage.from_wal(wal) equals the live totals digit for digit
+            phases = (result.get("serve") or {}).get("phases") or {}
+            u = {"ops": len(req.history or []),
+                 "device-s": round(phases.get("device_s", 0.0)
+                                   + phases.get("compile_s", 0.0), 9),
+                 "bytes": int(req.footprint or 0),
+                 "lane-share": round(1.0 / max(1, batch_size), 9),
+                 "seconds": round(secs, 6)}
+            done["tenant"] = req.tenant
+            done["usage"] = u
+            self.usage.record(req.tenant, u)
         self.journal.append(done)
         _REQUEST_SECONDS.observe(time.monotonic() - req.queued_at,
                                  tenant=req.tenant,
@@ -1146,7 +1283,11 @@ class CheckDaemon:
             self._service_ewma = (per if self._service_ewma is None
                                   else 0.3 * per + 0.7 * self._service_ewma)
             self.stats["completed"] += 1
+            idle = not self._inflight and not self._depth
             self._work.notify_all()
+        # the throttle may drop a gang's last completions: the one that
+        # leaves the daemon idle is always published
+        self._publish(force=idle)
 
     def _worker_loop(self) -> None:
         while not self._stop.is_set():
@@ -1185,6 +1326,16 @@ class CheckDaemon:
                                             obs_trace.TRACE_NAME)
             obs_trace.tracer().attach(self._trace_path)
             obs_trace.sync_event()
+        if self.tsdb is not None:
+            # the pre-kill series, then sampling; the meter replays the
+            # done records of the WAL the request replay below reads
+            self.tsdb.start()
+            from jepsen_tpu_torch.obs import usage as obs_usage
+            try:
+                records, _ = journal_ns.read_json_records(self.journal.path)
+                obs_usage.replay(self.usage, records)
+            except OSError:
+                pass
         pending, stats = RequestJournal.replay(self.journal.path)
         self.replay_stats = dict(stats, requeued=len(pending))
         for doc in pending:
@@ -1207,6 +1358,7 @@ class CheckDaemon:
                                  name=f"jtpu-serve-worker-{i}")
             t.start()
             self._threads.append(t)
+        self._publish(force=True)
         log.info("check daemon up: %d worker(s), %d replayed request(s)",
                  len(self._threads), replayed)
         return self
@@ -1236,6 +1388,10 @@ class CheckDaemon:
         with self._lock:
             inflight = len(self._inflight)
             completed = self.stats["completed"]
+        if self.flightrec is not None:
+            self.flightrec.dump("drain", extra={
+                "was-queued": queued, "inflight-remaining": inflight})
+        self._publish(force=True, state="drained")
         self.drained.set()
         return {"drained": True, "was-queued": queued,
                 "inflight-remaining": inflight, "completed": completed}
@@ -1257,11 +1413,14 @@ class CheckDaemon:
                 if s.runner is not None:
                     s.runner.join(timeout=2.0)
                 s.stop_wal()
+        if self.tsdb is not None:
+            self.tsdb.stop()
         self.journal.close()
         tr = obs_trace.tracer()
         if self._trace_path is not None and tr.path == self._trace_path:
             # only this daemon's sink: another's stays attached
             tr.detach()
+        self._publish(force=True, state="stopped")
 
     # -- streams --------------------------------------------------------------
     # Reached only while self._streams is not None: with streaming off the
@@ -1273,7 +1432,8 @@ class CheckDaemon:
         model = models().get(session.model)
         runner = stream_ns.StreamRunner(
             session, model() if model is not None else None,
-            backend=self.config.backend, device=self.config.device)
+            backend=self.config.backend, device=self.config.device,
+            on_done=self._on_stream_done)
         session.runner = runner
         return runner
 
@@ -1281,7 +1441,10 @@ class CheckDaemon:
                     ) -> Tuple[int, Dict[str, Any], Dict[str, str]]:
         """``POST /stream``: open a session, with ``submit``'s admission
         shape: 503 while draining, 400 for an unknown model, 429 with
-        ``Retry-After`` past ``stream_max`` open streams."""
+        ``Retry-After`` past ``stream_max`` open streams. The session's
+        trace id is an inbound ``traceparent``'s, else a new one (none
+        with tracing off); it is journaled with the session, runs the
+        runner's segments and is answered in a ``traceparent`` header."""
         from jepsen_tpu_torch import stream as stream_ns
         if self.draining:
             return 503, {"error": "draining"}, {"Retry-After": "30"}
@@ -1306,10 +1469,18 @@ class CheckDaemon:
             return 429, {"error": "stream-quota", "open": live,
                          "retry-after-s": round(retry, 3)}, \
                 {"Retry-After": str(max(1, int(round(retry))))}
+        trace_id, trace_parent = None, None
+        if obs_trace.enabled():
+            tp = obs_trace.parse_traceparent(doc.get("traceparent"))
+            if tp is not None:
+                trace_id, trace_parent = tp
+            else:
+                trace_id = obs_trace.new_trace_id()
         try:
             session = stream_ns.StreamSession(
                 sid, tenant, model_name, self.config.root,
-                reorder_max=self.config.stream_reorder)
+                reorder_max=self.config.stream_reorder,
+                trace=trace_id, trace_parent=trace_parent)
             runner = self._make_runner(session)
         except BaseException:
             with self._lock:
@@ -1318,8 +1489,14 @@ class CheckDaemon:
         with self._lock:
             self._streams[sid] = session
         runner.start()
-        return 202, {"id": sid, "state": "open", "tenant": tenant,
-                     "model": model_name}, {}
+        self._publish()
+        body = {"id": sid, "state": "open", "tenant": tenant,
+                "model": model_name}
+        hdrs: Dict[str, str] = {}
+        if trace_id:
+            body["trace"] = trace_id
+            hdrs["traceparent"] = obs_trace.format_traceparent(trace_id)
+        return 202, body, hdrs
 
     def _stream_session(self, sid: str):
         with self._lock:
@@ -1358,6 +1535,8 @@ class CheckDaemon:
                     {"Retry-After": str(max(1, int(round(retry))))}
         code, body = session.append(doc.get("seq"), doc.get("ops"),
                                     doc.get("crc"))
+        if code == 202 and not body.get("duplicate"):
+            self._publish()
         return code, body, {}
 
     def stream_close(self, sid: str, doc: Dict[str, Any]
@@ -1367,11 +1546,15 @@ class CheckDaemon:
         if session is None:
             return 404, {"error": "no such stream", "id": sid}, {}
         code, body = session.close(doc.get("chunks"))
+        self._publish()
         return code, body, {}
 
     def stream_status(self, sid: str) -> Optional[Dict[str, Any]]:
         session = self._stream_session(sid)
         return session.status() if session is not None else None
+
+    def _on_stream_done(self, session) -> None:
+        self._publish()
 
     def _stream_replay(self) -> None:
         """Rebuild the sessions from their WALs after a restart: open and
@@ -1427,14 +1610,39 @@ class CheckDaemon:
             req = self._by_id.get(rid)
             return req.public() if req else None
 
-    def healthz(self) -> Dict[str, Any]:
+    def resolve_trace(self, token: str) -> Optional[str]:
+        """A request id (live, or journaled by an earlier incarnation) or
+        a literal 32-hex trace id -> the trace id, else None."""
+        with self._lock:
+            req = self._by_id.get(token)
+        if req is not None:
+            return req.trace
+        t = token.strip().lower()
+        if len(t) == 32 and all(c in "0123456789abcdef" for c in t):
+            return t
+        try:
+            records, _ = journal_ns.read_json_records(self.journal.path)
+        except (OSError, ValueError):
+            return None
+        for r in records:
+            if r.get("event") == "accepted" and r.get("id") == token:
+                return r.get("trace")
+        return None
+
+    def _oldest_inflight_s(self) -> Optional[float]:
+        """Seconds the longest-running in-flight request has run: the
+        stuck-request signal of healthz and the heartbeat."""
         now = time.monotonic()
+        with self._lock:
+            return max((now - (r.started_at or r.queued_at)
+                        for r in self._inflight.values()), default=None)
+
+    def healthz(self) -> Dict[str, Any]:
+        oldest = self._oldest_inflight_s()
         with self._lock:
             tenants = {t: len(q) for t, q in self._queues.items() if q}
             depth = self._depth
             inflight = len(self._inflight)
-            oldest = max((now - (r.started_at or r.queued_at)
-                          for r in self._inflight.values()), default=None)
             committed = self._footprint_committed
             stats = dict(self.stats)
             has_streams = bool(self._streams)
@@ -1460,7 +1668,68 @@ class CheckDaemon:
         }
         if has_streams:
             doc["streams"] = self._stream_summary()
+        if self.slo is not None:
+            doc["slo"] = self.slo.snapshot()
         return doc
+
+    def _publish(self, force: bool = False,
+                 state: Optional[str] = None) -> None:
+        """The heartbeat: the daemon's queue, breakers and warm buckets as
+        ``progress.json`` in its directory (tmp + replace, at most one
+        write each 0.1 s unless forced), so ``watch --store``, ``top``
+        and the browser's ``/live`` follow the daemon as they follow a
+        search."""
+        now = time.monotonic()
+        if not force and now - self._progress_last < 0.1:
+            return
+        self._progress_last = now
+        oldest = self._oldest_inflight_s()
+        breakers_open = self.breaker.open_count()
+        warm = len(self.engine.warm_buckets())
+        with self._lock:
+            serve = {
+                "queue-depth": self._depth,
+                "inflight": len(self._inflight),
+                "oldest-inflight-s": (round(oldest, 3)
+                                      if oldest is not None else None),
+                **{k: self.stats[k] for k in (
+                    "admitted", "rejected", "completed", "timeouts",
+                    "batches", "max-batch", "bisections", "poisoned")},
+                "breakers-open": breakers_open,
+                "warm-buckets": warm,
+            }
+            if self.config.rate_limit > 0:
+                serve["rate-limited"] = self.stats["rate-limited"]
+            # the stream keys only while sessions exist
+            sessions = [s for s in (self._streams or {}).values()
+                        if s is not None]
+        if sessions:
+            ops = sum(len(s.ops) for s in sessions)
+            checked = sum(s.checked_events for s in sessions)
+            serve["streams"] = sum(1 for s in sessions if s.state != "done")
+            serve["stream-ops"] = ops
+            serve["stream-checked"] = checked
+            serve["stream-lag"] = max(0, ops - checked)
+        if self.slo is not None:
+            serve["slo"] = {"breached": self.slo.breached(),
+                            "max-burn": round(self.slo.max_burn(), 3)}
+        if self.usage is not None:
+            top = self.usage.top()
+            if top is not None:
+                serve["usage-top"] = [top[0], round(top[1], 3)]
+        doc = {"state": state or ("draining" if self.draining
+                                  else "serving"),
+               "ts": time.time(), "serve": serve}
+        path = os.path.join(self.config.root, PROGRESS_NAME)
+        tmp = os.path.join(self.config.root,
+                           f".{PROGRESS_NAME}.tmp.{os.getpid()}."
+                           f"{threading.get_ident()}")
+        try:
+            with open(tmp, "w") as f:
+                json.dump(doc, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
 
 
 # ---------------------------------------------------------------------------
@@ -1468,23 +1737,23 @@ class CheckDaemon:
 # ---------------------------------------------------------------------------
 
 
-def make_handler(daemon: CheckDaemon):
-    """A request handler class serving ``daemon``'s routes."""
+def make_handler(daemon: CheckDaemon, root: str = "store"):
+    """A subclass of the results browser's handler
+    (:class:`jepsen_tpu_torch.web.Handler`, over the store ``root``) with
+    ``daemon``'s routes mounted: the browser, ``/metrics``, ``/live`` and
+    ``/trace/<run>`` answer on the same server. A daemon route that is off
+    (the streams, the telemetry) answers the JSON 404 of every other
+    unknown daemon route."""
+    from jepsen_tpu_torch import web
 
-    class ServeHandler(BaseHTTPRequestHandler):
+    class ServeHandler(web.Handler):
         def log_message(self, fmt, *args):  # noqa: D401 -- quiet server
             log.debug("%s " + fmt, self.address_string(), *args)
 
         def _json(self, code: int, doc: Dict[str, Any],
                   headers: Optional[Dict[str, str]] = None) -> None:
-            body = json.dumps(doc, default=repr).encode()
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            for k, v in (headers or {}).items():
-                self.send_header(k, v)
-            self.end_headers()
-            self.wfile.write(body)
+            self._send(code, json.dumps(doc, default=repr).encode(),
+                       ctype="application/json", headers=headers)
 
         def _authorized(self) -> bool:
             token = daemon.config.auth_token
@@ -1541,25 +1810,37 @@ def make_handler(daemon: CheckDaemon):
                     doc = self._body()
                     if doc is None:
                         return None
+                    if path == "/stream":
+                        tp = self.headers.get("traceparent")
+                        if tp and not doc.get("traceparent"):
+                            doc["traceparent"] = tp
                     code, body, hdrs = route(doc)
                     return self._json(code, body, hdrs)
                 return self._json(404, {"error": "not-found"})
             except BrokenPipeError:
                 pass
 
+        #: the daemon's own GET routes: while one is off it answers the
+        #: daemon's JSON 404, never the browser's page
+        DAEMON_GETS = ("/usage", "/slo", "/flightrec", "/stream", "/check")
+
         def do_GET(self):  # noqa: N802
-            path = self.path.split("?", 1)[0]
+            from urllib.parse import parse_qs, unquote, urlparse
+            parsed = urlparse(self.path)
+            path = unquote(parsed.path)
             try:
                 if path == "/healthz":
                     return self._json(200, daemon.healthz())
-                if path == "/metrics":
-                    body = obs_metrics.REGISTRY.to_prometheus().encode()
-                    self.send_response(200)
-                    self.send_header("Content-Type", PROMETHEUS_CTYPE)
-                    self.send_header("Content-Length", str(len(body)))
-                    self.end_headers()
-                    self.wfile.write(body)
-                    return None
+                if path == "/usage" and daemon.usage is not None:
+                    tenant = (parse_qs(parsed.query).get("tenant")
+                              or [None])[0]
+                    return self._json(200, daemon.usage.totals(
+                        tenant=tenant))
+                if path == "/slo" and daemon.slo is not None:
+                    return self._json(200, daemon.slo.snapshot())
+                if path.startswith("/flightrec") and \
+                        daemon.flightrec is not None:
+                    return self._flightrec(path, parse_qs(parsed.query))
                 if path.startswith("/check/"):
                     rid = path[len("/check/"):].strip("/")
                     doc = daemon.status(rid)
@@ -1570,9 +1851,8 @@ def make_handler(daemon: CheckDaemon):
                     # caller that retries on 5xx treats it as such
                     serve = (doc.get("result") or {}).get("serve") or {}
                     poison = (serve.get("gang") or {}).get("poison")
-                    hdrs = ({"traceparent": obs_trace.format_traceparent(
-                        doc["trace"])} if doc.get("trace") else None)
-                    return self._json(500 if poison else 200, doc, hdrs)
+                    return self._json(500 if poison else 200, doc,
+                                      _traceparent(doc))
                 if path.startswith("/stream/") and \
                         daemon._streams is not None:
                     sid = path[len("/stream/"):].strip("/")
@@ -1580,25 +1860,73 @@ def make_handler(daemon: CheckDaemon):
                     if doc is None:
                         return self._json(404, {"error": "no such stream",
                                                 "id": sid})
-                    return self._json(200, doc)
-                return self._json(404, {"error": "not-found"})
+                    return self._json(200, doc, _traceparent(doc))
+                if path.startswith("/trace/request/"):
+                    # before the browser's /trace/<run>, which would read
+                    # the request id as a run directory
+                    return self._trace_request(
+                        path[len("/trace/request/"):].strip("/"))
+                if path == "/metrics":
+                    return self._send(
+                        200, obs_metrics.REGISTRY.to_prometheus().encode(),
+                        ctype=PROMETHEUS_CTYPE)
+                if path.startswith(self.DAEMON_GETS):
+                    return self._json(404, {"error": "not-found"})
             except BrokenPipeError:
-                pass
+                return None
+            return web.Handler.do_GET(self)
 
+        def _flightrec(self, path: str, q: Dict[str, list]):
+            from jepsen_tpu_torch.obs import flightrec as obs_flightrec
+            name = path[len("/flightrec"):].strip("/")
+            if not name:
+                dumps = obs_flightrec.list_dumps(daemon.config.root)
+                if "json" in q.get("format", []):
+                    return self._json(200, {"dumps": dumps})
+                return self._page("flight recorder",
+                                  web.flightrec_html(dumps))
+            doc = obs_flightrec.load_dump(daemon.config.root, name)
+            if doc is None:
+                return self._json(404, {"error": "no such dump",
+                                        "name": name})
+            return self._json(200, doc)
+
+        def _trace_request(self, token: str):
+            from jepsen_tpu_torch.obs import fleet as obs_fleet
+            tid = daemon.resolve_trace(token)
+            if not tid:
+                return self._page(
+                    "404", f"<p>No trace id for <code>"
+                           f"{web.html.escape(token)}</code> (unknown "
+                           f"request id, or JTPU_TRACE=0).</p>", code=404)
+            stitched = obs_fleet.stitch_request(daemon.config.root, tid)
+            return self._page(f"trace request {token}",
+                              web.request_trace_html(stitched))
+
+    ServeHandler.root = root
     return ServeHandler
 
 
+def _traceparent(doc: Dict[str, Any]) -> Optional[Dict[str, str]]:
+    return ({"traceparent": obs_trace.format_traceparent(doc["trace"])}
+            if doc.get("trace") else None)
+
+
 def run_daemon(config: Optional[ServeConfig] = None,
-               host: str = "127.0.0.1", port: int = 8080
+               host: str = "127.0.0.1", port: int = 8080,
+               store_root: str = "store"
                ) -> Tuple[CheckDaemon, ThreadingHTTPServer]:
-    """Start the daemon and its HTTP server (port 0: any free port, read
-    back from ``server.server_port``); returns ``(daemon, server)``. The
-    caller waits on ``daemon.drained`` (set by ``POST /drain``), then
-    calls ``server.shutdown()``, ``server.server_close()`` and
-    ``daemon.stop()``."""
+    """Start the daemon and its HTTP server, the results browser over
+    ``store_root`` with the daemon's routes mounted (port 0: any free
+    port, read back from ``server.server_port``); returns ``(daemon,
+    server)``. The caller waits on ``daemon.drained`` (set by ``POST
+    /drain``), then calls ``server.shutdown()``, ``server.server_close()``
+    and ``daemon.stop()``."""
+    from jepsen_tpu_torch import web
     daemon = CheckDaemon(config)
     daemon.start()
-    server = ThreadingHTTPServer((host, port), make_handler(daemon))
+    server = web.serve(host=host, port=port, root=store_root,
+                       handler_cls=make_handler(daemon, root=store_root))
     server.daemon_threads = True
     threading.Thread(target=server.serve_forever, daemon=True,
                      name="jtpu-serve-http").start()

@@ -43,8 +43,13 @@ UNKNOWN, ``"stream segment wedged: ..."``. The stream's checkpoint of its
 last segment end stays on disk: a runner on ``device="cpu"`` over the
 same session resumes it. A search that fails otherwise raises, and the
 stream's verdict is UNKNOWN with the error.
-Left out until the telemetry stack is ported: trace ids, the Prometheus
-counters and the progress heartbeat's stream keys.
+
+Each session has a trace id (an inbound ``traceparent``'s or one made at
+open; none with ``JTPU_TRACE=0``): journaled in the ``open`` record, kept
+on replay, set on the runner's thread while it searches (so the
+``stream.segment`` spans carry it) and ended by a ``stream.verdict``
+event. The runner's ``on_done`` tells the daemon a verdict landed (its
+progress heartbeat has the stream keys).
 
 The daemon imports this module only when streaming is on
 (``JTPU_SERVE_STREAM``).
@@ -59,7 +64,7 @@ import os
 import threading
 import time
 import zlib
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +80,7 @@ from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models.core import kernel_spec_for
 from jepsen_tpu_torch.obs import metrics as obs_metrics
 from jepsen_tpu_torch.obs import searchstats as obs_searchstats
+from jepsen_tpu_torch.obs import trace as obs_trace
 from jepsen_tpu_torch.ops.encode import StreamPacker, _Interner
 
 log = logging.getLogger("jepsen_tpu_torch.stream")
@@ -139,10 +145,14 @@ class StreamSession:
     """
 
     def __init__(self, sid: str, tenant: str, model: str, root: str,
-                 reorder_max: int = 64, journal_open: bool = True):
-        self.id = sid
+                 reorder_max: int = 64, trace: Optional[str] = None,
+                 trace_parent: Optional[str] = None,
+                 journal_open: bool = True):
+        self.id = sid               # guarded-by: none -- immutable after init
         self.tenant = tenant
         self.model = model
+        self.trace = trace
+        self.trace_parent = trace_parent
         self.dir = os.path.join(root, "streams", sid)
         os.makedirs(self.dir, exist_ok=True)
         self.reorder_max = int(reorder_max)
@@ -165,7 +175,9 @@ class StreamSession:
         self._wal = open(os.path.join(self.dir, WAL_NAME), "ab")
         if journal_open:
             self._journal({"event": "open", "id": sid, "tenant": tenant,
-                           "model": model, "ts": round(self.created, 6)})
+                           "model": model, "trace": trace,
+                           "trace-parent": trace_parent,
+                           "ts": round(self.created, 6)})
 
     def _journal(self, rec: dict) -> None:
         """Append one record, synced to the disk before the ack."""
@@ -280,10 +292,13 @@ class StreamSession:
             if footprint:
                 self.footprint = footprint
 
-    def finish(self, result: Dict[str, Any], secs: float) -> None:
+    def finish(self, result: Dict[str, Any], secs: float,
+               on_done: Optional[Callable[["StreamSession"], None]] = None
+               ) -> None:
         """Save the verdict: the result file first, then the ``verdict``
         record, so a crash between them checks the stream again and never
-        loses it."""
+        loses it; then the trace's ``stream.verdict`` event and
+        ``on_done``."""
         _atomic_json(os.path.join(self.dir, RESULT_NAME), result)
         with self.cond:
             self._journal({"event": "verdict",
@@ -292,6 +307,13 @@ class StreamSession:
             self.result = result
             self.state = "done"
             self.cond.notify_all()
+        if self.trace and obs_trace.enabled():
+            with obs_trace.context(self.trace, self.trace_parent):
+                obs_trace.event("stream.verdict", id=self.id,
+                                valid=repr(result.get("valid")),
+                                seconds=round(secs, 6))
+        if on_done is not None:
+            on_done(self)
 
     def status(self) -> Dict[str, Any]:
         with self.lock:
@@ -304,6 +326,8 @@ class StreamSession:
                    "checked-events": self.checked_events,
                    "checked-level": self.checked_level,
                    "lag": max(0, len(self.ops) - self.checked_events)}
+            if self.trace:
+                doc["trace"] = self.trace
             if self.result is not None:
                 doc["result"] = self.result
             return doc
@@ -335,7 +359,8 @@ class StreamSession:
             return None
         sid = opened.get("id") or os.path.basename(sdir)
         s = cls(sid, opened.get("tenant", "anon"), opened.get("model", ""),
-                root, reorder_max=reorder_max, journal_open=False)
+                root, reorder_max=reorder_max, trace=opened.get("trace"),
+                trace_parent=opened.get("trace-parent"), journal_open=False)
         chunks: Dict[int, list] = {}
         closed = verdict = False
         for r in records:
@@ -425,13 +450,15 @@ class StreamRunner(threading.Thread):
                  backend: str = "gpu", device=None,
                  segment_iters: Optional[int] = None,
                  ops: G.Ops = G.KERNELS,
-                 deadline_s: Optional[float] = None):
+                 deadline_s: Optional[float] = None,
+                 on_done: Optional[Callable[[StreamSession], None]] = None):
         super().__init__(name=f"jtpu-stream-{session.id}", daemon=True)
         self.session = session
         self.model = model
         self.backend = backend
         self.device = device
         self.ops = ops
+        self.on_done = on_done
         self.checkpoint_path = os.path.join(session.dir, CHECKPOINT_NAME)
         self._halt = threading.Event()
         self._seg = (G._segment_config(segment_iters)
@@ -492,8 +519,12 @@ class StreamRunner(threading.Thread):
     # -- main loop ----------------------------------------------------------
 
     def run(self) -> None:
+        s = self.session
         try:
-            self._run()
+            # the session's trace on this thread: its segments' spans
+            with obs_trace.context(s.trace if obs_trace.enabled() else None,
+                                   s.trace_parent):
+                self._run()
         except _Verdict as v:
             self._deliver(v.result)
         except Exception as e:  # noqa: BLE001 -- never die silently
@@ -510,7 +541,7 @@ class StreamRunner(threading.Thread):
         result.setdefault("stream", {}).update(self._telemetry())
         secs = (time.time() - self.session.closed_at
                 if self.session.closed_at else 0.0)
-        self.session.finish(result, secs)
+        self.session.finish(result, secs, on_done=self.on_done)
 
     def _telemetry(self) -> Dict[str, Any]:
         s = self.session

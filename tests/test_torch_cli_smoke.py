@@ -10,6 +10,7 @@ over the daemon's directory and the profiled search.
 """
 
 import os
+import shutil
 import sys
 
 import torch
@@ -31,9 +32,9 @@ def test_the_smoke_cli_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from time_torch_smoke_phases import local_kv_store
     seconds = {}
-    line, launches, pair_ends = chip_smoke.cli_phase(
-        torch.device("cpu"), seconds, "cpu",
-        local_kv_store("cpu", str(tmp_path)))
+    kv_store = local_kv_store("cpu", str(tmp_path))
+    line, launches, pair_ends, kept = chip_smoke.cli_phase(
+        torch.device("cpu"), seconds, "cpu", kv_store)
     assert max(line["gang_sizes"]) <= chip_smoke.CLI_BATCH_MAX
     assert line["verdicts_equal_lone"] == 8 and line["unauthorized"] == 401
     assert line["watch_in_flight"] and line["run_rc"] == 0
@@ -42,3 +43,7 @@ def test_the_smoke_cli_phase_runs_on_the_cpu(monkeypatch, tmp_path):
     assert all(v > 0 for v in line["trace_find_device_s"].values())
     # the plain versions launch no kernel
     assert set(launches) == set(chip_smoke.KERNELS) and pair_ends == 0
+    # the watched run was profiled, and outlives the phase for the next
+    assert os.path.isdir(os.path.join(kept["run"], "profile"))
+    assert len(kept["lone"]) == 8
+    shutil.rmtree(os.path.dirname(kept["run"]))

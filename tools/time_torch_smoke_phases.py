@@ -9,12 +9,15 @@ and the mutex's second rung), with each state's seconds split into its
 warm levels, K4 ending a pair, K5 alone and the graph-against-host-loop
 comparison (graph, host loop and plain route apart). ``cli`` runs the
 smoke's command-line phase, over a local-kv run recorded first through
-``python -m jepsen_tpu_torch run`` (in the smoke, the runner phase's).
-Every assertion of the smoke's phases holds here too. It prints each
-phase's seconds, the card's ``nvidia-smi`` name and power limit and,
-last, one JSON line with the phases' lines::
+``python -m jepsen_tpu_torch run`` (in the smoke, the runner phase's);
+``--telemetry`` runs the ``daemon telemetry`` phase after it (it implies
+``--cli``, whose watched run and lone checks it serves). Every assertion
+of the smoke's phases holds here too. It prints each phase's seconds,
+the card's ``nvidia-smi`` name and power limit and, last, one JSON line
+with the phases' lines::
 
     python3 tools/time_torch_smoke_phases.py --loop-levels 128 16 --cli
+    python3 tools/time_torch_smoke_phases.py --telemetry
 
 Run from the repository root; it needs a CUDA device and nvcc.
 """
@@ -93,6 +96,9 @@ def main(argv=None) -> int:
                          "LOOP_LEVELS, in order")
     ap.add_argument("--cli", action="store_true",
                     help="run the command-line phase")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="run the command-line phase, then the daemon "
+                         "telemetry phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -116,10 +122,16 @@ def main(argv=None) -> int:
             out[f"loop_{n}"] = {"phase_seconds": loop_seconds,
                                 "states": loops}
             seconds[f"segment loop {n}"] = loop_seconds["segment loop"]
-    if args.cli:
-        line, launches, pair_ends = S.cli_phase(dev, seconds, smi,
-                                                local_kv_store())
+    if args.cli or args.telemetry:
+        kv_store = local_kv_store()
+        line, launches, pair_ends, kept = S.cli_phase(dev, seconds, smi,
+                                                      kv_store)
         out["cli"] = dict(line, launches=launches, pair_ends=pair_ends)
+        if args.telemetry:
+            line, launches, pair_ends = S.daemon_telemetry_phase(
+                dev, seconds, smi, kv_store, kept)
+            out["daemon_telemetry"] = dict(line, launches=launches,
+                                           pair_ends=pair_ends)
     print(json.dumps({"phase_seconds": seconds, "nvidia_smi": smi, **out},
                      default=str))
     return 0
