@@ -2135,7 +2135,7 @@ RUNNER_OPS = 10000
 #: route (``device="cpu"``), valid and with one read corrupted
 RUNNER_PLAIN_OPS = 2000
 #: the safe local-kv run: three kvnode daemons, hammer-time every 3 s
-LOCALKV_RUN = {"time-limit": 10, "nemesis-period": 3}
+LOCALKV_RUN = {"time-limit": 6, "nemesis-period": 3}
 #: the recover child's clients hang after this many invocations; it is
 #: SIGKILLed there, mid-workload
 RECOVER_HANG_AT = 4000
@@ -2195,11 +2195,26 @@ def port_env() -> dict:
 def port_cmd(*args, timeout=600):
     """``python -m jepsen_tpu_torch ARGS`` from the repository root:
     (rc, stdout, stderr)."""
-    p = subprocess.run([sys.executable, "-m", "jepsen_tpu_torch", *args],
-                       cwd=os.path.dirname(os.path.abspath(__file__)),
-                       env=port_env(), capture_output=True, text=True,
-                       timeout=timeout)
-    return p.returncode, p.stdout, p.stderr
+    return port_wait(port_start(*args), timeout)
+
+
+def port_start(*args):
+    """``python -m jepsen_tpu_torch ARGS`` started from the repository
+    root, its output piped (:func:`port_wait` collects it)."""
+    return subprocess.Popen([sys.executable, "-m", "jepsen_tpu_torch", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=port_env(), stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def port_wait(proc, timeout=600):
+    """(rc, stdout, stderr) of a :func:`port_start` process."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    return proc.returncode, out, err
 
 
 def runner_phase(dev, seconds, smi):
@@ -2251,8 +2266,16 @@ def runner_phase(dev, seconds, smi):
         line[tag] = entry
         return entry
 
+    child = None
     try:
         with phase("runner", seconds):
+            # the recover child's run goes on beside the others until it
+            # hangs mid-workload (its own process: no launch is counted)
+            rroot = os.path.join(root, "recover")
+            repo = os.path.dirname(os.path.abspath(__file__))
+            child = subprocess.Popen(
+                [sys.executable, "-c", RECOVER_CHILD, repo, rroot,
+                 str(RECOVER_HANG_AT)], stdout=subprocess.PIPE, text=True)
             K.reset_launches()
             # -- the atom test at the headline's width, first and second
             for tag in ("atom first", "atom second"):
@@ -2353,13 +2376,8 @@ def runner_phase(dev, seconds, smi):
             line["plain_route"]["local-kv"] = [lin[k] for k in keys]
             print(f"runner: local-kv: kernels = plain route on the card: "
                   f"{line['plain_route']['local-kv']}", flush=True)
-            # -- analyze, in its own process -----------------------------
-            rc, out, err = port_cmd("analyze", "--store", atom_dir)
-            assert rc == 0, (rc, out[-2000:], err[-2000:])
-            assert "# compile:" in out and "# search:" in out, out[:2000]
-            line["analyze"] = [ln for ln in out.splitlines()
-                               if ln.startswith("# ")]
-            print("runner: analyze:\n  " + "\n  ".join(line["analyze"]))
+            # -- analyze of the run and of a corrupted copy, and recover
+            # of the SIGKILLed run: three processes at once
             bad_dir = os.path.join(root, "corrupted-copy")
             shutil.copytree(atom_dir, bad_dir)
             for i in range(100):
@@ -2367,14 +2385,8 @@ def runner_phase(dev, seconds, smi):
                 if any(a.value != b.value for a, b in zip(bad, atom_h)):
                     break
             store.write_history(bad_dir, bad)
-            rc, out, err = port_cmd("analyze", "--store", bad_dir)
-            assert rc == 1, (rc, out[-2000:], err[-2000:])
-            # -- recover a run SIGKILLed mid-workload --------------------
-            rroot = os.path.join(root, "recover")
-            repo = os.path.dirname(os.path.abspath(__file__))
-            child = subprocess.Popen(
-                [sys.executable, "-c", RECOVER_CHILD, repo, rroot,
-                 str(RECOVER_HANG_AT)], stdout=subprocess.PIPE, text=True)
+            analyzing = [port_start("analyze", "--store", d)
+                         for d in (atom_dir, bad_dir)]
             try:
                 ready, _, _ = select.select([child.stdout], [], [], 300)
                 assert ready and child.stdout.readline().strip() == \
@@ -2385,7 +2397,16 @@ def runner_phase(dev, seconds, smi):
                 child.send_signal(signal.SIGKILL)
                 child.wait(timeout=60)
             (dead,) = store.dead_runs(rroot)
-            rc, out, err = port_cmd("recover", "--store-root", rroot)
+            recovering = port_start("recover", "--store-root", rroot)
+            rc, out, err = port_wait(analyzing[0])
+            assert rc == 0, (rc, out[-2000:], err[-2000:])
+            assert "# compile:" in out and "# search:" in out, out[:2000]
+            line["analyze"] = [ln for ln in out.splitlines()
+                               if ln.startswith("# ")]
+            print("runner: analyze:\n  " + "\n  ".join(line["analyze"]))
+            rc, out, err = port_wait(analyzing[1])
+            assert rc == 1, (rc, out[-2000:], err[-2000:])
+            rc, out, err = port_wait(recovering)
             assert rc == 0, (rc, out[-2000:], err[-2000:])
             st = store.read_state(dead)
             assert st["state"] == "done" and st["recovered"] is True, st
@@ -2402,6 +2423,9 @@ def runner_phase(dev, seconds, smi):
                   + " ".join(ln for ln in out.splitlines()
                              if ln.startswith("# recovery")), flush=True)
     finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait(timeout=60)
         shutil.rmtree(root, ignore_errors=True)
     return line, launches, grid, segs, kv_store
 
@@ -3871,6 +3895,363 @@ def daemon_telemetry_phase(dev, seconds, smi, kv_store, cli_kept):
         "pair_end", 0)
 
 
+#: the fleet phase: (a) wide_history(**WIDE) searched pool-sharded over a
+#: FLEET_SHARDS-shard mesh of the card at FLEET_RUNG (window: the
+#: history's bucket) against the unsharded search, and its first
+#: FLEET_LEVEL_REPS levels timed both ways; (b) the
+#: headline through the elastic fleet on two worker processes, one
+#: SIGKILLed after round FLEET_KILL_ROUND, against the same fleet of
+#: in-process hosts; (c) the 8 gang histories sent to ``serve --fleet 2``
+#: with worker host-1 slowed FLEET_SLOW_S before each segment and killed
+#: in its first; (d) the keyed staggered headline by
+#: check_keyed_distributed over two gloo ranks on the card
+FLEET_SHARDS = 4
+FLEET_RUNG = (4096, None, 512)
+FLEET_LEVEL_REPS = 8
+FLEET_KILL_ROUND = 1
+FLEET_SLOW_S = 2.0
+FLEET_RANK_CHILD = """
+import json, os, sys
+sys.path.insert(0, sys.argv[1])
+from jepsen_tpu_torch import parallel
+from jepsen_tpu_torch.models import CASRegister
+from jepsen_tpu_torch.testing import simulate_register_history
+keys, ops, kw, out, device = json.loads(sys.argv[2])
+keyed = {k: simulate_register_history(ops, n_procs=5, n_vals=8,
+                                      seed=7000 + k, **kw)
+         for k in range(keys)}
+res = parallel.check_keyed_distributed(keyed, CASRegister(), device=device)
+if os.environ["JTPU_PROCESS_ID"] == "0":
+    with open(out, "w") as fh:
+        json.dump({"valid": repr(res["valid"]), "ranks": res.get("ranks"),
+                   "results": {str(k): [repr(r["valid"]), r.get("levels"),
+                                        r.get("rung"), r.get("crash-width"),
+                                        r.get("tiebreak")]
+                               for k, r in res["results"].items()}}, fh)
+"""
+
+
+def keyed_fields(res) -> dict:
+    """A keyed result's per-key verdict fields, as the rank child writes
+    them."""
+    return {str(k): [repr(r["valid"]), r.get("levels"),
+                     list(r["rung"]) if r.get("rung") else r.get("rung"),
+                     r.get("crash-width"), r.get("tiebreak")]
+            for k, r in res["results"].items()}
+
+
+def fleet_phase(dev, seconds, smi):
+    """B8 and the fleet on the card: (a) the pool-sharded search over a
+    mesh of FLEET_SHARDS logical shards of the card, each segment end's
+    carry held bit for bit against the unsharded search's, its K2 merge
+    (``merge_runs``) held against its plain version and timed, the
+    search's first levels timed sharded and unsharded; (b) the elastic fleet on two worker processes sharing
+    the card, one SIGKILLed mid-rung; (c) ``serve --fleet 2``'s gangs
+    with a worker killed mid-gang; (d) the keyed headline over two gloo
+    ranks. Returns (line, the sharded search's launches and CUDA
+    launches and pair ends, the merge kernel's JSON entry)."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from jepsen_tpu_torch import fleet, interop, parallel, resilience
+    from jepsen_tpu_torch.checker import gpu as G
+    from jepsen_tpu_torch.checker.gpu import check_keyed_gpu
+    from jepsen_tpu_torch.kernels import cost as kcost
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.ops.encode import pack_with_init
+    from jepsen_tpu_torch.testing import (simulate_register_history,
+                                          wide_history)
+    line = {"card": smi}
+    root = tempfile.mkdtemp(prefix="jtpu-fleet-")
+    procs = []
+    try:
+        with phase("fleet", seconds):
+            t0 = time.perf_counter()
+            # (a) the pool-sharded search against the unsharded one
+            p, kernel = pack_with_init(wide_history(**WIDE), CASRegister())
+            cap, _, exp = FLEET_RUNG
+            win = G._window_bucket(G._window_needed(p))
+            mesh = parallel.make_mesh(axis="pool",
+                                      devices=[dev] * FLEET_SHARDS)
+            ends_u, ends_s = [], []
+            unsharded = resilience.supervised_check_packed(
+                p, kernel, capacity=cap, window=win, expand=exp,
+                device=dev, on_checkpoint=ends_u.append)
+            K.reset_launches()
+            sharded = G.check_packed_sharded(
+                p, kernel, mesh, capacity=cap, window=win, expand=exp,
+                on_checkpoint=ends_s.append)
+            launches = dict(K.launches)
+            grid = dict(K.grid_launches_total)
+            segs = {"pair_ends": K.segments["pair_ends"]}
+            for f in ("valid", "levels", "max-linearized-prefix"):
+                assert sharded.get(f) == unsharded.get(f), \
+                    (f, sharded.get(f), unsharded.get(f))
+            assert len(ends_s) == len(ends_u) >= 1
+            for a, b in zip(ends_u, ends_s):
+                assert all(np.array_equal(np.asarray(x), np.asarray(y))
+                           for x, y in zip(a.carry, b.carry)), \
+                    "a segment end's carry differs"
+            for name in ("expand", "sort_rows", "merge_runs",
+                         "dedup_truncate", "seg_active"):
+                # (the plain versions of a CPU dry run count nothing)
+                assert launches[name] > 0 or dev.type != "cuda", \
+                    (name, launches)
+            line["sharded"] = {
+                "rung": [cap, win, exp], "shards": FLEET_SHARDS,
+                "valid": sharded["valid"], "levels": sharded["levels"],
+                "segment_ends_equal": len(ends_s),
+                "shard_balance": sharded["shard-balance"],
+                "pool_sharding": sharded["pool-sharding"],
+                "launches": {k: v for k, v in launches.items() if v},
+                "cuda_launches": {k: v for k, v in grid.items() if v}}
+            print(f"fleet sharded: {sharded['pool-sharding']} "
+                  f"{sharded['levels']} levels, balance "
+                  f"{sharded['shard-balance']}", flush=True)
+            # the first levels timed both ways, and the merge
+            cols_np = G._prep_single(p, kernel)[0]
+            shape = K.LevelShape(C=cap, W=win, E=exp,
+                                 n=cols_np["f"].shape[0],
+                                 CR=cols_np["cf"].shape[0],
+                                 model=kernel.name)
+            host = G._carry0_host(cap, win, shape.CR, cols_np["ini"],
+                                  int(cols_np["nr"]),
+                                  stats_rows=shape.lmax + 1)
+            st = G.ShardedState([dev] * FLEET_SHARDS, cols_np, shape, True)
+            from jepsen_tpu_torch.checker.engine import Engine
+            eng = Engine()
+            carry, scratch = eng.state(shape, dev, True)
+            cols = eng.cols(cols_np, dev)
+
+            def reload():
+                interop.carry_from_numpy(host, dev, out=st.carry)
+                interop.carry_from_numpy(host, dev, out=carry)
+                st.acc.zero_()
+                scratch.acc.zero_()
+                return ()
+
+            def sharded_levels():
+                for _ in range(FLEET_LEVEL_REPS):
+                    st.level()
+
+            def unsharded_levels():
+                for _ in range(FLEET_LEVEL_REPS):
+                    G.search_level(cols, carry, scratch, shape, cols["nr"])
+            line["level_ms"] = {
+                "sharded": device_ms(sharded_levels, reload)
+                / FLEET_LEVEL_REPS,
+                "unsharded": device_ms(unsharded_levels, reload)
+                / FLEET_LEVEL_REPS,
+                "bound_ms": kcost.per_level(shape)["bytes-accessed"]
+                / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                "from_level": int(host[8]), "levels": FLEET_LEVEL_REPS}
+            reload()
+            st.expand_shards()
+            RM = st.rows.shape[1]
+            runs, alt = st.rows.clone(), st.rows_alt.clone()
+            outs = {}
+            for tag, fn in (("kernel", K.merge_runs),
+                            ("plain", K.merge_runs_plain)):
+                a, b = runs.clone(), alt.clone()
+                outs[tag] = fn(a, b, st.carry.scal, shape, RM,
+                               st.run)[:, :shape.R].clone()
+            err = int((outs["kernel"].long()
+                       - outs["plain"].long()).abs().max())
+            assert err == 0, err
+
+            def prep_merge():
+                return runs.clone(), alt.clone()
+            key = (runs[0, :, 0].long() << 32) | (
+                runs[0, :, 1].long() & 0xFFFFFFFF)
+            nbytes = 2 * 4 * shape.R * shape.NK
+            merge = {
+                "name": "merge_runs", "route": "cuda", "source": SOURCE,
+                "replaces": "jepsen_tpu/checker/tpu.py:244",
+                "launches": launches["merge_runs"], "path": "fleet",
+                "state": "fleet sharded",
+                "max_abs_err": err,
+                "ms": device_ms(lambda a, b: K.merge_runs(
+                    a, b, st.carry.scal, shape, RM, st.run), prep_merge),
+                "plain_ms": host_ms(lambda a, b: K.merge_runs_plain(
+                    a, b, st.carry.scal, shape, RM, st.run), prep_merge),
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+                "bound_by": "bytes",
+                "library_ms": device_ms(
+                    lambda k: torch.sort(k), lambda: (key.clone(),)),
+                "rows": RM, "run": st.run,
+                "cuda_launches_per_call": K.merge_passes(RM, st.run)}
+            del st, eng, carry, scratch, cols
+            line["a_s"] = time.perf_counter() - t0
+            # (b) the elastic fleet: two worker processes, one killed
+            head_p, head_k = pack_with_init(
+                simulate_register_history(**HEADLINE), CASRegister())
+            single = G.check_packed_gpu(head_p, head_k, device=dev)
+            hosts = [fleet.ProcHost(f"host-{i}",
+                                    os.path.join(root, f"fleet-host-{i}"),
+                                    device=str(dev)) for i in range(2)]
+            killed = {}
+
+            def kill(round_idx, fl):
+                if round_idx == FLEET_KILL_ROUND and not killed:
+                    killed["pid"] = fl.hosts[1].pid
+                    os.kill(fl.hosts[1].pid, signal.SIGKILL)
+                    fl.hosts[1].proc.wait(timeout=30)
+            procs.extend(hosts)
+            tb = time.perf_counter()
+            res = fleet.check_packed_fleet(head_p, head_k, hosts=hosts,
+                                           on_round=kill, device=dev)
+            outcomes = [a.get("outcome") for a in res["attempts"]]
+            assert killed and "remesh-to-1-hosts" in outcomes, outcomes
+            assert res["valid"] == single["valid"], (res["valid"],
+                                                     single["valid"])
+
+            def kill_local(round_idx, fl):
+                if round_idx == FLEET_KILL_ROUND:
+                    fl.hosts[1].kill()
+            K.reset_launches()
+            local = fleet.check_packed_fleet(
+                head_p, head_k, hosts=[fleet.LocalHost(f"host-{i}",
+                                                       device=dev)
+                                       for i in range(2)],
+                on_round=kill_local, device=dev)
+            fleet_launches = dict(K.launches)
+            assert local["levels"] == res["levels"], (local["levels"],
+                                                      res["levels"])
+            assert local["valid"] == res["valid"]
+            line["elastic"] = {
+                "valid": res["valid"], "levels": res["levels"],
+                "single_levels": single["levels"],
+                "in_process_levels": local["levels"],
+                "rounds": res["fleet"]["rounds"], "rung": res["rung"],
+                "trail": [o for o in outcomes if o],
+                "seconds": time.perf_counter() - tb,
+                "in_process_launches": {k: v for k, v in
+                                        fleet_launches.items() if v}}
+            print(f"fleet elastic: {res['valid']} {res['levels']} levels "
+                  f"(single {single['levels']}), trail "
+                  f"{line['elastic']['trail']}", flush=True)
+            # (c) serve --fleet 2, a worker killed mid-gang
+            tc = time.perf_counter()
+            serve_dir = os.path.join(root, "serve")
+            env_slow = dict(port_env(), JTPU_CHAOS_SLOW_HOST=(
+                f"fleet-host-1:{FLEET_SLOW_S}"))
+            outp = os.path.join(root, "serve.out")
+            errp = os.path.join(root, "serve.err")
+            with open(outp, "w") as o, open(errp, "w") as e:
+                daemon = subprocess.Popen(
+                    [sys.executable, "-m", "jepsen_tpu_torch", "serve",
+                     "--check-daemon", "--host", "127.0.0.1", "--port", "0",
+                     "--serve-dir", serve_dir, "--fleet", "2",
+                     "--batch-max", "8", "--batch-wait-ms", "3000",
+                     "--device", "cuda" if dev.type == "cuda" else "cpu"],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=env_slow, stdout=o, stderr=e)
+            procs.append(daemon)
+            _, _, _, _, gang8 = serve_members()
+            lone = [G.check_history_gpu(m[0], CASRegister(), device=dev)
+                    for m in gang8]
+            port = wait_listening(daemon, outp, errp, tc)
+            ids = [None] * len(gang8)
+
+            def post(i):
+                code, body = http_json(port, "POST", "/check", {
+                    "tenant": f"tenant{i % 2}", "model": "cas-register",
+                    "history": [o.to_dict() for o in gang8[i][0]]})
+                assert code == 202, (code, body)
+                ids[i] = body["id"]
+            threads = [threading.Thread(target=post, args=(i,))
+                       for i in range(len(gang8))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            assert all(ids), ids
+            # the slowed host sleeps in its first segment: kill it there
+            hb_dir = os.path.join(serve_dir, "fleet-host-1")
+            victim = None
+            while victim is None:
+                hb = fleet.read_heartbeat(hb_dir) or {}
+                if hb.get("state") == "segment":
+                    victim = int(hb["pid"])
+                assert time.perf_counter() - tc < 300, "no segment"
+                time.sleep(0.02)
+            os.kill(victim, signal.SIGKILL)
+            results = {}
+            while len(results) < len(ids):
+                for rid in ids:
+                    if rid not in results:
+                        code, doc = http_json(port, "GET", f"/check/{rid}")
+                        if doc.get("state") == "done":
+                            results[rid] = doc["result"]
+                assert time.perf_counter() - tc < 600, "gangs timed out"
+                time.sleep(0.05)
+            for rid, want in zip(ids, lone):
+                got = results[rid]
+                assert (got["valid"], got.get("levels")) == (
+                    want["valid"], want.get("levels")), (got, want)
+            _, health = http_json(port, "GET", "/healthz")
+            fl = health["fleet"]
+            assert fl["hosts"] == 2 and fl["live"] == 1, fl
+            assert fl["host-losses"] >= 1 and fl["gangs"] >= 1, fl
+            code, _ = http_json(port, "POST", "/drain", {})
+            assert code == 200, code
+            daemon.wait(timeout=120)
+            line["serve_fleet"] = {
+                "verdicts_equal_lone": len(ids), "healthz_fleet": fl,
+                "gang_sizes": sorted({r["serve"]["gang"]["size"]
+                                      for r in results.values()
+                                      if r.get("serve", {}).get("gang")}),
+                "seconds": time.perf_counter() - tc}
+            print(f"fleet serve: {len(ids)} verdicts = lone, healthz "
+                  f"{fl}", flush=True)
+            # (d) the keyed headline over two gloo ranks on the card
+            td = time.perf_counter()
+            kw = KEYED["staggered"]
+            out = os.path.join(root, "keyed.json")
+            init = "file://" + os.path.join(root, "gloo-init")
+            ranks = []
+            for r in range(2):
+                env = dict(port_env(), JTPU_COORDINATOR_ADDRESS=init,
+                           JTPU_NUM_PROCESSES="2", JTPU_PROCESS_ID=str(r))
+                rp = subprocess.Popen(
+                    [sys.executable, "-c", FLEET_RANK_CHILD,
+                     os.path.dirname(os.path.abspath(__file__)),
+                     json.dumps([KEYS, KEY_OPS, kw, out,
+                                 None if dev.type == "cuda" else "cpu"])],
+                    env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True)
+                procs.append(rp)
+                ranks.append(rp)
+            keyed = {k: simulate_register_history(
+                KEY_OPS, n_procs=5, n_vals=8, seed=7000 + k, **kw)
+                for k in range(KEYS)}
+            want = check_keyed_gpu(keyed, CASRegister(), device=dev)
+            for rp in ranks:
+                text, _ = rp.communicate(timeout=600)
+                assert rp.returncode == 0, text[-3000:]
+            with open(out) as fh:
+                got = json.load(fh)
+            assert got["ranks"] == 2, got["ranks"]
+            assert got["results"] == keyed_fields(want), "keyed differs"
+            line["keyed_distributed"] = {
+                "keys": len(got["results"]), "ranks": 2,
+                "valid": got["valid"], "equal": True,
+                "seconds": time.perf_counter() - td}
+            print(f"fleet keyed: 2 ranks, {len(got['results'])} keys = "
+                  f"check_keyed_gpu", flush=True)
+    finally:
+        for pr in procs:
+            if isinstance(pr, fleet.ProcHost):
+                pr.stop()
+            elif pr.poll() is None:
+                pr.kill()
+                pr.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs, merge
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -4440,6 +4821,11 @@ def smoke(dev: torch.device) -> None:
         dev, seconds, smi, kv_store, cli_kept)
     path_segments["daemon-telemetry"] = {"pair_ends": tel_pair_ends}
 
+    # -- B8 and the fleet: the pool-sharded search, the elastic fleet,
+    # fleet-backed serving, the keyed check over two ranks
+    fleet_line, fleet_launches, fleet_grid, path_segments["fleet"], \
+        merge_entry = fleet_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -4456,14 +4842,15 @@ def smoke(dev: torch.device) -> None:
                      "sqlite": sqlite_launches, "suites": suites_launches,
                      "cas-suites": cas_launches,
                      "small-suites": small_launches, "cli": cli_launches,
-                     "daemon-telemetry": tel_launches}
+                     "daemon-telemetry": tel_launches,
+                     "fleet": fleet_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
                  "sqlite": sqlite_grid_launches,
                  "suites": suites_grid_launches,
                  "cas-suites": cas_grid_launches,
-                 "small-suites": small_grid_launches}
+                 "small-suites": small_grid_launches, "fleet": fleet_grid}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -4529,6 +4916,12 @@ def smoke(dev: torch.device) -> None:
                                 else line["launches"][name])
                 for line in model_lines.values()}
         kernels.append(entry)
+    # B8's cross-shard merge, on the pool-sharded search's path only
+    merge_entry["launches_by_path"] = {p: path_launches[p].get(
+        "merge_runs", 0) for p in path_launches}
+    merge_entry["cuda_launches_by_path"] = {p: path_grid[p].get(
+        "merge_runs", 0) for p in path_grid}
+    kernels.append(merge_entry)
     loop_summary = {
         "states": loops,
         "paths": {path: dict(path_segments[path],
@@ -4547,7 +4940,7 @@ def smoke(dev: torch.device) -> None:
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
         "cas_suites": cas_line, "small_suites": small_line,
-        "cli": cli_line, "daemon_telemetry": tel_line,
+        "cli": cli_line, "daemon_telemetry": tel_line, "fleet": fleet_line,
         "phase_seconds": seconds, "nvidia_smi": smi},
         default=str))
     print(json.dumps({"ok": True, "device": {

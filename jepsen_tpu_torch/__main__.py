@@ -13,7 +13,8 @@ gpu|cpu``; each flag given wins over its ``JTPU_SERVE_*`` variable.
 ``--compile-cache DIR`` is the kernel library's build directory, so that
 a restarted daemon loads the library built there. ``--device cpu`` runs
 the searches on the CPU (the kernels' plain versions) instead of CUDA.
-``--fleet`` is refused (254): the port has no multi-GPU fleet yet. The
+``--fleet N`` places the gangs on N fleet hosts (worker processes under
+``<serve-dir>/fleet-host-N``, on the daemon's device). The
 daemon serves until ``POST /drain`` or SIGTERM (after a flight-recorder
 dump) and then exits 0; the browser alone until an interrupt.
 
@@ -38,8 +39,8 @@ before any device time (the reference's ``jtpu plan``): every candidate
 rung with its footprint in the port's own buffers, the ``PLAN-*`` rules
 and the shape check (:mod:`jepsen_tpu_torch.checker.plan`). It plans for
 CUDA unless ``--device cpu``. Exit 0 when no error-severity finding, 1
-when one, 254 for bad arguments. ``--format text|json|sarif``; ``--mesh``
-(the sharded plan) is refused: the port has no multi-GPU search yet.
+when one, 254 for bad arguments. ``--format text|json|sarif``; ``--mesh
+N`` verifies the pool-sharded plan over N shards too.
 
 ``python -m jepsen_tpu_torch run --suite local-kv`` runs a test (the
 reference's ``jtpu run``): ``core.run`` boots the suite's system, drives
@@ -61,8 +62,9 @@ its replies (a JSON object: command substring -> stdout, or ``[exit,
 stdout, stderr]``), as the reference's tests put ``dummy-responses`` in
 the test map, so that a database's install can be recorded through to
 its start. ``--watch`` prints the search's live status line to stderr
-while the check runs; ``--fleet`` is refused: the port has no multi-GPU
-fleet yet. Chronos's check runs on the host, so ``run --suite chronos``
+while the check runs; ``--fleet N`` runs each single-history search
+under the elastic fleet over N logical hosts (``JTPU_FLEET=N``).
+Chronos's check runs on the host, so ``run --suite chronos``
 does not probe the card.
 
 ``python -m jepsen_tpu_torch analyze --store DIR`` re-checks a stored run
@@ -205,7 +207,8 @@ def _parser() -> argparse.ArgumentParser:
                    help="evict the least recently used warm buckets past "
                         "this count; 0: no bound (JTPU_ENGINE_MAX_BUCKETS)")
     s.add_argument("--fleet", type=int, default=None, metavar="N",
-                   help="gangs on N fleet hosts (not in this package yet)")
+                   help="place the gangs on N fleet worker hosts "
+                        "(JTPU_SERVE_FLEET)")
     s.add_argument("--rate-limit", type=float, default=None, metavar="R",
                    help="per-tenant POST /check token bucket: R requests/s, "
                         "429 with Retry-After past it; 0: off "
@@ -245,7 +248,8 @@ def _parser() -> argparse.ArgumentParser:
     q.add_argument("--keys", type=int, default=1,
                    help="verify the keyed-batch plan for this many keys")
     q.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="the pool-sharded plan (not in this package yet)")
+                   help="also verify the pool-sharded plan over a mesh "
+                        "axis of N shards")
     q.add_argument("--capacity", type=int, default=None,
                    help="pin the rung instead of the ladder")
     q.add_argument("--window", type=int, default=None)
@@ -322,8 +326,8 @@ def _parser() -> argparse.ArgumentParser:
                         "(level/frontier/ETA) to stderr while the checker "
                         "runs; `watch` follows another process's run")
     r.add_argument("--fleet", type=int, default=None, metavar="N",
-                   help="the elastic multi-GPU fleet (not in this "
-                        "package yet)")
+                   help="run single-history searches under the elastic "
+                        "fleet over N logical hosts (JTPU_FLEET=N)")
     a = sub.add_parser("analyze", help="re-check a stored run offline")
     a.add_argument("--store", default=None,
                    help="store directory (default: the latest under "
@@ -539,6 +543,8 @@ def serve_config(opts: argparse.Namespace):
         cfg.batch_enabled = opts.batch_max > 1
     if opts.auth_token is not None:
         cfg.auth_token = opts.auth_token or None
+    if opts.fleet is not None:
+        cfg.fleet_hosts = opts.fleet
     if opts.compile_cache is not None:
         from jepsen_tpu_torch.kernels import build
         build.BUILD_DIR = os.path.abspath(opts.compile_cache)
@@ -562,11 +568,6 @@ def serve(opts: argparse.Namespace) -> int:
             pass
         server.server_close()
         return OK
-    if opts.fleet is not None:
-        print("serve: --fleet is refused: gangs on fleet hosts need the "
-              "multi-GPU fleet, which this package does not have yet",
-              file=sys.stderr)
-        return INVALID_ARGS
     cfg = serve_config(opts)
     daemon, server = serve_ns.run_daemon(cfg, host=opts.host,
                                          port=opts.port,
@@ -761,11 +762,6 @@ def plan_cmd(opts: argparse.Namespace) -> int:
     if isinstance(dims, str):
         print(dims, file=sys.stderr)
         return INVALID_ARGS
-    if opts.mesh is not None:
-        print("plan: --mesh is refused: the pool-sharded plan needs the "
-              "multi-GPU search, which this package does not have yet",
-              file=sys.stderr)
-        return INVALID_ARGS
     if (opts.keys or 1) > 1 and dims.keys == 1:
         dims = plan.PlanDims(dims.n_required, dims.n_crashed,
                              dims.window_needed, dims.n_events,
@@ -773,7 +769,8 @@ def plan_cmd(opts: argparse.Namespace) -> int:
     report = plan.analyze(dims, kernel=kernel_spec_for(model),
                           capacity=opts.capacity, window=opts.window,
                           expand=opts.expand, bytes_limit=opts.bytes_limit,
-                          trace=not opts.no_trace, device=opts.device)
+                          trace=not opts.no_trace, device=opts.device,
+                          mesh_axis=opts.mesh)
     errors = [i for i in report["issues"] if i["severity"] == "error"]
     if opts.format == "json":
         print(json.dumps(report, indent=2))
@@ -977,12 +974,24 @@ def _dummy_responses(path: str) -> dict:
 
 
 def run_cmd(opts: argparse.Namespace) -> int:
+    if opts.fleet is None:
+        return _run(opts)
+    # the device search reads the fleet opt-in from the environment, for
+    # this run only
+    prev = os.environ.get("JTPU_FLEET")
+    os.environ["JTPU_FLEET"] = str(opts.fleet)
+    try:
+        return _run(opts)
+    finally:
+        if prev is None:
+            os.environ.pop("JTPU_FLEET", None)
+        else:
+            os.environ["JTPU_FLEET"] = prev
+
+
+def _run(opts: argparse.Namespace) -> int:
     from jepsen_tpu_torch import core, suites
     from jepsen_tpu_torch.obs import observatory
-    if opts.fleet is not None:
-        print("run: --fleet is refused: this package does not have A7 "
-              "(the multi-GPU fleet) yet", file=sys.stderr)
-        return INVALID_ARGS
     test_opts = _test_opts(opts)
     _apply_check_env(opts)
     if opts.suite not in _HOST_CHECKED and _card_refused(opts, "run"):

@@ -119,8 +119,7 @@ def worst_severity(findings: Iterable[Finding]) -> Optional[str]:
 # ---------------------------------------------------------------------------
 
 #: Default scan scopes, relative to the repo root: each the reference's
-#: scope mapped file for file onto the port (the port has no ``fleet.py``
-#: nor ``obs/straggler.py`` yet; ROADMAP A7). The history pass has no
+#: scope mapped file for file onto the port. The history pass has no
 #: file scope: it runs over histories handed to it.
 DEFAULT_SCOPES = {
     "suite": ("jepsen_tpu_torch/suites",),
@@ -131,14 +130,18 @@ DEFAULT_SCOPES = {
     "lockset": ("jepsen_tpu_torch/core.py", "jepsen_tpu_torch/journal.py",
                 "jepsen_tpu_torch/nemesis", "jepsen_tpu_torch/obs",
                 "jepsen_tpu_torch/serve.py", "jepsen_tpu_torch/stream.py",
+                "jepsen_tpu_torch/fleet.py",
                 "jepsen_tpu_torch/checker/engine.py"),
     # a joint analysis: the acquisition graph spans modules
     "deadlock": ("jepsen_tpu_torch/serve.py", "jepsen_tpu_torch/stream.py",
+                 "jepsen_tpu_torch/fleet.py",
                  "jepsen_tpu_torch/checker/engine.py",
                  "jepsen_tpu_torch/obs/observatory.py",
-                 "jepsen_tpu_torch/obs/federation.py"),
+                 "jepsen_tpu_torch/obs/federation.py",
+                 "jepsen_tpu_torch/obs/straggler.py"),
     "walcheck": ("jepsen_tpu_torch/serve.py", "jepsen_tpu_torch/stream.py",
-                 "jepsen_tpu_torch/obs/federation.py"),
+                 "jepsen_tpu_torch/obs/federation.py",
+                 "jepsen_tpu_torch/obs/straggler.py"),
 }
 
 PASSES = ("suite", "history", "width", "lockset", "deadlock", "walcheck",

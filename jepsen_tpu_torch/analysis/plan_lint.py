@@ -11,6 +11,10 @@ rule                        severity  what it catches
 ==========================  ========  =================================
 PLAN-OOM                    error     the candidate's buffers exceed
                                       the byte budget
+PLAN-SHARD-INDIVISIBLE      error     the mesh axis does not divide
+                                      the capacity or the expansion
+PLAN-SHARD-SKEW             warning   a shard's slice of the expansion
+                                      is too thin to keep it busy
 PLAN-INT32-OVERFLOW         error     event indices, sort keys or the
                                       level counter leave int32
 PLAN-CRASH-WIDTH            error     more crashed ops than the
@@ -29,7 +33,7 @@ The ``plan`` pass of ``python -m jepsen_tpu_torch lint`` runs the engine
 over the reference's pinned fixture matrix (:data:`PLAN_MATRIX`, every
 model family with an integer kernel at representative dims), arithmetic
 only, against the ladder and byte budget of the card (none on a host
-without one); the sharding rules wait for the multi-GPU search.
+without one), and with a mesh axis the pool-sharded plan too.
 """
 
 from __future__ import annotations
@@ -101,11 +105,12 @@ PLAN_MATRIX = (
 )
 
 
-def lint_matrix(trace: bool = False) -> List[Finding]:
+def lint_matrix(trace: bool = False,
+                mesh_axis: Optional[int] = None) -> List[Finding]:
     """The plan engine over :data:`PLAN_MATRIX`: its findings, and
     ``PLAN-NO-VALID-CANDIDATE`` for a row no candidate survives.
     ``trace=True`` also checks each candidate's level shape against the
-    kernels."""
+    kernels; ``mesh_axis`` adds each row's pool-sharded plan."""
     from jepsen_tpu_torch.checker import plan as plan_mod
     from jepsen_tpu_torch.models.core import kernel_spec_for
     from jepsen_tpu_torch.serve import models
@@ -114,7 +119,7 @@ def lint_matrix(trace: bool = False) -> List[Finding]:
     for label, model_name, dkw in PLAN_MATRIX:
         kernel = kernel_spec_for(registry[model_name]())
         report = plan_mod.analyze(plan_mod.PlanDims(**dkw), kernel=kernel,
-                                  trace=trace)
+                                  trace=trace, mesh_axis=mesh_axis)
         out.extend(findings_from_report(report, path=f"plan:{label}"))
         if report["selected"] is None:
             out.append(Finding(

@@ -18,7 +18,11 @@ segment of levels is one CUDA graph: level pairs and the fifth kernel's
 (:func:`run_batch`, for one history through
 :mod:`jepsen_tpu_torch.resilience`). Every device tensor has a
 leading key axis: a keyed batch advances all its keys one level per
-launch, and one history is a batch of one.
+launch, and one history is a batch of one. One history's pool may also
+be sharded over a device mesh (:func:`check_packed_sharded`), a keyed
+batch split over a ``keys`` mesh (``check_keyed_gpu(mesh=)``), and a
+search or a gang run on the hosts of an elastic fleet
+(:mod:`jepsen_tpu_torch.fleet`, :func:`check_packed_gang_fleet`).
 
 Soundness of the outcomes is the reference's: ``done`` proves
 linearizability; pool death with neither ``lossy`` nor ``wovf`` refutes
@@ -606,14 +610,16 @@ class Ops(NamedTuple):
     group_scan: Callable
     dedup_truncate: Callable
     seg_active: Callable
+    merge_runs: Callable = K.merge_runs   # the pool-sharded search's
 
 
 KERNELS = Ops(K.expand, K.sort_rows, K.group_scan, K.dedup_truncate,
-              K.seg_active)
+              K.seg_active, K.merge_runs)
 PLAIN = Ops(K.expand_plain,
              lambda rows, scal, shape, rows_alt: K.sort_rows_plain(
                  rows, scal, shape),
-             K.group_scan_plain, K.dedup_truncate_plain, K.seg_active_plain)
+             K.group_scan_plain, K.dedup_truncate_plain, K.seg_active_plain,
+             K.merge_runs_plain)
 
 
 def search_level(cols: dict, carry: Carry, scratch: Scratch,
@@ -838,11 +844,41 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
             launched)
 
 
+#: The key of a mesh batch's padding rows (trivially complete searches).
+_MESH_PAD = object()
+
+def _mesh_chunks(runnable: List[_KeyRow], packed: dict, breq: int,
+                 kernel: KernelSpec, devices: List[torch.device]) -> list:
+    """A rung's keys laid out over a ``keys`` mesh: one cohort at the
+    widest crashed width (each narrower key's columns re-split to it),
+    padded to a multiple of the axis with trivially complete rows (a
+    copy of the last key's columns with no required op: done at level
+    0), and cut into the devices' contiguous shares. Returns ``(crw,
+    rows, device)`` per share."""
+    wmax = max(r.crw for r in runnable)
+    grp = [r if r.crw == wmax else
+           r._replace(cols=_split_packed(packed[r.key], breq, wmax, kernel),
+                      crw=wmax)
+           for r in runnable]
+    naxis = len(devices)
+    pad = (-len(grp)) % naxis
+    if pad:
+        last = grp[-1]
+        grp = grp + [last._replace(key=_MESH_PAD,
+                                   cols=dict(last.cols, nr=np.int32(0)))
+                     ] * pad
+    per = len(grp) // naxis
+    return [(wmax, grp[i * per:(i + 1) * per], d)
+            for i, d in enumerate(devices)]
+
+
 def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   tiebreak0: Optional[str], packed: dict, breq: int,
                   results: dict, device, ops: Ops, model: str,
                   chunk: Optional[Callable[[tuple, int, int], int]] = None,
-                  cost_entries: Optional[list] = None) -> list:
+                  cost_entries: Optional[list] = None,
+                  mesh_devices: Optional[List[torch.device]] = None,
+                  kernel: Optional[KernelSpec] = None) -> list:
     """The keyed batch's escalation loop (``_keyed_ladder`` in the
     reference) for the model named ``model`` (a KernelSpec name): per
     rung, the runnable keys in one batch per crashed-op
@@ -852,7 +888,13 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
     count, levels run (``levels-launched``) and seconds.
     ``chunk(rung, crw, keys)`` is the most keys one launch takes (default
     ``MAX_KEYS``): the plan gate's byte budget sets it. With tracing on,
-    one ``cost`` entry per batch goes into ``cost_entries``."""
+    one ``cost`` entry per batch goes into ``cost_entries``. On a mesh
+    (``mesh_devices``, with the ``kernel``) a rung's keys run as one
+    cohort at the widest
+    crashed width, padded with trivially complete rows to a multiple of
+    the mesh axis, each device taking its contiguous share, as the
+    reference's mesh path lays the batch out; the padding rows report
+    nothing."""
     batches = []
     for step, (cap, win, exp) in enumerate(ladder):
         if not rows:
@@ -882,35 +924,45 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
         hash_ok = first and (not last_rung or tiebreak0 is not None)
         tb = (tiebreak0 or "hash") if hash_ok else "lex"
         retry = deferred
-        by_cr: Dict[int, list] = {}
-        for r in runnable:
-            by_cr.setdefault(r.crw, []).append(r)
-        # a launch's grid takes at most MAX_KEYS keys, and the byte budget
-        # may take fewer: a larger cohort runs in chunks, which changes no
-        # key's result
         chunks = []
-        for crw, keys in sorted(by_cr.items()):
-            size = (K.MAX_KEYS if chunk is None
-                    else chunk((cap, win, exp), crw, len(keys)))
-            chunks += [(crw, keys[i:i + size])
-                       for i in range(0, len(keys), size)]
-        for crw, grp in chunks:
+        if mesh_devices is None:
+            by_cr: Dict[int, list] = {}
+            for r in runnable:
+                by_cr.setdefault(r.crw, []).append(r)
+            # a launch's grid takes at most MAX_KEYS keys, and the byte
+            # budget may take fewer: a larger cohort runs in chunks, which
+            # changes no key's result
+            for crw, keys in sorted(by_cr.items()):
+                size = (K.MAX_KEYS if chunk is None
+                        else chunk((cap, win, exp), crw, len(keys)))
+                chunks += [(crw, keys[i:i + size], device)
+                           for i in range(0, len(keys), size)]
+        else:
+            chunks = _mesh_chunks(runnable, packed, breq, kernel,
+                                  mesh_devices)
+        for crw, grp, dev_c in chunks:
             shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
                                  n=breq, CR=crw, B=len(grp), tiebreak=tb,
                                  model=model)
             t0 = time.perf_counter()
             done, lossy, wovf, best, levels, pools, launched = _run_cohort(
-                grp, shape, device, ops)
+                grp, shape, dev_c, ops)
             batches.append({"rung": (cap, win, exp), "crash-width": crw,
-                            "tiebreak": tb, "keys": len(grp),
+                            "tiebreak": tb,
+                            "keys": sum(r.key is not _MESH_PAD
+                                        for r in grp),
                             "levels": int(levels.max()),
                             "levels-launched": launched,
                             "seconds": time.perf_counter() - t0})
+            if mesh_devices is not None:
+                batches[-1]["device"] = str(dev_c)
             if cost_entries is not None and obs.enabled():
                 cost_entries.append(kcost.cost_entry(
                     "batch", (cap, win, exp), shape, int(levels.max()),
                     keys=len(grp), crash_width=crw))
             for i, r in enumerate(grp):
+                if r.key is _MESH_PAD:
+                    continue
                 res = _result(bool(done[i]), bool(lossy[i]), bool(wovf[i]),
                               int(best[i]), int(levels[i]), packed[r.key],
                               pool=(None if pools is None
@@ -955,7 +1007,17 @@ def check_packed_gpu(p: PackedHistory, kernel: KernelSpec,
     search stops at its next segment barrier with the timeout result.
     ``deadline_s`` is each segment's watchdog: past it the result is
     UNKNOWN with the wedge and the search's ``checkpoint`` (see
-    :func:`jepsen_tpu_torch.resilience.supervised_check_packed`)."""
+    :func:`jepsen_tpu_torch.resilience.supervised_check_packed`).
+    ``JTPU_FLEET=N`` (N >= 2) routes the search through the elastic fleet
+    over N logical hosts on ``device`` (:mod:`jepsen_tpu_torch.fleet`);
+    unset, 0 or 1 leave this path as it is."""
+    nfleet = _fleet_hosts()
+    if nfleet:
+        from jepsen_tpu_torch import fleet as fleet_mod
+        return fleet_mod.check_packed_fleet(
+            p, kernel, hosts=nfleet, capacity=capacity, window=window,
+            expand=expand, segment_iters=segment_iters,
+            device=resolve_device(device))
     from jepsen_tpu_torch import resilience
     return resilience.supervised_check_packed(
         p, kernel, capacity=capacity, window=window, expand=expand,
@@ -998,9 +1060,13 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
                     expand: Optional[int] = None,
                     ladder: Optional[tuple] = None,
                     tiebreak0: Optional[str] = None,
-                    device=None, ops: Ops = KERNELS) -> Dict[str, Any]:
+                    device=None, ops: Ops = KERNELS,
+                    mesh=None) -> Dict[str, Any]:
     """Check a {key: history} map as batched device searches: every key of
-    a rung and crashed-op width advances one level per launch.
+    a rung and crashed-op width advances one level per launch. With a
+    ``keys`` mesh (:func:`jepsen_tpu_torch.parallel.make_mesh`) each
+    rung's keys are split over its devices (see :func:`_keyed_ladder`),
+    and ``device`` is the mesh's first device.
 
     ``capacity=None`` and ``ladder=None`` escalate through the adaptive
     ladder: the slim first rung (dense keys, whose forced fraction is
@@ -1028,7 +1094,9 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     kernel = kernel_spec_for(model)
     if kernel is None:
         raise ValueError(f"model {model!r} has no integer kernel")
-    dev = resolve_device(device)
+    mesh_devices = None if mesh is None else _mesh_devices(mesh)
+    dev = resolve_device(device if mesh_devices is None
+                         else mesh_devices[0])
     results: Dict[Any, Dict[str, Any]] = {}
     if not keyed:
         return {"valid": True, "results": results, "backend": "gpu",
@@ -1107,7 +1175,7 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     with obs.profiler.capture(cuda=dev.type == "cuda"):
         batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed,
                                 breq, results, dev, ops, kernel.name, chunk,
-                                cost_entries)
+                                cost_entries, mesh_devices, kernel)
     if cost_entries:
         # at the top level: a batch's cost belongs to all its keys
         out["cost"] = cost_entries
@@ -1291,3 +1359,704 @@ def _run_gang_rung(rows: List[dict], deadlines: list, shape: K.LevelShape,
         _TRANSFER_BYTES.inc(sum(int(x.nbytes) for x in host),
                             direction="device-to-host")
         return host, cancelled
+
+
+# ---------------------------------------------------------------------------
+# The pool-sharded search (B8): one history's pool over a device mesh
+# ---------------------------------------------------------------------------
+
+#: Mesh axis name for pool-sharded single-history searches.
+POOL_AXIS = "pool"
+
+_SHARD_IMBALANCE = obs_metrics.gauge(
+    "jtpu_shard_imbalance_ratio",
+    "max/mean live pool rows per mesh shard (contiguous blocks of the "
+    "pool) of the last pool-sharded search or fleet round; 1.0 is "
+    "balanced")
+
+
+def _shard_balance(pool, naxis: int) -> Optional[Dict[str, Any]]:
+    """Per-shard frontier accounting of a pool-sharded search, as the
+    reference reports it: each of the ``naxis`` shards is credited with
+    ``capacity / naxis`` contiguous rows of the (global, deepest-first)
+    pool. Returns ``{"devices", "live-rows", "deepest-k",
+    "imbalance-ratio"}`` (max live rows over mean; 1.0 is balanced) and
+    sets ``jtpu_shard_imbalance_ratio``; None where the axis does not
+    divide the pool."""
+    pk, ps, pa = (np.asarray(x) for x in pool)
+    cap = int(pa.shape[0])
+    if naxis <= 0 or cap % naxis:
+        return None
+    per = cap // naxis
+    live = [int(np.count_nonzero(pa[i * per:(i + 1) * per]))
+            for i in range(naxis)]
+    deepest = [int(np.max(pk[i * per:(i + 1) * per]
+                          * pa[i * per:(i + 1) * per], initial=0))
+               for i in range(naxis)]
+    mean = sum(live) / naxis
+    ratio = round(max(live) / mean, 3) if mean > 0 else 1.0
+    _SHARD_IMBALANCE.set(ratio)
+    return {"devices": naxis, "live-rows": live, "deepest-k": deepest,
+            "imbalance-ratio": ratio}
+
+
+class _Shard(NamedTuple):
+    """One mesh shard's buffers: its device, the columns there, its dealt
+    pool (C/N rows: its E/N rows of the top E, then its (C-E)/N rows of
+    the remainder), scalars, accumulators, and its successor rows with
+    the sort's second buffer. ``own`` is False where the shard lies on
+    the mesh's first device and its pool and rows are views of the
+    search's own buffers (nothing is copied); else they are its own, and
+    peer copies move them."""
+
+    device: torch.device
+    cols: dict
+    pool: K.Pool
+    scal: torch.Tensor
+    acc: torch.Tensor
+    rows: torch.Tensor
+    rows_alt: torch.Tensor
+    own: bool
+
+
+def _pool_view(pool: K.Pool, a: int, b: int) -> K.Pool:
+    return K.Pool(*(t[:, a:b] for t in pool.tensors()))
+
+
+class ShardedState:
+    """The buffers of a pool-sharded search of one history over the
+    devices of a mesh (a device may repeat: logical shards). The carry,
+    the other pool buffer and the merged rows live on the first device;
+    each shard expands and sorts its share of a level where it lies.
+
+    A level (:meth:`level`), the reference's sharded loop body with the
+    data flow written out: the pool is dealt into shard order (shard s
+    takes rows [sE/N, (s+1)E/N) of the top E and rows [E + s(C-E)/N,
+    E + (s+1)(C-E)/N) of the remainder; one gather a column); each shard
+    runs K1 ``expand`` at the local shape (C/N, W, E/N) and K2
+    ``sort_rows`` on its successor rows, which land in its slot of the
+    merged buffer (a view on the first device, a peer copy from another);
+    the shards' ``active``, window-overflow and expanded counts reduce
+    into the search's scalars; ``merge_runs`` merges the N sorted runs
+    into the global order; K3 (on the wide rungs with crashed ops) and
+    K4 run on the merged rows at the global shape and write the next
+    pool. The union of the shards' rows is the unsharded level's rows and
+    the comparator orders whole rows, so the merged rows, and with them
+    the level, are the unsharded level's bit for bit."""
+
+    def __init__(self, devices: Sequence[torch.device], cols_np: dict,
+                 shape: K.LevelShape, stats: bool):
+        N = len(devices)
+        if shape.C % N or shape.E % N:
+            raise ValueError(f"the mesh axis ({N}) must divide capacity "
+                             f"({shape.C}) and expand ({shape.E})")
+        from jepsen_tpu_torch import interop
+        self.devices = list(devices)
+        lead = self.devices[0]
+        self.shape = shape
+        self.local = K.LevelShape(C=shape.C // N, W=shape.W, E=shape.E // N,
+                                  n=shape.n, CR=shape.CR, B=1,
+                                  tiebreak=shape.tiebreak, model=shape.model)
+        rp = self.local.RP
+        self.run = max(rp, 256)
+        stacked = interop.stack_cols([cols_np])
+        by_dev = {}
+        for d in self.devices:
+            if d not in by_dev:
+                by_dev[d] = interop.batch_cols_from_numpy(stacked, d)
+        self.cols = by_dev[lead]
+        i32 = torch.int32
+        self.carry = empty_carry(shape, lead, stats)
+        self.pool_next = empty_pool(shape, lead)
+        self.dealt = empty_pool(shape, lead)
+        self.acc = torch.zeros(1, K.NACC, dtype=i32, device=lead)
+        RM = N * self.run
+        self.rows = torch.zeros(1, RM, shape.NK, dtype=i32, device=lead)
+        self.rows[:, :, 0] = K.INT32_MAX
+        self.rows_alt = self.rows.clone()
+        self.g = torch.zeros(1, shape.RP, dtype=i32, device=lead)
+        self.gagg = torch.zeros(1, K.scan_blocks(shape), dtype=i32,
+                                device=lead)
+        C, E, Cs, Es = shape.C, shape.E, self.local.C, self.local.E
+        rem = Cs - Es
+        order = []
+        for s in range(N):
+            order += list(range(s * Es, (s + 1) * Es))
+            order += list(range(E + s * rem, E + (s + 1) * rem))
+        self.deal_idx = torch.tensor(order, dtype=torch.long, device=lead)
+        # where a run is longer than a shard's rows, the rest of its slot
+        # is pad rows, written again each level (the merge passes move
+        # live rows through the whole buffer)
+        self.pad = (None if self.run == rp else
+                    self.rows[:, rp:self.run].clone())
+        self.shards: List[_Shard] = []
+        for s, d in enumerate(self.devices):
+            a = s * self.run
+            own = d != lead
+            if own:
+                pool = empty_pool(self.local, d)
+                rows = torch.zeros(1, rp, shape.NK, dtype=i32, device=d)
+                rows_alt = torch.zeros_like(rows)
+            else:
+                pool = _pool_view(self.dealt, s * Cs, (s + 1) * Cs)
+                rows = self.rows[:, a:a + rp]
+                rows_alt = self.rows_alt[:, a:a + rp]
+            self.shards.append(_Shard(
+                d, by_dev[d], pool,
+                torch.zeros(1, K.NSCAL, dtype=i32, device=d),
+                torch.zeros(1, K.NACC, dtype=i32, device=d),
+                rows, rows_alt, own))
+
+    def level(self, ops: Ops = KERNELS) -> None:
+        """One sharded level (see the class docstring)."""
+        self.expand_shards(ops)
+        self.finish_level(ops)
+
+    def expand_shards(self, ops: Ops = KERNELS) -> None:
+        """The level's sharded half: the deal, each shard's K1 and K2
+        into its run of the merged buffer, and the reduction of the
+        shards' K1 outputs into the search's scalars."""
+        shape, local, carry = self.shape, self.local, self.carry
+        for src, dst in zip(carry.pool.tensors(), self.dealt.tensors()):
+            torch.index_select(src, 1, self.deal_idx, out=dst)
+        rp, Cs = local.RP, local.C
+        for s, sh in enumerate(self.shards):
+            if sh.own:
+                sh.pool.copy_(_pool_view(self.dealt, s * Cs, (s + 1) * Cs))
+            sh.scal.copy_(carry.scal)
+            sh.acc.zero_()
+            ops.expand(sh.cols, sh.pool, sh.scal, sh.acc, sh.rows, local,
+                       sh.cols["nr"])
+            ops.sort_rows(sh.rows, sh.scal, local, sh.rows_alt)
+            a = s * self.run
+            if sh.own:
+                self.rows[:, a:a + rp].copy_(sh.rows)
+            if self.pad is not None:
+                self.rows[:, a + rp:a + self.run].copy_(self.pad)
+        lead = self.devices[0]
+        scal = torch.cat([sh.scal.to(lead) for sh in self.shards])
+        acc = torch.cat([sh.acc.to(lead) for sh in self.shards])
+        carry.scal[:, K.ACT] = scal[0, K.ACT]
+        carry.scal[:, K.WOVF] = scal[:, K.WOVF].amax()
+        self.acc[:, K.A_EXPANDED] = acc[:, K.A_EXPANDED].sum()
+
+    def finish_level(self, ops: Ops = KERNELS) -> None:
+        """The level's global half: ``merge_runs`` over the shards' sorted
+        runs, then K3 (where it runs) and K4 at the global shape, and the
+        pool buffers swap."""
+        shape, carry = self.shape, self.carry
+        merged = ops.merge_runs(self.rows, self.rows_alt, carry.scal, shape,
+                                len(self.shards) * self.run, self.run)
+        rows = merged[:, :shape.RP]
+        if K.group_scan_runs(shape):
+            ops.group_scan(rows, carry.scal, self.g, self.gagg, shape)
+        ops.dedup_truncate(rows, self.g, self.gagg, carry.pool,
+                           self.pool_next, carry.pk, carry.ps, carry.pa,
+                           carry.scal, self.acc, carry.stats, shape,
+                           self.cols["nr"])
+        carry.pool, self.pool_next = self.pool_next, carry.pool
+
+    def segment(self, seg_iters: int, ops: Ops = KERNELS) -> tuple:
+        """Up to ``seg_iters`` sharded levels (rounded up to even) in
+        level pairs, each pair ended by K5 ``seg_active`` and one host
+        read of its go word, as :func:`run_segment`'s host loop; returns
+        :func:`end_segment`'s ``(run, live, level, nalive)``."""
+        bound = seg_iters + (seg_iters & 1)
+        seg = torch.tensor([0, bound, 0, 0], dtype=torch.int32,
+                           device=self.devices[0])
+        while True:
+            self.level(ops)
+            self.level(ops)
+            ops.seg_active(self.carry.scal, self.shape.lmax, seg)
+            if not int(seg[K.SEG_GO]):
+                return end_segment(self.carry, self.shape, seg, None)
+
+
+def _mesh_devices(mesh) -> List[torch.device]:
+    """The devices of a mesh's one axis, in order (a device may repeat)."""
+    return [torch.device(d) for d in mesh.devices]
+
+
+def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
+                         capacity: int = 4096,
+                         window: Optional[int] = None,
+                         expand: Optional[int] = None,
+                         segment_iters: Optional[int] = None,
+                         checkpoint_path: Optional[str] = None,
+                         on_checkpoint=None, resume=None,
+                         ops: Ops = KERNELS) -> Dict[str, Any]:
+    """Check ONE packed history with its search pool sharded over the
+    devices of ``mesh`` (:func:`jepsen_tpu_torch.parallel.make_mesh` with
+    the ``pool`` axis): the devices cooperate on a single search, the
+    frontier-parallel search of the reference's ``check_packed_sharded``.
+    Each level runs K1 and K2 on every shard's share of the pool and
+    merges the shards' sorted rows (:class:`ShardedState`), so verdict,
+    ``levels``, ``best_k`` and the carry at every segment end are the
+    unsharded :func:`check_packed_gpu`'s at the same (capacity, window,
+    expand) under the lex tie-break, bit for bit.
+
+    The mesh axis must divide ``capacity`` and ``expand``; ``window=None``
+    takes the history's needed window bucket; ``expand=None`` is about
+    capacity / 8 rounded up to the axis (best-first: a sharded search
+    exists to go big). The search runs in segments of the supervised
+    search's schedule (``segment_iters``, ``JTPU_SEGMENT_ITERS``), a host
+    loop of levels. ``checkpoint_path`` / ``on_checkpoint`` save and
+    observe a :class:`~jepsen_tpu_torch.resilience.Checkpoint` at each
+    segment end; ``resume`` continues one, on a mesh of any axis size
+    that divides the carry's capacity (the carry is global state: the
+    axis only splits its rows), which the elastic fleet leans on. The
+    result is :func:`check_packed_gpu`'s, with ``pool-sharding`` and
+    ``shard-balance`` (:func:`_shard_balance`)."""
+    from jepsen_tpu_torch import accel, interop, resilience
+    from jepsen_tpu_torch.checker import plan as plan_mod
+    devices = _mesh_devices(mesh)
+    naxis = len(devices)
+    lead = devices[0]
+    cols_np, early = _prep_single(p, kernel)
+    if early is not None:
+        early["pool-sharding"] = f"{POOL_AXIS}={naxis}"
+        return early
+    accel.ensure_usable("check_packed_sharded", device=lead)
+    if expand is None:
+        per = max(1, capacity // 8)
+        expand = max(naxis, -(-per // naxis) * naxis)
+    if window is None:
+        window = _window_bucket(_window_needed(p))
+    _check_window(window)
+    plan_entry = None
+    if plan_mod.gate_enabled():
+        plan_entry = plan_mod.gate_sharded(p, kernel, naxis, capacity,
+                                           window, expand, device=lead)
+    if capacity % naxis or expand % naxis:
+        raise ValueError(
+            f"the mesh axis ({naxis}) must divide capacity ({capacity}) "
+            f"and expand ({expand})")
+    n, cr_pad = cols_np["f"].shape[0], cols_np["cf"].shape[0]
+    lmax = _level_budget(n, cr_pad)
+    crw = _crash_width(p.n - p.n_required) or 0
+    stats = obs.enabled()
+    if resume is not None:
+        host = tuple(np.asarray(x) for x in resume.carry)
+        if int(host[0].shape[0]) != capacity:
+            raise ValueError(
+                f"checkpoint capacity {int(host[0].shape[0])} != requested "
+                f"{capacity}; re-embed the pool first "
+                f"(jepsen_tpu_torch.fleet.repad_pool)")
+        seg_idx = int(resume.segment)
+    else:
+        host = _carry0_host(capacity, window, cr_pad, cols_np["ini"],
+                            int(cols_np["nr"]))
+        seg_idx = 0
+    host = resilience._fit_carry_stats(host, stats, lmax)
+    if stats:
+        host = resilience._grow_carry_stats(host, lmax)
+    shape = K.LevelShape(C=capacity, W=window, E=min(expand, capacity),
+                         n=n, CR=cr_pad, model=kernel.name)
+    st = ShardedState(devices, cols_np, shape, stats)
+    interop.carry_from_numpy(host, lead, out=st.carry)
+    seg, first = _segment_schedule(segment_iters, lmax)
+    live = resilience._carry_active(host, lmax)
+    level = int(host[8])
+    key = ("sharded", shape, naxis, stats)
+    seg_levels: list = []
+    while live:
+        seg_len = min(seg, first << min(seg_idx, 16))
+        phase = call_phase(key)
+        t0 = time.perf_counter()
+        with obs.span("checker.device.sharded", phase=phase,
+                      segment=seg_idx, level=level,
+                      rung=[capacity, window, expand], axis=naxis):
+            _, act, lv, nalive = st.segment(seg_len, ops)
+        dt = time.perf_counter() - t0
+        mark_executed(key)
+        note_call_phase("sharded", phase, dt)
+        seg_idx += 1
+        seg_levels.append(lv[0] - level)
+        _LEVELS_TOTAL.inc(lv[0] - level)
+        _SEGMENTS_TOTAL.inc()
+        _FRONTIER_HWM.set_max(nalive[0])
+        level, live = lv[0], bool(act[0])
+        if checkpoint_path or on_checkpoint is not None:
+            cp = resilience.Checkpoint(
+                carry=interop.carry_to_numpy(st.carry),
+                rung=(capacity, window, expand), window=window,
+                expand_eff=expand, crash_width=crw, segment=seg_idx)
+            if checkpoint_path:
+                cp.save(checkpoint_path)
+            if on_checkpoint is not None:
+                on_checkpoint(cp)
+    host = interop.carry_to_numpy(st.carry)
+    done, lossy, wovf, best, levels, pool = _summarize_carry(host)
+    out = _result(done, lossy, wovf, best, levels, p, pool=pool)
+    balance = _shard_balance(pool, naxis)
+    if balance is not None:
+        out["shard-balance"] = balance
+    out["pool-sharding"] = f"{POOL_AXIS}={naxis}"
+    out["rung"] = (capacity, window, expand)
+    out["crash-width"] = crw
+    out["segments"] = seg_idx
+    out["segment-iters"] = seg
+    out["segment-levels"] = seg_levels
+    if plan_entry is not None:
+        out["plan"] = plan_entry
+    return out
+
+
+def check_history_sharded(history, model: Model, mesh,
+                          **kwargs) -> Optional[Dict[str, Any]]:
+    """Gate, pack and check one history pool-sharded over ``mesh`` (see
+    :func:`check_packed_sharded`). None when the model has no integer
+    kernel or the history does not fit its word."""
+    from jepsen_tpu_torch.analysis.history_lint import gate_history
+    gate_history(history, where="the pool-sharded device search")
+    try:
+        pk = pack_with_init(history, model)
+    except ValueError:
+        return None
+    if pk is None:
+        return None
+    packed, kernel = pk
+    return check_packed_sharded(packed, kernel, mesh, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# The fleet's device side: host-carry segments, the pool order, the routes
+# ---------------------------------------------------------------------------
+
+
+def _pool_sort_host(k, mask, cmask, state, alive) -> np.ndarray:
+    """The lex order of K2 over pool rows, on the host: the permutation
+    that puts them deepest first (a live row keyed MAXK - depth, a dead
+    one MAXK + 1 + k, then k, the mask words, state, the crashed-mask
+    popcount and words). The elastic fleet (:mod:`jepsen_tpu_torch.
+    fleet`) merges its hosts' pool shards with it, so that a merge on the
+    host and the device's sort agree on which rows a truncation keeps."""
+    k = np.asarray(k, np.int64)
+    mask = np.asarray(mask, np.uint32)
+    cmask = np.asarray(cmask, np.uint32)
+    state = np.asarray(state, np.int64)
+    alive = np.asarray(alive, bool)
+    MW = mask.shape[1] if mask.ndim == 2 else 1
+    MC = cmask.shape[1] if cmask.ndim == 2 else 1
+    mask = mask.reshape(k.shape[0], MW)
+    cmask = cmask.reshape(k.shape[0], MC)
+    depth = k + sum(_popcount32_host(mask[:, w]) for w in range(MW))
+    key1 = np.where(alive, np.int64(K.MAXK) - depth, K.MAXK + 1 + k)
+    pc = sum(_popcount32_host(cmask[:, w]) for w in range(MC))
+    terms = ([key1, k] + [mask[:, w] for w in range(MW)]
+             + [state, pc] + [cmask[:, w] for w in range(MC)])
+    # np.lexsort's last key is its primary one; the device sort's first
+    return np.lexsort(tuple(terms[::-1]))
+
+
+def segment_from_host(cols: dict, carry: tuple, rung: tuple, seg_iters: int,
+                      model: str, device=None, ops: Ops = KERNELS) -> tuple:
+    """One segment of up to ``seg_iters`` levels (rounded up to even) of
+    a search whose carry is on the host: the reference's ``_jit_segment``
+    called on numpy, what a fleet host runs on its pool shard. ``cols``
+    is one history's ``_split_packed`` columns and ``carry`` its 13-lane
+    carry, or, for a gang, the columns stacked on a leading lane axis
+    (:func:`jepsen_tpu_torch.interop.stack_cols`) and the vmapped carry.
+    The carry's row count is the capacity; ``rung`` gives the window and
+    the expansion. On CUDA it is one launch of the segment graph. Returns
+    the advanced carry in the same layout."""
+    from jepsen_tpu_torch import interop
+    from jepsen_tpu_torch.checker.engine import default_engine
+    dev = resolve_device(device)
+    batch = np.asarray(carry[5]).ndim > 0
+    stacked = cols if batch else interop.stack_cols([cols])
+    B = int(np.asarray(stacked["f"]).shape[0])
+    C = int(np.asarray(carry[0]).shape[-1])
+    _, win, exp = rung
+    shape = K.LevelShape(C=C, W=win, E=min(exp or C, C),
+                         n=int(np.asarray(stacked["f"]).shape[1]),
+                         CR=int(np.asarray(stacked["cf"]).shape[1]), B=B,
+                         model=model)
+    eng = default_engine()
+    with eng.lock:
+        stats = len(carry) > 13
+        dc, scratch = eng.state(shape, dev, stats)
+        dcols = eng.batch_cols(stacked, dev)
+        if batch:
+            interop.batch_carry_from_numpy(carry, dev, out=dc)
+        else:
+            interop.carry_from_numpy(carry, dev, out=dc)
+        scratch.acc.zero_()
+        if any(_lanes_active(carry, shape.lmax, batch)):
+            words, graph = run_segment(dcols, dc, scratch, shape,
+                                       dcols["nr"], seg_iters, ops)
+            end_segment(dc, shape, words, graph)
+        out = (interop.batch_carry_to_numpy(dc) if batch
+               else interop.carry_to_numpy(dc))
+    _TRANSFER_BYTES.inc(cols_nbytes(stacked) + 2 * sum(
+        int(np.asarray(x).nbytes) for x in carry), direction="dcn")
+    return out
+
+
+def _lanes_active(carry: tuple, lmax: int, batch: bool) -> List[bool]:
+    """Each lane's host ``active``: not done, a live pool row, the level
+    budget not spent (one lane for a single carry)."""
+    done = np.atleast_1d(np.asarray(carry[5]))
+    alive = np.asarray(carry[4]).reshape(done.shape[0], -1)
+    level = np.atleast_1d(np.asarray(carry[8]))
+    return [not bool(d) and bool(a.any()) and int(lv) <= lmax
+            for d, a, lv in zip(done, alive, level)]
+
+
+def _fleet_hosts() -> int:
+    """The JTPU_FLEET opt-in: N >= 2 routes single-history searches
+    through the elastic fleet (:mod:`jepsen_tpu_torch.fleet`) over N
+    logical hosts. 0, 1, unset or malformed all mean off: the single-host
+    path is then untouched."""
+    v = os.environ.get("JTPU_FLEET") or ""
+    try:
+        n = int(v.strip() or "0")
+    except ValueError:
+        return 0
+    return n if n >= 2 else 0
+
+
+def _fleet_lost_result(lane_levels: int) -> Dict[str, Any]:
+    """A gang lane's result when every fleet host is gone: UNKNOWN with
+    no error class, so that the serve daemon re-runs it serially instead
+    of counting a breaker failure or a poison."""
+    return {"valid": UNKNOWN, "backend": "gpu",
+            "error": "all fleet hosts lost", "fleet-lost": True,
+            "levels": lane_levels}
+
+
+def check_packed_gang_fleet(pks: Sequence[PackedHistory],
+                            kernel: KernelSpec, hosts: Sequence[Any],
+                            deadlines: Optional[Sequence[Optional[float]]]
+                            = None,
+                            segment_iters: Optional[int] = None,
+                            on_round: Optional[Callable] = None,
+                            max_retries: int = 2,
+                            segment_deadline_s: float = 120.0,
+                            stats: Optional[Dict[str, int]] = None,
+                            trail: Optional[list] = None,
+                            straggler: Optional[Any] = None,
+                            device=None) -> List[Dict[str, Any]]:
+    """:func:`check_packed_gang_gpu` placed on fleet hosts: each segment
+    round splits the gang's lanes over the live hosts (contiguous
+    chunks), merges the advanced carries back at the barrier, and a lane
+    whose host died mid-segment keeps its carry from before the round and
+    runs again on the survivors, so no verdict is lost with a host.
+
+    :class:`jepsen_tpu_torch.fleet.HostLostError` and the retryable
+    worker failures (:data:`jepsen_tpu_torch.resilience.RETRYABLE`) are
+    absorbed here (bounded retries, then the host is lost) and never
+    reach the daemon's poison bisection; other failures raise. When every
+    host is gone, the lanes still searching answer
+    :func:`_fleet_lost_result`. ``on_round(round_idx, hosts)`` is the
+    chaos seam; ``stats`` and ``trail`` collect the placer's counters and
+    events; ``straggler`` (a :class:`jepsen_tpu_torch.obs.straggler.
+    StragglerDetector`) orders the hosts, unflagged first. ``device`` is
+    the hosts' device, whose ladder the members climb (None: CUDA). Each
+    member's verdict is the gang's, which is the serial search's."""
+    pks = list(pks)
+    if not pks:
+        return []
+    if _GANG_FAULT is not None:
+        _GANG_FAULT(pks)
+    dev = torch.device("cuda" if device is None else device)
+    results: List[Optional[Dict[str, Any]]] = [None] * len(pks)
+    groups = _gang_groups(pks, results, dev)
+    if not groups:
+        return results
+    seg = _segment_config(segment_iters) or DEFAULT_SEGMENT_ITERS
+    for ladder, idx in groups.items():
+        _gang_ladder_fleet(pks, kernel, idx, ladder, seg, deadlines,
+                           results, hosts, on_round, max_retries,
+                           segment_deadline_s, stats, trail, straggler)
+    return results
+
+
+def _gang_ladder_fleet(pks, kernel, idx, ladder, seg, deadlines, results,
+                       hosts, on_round, max_retries, segment_deadline_s,
+                       stats, trail, straggler=None) -> None:
+    """One ladder group of the gang, its lanes split over the fleet's
+    hosts each segment round (see :func:`check_packed_gang_fleet`)."""
+    from jepsen_tpu_torch import resilience
+    from jepsen_tpu_torch.fleet import HostLostError
+
+    def bump(key, n=1):
+        if stats is not None:
+            stats[key] = stats.get(key, 0) + n
+
+    def note(event, **kw):
+        if trail is not None:
+            trail.append(dict({"event": event}, **kw))
+
+    breq = max(_bucket(pks[i].n_required) for i in idx)
+    crw = max(_crash_width(pks[i].n - pks[i].n_required) for i in idx)
+    cols = {i: _split_packed(pks[i], breq, crw, kernel) for i in idx}
+    work: Dict[int, list] = {i: [] for i in idx}
+    dead: set = set()
+    pending = list(idx)
+    round_idx = 0
+    for cap, win, exp in ladder:
+        if not pending:
+            return
+        rows = [cols[i] for i in pending]
+        arrays = {c: np.stack([np.asarray(r[c]) for r in rows])
+                  for c in rows[0]}
+        cr_pad = int(rows[0]["cf"].shape[0])
+        lmax = _level_budget(breq, cr_pad)
+        carry_b = tuple(np.stack(lanes) for lanes in zip(*(
+            _carry0_host(cap, win, cr_pad, r["ini"], int(r["nr"]))
+            for r in rows)))
+        lane_live = [True] * len(pending)
+        timed_out: set = set()
+        fleet_lost = False
+        while any(lane_live):
+            # a host that died between rounds leaves the mesh before any
+            # lane is placed on it
+            swept = False
+            for h in hosts:
+                if id(h) not in dead and not h.alive():
+                    dead.add(id(h))
+                    swept = True
+                    bump("host-losses")
+                    note("host-lost", host=getattr(h, "name", "?"),
+                         round=round_idx)
+            live = [h for h in hosts if id(h) not in dead]
+            if not live:
+                fleet_lost = True
+                break
+            if swept:
+                bump("remeshes")
+                note("remesh", round=round_idx, live=len(live),
+                     rung=[cap, win, exp])
+            if straggler is not None:
+                live = straggler.prefer(live)
+            # every pending lane goes out, finished ones too: their levels
+            # change nothing, and each host's shard keeps its shape
+            nshards = min(len(live), len(pending))
+            sels = [s for s in np.array_split(np.arange(len(pending)),
+                                              nshards) if s.size]
+            new_carry = tuple(np.array(x) for x in carry_b)
+            subs = []
+            for h, sel in zip(live, sels):
+                sub_cols = {c: np.ascontiguousarray(a[sel])
+                            for c, a in arrays.items()}
+                sub_carry = tuple(np.ascontiguousarray(c[sel])
+                                  for c in carry_b)
+                h.submit_gang(sub_cols, sub_carry, kernel, seg,
+                              (cap, win, exp), round_idx)
+                subs.append((h, sel, sub_cols, sub_carry))
+            advanced: set = set()
+            lost_this_round = False
+            for h, sel, sub_cols, sub_carry in subs:
+                attempt = 0
+                while True:
+                    try:
+                        out, secs = h.collect_gang(segment_deadline_s)
+                        if straggler is not None:
+                            from jepsen_tpu_torch.obs import straggler as S
+                            straggler.observe_segment(S.host_key(h), secs)
+                        for tgt, c in zip(new_carry, out):
+                            tgt[sel] = c
+                        advanced.update(int(j) for j in sel)
+                        break
+                    except HostLostError as e:
+                        # its lanes keep their carry from before the round
+                        # and run again on the survivors
+                        dead.add(id(h))
+                        lost_this_round = True
+                        bump("host-losses")
+                        note("host-lost", host=getattr(h, "name", "?"),
+                             round=round_idx, error=str(e))
+                        break
+                    except RuntimeError as e:
+                        cls = resilience.classify_failure(e)
+                        if cls not in resilience.RETRYABLE:
+                            raise
+                        if attempt < max_retries and h.alive():
+                            attempt += 1
+                            bump("dcn-retries")
+                            note("host-retry", host=getattr(h, "name", "?"),
+                                 round=round_idx, attempt=attempt,
+                                 **{"class": cls})
+                            h.submit_gang(sub_cols, sub_carry, kernel, seg,
+                                          (cap, win, exp), round_idx)
+                            continue
+                        # a persistently failing interconnect is a lost
+                        # host, not a poisoned request
+                        dead.add(id(h))
+                        lost_this_round = True
+                        bump("host-losses")
+                        note("host-lost", host=getattr(h, "name", "?"),
+                             round=round_idx, error=str(e),
+                             **{"class": cls})
+                        break
+            carry_b = new_carry
+            _SEGMENTS_TOTAL.inc()
+            bump("rounds")
+            if lost_this_round:
+                bump("remeshes")
+                n_live = sum(1 for h in hosts
+                             if id(h) not in dead and h.alive())
+                verdict = None
+                try:
+                    from jepsen_tpu_torch.checker import plan as plan_mod
+                    verdict = plan_mod.check_remesh(
+                        pks[pending[0]], max(1, n_live), cap, win, exp)
+                except Exception:  # noqa: BLE001 -- advisory only
+                    verdict = None
+                note("remesh", round=round_idx, live=n_live,
+                     rung=[cap, win, exp],
+                     ok=None if verdict is None else verdict.get("ok"))
+            if on_round is not None:
+                on_round(round_idx, hosts)
+            round_idx += 1
+            now = time.monotonic()
+            for j, i in enumerate(pending):
+                if not lane_live[j]:
+                    continue
+                # only a lane that advanced this round can have finished
+                if j in advanced:
+                    lane = tuple(a[j] for a in carry_b)
+                    if not resilience._carry_active(lane, lmax):
+                        lane_live[j] = False
+                        continue
+                dl = deadlines[i] if deadlines else None
+                if dl is not None and now >= dl:
+                    carry_b[4][j, ...] = False
+                    lane_live[j] = False
+                    timed_out.add(i)
+        still = []
+        for j, i in enumerate(pending):
+            lane = tuple(a[j] for a in carry_b)
+            if i in timed_out:
+                results[i] = {
+                    "valid": UNKNOWN, "error": ":info/timeout",
+                    "error-class": "wedge", "backend": "gpu",
+                    "levels": int(lane[8]), "rung": (cap, win, exp),
+                    "gang-cancelled": True}
+                continue
+            if fleet_lost and lane_live[j]:
+                results[i] = _fleet_lost_result(int(lane[8]))
+                continue
+            done, lossy, wovf, best, levels, pool = _summarize_carry(lane)
+            _LEVELS_TOTAL.inc(levels)
+            out = _result(done, lossy, wovf, best, levels, pks[i],
+                          pool=pool)
+            out["rung"] = (cap, win, exp)
+            out["crash-width"] = _crash_width(
+                pks[i].n - pks[i].n_required) or 0
+            out["tiebreak"] = "lex"
+            work[i].append(((cap, win, exp), out["crash-width"], "lex",
+                            levels))
+            out["work"] = list(work[i])
+            out["gang-size"] = len(pending)
+            out["fleet"] = True
+            results[i] = out
+            if out["valid"] is UNKNOWN and not (
+                    bool(wovf) and win >= MAX_WINDOW and not bool(lossy)):
+                still.append(i)
+        if fleet_lost:
+            # no host to escalate on: the lanes that finished a rung keep
+            # its result (the daemon re-runs the UNKNOWNs serially)
+            return
+        pending = still

@@ -31,8 +31,16 @@ module checks them ahead of time:
   at the largest halving whose footprint fits the budget.
 
 Without a byte budget (the CPU, unless ``JTPU_PLAN_BYTES_LIMIT`` pins one)
-``PLAN-OOM`` cannot fire. Kill switch: ``JTPU_PLAN_GATE=0``. The sharded
-candidates and their rules wait for the multi-GPU search.
+``PLAN-OOM`` cannot fire. Kill switch: ``JTPU_PLAN_GATE=0``.
+
+The pool-sharded search (``gpu.check_packed_sharded``) is planned as the
+``sharded`` kind over a mesh axis: the axis must divide the capacity and
+the expansion (``PLAN-SHARD-INDIVISIBLE``), a shard's expansion below
+:data:`SHARD_MIN_EXPAND_ROWS` rows is the straggler regime
+(``PLAN-SHARD-SKEW``), and the busiest device's buffers
+(``per-device-bytes``: the first device's, which holds the carry and the
+merged rows) meet the budget. :func:`gate_sharded` gates one such plan,
+:func:`check_remesh` a fleet's new mesh without raising.
 """
 
 from __future__ import annotations
@@ -60,7 +68,12 @@ INT32_MAX = K.INT32_MAX
 #: the bytes the CUDA caching allocator rounds each block up to
 ALLOC_BLOCK = 512
 
-KINDS = ("single", "segment", "batch")
+#: Rows of a shard's slice of the expansion below which a pool-sharded
+#: search is straggler-bound: the global sort concentrates the live
+#: frontier on one shard while the others idle (the reference's bound).
+SHARD_MIN_EXPAND_ROWS = 8
+
+KINDS = ("single", "segment", "batch", "sharded")
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +133,8 @@ class PlanDims:
 class Candidate:
     """One search shape a check could run: a ladder rung bound to its
     padded widths. ``kind`` is single (one segment for the whole
-    budget), segment (the supervised search) or batch (the keyed
-    batch)."""
+    budget), segment (the supervised search), batch (the keyed batch)
+    or sharded (one search's pool over ``mesh_axis`` shards)."""
 
     kind: str
     capacity: int
@@ -131,6 +144,7 @@ class Candidate:
     crw: int                  # padded crashed-section width
     keys: int = 1
     tiebreak: str = "lex"
+    mesh_axis: Optional[int] = None
 
     @property
     def expand_eff(self) -> int:
@@ -146,6 +160,8 @@ class Candidate:
                 f"@{self.breq}+{self.crw}")
         if self.keys > 1:
             base += f" x{self.keys}"
+        if self.mesh_axis:
+            base += f" {G.POOL_AXIS}={self.mesh_axis}"
         return base
 
     def shape(self, model: str = "cas-register",
@@ -168,12 +184,16 @@ def enumerate_candidates(dims: PlanDims,
                          window: Optional[int] = None,
                          expand: Optional[int] = None,
                          kinds: Optional[Sequence[str]] = None,
-                         device=None) -> List[Candidate]:
+                         device=None,
+                         mesh_axis: Optional[int] = None) -> List[Candidate]:
     """The candidates a check of these dims could run on ``device`` (None:
     CUDA), cheapest first within each kind: the pinned rung when
     ``capacity`` is given, else the escalation ladder at the needed
     window. ``kinds`` defaults to (single, segment) for one key and
-    (batch,) for keyed dims."""
+    (batch,) for keyed dims, and sharded besides with a ``mesh_axis``
+    (``check_packed_sharded``'s defaults: capacity 4,096, the needed
+    window's bucket, an expansion of about capacity / 8 rounded up to
+    the axis)."""
     nr = max(dims.n_required, 1)
     breq = G._bucket(nr)
     crw = G._crash_width(dims.n_crashed)
@@ -181,6 +201,8 @@ def enumerate_candidates(dims: PlanDims,
         return []  # crashed-set overflow: a dims-level finding, no plans
     if kinds is None:
         kinds = ("batch",) if dims.keys > 1 else ("single", "segment")
+        if mesh_axis:
+            kinds = tuple(kinds) + ("sharded",)
     dev = _device(device)
     if capacity is not None:
         ladder = ((capacity, window or G.WINDOW, expand),)
@@ -201,10 +223,18 @@ def enumerate_candidates(dims: PlanDims,
                 out.append(Candidate("batch", cap, win, exp, breq, crw,
                                      keys=dims.keys,
                                      tiebreak="hash" if first else "lex"))
+        elif kind == "sharded":
+            naxis = int(mesh_axis or 1)
+            cap = capacity if capacity is not None else 4096
+            win = window or G._window_bucket(max(dims.window_needed, 1))
+            exp = expand
+            if exp is None:
+                per = max(1, cap // 8)
+                exp = max(naxis, -(-per // naxis) * naxis)
+            out.append(Candidate("sharded", cap, win, exp, breq, crw,
+                                 mesh_axis=naxis))
         else:
-            raise ValueError(f"plan kind {kind!r}: the port plans "
-                             f"{KINDS}; the sharded plan needs the "
-                             f"multi-GPU search, which it has not yet")
+            raise ValueError(f"plan kind {kind!r}: the port plans {KINDS}")
     return out
 
 
@@ -239,6 +269,8 @@ def footprint(cand: Candidate) -> Dict[str, int]:
     their sum ``total-bytes`` (what the tensors hold), and
     ``allocated-bytes``, what ``torch.cuda.memory_allocated`` grows by
     when a fresh engine allocates them."""
+    if cand.mesh_axis:
+        return _sharded_footprint(cand)
     # every buffer is linear in the keys: one key's, times the keys
     one = cand.shape(keys=1)
     cols = _cols_each(cand.breq, cand.crw, cand.keys)
@@ -248,6 +280,41 @@ def footprint(cand: Candidate) -> Dict[str, int]:
             "scratch-bytes": sum(scratch),
             "total-bytes": sum(cols) + sum(carry) + sum(scratch),
             "allocated-bytes": _allocated(cols + carry + scratch)}
+
+
+def _sharded_footprint(cand: Candidate) -> Dict[str, int]:
+    """The device bytes of a pool-sharded candidate
+    (``gpu.ShardedState``). The first device holds the columns, the carry,
+    the other pool buffer and the dealt pool, the merged rows and their
+    second buffer (a run of at least 256 rows a shard), K3's g and gagg,
+    and every shard's scalars and accumulators: ``per-device-bytes``, the
+    busiest device's. A shard on another device holds the columns, its
+    dealt pool, its rows and their second buffer, and its scalars:
+    ``shard-bytes``. ``total-bytes`` is their sum over a mesh of distinct
+    devices; on one device (logical shards) the first device's bytes are
+    the whole."""
+    N = cand.mesh_axis
+    shape = cand.shape()
+    local = K.LevelShape(C=cand.capacity // N, W=cand.window,
+                         E=max(cand.expand_eff // N, 1), n=cand.breq,
+                         CR=cand.crw)
+    run = max(local.RP, 256)
+    cols = _cols_each(cand.breq, cand.crw)
+    pool = G._pool_nbytes(shape)
+    rows = 4 * N * run * shape.NK
+    small = [4 * K.NSCAL, 4 * K.NACC]
+    lead = (cols + G.carry_nbytes(shape) + pool + pool
+            + [4 * K.NACC, rows, rows, 4 * shape.RP,
+               4 * K.scan_blocks(shape)] + small * N)
+    shard = (cols + G._pool_nbytes(local)
+             + [4 * local.RP * local.NK] * 2 + small)
+    return {"cols-bytes": sum(cols),
+            "carry-bytes": sum(G.carry_nbytes(shape)),
+            "scratch-bytes": sum(lead) - sum(cols)
+            - sum(G.carry_nbytes(shape)),
+            "per-device-bytes": sum(lead), "shard-bytes": sum(shard),
+            "total-bytes": sum(lead) + (N - 1) * sum(shard),
+            "allocated-bytes": _allocated(lead)}
 
 
 def batch_chunk(cand: Candidate, bytes_limit: Optional[int]) -> int:
@@ -288,14 +355,16 @@ def request_footprint(dims: PlanDims, device=None) -> Optional[int]:
 
 
 def gang_footprint(dims: PlanDims, size: int,
-                   device=None) -> Optional[int]:
+                   device=None, hosts: int = 1) -> Optional[int]:
     """Device bytes of a gang of ``size`` members of these dims: a gang
     stacks every column and every carry and scratch row on its leading
-    axis, so its bytes are linear in its members."""
+    axis, so its bytes are linear in its members. Over ``hosts`` fleet
+    hosts, the widest host's share, ceil(size / hosts) members."""
     if size < 1:
         return None
     fp = request_footprint(dims, device)
-    return None if fp is None else fp * int(size)
+    lanes = -(-int(size) // max(1, int(hosts)))
+    return None if fp is None else fp * lanes
 
 
 # ---------------------------------------------------------------------------
@@ -362,8 +431,10 @@ def check_dims(dims: PlanDims) -> List[PlanIssue]:
 def check_candidate(cand: Candidate, dims: PlanDims,
                     bytes_limit: Optional[int],
                     fp: Optional[Dict[str, int]] = None) -> List[PlanIssue]:
-    """Candidate-level safety: the window bound and the footprint (``fp``
-    when the caller has it) against the byte budget."""
+    """Candidate-level safety: the window bound, the mesh divisibility and
+    skew of a sharded candidate, and the footprint (``fp`` when the caller
+    has it; a sharded candidate's busiest device) against the byte
+    budget."""
     issues: List[PlanIssue] = []
     lbl = cand.label()
     if cand.window > G.MAX_WINDOW:
@@ -376,12 +447,31 @@ def check_candidate(cand: Candidate, dims: PlanDims,
             "PLAN-EXPAND-CLAMPED", NOTE,
             f"expand {cand.expand} exceeds capacity {cand.capacity}; the "
             f"search clamps it to the pool size", lbl))
+    if cand.mesh_axis:
+        naxis = cand.mesh_axis
+        if cand.capacity % naxis or cand.expand_eff % naxis:
+            issues.append(PlanIssue(
+                "PLAN-SHARD-INDIVISIBLE", ERROR,
+                f"mesh axis {naxis} must divide capacity {cand.capacity} "
+                f"and expand {cand.expand_eff} — the pool rows cannot be "
+                f"split evenly over the shards", lbl))
+        else:
+            per = cand.expand_eff // naxis
+            if per < SHARD_MIN_EXPAND_ROWS:
+                issues.append(PlanIssue(
+                    "PLAN-SHARD-SKEW", WARNING,
+                    f"{per} expansion row(s) per device (expand "
+                    f"{cand.expand_eff} over {naxis} shards): below "
+                    f"{SHARD_MIN_EXPAND_ROWS} rows the global sort "
+                    f"concentrates the live frontier on one shard and the "
+                    f"others idle (straggler regime)", lbl))
     if bytes_limit is not None:
         fp = fp or footprint(cand)
-        if fp["total-bytes"] > bytes_limit:
+        need = fp.get("per-device-bytes", fp["total-bytes"])
+        if need > bytes_limit:
             issues.append(PlanIssue(
                 "PLAN-OOM", ERROR,
-                f"predicted working set {fp['total-bytes']} B exceeds the "
+                f"predicted working set {need} B exceeds the "
                 f"device bytes-limit {bytes_limit} B (carry "
                 f"{fp['carry-bytes']} B + scratch {fp['scratch-bytes']} B "
                 f"+ columns {fp['cols-bytes']} B) — the allocator would "
@@ -440,7 +530,8 @@ def analyze(dims: PlanDims, kernel=None,
             use_device_limit: bool = True,
             trace: bool = False,
             kinds: Optional[Sequence[str]] = None,
-            device=None) -> Dict[str, Any]:
+            device=None,
+            mesh_axis: Optional[int] = None) -> Dict[str, Any]:
     """Verify every candidate of these dims on ``device`` (None: CUDA):
     the rules always, and with ``trace=True`` (and a ``kernel``) the shape
     check. Returns the plan report::
@@ -460,7 +551,8 @@ def analyze(dims: PlanDims, kernel=None,
         limit = plan_bytes_limit(device)
     dims_issues = check_dims(dims)
     cands = enumerate_candidates(dims, capacity=capacity, window=window,
-                                 expand=expand, kinds=kinds, device=device)
+                                 expand=expand, kinds=kinds, device=device,
+                                 mesh_axis=mesh_axis)
     issues: List[PlanIssue] = list(dims_issues)
     dims_fatal = any(i.severity == ERROR for i in dims_issues)
     rows: List[Dict[str, Any]] = []
@@ -650,6 +742,87 @@ def gate_ladder(p, kernel, ladder: tuple, kind: str, explicit: bool,
     if not kept:
         _reject(report, where)
     return tuple(kept), _entry(report)
+
+
+def gate_sharded(p: PackedHistory, kernel, naxis: int, capacity: int,
+                 window: int, expand: int,
+                 where: str = "the pool-sharded device search",
+                 device=None) -> Dict[str, Any]:
+    """Gate the one plan of a pool-sharded search (mesh divisibility,
+    skew, footprint, widths). Raises :class:`~jepsen_tpu_torch.analysis.
+    plan_lint.PlanRejectedError` on any error; returns the ``plan`` entry
+    otherwise."""
+    dims = PlanDims.from_packed(p)
+    limit = plan_bytes_limit(device)
+    crw = G._crash_width(dims.n_crashed)
+    report: Dict[str, Any] = {"dims": dims.to_dict(),
+                              "bytes-limit": limit, "issues": [],
+                              "candidates": [], "selected": None}
+    dims_issues = check_dims(dims)
+    report["issues"] = [i.to_dict() for i in dims_issues]
+    if any(i.severity == ERROR for i in dims_issues) or crw is None:
+        _reject(report, where)
+    cand = Candidate("sharded", capacity, window, expand,
+                     G._bucket(max(dims.n_required, 1)), crw,
+                     mesh_axis=naxis)
+    fp = footprint(cand)
+    ci = check_candidate(cand, dims, limit, fp)
+    bad = any(i.severity == ERROR for i in ci)
+    report["candidates"].append(_row(cand, ci, bad, fp))
+    report["issues"].extend(i.to_dict() for i in ci)
+    if bad:
+        _reject(report, where)
+    report["selected"] = cand.label()
+    return _entry(report)
+
+
+def pad_for_axis(n: int, naxis: int) -> int:
+    """The least value >= ``n`` that the mesh axis divides: how the elastic
+    fleet re-pads a pool when its mesh changes (always up: padding adds
+    dead rows, truncating would drop live ones)."""
+    naxis = max(int(naxis), 1)
+    return -(-int(n) // naxis) * naxis
+
+
+def check_remesh(p, naxis: int, capacity: int, window: int,
+                 expand: Optional[int],
+                 bytes_limit: Optional[int] = None,
+                 device=None) -> Dict[str, Any]:
+    """Validate a new mesh axis for the elastic fleet
+    (:mod:`jepsen_tpu_torch.fleet`): the ``PLAN-SHARD-INDIVISIBLE``,
+    ``PLAN-SHARD-SKEW`` and ``PLAN-OOM`` rules at the capacity and
+    expansion padded up so that the axis divides them
+    (:func:`pad_for_axis`). Never raises: a host loss or a join must be
+    informed, not aborted, by it. Returns ``{"ok", "naxis", "capacity",
+    "expand", "per-device-bytes", "bytes-limit", "issues"}``; ``ok`` is
+    False only on an error (a skew warning degrades a mesh that keeps the
+    search alive, it does not refuse it). ``p`` is a PackedHistory or a
+    PlanDims."""
+    dims = p if isinstance(p, PlanDims) else PlanDims.from_packed(p)
+    naxis = max(int(naxis), 1)
+    cap = pad_for_axis(capacity, naxis)
+    exp = None if expand is None else pad_for_axis(expand, naxis)
+    limit = (bytes_limit if bytes_limit is not None
+             else plan_bytes_limit(device))
+    crw = G._crash_width(dims.n_crashed)
+    if crw is None:
+        return {"ok": False, "naxis": naxis, "capacity": cap,
+                "expand": exp, "per-device-bytes": None,
+                "bytes-limit": limit,
+                "issues": [PlanIssue(
+                    "PLAN-CRASH-WIDTH", ERROR,
+                    f"{dims.n_crashed} crashed ops exceed the crashed-set "
+                    f"width {G.CRASH_MAX}").to_dict()]}
+    cand = Candidate("sharded", cap, window, exp,
+                     G._bucket(max(dims.n_required, 1)), crw,
+                     mesh_axis=naxis)
+    issues = check_candidate(cand, dims, limit)
+    fp = footprint(cand)
+    return {"ok": not any(i.severity == ERROR for i in issues),
+            "naxis": naxis, "capacity": cap, "expand": exp,
+            "per-device-bytes": fp["per-device-bytes"],
+            "bytes-limit": limit,
+            "issues": [i.to_dict() for i in issues]}
 
 
 def seed_rung(capacity: int, window: int, expand: Optional[int],

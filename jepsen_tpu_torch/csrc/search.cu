@@ -1701,6 +1701,57 @@ int sort_any(int* rows, int* alt, const int* scal, int B, int R, int RP,
                                  mode, st, launched);
 }
 
+// B8's cross-shard merge (the pool sharding of checker/tpu.py:244-258,
+// whose merge sort XLA's partitioner makes global): the rows hold sorted
+// runs of L rows each, every shard's successor rows sorted on its own
+// device by sort_rows and padded with pad rows to L; `passes` launches of
+// sort_merge_kernel merge them pairwise into one run of the R rows in the
+// comparator's order, ping-ponging between rows and alt (the last pass
+// lands in alt when `passes` is odd: the caller reads the buffer that
+// holds it). The merge kernel's blocks take MERGE_ROWS output rows of one
+// pair, so L is a power of two of at least MERGE_ROWS / 2. Adds each
+// launch to *launched.
+template <int TB, int M>
+int merge_runs_m(int* rows, int* alt, const int* scal, int B, int R, int RP,
+                 int NK, int MW, int L, int passes, cudaStream_t st,
+                 int* launched) {
+  const int S = M | 1;
+  if (L < MERGE_ROWS / 2 || (L & (L - 1)) || passes < 1 || passes > 30 ||
+      ((long long)L << passes) < R || R > RP || alt == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const size_t merge_smem = (size_t)MERGE_ROWS * (4 * S + sizeof(uint16_t));
+  cudaError_t e = allow_smem(sort_merge_kernel<TB, M>, merge_smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((R + MERGE_ROWS - 1) / MERGE_ROWS, B);
+  int* cur = rows;
+  for (int p = 0; p < passes; ++p, L <<= 1) {
+    int* next = cur == rows ? alt : rows;
+    sort_merge_kernel<TB, M><<<grid, MERGE_ROWS / MERGE_V, merge_smem, st>>>(
+        cur, next, scal, R, RP, NK, MW, L);
+    ++*launched;
+    cur = next;
+  }
+  return (int)cudaGetLastError();
+}
+
+int merge_any(int* rows, int* alt, const int* scal, int B, int R, int RP,
+              int NK, int MW, int tiebreak, int L, int passes,
+              cudaStream_t st, int* launched) {
+  switch ((NK + (tiebreak == TB_HASH ? 1 : 0)) * 2 + (tiebreak == TB_HASH)) {
+#define JT_MERGE_M(M)                                                     \
+  case 2 * M:                                                             \
+    return merge_runs_m<TB_LEX, M>(rows, alt, scal, B, R, RP, NK, MW, L,  \
+                                   passes, st, launched);                 \
+  case 2 * M + 1:                                                         \
+    return merge_runs_m<TB_HASH, M>(rows, alt, scal, B, R, RP, NK, MW, L, \
+                                    passes, st, launched);
+    JT_MERGE_M(6) JT_MERGE_M(7) JT_MERGE_M(8) JT_MERGE_M(9) JT_MERGE_M(10)
+    JT_MERGE_M(11) JT_MERGE_M(12) JT_MERGE_M(13)
+#undef JT_MERGE_M
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // dedup_block_kernel's dynamic shared memory: the key's R rows at stride
 // NK | 1 and, where CR > 0, their 16-bit group starts (kernels/search.py
 // dedup_block_smem).
@@ -1908,6 +1959,14 @@ int jt_sort_rows(int* rows, int* alt, const int* scal, int B, int R, int RP,
                  int* launched) {
   return sort_any(rows, alt, scal, B, R, RP, NK, MW, tiebreak, T, passes,
                   LAUNCH_ALL, (cudaStream_t)stream, launched);
+}
+
+// B8: merge the sorted runs of L rows in rows (see merge_runs_m).
+int jt_merge_runs(int* rows, int* alt, const int* scal, int B, int R, int RP,
+                  int NK, int MW, int tiebreak, int L, int passes,
+                  void* stream, int* launched) {
+  return merge_any(rows, alt, scal, B, R, RP, NK, MW, tiebreak, L, passes,
+                   (cudaStream_t)stream, launched);
 }
 
 // K3 over the R live rows of B keys' [RP, NK] rows: each block's scan into

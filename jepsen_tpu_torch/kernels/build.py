@@ -38,6 +38,7 @@ _N = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "jt_expand": [_P] * 23 + [_I] * 8 + [_P, _N],
     "jt_sort_rows": [_P] * 3 + [_I] * 8 + [_P, _N],
+    "jt_merge_runs": [_P] * 3 + [_I] * 8 + [_P, _N],
     "jt_group_scan": [_P] * 4 + [_I] * 5 + [_P, _N],
     # then seg (null but at a pair's end) and the stream
     "jt_dedup_truncate": [_P] * 20 + [_I] * 7 + [_P, _P, _N],

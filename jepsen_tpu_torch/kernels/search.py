@@ -22,6 +22,11 @@ body, one ``lax.while_loop`` iteration) is three or four kernels in
                     :func:`dedup_one_block`)
 ==================  =====================================================
 
+A pool-sharded level (B8, ``checker.gpu.ShardedState``) runs ``expand``
+and ``sort_rows`` on each shard's rows, then ``merge_runs``, the sort's
+merge passes over the shards' sorted runs, then ``dedup_truncate`` on
+the merged rows.
+
 The model is part of the shape: ``expand`` steps each candidate through
 the model's step (B1/B1'), a template parameter of the CUDA kernel picked
 once per launch, and through the spec's ``step_torch`` in the plain
@@ -150,7 +155,8 @@ DEDUP_BLOCK_STATIC = 4 * (32 * 6 + 32)
 #: counts its lex and its hash tie-break apart
 launches: Dict[str, int] = {"expand": 0, "sort_rows": 0,
                             "sort_rows_hash": 0, "group_scan": 0,
-                            "dedup_truncate": 0, "seg_active": 0}
+                            "dedup_truncate": 0, "seg_active": 0,
+                            "merge_runs": 0}
 #: the CUDA kernel launches those made, as the C entry points count them
 #: where they launch (in a graph: the body's count at capture, times the
 #: iterations the device ran)
@@ -887,6 +893,59 @@ def group_scan(rows: torch.Tensor, scal: torch.Tensor, g: torch.Tensor,
     _launch("group_scan", _lib().jt_group_scan, _ptr(rows), _ptr(scal),
             _ptr(g), _ptr(gagg), shape.B, shape.R, shape.RP, shape.NK,
             shape.MW, _stream(rows))
+
+
+def merge_passes(rows: int, run: int) -> int:
+    """The merge passes :func:`merge_runs` makes over ``rows`` rows in
+    sorted runs of ``run`` rows: ceil(log2(ceil(rows / run)))."""
+    return (-(-rows // run) - 1).bit_length()
+
+
+def merge_runs_plain(rows: torch.Tensor, rows_alt: torch.Tensor,
+                     scal: torch.Tensor, shape: LevelShape, R: int,
+                     run: int) -> torch.Tensor:
+    """Plain version of ``merge_runs``: the first R rows of each active
+    key in the order of ``shape.tiebreak`` (a sort of the runs, which
+    gives what merging them gives), written into the buffer the kernel's
+    last pass lands in, which is returned."""
+    out = rows_alt if merge_passes(R, run) % 2 else rows
+    act = scal[:, ACT] != 0
+    if not bool(act.any()):
+        return out
+    merged = rows[:, :R].clone()
+    sort_rows_plain(merged, scal, shape)
+    out[:, :R] = torch.where(act[:, None, None], merged, out[:, :R])
+    return out
+
+
+def merge_runs(rows: torch.Tensor, rows_alt: torch.Tensor,
+               scal: torch.Tensor, shape: LevelShape, R: int,
+               run: int) -> torch.Tensor:
+    """B8's cross-shard merge: ``rows`` [B, RM, NK] holds, in its first R
+    rows, sorted runs of ``run`` rows (each shard's successor rows after
+    its own ``sort_rows``, padded with pad rows to the run), and the merge
+    passes of K2 (``sort_merge_kernel``) merge them into one run in the
+    order of ``shape.tiebreak`` (whose row width the rows have). The
+    passes ping-pong between ``rows`` and ``rows_alt``; the buffer the
+    last lands in is returned (``rows`` when no pass is needed, one run).
+    ``run`` is a power of two, at least half a merge block (256 rows)."""
+    _check(scal, "scal", torch.int32, (shape.B, NSCAL))
+    RM = rows.shape[1]
+    _check(rows, "rows", torch.int32, (shape.B, RM, shape.NK))
+    _check(rows_alt, "rows_alt", torch.int32, rows.shape)
+    if not 0 < R <= RM or run & (run - 1) or run < 256:
+        raise ValueError(f"merge_runs: R = {R} rows of a {RM}-row buffer "
+                         f"in runs of {run}: the runs must be a power of "
+                         f"two of at least 256 rows")
+    if _on_cpu([rows, rows_alt, scal]):
+        return merge_runs_plain(rows, rows_alt, scal, shape, R, run)
+    passes = merge_passes(R, run)
+    if not passes:
+        return rows
+    _launch("merge_runs", _lib().jt_merge_runs, _ptr(rows), _ptr(rows_alt),
+            _ptr(scal), shape.B, R, RM, shape.NK, shape.MW,
+            TIEBREAKS.index(shape.tiebreak), run, passes, _stream(rows))
+    return rows_alt if passes % 2 else rows
 
 
 def scan_blocks(shape: LevelShape) -> int:

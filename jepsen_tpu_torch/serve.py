@@ -101,8 +101,18 @@ re-runs each gang's survivors serially and serves the serial result
 where a verdict field differs.
 
 Searches run on CUDA unless the configuration asks for the CPU
-(``ServeConfig.device="cpu"``). Not ported: the fleet placer, with its
-``all-hosts-lost`` dump, and the federator's ``/trace/find``.
+(``ServeConfig.device="cpu"``).
+
+Fleet-backed serving (``serve --fleet N``, ``JTPU_SERVE_FLEET``): a
+:class:`FleetPlacer` shards each gang's lanes over N fleet hosts per
+segment round (``gpu.check_packed_gang_fleet``), worker processes under
+``<root>/fleet-host-N`` (or in-process hosts with ``fleet_backend
+"local"``); a host lost mid-gang re-meshes the next round onto the
+survivors and loses no verdict, and when every host is gone the lanes
+re-run serially and the flight recorder dumps ``all-hosts-lost``. With
+the fleet and the telemetry stack, the federation plane
+(``JTPU_FEDERATE``) folds the hosts' telemetry frames into the daemon's
+time series, scores stragglers, and answers ``GET /trace/find``.
 """
 
 from __future__ import annotations
@@ -182,6 +192,13 @@ _BATCH_POISON = obs_metrics.counter(
     "jtpu_serve_batch_poison_total",
     "requests isolated as the poison member of a failed gang, labeled "
     "tenant — only these count toward their bucket's circuit breaker")
+_FLEET_LIVE = obs_metrics.gauge(
+    "jtpu_serve_fleet_live",
+    "live fleet worker hosts backing the serve placer (0 when "
+    "fleet-backed serving is off)")
+_FLEET_REMESH = obs_metrics.counter(
+    "jtpu_serve_fleet_remesh_total",
+    "gang re-mesh rounds after a fleet host was lost mid-segment")
 _RATE_LIMITED = obs_metrics.counter(
     "jtpu_serve_rate_limited_total",
     "requests answered 429 by the per-tenant token bucket, labeled "
@@ -189,6 +206,12 @@ _RATE_LIMITED = obs_metrics.counter(
 _REQUEST_SECONDS = obs_metrics.histogram(
     "jtpu_serve_request_seconds",
     "end-to-end seconds from admission to verdict, labeled tenant")
+
+
+def _federate_env_on() -> bool:
+    """JTPU_FEDERATE, through the federation module's one parser."""
+    from jepsen_tpu_torch.obs import federation as obs_federation
+    return obs_federation.enabled()
 
 
 def _exemplar(trace_id: Optional[str]) -> Optional[Dict[str, str]]:
@@ -338,6 +361,29 @@ class ServeConfig:
     #: a URL POSTed on each SLO breach and recovery (JTPU_SLO_WEBHOOK)
     slo_webhook: Optional[str] = field(
         default_factory=lambda: os.environ.get("JTPU_SLO_WEBHOOK") or None)
+    # -- fleet-backed serving -------------------------------------------------
+    #: the fleet hosts the placer starts (``serve --fleet N``,
+    #: JTPU_SERVE_FLEET); below 2 there is no placer and gangs run on the
+    #: daemon's device; JTPU_SERVE_FLEET=0 wins over an explicit value
+    fleet_hosts: int = field(
+        default_factory=lambda: _env_int("JTPU_SERVE_FLEET", 0))
+    #: "proc": worker processes (``python -m jepsen_tpu_torch.fleet
+    #: worker``); "local": in-process hosts (the tests' logical hosts)
+    fleet_backend: str = field(
+        default_factory=lambda: os.environ.get(
+            "JTPU_SERVE_FLEET_BACKEND", "proc"))
+    #: a host's shard segment deadline: past it the host is lost
+    fleet_deadline_s: float = field(
+        default_factory=lambda: _env_float("JTPU_SERVE_FLEET_DEADLINE_S",
+                                           120.0))
+    # -- fleet federation -------------------------------------------------
+    #: the federated telemetry plane: the hosts' frame exporters, the
+    #: time series' federator, the straggler detector and /trace/find
+    #: (JTPU_FEDERATE); it needs the telemetry stack and a fleet
+    federate_enabled: bool = field(default_factory=_federate_env_on)
+    #: the hosts' frame cadence, seconds (JTPU_FED_CADENCE)
+    federate_cadence_s: float = field(
+        default_factory=lambda: _env_float("JTPU_FED_CADENCE", 1.0))
 
     @property
     def tsdb_on(self) -> bool:
@@ -354,6 +400,24 @@ class ServeConfig:
         if os.environ.get("JTPU_SERVE_STREAM", "").strip() == "0":
             return False
         return bool(self.stream_enabled)
+
+    @property
+    def fleet_enabled(self) -> bool:
+        """Whether the :class:`FleetPlacer` is constructed, read at call
+        time: JTPU_SERVE_FLEET=0 wins over ``fleet_hosts``."""
+        if os.environ.get("JTPU_SERVE_FLEET", "").strip() == "0":
+            return False
+        return int(self.fleet_hosts) >= 2
+
+    @property
+    def federate_on(self) -> bool:
+        """Whether the federation plane is constructed: the telemetry
+        stack and a fleet, and JTPU_FEDERATE not off (read at call
+        time)."""
+        if not _federate_env_on():
+            return False
+        return bool(self.federate_enabled) and self.tsdb_on \
+            and self.fleet_enabled
 
 
 @dataclass
@@ -573,14 +637,17 @@ class BatchScheduler:
         self.wait_s = max(0.0, float(wait_s))
 
     def max_fit(self, leader: CheckRequest) -> int:
-        """The largest gang of the leader's dims that fits the budget."""
+        """The largest gang of the leader's dims that fits the budget;
+        over a fleet, the widest host's share of the lanes is priced
+        against one host's budget."""
         from jepsen_tpu_torch.checker import plan
         n = self.batch_max
         budget = self.daemon._budget()
         if budget and leader.dims is not None:
+            hosts = self.daemon._fleet_width()
             while n > 1:
                 gfp = plan.gang_footprint(leader.dims, n,
-                                          self.daemon.device)
+                                          self.daemon.device, hosts=hosts)
                 if gfp is None or gfp <= budget:
                     break
                 n -= 1
@@ -613,6 +680,125 @@ class BatchScheduler:
                                exemplar=_exemplar(leader.trace))
         _BATCH_SIZE.observe(len(gang))
         return gang
+
+
+class FleetPlacer:
+    """Places the daemon's gangs on fleet hosts instead of its device: a
+    gang's lanes split over the live hosts each segment round
+    (:func:`jepsen_tpu_torch.checker.gpu.check_packed_gang_fleet`); a
+    host killed mid-gang re-meshes the next round onto the survivors, its
+    lanes' carries merging back at the barrier, so no verdict is lost.
+    Worker directories are ``<root>/fleet-host-N``, which
+    :func:`jepsen_tpu_torch.obs.fleet.discover_hosts` reads as host dirs.
+
+    One gang runs at a time (``_lock``): a host holds one outstanding
+    shard. ``on_round`` is the chaos seam (the fleet ladder's barrier);
+    ``on_all_lost`` fires once, the first time a gang ends with no live
+    host (the flight recorder's trigger)."""
+
+    def __init__(self, config: ServeConfig, device=None):
+        self.config = config
+        self.device = device
+        self.hosts: list = []
+        self.on_round = None
+        self.on_all_lost = None       # guarded-by: none -- set pre-start
+        self._all_lost_fired = False  # guarded-by: none -- gangs serialize
+        self._lock = threading.Lock()
+        self.stats = {"gangs": 0, "rounds": 0, "remeshes": 0,
+                      "host-losses": 0, "dcn-retries": 0}
+        #: the straggler detector, with the federation plane: the gang
+        #: ladder places a round's shards on unflagged hosts first
+        self.straggler = None         # guarded-by: none -- set pre-start
+        self._exporters: list = []
+
+    def start(self) -> None:
+        from jepsen_tpu_torch import fleet as fleet_mod
+        n = max(2, int(self.config.fleet_hosts))
+        dev = "cuda" if self.device is None else str(self.device)
+        for i in range(n):
+            if self.config.fleet_backend == "local":
+                h = fleet_mod.LocalHost(f"host-{i}", device=dev)
+            else:
+                h = fleet_mod.ProcHost(
+                    f"host-{i}",
+                    os.path.join(self.config.root, f"fleet-host-{i}"),
+                    device=dev)
+            h.start(None, None)
+            self.hosts.append(h)
+        if self.config.federate_on \
+                and self.config.fleet_backend == "local":
+            # in-process hosts share the daemon's registry (its sampler
+            # covers it): their frames carry only the span tail, each
+            # exporter the segments whose host= names its host
+            from jepsen_tpu_torch.obs import federation as obs_federation
+            for i, h in enumerate(self.hosts):
+                exp = obs_federation.FrameExporter(
+                    os.path.join(self.config.root, f"fleet-host-{i}"),
+                    host=h.name, metrics=False, span_host=h.name,
+                    cadence=self.config.federate_cadence_s)
+                exp.start()
+                self._exporters.append(exp)
+        _FLEET_LIVE.set(self.live())
+        log.info("fleet placer up: %d %s host(s)", n,
+                 self.config.fleet_backend)
+
+    def stop(self) -> None:
+        for exp in self._exporters:
+            try:
+                exp.stop()
+            except Exception:  # noqa: BLE001 -- best-effort teardown
+                pass
+        self._exporters = []
+        for h in self.hosts:
+            try:
+                h.stop()
+            except Exception:  # noqa: BLE001 -- best-effort teardown
+                pass
+
+    def live(self) -> int:
+        return sum(1 for h in self.hosts if h.alive())
+
+    def width(self) -> int:
+        """Live hosts, at least 1: the fleet's factor in admission
+        pricing and the Retry-After estimate."""
+        return max(1, self.live())
+
+    def run_gang(self, pks: list, kernel: Any, deadlines: list) -> list:
+        """One (sub-)gang over the fleet; the ladder's remesh, loss and
+        retry counts go to :attr:`stats` and its trail becomes
+        ``serve.fleet.*`` trace events on the gang leader's trace."""
+        from jepsen_tpu_torch.checker import gpu as G
+        trail: list = []
+        with self._lock:
+            self.stats["gangs"] += 1
+            before = self.stats["remeshes"]
+            # the hosts alive now: one lost in an earlier gang is not this
+            # gang's loss (none alive: the ladder answers fleet-lost and
+            # the daemon re-runs the lanes serially)
+            hosts = [h for h in self.hosts if h.alive()]
+            try:
+                out = G.check_packed_gang_fleet(
+                    pks, kernel, hosts, deadlines=deadlines,
+                    on_round=self.on_round,
+                    segment_deadline_s=self.config.fleet_deadline_s,
+                    stats=self.stats, trail=trail,
+                    straggler=self.straggler, device=self.device)
+            finally:
+                remeshed = self.stats["remeshes"] - before
+        if remeshed:
+            _FLEET_REMESH.inc(remeshed)
+        _FLEET_LIVE.set(self.live())
+        cb = self.on_all_lost
+        if cb is not None and not self._all_lost_fired \
+                and self.live() == 0:
+            self._all_lost_fired = True
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 -- a dump must not fail a gang
+                log.warning("fleet on_all_lost hook failed", exc_info=True)
+        for ev in trail:
+            obs_trace.event(f"serve.fleet.{ev.pop('event')}", **ev)
+        return out
 
 
 class CheckDaemon:
@@ -693,6 +879,39 @@ class CheckDaemon:
                 self.config.root, seconds=self.config.flightrec_seconds,
                 tsdb=self.tsdb)
             self.breaker.on_trip = self._breaker_tripped
+        # JTPU_SERVE_FLEET: below 2 hosts (or 0 in the environment) there
+        # is no placer, and gangs run on the daemon's device
+        self.placer = (FleetPlacer(self.config, self.device)
+                       if self.config.fleet_enabled else None)
+        if self.placer is not None and self.flightrec is not None:
+            self.placer.on_all_lost = self._all_hosts_lost
+        # JTPU_FEDERATE=0 (or no fleet, or no telemetry): no exporter,
+        # federator, straggler gauge, /trace/find, or their healthz and
+        # progress keys
+        self.federator = None
+        self.straggler = None
+        if self.config.federate_on and self.tsdb is not None \
+                and self.placer is not None:
+            from jepsen_tpu_torch.obs import federation as obs_federation
+            from jepsen_tpu_torch.obs import straggler as obs_straggler
+            self.straggler = obs_straggler.StragglerDetector()
+            self.federator = obs_federation.Federator(
+                self.config.root, self.tsdb, straggler=self.straggler)
+            # the federated points land before the SLO engine evaluates
+            # the same tick
+            self.tsdb.on_tick.insert(0, self.federator.collect)
+            self.placer.straggler = self.straggler
+
+    def _all_hosts_lost(self) -> None:
+        if self.flightrec is not None:
+            self.flightrec.dump(
+                "all-hosts-lost",
+                extra={"stats": dict(self.placer.stats)
+                       if self.placer else None})
+
+    def _fleet_width(self) -> int:
+        """Live fleet hosts (1 without a placer)."""
+        return self.placer.width() if self.placer is not None else 1
 
     def _breaker_tripped(self, bucket: tuple,
                          failure_class: Optional[str]) -> None:
@@ -725,11 +944,15 @@ class CheckDaemon:
                 plan.request_footprint(dims, self.device), dims)
 
     def _budget(self) -> Optional[int]:
+        """The admission byte budget of the whole fleet: one device's
+        times the live hosts (one without a placer)."""
         from jepsen_tpu_torch.checker import plan
         if self.config.bytes_budget:
-            return self.config.bytes_budget
-        return None if self.device is None else plan.plan_bytes_limit(
-            self.device)
+            b = self.config.bytes_budget
+        else:
+            b = None if self.device is None else plan.plan_bytes_limit(
+                self.device)
+        return b * self._fleet_width() if b else b
 
     def _retry_after(self) -> float:
         """Seconds until a queue slot should free: the service-time EWMA
@@ -738,7 +961,8 @@ class CheckDaemon:
         with self._lock:
             depth = self._depth + len(self._inflight)
             ewma = self._service_ewma
-        est = (ewma or 1.0) * max(depth, 1) / max(self.config.workers, 1)
+        est = (ewma or 1.0) * max(depth, 1) / max(
+            self.config.workers * self._fleet_width(), 1)
         return float(min(max(est, 1.0), 60.0))
 
     # -- admission ----------------------------------------------------------
@@ -1147,9 +1371,15 @@ class CheckDaemon:
                      for req in gang]
 
         def run_gang(span):
-            return G.check_packed_gang_gpu(
-                [packs[i][0] for i in span], kernel,
-                deadlines=[deadlines[i] for i in span], device=self.device)
+            # over a fleet, host losses and interconnect faults are
+            # absorbed in the fleet ladder: bisection sees only failures
+            # of the requests themselves
+            sub = [packs[i][0] for i in span]
+            sub_dl = [deadlines[i] for i in span]
+            if self.placer is not None:
+                return self.placer.run_gang(sub, kernel, sub_dl)
+            return G.check_packed_gang_gpu(sub, kernel, deadlines=sub_dl,
+                                           device=self.device)
 
         with obs_trace.context(leader.trace, leader.trace_parent), \
                 obs_trace.span("serve.gang", id=leader.id, size=len(gang)):
@@ -1278,8 +1508,9 @@ class CheckDaemon:
             if req.footprint:
                 self._footprint_committed = max(
                     0, self._footprint_committed - req.footprint)
-            # seconds a request: a gang's wall time over its members
-            per = secs / max(1, batch_size)
+            # seconds a request: a gang's wall time over its members,
+            # times the hosts that ran it (_retry_after divides them out)
+            per = secs * self._fleet_width() / max(1, batch_size)
             self._service_ewma = (per if self._service_ewma is None
                                   else 0.3 * per + 0.7 * self._service_ewma)
             self.stats["completed"] += 1
@@ -1297,7 +1528,10 @@ class CheckDaemon:
             gang = (self.batcher.gather(req)
                     if self.batcher is not None else [req])
             try:
-                if len(gang) > 1:
+                # over a fleet a gang of one runs on the fleet too; a
+                # request with no bucket (the host search) runs alone
+                if len(gang) > 1 or (self.placer is not None
+                                     and req.bucket is not None):
                     self._run_gang(gang)
                 else:
                     self._run_one(req)
@@ -1351,6 +1585,8 @@ class CheckDaemon:
                                      "reason": body.get("error")})
         if self._streams is not None:
             self._stream_replay()
+        if self.placer is not None:
+            self.placer.start()
         with self._lock:
             replayed = self.stats["replayed"]
         for i in range(max(1, self.config.workers)):
@@ -1413,6 +1649,8 @@ class CheckDaemon:
                 if s.runner is not None:
                     s.runner.join(timeout=2.0)
                 s.stop_wal()
+        if self.placer is not None:
+            self.placer.stop()
         if self.tsdb is not None:
             self.tsdb.stop()
         self.journal.close()
@@ -1666,6 +1904,20 @@ class CheckDaemon:
                 "evictions": self.engine.evictions,
             },
         }
+        if self.placer is not None:
+            doc["fleet"] = dict(self.placer.stats,
+                                hosts=len(self.placer.hosts),
+                                live=self.placer.live(),
+                                backend=self.config.fleet_backend)
+            # the federation's keys only with the federation plane
+            if self.federator is not None:
+                ages = self.federator.ages()
+                doc["fleet"]["last_seen_age_s"] = {
+                    h: round(a, 3) for h, a in sorted(ages.items())}
+            if self.straggler is not None:
+                flagged = self.straggler.flagged()
+                if flagged:
+                    doc["fleet"]["stragglers"] = sorted(flagged)
         if has_streams:
             doc["streams"] = self._stream_summary()
         if self.slo is not None:
@@ -1700,6 +1952,11 @@ class CheckDaemon:
             }
             if self.config.rate_limit > 0:
                 serve["rate-limited"] = self.stats["rate-limited"]
+            # the fleet keys only with a placer
+            if self.placer is not None:
+                serve["fleet-hosts"] = len(self.placer.hosts)
+                serve["fleet-live"] = self.placer.live()
+                serve["remeshes"] = self.placer.stats["remeshes"]
             # the stream keys only while sessions exist
             sessions = [s for s in (self._streams or {}).values()
                         if s is not None]
@@ -1717,6 +1974,10 @@ class CheckDaemon:
             top = self.usage.top()
             if top is not None:
                 serve["usage-top"] = [top[0], round(top[1], 3)]
+        if self.straggler is not None:
+            flagged = self.straggler.flagged()
+            if flagged:
+                serve["straggler-hosts"] = sorted(flagged)
         doc = {"state": state or ("draining" if self.draining
                                   else "serving"),
                "ts": time.time(), "serve": serve}
@@ -1866,6 +2127,10 @@ def make_handler(daemon: CheckDaemon, root: str = "store"):
                     # the request id as a run directory
                     return self._trace_request(
                         path[len("/trace/request/"):].strip("/"))
+                # the federated trace search; without the federation
+                # plane the browser's /trace/<run> answers it (a 404)
+                if path == "/trace/find" and daemon.federator is not None:
+                    return self._trace_find(parse_qs(parsed.query))
                 if path == "/metrics":
                     return self._send(
                         200, obs_metrics.REGISTRY.to_prometheus().encode(),
@@ -1890,6 +2155,33 @@ def make_handler(daemon: CheckDaemon, root: str = "store"):
                 return self._json(404, {"error": "no such dump",
                                         "name": name})
             return self._json(200, doc)
+
+        def _trace_find(self, q: Dict[str, list]):
+            from jepsen_tpu_torch.obs import federation as obs_federation
+
+            def one(key: str) -> Optional[str]:
+                v = (q.get(key) or [None])[0]
+                return v if v else None
+
+            min_dev = one("min-device-s") or one("min_device_s")
+            try:
+                min_device_s = float(min_dev) if min_dev else None
+            except ValueError:
+                return self._json(400, {"error": "bad-request",
+                                        "detail": "min-device-s"})
+            try:
+                limit = int(one("limit") or 50)
+            except ValueError:
+                return self._json(400, {"error": "bad-request",
+                                        "detail": "limit"})
+            rows = obs_federation.trace_find(
+                daemon.config.root, tenant=one("tenant"),
+                min_device_s=min_device_s,
+                error_class=one("error-class") or one("error_class"),
+                host=one("host"), limit=limit)
+            if "json" in (q.get("format") or []):
+                return self._json(200, {"requests": rows})
+            return self._page("trace search", web.trace_find_html(rows))
 
         def _trace_request(self, token: str):
             from jepsen_tpu_torch.obs import fleet as obs_fleet

@@ -210,7 +210,10 @@ def test_each_flag_beats_its_variable(monkeypatch):
 def test_serve_refuses_the_fleet_and_takes_a_compile_cache(tmp_path,
                                                            monkeypatch):
     from jepsen_tpu_torch.kernels import build
-    assert port(["serve", "--check-daemon", "--fleet", "2"])[0] == 254
+    # --fleet N places the gangs on N fleet hosts
+    cfg = serve_config(_parser().parse_args(
+        ["serve", "--check-daemon", "--fleet", "2"]))
+    assert cfg.fleet_hosts == 2 and cfg.fleet_enabled
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
     serve_config(_parser().parse_args(
         ["serve", "--check-daemon", "--compile-cache", str(tmp_path)]))
@@ -429,6 +432,13 @@ def test_run_watch_exits_with_the_runs_code(tmp_path, suite, want, limit):
     lines = [ln for ln in p.stderr.splitlines()
              if ln.startswith("# watch:")]
     assert lines and "level" in lines[-1], p.stderr[-2000:]
-    assert main(["run", "--suite", suite, "--fleet", "2",
-                 "--store-root", str(tmp_path)]) == 254
+    if suite == "local-kv-unsafe":
+        # --fleet 2: the check under the elastic fleet, the same verdict
+        p = subprocess.run(
+            [sys.executable, "-m", "jepsen_tpu_torch", "run", "--suite",
+             suite, "--device", "cpu", "--fleet", "2",
+             "--store-root", str(tmp_path / "fleet")],
+            cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=ROOT),
+            capture_output=True, text=True, timeout=300)
+        assert p.returncode == want, p.stderr[-2000:]
 

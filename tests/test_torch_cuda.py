@@ -118,7 +118,7 @@ def test_each_wrapper_counts_its_launches(cuda):
     # a narrow rung: K4 scans the group starts itself
     assert K.launches == {**{name: 5 for name in K.launches},
                           "sort_rows_hash": 0, "group_scan": 0,
-                          "seg_active": 0}
+                          "seg_active": 0, "merge_runs": 0}
     assert K.grid_launches_total == K.launches
 
 
@@ -691,10 +691,12 @@ def test_a_segment_is_one_graph_launch(cuda):
                           "dedup_truncate": 2}
     assert K.host_calls == {"expand": 1, "sort_rows": 1,
                             "sort_rows_hash": 0, "group_scan": 0,
-                            "dedup_truncate": 1, "seg_active": 0}
+                            "dedup_truncate": 1, "seg_active": 0,
+                            "merge_runs": 0}
     assert K.launches == {"expand": 2 * pairs, "sort_rows": 2 * pairs,
                           "sort_rows_hash": 0, "group_scan": 0,
-                          "dedup_truncate": 2 * pairs, "seg_active": 0}
+                          "dedup_truncate": 2 * pairs, "seg_active": 0,
+                          "merge_runs": 0}
     assert K.segments["pair_ends"] == pairs
     assert K.grid_launches_total == {
         name: pairs * graph.body.get(name, 0) for name in K.launches}
@@ -968,3 +970,46 @@ def test_the_graph_body_launches_k3_only_where_it_runs(cuda, rung, cr, scan):
     assert graph.body == {"expand": 2,
                           "sort_rows": 2 * (1 + K.sort_passes(lv.shape)),
                           "group_scan": scan, "dedup_truncate": 2}
+
+
+#: (fixture, rung, shards) of the pool-sharded search on logical shards of
+#: the card: runs of 256 rows (a shard's rows padded) and of 32,768
+SHARDED = [("crashed", (128, 32, 8), 4), ("mc2", (1024, 32, 64), 8),
+           ("wide100", (4096, 128, 512), 4)]
+
+
+@pytest.mark.parametrize("name,rung,shards", SHARDED)
+def test_the_sharded_search_equals_the_unsharded_one(cuda, name, rung,
+                                                     shards):
+    """B8 on logical shards of the card: every segment end's carry of
+    ``check_packed_sharded`` is the unsharded search's, and the K2 merge
+    of the shards' runs (``merge_runs``) is its plain version's."""
+    from jepsen_tpu_torch import parallel
+    p, kernel, cols = _cols(FIXTURES[name]())
+    cap, win, exp = rung
+    mesh = parallel.make_mesh(axis="pool", devices=[cuda] * shards)
+    want, got = [], []
+    ref = resilience.supervised_check_packed(
+        p, kernel, capacity=cap, window=win, expand=exp, segment_iters=16,
+        device=cuda, on_checkpoint=want.append)
+    K.reset_launches()
+    out = G.check_packed_sharded(p, kernel, mesh, capacity=cap, window=win,
+                                 expand=exp, segment_iters=16,
+                                 on_checkpoint=got.append)
+    assert K.launches["merge_runs"] > 0 and K.launches["expand"] > 0
+    assert (out["valid"], out["levels"]) == (ref["valid"], ref["levels"])
+    assert len(got) == len(want)
+    for a, b in zip(want, got):
+        assert all(np.array_equal(np.asarray(x), np.asarray(y))
+                   for x, y in zip(a.carry, b.carry))
+    shape = K.LevelShape(C=cap, W=win, E=exp, n=cols["f"].shape[0],
+                         CR=cols["cf"].shape[0], model=kernel.name)
+    st = G.ShardedState([cuda] * shards, cols, shape, True)
+    interop.carry_from_numpy(resilience._fit_carry_stats(
+        tuple(want[0].carry), True, shape.lmax), cuda, out=st.carry)
+    st.expand_shards()
+    RM = st.rows.shape[1]
+    outs = [fn(st.rows.clone(), st.rows_alt.clone(), st.carry.scal, shape,
+               RM, st.run)[:, :shape.R]
+            for fn in (K.merge_runs, K.merge_runs_plain)]
+    assert torch.equal(outs[0], outs[1])

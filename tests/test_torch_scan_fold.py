@@ -287,7 +287,7 @@ def test_a_graph_segment_counts_its_pair_ends_and_no_k5_launch():
     graph.account(7)
     assert K.launches == {"expand": 8, "sort_rows": 8, "sort_rows_hash": 0,
                           "group_scan": 0, "dedup_truncate": 8,
-                          "seg_active": 0}
+                          "seg_active": 0, "merge_runs": 0}
     assert K.grid_launches_total == {**dict.fromkeys(K.launches, 0),
                                      "expand": 8, "sort_rows": 8,
                                      "dedup_truncate": 8}

@@ -11,13 +11,17 @@ comparison (graph, host loop and plain route apart). ``cli`` runs the
 smoke's command-line phase, over a local-kv run recorded first through
 ``python -m jepsen_tpu_torch run`` (in the smoke, the runner phase's);
 ``--telemetry`` runs the ``daemon telemetry`` phase after it (it implies
-``--cli``, whose watched run and lone checks it serves). Every assertion
+``--cli``, whose watched run and lone checks it serves). ``--runner``
+runs the test runner phase, ``--fleet`` the ``fleet`` phase (the
+pool-sharded search, the elastic fleet on worker processes, ``serve
+--fleet 2`` and the keyed check over two gloo ranks). Every assertion
 of the smoke's phases holds here too. It prints each phase's seconds,
 the card's ``nvidia-smi`` name and power limit and, last, one JSON line
 with the phases' lines::
 
     python3 tools/time_torch_smoke_phases.py --loop-levels 128 16 --cli
     python3 tools/time_torch_smoke_phases.py --telemetry
+    python3 tools/time_torch_smoke_phases.py --runner --fleet
 
 Run from the repository root; it needs a CUDA device and nvcc.
 """
@@ -99,6 +103,10 @@ def main(argv=None) -> int:
     ap.add_argument("--telemetry", action="store_true",
                     help="run the command-line phase, then the daemon "
                          "telemetry phase")
+    ap.add_argument("--runner", action="store_true",
+                    help="run the test runner phase")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run the fleet phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -122,6 +130,16 @@ def main(argv=None) -> int:
             out[f"loop_{n}"] = {"phase_seconds": loop_seconds,
                                 "states": loops}
             seconds[f"segment loop {n}"] = loop_seconds["segment loop"]
+    if args.runner:
+        line, launches, grid, segs, kv_store = S.runner_phase(dev, seconds,
+                                                              smi)
+        out["runner"] = dict(line, launches=launches, pair_ends=segs[
+            "pair_ends"])
+        import shutil
+        shutil.rmtree(kv_store, ignore_errors=True)
+    if args.fleet:
+        line, launches, grid, segs, merge = S.fleet_phase(dev, seconds, smi)
+        out["fleet"] = dict(line, launches=launches, merge=merge)
     if args.cli or args.telemetry:
         kv_store = local_kv_store()
         line, launches, pair_ends, kept = S.cli_phase(dev, seconds, smi,
