@@ -63,7 +63,7 @@ against the plain route on the card and the native engine), its toctou
 suite refuted with ``linear.svg`` and explained, and its bank suite;
 and the wire-protocol suites through ``python -m jepsen_tpu_torch run``
 against the in-process fakes of ``tools/torch_suite_fakes.py``: etcd at
-its canonical shapes on 50 workers for 30 s (its keyed check held
+its canonical shapes on 50 workers for 15 s (its keyed check held
 against the plain route on the card, the native engine and ``analyze``
 of its store), etcd against lagging replicas refuted, and the hazelcast
 lock checked as a ``Mutex``; and the keyed CAS-register suites whose data
@@ -87,7 +87,11 @@ launches read from its ``/metrics``), a local-kv run under ``run
 --watch`` followed by ``watch`` while in flight, ``stream --store`` of
 the runner's local-kv run against ``analyze --profile`` of it, and ``trace
 summary|request|find|export`` over the daemon's directory and over the
-profiled search (naming K1, K2 and K4); and, last, the segment watchdog:
+profiled search (naming K1, K2 and K4); and the port's CI tools, each a
+process on the card: the randomized differential soak (45 s from a fixed
+seed, no mismatch, device and keyed rounds), the chaos matrix's scenarios
+that touch the device, the profiling gate (K1, K2 and K4 under host
+spans) and the serve gate; and, last, the segment watchdog:
 an injected wedge continued on the CPU, a real GPU-side stall ended by a
 0.5 s deadline, a second check answered at once while the card still
 spins, and the warm headline with a deadline beside it without one.
@@ -2567,8 +2571,8 @@ def sqlite_phase(dev, seconds, smi):
 #: fake's lagging replicas, refuted; and the hazelcast lock for
 #: LOCK_SECONDS. Each database's lifecycle runs under the dummy control
 #: plane, with the fakes' scripted replies
-SUITES_RUN = {"members": 5, "concurrency": "10n", "etcd_seconds": 30,
-              "stale_seconds": 10, "lock_seconds": 10}
+SUITES_RUN = {"members": 5, "concurrency": "10n", "etcd_seconds": 15,
+              "stale_seconds": 6, "lock_seconds": 6}
 #: the fields a key's verdict is held to across the run, the plain route
 #: and analyze
 SUITE_KEYS = ("valid", "levels")
@@ -2871,9 +2875,9 @@ def suites_phase(dev, seconds, smi, cfg=SUITES_RUN):
 #: histories hold crashed ops; mongodb's document CAS for MONGO_SECONDS
 #: twice against a primary whose secondaries apply its writes DELAY_S
 #: late, with linearizable and with local reads
-CAS_RUN = {"members": 5, "aerospike_workers": 100, "aerospike_seconds": 30,
+CAS_RUN = {"members": 5, "aerospike_workers": 100, "aerospike_seconds": 15,
            "cockroach_workers": 50, "cockroach_seconds": 20,
-           "mongo_workers": 50, "mongo_seconds": 10, "timeout_p": 0.02,
+           "mongo_workers": 50, "mongo_seconds": 6, "timeout_p": 0.02,
            "seed": 16, "delay_s": 0.5, "cockroach_opts": {}}
 
 
@@ -4252,6 +4256,130 @@ def fleet_phase(dev, seconds, smi):
     return line, launches, grid, segs, merge
 
 
+#: the ci tools phase: the port's CI tools, each its own process on the
+#: card. The soak runs CI_SOAK_S seconds from a fixed seed (a soak by hand
+#: takes the clock's); the chaos matrix runs the scenarios that touch the
+#: device
+CI_SOAK_S = 45
+CI_SOAK_SEED = 21
+CI_CHAOS = ("oom", "wedge", "kill-mid-segment", "transient", "plan-rejects",
+            "serve-batch-poison", "fleet-host-kill")
+CI_TIMEOUT_S = 600
+
+
+def tool_popen(out_dir, tag, script, *args):
+    """``python tools/SCRIPT ARGS`` started from the repository root
+    (:func:`port_env`), its stdout and stderr into ``out_dir/TAG.out``
+    and ``.err``: (process, stdout path, stderr path)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    outp = os.path.join(out_dir, f"{tag}.out")
+    errp = os.path.join(out_dir, f"{tag}.err")
+    with open(outp, "w") as o, open(errp, "w") as e:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.join(root, "tools", script), *args],
+            cwd=root, env=port_env(), stdout=o, stderr=e)
+    return proc, outp, errp
+
+
+def ci_tools_phase(dev, seconds, smi):
+    """The port's CI tools on the card, each a process: the differential
+    soak for CI_SOAK_S seconds (rc 0, no mismatch, at least one device
+    round and one keyed round; its kernel launches are the ``ci-tools``
+    path's) and the chaos matrix's CI_CHAOS scenarios at once, then the
+    profiling gate (K1, K2 and K4 named under host spans) and the serve
+    gate one after the other, as each holds a wall-clock budget. Returns
+    (line, the soak's launches, CUDA launches and segment counts)."""
+    import shutil
+    import tempfile
+    line = {"card": smi}
+    out_dir = tempfile.mkdtemp(prefix="jtpu-ci-tools-")
+    dev_args = ("--device", dev.type)
+    tools = {"soak": ("torch_soak_differential.py", str(CI_SOAK_S),
+                      "--seed", str(CI_SOAK_SEED), *dev_args),
+             "chaos": ("torch_chaos_matrix.py", "--only", *CI_CHAOS,
+                       *dev_args),
+             "prof gate": ("torch_prof_gate.py", *dev_args),
+             "serve gate": ("torch_serve_gate.py", *dev_args)}
+    procs, outs, rcs, secs = {}, {}, {}, {}
+
+    def start(tag):
+        t0 = time.perf_counter()
+        procs[tag] = (tool_popen(out_dir, tag.replace(" ", "-"),
+                                 *tools[tag]), t0)
+
+    def wait(*tags):
+        """Wait for the tools ``tags``, each timed to its own exit."""
+        left = list(tags)
+        deadline = time.perf_counter() + CI_TIMEOUT_S
+        while left:
+            assert time.perf_counter() < deadline, ("ci tools hung", left)
+            for tag in list(left):
+                (proc, outp, errp), t0 = procs[tag]
+                if proc.poll() is None:
+                    continue
+                left.remove(tag)
+                rcs[tag], secs[tag] = proc.returncode, \
+                    time.perf_counter() - t0
+                outs[tag] = read_text(outp)
+                print(f"ci tools: {tag}: rc {rcs[tag]}, {secs[tag]:.2f} s "
+                      f"[{smi}]", flush=True)
+                assert rcs[tag] == 0, (tag, rcs[tag], outs[tag][-3000:],
+                                       read_text(errp)[-3000:])
+            time.sleep(0.05)
+
+    try:
+        with phase("ci tools", seconds):
+            start("soak")
+            start("chaos")
+            wait("soak", "chaos")
+            for tag in ("prof gate", "serve gate"):
+                start(tag)
+                wait(tag)
+            # the soak: no mismatch, device and keyed rounds answered
+            soak = json.loads(next(
+                ln for ln in outs["soak"].splitlines()
+                if ln.startswith("# soak: "))[len("# soak: "):])
+            assert soak["mismatches"] == 0 and soak["keyed"] >= 1 and \
+                soak["answered"]["device"] >= 1 and \
+                soak["answered"]["keyed-keys"] >= 1, soak
+            print(f"ci tools: soak: {outs['soak'].strip().splitlines()[-2]}"
+                  f" [{smi}]", flush=True)
+            # the chaos matrix: every selected scenario passed
+            table = outs["chaos"].strip().splitlines()
+            print("\n".join(f"ci tools: chaos: {ln}" for ln in table),
+                  flush=True)
+            assert table[-1] == (f"{len(CI_CHAOS)}/{len(CI_CHAOS)} "
+                                 f"scenarios passed"), table[-1]
+            # the profiling gate: K1, K2 and K4 under host spans
+            gate = next(ln for ln in outs["prof gate"].splitlines()
+                        if ln.startswith("# prof-gate: ") and "kernels" in ln)
+            kernels = json.loads(re.search(r"kernels (\{[^}]*\})",
+                                           gate).group(1))
+            assert all(kernels.values()) or dev.type != "cuda", gate
+            serve = [ln for ln in outs["serve gate"].splitlines()
+                     if ln.startswith("# serve-gate: ")]
+            print("\n".join(f"ci tools: {ln}" for ln in [gate] + serve),
+                  flush=True)
+            launches = soak.get("launches", {})
+            grid = soak.get("grid_launches", {})
+            segs = soak.get("segments", {"pair_ends": 0})
+            if dev.type == "cuda":
+                assert all(launches[k] > 0 for k in (
+                    "expand", "sort_rows", "dedup_truncate")) and \
+                    segs["pair_ends"] > 0, (launches, segs)
+            line.update({
+                "seconds": secs, "soak": soak, "chaos": table,
+                "prof_gate": gate, "prof_gate_kernels": kernels,
+                "serve_gate": serve})
+    finally:
+        for (proc, _, _), _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return line, launches, grid, segs
+
+
 def watchdog_phase(dev, seconds, checker, head, head_p, head_kernel, r):
     """The segment watchdog on the card: an injected wedge that ends
     UNKNOWN with its last segment end, which the caller resumes on the
@@ -4826,6 +4954,10 @@ def smoke(dev: torch.device) -> None:
     fleet_line, fleet_launches, fleet_grid, path_segments["fleet"], \
         merge_entry = fleet_phase(dev, seconds, smi)
 
+    # -- the CI tools: the soak, the chaos matrix, the two gates ---------
+    ci_line, ci_launches, ci_grid, path_segments["ci-tools"] = \
+        ci_tools_phase(dev, seconds, smi)
+
     # -- the watchdog (last: it wedges the card on purpose) ----------------
     watch_line = watchdog_phase(dev, seconds, checker, head, head_p,
                                 head_kernel, r)
@@ -4843,14 +4975,15 @@ def smoke(dev: torch.device) -> None:
                      "cas-suites": cas_launches,
                      "small-suites": small_launches, "cli": cli_launches,
                      "daemon-telemetry": tel_launches,
-                     "fleet": fleet_launches}
+                     "fleet": fleet_launches, "ci-tools": ci_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
                  "models": model_grid_launches, "serve": serve_grid_launches,
                  "stream": stream_grid_launches, "run": run_grid_launches,
                  "sqlite": sqlite_grid_launches,
                  "suites": suites_grid_launches,
                  "cas-suites": cas_grid_launches,
-                 "small-suites": small_grid_launches, "fleet": fleet_grid}
+                 "small-suites": small_grid_launches, "fleet": fleet_grid,
+                 "ci-tools": ci_grid}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
     # that K4; seg_active_kernel standing alone is the host loop's, under
@@ -4941,7 +5074,7 @@ def smoke(dev: torch.device) -> None:
         "sqlite": sqlite_line, "suites": suites_line,
         "cas_suites": cas_line, "small_suites": small_line,
         "cli": cli_line, "daemon_telemetry": tel_line, "fleet": fleet_line,
-        "phase_seconds": seconds, "nvidia_smi": smi},
+        "ci_tools": ci_line, "phase_seconds": seconds, "nvidia_smi": smi},
         default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,7 +2,8 @@
 
 Counterparts of ``simulate_register_history``, ``corrupt_one_read`` and
 ``wide_history`` in ``jepsen_tpu.testing``, and of the JAX package's test
-fixtures ``random_set_history``, ``random_queue_history``,
+fixtures ``random_register_history``, ``random_set_history``,
+``random_queue_history``,
 ``unique_queue_history`` and ``random_fifo_history``: each draws from a
 ``random.Random`` built from the ``seed`` it is given (or takes one), so
 the same seed yields the same history as the JAX package's copy.
@@ -560,6 +561,50 @@ def keyed_history(histories: dict) -> History:
 # ---------------------------------------------------------------------------
 # The other model families
 # ---------------------------------------------------------------------------
+
+
+def random_register_history(rng, n_procs=3, n_ops=5, n_vals=3,
+                            crash_p=0.2) -> History:
+    """Random concurrent register history (reads, writes and CASes, some
+    crashed, some failed, reads mostly of a random value)."""
+    h = History()
+    free = list(range(n_procs))
+    open_ops = {}
+    ops_left = n_ops
+    t = 0
+    while (ops_left > 0 and (free or open_ops)) or open_ops:
+        # invoke, or complete an open op
+        if free and ops_left > 0 and (not open_ops or rng.random() < 0.5):
+            p = rng.choice(free)
+            free.remove(p)
+            ops_left -= 1
+            f = rng.choice(["read", "write", "cas"])
+            if f == "read":
+                v = None
+            elif f == "write":
+                v = rng.randrange(n_vals)
+            else:
+                v = (rng.randrange(n_vals), rng.randrange(n_vals))
+            op = Op(type="invoke", f=f, value=v, process=p, time=t)
+            h.append(op)
+            open_ops[p] = op
+        else:
+            p = rng.choice(list(open_ops))
+            inv = open_ops.pop(p)
+            r = rng.random()
+            if r < crash_p:
+                # a crashed process never returns: it stays busy
+                h.append(Op(type="info", f=inv.f, value=inv.value,
+                            process=p, time=t))
+            else:
+                val = inv.value
+                if inv.f == "read":
+                    val = rng.randrange(n_vals) if rng.random() < 0.9 else None
+                typ = "ok" if r < 0.9 else "fail"
+                h.append(Op(type=typ, f=inv.f, value=val, process=p, time=t))
+                free.append(p)
+        t += 1
+    return h
 
 
 def random_set_history(rng, n_procs=3, n_ops=8, n_vals=4, crash_p=0.1,

@@ -38,6 +38,10 @@ def _port_files():
              os.path.join(ROOT, "tools", "torch_suite_fakes.py"),
              os.path.join(ROOT, "tools", "torch_lint_gate.py"),
              os.path.join(ROOT, "tools", "time_torch_smoke_phases.py"),
+             os.path.join(ROOT, "tools", "torch_soak_differential.py"),
+             os.path.join(ROOT, "tools", "torch_chaos_matrix.py"),
+             os.path.join(ROOT, "tools", "torch_serve_gate.py"),
+             os.path.join(ROOT, "tools", "torch_prof_gate.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]

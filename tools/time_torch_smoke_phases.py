@@ -14,7 +14,11 @@ smoke's command-line phase, over a local-kv run recorded first through
 ``--cli``, whose watched run and lone checks it serves). ``--runner``
 runs the test runner phase, ``--fleet`` the ``fleet`` phase (the
 pool-sharded search, the elastic fleet on worker processes, ``serve
---fleet 2`` and the keyed check over two gloo ranks). Every assertion
+--fleet 2`` and the keyed check over two gloo ranks), ``--suites`` the
+``suites`` and ``cas-suites`` phases, and ``--ci-tools`` the ``ci
+tools`` phase (the port's soak, chaos matrix and two gates, each a
+process; a tree without the phase is reported and skipped, so that
+parent and change can be timed in turns). Every assertion
 of the smoke's phases holds here too. It prints each phase's seconds,
 the card's ``nvidia-smi`` name and power limit and, last, one JSON line
 with the phases' lines::
@@ -22,6 +26,7 @@ with the phases' lines::
     python3 tools/time_torch_smoke_phases.py --loop-levels 128 16 --cli
     python3 tools/time_torch_smoke_phases.py --telemetry
     python3 tools/time_torch_smoke_phases.py --runner --fleet
+    python3 tools/time_torch_smoke_phases.py --suites --ci-tools
 
 Run from the repository root; it needs a CUDA device and nvcc.
 """
@@ -107,6 +112,10 @@ def main(argv=None) -> int:
                     help="run the test runner phase")
     ap.add_argument("--fleet", action="store_true",
                     help="run the fleet phase")
+    ap.add_argument("--suites", action="store_true",
+                    help="run the suites and cas-suites phases")
+    ap.add_argument("--ci-tools", action="store_true",
+                    help="run the ci tools phase")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -140,6 +149,17 @@ def main(argv=None) -> int:
     if args.fleet:
         line, launches, grid, segs, merge = S.fleet_phase(dev, seconds, smi)
         out["fleet"] = dict(line, launches=launches, merge=merge)
+    if args.suites:
+        for tag, fn in (("suites", S.suites_phase),
+                        ("cas_suites", S.cas_suites_phase)):
+            line, launches, grid, segs = fn(dev, seconds, smi)
+            out[tag] = dict(line, launches=launches)
+    if args.ci_tools:
+        if hasattr(S, "ci_tools_phase"):
+            line, launches, grid, segs = S.ci_tools_phase(dev, seconds, smi)
+            out["ci_tools"] = dict(line, launches=launches)
+        else:
+            print("no ci tools phase in this tree", flush=True)
     if args.cli or args.telemetry:
         kv_store = local_kv_store()
         line, launches, pair_ends, kept = S.cli_phase(dev, seconds, smi,
