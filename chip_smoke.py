@@ -3908,31 +3908,138 @@ def daemon_telemetry_phase(dev, seconds, smi, kv_store, cli_kept):
 #: in-process hosts; (c) the 8 gang histories sent to ``serve --fleet 2``
 #: with worker host-1 slowed FLEET_SLOW_S before each segment and killed
 #: in its first; (d) the keyed staggered headline by
-#: check_keyed_distributed over two gloo ranks on the card
+#: check_keyed_distributed over two gloo ranks on the card, then on the
+#: same two ranks (a)'s search over a global mesh of 2 entries a rank in
+#: segments of FLEET_DCN_SEGMENT_ITERS levels, held against the unsharded
+#: search at the same segments at every segment end, its first levels
+#: timed (FLEET_DCN_TIMING), and the reference dryrun's two legs
 FLEET_SHARDS = 4
 FLEET_RUNG = (4096, None, 512)
 FLEET_LEVEL_REPS = 8
 FLEET_KILL_ROUND = 1
 FLEET_SLOW_S = 2.0
 FLEET_RANK_CHILD = """
-import json, os, sys
+import json, os, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
 sys.path.insert(0, sys.argv[1])
-from jepsen_tpu_torch import parallel
+sys.path.insert(0, os.path.join(sys.argv[1], "tools"))
+from jepsen_tpu_torch import interop, parallel
+from jepsen_tpu_torch.checker import gpu as G
+from jepsen_tpu_torch.kernels import search as K
 from jepsen_tpu_torch.models import CASRegister
-from jepsen_tpu_torch.testing import simulate_register_history
-keys, ops, kw, out, device = json.loads(sys.argv[2])
+from jepsen_tpu_torch.ops.encode import pack_with_init
+from jepsen_tpu_torch.testing import simulate_register_history, wide_history
+import torch_dryrun_dcn as dcn
+keys, ops, kw, out, device, wide, rung, seg, reps = json.loads(sys.argv[2])
 keyed = {k: simulate_register_history(ops, n_procs=5, n_vals=8,
                                       seed=7000 + k, **kw)
          for k in range(keys)}
 res = parallel.check_keyed_distributed(keyed, CASRegister(), device=device)
-if os.environ["JTPU_PROCESS_ID"] == "0":
+rank = int(os.environ["JTPU_PROCESS_ID"])
+if rank == 0:
     with open(out, "w") as fh:
         json.dump({"valid": repr(res["valid"]), "ranks": res.get("ranks"),
                    "results": {str(k): [repr(r["valid"]), r.get("levels"),
                                         r.get("rung"), r.get("crash-width"),
                                         r.get("tiebreak")]
                                for k, r in res["results"].items()}}, fh)
+# one pool-sharded search over the global mesh: 2 entries a rank
+dev = torch.device(device or "cuda")
+cuda = dev.type == "cuda"
+pmesh = parallel.make_mesh(axis="pool", devices=[dev] * 2)
+p, kernel = pack_with_init(wide_history(**wide), CASRegister())
+cap, _, exp = rung
+win = G._window_bucket(G._window_needed(p))
+ends = []
+K.reset_launches()
+t0 = time.perf_counter()
+sharded = G.check_packed_sharded(
+    p, kernel, pmesh, capacity=cap, window=win, expand=exp,
+    segment_iters=seg, on_checkpoint=lambda cp: ends.append(cp.carry))
+search_s = time.perf_counter() - t0
+launches = {k: K.launches[k] for k in ("expand", "sort_rows", "merge_runs",
+                                       "dedup_truncate", "seg_active")}
+doc = {"rank": rank, "search_s": search_s, "launches": launches,
+       "verdict": [repr(sharded["valid"]), sharded["levels"],
+                   sharded.get("max-linearized-prefix")],
+       "ranks": sharded.get("ranks"), "mesh": pmesh.size,
+       "pool_sharding": sharded["pool-sharding"], "ends": len(ends)}
+if rank == 0:
+    np.savez(out + ".ends.npz", **{f"e{i}_{j}": x for i, c in enumerate(ends)
+                                   for j, x in enumerate(c)})
+else:
+    doc["crcs"] = [G._carry_crc(c) for c in ends]
+# the first levels of the search timed on every rank (each level is one
+# exchange, so every rank runs them); CUDA events on the card
+cols_np = G._prep_single(p, kernel)[0]
+shape = K.LevelShape(C=cap, W=win, E=exp, n=cols_np["f"].shape[0],
+                     CR=cols_np["cf"].shape[0], model=kernel.name)
+host = G._carry0_host(cap, win, shape.CR, cols_np["ini"], int(cols_np["nr"]),
+                      stats_rows=shape.lmax + 1)
+st = G.ShardedState(pmesh.devices, cols_np, shape, True, pmesh.ranks,
+                    pmesh.rank)
+level_ms, exchange_ms, gather_ms = [], [], []
+for rep in range(reps[0] + 1):
+    interop.carry_from_numpy(host, st.lead, out=st.carry)
+    st.acc.zero_()
+    st.exchange_log = []
+    if cuda:
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+    else:
+        t0 = time.perf_counter()
+    for _ in range(reps[1]):
+        st.level()
+    if cuda:
+        b.record()
+        b.synchronize()
+        ms = a.elapsed_time(b)
+        ex = sum(e0.elapsed_time(e1) for e0, e1, _ in st.exchange_log)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+        ex = sum(t1 - t0 for t0, t1, _ in st.exchange_log) * 1e3
+    if rep:
+        level_ms.append(ms / reps[1])
+        exchange_ms.append(ex / reps[1])
+        gather_ms.append(sum(g for *_, g in st.exchange_log) * 1e3
+                         / reps[1])
+# the collective alone, both ranks entering it together: gloo's floor for
+# a level's bytes on this host
+block = st.hsend if st.staged else st.xsend
+recv = st.hrecv if st.staged else st.xrecv
+alone = []
+for _ in range(reps[0] * reps[1]):
+    dist.barrier()
+    t0 = time.perf_counter()
+    parallel.all_gather_tensor(recv, block)
+    alone.append((time.perf_counter() - t0) * 1e3)
+mid = lambda xs: sorted(xs)[len(xs) // 2]
+doc.update(level_ms=mid(level_ms), exchange_ms=mid(exchange_ms),
+           gather_ms=mid(gather_ms), gather_alone_ms=mid(alone),
+           exchange_bytes=st.exchange_bytes, reps=reps)
+del st
+# the reference dryrun's two legs on the global mesh
+lines = []
+legs = dcn.dcn_legs([dev] * 2, out=lines.append)
+doc["dcn_lines"] = lines
+keyed_res = legs["keyed"]["results"]
+doc["dcn"] = {"keyed_valid": repr(legs["keyed"]["valid"]),
+              "invalid_key": repr(keyed_res["invalid"]["valid"]),
+              "valid": repr(legs["valid"]["valid"]),
+              "refuted": repr(legs["refuted"]["valid"])}
+with open(out + f".rank{rank}.json", "w") as fh:
+    json.dump(doc, fh)
 """
+
+#: the fleet phase's (d): the levels of the cross-rank search timed
+#: (repetitions, levels), as (a) times its first FLEET_LEVEL_REPS levels
+FLEET_DCN_TIMING = (5, FLEET_LEVEL_REPS)
+#: the cross-rank search's segment length: several segment ends (and the
+#: ranks' lock-step check at each) over the wide history's levels
+FLEET_DCN_SEGMENT_ITERS = 8
 
 
 def keyed_fields(res) -> dict:
@@ -3952,8 +4059,12 @@ def fleet_phase(dev, seconds, smi):
     search's first levels timed sharded and unsharded; (b) the elastic fleet on two worker processes sharing
     the card, one SIGKILLed mid-rung; (c) ``serve --fleet 2``'s gangs
     with a worker killed mid-gang; (d) the keyed headline over two gloo
-    ranks. Returns (line, the sharded search's launches and CUDA
-    launches and pair ends, the merge kernel's JSON entry)."""
+    ranks, then (a)'s search with its pool sharded across the two ranks
+    (2 shards each, the runs exchanged every level), each segment end
+    held bit for bit against (a)'s unsharded search's, the level and its
+    exchange timed, and ``tools/torch_dryrun_dcn.py``'s two legs.
+    Returns (line, the sharded search's launches and CUDA launches and
+    pair ends, the merge kernel's JSON entry)."""
     import shutil
     import signal
     import tempfile
@@ -4223,7 +4334,9 @@ def fleet_phase(dev, seconds, smi):
                     [sys.executable, "-c", FLEET_RANK_CHILD,
                      os.path.dirname(os.path.abspath(__file__)),
                      json.dumps([KEYS, KEY_OPS, kw, out,
-                                 None if dev.type == "cuda" else "cpu"])],
+                                 None if dev.type == "cuda" else "cpu",
+                                 WIDE, FLEET_RUNG, FLEET_DCN_SEGMENT_ITERS,
+                                 FLEET_DCN_TIMING])],
                     env=env, stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True)
                 procs.append(rp)
@@ -4232,8 +4345,23 @@ def fleet_phase(dev, seconds, smi):
                 KEY_OPS, n_procs=5, n_vals=8, seed=7000 + k, **kw)
                 for k in range(KEYS)}
             want = check_keyed_gpu(keyed, CASRegister(), device=dev)
+            # the unsharded search in the ranks' segments
+            ends_d = []
+            unsharded_d = resilience.supervised_check_packed(
+                p, kernel, capacity=cap, window=win, expand=exp,
+                segment_iters=FLEET_DCN_SEGMENT_ITERS, device=dev,
+                on_checkpoint=ends_d.append)
+            assert [repr(unsharded_d.get(f)) for f in
+                    ("valid", "levels", "max-linearized-prefix")] == \
+                [repr(unsharded.get(f)) for f in
+                 ("valid", "levels", "max-linearized-prefix")]
+            assert all(np.array_equal(np.asarray(x), np.asarray(y))
+                       for x, y in zip(ends_d[-1].carry, ends_u[-1].carry)), \
+                "the last segment end differs from (a)'s"
+            texts = []
             for rp in ranks:
                 text, _ = rp.communicate(timeout=600)
+                texts.append(text)
                 assert rp.returncode == 0, text[-3000:]
             with open(out) as fh:
                 got = json.load(fh)
@@ -4245,6 +4373,63 @@ def fleet_phase(dev, seconds, smi):
                 "seconds": time.perf_counter() - td}
             print(f"fleet keyed: 2 ranks, {len(got['results'])} keys = "
                   f"check_keyed_gpu", flush=True)
+            # the pool-sharded search across the two ranks against the
+            # unsharded one in the same segments, every end bit for bit
+            docs = []
+            for r in range(2):
+                with open(out + f".rank{r}.json") as fh:
+                    docs.append(json.load(fh))
+            ends_r0 = np.load(out + ".ends.npz")
+            n_lanes = len(ends_d[0].carry)
+            want_v = [repr(unsharded["valid"]), unsharded["levels"],
+                      unsharded.get("max-linearized-prefix")]
+            for doc in docs:
+                assert doc["ends"] == len(ends_d) > 1, \
+                    (doc["ends"], len(ends_d))
+                assert doc["verdict"] == want_v, (doc["verdict"], want_v)
+                assert doc["ranks"] == 2 and doc["mesh"] == 4, doc
+                for name, n in doc["launches"].items():
+                    assert n > 0 or dev.type != "cuda", (doc["rank"], name)
+                for ln in doc["dcn_lines"]:
+                    print(ln, flush=True)
+                assert doc["dcn"] == {
+                    "keyed_valid": "False", "invalid_key": "False",
+                    "valid": "True", "refuted": "False"}, doc["dcn"]
+            for i, cp in enumerate(ends_d):
+                assert all(np.array_equal(ends_r0[f"e{i}_{j}"],
+                                          np.asarray(cp.carry[j]))
+                           for j in range(n_lanes)), \
+                    f"rank 0's segment end {i} differs"
+            assert docs[1]["crcs"] == [G._carry_crc(cp.carry)
+                                       for cp in ends_d], \
+                "rank 1's segment ends differ"
+            d0 = docs[0]
+            line["dcn"] = {
+                "ranks": 2, "entries_per_rank": 2, "rung": [cap, win, exp],
+                "segment_iters": FLEET_DCN_SEGMENT_ITERS,
+                "segment_ends_equal": len(ends_d),
+                "valid": docs[0]["verdict"][0],
+                "levels": docs[0]["verdict"][1],
+                "search_s": [doc["search_s"] for doc in docs],
+                "launches": [doc["launches"] for doc in docs],
+                "level_ms": d0["level_ms"],
+                "exchange_ms": d0["exchange_ms"],
+                "exchange_share": d0["exchange_ms"] / d0["level_ms"],
+                "gather_ms": d0["gather_ms"],
+                "gather_alone_ms": d0["gather_alone_ms"],
+                "exchange_bytes_per_level": d0["exchange_bytes"],
+                "timing": {"reps": d0["reps"][0], "levels": d0["reps"][1],
+                           "from_level": 0, "clock": "CUDA events"
+                           if dev.type == "cuda" else "host"},
+                "dcn_legs": docs[0]["dcn"],
+                "seconds": time.perf_counter() - td}
+            print(f"fleet dcn: 2 ranks x 2 shards, {len(ends_d)} segment "
+                  f"ends = unsharded, level {d0['level_ms']:.4f} ms, "
+                  f"exchange {d0['exchange_ms']:.4f} ms "
+                  f"({line['dcn']['exchange_share']:.3f} of it; the "
+                  f"collective {d0['gather_ms']:.4f} ms, alone "
+                  f"{d0['gather_alone_ms']:.4f}), "
+                  f"{d0['exchange_bytes']} bytes a level", flush=True)
     finally:
         for pr in procs:
             if isinstance(pr, fleet.ProcHost):
@@ -5054,6 +5239,9 @@ def smoke(dev: torch.device) -> None:
         "merge_runs", 0) for p in path_launches}
     merge_entry["cuda_launches_by_path"] = {p: path_grid[p].get(
         "merge_runs", 0) for p in path_grid}
+    # the search across two ranks (fleet (d)): rank 0's launches
+    merge_entry["launches_by_path"]["fleet-ranks"] = \
+        fleet_line["dcn"]["launches"][0]["merge_runs"]
     kernels.append(merge_entry)
     loop_summary = {
         "states": loops,

@@ -823,7 +823,8 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
         seg, first = _segment_schedule(None, shape.lmax)
         segs = run_batch(cols, carry, scratch, shape, seg, ops, first)
         launched = sum(segs)
-        scal = carry.scal.cpu().numpy()
+        # copies: on the CPU a view would change with the next cohort
+        scal = carry.scal.cpu().numpy().copy()
         dt = time.perf_counter() - t0
         done = scal[:, K.DONE] != 0
         wovf = scal[:, K.WOVF] != 0
@@ -831,7 +832,7 @@ def _run_cohort(grp: List[_KeyRow], shape: K.LevelShape, device,
         lossy = (scal[:, K.LOSSY] != 0) | (~done & (scal[:, K.NALIVE] > 0))
         pools = None
         if (~done & ~lossy & ~wovf).any():
-            pools = tuple(t.cpu().numpy()
+            pools = tuple(t.cpu().numpy().copy()
                           for t in (carry.pk, carry.ps, carry.pa))
     mark_executed(key)
     note_call_phase("batch", phase, dt)
@@ -878,7 +879,9 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
                   chunk: Optional[Callable[[tuple, int, int], int]] = None,
                   cost_entries: Optional[list] = None,
                   mesh_devices: Optional[List[torch.device]] = None,
-                  kernel: Optional[KernelSpec] = None) -> list:
+                  kernel: Optional[KernelSpec] = None,
+                  mesh_ranks: Optional[tuple] = None,
+                  rank: int = 0) -> list:
     """The keyed batch's escalation loop (``_keyed_ladder`` in the
     reference) for the model named ``model`` (a KernelSpec name): per
     rung, the runnable keys in one batch per crashed-op
@@ -894,7 +897,12 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
     crashed width, padded with trivially complete rows to a multiple of
     the mesh axis, each device taking its contiguous share, as the
     reference's mesh path lays the batch out; the padding rows report
-    nothing."""
+    nothing. On a mesh across ranks (``mesh_ranks``, each entry's rank;
+    this process is ``rank``) a rank runs the shares of its own entries
+    and every rank's outputs are gathered (the per-key scalars, and the
+    pools of a share where a key is refuted), so that every rank takes
+    the same decisions and fills the same results."""
+    from jepsen_tpu_torch import parallel
     batches = []
     for step, (cap, win, exp) in enumerate(ladder):
         if not rows:
@@ -940,22 +948,35 @@ def _keyed_ladder(ladder: tuple, rows: List[_KeyRow], adaptive: bool,
         else:
             chunks = _mesh_chunks(runnable, packed, breq, kernel,
                                   mesh_devices)
-        for crw, grp, dev_c in chunks:
-            shape = K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
-                                 n=breq, CR=crw, B=len(grp), tiebreak=tb,
-                                 model=model)
+        def shape_of(crw, grp):
+            return K.LevelShape(C=cap, W=win, E=min(exp or cap, cap),
+                                n=breq, CR=crw, B=len(grp), tiebreak=tb,
+                                model=model)
+        runs = {}
+        for ci, (crw, grp, dev_c) in enumerate(chunks):
+            if mesh_ranks is not None and mesh_ranks[ci] != rank:
+                continue
             t0 = time.perf_counter()
-            done, lossy, wovf, best, levels, pools, launched = _run_cohort(
-                grp, shape, dev_c, ops)
+            runs[ci] = _run_cohort(grp, shape_of(crw, grp), dev_c, ops) \
+                + (time.perf_counter() - t0,)
+        if mesh_ranks is not None:
+            for part in parallel.all_gather_object(runs, "all_gather"):
+                runs.update(part)
+        for ci, (crw, grp, dev_c) in enumerate(chunks):
+            shape = shape_of(crw, grp)
+            (done, lossy, wovf, best, levels, pools, launched,
+             secs) = runs[ci]
             batches.append({"rung": (cap, win, exp), "crash-width": crw,
                             "tiebreak": tb,
                             "keys": sum(r.key is not _MESH_PAD
                                         for r in grp),
                             "levels": int(levels.max()),
                             "levels-launched": launched,
-                            "seconds": time.perf_counter() - t0})
+                            "seconds": secs})
             if mesh_devices is not None:
                 batches[-1]["device"] = str(dev_c)
+            if mesh_ranks is not None:
+                batches[-1]["rank"] = mesh_ranks[ci]
             if cost_entries is not None and obs.enabled():
                 cost_entries.append(kcost.cost_entry(
                     "batch", (cap, win, exp), shape, int(levels.max()),
@@ -1066,7 +1087,10 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     a rung and crashed-op width advances one level per launch. With a
     ``keys`` mesh (:func:`jepsen_tpu_torch.parallel.make_mesh`) each
     rung's keys are split over its devices (see :func:`_keyed_ladder`),
-    and ``device`` is the mesh's first device.
+    and ``device`` is the mesh's first device. On a mesh across the ranks
+    of a group every rank calls this with the same keys, searches the
+    shares of its own entries (``device`` is its first entry's) and
+    returns the whole result, with ``"ranks"``.
 
     ``capacity=None`` and ``ladder=None`` escalate through the adaptive
     ladder: the slim first rung (dense keys, whose forced fraction is
@@ -1095,8 +1119,16 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     if kernel is None:
         raise ValueError(f"model {model!r} has no integer kernel")
     mesh_devices = None if mesh is None else _mesh_devices(mesh)
-    dev = resolve_device(device if mesh_devices is None
-                         else mesh_devices[0])
+    mesh_ranks = None
+    if mesh is not None and getattr(mesh, "ranks", ()) \
+            and max(mesh.ranks) > 0:
+        mesh_ranks = tuple(mesh.ranks)
+        from jepsen_tpu_torch import parallel
+        parallel.check_ranks(mesh_ranks, max(mesh_ranks) + 1)
+        dev = resolve_device(mesh_devices[mesh.local()[0]])
+    else:
+        dev = resolve_device(device if mesh_devices is None
+                             else mesh_devices[0])
     results: Dict[Any, Dict[str, Any]] = {}
     if not keyed:
         return {"valid": True, "results": results, "backend": "gpu",
@@ -1175,10 +1207,13 @@ def check_keyed_gpu(keyed: Dict[Any, Sequence], model: Model,
     with obs.profiler.capture(cuda=dev.type == "cuda"):
         batches = _keyed_ladder(ladder, rows, adaptive, tiebreak0, packed,
                                 breq, results, dev, ops, kernel.name, chunk,
-                                cost_entries, mesh_devices, kernel)
+                                cost_entries, mesh_devices, kernel,
+                                mesh_ranks, getattr(mesh, "rank", 0))
     if cost_entries:
         # at the top level: a batch's cost belongs to all its keys
         out["cost"] = cost_entries
+    if mesh_ranks is not None:
+        out["ranks"] = max(mesh_ranks) + 1
     return {"valid": merge_valid(r["valid"] for r in results.values()),
             "results": results, "backend": "gpu", "batches": batches, **out}
 
@@ -1401,14 +1436,16 @@ def _shard_balance(pool, naxis: int) -> Optional[Dict[str, Any]]:
 
 
 class _Shard(NamedTuple):
-    """One mesh shard's buffers: its device, the columns there, its dealt
+    """One mesh shard's buffers: its slot on the mesh, its device, the
+    columns there, its dealt
     pool (C/N rows: its E/N rows of the top E, then its (C-E)/N rows of
     the remainder), scalars, accumulators, and its successor rows with
     the sort's second buffer. ``own`` is False where the shard lies on
-    the mesh's first device and its pool and rows are views of the
+    the rank's first device and its pool and rows are views of the
     search's own buffers (nothing is copied); else they are its own, and
     peer copies move them."""
 
+    slot: int
     device: torch.device
     cols: dict
     pool: K.Pool
@@ -1442,17 +1479,38 @@ class ShardedState:
     K4 run on the merged rows at the global shape and write the next
     pool. The union of the shards' rows is the unsharded level's rows and
     the comparator orders whole rows, so the merged rows, and with them
-    the level, are the unsharded level's bit for bit."""
+    the level, are the unsharded level's bit for bit.
+
+    On a mesh that spans the ranks of a group (``ranks``, this process's
+    ``rank``), the devices are this rank's first device and, for another
+    rank's entries, names only. Each rank keeps the whole replicated
+    state above on its first device and the buffers of its own shards,
+    a contiguous run of L = N / world slots, and runs K1 and K2 for them
+    only. One collective a level (:meth:`exchange`) then gives every rank
+    every shard's sorted live rows (R / N a shard; each rank writes the
+    pad rows after them itself) and its scalar and accumulator rows, and
+    every rank runs the reductions, the merge, K3, K4 and K5 on identical
+    inputs: every rank holds the same carry, bit for bit, and takes the
+    same go-word decision. Under gloo the exchange is staged through
+    pinned host buffers made once here; under nccl it gathers the device
+    buffers in place."""
 
     def __init__(self, devices: Sequence[torch.device], cols_np: dict,
-                 shape: K.LevelShape, stats: bool):
+                 shape: K.LevelShape, stats: bool,
+                 ranks: Sequence[int] = (), rank: int = 0):
+        from jepsen_tpu_torch import interop, parallel
         N = len(devices)
         if shape.C % N or shape.E % N:
             raise ValueError(f"the mesh axis ({N}) must divide capacity "
                              f"({shape.C}) and expand ({shape.E})")
-        from jepsen_tpu_torch import interop
-        self.devices = list(devices)
-        lead = self.devices[0]
+        ranks = tuple(ranks) or (0,) * N
+        self.world = max(ranks) + 1
+        per_rank = parallel.check_ranks(ranks, self.world)
+        self.rank = rank
+        mine = range(rank * per_rank, (rank + 1) * per_rank)
+        self.devices = [torch.device(d) for d in devices]
+        lead = self.devices[mine[0]]
+        self.lead = lead
         self.shape = shape
         self.local = K.LevelShape(C=shape.C // N, W=shape.W, E=shape.E // N,
                                   n=shape.n, CR=shape.CR, B=1,
@@ -1461,7 +1519,8 @@ class ShardedState:
         self.run = max(rp, 256)
         stacked = interop.stack_cols([cols_np])
         by_dev = {}
-        for d in self.devices:
+        for s in mine:
+            d = self.devices[s]
             if d not in by_dev:
                 by_dev[d] = interop.batch_cols_from_numpy(stacked, d)
         self.cols = by_dev[lead]
@@ -1490,7 +1549,8 @@ class ShardedState:
         self.pad = (None if self.run == rp else
                     self.rows[:, rp:self.run].clone())
         self.shards: List[_Shard] = []
-        for s, d in enumerate(self.devices):
+        for s in mine:
+            d = self.devices[s]
             a = s * self.run
             own = d != lead
             if own:
@@ -1502,10 +1562,96 @@ class ShardedState:
                 rows = self.rows[:, a:a + rp]
                 rows_alt = self.rows_alt[:, a:a + rp]
             self.shards.append(_Shard(
-                d, by_dev[d], pool,
+                s, d, by_dev[d], pool,
                 torch.zeros(1, K.NSCAL, dtype=i32, device=d),
                 torch.zeros(1, K.NACC, dtype=i32, device=d),
                 rows, rows_alt, own))
+        #: the bytes one level's exchange gathers (0 on one process)
+        self.exchange_bytes = 0
+        #: where set to a list, each exchange appends its (start, end,
+        #: the host seconds inside the collective): start and end CUDA
+        #: events on the card, ``time.perf_counter`` on the CPU
+        self.exchange_log: Optional[list] = None
+        if self.world > 1:
+            self._exchange_buffers(per_rank)
+
+    def _exchange_buffers(self, per_rank: int) -> None:
+        """The exchange's buffers, made once: a rank's block (each of its
+        shards' R / N live rows, then its scalars and accumulators) and
+        the gathered blocks of every rank, on the first device; under
+        gloo with a CUDA device, their pinned host stages too. The tail
+        of a slot after the live rows is the pad, written by the rank."""
+        from jepsen_tpu_torch import parallel
+        R, NK, lead = self.local.R, self.shape.NK, self.lead
+        self.blk = R * NK + K.NSCAL + K.NACC
+        n = per_rank * self.blk
+        i32 = torch.int32
+        self.xsend = torch.zeros(n, dtype=i32, device=lead)
+        self.xrecv = torch.zeros(self.world * n, dtype=i32, device=lead)
+        self.nccl = parallel.backend() == "nccl"
+        self.staged = lead.type == "cuda" and not self.nccl
+        if self.staged:
+            self.hsend = torch.zeros(n, dtype=i32, pin_memory=True)
+            self.hrecv = torch.zeros(self.world * n, dtype=i32,
+                                     pin_memory=True)
+        self.pad_tail = self.rows[:, R:self.run].clone()
+        self.exchange_bytes = 4 * self.world * n
+
+    def exchange(self) -> torch.Tensor:
+        """The level's collective on a mesh across ranks: every rank's
+        block of shard runs and scalar rows gathered on every rank, the
+        other ranks' runs written into their slots of the merged buffer
+        (each followed by the pad rows). Returns the [N, NSCAL + NACC]
+        scalar and accumulator rows of every shard, in mesh order. A
+        failed collective raises (see :func:`jepsen_tpu_torch.parallel.
+        collective`)."""
+        from jepsen_tpu_torch import parallel
+        R, NK, blk = self.local.R, self.shape.NK, self.blk
+        rows_words = R * NK
+        timed = self.exchange_log is not None
+        cuda = self.lead.type == "cuda"
+        if timed:
+            if cuda:
+                ev0 = torch.cuda.Event(enable_timing=True)
+                ev0.record()
+            else:
+                t0 = time.perf_counter()
+        for i, sh in enumerate(self.shards):
+            o = i * blk
+            a = sh.slot * self.run
+            self.xsend[o:o + rows_words].view(R, NK).copy_(
+                self.rows[0, a:a + R])
+            self.xsend[o + rows_words:o + rows_words + K.NSCAL].copy_(
+                sh.scal[0])
+            self.xsend[o + rows_words + K.NSCAL:o + blk].copy_(sh.acc[0])
+        if self.staged:
+            self.hsend.copy_(self.xsend)    # synchronous: the runs are in
+            g0 = time.perf_counter()
+            parallel.all_gather_tensor(self.hrecv, self.hsend)
+            g1 = time.perf_counter()
+            self.xrecv.copy_(self.hrecv, non_blocking=True)
+        else:
+            g0 = time.perf_counter()
+            parallel.all_gather_tensor(self.xrecv, self.xsend)
+            g1 = time.perf_counter()
+        _TRANSFER_BYTES.inc(4 * (self.xsend.numel() + self.xrecv.numel()),
+                            direction="dcn")
+        blocks = self.xrecv.view(-1, blk)
+        mine = {sh.slot for sh in self.shards}
+        for s in range(blocks.shape[0]):
+            if s in mine:
+                continue
+            a = s * self.run
+            self.rows[0, a:a + R].copy_(blocks[s, :rows_words].view(R, NK))
+            self.rows[:, a + R:a + self.run].copy_(self.pad_tail)
+        if timed:
+            if cuda:
+                ev1 = torch.cuda.Event(enable_timing=True)
+                ev1.record()
+                self.exchange_log.append((ev0, ev1, g1 - g0))
+            else:
+                self.exchange_log.append((t0, time.perf_counter(), g1 - g0))
+        return blocks[:, rows_words:]
 
     def level(self, ops: Ops = KERNELS) -> None:
         """One sharded level (see the class docstring)."""
@@ -1520,7 +1666,8 @@ class ShardedState:
         for src, dst in zip(carry.pool.tensors(), self.dealt.tensors()):
             torch.index_select(src, 1, self.deal_idx, out=dst)
         rp, Cs = local.RP, local.C
-        for s, sh in enumerate(self.shards):
+        for sh in self.shards:
+            s = sh.slot
             if sh.own:
                 sh.pool.copy_(_pool_view(self.dealt, s * Cs, (s + 1) * Cs))
             sh.scal.copy_(carry.scal)
@@ -1533,9 +1680,13 @@ class ShardedState:
                 self.rows[:, a:a + rp].copy_(sh.rows)
             if self.pad is not None:
                 self.rows[:, a + rp:a + self.run].copy_(self.pad)
-        lead = self.devices[0]
-        scal = torch.cat([sh.scal.to(lead) for sh in self.shards])
-        acc = torch.cat([sh.acc.to(lead) for sh in self.shards])
+        if self.world > 1:
+            rows = self.exchange()
+            scal, acc = rows[:, :K.NSCAL], rows[:, K.NSCAL:]
+        else:
+            lead = self.lead
+            scal = torch.cat([sh.scal.to(lead) for sh in self.shards])
+            acc = torch.cat([sh.acc.to(lead) for sh in self.shards])
         carry.scal[:, K.ACT] = scal[0, K.ACT]
         carry.scal[:, K.WOVF] = scal[:, K.WOVF].amax()
         self.acc[:, K.A_EXPANDED] = acc[:, K.A_EXPANDED].sum()
@@ -1546,7 +1697,7 @@ class ShardedState:
         pool buffers swap."""
         shape, carry = self.shape, self.carry
         merged = ops.merge_runs(self.rows, self.rows_alt, carry.scal, shape,
-                                len(self.shards) * self.run, self.run)
+                                len(self.devices) * self.run, self.run)
         rows = merged[:, :shape.RP]
         if K.group_scan_runs(shape):
             ops.group_scan(rows, carry.scal, self.g, self.gagg, shape)
@@ -1563,7 +1714,7 @@ class ShardedState:
         :func:`end_segment`'s ``(run, live, level, nalive)``."""
         bound = seg_iters + (seg_iters & 1)
         seg = torch.tensor([0, bound, 0, 0], dtype=torch.int32,
-                           device=self.devices[0])
+                           device=self.lead)
         while True:
             self.level(ops)
             self.level(ops)
@@ -1606,12 +1757,23 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
     that divides the carry's capacity (the carry is global state: the
     axis only splits its rows), which the elastic fleet leans on. The
     result is :func:`check_packed_gpu`'s, with ``pool-sharding`` and
-    ``shard-balance`` (:func:`_shard_balance`)."""
-    from jepsen_tpu_torch import accel, interop, resilience
+    ``shard-balance`` (:func:`_shard_balance`).
+
+    On a mesh across the ranks of a group (:func:`jepsen_tpu_torch.
+    parallel.make_mesh` after ``initialize_multihost``) every rank calls
+    this with the same arguments; each runs its own shards, the runs are
+    exchanged every level (:class:`ShardedState`), every segment end
+    checks that the ranks hold the same level and carry, and every rank
+    returns the same result, with ``"ranks"``. Rank 0 writes
+    ``checkpoint_path``; ``on_checkpoint`` is called on every rank."""
+    from jepsen_tpu_torch import accel, interop, parallel, resilience
     from jepsen_tpu_torch.checker import plan as plan_mod
     devices = _mesh_devices(mesh)
     naxis = len(devices)
-    lead = devices[0]
+    ranks = tuple(getattr(mesh, "ranks", ()))
+    rank = getattr(mesh, "rank", 0)
+    world = max(ranks) + 1 if ranks else 1
+    lead = devices[mesh.local()[0]] if world > 1 else devices[0]
     cols_np, early = _prep_single(p, kernel)
     if early is not None:
         early["pool-sharding"] = f"{POOL_AXIS}={naxis}"
@@ -1626,7 +1788,8 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
     plan_entry = None
     if plan_mod.gate_enabled():
         plan_entry = plan_mod.gate_sharded(p, kernel, naxis, capacity,
-                                           window, expand, device=lead)
+                                           window, expand, device=lead,
+                                           ranks=world)
     if capacity % naxis or expand % naxis:
         raise ValueError(
             f"the mesh axis ({naxis}) must divide capacity ({capacity}) "
@@ -1652,7 +1815,7 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
         host = resilience._grow_carry_stats(host, lmax)
     shape = K.LevelShape(C=capacity, W=window, E=min(expand, capacity),
                          n=n, CR=cr_pad, model=kernel.name)
-    st = ShardedState(devices, cols_np, shape, stats)
+    st = ShardedState(devices, cols_np, shape, stats, ranks, rank)
     interop.carry_from_numpy(host, lead, out=st.carry)
     seg, first = _segment_schedule(segment_iters, lmax)
     live = resilience._carry_active(host, lmax)
@@ -1676,12 +1839,17 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
         _SEGMENTS_TOTAL.inc()
         _FRONTIER_HWM.set_max(nalive[0])
         level, live = lv[0], bool(act[0])
+        ended = None
+        if world > 1:
+            ended = interop.carry_to_numpy(st.carry)
+            _lockstep(ended, level)
         if checkpoint_path or on_checkpoint is not None:
             cp = resilience.Checkpoint(
-                carry=interop.carry_to_numpy(st.carry),
+                carry=(interop.carry_to_numpy(st.carry) if ended is None
+                       else ended),
                 rung=(capacity, window, expand), window=window,
                 expand_eff=expand, crash_width=crw, segment=seg_idx)
-            if checkpoint_path:
+            if checkpoint_path and rank == 0:
                 cp.save(checkpoint_path)
             if on_checkpoint is not None:
                 on_checkpoint(cp)
@@ -1692,6 +1860,8 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
     if balance is not None:
         out["shard-balance"] = balance
     out["pool-sharding"] = f"{POOL_AXIS}={naxis}"
+    if world > 1:
+        out["ranks"] = world
     out["rung"] = (capacity, window, expand)
     out["crash-width"] = crw
     out["segments"] = seg_idx
@@ -1700,6 +1870,28 @@ def check_packed_sharded(p: PackedHistory, kernel: KernelSpec, mesh,
     if plan_entry is not None:
         out["plan"] = plan_entry
     return out
+
+
+def _carry_crc(host: tuple) -> int:
+    """The CRC-32 of a host carry's lanes, in lane order."""
+    import zlib
+    crc = 0
+    for x in host:
+        crc = zlib.crc32(np.ascontiguousarray(x).tobytes(), crc)
+    return crc
+
+
+def _lockstep(host: tuple, level: int) -> None:
+    """A segment end of a search across ranks: every rank gives its level
+    and a CRC-32 of its host carry, and any difference raises. The ranks
+    decide their go words alone; this is where a rank that drifted from
+    the others shows."""
+    from jepsen_tpu_torch import parallel
+    seen = parallel.all_gather_object((int(level), _carry_crc(host)),
+                                      "all_gather")
+    if len(set(seen)) != 1:
+        raise RuntimeError(f"the ranks' searches diverged at a segment "
+                           f"end: (level, carry CRC-32) by rank {seen}")
 
 
 def check_history_sharded(history, model: Model, mesh,

@@ -145,6 +145,7 @@ class Candidate:
     keys: int = 1
     tiebreak: str = "lex"
     mesh_axis: Optional[int] = None
+    ranks: int = 1            # the processes a sharded mesh spans
 
     @property
     def expand_eff(self) -> int:
@@ -162,6 +163,8 @@ class Candidate:
             base += f" x{self.keys}"
         if self.mesh_axis:
             base += f" {G.POOL_AXIS}={self.mesh_axis}"
+        if self.ranks > 1:
+            base += f" ranks={self.ranks}"
         return base
 
     def shape(self, model: str = "cas-register",
@@ -292,8 +295,16 @@ def _sharded_footprint(cand: Candidate) -> Dict[str, int]:
     dealt pool, its rows and their second buffer, and its scalars:
     ``shard-bytes``. ``total-bytes`` is their sum over a mesh of distinct
     devices; on one device (logical shards) the first device's bytes are
-    the whole."""
+    the whole.
+
+    On a mesh across ``ranks`` processes the bytes are one rank's: the
+    replicated state above on its first device, with its own L = N /
+    ranks shards' scalars and the level's exchange buffers (its block and
+    every rank's, R / N rows and the scalar rows a shard), and its shards
+    on other devices. The pinned host stages of a gloo exchange are not
+    device bytes."""
     N = cand.mesh_axis
+    L = N // cand.ranks if cand.ranks > 1 else N
     shape = cand.shape()
     local = K.LevelShape(C=cand.capacity // N, W=cand.window,
                          E=max(cand.expand_eff // N, 1), n=cand.breq,
@@ -305,7 +316,10 @@ def _sharded_footprint(cand: Candidate) -> Dict[str, int]:
     small = [4 * K.NSCAL, 4 * K.NACC]
     lead = (cols + G.carry_nbytes(shape) + pool + pool
             + [4 * K.NACC, rows, rows, 4 * shape.RP,
-               4 * K.scan_blocks(shape)] + small * N)
+               4 * K.scan_blocks(shape)] + small * L)
+    if cand.ranks > 1:
+        block = 4 * L * (local.R * local.NK + K.NSCAL + K.NACC)
+        lead += [block, cand.ranks * block]
     shard = (cols + G._pool_nbytes(local)
              + [4 * local.RP * local.NK] * 2 + small)
     return {"cols-bytes": sum(cols),
@@ -313,7 +327,7 @@ def _sharded_footprint(cand: Candidate) -> Dict[str, int]:
             "scratch-bytes": sum(lead) - sum(cols)
             - sum(G.carry_nbytes(shape)),
             "per-device-bytes": sum(lead), "shard-bytes": sum(shard),
-            "total-bytes": sum(lead) + (N - 1) * sum(shard),
+            "total-bytes": sum(lead) + (L - 1) * sum(shard),
             "allocated-bytes": _allocated(lead)}
 
 
@@ -449,6 +463,11 @@ def check_candidate(cand: Candidate, dims: PlanDims,
             f"search clamps it to the pool size", lbl))
     if cand.mesh_axis:
         naxis = cand.mesh_axis
+        if naxis % cand.ranks:
+            issues.append(PlanIssue(
+                "PLAN-SHARD-INDIVISIBLE", ERROR,
+                f"mesh axis {naxis} over {cand.ranks} ranks: every rank "
+                f"must hold the same number of shards", lbl))
         if cand.capacity % naxis or cand.expand_eff % naxis:
             issues.append(PlanIssue(
                 "PLAN-SHARD-INDIVISIBLE", ERROR,
@@ -747,9 +766,10 @@ def gate_ladder(p, kernel, ladder: tuple, kind: str, explicit: bool,
 def gate_sharded(p: PackedHistory, kernel, naxis: int, capacity: int,
                  window: int, expand: int,
                  where: str = "the pool-sharded device search",
-                 device=None) -> Dict[str, Any]:
+                 device=None, ranks: int = 1) -> Dict[str, Any]:
     """Gate the one plan of a pool-sharded search (mesh divisibility,
-    skew, footprint, widths). Raises :class:`~jepsen_tpu_torch.analysis.
+    skew, footprint, widths) over ``ranks`` processes, its footprint one
+    rank's. Raises :class:`~jepsen_tpu_torch.analysis.
     plan_lint.PlanRejectedError` on any error; returns the ``plan`` entry
     otherwise."""
     dims = PlanDims.from_packed(p)
@@ -764,7 +784,7 @@ def gate_sharded(p: PackedHistory, kernel, naxis: int, capacity: int,
         _reject(report, where)
     cand = Candidate("sharded", capacity, window, expand,
                      G._bucket(max(dims.n_required, 1)), crw,
-                     mesh_axis=naxis)
+                     mesh_axis=naxis, ranks=ranks)
     fp = footprint(cand)
     ci = check_candidate(cand, dims, limit, fp)
     bad = any(i.severity == ERROR for i in ci)

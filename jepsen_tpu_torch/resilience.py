@@ -156,7 +156,9 @@ _DCN_MARKERS = ("collective", "all-reduce", "all_reduce", "all-gather",
                 "all_gather", "AllReduce", "AllGather", "NCCL",
                 "DCN", "cross-host", "cross_host", "barrier timed out",
                 "coordination service", "distributed runtime",
-                "heartbeat", "HostLostError")
+                "heartbeat", "HostLostError",
+                # gloo's peer loss, where a collective is not named
+                "Connection closed by peer")
 
 
 def classify_failure(exc: BaseException) -> str:

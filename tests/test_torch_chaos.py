@@ -3,7 +3,8 @@ in-process scenarios pass on the CPU, and where the reference's own
 scenario (``tools/chaos_matrix.py``, loaded by path: its import only
 defines things) runs the same injected faults on the same seed, the
 verdicts, levels, pool rungs, fault counts and rule ids are the
-reference's.
+reference's. The local-kv runs whose histories the scenarios check are
+2 s long here (6 s in the tools).
 """
 
 import importlib.util
@@ -41,8 +42,21 @@ def _reference():
     return mod
 
 
+#: the seconds of the local-kv runs that malformed-history and
+#: plan-rejects check on the CPU (the tools' own run is 6 s)
+LOCALKV_S = 2
+
+
 @pytest.fixture(autouse=True)
 def clean(monkeypatch):
+    import jepsen_tpu.suites.localkv as ref_localkv
+    real = ref_localkv.localkv_test
+
+    def short(opts):
+        # the reference's scenario asks for its 6 s run by literal
+        return real(dict(opts, **{"time-limit": LOCALKV_S}))
+    monkeypatch.setattr(chaos, "LOCALKV_S", LOCALKV_S)
+    monkeypatch.setattr(ref_localkv, "localkv_test", short)
     monkeypatch.setenv("JEPSEN_RETRY_BASE", "0.001")
     monkeypatch.delenv("JTPU_SEGMENT_DEADLINE_S", raising=False)
     monkeypatch.delenv("JTPU_PLAN_BYTES_LIMIT", raising=False)

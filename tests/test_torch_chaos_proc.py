@@ -1,8 +1,11 @@
 """The port's chaos matrix's scenarios that kill processes, on the CPU:
 ``kill9-recover``, ``serve-kill`` and ``fleet-host-kill``, each in a
-``tools/torch_chaos_matrix.py`` process of its own under a timeout (its
-process group killed past it), and ``main``'s exit code when a selected
-scenario fails.
+process of its own that runs ``tools/torch_chaos_matrix.py``'s ``main``
+under a timeout (its process group killed past it), and ``main``'s exit
+code when a selected scenario fails. The processes give the tool smaller
+workloads than its own: the killed local-kv run's WAL holds 20 ops
+before the kill (the tool's 40), and the fleet's search is of a 60-op
+history (the tool's 150).
 """
 
 import os
@@ -22,15 +25,20 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import torch_chaos_matrix as chaos  # noqa: E402
 
 TIMEOUT_S = 150
+#: the tool's workloads in these processes
+SMALL = "c.WAL_OPS = 20; c.PACKED_OPS = 60"
 
 
 @pytest.mark.parametrize("name", ("kill9-recover", "serve-kill",
                                   "fleet-host-kill"))
 def test_the_killing_scenarios_pass_on_the_cpu(name):
     env = dict(os.environ, OMP_NUM_THREADS="1")
+    tools = os.path.join(ROOT, "tools")
+    code = (f"import sys; sys.path.insert(0, {tools!r}); "
+            f"import torch_chaos_matrix as c; {SMALL}; "
+            f"sys.exit(c.main(['--device', 'cpu', '--only', {name!r}]))")
     proc = subprocess.Popen(
-        [sys.executable, os.path.join(ROOT, "tools", "torch_chaos_matrix.py"),
-         "--device", "cpu", "--only", name],
+        [sys.executable, "-c", code],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
     try:

@@ -3,9 +3,10 @@
 non-zero before any work when asked for CUDA on a host without it.
 
 The kernels' plain versions on the CPU are far slower than the card, so
-the serve gate runs in this process with a 1 s local-kv workload, a
-2,000-op stream instead of 10,000, and a budget the CPU can meet; every
-check of the gate holds as on the card.
+the profiling gate runs a 1 s local-kv workload, the serve gate runs in
+this process with a 1 s local-kv workload, a 1,000-op stream instead of
+10,000, and a budget the CPU can meet; every check of each gate holds as
+on the card.
 """
 
 import os
@@ -31,7 +32,7 @@ def _tool(*args, timeout=150, **env):
 
 def test_the_profiling_gate_passes_on_the_cpu():
     r = _tool(os.path.join("tools", "torch_prof_gate.py"), "--device", "cpu",
-              "--time-limit", "2", "--budget", "120")
+              "--time-limit", "1", "--budget", "120")
     assert r.returncode == 0, (r.stdout, r.stderr[-3000:])
     assert "# prof-gate: merged trace validates as Chrome/Perfetto JSON" \
         in r.stdout
@@ -40,7 +41,7 @@ def test_the_profiling_gate_passes_on_the_cpu():
 
 
 def test_the_serve_gate_passes_on_the_cpu(monkeypatch, capsys):
-    monkeypatch.setattr(serve_gate, "STREAM_OPS", 2000)
+    monkeypatch.setattr(serve_gate, "STREAM_OPS", 1000)
     rc = serve_gate.main(["--device", "cpu", "--time-limit", "1",
                           "--budget", "300"])
     out = capsys.readouterr()

@@ -42,6 +42,7 @@ def _port_files():
              os.path.join(ROOT, "tools", "torch_chaos_matrix.py"),
              os.path.join(ROOT, "tools", "torch_serve_gate.py"),
              os.path.join(ROOT, "tools", "torch_prof_gate.py"),
+             os.path.join(ROOT, "tools", "torch_dryrun_dcn.py"),
              os.path.join(ROOT, "tests", "test_torch_cuda.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "jepsen_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]

@@ -100,12 +100,15 @@ def test_initialize_multihost_needs_an_explicit_coordinator(monkeypatch):
     assert jparallel.initialize_multihost() is False
 
 
-def test_rank_keys_cover_every_key_once():
-    keys = list(range(13)) + ["a", "b"]
-    shares = [parallel._rank_keys(keys, r, 4) for r in range(4)]
-    flat = [k for s in shares for k in s]
-    assert sorted(map(repr, flat)) == sorted(map(repr, keys))
-    assert parallel._rank_keys(list(reversed(keys)), 1, 4) == shares[1]
+def test_rank_shares_of_a_global_mesh_cover_every_entry_once():
+    ranks = (0, 0, 1, 1, 2, 2, 3, 3)
+    assert parallel.check_ranks(ranks, 4) == 2
+    shares = [parallel.Mesh(("cpu",) * 8, parallel.KEYS_AXIS, ranks,
+                            r).local() for r in range(4)]
+    assert shares == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    for bad in ((0, 0, 0, 1), (1, 1, 0, 0), (0, 0, 2, 2)):
+        with pytest.raises(ValueError, match="same number of entries"):
+            parallel.check_ranks(bad, 2 if 2 not in bad else 3)
 
 
 # ---------------------------------------------------------------------------

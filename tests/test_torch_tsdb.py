@@ -339,8 +339,29 @@ SLO_STEPS = {
 }
 
 
+@pytest.fixture
+def fresh_burn_gauge():
+    """Each package's process-global ``jtpu_slo_burn_rate`` gauge with no
+    series for the test's run, so that the value a run reads is one this
+    run wrote (another test file of the same worker may have left one);
+    the series it held are put back after. Only this gauge is cleared,
+    not the rest of the registry."""
+    saved = []
+    for metrics, *_ in PACKAGES.values():
+        gauge = metrics.REGISTRY.gauge("jtpu_slo_burn_rate")
+        with gauge._lock:
+            saved.append((gauge, dict(gauge._series)))
+            gauge._series.clear()
+    yield
+    for gauge, series in saved:
+        with gauge._lock:
+            gauge._series.clear()
+            gauge._series.update(series)
+
+
 @pytest.mark.parametrize("name", sorted(SLO_STEPS))
-def test_the_slo_burn_and_transitions_equal(name, tmp_path):
+def test_the_slo_burn_and_transitions_equal(name, tmp_path,
+                                            fresh_burn_gauge):
     out = _both(lambda *m: _slo_run(*m, SLO_STEPS[name]), tmp_path)
     for side in out.values():
         for ev in side["events"]:

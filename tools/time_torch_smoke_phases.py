@@ -14,7 +14,8 @@ smoke's command-line phase, over a local-kv run recorded first through
 ``--cli``, whose watched run and lone checks it serves). ``--runner``
 runs the test runner phase, ``--fleet`` the ``fleet`` phase (the
 pool-sharded search, the elastic fleet on worker processes, ``serve
---fleet 2`` and the keyed check over two gloo ranks), ``--suites`` the
+--fleet 2``, and the keyed check and the pool-sharded search over two
+gloo ranks), ``--suites`` the
 ``suites`` and ``cas-suites`` phases, and ``--ci-tools`` the ``ci
 tools`` phase (the port's soak, chaos matrix and two gates, each a
 process; a tree without the phase is reported and skipped, so that

@@ -115,10 +115,18 @@ from jepsen_tpu_torch.testing import simulate_register_history  # noqa: E402
 CHILD_WAIT_S = 90.0
 #: how long a scenario polls a daemon for its verdicts
 VERDICT_WAIT_S = 120.0
+#: the seconds of the local-kv run whose history malformed-history
+#: corrupts and plan-rejects gates
+LOCALKV_S = 6
+#: the ops a killed local-kv child's WAL holds before the kill
+WAL_OPS = 40
+#: the ops of the register history the supervisor's and the fleet's
+#: scenarios search
+PACKED_OPS = 150
 
 
 def _packed(seed):
-    h = simulate_register_history(150, n_procs=5, n_vals=4, seed=seed,
+    h = simulate_register_history(PACKED_OPS, n_procs=5, n_vals=4, seed=seed,
                                   crash_p=0.02)
     return pack_with_init(h, CASRegister())
 
@@ -366,11 +374,13 @@ def _poison_histories(seed):
     return surv_ops, None, None
 
 
-def _localkv_history(device, seconds=6):
-    """A real local-kv run's test map (store disabled)."""
+def _localkv_history(device, seconds=None):
+    """A real local-kv run's test map (store disabled), ``seconds`` long
+    (default :data:`LOCALKV_S`)."""
     from jepsen_tpu_torch import core
     from jepsen_tpu_torch.suites.localkv import localkv_test
-    test = localkv_test({"time-limit": seconds, "nemesis-period": 2,
+    test = localkv_test({"time-limit": seconds or LOCALKV_S,
+                         "nemesis-period": 2,
                          "device": device})
     test["store-dir"] = None
     return core.run(test)
@@ -564,7 +574,7 @@ def scenario_kill9_recover(seed, device="cuda"):
     proc = _start_child(_localkv_child(run_dir, ports_file, device))
     try:
         # wait for the workload phase: the WAL grows as ops land
-        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), 40,
+        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), WAL_OPS,
                         time.time() + CHILD_WAIT_S)
         if why:
             return False, why
@@ -692,7 +702,7 @@ def scenario_trace_integrity(seed, device="cuda"):
     trace_path = os.path.join(run_dir, trace_ns.TRACE_NAME)
     try:
         # a mid-workload state: ops in the WAL AND spans in the trace
-        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), 40,
+        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), WAL_OPS,
                         time.time() + CHILD_WAIT_S, trace_path, 10)
         if why:
             return False, why
@@ -733,7 +743,7 @@ def scenario_watched_kill(seed, device="cuda"):
     proc = _start_child(_localkv_child(run_dir, ports_file, device),
                         JTPU_TRACE="1")
     try:
-        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), 40,
+        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), WAL_OPS,
                         time.time() + CHILD_WAIT_S)
         if why:
             return False, why
@@ -788,7 +798,7 @@ def scenario_explain_kill(seed, device="cuda"):
     proc = _start_child(_localkv_child(run_dir, ports_file, device),
                         JTPU_TRACE="1")
     try:
-        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), 40,
+        why = _wait_wal(proc, os.path.join(run_dir, "history.wal"), WAL_OPS,
                         time.time() + CHILD_WAIT_S)
         if why:
             return False, why
