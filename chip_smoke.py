@@ -87,7 +87,14 @@ launches read from its ``/metrics``), a local-kv run under ``run
 --watch`` followed by ``watch`` while in flight, ``stream --store`` of
 the runner's local-kv run against ``analyze --profile`` of it, and ``trace
 summary|request|find|export`` over the daemon's directory and over the
-profiled search (naming K1, K2 and K4); and the port's CI tools, each a
+profiled search (naming K1, K2 and K4); and the command-line library:
+a user's 10,000-op atom test through ``cli.single_test_cmd`` twice on the
+card (each run's levels those of the plain route's re-check of its
+store), the same test with an always-invalid checker exiting 1, the
+sqlitedb suite's ``test`` and the etcd suite's ``serve --help`` as
+processes, ``python -m jepsen_tpu_torch`` without a command exiting 254,
+and ``lint --help`` and ``trace --help`` timed from a cold start; and
+the port's CI tools, each a
 process on the card: the randomized differential soak (45 s from a fixed
 seed, no mismatch, device and keyed rounds), the chaos matrix's scenarios
 that touch the device, the profiling gate (K1, K2 and K4 under host
@@ -3278,15 +3285,19 @@ CLI_PROFILE_KERNELS = {"K1": ("expand_kernel",), "K2": ("sort_tile_kernel",),
 
 
 def port_popen(out_dir, tag, *args):
-    """``python -m jepsen_tpu_torch ARGS`` started from the repository
-    root (:func:`port_env`), its stdout and stderr into
-    ``out_dir/TAG.out`` and ``.err``: (process, stdout path, stderr
-    path)."""
+    """``python -m jepsen_tpu_torch ARGS``: :func:`module_popen`."""
+    return module_popen(out_dir, tag, "jepsen_tpu_torch", *args)
+
+
+def module_popen(out_dir, tag, module, *args):
+    """``python -m MODULE ARGS`` started from the repository root
+    (:func:`port_env`), its stdout and stderr into ``out_dir/TAG.out``
+    and ``.err``: (process, stdout path, stderr path)."""
     outp = os.path.join(out_dir, f"{tag}.out")
     errp = os.path.join(out_dir, f"{tag}.err")
     with open(outp, "w") as o, open(errp, "w") as e:
         proc = subprocess.Popen(
-            [sys.executable, "-m", "jepsen_tpu_torch", *args],
+            [sys.executable, "-m", module, *args],
             cwd=os.path.dirname(os.path.abspath(__file__)), env=port_env(),
             stdout=o, stderr=e)
     return proc, outp, errp
@@ -3578,6 +3589,166 @@ def cli_phase(dev, seconds, smi, kv_store):
     return line, {k: launches.get(k, 0) for k in KERNELS}, launches.get(
         "pair_end", 0), {"run": os.path.join(
             kept, os.path.basename(run_dir)), "lone": lone}
+
+
+#: the ``cli library`` phase: runs of its user-written atom test under
+#: ``test --test-count``, the sqlitedb suite's ``test`` time limit (s),
+#: and the starts timed of each of ``lint --help`` and ``trace --help``
+CLI_LIB_RUNS = 2
+CLI_LIB_SQLITE_S = 5
+CLI_LIB_STARTS = 3
+
+
+def cli_lib_phase(dev, seconds, smi):
+    """The command-line library on the card. (a) In this process, a
+    user-written test through ``cli.single_test_cmd``: the runner phase's
+    10,000-op atom test (``gen.cas_gen()``) under ``test --ssh-mode dummy
+    --test-count 2``, exiting 0 with two stored runs, each valid and its
+    ``levels`` equal to a re-check of its stored history on the plain
+    route (``device="cpu"``); the same test with an always-invalid
+    checker exits 1. (b) As processes: ``python -m
+    jepsen_tpu_torch.suites.sqlitedb test`` exiting 0 with its run
+    checked on the card, ``...suites.etcd serve --help`` 0, and ``python
+    -m jepsen_tpu_torch`` without a command 254 with the 13 commands.
+    (c) The start of ``python -m jepsen_tpu_torch lint --help`` and
+    ``trace --help``, timed. Returns the phase's JSON entry and the
+    launches, CUDA launches and segment counts of (a)'s two runs."""
+    import shutil
+    import signal
+    import tempfile
+    from jepsen_tpu_torch import cli, store
+    from jepsen_tpu_torch import generator as gen
+    from jepsen_tpu_torch.checker import Unbridled
+    from jepsen_tpu_torch.checker.wgl import linearizable
+    from jepsen_tpu_torch.kernels import search as K
+    from jepsen_tpu_torch.models import CASRegister
+    from jepsen_tpu_torch.testing import atom_test
+
+    class AlwaysInvalid(Unbridled):
+        def check(self, test, history, opts=None):
+            return {"valid": False}
+
+    line = {"card": smi}
+    on = "cuda" if dev.type == "cuda" else "cpu"
+    root = tempfile.mkdtemp(prefix="jtpu-cli-lib-")
+    procs = []
+
+    def user_test(checker=None):
+        """A test of the user's own: the atom register, the options'
+        nodes, concurrency, ssh and store, checked on their device."""
+        def build(opts):
+            return atom_test(
+                checker=checker or linearizable(
+                    CASRegister(), backend=opts["backend"],
+                    device=opts["device"]),
+                generator=gen.clients(gen.limit(RUNNER_OPS, gen.cas_gen())),
+                name="atom-cas-cli", nodes=opts["nodes"],
+                concurrency=opts["concurrency"], ssh=opts["ssh"],
+                **{"store-root": opts["store-root"]})
+        return build
+
+    def start(tag, module, *args):
+        p = module_popen(root, tag, module, *args)
+        procs.append(p[0])
+        return p
+
+    try:
+        with phase("cli library", seconds):
+            # (b) the processes, beside the in-process runs
+            sqlite = start("sqlite", "jepsen_tpu_torch.suites.sqlitedb",
+                           "test", "--time-limit", str(CLI_LIB_SQLITE_S),
+                           "--store-root", os.path.join(root, "sqlite"),
+                           "--device", on)
+            etcd = start("etcd-serve-help", "jepsen_tpu_torch.suites.etcd",
+                         "serve", "--help")
+            bare = start("bare", "jepsen_tpu_torch")
+            # (a) the user's test, twice, on the card
+            argv = ["test", "--ssh-mode", "dummy", "--device", on,
+                    "--store-root", os.path.join(root, "atom")]
+            K.reset_launches()
+            t0 = time.perf_counter()
+            rc = cli.run(cli.single_test_cmd(user_test()),
+                         argv + ["--test-count", str(CLI_LIB_RUNS)])
+            line["test_s"] = time.perf_counter() - t0
+            launches = dict(K.launches)
+            grid = dict(K.grid_launches_total)
+            segs = dict(K.segments)
+            assert rc == cli.OK, rc
+            runs_dir = os.path.join(root, "atom", "atom-cas-cli")
+            runs = sorted(d for d in os.listdir(runs_dir) if d != "latest")
+            assert len(runs) == CLI_LIB_RUNS, runs
+            plain = linearizable(CASRegister(), device="cpu")
+            line["runs"] = []
+            for d in runs:
+                t = store.load(os.path.join(runs_dir, d))
+                res = t["results"]
+                assert res["valid"] is True, res
+                if dev.type == "cuda":
+                    on_card(res, d)
+                rp = plain.check({}, t["history"])
+                assert rp["valid"] is True and \
+                    rp["levels"] == res["levels"], (d, res, rp)
+                line["runs"].append({"ops": len(t["history"]),
+                                     "levels": res["levels"],
+                                     "plain_levels": rp["levels"],
+                                     "device_s": res.get("device-s")})
+            assert all(grid.get(k, 0) > 0 for k in (
+                "expand", "sort_rows", "dedup_truncate")) \
+                or dev.type != "cuda", grid
+            line["cuda_launches"] = grid
+            # the same test, its verdict always invalid: exit 1
+            bad = cli.run(cli.single_test_cmd(user_test(AlwaysInvalid())),
+                          argv + ["--store-root", os.path.join(root, "bad")])
+            assert bad == cli.TEST_FAILED, bad
+            line["invalid_rc"] = bad
+            # (b) what the processes said
+            outs = {}
+            for tag, (proc, outp, errp) in (("sqlite", sqlite),
+                                            ("etcd-serve-help", etcd),
+                                            ("bare", bare)):
+                outs[tag] = (proc.wait(timeout=600), read_text(outp),
+                             read_text(errp))
+            rc, out, err = outs["sqlite"]
+            assert rc == 0, (rc, out[-2000:], err[-3000:])
+            sq = store.latest(os.path.join(root, "sqlite"))
+            lin = sq["results"]["linear"]
+            assert sq["results"]["valid"] is True, sq["results"]
+            if dev.type == "cuda":
+                on_card(lin, "sqlitedb test")
+            line["sqlitedb_test"] = {"rc": rc, "levels": lin.get("levels"),
+                                     "backend": lin.get("backend"),
+                                     "nodes": sq.get("nodes")}
+            rc, out, err = outs["etcd-serve-help"]
+            assert rc == 0 and "--check-daemon" in out, (rc, out, err)
+            line["etcd_serve_help_rc"] = rc
+            rc, out, err = outs["bare"]
+            listed = out.splitlines()[-1]
+            assert rc == cli.INVALID_ARGS and listed == "Commands: " + \
+                ", ".join(sorted(cli.default_commands())), (rc, out, err)
+            line["bare"] = {"rc": rc, "commands": listed}
+            # (c) a command's start, alone
+            starts = {}
+            for cmd in ("lint", "trace"):
+                starts[cmd] = []
+                for _ in range(CLI_LIB_STARTS):
+                    t0 = time.perf_counter()
+                    rc, out, err = port_cmd(cmd, "--help", timeout=120)
+                    starts[cmd].append(time.perf_counter() - t0)
+                    assert rc == 0 and "usage:" in out, (cmd, rc, err)
+            line["start_s"] = starts
+            print(f"cli library: starts {starts} [{smi}]", flush=True)
+        print("cli library:", json.dumps(line), flush=True)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return line, launches, grid, segs
 
 
 #: the daemon telemetry phase: its daemon's time-series cadence (s), and
@@ -5129,6 +5300,10 @@ def smoke(dev: torch.device) -> None:
         dev, seconds, smi, kv_store)
     path_segments["cli"] = {"pair_ends": cli_pair_ends}
 
+    # -- the command-line library: a user's test, the suites' mains -------
+    cli_lib_line, cli_lib_launches, cli_lib_grid, path_segments[
+        "cli-lib"] = cli_lib_phase(dev, seconds, smi)
+
     # -- the daemon's telemetry plane and the results browser -------------
     tel_line, tel_launches, tel_pair_ends = daemon_telemetry_phase(
         dev, seconds, smi, kv_store, cli_kept)
@@ -5159,6 +5334,7 @@ def smoke(dev: torch.device) -> None:
                      "sqlite": sqlite_launches, "suites": suites_launches,
                      "cas-suites": cas_launches,
                      "small-suites": small_launches, "cli": cli_launches,
+                     "cli-lib": cli_lib_launches,
                      "daemon-telemetry": tel_launches,
                      "fleet": fleet_launches, "ci-tools": ci_launches}
     path_grid = {"headline": grid_launches, "keyed": keyed_grid_launches,
@@ -5167,7 +5343,8 @@ def smoke(dev: torch.device) -> None:
                  "sqlite": sqlite_grid_launches,
                  "suites": suites_grid_launches,
                  "cas-suites": cas_grid_launches,
-                 "small-suites": small_grid_launches, "fleet": fleet_grid,
+                 "small-suites": small_grid_launches,
+                 "cli-lib": cli_lib_grid, "fleet": fleet_grid,
                  "ci-tools": ci_grid}
     # K5's step runs in the pair's second K4 on every path: its entry
     # counts those K4 launches (the pair ends) and is timed and bounded as
@@ -5261,7 +5438,8 @@ def smoke(dev: torch.device) -> None:
         "telemetry": telemetry_line, "runner": runner_line,
         "sqlite": sqlite_line, "suites": suites_line,
         "cas_suites": cas_line, "small_suites": small_line,
-        "cli": cli_line, "daemon_telemetry": tel_line, "fleet": fleet_line,
+        "cli": cli_line, "cli_library": cli_lib_line,
+        "daemon_telemetry": tel_line, "fleet": fleet_line,
         "ci_tools": ci_line, "phase_seconds": seconds, "nvidia_smi": smi},
         default=str))
     print(json.dumps({"ok": True, "device": {

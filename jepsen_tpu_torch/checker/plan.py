@@ -152,6 +152,16 @@ class Candidate:
         return min(self.expand or self.capacity, self.capacity)
 
     @property
+    def mask_words(self) -> int:
+        """32-bit words of a window mask."""
+        return (self.window + 31) // 32
+
+    @property
+    def crash_words(self) -> int:
+        """32-bit words of a crashed-op mask (at least one)."""
+        return max((self.crw + 31) // 32, 1)
+
+    @property
     def rung(self) -> tuple:
         return (self.capacity, self.window, self.expand)
 

@@ -9,8 +9,9 @@ into its word: ``encode_op`` splits each op's value, ``drop_crashed``
 drops crashed ops that can never be linearized, and ``remap`` then
 ``validate`` rewrite and check the packed columns (either may raise
 ValueError: the history does not fit the word). Counterpart of
-``jepsen_tpu.ops.encode``: single-history packing, and the append-mode
-:class:`StreamPacker` of the streaming check.
+``jepsen_tpu.ops.encode``: single-history packing, a keyed map's packed
+and stacked columns, and the append-mode :class:`StreamPacker` of the
+streaming check.
 """
 
 from __future__ import annotations
@@ -51,6 +52,37 @@ class PackedHistory:
     @property
     def n(self) -> int:
         return int(self.f.shape[0])
+
+    def max_concurrency(self) -> int:
+        """The most ops pending at any event index (a crashed op stays
+        pending): the window the device search needs."""
+        events = sorted(
+            [(int(i), 1) for i in self.inv]
+            + [(int(r), -1) for r in self.ret if int(r) != int(RET_INF)])
+        cur = peak = 0
+        for _, d in events:
+            cur += d
+            peak = max(peak, cur)
+        return peak
+
+    def pad_to(self, n: int) -> "PackedHistory":
+        """The columns right-padded to length n with filler ops that are
+        never candidates (``inv`` = RET_INF)."""
+        k = n - self.n
+        if k < 0:
+            raise ValueError(f"cannot pad {self.n} down to {n}")
+        if k == 0:
+            return self
+
+        def pad(a, fill):
+            return np.concatenate([a, np.full(k, fill, dtype=a.dtype)])
+
+        return PackedHistory(
+            f=pad(self.f, 0), v1=pad(self.v1, NIL_ID), v2=pad(self.v2, NIL_ID),
+            inv=pad(self.inv, RET_INF), ret=pad(self.ret, RET_INF),
+            process=pad(self.process, -1), n_required=self.n_required,
+            init_state=self.init_state, value_table=self.value_table,
+            ops=self.ops)
 
 
 class _Interner:
@@ -168,6 +200,27 @@ def pack_history(history: Sequence[Op], kernel: KernelSpec,
     if kernel.validate is not None:
         kernel.validate(packed)
     return packed
+
+
+def pack_keyed_histories(keyed: Dict[Any, Sequence[Op]],
+                         kernel: KernelSpec) -> Tuple[list, dict]:
+    """A ``{key: history}`` map packed key by key, and the packed columns
+    padded to the longest and stacked: ``f``, ``v1``, ``v2``, ``inv``,
+    ``ret`` int32[K, n_max], ``n_required`` and ``init_state`` int32[K],
+    and ``keys`` in the map's order."""
+    keys = list(keyed)
+    packed = [pack_history(keyed[k], kernel) for k in keys]
+    n_max = max((p.n for p in packed), default=0)
+    padded = [p.pad_to(n_max) for p in packed]
+    batch = {c: (np.stack([getattr(p, c) for p in padded]) if padded
+                 else np.zeros((0, 0), np.int32))
+             for c in ("f", "v1", "v2", "inv", "ret")}
+    batch["n_required"] = np.asarray([p.n_required for p in padded],
+                                     np.int32)
+    batch["init_state"] = np.asarray([p.init_state for p in padded],
+                                     np.int32)
+    batch["keys"] = keys
+    return packed, batch
 
 
 def pack_with_init(history: Sequence[Op], model,

@@ -93,11 +93,3 @@ def registry() -> Dict[str, Callable[[dict], dict]]:
         out[name] = getattr(m, attr)
     return out
 
-
-def run_main(name: str, argv=None) -> int:
-    """A suite module's ``main``: the command line's ``run --suite NAME``
-    with ``argv`` (default: the process's arguments) after it."""
-    import sys
-    from jepsen_tpu_torch.__main__ import main as cli_main
-    argv = list(sys.argv[1:] if argv is None else argv)
-    return cli_main(["run", "--suite", name, *argv])

@@ -39,7 +39,6 @@ from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.suites import workloads as wl
 from jepsen_tpu_torch.testing import noop_test
 
@@ -369,11 +368,24 @@ WORKLOADS = {"cas-register": cas_register_test, "counter": counter_test}
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.aerospike [run flags]``: the
-    command line's ``run --suite aerospike`` (``--workload counter`` for
-    the counter)."""
-    return run_main("aerospike", argv)
+    """The reference's command line: ``test`` runs the CAS register, or
+    with ``--workload counter`` the counter; ``serve`` the results
+    browser."""
+    from jepsen_tpu_torch import cli
+
+    def opt_spec(p):
+        p.add_argument("--workload", default="cas-register",
+                       choices=["cas-register", "counter"])
+
+    def test_fn(opts):
+        fn = (counter_test if opts.get("workload") == "counter"
+              else cas_register_test)
+        return fn(opts)
+
+    cli.main(cli.merge_commands(
+        cli.single_test_cmd(test_fn, opt_spec=opt_spec),
+        cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

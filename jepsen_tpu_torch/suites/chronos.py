@@ -33,7 +33,6 @@ from jepsen_tpu_torch import client as client_ns
 from jepsen_tpu_torch import generator as gen
 from jepsen_tpu_torch.checker import Checker
 from jepsen_tpu_torch.history import Op
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 #: Seconds of deadline slack (checker.clj epsilon-forgiveness).
@@ -478,10 +477,13 @@ def chronos_test(opts: dict) -> dict:
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.chronos [run flags]``: the
-    command line's ``run --suite chronos``."""
-    return run_main("chronos", argv)
+    """The reference's command line: ``test`` runs :func:`chronos_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.chronos test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(chronos_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

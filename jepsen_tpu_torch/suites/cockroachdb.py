@@ -36,7 +36,6 @@ from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.nemesis import time as nt
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.suites import workloads as wl
 from jepsen_tpu_torch.testing import noop_test
 
@@ -1118,12 +1117,29 @@ def named_nemesis(n1s: Optional[Sequence[str]],
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.cockroachdb [run flags]``: the
-    command line's ``run --suite cockroachdb`` (``--workload``, and
-    ``--nemesis``/``--nemesis2`` composed as :func:`named_nemesis`
-    composes them)."""
-    return run_main("cockroachdb", argv)
+    """The reference's command line: ``test`` runs the ``--workload``
+    test (default: register) under the nemesis :func:`named_nemesis`
+    composes from ``--nemesis`` and ``--nemesis2``; ``serve`` the results
+    browser."""
+    from jepsen_tpu_torch import cli
+
+    def opt_spec(p):
+        p.add_argument("--workload", default="register",
+                       choices=sorted(TESTS))
+        p.add_argument("--nemesis", action="append", default=None,
+                       choices=sorted(NEMESES))
+        p.add_argument("--nemesis2", action="append", default=None,
+                       choices=sorted(NEMESES))
+
+    def test_fn(opts):
+        composed = named_nemesis(opts.get("nemesis"), opts.get("nemesis2"))
+        return TESTS[opts.get("workload", "register")](
+            {**opts, "nemesis": composed})
+
+    cli.main(cli.merge_commands(
+        cli.single_test_cmd(test_fn, opt_spec=opt_spec),
+        cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

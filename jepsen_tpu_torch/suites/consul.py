@@ -30,7 +30,6 @@ from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.suites import workloads as wl
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 KEY = "jepsen"
@@ -159,10 +158,13 @@ def consul_test(opts: dict) -> dict:
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.consul [run flags]``: the
-    command line's ``run --suite consul``."""
-    return run_main("consul", argv)
+    """The reference's command line: ``test`` runs :func:`consul_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.consul test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(consul_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -23,7 +23,6 @@ from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import UnorderedQueue
 from jepsen_tpu_torch.suites.resp import RespClient, RespError
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 from jepsen_tpu_torch.util import relative_time_nanos
 
@@ -203,10 +202,13 @@ def killer() -> nemesis.NodeStartStopper:
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.disque [run flags]``: the
-    command line's ``run --suite disque``."""
-    return run_main("disque", argv)
+    """The reference's command line: ``test`` runs :func:`disque_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.disque test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(disque_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

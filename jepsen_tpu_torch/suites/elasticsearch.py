@@ -23,7 +23,6 @@ from jepsen_tpu_torch import nemesis
 from jepsen_tpu_torch.checker import Checker, compose, set_checker
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 PORT = 9200
@@ -495,10 +494,13 @@ def set_cas_test(opts: dict) -> dict:
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.elasticsearch [run flags]``: the
-    command line's ``run --suite elasticsearch``."""
-    return run_main("elasticsearch", argv)
+    """The reference's command line: ``test`` runs :func:`dirty_read_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.elasticsearch test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(dirty_read_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -33,7 +33,6 @@ from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.suites import workloads as wl
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 VERSION = "v3.1.5"
@@ -203,10 +202,13 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.etcd [run flags]``: the
-    command line's ``run --suite etcd``."""
-    return run_main("etcd", argv)
+    """The reference's command line: ``test`` runs :func:`etcd_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.etcd test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(etcd_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -24,7 +24,6 @@ from jepsen_tpu_torch import nemesis
 from jepsen_tpu_torch.checker import Checker, compose, set_checker
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.suites import workloads as wl
 from jepsen_tpu_torch.testing import noop_test
 
@@ -330,10 +329,13 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.galera [run flags]``: the
-    command line's ``run --suite galera``."""
-    return run_main("galera", argv)
+    """The reference's command line: ``test`` runs :func:`dirty_reads_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.galera test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(dirty_reads_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -47,7 +47,6 @@ from jepsen_tpu_torch.checker import (compose, set_checker, total_queue,
 from jepsen_tpu_torch.checker.wgl import linearizable
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import Mutex, UnorderedQueue
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 SHIM_PORT = 5701
@@ -343,11 +342,19 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.hazelcast [run flags]``: the
-    command line's ``run --suite hazelcast``; ``--workload``
-    selects the bundle (default: lock)."""
-    return run_main("hazelcast", argv)
+    """The reference's command line: ``test`` runs :func:`hazelcast_test`
+    with the ``--workload`` bundle (default: lock); ``serve`` the results
+    browser."""
+    from jepsen_tpu_torch import cli
+
+    def opt_spec(p):
+        p.add_argument("--workload", default="lock",
+                       choices=sorted(workloads()))
+
+    cli.main(cli.merge_commands(
+        cli.single_test_cmd(hazelcast_test, opt_spec=opt_spec),
+        cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -35,7 +35,6 @@ from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.models.core import Model, inconsistent
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.suites import workloads as wl
 from jepsen_tpu_torch.testing import noop_test
 
@@ -439,11 +438,32 @@ WORKLOADS = {"document-cas": document_cas_test, "transfer": transfer_test}
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.mongodb [run flags]``: the
-    command line's ``run --suite mongodb`` (``--workload transfer``,
-    ``--write-concern`` and ``--read-concern`` as the reference's)."""
-    return run_main("mongodb", argv)
+    """The reference's command line: ``test`` runs the document CAS, or
+    with ``--workload transfer`` the transfer, under the client's
+    ``--write-concern`` and ``--read-concern``; ``serve`` the results
+    browser."""
+    from jepsen_tpu_torch import cli
+
+    def opt_spec(p):
+        p.add_argument("--workload", default="document-cas",
+                       choices=["document-cas", "transfer"])
+        p.add_argument("--write-concern", default="majority",
+                       choices=WRITE_CONCERNS)
+        p.add_argument("--read-concern", default="linearizable",
+                       choices=READ_CONCERNS)
+
+    def test_fn(opts):
+        fn = (transfer_test if opts.get("workload") == "transfer"
+              else document_cas_test)
+        return fn({**opts,
+                   "write-concern": opts.get("write_concern", "majority"),
+                   "read-concern": opts.get("read_concern",
+                                            "linearizable")})
+
+    cli.main(cli.merge_commands(
+        cli.single_test_cmd(test_fn, opt_spec=opt_spec),
+        cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -34,7 +34,6 @@ from jepsen_tpu_torch.checker.wgl import linearizable
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import Mutex, UnorderedQueue
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 from jepsen_tpu_torch.util import relative_time_nanos
 
@@ -275,11 +274,13 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.rabbitmq [run flags]``: the
-    command line's ``run --suite rabbitmq`` (``--suite
-    rabbitmq-mutex`` runs the mutex test)."""
-    return run_main("rabbitmq", argv)
+    """The reference's command line: ``test`` runs :func:`rabbitmq_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.rabbitmq test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(rabbitmq_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -28,7 +28,6 @@ from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.suites.resp import RespClient, RespError
 from jepsen_tpu_torch.suites import workloads as wl
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 DIR = "/opt/raftis"
@@ -153,10 +152,13 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.raftis [run flags]``: the
-    command line's ``run --suite raftis``."""
-    return run_main("raftis", argv)
+    """The reference's command line: ``test`` runs :func:`raftis_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.raftis test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(raftis_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

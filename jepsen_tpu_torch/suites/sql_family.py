@@ -40,7 +40,7 @@ from jepsen_tpu_torch.checker import Checker, compose, perf, set_checker
 from jepsen_tpu_torch.control import util as cu
 from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.os import debian
-from jepsen_tpu_torch.suites import galera, run_main
+from jepsen_tpu_torch.suites import galera
 from jepsen_tpu_torch.suites import workloads as wl
 from jepsen_tpu_torch.suites.cockroachdb import BankSQLClient, RegisterClient
 from jepsen_tpu_torch.testing import noop_test
@@ -934,13 +934,28 @@ def named_test(workload: str, n1s: Optional[List[str]],
 
 
 def tidb_main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.sql_family [run flags]``: the
-    command line's ``run --suite tidb`` (``--workload`` from
-    :data:`TIDB_WORKLOADS`, and ``--nemesis``/``--nemesis2`` from
-    :data:`TIDB_NEMESES`, composed as :func:`named_test` composes
-    them)."""
-    return run_main("tidb", argv)
+    """The reference's TiDB command line: ``test`` runs the first point
+    of the matrix of the ``--workload`` (default: tidb) and the
+    ``--nemesis``/``--nemesis2`` names (:func:`named_test`); ``serve`` the
+    results browser."""
+    from jepsen_tpu_torch import cli
+
+    def opt_spec(p):
+        p.add_argument("--workload", default="tidb",
+                       choices=sorted(TIDB_WORKLOADS))
+        p.add_argument("--nemesis", action="append", default=None,
+                       choices=sorted(TIDB_NEMESES))
+        p.add_argument("--nemesis2", action="append", default=None,
+                       choices=sorted(TIDB_NEMESES))
+
+    def test_fn(opts):
+        return named_test(opts.get("workload", "tidb"), opts.get("nemesis"),
+                          opts.get("nemesis2"), opts)
+
+    cli.main(cli.merge_commands(
+        cli.single_test_cmd(test_fn, opt_spec=opt_spec),
+        cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(tidb_main())
+    tidb_main()

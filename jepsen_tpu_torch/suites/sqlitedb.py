@@ -458,11 +458,13 @@ def sqlite_register_toctou_test(opts: dict) -> dict:
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.sqlitedb [run flags]``: the
-    command line's ``run --suite sqlite-register``."""
-    from jepsen_tpu_torch.suites import run_main
-    return run_main("sqlite-register", argv)
+    """The reference's command line: ``test`` runs
+    :func:`sqlite_register_test`, ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.sqlitedb test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(sqlite_register_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

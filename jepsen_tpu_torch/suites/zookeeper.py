@@ -29,7 +29,6 @@ from jepsen_tpu_torch.history import Op
 from jepsen_tpu_torch.models import CASRegister
 from jepsen_tpu_torch.os import debian
 from jepsen_tpu_torch.suites import workloads as wl
-from jepsen_tpu_torch.suites import run_main
 from jepsen_tpu_torch.testing import noop_test
 
 VERSION = "3.4.5+dfsg-2"
@@ -191,10 +190,13 @@ def _nemesis_cycle():
 
 
 def main(argv=None):
-    """``python -m jepsen_tpu_torch.suites.zookeeper [run flags]``: the
-    command line's ``run --suite zookeeper``."""
-    return run_main("zookeeper", argv)
+    """The reference's command line: ``test`` runs :func:`zk_test`,
+    ``serve`` the results browser (``python -m
+    jepsen_tpu_torch.suites.zookeeper test|serve ...``)."""
+    from jepsen_tpu_torch import cli
+    cli.main(cli.merge_commands(cli.single_test_cmd(zk_test),
+                                cli.serve_cmd()), argv)
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    main()

@@ -1,6 +1,7 @@
-"""Host utilities. Counterpart of the parts of ``jepsen_tpu.util`` the
-port needs: parallel map, majority math, relative time in nanoseconds,
-timeouts, retries, interval-set rendering and an atom."""
+"""Host utilities. Counterpart of ``jepsen_tpu.util``: parallel map,
+majority and minority math, relative time in nanoseconds, sleeps,
+timeouts, retries, interval-set and prefix helpers, lazy atoms and
+exponential draws."""
 
 from __future__ import annotations
 
@@ -15,6 +16,11 @@ def majority(n: int) -> int:
     """Smallest integer strictly greater than half of n: the size of a
     majority quorum of n nodes."""
     return n // 2 + 1
+
+
+def minority(n: int) -> int:
+    """Largest number of nodes that is not a majority of n."""
+    return (n - 1) // 2
 
 
 def real_pmap(f: Callable, coll: Iterable) -> list:
@@ -82,6 +88,12 @@ def sleep(dt_seconds: float) -> None:
         _time.sleep(dt_seconds)
 
 
+def sleep_nanos(dt: int) -> None:
+    """Sleep dt nanoseconds; a non-positive dt returns at once."""
+    if dt > 0:
+        _time.sleep(dt / 1e9)
+
+
 class Timeout(Exception):
     pass
 
@@ -123,6 +135,11 @@ def retry(dt_seconds: float, f: Callable, *args, retries: int | None = None):
             sleep(dt_seconds)
 
 
+def name_or_str(x: Any) -> str:
+    """``x``'s ``__name__``, else its string."""
+    return getattr(x, "__name__", None) or str(x)
+
+
 def integer_interval_set_str(xs: Iterable[int]) -> str:
     """Render a set of integers as compact intervals: ``#{1..3 5}``."""
     xs = sorted(set(xs))
@@ -140,27 +157,77 @@ def integer_interval_set_str(xs: Iterable[int]) -> str:
     return "#{" + " ".join(parts) + "}"
 
 
+def longest_common_prefix(strings: Sequence[Sequence]) -> Sequence:
+    """The longest common prefix of a collection of sequences."""
+    if not strings:
+        return []
+    first = strings[0]
+    out = 0
+    for i in range(min(len(x) for x in strings)):
+        if any(x[i] != first[i] for x in strings):
+            break
+        out = i + 1
+    return first[:out]
+
+
+def drop_common_proper_prefix(strings: Sequence[Sequence]) -> list:
+    """Each sequence without the longest common proper prefix: at least
+    one element of each stays."""
+    p = len(longest_common_prefix(strings))
+    if strings and p and p == min(len(x) for x in strings):
+        p -= 1
+    return [x[p:] for x in strings]
+
+
 def chunk_vec(n: int, v: Sequence) -> list:
     """Partition v into chunks of size n."""
     return [v[i:i + n] for i in range(0, len(v), n)]
 
 
-class Atom:
-    """A thread-safe mutable reference with deref/swap/reset."""
+class LazyAtom:
+    """A thread-safe mutable reference with deref/swap/reset, whose
+    initial value ``init_fn`` computes on first use, at most once."""
 
-    def __init__(self, value: Any = None):
+    def __init__(self, init_fn: Callable[[], Any]):
+        self._init_fn = init_fn
         self._lock = threading.RLock()
-        self._value = value
+        self._set = False
+        self._value = None
+
+    def _ensure(self):
+        if not self._set:
+            with self._lock:
+                if not self._set:
+                    self._value = self._init_fn()
+                    self._set = True
 
     def deref(self):
+        self._ensure()
         return self._value
 
     def swap(self, f: Callable, *args):
         with self._lock:
+            self._ensure()
             self._value = f(self._value, *args)
             return self._value
 
     def reset(self, v):
         with self._lock:
+            self._set = True
             self._value = v
             return v
+
+
+class Atom(LazyAtom):
+    """A thread-safe mutable reference with deref/swap/reset."""
+
+    def __init__(self, value: Any = None):
+        super().__init__(lambda: value)
+
+
+def rand_exp(mean: float, rng=None) -> float:
+    """An exponentially distributed draw of the given mean, from ``rng``
+    (a ``random.Random``; default: the module's generator)."""
+    import math
+    import random
+    return -mean * math.log(1.0 - (rng or random).random())

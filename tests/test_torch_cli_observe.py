@@ -32,7 +32,8 @@ from jepsen_tpu.obs import fleet as j_fleet
 from jepsen_tpu_torch import journal as journal_ns
 from jepsen_tpu_torch import serve as S
 from jepsen_tpu_torch import store
-from jepsen_tpu_torch.__main__ import _parser, main, serve_config
+from jepsen_tpu_torch.__main__ import main
+from jepsen_tpu_torch.cli import serve_cmd, serve_config
 from jepsen_tpu_torch.obs import fleet, observatory
 
 from test_torch_gang import bad_read, conc_ops
@@ -52,6 +53,11 @@ def port(argv):
     with redirect_stdout(buf), redirect_stderr(io.StringIO()):
         rc = main(argv)
     return rc, buf.getvalue()
+
+
+def serve_opts(argv):
+    """The options ``serve``'s parser makes of ``argv``."""
+    return vars(serve_cmd()["serve"]["parser"]().parse_args(argv))
 
 
 def reference(argv):
@@ -190,20 +196,18 @@ def test_each_flag_beats_its_variable(monkeypatch):
                        ("JTPU_SERVE_RATE", "7"),
                        ("JTPU_SERVE_BACKEND", "gpu")):
         monkeypatch.setenv(var, value)
-    opts = _parser().parse_args(
-        ["serve", "--check-daemon", "--batch-max", "2", "--batch-wait-ms",
+    opts = serve_opts(
+        ["--check-daemon", "--batch-max", "2", "--batch-wait-ms",
          "50", "--auth-token", "T", "--engine-max-buckets", "3",
          "--rate-limit", "1.5", "--serve-backend", "cpu"])
     cfg = serve_config(opts)
     assert (cfg.batch_max, cfg.batch_enabled, cfg.batch_wait_ms,
             cfg.auth_token, cfg.engine_max_buckets, cfg.rate_limit,
             cfg.backend) == (2, True, 50.0, "T", 3, 1.5, "cpu")
-    env_only = serve_config(_parser().parse_args(["serve",
-                                                  "--check-daemon"]))
+    env_only = serve_config(serve_opts(["--check-daemon"]))
     assert (env_only.batch_max, env_only.auth_token,
             env_only.engine_max_buckets) == (8, "env", 9)
-    off = serve_config(_parser().parse_args(
-        ["serve", "--check-daemon", "--batch-max", "1"]))
+    off = serve_config(serve_opts(["--check-daemon", "--batch-max", "1"]))
     assert off.batch_enabled is False
 
 
@@ -211,12 +215,11 @@ def test_serve_refuses_the_fleet_and_takes_a_compile_cache(tmp_path,
                                                            monkeypatch):
     from jepsen_tpu_torch.kernels import build
     # --fleet N places the gangs on N fleet hosts
-    cfg = serve_config(_parser().parse_args(
-        ["serve", "--check-daemon", "--fleet", "2"]))
+    cfg = serve_config(serve_opts(["--check-daemon", "--fleet", "2"]))
     assert cfg.fleet_hosts == 2 and cfg.fleet_enabled
     monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
-    serve_config(_parser().parse_args(
-        ["serve", "--check-daemon", "--compile-cache", str(tmp_path)]))
+    serve_config(serve_opts(["--check-daemon", "--compile-cache",
+                             str(tmp_path)]))
     assert build.BUILD_DIR == str(tmp_path)
     assert build.library_path().startswith(str(tmp_path))
 

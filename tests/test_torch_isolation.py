@@ -124,7 +124,7 @@ def test_importing_the_checker_loads_no_jax():
             "jepsen_tpu_torch.analysis.baseline, "
             "jepsen_tpu_torch.analysis.sarif, "
             "jepsen_tpu_torch.obs.fleet, jepsen_tpu_torch.obs.federation, "
-            "jepsen_tpu_torch.__main__; "
+            "jepsen_tpu_torch.cli, jepsen_tpu_torch.__main__; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -183,11 +183,11 @@ def test_keyed_entry_points_default_to_cuda():
         independent.checker(linearizable(CASRegister())).check({}, keyed)
 
 
-def test_the_serve_slice_defaults_to_cuda(tmp_path):
+def test_the_serve_slice_defaults_to_cuda(tmp_path, capsys):
     """The gang search, the engine's warm-up, the daemon and its CLI run
-    on the GPU unless asked otherwise; without one they raise rather than
-    fall back to the CPU. The admission footprint prices the CUDA
-    ladder's first rung."""
+    on the GPU unless asked otherwise; without one they raise (the CLI:
+    exits 255 with the error) rather than fall back to the CPU. The
+    admission footprint prices the CUDA ladder's first rung."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is usable")
     from jepsen_tpu_torch import serve
@@ -207,9 +207,11 @@ def test_the_serve_slice_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run_daemon(serve.ServeConfig(root=str(tmp_path / "b")),
                          port=0)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        main(["serve", "--check-daemon", "--port", "0",
-              "--serve-dir", str(tmp_path / "c")])
+    capsys.readouterr()
+    assert main(["serve", "--check-daemon", "--port", "0",
+                 "--serve-dir", str(tmp_path / "c")]) == 255
+    err = capsys.readouterr().err
+    assert "RuntimeError" in err and "CUDA" in err
     dims = plan.PlanDims.from_packed(p)
     assert plan.request_footprint(dims) == plan.request_footprint(
         dims, "cuda") != plan.request_footprint(dims, "cpu")

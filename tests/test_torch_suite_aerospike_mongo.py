@@ -26,7 +26,7 @@ import io
 import json
 import os
 import sys
-from contextlib import redirect_stdout
+from contextlib import redirect_stderr, redirect_stdout
 
 import pytest
 import torch
@@ -47,7 +47,9 @@ from jepsen_tpu_torch.models.core import is_inconsistent
 from jepsen_tpu_torch.suites import aerospike
 from jepsen_tpu_torch.suites import mongodb
 
+from test_torch_cli_lib import SUITE_MAINS, suite_map
 from test_torch_suite_etcd import reference_verdicts, to_reference
+from test_torch_suite_smoke import built_tests
 from test_torch_suite_substrate import both_logs, dummy_map
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -139,14 +141,45 @@ def test_the_new_options_exit_254_for_other_suites(tmp_path):
     assert not os.listdir(tmp_path)
 
 
-def test_each_new_main_is_the_run_command(monkeypatch):
-    import jepsen_tpu_torch.__main__ as cli
-    seen = []
-    monkeypatch.setattr(cli, "main", lambda argv: seen.append(argv) or 7)
-    for mod in ("aerospike", "mongodb", "cockroachdb"):
-        m = importlib.import_module(f"jepsen_tpu_torch.suites.{mod}")
-        assert m.main(["--time-limit", "3"]) == 7
-        assert seen[-1] == ["run", "--suite", mod, "--time-limit", "3"]
+def _suite_options(mod, monkeypatch):
+    """(option, choice) of each choice of the reference's own options of
+    ``mod``'s ``test`` (beyond the standard test options)."""
+    from jepsen_tpu import cli as j_cli
+    parser = suite_map("jepsen_tpu", mod, monkeypatch)["test"]["parser"]()
+    bare = j_cli.Parser(prog="t")
+    j_cli.add_test_opts(bare)
+    out = []
+    for opt, action in sorted(parser._option_string_actions.items()):
+        if opt not in bare._option_string_actions and action.choices:
+            out += [(opt, c) for c in sorted(action.choices)]
+    return out
+
+
+@pytest.mark.parametrize("mod", sorted(SUITE_MAINS))
+def test_each_new_main_is_the_run_command(mod, monkeypatch):
+    """Each suite module's main exits as the reference's does (``test
+    --help`` and ``serve --help`` 0, an unknown option or no command 254),
+    and each choice of the reference's own options builds the
+    reference's test."""
+    mains = [getattr(importlib.import_module(f"{pkg}.suites.{mod}"),
+                     SUITE_MAINS[mod])
+             for pkg in ("jepsen_tpu_torch", "jepsen_tpu")]
+    for argv, rc in ((["test", "--help"], 0), (["serve", "--help"], 0),
+                     (["test", "--no-such-option"], 254), ([], 254)):
+        for m in mains:
+            with pytest.raises(SystemExit) as e, \
+                    redirect_stdout(io.StringIO()), \
+                    redirect_stderr(io.StringIO()):
+                m(argv)
+            assert e.value.code == rc, (m.__module__, argv)
+    variants = _suite_options(mod, monkeypatch)
+    assert bool(variants) == (mod in ("aerospike", "cockroachdb",
+                                      "hazelcast", "mongodb", "sql_family"))
+    got = built_tests(mod, monkeypatch, [["test", opt, choice]
+                                         for opt, choice in variants])
+    (rcs, ours), (jrcs, theirs) = got["jepsen_tpu_torch"], got["jepsen_tpu"]
+    assert rcs == jrcs == [0] * len(variants)
+    assert [t["name"] for t in ours] == [t["name"] for t in theirs]
 
 
 # ---------------------------------------------------------------------------

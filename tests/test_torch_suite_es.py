@@ -324,7 +324,16 @@ def test_main_is_run_suite_elasticsearch(monkeypatch):
     seen = []
     monkeypatch.setattr(core, "run", lambda t: seen.append(t) or dict(
         t, results={"valid": True}))
-    assert es.main(["--device", "cpu", "--time-limit", "3"]) == 0
+    assert exit_code(es.main, ["test", "--device", "cpu", "--time-limit",
+                               "3"]) == 0
     assert seen[0]["name"] == "elasticsearch-dirty-read"
     assert seen[0]["time-limit"] == 3
-    assert es.main(["--device", "cpu", "--nemesis", "parts"]) == 254
+    assert exit_code(es.main, ["test", "--device", "cpu", "--nemesis",
+                               "parts"]) == 254
+
+
+def exit_code(main, argv):
+    """The code a suite module's ``main`` exits with."""
+    with pytest.raises(SystemExit) as e:
+        main(argv)
+    return e.value.code

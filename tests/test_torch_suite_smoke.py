@@ -3,7 +3,8 @@ dry run of ``chip_smoke.py``'s ``suites`` phase on the CPU.
 
 ``SUITES`` has the reference's rows for the ported suites, name for name
 and constructor for constructor; every suite module's ``main`` is the
-command line's ``run --suite NAME`` with its arguments after it. The
+reference's command line (``test`` and ``serve``), its ``test`` building
+the reference's test. The
 dry run drives the phase's three runs through ``python -m
 jepsen_tpu_torch run`` (in this process) against the fakes of
 ``tools/torch_suite_fakes.py`` in subprocesses, with the
@@ -24,16 +25,14 @@ from jepsen_tpu import suites as j_suites
 
 from jepsen_tpu_torch import suites
 
+from test_torch_cli_lib import SUITE_MAINS
+
 # one intra-op thread: the tier-1 run puts six workers on eight cores
 torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTED = ("etcd", "zookeeper", "consul", "disque", "raftis", "rabbitmq",
           "rabbitmq-mutex", "hazelcast")
-#: suite module -> the suite its main runs
-MODULES = {"etcd": "etcd", "zookeeper": "zookeeper", "consul": "consul",
-           "disque": "disque", "raftis": "raftis", "rabbitmq": "rabbitmq",
-           "hazelcast": "hazelcast", "sqlitedb": "sqlite-register"}
 
 
 def test_the_registry_has_the_reference_rows():
@@ -49,16 +48,45 @@ def test_the_registry_has_the_reference_rows():
         assert set(t) == set(ref) and t["name"] == ref["name"], name
 
 
-@pytest.mark.parametrize("mod", sorted(MODULES))
+def built_tests(mod, monkeypatch, argvs):
+    """The test maps each package's ``mod`` main builds for each argv of
+    ``argvs`` (None: the process's arguments), its ``core.run`` replaced;
+    the port's take ``--device cpu`` too. {package: ([exit code], [test
+    map])}."""
+    out = {}
+    for pkg, extra in (("jepsen_tpu_torch", ["--device", "cpu"]),
+                       ("jepsen_tpu", [])):
+        cli_mod = importlib.import_module(f"{pkg}.cli")
+        core_mod = importlib.import_module(f"{pkg}.core")
+        rcs, built = [], []
+        monkeypatch.setattr(core_mod, "run", lambda t, b=built: b.append(
+            t) or dict(t, results={"valid": True}))
+        monkeypatch.setattr(
+            cli_mod, "main", lambda cmds, argv=None, c=cli_mod, r=rcs:
+            r.append(c.run(cmds, sys.argv[1:] + extra if argv is None
+                           else argv)))
+        main = getattr(importlib.import_module(f"{pkg}.suites.{mod}"),
+                       SUITE_MAINS[mod])
+        for argv in argvs:
+            main(None if argv is None else argv + extra)
+        out[pkg] = (rcs, built)
+    return out
+
+
+@pytest.mark.parametrize("mod", sorted(SUITE_MAINS))
 def test_each_suite_main_is_the_run_command(mod, monkeypatch):
-    import jepsen_tpu_torch.__main__ as cli
-    seen = []
-    monkeypatch.setattr(cli, "main", lambda argv: seen.append(argv) or 7)
-    monkeypatch.setattr(sys, "argv", ["x", "--concurrency", "2"])
-    m = importlib.import_module(f"jepsen_tpu_torch.suites.{mod}")
-    assert m.main(["--time-limit", "3"]) == 7 and m.main() == 7
-    assert seen == [["run", "--suite", MODULES[mod], "--time-limit", "3"],
-                    ["run", "--suite", MODULES[mod], "--concurrency", "2"]]
+    """Each suite module's main is the reference's command line: with no
+    argv it reads the process's arguments, and its ``test`` command builds
+    the reference's test for the options given."""
+    monkeypatch.setattr(sys, "argv", ["x", "test", "--concurrency", "2"])
+    got = built_tests(mod, monkeypatch, [None, ["test", "--time-limit",
+                                                "3"]])
+    (rcs, ours), (jrcs, theirs) = got["jepsen_tpu_torch"], got["jepsen_tpu"]
+    assert rcs == jrcs == [0, 0]
+    for t, r in zip(ours, theirs):
+        for k in ("name", "nodes", "concurrency", "time-limit"):
+            assert t.get(k) == r.get(k), (mod, k)
+    assert ours[1]["time-limit"] == 3
 
 
 def test_the_smoke_suites_phase_runs_on_the_cpu():

@@ -567,11 +567,19 @@ def test_the_run_options_of_other_suites_exit_254(tmp_path):
 
 
 def test_each_main_is_run_suite(seen):
-    assert galera.main(["--device", "cpu"]) == 0
+    assert exit_code(galera.main, ["test", "--device", "cpu"]) == 0
     assert seen[-1]["name"] == "galera-dirty-reads"
-    assert sql_family.tidb_main(["--device", "cpu", "--workload",
-                                 "tidb-sets", "--nemesis", "parts"]) == 0
+    assert exit_code(sql_family.tidb_main,
+                     ["test", "--device", "cpu", "--workload", "tidb-sets",
+                      "--nemesis", "parts"]) == 0
     assert seen[-1]["name"] == "tidb-sets-parts"
+
+
+def exit_code(main, argv):
+    """The code a suite module's ``main`` exits with."""
+    with pytest.raises(SystemExit) as e:
+        main(argv)
+    return e.value.code
 
 
 # ---------------------------------------------------------------------------

@@ -11,15 +11,21 @@ comparison (graph, host loop and plain route apart). ``cli`` runs the
 smoke's command-line phase, over a local-kv run recorded first through
 ``python -m jepsen_tpu_torch run`` (in the smoke, the runner phase's);
 ``--telemetry`` runs the ``daemon telemetry`` phase after it (it implies
-``--cli``, whose watched run and lone checks it serves). ``--runner``
+``--cli``, whose watched run and lone checks it serves). ``--cli-lib``
+runs the ``cli library`` phase (a user's test through
+``cli.single_test_cmd``, the suites' mains as processes, and the start of
+``lint --help`` and ``trace --help``). ``--runner``
 runs the test runner phase, ``--fleet`` the ``fleet`` phase (the
 pool-sharded search, the elastic fleet on worker processes, ``serve
 --fleet 2``, and the keyed check and the pool-sharded search over two
 gloo ranks), ``--suites`` the
 ``suites`` and ``cas-suites`` phases, and ``--ci-tools`` the ``ci
 tools`` phase (the port's soak, chaos matrix and two gates, each a
-process; a tree without the phase is reported and skipped, so that
-parent and change can be timed in turns). Every assertion
+process). A tree without a phase asked for (``--ci-tools``,
+``--cli-lib``) reports it and skips it, so that parent and change can be
+timed in turns. ``--starts DIR...`` times the start of ``python -m
+jepsen_tpu_torch lint --help`` and ``trace --help`` from each tree given
+(its root on ``PYTHONPATH``), in turns. Every assertion
 of the smoke's phases holds here too. It prints each phase's seconds,
 the card's ``nvidia-smi`` name and power limit and, last, one JSON line
 with the phases' lines::
@@ -28,6 +34,8 @@ with the phases' lines::
     python3 tools/time_torch_smoke_phases.py --telemetry
     python3 tools/time_torch_smoke_phases.py --runner --fleet
     python3 tools/time_torch_smoke_phases.py --suites --ci-tools
+    python3 tools/time_torch_smoke_phases.py --cli --cli-lib
+    python3 tools/time_torch_smoke_phases.py --starts PARENT_TREE .
 
 Run from the repository root; it needs a CUDA device and nvcc.
 """
@@ -35,7 +43,9 @@ Run from the repository root; it needs a CUDA device and nvcc.
 import argparse
 import json
 import os
+import subprocess
 import sys
+import time
 
 import torch
 
@@ -99,6 +109,26 @@ def local_kv_store(device: str = "cuda", root=None) -> str:
                                    if d != "latest"))
 
 
+def command_starts(roots, reps=3, cmds=("lint", "trace")) -> dict:
+    """Seconds of ``python -m jepsen_tpu_torch CMD --help`` from each tree
+    of ``roots`` (its root on ``PYTHONPATH`` and the working directory),
+    taken in turns: {root: {cmd: [seconds, ...]}}."""
+    out = {r: {c: [] for c in cmds} for r in roots}
+    for _ in range(reps):
+        for r in roots:
+            env = dict(os.environ, PYTHONPATH=os.path.abspath(r))
+            for c in cmds:
+                t0 = time.perf_counter()
+                p = subprocess.run(
+                    [sys.executable, "-m", "jepsen_tpu_torch", c, "--help"],
+                    cwd=r, env=env, capture_output=True, text=True,
+                    timeout=300)
+                out[r][c].append(time.perf_counter() - t0)
+                assert p.returncode == 0 and "usage:" in p.stdout, \
+                    (r, c, p.returncode, p.stderr[-2000:])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--loop-levels", type=int, nargs="*", default=[],
@@ -117,6 +147,11 @@ def main(argv=None) -> int:
                     help="run the suites and cas-suites phases")
     ap.add_argument("--ci-tools", action="store_true",
                     help="run the ci tools phase")
+    ap.add_argument("--cli-lib", action="store_true",
+                    help="run the cli library phase")
+    ap.add_argument("--starts", nargs="+", default=[], metavar="DIR",
+                    help="time lint --help and trace --help from each of "
+                         "these trees, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
@@ -161,6 +196,15 @@ def main(argv=None) -> int:
             out["ci_tools"] = dict(line, launches=launches)
         else:
             print("no ci tools phase in this tree", flush=True)
+    if args.starts:
+        out["starts"] = command_starts(args.starts)
+        print(f"starts: {out['starts']} [{smi}]", flush=True)
+    if args.cli_lib:
+        if hasattr(S, "cli_lib_phase"):
+            line, launches, grid, segs = S.cli_lib_phase(dev, seconds, smi)
+            out["cli_library"] = dict(line, launches=launches)
+        else:
+            print("no cli library phase in this tree", flush=True)
     if args.cli or args.telemetry:
         kv_store = local_kv_store()
         line, launches, pair_ends, kept = S.cli_phase(dev, seconds, smi,
